@@ -12,7 +12,10 @@ Numerics follow the JAX package's dtype modes:
 - bfloat16 mode: tanh GELU, and the `attn_impl="xla"` softmax stays a
   bfloat16 tensor (no float32 `[B, NH, S, S]` intermediate);
 - `attn_impl="flash"` runs the hand-written CUDA flash-attention kernel
-  (`ops/flash_attention.py`) on CUDA tensors, its plain version on CPU ones.
+  (`ops/flash_attention.py`) on CUDA tensors, its plain version on CPU ones;
+  under autograd the call goes through the kernels' autograd Function, so
+  the fine-tune (`train/trainer.py`) gets gradients through the backward
+  kernels. The mask bias carries no gradient.
 """
 
 from __future__ import annotations

@@ -111,5 +111,19 @@ def load() -> ctypes.CDLL:
                            ci, ci, ctypes.c_float,  # is_bf16 causal scale
                            vp]                      # stream
             fn.restype = ci
+            fn = lib.symbiont_flash_attn_bwd_kv
+            fn.argtypes = [vp, vp, vp, vp, vp, vp, vp,  # q k v bias g lse delta
+                           vp, vp, vp,              # dk dv dbias
+                           ci, ci, ci, ci, ci,      # B NH Sq Sk D
+                           ci, ci, ctypes.c_float,  # is_bf16 causal scale
+                           vp]                      # stream
+            fn.restype = ci
+            fn = lib.symbiont_flash_attn_bwd_q
+            fn.argtypes = [vp, vp, vp, vp, vp, vp, vp,  # q k v bias g lse delta
+                           vp,                      # dq
+                           ci, ci, ci, ci, ci,      # B NH Sq Sk D
+                           ci, ci, ctypes.c_float,  # is_bf16 causal scale
+                           vp]                      # stream
+            fn.restype = ci
             _lib = lib
         return _lib

@@ -28,7 +28,7 @@ def _cfgs(**kw):
 def trees():
     jcfg, _ = _cfgs()
     jparams = jbert.init_params(jax.random.key(0), jcfg, with_pooler=True)
-    return jparams, bert_params_from_numpy(jax.tree.map(np.asarray, jparams))
+    return jparams, bert_params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
 
 
 def _batch(seed=0, S=64):
@@ -75,7 +75,7 @@ def test_bridge_keeps_tree_layout_and_dtype(trees):
 
 def test_bridge_bf16_leaves():
     tree = {"w": np.asarray(jnp.asarray([1.5, -2.25], jnp.bfloat16)), "l": [np.ones(2)]}
-    out = bert_params_from_numpy(tree)
+    out = bert_params_from_numpy(tree, "cpu")
     assert out["w"].dtype == torch.bfloat16
     assert out["w"].tolist() == [1.5, -2.25]
     assert isinstance(out["l"], list)

@@ -39,7 +39,7 @@ def engines():
                         model_cfg=jcfg, tokenizer=JaxHashTokenizer(VOCAB),
                         cross_params=jc, cross_cfg=jcfg)
     tcfg = tbert.BertConfig(**GEOM)
-    to_np = lambda t: bert_params_from_numpy(jax.tree.map(np.asarray, t))
+    to_np = lambda t: bert_params_from_numpy(jax.tree.map(np.asarray, t), "cpu")
     port = TorchEngine(EngineConfig(**ENG), params=to_np(jp), model_cfg=tcfg,
                        tokenizer=HashTokenizer(VOCAB), cross_params=to_np(jc),
                        cross_cfg=tcfg, device="cpu")

@@ -31,7 +31,9 @@ def test_the_scan_covers_the_package():
     assert {"chip_smoke.py", "symbiont_tpu_torch/engine/engine.py",
             "symbiont_tpu_torch/ops/flash_attention.py",
             "symbiont_tpu_torch/models/bert.py",
-            "symbiont_tpu_torch/memory/vector_store.py"} <= rel
+            "symbiont_tpu_torch/memory/vector_store.py",
+            "symbiont_tpu_torch/train/trainer.py",
+            "symbiont_tpu_torch/train/checkpoint.py"} <= rel
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
