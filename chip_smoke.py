@@ -13,7 +13,9 @@ any failure exits non-zero:
              ops/csrc`, run each on the card at the paths' shapes and hold
              it against its plain PyTorch version: the flash-attention
              forward (B1), and the backward's dK/dV/dbias (B2) and dQ (B3)
-             kernels fed B1's own lse, length-0 rows included; time each
+             kernels fed B1's own lse, length-0 rows and partial tiles
+             included (each bf16 B2/B3 instance must report no spills
+             from ptxas and contain HGMMA, i.e. wgmma, in its SASS); time each
              kernel, its plain version and the PyTorch library call for
              the same function (SDPA forward, SDPA backward as forward +
              backward less forward; timed as yardsticks only, never used
@@ -46,6 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -142,7 +145,7 @@ def kernel_phase() -> dict:
     t0 = time.perf_counter()
     _build.load()
     regs = [ln.strip() for ln in (_build.build_dir() / "build.log").read_text().splitlines()
-            if "registers" in ln]
+            if re.search(r"Used \d+ registers", ln)]
     print(f"[kernels] built {_build.build_dir().name} in {time.perf_counter() - t0:.1f} s; "
           f"ptxas: {' | '.join(regs)}")
 
@@ -258,6 +261,99 @@ def _within(got, ref, dtype) -> tuple[bool, float, float]:
     return worst <= 1.0, float(err.max()), worst
 
 
+def kernel_label(mangled: str) -> str:
+    """`bwd_kv_bf16_kernel<64>` for a mangled kernel name: the first
+    `<length><name>` whose name ends in `_kernel`, with its int template
+    arguments. Any other name comes back as it is."""
+    for i, ch in enumerate(mangled):
+        if not ch.isdigit():
+            continue
+        run = re.match(r"\d+", mangled[i:]).group()
+        at = i + len(run)
+        name = mangled[at:at + int(run)]
+        if name.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", name):
+            args = re.match(r"I((?:Li\d+E)+)E", mangled[at + len(name):])
+            if args:
+                return f"{name}<{', '.join(re.findall(r'Li(\d+)E', args.group(1)))}>"
+            return name
+    return mangled
+
+
+def ptxas_report(log: str) -> dict:
+    """Per kernel of a `ptxas -v` log → {label: {"registers", "spill_stores",
+    "spill_loads"}} (bytes for the spills), labels as `kernel_label`."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$.]+)", ln)
+        if m:
+            cur = out.setdefault(kernel_label(m.group(1)), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def hgmma_counts(sass: str) -> dict:
+    """Per kernel of `cuobjdump -sass` text → {label: count of HGMMA (wgmma)
+    instructions}, labels as `kernel_label`."""
+    out, cur = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function\s*:\s*(\S+)", ln)
+        if m:
+            cur = kernel_label(m.group(1))
+            out.setdefault(cur, 0)
+        elif cur is not None and re.search(r"\bHGMMA\b", ln):
+            out[cur] += 1
+    return out
+
+
+BWD_BF16 = re.compile(r"bwd_(kv|q)_bf16_kernel<(\d+)>")
+
+
+def backward_instances(ptxas: dict, hgmma: dict) -> dict:
+    """The bf16 backward instances from `ptxas_report` and `hgmma_counts`
+    → {label: registers, spills, hgmma}, by kernel and head dim. Fails if
+    one spills, has no HGMMA, or a kernel lacks a head dim of 32/64/128."""
+    names = sorted((n for n in ptxas if BWD_BF16.fullmatch(n)),
+                   key=lambda n: (BWD_BF16.fullmatch(n).group(1),
+                                  int(BWD_BF16.fullmatch(n).group(2))))
+    have = {BWD_BF16.fullmatch(n).group(1, 2) for n in names}
+    want = {(k, str(d)) for k in ("kv", "q") for d in (32, 64, 128)}
+    check(want <= have, f"bf16 backward instances missing: {sorted(want - have)}")
+    rows = {}
+    for n in names:
+        rows[n] = dict(ptxas[n], hgmma=hgmma.get(n, 0))
+        check(rows[n].get("spill_stores", 0) == 0 and rows[n].get("spill_loads", 0) == 0,
+              f"{n} spills: {rows[n]}")
+        check(rows[n]["hgmma"] > 0, f"{n} has no HGMMA in its SASS")
+    return rows
+
+
+def backward_build_report() -> dict:
+    """The bf16 backward instances as built (ptxas registers and spills
+    from the build log, HGMMA count from the library's SASS by
+    `cuobjdump -sass`), checked by `backward_instances` and printed."""
+    from symbiont_tpu_torch.ops import _build
+
+    lib = _build.build()
+    sass = subprocess.run([_build.cuobjdump(), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    rows = backward_instances(ptxas_report((_build.build_dir() / "build.log").read_text()),
+                              hgmma_counts(sass))
+    print("[kernels] bf16 backward instances (ptxas registers, spill bytes stores/loads; "
+          "HGMMA in SASS): " + "; ".join(
+              f"{n} {r['registers']} regs, spills {r.get('spill_stores', 0)}/"
+              f"{r.get('spill_loads', 0)}, {r['hgmma']} HGMMA" for n, r in rows.items()),
+          flush=True)
+    return rows
+
+
 def backward_kernel_phase(timed: bool = True) -> dict:
     """B2 (dK/dV/dbias) and B3 (dQ) against their plain versions, fed the
     forward kernel's own out and lse; timed at the training path's shapes."""
@@ -265,6 +361,7 @@ def backward_kernel_phase(timed: bool = True) -> dict:
     from symbiont_tpu_torch.ops import flash_attention as fa
 
     _build.load()
+    backward_build_report()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rng = np.random.default_rng(SEED + 2)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -283,6 +380,8 @@ def backward_kernel_phase(timed: bool = True) -> dict:
         ("bf16_d32_sq_ne_sk", 2, 8, 96, 160, 32, bf16, False, [160, 0], False),
         ("bf16_d128_odd", 3, 4, 77, 77, 128, bf16, False, [77, 5, 0], False),
         ("bf16_dbias", 4, 12, 128, 128, 64, bf16, False, "random", False),
+        # partial tiles in both S axes at the slice's width
+        ("bf16_d64_ragged", 4, 12, 136, 200, 64, bf16, False, [200, 77, 0, 131], False),
     ]
     rows = {}
     for label, B, NH, Sq, Sk, D, dtype, causal, lens, is_timed in cases:

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -43,6 +44,24 @@ def _nvcc() -> str:
         "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
         "CUDA kernels of symbiont_tpu_torch are built from source at first "
         "use and need the CUDA toolkit")
+
+
+def cuobjdump() -> str:
+    """`cuobjdump` beside `nvcc`, else the copy Triton's package carries
+    (`triton/backends/nvidia/bin/`); raises if neither is there."""
+    try:
+        beside = Path(_nvcc()).parent / "cuobjdump"
+        if beside.is_file():
+            return str(beside)
+    except RuntimeError:
+        pass
+    spec = importlib.util.find_spec("triton")
+    for root in (spec.submodule_search_locations or []) if spec else []:
+        found = Path(root) / "backends" / "nvidia" / "bin" / "cuobjdump"
+        if found.is_file():
+            return str(found)
+    raise RuntimeError("cuobjdump not found (beside nvcc, or under Triton's "
+                       "triton/backends/nvidia/bin/): it reads the built kernels' SASS")
 
 
 def _sources() -> list[Path]:

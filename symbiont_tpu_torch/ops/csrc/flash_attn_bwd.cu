@@ -2,8 +2,8 @@
 // the dQ kernel, with a plain C interface loaded through ctypes
 // (symbiont_tpu_torch/ops/_build.py).
 //
-// Replaces the Pallas TPU kernels `_bwd_kv_kernel` and `_bwd_q_kernel`,
-// launched by `_flash_bwd_fused`, in symbiont_tpu/ops/flash_attention.py
+// Replaces the Pallas TPU kernels `_bwd_kv_kernel` (B2) and `_bwd_q_kernel`
+// (B3), launched by `_flash_bwd_fused`, in symbiont_tpu/ops/flash_attention.py
 // (NH == NKV only: the JAX package sends GQA to a dense recompute). Same
 // function: for every (batch b, head h), with p and dS rebuilt from the
 // forward's log-sum-exp instead of a stored S x S matrix,
@@ -19,45 +19,86 @@
 // (s and lse both near -1e9, where one float32 ulp is 64) gets p = 1 for
 // every key, exactly as the JAX kernels and the plain version give it.
 // delta is computed outside (a torch elementwise pass, as the JAX package
-// does); the per-head dbias is summed over heads outside, with no atomics,
-// so every sum is taken in a fixed order.
+// does); the per-head dbias is summed over heads outside. No atomics: two
+// kernels, each owning its output tile, and every sum is taken in a fixed
+// order, so a run repeats bit for bit.
 //
 // What bounds it on an H100: B2 does 8*Sq*Sk*D flops and B3 6*Sq*Sk*D per
-// (batch, head) against ~4-5 reads of [S, D] tiles, so both sit above the
-// card's ~295 flop/byte ridge for S > ~150: the tensor-core rate bounds
-// them at the encoder's long buckets, memory traffic at the short ones.
-// The design keeps p and dS in registers (never in device memory), reads
-// each K/V tile once per block and each Q/G tile once per 64 keys.
+// (batch, head) against ~4-5 reads of [S, D] tiles, so at the encoder's
+// [32, 12, S, 64] bf16 shapes both are bound by bytes below S ~ 150 and by
+// the tensor-core rate above it (S = 256 sits near the ridge, S = 512 is
+// well above it). p and dS never reach device memory.
 //
-// Design (bf16, mma.sync m16n8k16, bf16 in, f32 accumulate):
-//   * B2 `bwd_kv_bf16_kernel`: one block of 4 warps per (64-key tile, head,
-//     batch); each warp owns 16 keys and loops over 32-row q tiles. It
-//     computes the TRANSPOSED scores S^T = K Q^T and dP^T = V G^T, so p^T
-//     and dS^T come out in the accumulator (C) layout, which is the A
-//     layout of dV += p^T G and dK += dS^T Q: they never leave registers.
-//     K and V are staged row-major in shared memory once; each q tile is
-//     staged row-major (the B operand of S^T / dP^T) and transposed (the B
-//     operand of dV / dK). The per-key dbias is the row sum of dS^T, kept
-//     per thread and reduced across each lane quad at the end. Causal
-//     blocks start at the first q tile that reaches the diagonal.
-//   * B3 `bwd_q_bf16_kernel`: one block of 4 warps per (64-row q tile,
-//     head, batch); each warp owns 16 q rows held as A fragments (q and g)
-//     and loops over 32-key tiles: S = Q K^T, dP = G V^T with K and V
-//     row-major as B, then dS in the C layout is the A operand of
-//     dQ += dS K with K transposed in shared memory. Causal blocks stop at
-//     the last kv tile that reaches the diagonal.
+// Design of the bf16 kernels (wgmma on asynchronously staged tiles):
+//   * Tensor cores through `wgmma.mma_async` m64nNk16 (bf16 in, float32
+//     accumulate) for all four products of each kernel. A block is one
+//     warpgroup (4 warps) and owns 64 keys in B2, 64 q rows in B3. (Two
+//     warpgroups sharing each staged tile were slower on the H100: fewer
+//     blocks fit an SM, and the pair waits on each other at every tile.)
+//     - B2 computes the TRANSPOSED scores S^T = K Q^T and dP^T = V G^T with
+//       both operands read from shared memory by descriptor (K-major, no
+//       transpose). p^T and dS^T are formed in the accumulator registers;
+//       then dV += P^T G and dK += dS^T Q take A from registers (the RS
+//       form) and B = G or Q from the same row-major tile through the
+//       descriptor's transpose flag (MN-major B, allowed for 16-bit types).
+//     - B3 computes S = Q K^T and dP = G V^T (both from shared memory), then
+//       dQ += dS K with dS from registers and K through the transpose flag.
+//     A warp's slice of an m64 accumulator has the mma.sync m16n8 C layout
+//     for its 16 rows, and the RS form's A fragment is the m16n8k16 A
+//     layout, so `c_to_a` turns two C n8-tiles into one A k-step. No tile
+//     is transposed in shared memory: there is no transposed copy at all.
+//   * Staging by TMA (`cp.async.bulk.tensor`) into the swizzled layout the
+//     descriptors name: 128-byte swizzle for panels of 64 bf16 columns (a
+//     D = 128 tile is two panels), 64-byte swizzle for D = 32. The maps are
+//     3-D over [B*NH, S, D], so the ragged edge in S is zero-filled inside
+//     each head; lse, delta (B2) and the bias (B3) come through 1-D maps of
+//     the same rows (a 1-D box starts on a 16-byte boundary: it begins at
+//     the index rounded down to 4 and is 4 floats longer). One thread
+//     issues each tile's copies against an mbarrier with its byte count
+//     (expect_tx).
+//   * A ring of kStages = 2 stages for the streamed tiles (q/g/lse/delta in
+//     B2, k/v/bias in B3): while one tile's wgmmas run, the next tile's
+//     copy is in flight; a stage is refilled once every warp is done with
+//     it. The resident tile (K/V in B2, Q/G in B3) is copied once.
+//   * The maps are encoded on the host inside the C entry through
+//     cudaGetDriverEntryPoint (no -lcuda) and passed as __grid_constant__
+//     parameters, which a CUDA-graph capture keeps by value.
+//   * Registers, which set how many blocks share an SM: a B2 thread holds
+//     dK and dV (D/2 + D/2 floats) and S^T, dP^T for a q tile of 32 rows
+//     (16 + 16); B3 holds dQ (D/2) and S, dP for 64 keys (32 + 32). On the
+//     H100 a 64-row q tile in B2 and two wgmma groups per product pair
+//     (forming p while dP runs) both measured slower: each costs registers,
+//     and a block fewer per SM hides less latency than the overlap gains.
+//   * The elementwise step (p, dS, dbias) competes with the wgmmas for
+//     issue slots, so a tile whose keys and rows are all real and that
+//     causal does not cut takes a copy of it without the per-element
+//     bounds and mask tests (on the encoder's shapes every tile does).
+//   What this does about the four costs of a plain mma.sync design:
+//   synchronous global loads with __syncthreads staging become TMA copies
+//   in a 2-stage ring; scalar transposing stores of Q, G and K into shared
+//   memory give way to the wgmma transpose flag; scalar 32-bit fragment
+//   loads from shared memory give way to descriptors the tensor cores
+//   read (register operands come straight from the accumulators); mma.sync
+//   m16n8k16 on 32-row tiles becomes warpgroup wgmma on 64-row tiles.
+//   Left for later: a producer warp with setmaxnreg, overlap of the
+//   elementwise step with the tensor cores inside a block (two consumer
+//   warpgroups in ping-pong), larger N tiles.
 //   * f32: scalar FMA kernels (4 threads per key in B2, per q row in B3) in
 //     full float32 with expf: the tensor cores would round f32 to TF32.
-// Tiles are staged synchronously (no cp.async/TMA pipeline, no wgmma): a
-// simple kernel that is right; making it fast is later work.
+//     Synchronous staging; the train step computes in bf16.
 //
 // The launches go on the caller's stream, do not synchronise and allocate
 // nothing; each entry returns cudaGetLastError() after launch (or
-// cudaErrorInvalidValue for a shape the kernels do not take).
+// cudaErrorInvalidValue for a shape the kernels do not take, or a tensor
+// map the driver refuses, e.g. a base address that is not 16-byte aligned).
 
+#include <cuda.h>  // CUtensorMap and its enums only: the driver is reached by entry point
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -65,24 +106,11 @@ typedef __nv_bfloat16 bf16;
 
 constexpr float kMaskNeg = -1e9f;  // causal-masked keys (natural-log units)
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kPad = 8;            // bf16 elements of row padding in shared memory
-
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int kStages = 2;         // ring depth of the streamed tiles
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // s = qk * scale + bias (or -1e9 where causal masks the key), then
@@ -93,13 +121,13 @@ __device__ __forceinline__ float s_minus_lse(float qk, float scale, float bias,
   return __fsub_rn(s, lse);
 }
 
-// Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
-//   A (16x16, row-major): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
-//                         a3 = (g+8, 2t+8..)
-//   B (16x8, k x n):      b0 = (k 2t..2t+1, n g), b1 = (k 2t+8.., n g)
-//   C (16x8 f32):         c0,c1 = (g, 2t..2t+1), c2,c3 = (g+8, 2t..2t+1)
-// so the C tiles of columns 16j..16j+7 and 16j+8..16j+15 are, packed to
-// bf16, the A fragment of k-step j.
+// A warp's 16 rows of a wgmma m64nN float32 accumulator (g = lane / 4,
+// t = lane % 4; row r = 16 * warp + g): d[4j + 0..1] = (r, 8j + 2t..+1),
+// d[4j + 2..3] = (r + 8, 8j + 2t..+1) -- the mma.sync m16n8 C layout per
+// n8-tile j. The RS form's A fragment for k-step s (m64k16, 4 x bf16x2):
+// a0 = (r, 16s + 2t..), a1 = (r + 8, 16s + 2t..), a2 = (r, 16s + 8 + 2t..),
+// a3 = (r + 8, 16s + 8 + 2t..). So C n8-tiles 2s and 2s + 1, packed to
+// bf16, are the A fragment of k-step s.
 __device__ __forceinline__ void c_to_a(const float lo[4], const float hi[4],
                                        uint32_t a[4]) {
   a[0] = pack_bf16(lo[0], lo[1]);
@@ -108,168 +136,361 @@ __device__ __forceinline__ void c_to_a(const float lo[4], const float hi[4],
   a[3] = pack_bf16(hi[2], hi[3]);
 }
 
-// A fragment of rows r..r+15, columns c..c+15 of a row-major tile (pitch P).
-__device__ __forceinline__ void ld_a(const bf16* tile, int pitch, int r, int c,
-                                     int g, int t, uint32_t a[4]) {
-  const bf16* p = tile + (r + g) * pitch + c + 2 * t;
-  a[0] = ld_u32(p);
-  a[1] = ld_u32(p + 8 * pitch);
-  a[2] = ld_u32(p + 8);
-  a[3] = ld_u32(p + 8 * pitch + 8);
+// ------------------------------------------- mbarriers, TMA and wgmma
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier's phase `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_3d(const CUtensorMap* map, void* dst,
+                                       uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_1d(const CUtensorMap* map, void* dst,
+                                       uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pin accumulator registers at this point of the program, so the compiler
+// moves no read or write of them across a wgmma fence or wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units), swizzle (1 = 128-byte, 2 = 64-byte).
+__device__ __forceinline__ uint64_t smem_desc(const bf16* p, uint32_t lbo,
+                                              uint32_t sbo, uint32_t swizzle) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFFu) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | ((uint64_t)swizzle << 62);
+}
+
+// wgmma m64nNk16, bf16 x bf16 -> f32 in d (N / 2 floats a thread).
+// ss: A and B from shared memory, both K-major. rs_t: A from registers,
+// B MN-major (transposed). `acc` = 0 overwrites d, 1 accumulates.
+template <int N>
+struct Wgmma;
+
+#define SYM_D8(i)                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
+                                            int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+        " %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : SYM_D8(0), SYM_D8(8)
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  static __device__ __forceinline__ void rs_t(float* d, const uint32_t* a,
+                                              uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+        " {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : SYM_D8(0), SYM_D8(8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
+                                            int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        " %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : SYM_D8(0), SYM_D8(8), SYM_D8(16), SYM_D8(24)
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  static __device__ __forceinline__ void rs_t(float* d, const uint32_t* a,
+                                              uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        " %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : SYM_D8(0), SYM_D8(8), SYM_D8(16), SYM_D8(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+#undef SYM_D8
+
+// A bf16 tile of `rows` x D in shared memory, as TMA writes it: D / PW
+// panels of PW columns, each panel row-major (PW * 2 bytes a row) with the
+// swizzle of its row length, panels one after another. Tiles start on
+// 1024-byte boundaries, where both swizzle patterns begin.
+template <int D>
+struct Panels {
+  static constexpr int PW = D < 64 ? D : 64;                // columns per panel
+  static constexpr int NP = D / PW;                          // panels
+  static constexpr uint32_t ROW = PW * 2;                    // bytes a panel row
+  static constexpr uint32_t SBO = 8 * ROW;                   // bytes between 8-row groups
+  static constexpr uint32_t SWIZZLE = ROW == 128 ? 1u : 2u;  // descriptor code
+  static_assert(D == 32 || D == 64 || D == 128, "head dim 32, 64 or 128");
+};
+
+// K-major operand: a tile of `rows` rows at k-step kk (columns 16kk..
+// 16kk+15). Within a swizzled row the k-step moves the start address by 32
+// bytes; the hardware applies the swizzle to the sum.
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(const bf16* tile, int rows, int kk) {
+  using P = Panels<D>;
+  const int p = kk * 16 / P::PW, c = kk * 16 % P::PW;
+  return smem_desc(tile + p * rows * P::PW + c, 16, P::SBO, P::SWIZZLE);
+}
+
+// MN-major (transposed) B operand: tile rows 16s..16s+15 are its K extent
+// and panel p's PW columns its N extent (8-row groups SBO apart; LBO is the
+// step to the next PW-column chunk, the next panel).
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int rows, int s,
+                                            int p) {
+  using P = Panels<D>;
+  return smem_desc(tile + (p * rows + 16 * s) * P::PW, rows * P::ROW, P::SBO,
+                   P::SWIZZLE);
+}
+
+// The dynamic shared memory, its start rounded up to 1024 bytes (the
+// launch asks for 1 KB more than the layout needs).
+__device__ __forceinline__ unsigned char* smem_1k(unsigned char* raw) {
+  return raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
 }
 
 // ------------------------------------------------------------ B2, bf16
 
-constexpr int kKT = 64;  // keys per block (4 warps x 16)
-constexpr int kQT = 32;  // q rows per inner tile
-
 template <int D>
-constexpr size_t kv_bf16_smem() {
-  return sizeof(bf16) * (2 * kKT * (D + kPad) + 2 * kQT * (D + kPad) +
-                         2 * D * (kQT + kPad)) +
-         sizeof(float) * 2 * kQT;
-}
+struct KvBf16 {
+  static constexpr int KEYS = 64;                       // keys per block
+  static constexpr int BQ = 32;                         // q rows per streamed tile
+  static constexpr uint32_t KV_BYTES = KEYS * D * 2;   // K or V
+  static constexpr uint32_t QG_BYTES = BQ * D * 2;     // Q or G, one stage
+  // lse / delta rows: a 1-D copy starts on a 16-byte boundary, so the box
+  // begins at the row index rounded down to 4 and is 4 floats longer
+  static constexpr int LD_LEN = BQ + 4;
+  static constexpr uint32_t LD_BYTES = (LD_LEN * 4 + 127) / 128 * 128;  // slot
+  static constexpr uint32_t STAGE_TX = 2 * QG_BYTES + 2 * LD_LEN * 4;
+  static constexpr size_t SMEM = 2 * KV_BYTES + kStages * (2 * QG_BYTES + 2 * LD_BYTES) +
+                                 8 * (kStages + 1) + 1024;
+};
 
 template <int D>
 __global__ void __launch_bounds__(128) bwd_kv_bf16_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const float* __restrict__ bias,
-    const bf16* __restrict__ g, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, float* __restrict__ dbias, int NH, int Sq, int Sk,
-    float scale, int causal) {
-  constexpr int KD = D / 16;   // k-steps over the head dim
-  constexpr int DT = D / 8;    // n-tiles of dK / dV
-  constexpr int NT = kQT / 8;  // n-tiles of S^T (8 q rows each)
-  constexpr int RP = D + kPad;
-  constexpr int TP = kQT + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [kKT][RP]
-  bf16* Vs = Ks + kKT * RP;                  // [kKT][RP]
-  bf16* Qs = Vs + kKT * RP;                  // [kQT][RP]
-  bf16* Gs = Qs + kQT * RP;                  // [kQT][RP]
-  bf16* Qt = Gs + kQT * RP;                  // [D][TP]
-  bf16* Gt = Qt + D * TP;                    // [D][TP]
-  float* Ls = reinterpret_cast<float*>(Gt + D * TP);  // [kQT]
-  float* Ds = Ls + kQT;                               // [kQT]
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tg,
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tl, const __grid_constant__ CUtensorMap td,
+    const float* __restrict__ bias, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    float* __restrict__ dbias, int NH, int Sq, int Sk, float scale, int causal) {
+  using P = Panels<D>;
+  using L = KvBf16<D>;
+  constexpr int BQ = L::BQ, KEYS = L::KEYS;
+  constexpr int KD = D / 16;   // k-steps of S^T / dP^T over the head dim
+  constexpr int NS = BQ / 2;   // floats a thread of S^T / dP^T
+  constexpr int NA = P::PW / 2;  // floats a thread of one panel of dK / dV
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_1k(smem_raw);
+  bf16* Ks = reinterpret_cast<bf16*>(base);                  // [KEYS][D]
+  bf16* Vs = reinterpret_cast<bf16*>(base + L::KV_BYTES);    // [KEYS][D]
+  unsigned char* ring = base + 2 * L::KV_BYTES;              // Q, G per stage
+  unsigned char* rows = ring + kStages * 2 * L::QG_BYTES;    // lse, delta per stage
+  uint64_t* bars = reinterpret_cast<uint64_t*>(rows + kStages * 2 * L::LD_BYTES);
+  // bars[s]: stage s full; bars[kStages]: K/V resident
 
   const int h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gr = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * kKT;
-  const size_t bh = (size_t)b * NH + h;
-  const bf16* qb = q + bh * Sq * D;
-  const bf16* gb = g + bh * Sq * D;
-  const bf16* kb = k + bh * Sk * D;
-  const bf16* vb = v + bh * Sk * D;
-  const float* lb = lse + bh * Sq;
-  const float* db = delta + bh * Sq;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int gr = (tid & 31) >> 2, t = tid & 3;
+  const int k0 = blockIdx.x * KEYS;
+  const int bh = b * NH + h;
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  // causal: q tiles wholly above the diagonal (every q row < k0) are skipped
+  const int qt0 = causal ? min(k0 / BQ, n_qt) : 0;
+  const int n_it = n_qt - qt0;
 
-  for (int i = tid; i < kKT * (D / 8); i += 128) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    uint4 kv4 = make_uint4(0u, 0u, 0u, 0u), vv4 = kv4;
-    if (k0 + r < Sk) {
-      kv4 = *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + r) * D + c);
-      vv4 = *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + r) * D + c);
+  auto q_tile = [&](int s) { return reinterpret_cast<bf16*>(ring + s * 2 * L::QG_BYTES); };
+  auto g_tile = [&](int s) { return q_tile(s) + BQ * D; };
+  auto lse_rows = [&](int s) { return reinterpret_cast<float*>(rows + s * 2 * L::LD_BYTES); };
+  auto delta_rows = [&](int s) { return reinterpret_cast<float*>(rows + (2 * s + 1) * L::LD_BYTES); };
+  auto load_q_tile = [&](int it) {  // one thread: q tile qt0 + it into its stage
+    const int s = it % kStages, q0 = (qt0 + it) * BQ;
+    mbar_expect_tx(&bars[s], L::STAGE_TX);
+#pragma unroll
+    for (int p = 0; p < P::NP; ++p) {
+      tma_3d(&tq, q_tile(s) + p * BQ * P::PW, &bars[s], p * P::PW, q0, bh);
+      tma_3d(&tg, g_tile(s) + p * BQ * P::PW, &bars[s], p * P::PW, q0, bh);
     }
-    *reinterpret_cast<uint4*>(Ks + r * RP + c) = kv4;
-    *reinterpret_cast<uint4*>(Vs + r * RP + c) = vv4;
+    tma_1d(&tl, lse_rows(s), &bars[s], (bh * Sq + q0) & ~3);
+    tma_1d(&td, delta_rows(s), &bars[s], (bh * Sq + q0) & ~3);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s <= kStages; ++s) mbar_init(&bars[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const int kr = warp * 16;  // this warp's first key row in the tile
-  const int key0 = k0 + kr + gr, key1 = key0 + 8;
+  __syncthreads();
+  if (tid == 0 && n_it > 0) {
+    mbar_expect_tx(&bars[kStages], 2 * L::KV_BYTES);
+#pragma unroll
+    for (int p = 0; p < P::NP; ++p) {
+      tma_3d(&tk, Ks + p * KEYS * P::PW, &bars[kStages], p * P::PW, k0, bh);
+      tma_3d(&tv, Vs + p * KEYS * P::PW, &bars[kStages], p * P::PW, k0, bh);
+    }
+    for (int it = 0; it < n_it && it < kStages; ++it) load_q_tile(it);
+  }
+
+  const int key0 = k0 + warp * 16 + gr, key1 = key0 + 8;
   const float bias0 = key0 < Sk ? bias[(size_t)b * Sk + key0] : 0.f;
   const float bias1 = key1 < Sk ? bias[(size_t)b * Sk + key1] : 0.f;
 
-  float dka[DT][4], dva[DT][4];
+  float dka[P::NP][NA], dva[P::NP][NA], st[NS], dpt[NS];
 #pragma unroll
-  for (int n = 0; n < DT; ++n)
+  for (int p = 0; p < P::NP; ++p)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+    for (int i = 0; i < NA; ++i) dka[p][i] = dva[p][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) st[i] = dpt[i] = 0.f;
   float dbp[2] = {0.f, 0.f};
 
-  const int n_qt = (Sq + kQT - 1) / kQT;
-  // causal: q tiles wholly above the diagonal (every q row < k0) are skipped
-  const int qt0 = causal ? min(k0 / kQT, n_qt) : 0;
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * kQT;
-    __syncthreads();  // K/V staged; the previous q tile consumed
-    for (int i = tid; i < kQT * (D / 8); i += 128) {
-      const int r = i % kQT, c = (i / kQT) * 8;
-      uint4 qv4 = make_uint4(0u, 0u, 0u, 0u), gv4 = qv4;
-      if (q0 + r < Sq) {
-        qv4 = *reinterpret_cast<const uint4*>(qb + (size_t)(q0 + r) * D + c);
-        gv4 = *reinterpret_cast<const uint4*>(gb + (size_t)(q0 + r) * D + c);
-      }
-      *reinterpret_cast<uint4*>(Qs + r * RP + c) = qv4;
-      *reinterpret_cast<uint4*>(Gs + r * RP + c) = gv4;
-      const bf16* qe = reinterpret_cast<const bf16*>(&qv4);
-      const bf16* ge = reinterpret_cast<const bf16*>(&gv4);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        Qt[(c + j) * TP + r] = qe[j];
-        Gt[(c + j) * TP + r] = ge[j];
-      }
-    }
-    if (tid < kQT) {
-      const bool in = q0 + tid < Sq;
-      Ls[tid] = in ? lb[q0 + tid] : 0.f;
-      Ds[tid] = in ? db[q0 + tid] : 0.f;
-    }
-    __syncthreads();
+  if (n_it > 0) mbar_wait(&bars[kStages], 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kStages, q0 = (qt0 + it) * BQ;
+    mbar_wait(&bars[s], (it / kStages) & 1);
+    const bf16* Qs = q_tile(s);
+    const bf16* Gs = g_tile(s);
 
-    // S^T = K Q^T and dP^T = V G^T for this warp's 16 keys x 32 q rows
-    float st[NT][4], dpt[NT][4];
+    // S^T = K Q^T and dP^T = V G^T: this block's 64 keys x BQ q rows
+    fence_regs<NS>(st);
+    fence_regs<NS>(dpt);
+    wg_fence();
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+    for (int kk = 0; kk < KD; ++kk)
+      Wgmma<BQ>::ss(st, desc_k<D>(Ks, KEYS, kk), desc_k<D>(Qs, BQ, kk), kk > 0);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t ka[4], va[4];
-      ld_a(Ks, RP, kr, kk * 16, gr, t, ka);
-      ld_a(Vs, RP, kr, kk * 16, gr, t, va);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const bf16* qp = Qs + (n * 8 + gr) * RP + kk * 16 + 2 * t;
-        const bf16* gp = Gs + (n * 8 + gr) * RP + kk * 16 + 2 * t;
-        mma_bf16_16816(st[n], ka, ld_u32(qp), ld_u32(qp + 8));
-        mma_bf16_16816(dpt[n], va, ld_u32(gp), ld_u32(gp + 8));
-      }
-    }
+    for (int kk = 0; kk < KD; ++kk)
+      Wgmma<BQ>::ss(dpt, desc_k<D>(Vs, KEYS, kk), desc_k<D>(Gs, BQ, kk), kk > 0);
+    wg_commit();
+    wg_wait_all();
+    fence_regs<NS>(st);
+    fence_regs<NS>(dpt);
 
-    // p^T and dS^T in place; the per-key dbias takes dS unrounded
+    // p^T and dS^T in place; the per-key dbias takes dS unrounded. A tile
+    // whose keys and q rows are all real and that causal does not cut
+    // skips the per-element tests (`checked` false).
+    const float* Lq = lse_rows(s) + ((bh * Sq + q0) & 3);
+    const float* Dq = delta_rows(s) + ((bh * Sq + q0) & 3);
+    auto p_ds = [&](auto checked) {
+      constexpr bool kChecked = decltype(checked)::value;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+      for (int n = 0; n < BQ / 8; ++n) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = n * 8 + 2 * t + (e & 1);
-        const int qi = q0 + qc;
-        const int key = e < 2 ? key0 : key1;
-        float p = 0.f;
-        if (key < Sk && qi < Sq)
-          p = exp2f(s_minus_lse(st[n][e], scale, e < 2 ? bias0 : bias1,
-                                causal && key > qi, Ls[qc]) * kLog2e);
-        const float ds = p * (dpt[n][e] - Ds[qc]);
-        dbp[e >> 1] += ds;
-        st[n][e] = p;
-        dpt[n][e] = ds;
+        for (int e = 0; e < 4; ++e) {
+          const int qc = n * 8 + 2 * t + (e & 1);
+          const int qi = q0 + qc;
+          const int key = e < 2 ? key0 : key1;
+          float p = 0.f;
+          if (!kChecked || (key < Sk && qi < Sq))
+            p = exp2f(s_minus_lse(st[4 * n + e], scale, e < 2 ? bias0 : bias1,
+                                  kChecked && causal && key > qi, Lq[qc]) * kLog2e);
+          const float ds = p * (dpt[4 * n + e] - Dq[qc]);
+          dbp[e >> 1] += ds;
+          st[4 * n + e] = p;
+          dpt[4 * n + e] = ds;
+        }
       }
-    }
+    };
+    if (!causal && k0 + KEYS <= Sk && q0 + BQ <= Sq)
+      p_ds(std::false_type());
+    else
+      p_ds(std::true_type());
 
-    // dV += p^T G, dK += dS^T Q (the C layout of S^T is the A layout)
+    // dV += p^T G, dK += dS^T Q: A from registers, B = G / Q transposed
 #pragma unroll
-    for (int j = 0; j < kQT / 16; ++j) {
+    for (int p = 0; p < P::NP; ++p) {
+      fence_regs<NA>(dva[p]);
+      fence_regs<NA>(dka[p]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) {
       uint32_t pa[4], sa[4];
-      c_to_a(st[2 * j], st[2 * j + 1], pa);
-      c_to_a(dpt[2 * j], dpt[2 * j + 1], sa);
+      c_to_a(&st[8 * j], &st[8 * j + 4], pa);
+      c_to_a(&dpt[8 * j], &dpt[8 * j + 4], sa);
 #pragma unroll
-      for (int n = 0; n < DT; ++n) {
-        const bf16* gp = Gt + (n * 8 + gr) * TP + j * 16 + 2 * t;
-        const bf16* qp = Qt + (n * 8 + gr) * TP + j * 16 + 2 * t;
-        mma_bf16_16816(dva[n], pa, ld_u32(gp), ld_u32(gp + 8));
-        mma_bf16_16816(dka[n], sa, ld_u32(qp), ld_u32(qp + 8));
+      for (int p = 0; p < P::NP; ++p) {
+        Wgmma<P::PW>::rs_t(dva[p], pa, desc_mn<D>(Gs, BQ, j, p), 1);
+        Wgmma<P::PW>::rs_t(dka[p], sa, desc_mn<D>(Qs, BQ, j, p), 1);
       }
     }
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int p = 0; p < P::NP; ++p) {
+      fence_regs<NA>(dva[p]);
+      fence_regs<NA>(dka[p]);
+    }
+    __syncthreads();  // every warp is done with stage s: refill it
+    if (tid == 0 && it + kStages < n_it) load_q_tile(it + kStages);
   }
 
 #pragma unroll
@@ -277,169 +498,204 @@ __global__ void __launch_bounds__(128) bwd_kv_bf16_kernel(
     dbp[i] += __shfl_xor_sync(0xffffffffu, dbp[i], 1);
     dbp[i] += __shfl_xor_sync(0xffffffffu, dbp[i], 2);
   }
-  bf16* dkb = dk + bh * Sk * D;
-  bf16* dvb = dv + bh * Sk * D;
+  bf16* dkb = dk + (size_t)bh * Sk * D;
+  bf16* dvb = dv + (size_t)bh * Sk * D;
 #pragma unroll
-  for (int n = 0; n < DT; ++n) {
-    const int c = n * 8 + 2 * t;
-    if (key0 < Sk) {
-      *reinterpret_cast<uint32_t*>(dkb + (size_t)key0 * D + c) =
-          pack_bf16(dka[n][0] * scale, dka[n][1] * scale);
-      *reinterpret_cast<uint32_t*>(dvb + (size_t)key0 * D + c) =
-          pack_bf16(dva[n][0], dva[n][1]);
-    }
-    if (key1 < Sk) {
-      *reinterpret_cast<uint32_t*>(dkb + (size_t)key1 * D + c) =
-          pack_bf16(dka[n][2] * scale, dka[n][3] * scale);
-      *reinterpret_cast<uint32_t*>(dvb + (size_t)key1 * D + c) =
-          pack_bf16(dva[n][2], dva[n][3]);
+  for (int p = 0; p < P::NP; ++p) {
+#pragma unroll
+    for (int n = 0; n < P::PW / 8; ++n) {
+      const int c = p * P::PW + n * 8 + 2 * t;
+      if (key0 < Sk) {
+        *reinterpret_cast<uint32_t*>(dkb + (size_t)key0 * D + c) =
+            pack_bf16(dka[p][4 * n] * scale, dka[p][4 * n + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dvb + (size_t)key0 * D + c) =
+            pack_bf16(dva[p][4 * n], dva[p][4 * n + 1]);
+      }
+      if (key1 < Sk) {
+        *reinterpret_cast<uint32_t*>(dkb + (size_t)key1 * D + c) =
+            pack_bf16(dka[p][4 * n + 2] * scale, dka[p][4 * n + 3] * scale);
+        *reinterpret_cast<uint32_t*>(dvb + (size_t)key1 * D + c) =
+            pack_bf16(dva[p][4 * n + 2], dva[p][4 * n + 3]);
+      }
     }
   }
   if (t == 0) {
-    if (key0 < Sk) dbias[bh * Sk + key0] = dbp[0];
-    if (key1 < Sk) dbias[bh * Sk + key1] = dbp[1];
+    if (key0 < Sk) dbias[(size_t)bh * Sk + key0] = dbp[0];
+    if (key1 < Sk) dbias[(size_t)bh * Sk + key1] = dbp[1];
   }
 }
 
 // ------------------------------------------------------------ B3, bf16
 
-constexpr int kQB = 64;  // q rows per block (4 warps x 16)
-constexpr int kKB = 32;  // keys per inner tile
-
 template <int D>
-constexpr size_t q_bf16_smem() {
-  return sizeof(bf16) * (2 * kKB * (D + kPad) + D * (kKB + kPad)) +
-         sizeof(float) * kKB;
-}
+struct QBf16 {
+  static constexpr int ROWS = 64;                       // q rows per block
+  static constexpr int BK = 64;                         // keys per streamed tile
+  static constexpr uint32_t QG_BYTES = ROWS * D * 2;   // Q or G
+  static constexpr uint32_t KV_BYTES = BK * D * 2;     // K or V, one stage
+  // bias keys: a 1-D copy starts on a 16-byte boundary, so the box begins
+  // at the key index rounded down to 4 and is 4 floats longer
+  static constexpr int B_LEN = BK + 4;
+  static constexpr uint32_t B_BYTES = (B_LEN * 4 + 127) / 128 * 128;  // slot
+  static constexpr uint32_t STAGE_TX = 2 * KV_BYTES + B_LEN * 4;
+  static constexpr size_t SMEM = 2 * QG_BYTES + kStages * (2 * KV_BYTES + B_BYTES) +
+                                 8 * (kStages + 1) + 1024;
+};
 
 template <int D>
 __global__ void __launch_bounds__(128) bwd_q_bf16_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const float* __restrict__ bias,
-    const bf16* __restrict__ g, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dq, int NH, int Sq,
-    int Sk, float scale, int causal) {
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tg,
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tb, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dq, int NH, int Sq, int Sk,
+    float scale, int causal) {
+  using P = Panels<D>;
+  using L = QBf16<D>;
+  constexpr int BK = L::BK, ROWS = L::ROWS;
   constexpr int KD = D / 16;
-  constexpr int DT = D / 8;
-  constexpr int NT = kKB / 8;  // n-tiles of S (8 keys each)
-  constexpr int RP = D + kPad;
-  constexpr int TP = kKB + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [kKB][RP]
-  bf16* Vs = Ks + kKB * RP;                  // [kKB][RP]
-  bf16* Kt = Vs + kKB * RP;                  // [D][TP]
-  float* Bs = reinterpret_cast<float*>(Kt + D * TP);  // [kKB]
+  constexpr int NS = BK / 2;     // floats a thread of S / dP
+  constexpr int NA = P::PW / 2;  // floats a thread of one panel of dQ
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_1k(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(base);                  // [ROWS][D]
+  bf16* Gs = reinterpret_cast<bf16*>(base + L::QG_BYTES);    // [ROWS][D]
+  unsigned char* ring = base + 2 * L::QG_BYTES;              // K, V per stage
+  unsigned char* keys = ring + kStages * 2 * L::KV_BYTES;    // bias per stage
+  uint64_t* bars = reinterpret_cast<uint64_t*>(keys + kStages * L::B_BYTES);
+  // bars[s]: stage s full; bars[kStages]: Q/G resident
 
   const int h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gr = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * kQB;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int gr = (tid & 31) >> 2, t = tid & 3;
+  const int q0 = blockIdx.x * ROWS;
+  const int bh = b * NH + h;
+  int n_kv = (Sk + BK - 1) / BK;
+  // causal: kv tiles wholly right of the diagonal (every key > the last row)
+  if (causal) n_kv = min(n_kv, (min(q0 + ROWS, Sq) - 1) / BK + 1);
+
+  auto k_tile = [&](int s) { return reinterpret_cast<bf16*>(ring + s * 2 * L::KV_BYTES); };
+  auto v_tile = [&](int s) { return k_tile(s) + BK * D; };
+  auto bias_keys = [&](int s) { return reinterpret_cast<float*>(keys + s * L::B_BYTES); };
+  auto load_kv_tile = [&](int it) {  // one thread: kv tile it into its stage
+    const int s = it % kStages, kt0 = it * BK;
+    mbar_expect_tx(&bars[s], L::STAGE_TX);
+#pragma unroll
+    for (int p = 0; p < P::NP; ++p) {
+      tma_3d(&tk, k_tile(s) + p * BK * P::PW, &bars[s], p * P::PW, kt0, bh);
+      tma_3d(&tv, v_tile(s) + p * BK * P::PW, &bars[s], p * P::PW, kt0, bh);
+    }
+    tma_1d(&tb, bias_keys(s), &bars[s], (b * Sk + kt0) & ~3);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s <= kStages; ++s) mbar_init(&bars[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&bars[kStages], 2 * L::QG_BYTES);
+#pragma unroll
+    for (int p = 0; p < P::NP; ++p) {
+      tma_3d(&tq, Qs + p * ROWS * P::PW, &bars[kStages], p * P::PW, q0, bh);
+      tma_3d(&tg, Gs + p * ROWS * P::PW, &bars[kStages], p * P::PW, q0, bh);
+    }
+    for (int it = 0; it < n_kv && it < kStages; ++it) load_kv_tile(it);
+  }
+
   const int r0 = q0 + warp * 16 + gr, r1 = r0 + 8;
-  const size_t bh = (size_t)b * NH + h;
-  const bf16* qb = q + bh * Sq * D;
-  const bf16* gb = g + bh * Sq * D;
-  const bf16* kb = k + bh * Sk * D;
-  const bf16* vb = v + bh * Sk * D;
-  const float* bb = bias + (size_t)b * Sk;
+  const float lse0 = r0 < Sq ? lse[(size_t)bh * Sq + r0] : 0.f;
+  const float lse1 = r1 < Sq ? lse[(size_t)bh * Sq + r1] : 0.f;
+  const float del0 = r0 < Sq ? delta[(size_t)bh * Sq + r0] : 0.f;
+  const float del1 = r1 < Sq ? delta[(size_t)bh * Sq + r1] : 0.f;
 
-  uint32_t qf[KD][4], gf[KD][4];
+  float dqa[P::NP][NA], sc[NS], dp[NS];
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qf[kk][0] = r0 < Sq ? ld_u32(qb + (size_t)r0 * D + c) : 0u;
-    qf[kk][1] = r1 < Sq ? ld_u32(qb + (size_t)r1 * D + c) : 0u;
-    qf[kk][2] = r0 < Sq ? ld_u32(qb + (size_t)r0 * D + c + 8) : 0u;
-    qf[kk][3] = r1 < Sq ? ld_u32(qb + (size_t)r1 * D + c + 8) : 0u;
-    gf[kk][0] = r0 < Sq ? ld_u32(gb + (size_t)r0 * D + c) : 0u;
-    gf[kk][1] = r1 < Sq ? ld_u32(gb + (size_t)r1 * D + c) : 0u;
-    gf[kk][2] = r0 < Sq ? ld_u32(gb + (size_t)r0 * D + c + 8) : 0u;
-    gf[kk][3] = r1 < Sq ? ld_u32(gb + (size_t)r1 * D + c + 8) : 0u;
-  }
-  const float lse0 = r0 < Sq ? lse[bh * Sq + r0] : 0.f;
-  const float lse1 = r1 < Sq ? lse[bh * Sq + r1] : 0.f;
-  const float del0 = r0 < Sq ? delta[bh * Sq + r0] : 0.f;
-  const float del1 = r1 < Sq ? delta[bh * Sq + r1] : 0.f;
-
-  float dqa[DT][4];
+  for (int p = 0; p < P::NP; ++p)
 #pragma unroll
-  for (int n = 0; n < DT; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+    for (int i = 0; i < NA; ++i) dqa[p][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) sc[i] = dp[i] = 0.f;
 
-  int n_kv = (Sk + kKB - 1) / kKB;
-  if (causal) n_kv = min(n_kv, (min(q0 + kQB, Sq) - 1) / kKB + 1);
+  mbar_wait(&bars[kStages], 0);
+  for (int it = 0; it < n_kv; ++it) {
+    const int s = it % kStages, kt0 = it * BK;
+    mbar_wait(&bars[s], (it / kStages) & 1);
+    const bf16* Ks = k_tile(s);
+    const bf16* Vs = v_tile(s);
 
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * kKB;
-    __syncthreads();  // the previous tile is consumed
-    for (int i = tid; i < kKB * (D / 8); i += 128) {
-      const int r = i % kKB, c = (i / kKB) * 8;
-      uint4 kv4 = make_uint4(0u, 0u, 0u, 0u), vv4 = kv4;
-      if (k0 + r < Sk) {
-        kv4 = *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + r) * D + c);
-        vv4 = *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + r) * D + c);
+    // S = Q K^T and dP = G V^T: this block's 64 q rows x BK keys
+    fence_regs<NS>(sc);
+    fence_regs<NS>(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+      Wgmma<BK>::ss(sc, desc_k<D>(Qs, ROWS, kk), desc_k<D>(Ks, BK, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+      Wgmma<BK>::ss(dp, desc_k<D>(Gs, ROWS, kk), desc_k<D>(Vs, BK, kk), kk > 0);
+    wg_commit();
+    wg_wait_all();
+    fence_regs<NS>(sc);
+    fence_regs<NS>(dp);
+
+    // dS in place of s; a tile of real keys and rows that causal does not
+    // cut skips the per-element tests, as in B2
+    const float* Bk = bias_keys(s) + ((b * Sk + kt0) & 3);
+    auto ds = [&](auto checked) {
+      constexpr bool kChecked = decltype(checked)::value;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = n * 8 + 2 * t + (e & 1);
+          const int key = kt0 + j;
+          const int row = e < 2 ? r0 : r1;
+          float p = 0.f;
+          if (!kChecked || (key < Sk && row < Sq))
+            p = exp2f(s_minus_lse(sc[4 * n + e], scale, Bk[j], kChecked && causal && key > row,
+                                  e < 2 ? lse0 : lse1) * kLog2e);
+          sc[4 * n + e] = p * (dp[4 * n + e] - (e < 2 ? del0 : del1));
+        }
       }
-      *reinterpret_cast<uint4*>(Ks + r * RP + c) = kv4;
-      *reinterpret_cast<uint4*>(Vs + r * RP + c) = vv4;
-      const bf16* ke = reinterpret_cast<const bf16*>(&kv4);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) Kt[(c + j) * TP + r] = ke[j];
-    }
-    if (tid < kKB) Bs[tid] = k0 + tid < Sk ? bb[k0 + tid] : 0.f;
-    __syncthreads();
+    };
+    if (!causal && kt0 + BK <= Sk && q0 + ROWS <= Sq)
+      ds(std::false_type());
+    else
+      ds(std::true_type());
 
-    // S = Q K^T and dP = G V^T for this warp's 16 rows x 32 keys
-    float s[NT][4], dp[NT][4];
+    // dQ += dS K: A from registers, B = K transposed
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+    for (int p = 0; p < P::NP; ++p) fence_regs<NA>(dqa[p]);
+    wg_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        const bf16* kp = Ks + (n * 8 + gr) * RP + kk * 16 + 2 * t;
-        const bf16* vp = Vs + (n * 8 + gr) * RP + kk * 16 + 2 * t;
-        mma_bf16_16816(s[n], qf[kk], ld_u32(kp), ld_u32(kp + 8));
-        mma_bf16_16816(dp[n], gf[kk], ld_u32(vp), ld_u32(vp + 8));
-      }
-    }
-
-    // dS in place of s
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = n * 8 + 2 * t + (e & 1);
-        const int key = k0 + j;
-        const int row = e < 2 ? r0 : r1;
-        float p = 0.f;
-        if (key < Sk && row < Sq)
-          p = exp2f(s_minus_lse(s[n][e], scale, Bs[j], causal && key > row,
-                                e < 2 ? lse0 : lse1) * kLog2e);
-        s[n][e] = p * (dp[n][e] - (e < 2 ? del0 : del1));
-      }
-    }
-
-    // dQ += dS K (the C layout of dS is the A layout; K^T in shared memory)
-#pragma unroll
-    for (int j = 0; j < kKB / 16; ++j) {
+    for (int j = 0; j < BK / 16; ++j) {
       uint32_t a[4];
-      c_to_a(s[2 * j], s[2 * j + 1], a);
+      c_to_a(&sc[8 * j], &sc[8 * j + 4], a);
 #pragma unroll
-      for (int n = 0; n < DT; ++n) {
-        const bf16* kp = Kt + (n * 8 + gr) * TP + j * 16 + 2 * t;
-        mma_bf16_16816(dqa[n], a, ld_u32(kp), ld_u32(kp + 8));
-      }
+      for (int p = 0; p < P::NP; ++p)
+        Wgmma<P::PW>::rs_t(dqa[p], a, desc_mn<D>(Ks, BK, j, p), 1);
     }
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int p = 0; p < P::NP; ++p) fence_regs<NA>(dqa[p]);
+    __syncthreads();  // every warp is done with stage s: refill it
+    if (tid == 0 && it + kStages < n_kv) load_kv_tile(it + kStages);
   }
 
-  bf16* dqb = dq + bh * Sq * D;
+  bf16* dqb = dq + (size_t)bh * Sq * D;
 #pragma unroll
-  for (int n = 0; n < DT; ++n) {
-    const int c = n * 8 + 2 * t;
-    if (r0 < Sq)
-      *reinterpret_cast<uint32_t*>(dqb + (size_t)r0 * D + c) =
-          pack_bf16(dqa[n][0] * scale, dqa[n][1] * scale);
-    if (r1 < Sq)
-      *reinterpret_cast<uint32_t*>(dqb + (size_t)r1 * D + c) =
-          pack_bf16(dqa[n][2] * scale, dqa[n][3] * scale);
+  for (int p = 0; p < P::NP; ++p) {
+#pragma unroll
+    for (int n = 0; n < P::PW / 8; ++n) {
+      const int c = p * P::PW + n * 8 + 2 * t;
+      if (r0 < Sq)
+        *reinterpret_cast<uint32_t*>(dqb + (size_t)r0 * D + c) =
+            pack_bf16(dqa[p][4 * n] * scale, dqa[p][4 * n + 1] * scale);
+      if (r1 < Sq)
+        *reinterpret_cast<uint32_t*>(dqb + (size_t)r1 * D + c) =
+            pack_bf16(dqa[p][4 * n + 2] * scale, dqa[p][4 * n + 3] * scale);
+    }
   }
 }
 
@@ -686,7 +942,102 @@ int launch(void (*kern)(KArgs...), cudaError_t attr, dim3 grid, size_t smem,
 }
 
 bool bad_shape(int B, int NH, int Sq, int Sk) {
-  return B <= 0 || NH <= 0 || Sq <= 0 || Sk <= 0 || B > 65535 || NH > 65535;
+  // the tensor maps' coordinates (b * NH + h, and b * NH * S + row) are ints
+  return B <= 0 || NH <= 0 || Sq <= 0 || Sk <= 0 || B > 65535 || NH > 65535 ||
+         (long long)B * NH * (Sq > Sk ? Sq : Sk) > INT_MAX;
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// so the library needs no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = []() -> EncodeTiledFn {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// [B*NH, S, D] bf16, boxes of `rows` x one panel (PW columns), swizzled as
+// Panels<D> says; rows past S inside a head are zero-filled.
+bool map_rows(CUtensorMap* m, const void* ptr, int BH, int S, int D, int rows) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint32_t pw = D < 64 ? D : 64;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {pw, (cuuint32_t)rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+             strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             pw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// n float32 values as one line, boxes of `len`; past n is zero-filled.
+bool map_flat(CUtensorMap* m, const void* ptr, size_t n, int len) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * 4};  // rank 1: not read
+  const cuuint32_t box[1] = {(cuuint32_t)len};
+  const cuuint32_t step[1] = {1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(ptr), dims,
+             strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int kv_bf16(const void* q, const void* k, const void* v, const float* bias,
+            const void* g, const float* lse, const float* delta, void* dk, void* dv,
+            float* dbias, int B, int NH, int Sq, int Sk, int causal, float scale,
+            cudaStream_t st) {
+  using L = KvBf16<D>;
+  const int BH = B * NH;
+  CUtensorMap tq, tg, tk, tv, tl, td;
+  if (!map_rows(&tq, q, BH, Sq, D, L::BQ) || !map_rows(&tg, g, BH, Sq, D, L::BQ) ||
+      !map_rows(&tk, k, BH, Sk, D, L::KEYS) || !map_rows(&tv, v, BH, Sk, D, L::KEYS) ||
+      !map_flat(&tl, lse, (size_t)BH * Sq, L::LD_LEN) ||
+      !map_flat(&td, delta, (size_t)BH * Sq, L::LD_LEN))
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = allow_smem(bwd_kv_bf16_kernel<D>, L::SMEM);
+  return launch(bwd_kv_bf16_kernel<D>, attr, dim3((Sk + L::KEYS - 1) / L::KEYS, NH, B),
+                L::SMEM, st, tq, tg, tk, tv, tl, td, bias, static_cast<bf16*>(dk),
+                static_cast<bf16*>(dv), dbias, NH, Sq, Sk, scale, causal);
+}
+
+template <int D>
+int q_bf16(const void* q, const void* k, const void* v, const float* bias,
+           const void* g, const float* lse, const float* delta, void* dq, int B,
+           int NH, int Sq, int Sk, int causal, float scale, cudaStream_t st) {
+  using L = QBf16<D>;
+  const int BH = B * NH;
+  CUtensorMap tq, tg, tk, tv, tb;
+  if (!map_rows(&tq, q, BH, Sq, D, L::ROWS) || !map_rows(&tg, g, BH, Sq, D, L::ROWS) ||
+      !map_rows(&tk, k, BH, Sk, D, L::BK) || !map_rows(&tv, v, BH, Sk, D, L::BK) ||
+      !map_flat(&tb, bias, (size_t)B * Sk, L::B_LEN))
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = allow_smem(bwd_q_bf16_kernel<D>, L::SMEM);
+  return launch(bwd_q_bf16_kernel<D>, attr, dim3((Sq + L::ROWS - 1) / L::ROWS, NH, B),
+                L::SMEM, st, tq, tg, tk, tv, tb, lse, delta, static_cast<bf16*>(dq), NH,
+                Sq, Sk, scale, causal);
 }
 
 template <int D>
@@ -698,14 +1049,8 @@ int bwd_kv(const void* q, const void* k, const void* v, const void* bias,
   auto lp = static_cast<const float*>(lse);
   auto dp = static_cast<const float*>(delta);
   auto dbp = static_cast<float*>(dbias);
-  if (is_bf16) {
-    static const cudaError_t attr = allow_smem(bwd_kv_bf16_kernel<D>, kv_bf16_smem<D>());
-    return launch(bwd_kv_bf16_kernel<D>, attr, dim3((Sk + kKT - 1) / kKT, NH, B),
-                  kv_bf16_smem<D>(), st, static_cast<const bf16*>(q),
-                  static_cast<const bf16*>(k), static_cast<const bf16*>(v), bp,
-                  static_cast<const bf16*>(g), lp, dp, static_cast<bf16*>(dk),
-                  static_cast<bf16*>(dv), dbp, NH, Sq, Sk, scale, causal);
-  }
+  if (is_bf16)
+    return kv_bf16<D>(q, k, v, bp, g, lp, dp, dk, dv, dbp, B, NH, Sq, Sk, causal, scale, st);
   static const cudaError_t attr = allow_smem(bwd_kv_f32_kernel<D>, kv_f32_smem<D>());
   return launch(bwd_kv_f32_kernel<D>, attr, dim3((Sk + kFK2 - 1) / kFK2, NH, B),
                 kv_f32_smem<D>(), st, static_cast<const float*>(q),
@@ -722,14 +1067,8 @@ int bwd_q(const void* q, const void* k, const void* v, const void* bias,
   auto bp = static_cast<const float*>(bias);
   auto lp = static_cast<const float*>(lse);
   auto dp = static_cast<const float*>(delta);
-  if (is_bf16) {
-    static const cudaError_t attr = allow_smem(bwd_q_bf16_kernel<D>, q_bf16_smem<D>());
-    return launch(bwd_q_bf16_kernel<D>, attr, dim3((Sq + kQB - 1) / kQB, NH, B),
-                  q_bf16_smem<D>(), st, static_cast<const bf16*>(q),
-                  static_cast<const bf16*>(k), static_cast<const bf16*>(v), bp,
-                  static_cast<const bf16*>(g), lp, dp, static_cast<bf16*>(dq),
-                  NH, Sq, Sk, scale, causal);
-  }
+  if (is_bf16)
+    return q_bf16<D>(q, k, v, bp, g, lp, dp, dq, B, NH, Sq, Sk, causal, scale, st);
   static const cudaError_t attr = allow_smem(bwd_q_f32_kernel<D>, q_f32_smem<D>());
   return launch(bwd_q_f32_kernel<D>, attr, dim3((Sq + kFQ3 - 1) / kFQ3, NH, B),
                 q_f32_smem<D>(), st, static_cast<const float*>(q),
@@ -742,7 +1081,7 @@ int bwd_q(const void* q, const void* k, const void* v, const void* bias,
 
 // B2: dk, dv [B, NH, Sk, D] in the inputs' dtype and the per-head dbias
 // [B, NH, Sk] float32. q/g [B, NH, Sq, D], k/v [B, NH, Sk, D], bias [B, Sk]
-// float32, lse/delta [B, NH, Sq] float32; all contiguous.
+// float32, lse/delta [B, NH, Sq] float32; all contiguous, 16-byte aligned.
 extern "C" int symbiont_flash_attn_bwd_kv(
     const void* q, const void* k, const void* v, const void* bias,
     const void* g, const void* lse, const void* delta, void* dk, void* dv,

@@ -56,3 +56,117 @@ def test_refuses_without_cuda(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert chip_smoke.main() != 0
     assert capsys.readouterr().out == ""
+
+
+# Short captured samples of the two reports chip_smoke.py reads on the card:
+# `ptxas -v` from the kernels' build log, and `cuobjdump -sass` of the library.
+_KV64 = ("_ZN50_GLOBAL__N__8cf49797_17_flash_attn_bwd_cu_644af25318bwd_kv_bf16_kernel"
+         "ILi64EEEv14CUtensorMap_stS1_S1_S1_S1_S1_PKfP13__nv_bfloat16S5_Pfiiifi")
+_Q64 = ("_ZN50_GLOBAL__N__8cf49797_17_flash_attn_bwd_cu_644af25317bwd_q_bf16_kernel"
+        "ILi64EEEv14CUtensorMap_stS1_S1_S1_S1_PKfS3_P13__nv_bfloat16iiifi")
+_F32 = ("_ZN50_GLOBAL__N__8cf49797_17_flash_attn_bwd_cu_644af25316bwd_q_f32_kernel"
+        "ILi64EEEvPKfS3_S3_S3_S3_S3_S3_Pfiiifi")
+PTXAS = f"""\
+ptxas info    : (C7519) warpgroup.arrive is injected in around line 13125 by compiler to allow use of registers in GMMA in function '{_KV64}'
+ptxas info    : Compiling entry function '{_KV64}' for 'sm_90a'
+ptxas info    : Function properties for {_KV64}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 164 registers, used 1 barriers
+ptxas info    : Compiling entry function '{_Q64}' for 'sm_90a'
+ptxas info    : Function properties for {_Q64}
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '{_F32}' for 'sm_90a'
+ptxas info    : Function properties for {_F32}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 18816 bytes smem
+"""
+SASS = f"""\
+	code for sm_90a
+		Function : {_Q64}
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0a50*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
+        /*0a60*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR12], R24, gsb0 ;
+        /*0a70*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
+		Function : {_KV64}
+        /*0b40*/                   HGMMA.64x32x16.F32.BF16 R88, gdesc[UR4], RZ, !UPT, gsb0 ;
+		Function : {_F32}
+        /*0000*/                   FFMA R3, R4, R5, R3 ;
+"""
+
+
+def test_kernel_label_reads_the_mangled_name():
+    assert chip_smoke.kernel_label(_KV64) == "bwd_kv_bf16_kernel<64>"
+    assert chip_smoke.kernel_label(_Q64) == "bwd_q_bf16_kernel<64>"
+    assert chip_smoke.kernel_label(_F32) == "bwd_q_f32_kernel<64>"
+    assert chip_smoke.kernel_label("_Z3fooi") == "_Z3fooi"
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    rep = chip_smoke.ptxas_report(PTXAS)
+    assert rep["bwd_kv_bf16_kernel<64>"] == {"registers": 164, "spill_stores": 0,
+                                             "spill_loads": 0}
+    assert rep["bwd_q_bf16_kernel<64>"] == {"registers": 128, "spill_stores": 4,
+                                            "spill_loads": 12}
+    assert rep["bwd_q_f32_kernel<64>"]["registers"] == 64
+
+
+def test_hgmma_counts_per_function():
+    assert chip_smoke.hgmma_counts(SASS) == {"bwd_q_bf16_kernel<64>": 2,
+                                             "bwd_kv_bf16_kernel<64>": 1,
+                                             "bwd_q_f32_kernel<64>": 0}
+
+
+def _instances(spill=0, hgmma=4, dims=(32, 64, 128)):
+    ptxas, counts = {}, {}
+    for k in ("kv", "q"):
+        for d in dims:
+            name = f"bwd_{k}_bf16_kernel<{d}>"
+            ptxas[name] = {"registers": 128, "spill_stores": spill, "spill_loads": 0}
+            counts[name] = hgmma
+    ptxas["bwd_kv_f32_kernel<64>"] = {"registers": 64, "spill_stores": 8, "spill_loads": 8}
+    return ptxas, counts
+
+
+def test_backward_instances_pass_and_fail():
+    rows = chip_smoke.backward_instances(*_instances())
+    assert list(rows) == [f"bwd_{k}_bf16_kernel<{d}>" for k in ("kv", "q") for d in (32, 64, 128)]
+    assert rows["bwd_q_bf16_kernel<128>"]["hgmma"] == 4  # the f32 kernels' spills are not held
+    with pytest.raises(RuntimeError, match="spills"):
+        chip_smoke.backward_instances(*_instances(spill=4))
+    with pytest.raises(RuntimeError, match="no HGMMA"):
+        chip_smoke.backward_instances(*_instances(hgmma=0))
+    with pytest.raises(RuntimeError, match="missing"):
+        chip_smoke.backward_instances(*_instances(dims=(64, 128)))
+    # parsed from the captured samples: B3 at D = 64 spills there
+    with pytest.raises(RuntimeError, match="bwd_q_bf16_kernel<64> spills"):
+        ptxas = dict(_instances()[0], **chip_smoke.ptxas_report(PTXAS))
+        chip_smoke.backward_instances(ptxas, dict(_instances()[1], **chip_smoke.hgmma_counts(SASS)))
+
+
+def test_cuobjdump_lookup(monkeypatch, tmp_path):
+    import importlib.machinery
+
+    from symbiont_tpu_torch.ops import _build
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+    monkeypatch.setattr(_build.importlib.util, "find_spec", lambda name: None)
+    with pytest.raises(RuntimeError, match="cuobjdump not found"):
+        _build.cuobjdump()
+    # Triton's copy is taken when nvcc has none beside it
+    tool = tmp_path / "triton" / "backends" / "nvidia" / "bin" / "cuobjdump"
+    tool.parent.mkdir(parents=True)
+    tool.write_text("")
+    spec = importlib.machinery.ModuleSpec("triton", None, is_package=True)
+    spec.submodule_search_locations = [str(tmp_path / "triton")]
+    monkeypatch.setattr(_build.importlib.util, "find_spec", lambda name: spec)
+    assert _build.cuobjdump() == str(tool)
+    # the toolkit's own, beside nvcc, comes first
+    (tmp_path / "bin").mkdir()
+    (tmp_path / "bin" / "cuobjdump").write_text("")
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(tmp_path / "bin" / "nvcc"))
+    assert _build.cuobjdump() == str(tmp_path / "bin" / "cuobjdump")

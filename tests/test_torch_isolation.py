@@ -1,7 +1,8 @@
-"""The port stands alone: no module of symbiont_tpu_torch, and not
-chip_smoke.py, imports `jax` or the JAX package `symbiont_tpu` (or any of
-its submodules). Checked on the syntax tree, so an import inside a function
-counts too. `symbiont_tpu_torch` itself is allowed."""
+"""The port stands alone: no module of symbiont_tpu_torch, and neither
+chip_smoke.py nor scripts/port_bwd_ab.py, imports `jax` or the JAX package
+`symbiont_tpu` (or any of its submodules). Checked on the syntax tree, so
+an import inside a function counts too. `symbiont_tpu_torch` itself is
+allowed."""
 
 import ast
 from pathlib import Path
@@ -10,7 +11,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "symbiont_tpu"}
-FILES = sorted((ROOT / "symbiont_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "symbiont_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "port_bwd_ab.py"]
 
 
 def imported_top_levels(source: str) -> set:
@@ -28,7 +30,8 @@ def imported_top_levels(source: str) -> set:
 
 def test_the_scan_covers_the_package():
     rel = {p.relative_to(ROOT).as_posix() for p in FILES}
-    assert {"chip_smoke.py", "symbiont_tpu_torch/engine/engine.py",
+    assert {"chip_smoke.py", "scripts/port_bwd_ab.py",
+            "symbiont_tpu_torch/engine/engine.py",
             "symbiont_tpu_torch/ops/flash_attention.py",
             "symbiont_tpu_torch/models/bert.py",
             "symbiont_tpu_torch/memory/vector_store.py",
