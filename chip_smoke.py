@@ -14,7 +14,7 @@ any failure exits non-zero:
              it against its plain PyTorch version: the flash-attention
              forward (B1), and the backward's dK/dV/dbias (B2) and dQ (B3)
              kernels fed B1's own lse, length-0 rows and partial tiles
-             included (each bf16 B2/B3 instance must report no spills
+             included (each bf16 B1/B2/B3 instance must report no spills
              from ptxas and contain HGMMA, i.e. wgmma, in its SASS); time each
              kernel, its plain version and the PyTorch library call for
              the same function (SDPA forward, SDPA backward as forward +
@@ -47,6 +47,7 @@ every kernel's numbers and `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -138,44 +139,50 @@ def _bound_ms(q, k, v, bias, causal: bool) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_phase() -> dict:
+def kernel_phase(timed: bool = True) -> dict:
+    """B1 against its plain version at the serve path's shapes and at
+    partial, causal, GQA, float32 and D = 32/128 cases; timed at the
+    encoder's shapes beside SDPA's forward and the bound."""
     from symbiont_tpu_torch.ops import _build
     from symbiont_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
     _build.load()
-    regs = [ln.strip() for ln in (_build.build_dir() / "build.log").read_text().splitlines()
-            if re.search(r"Used \d+ registers", ln)]
-    print(f"[kernels] built {_build.build_dir().name} in {time.perf_counter() - t0:.1f} s; "
-          f"ptxas: {' | '.join(regs)}")
+    print(f"[kernels] built {_build.build_dir().name} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    build_report()
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rng = np.random.default_rng(SEED)
+    bf16, f32 = torch.bfloat16, torch.float32
     # (label, B, NH, NKV, Sq, Sk, D, dtype, causal, lengths, timed)
     cases = []
-    for S in (32, 128, 512):  # the encoder's attention at the slice's widths
+    for S in (32, 64, 128, 256, 512):  # the encoder's attention at every serve bucket
         lens = rng.integers(1, S + 1, 32)
         lens[[0, 7]] = 0  # batch-padding rows: every key masked
-        cases.append((f"enc_S{S}", 32, 12, 12, S, S, 64, torch.bfloat16, False, lens, True))
+        cases.append((f"enc_S{S}", 32, 12, 12, S, S, 64, bf16, False, lens, timed))
     cases += [
-        ("f32_odd", 2, 4, 4, 100, 100, 64, torch.float32, False, [100, 0], False),
-        ("f32_gqa_causal_d32", 2, 8, 2, 64, 64, 32, torch.float32, True, [64, 20], False),
-        ("bf16_causal", 2, 8, 8, 256, 256, 64, torch.bfloat16, True, [256, 200], False),
-        ("bf16_gqa_sq_ne_sk_d32", 2, 8, 2, 96, 160, 32, torch.bfloat16, False, [160, 0], False),
-        ("bf16_d128_odd", 3, 4, 4, 77, 77, 128, torch.bfloat16, False, [77, 5, 0], False),
+        ("f32_odd", 2, 4, 4, 100, 100, 64, f32, False, [100, 0], False),
+        ("f32_gqa_causal_d32", 2, 8, 2, 64, 64, 32, f32, True, [64, 20], False),
+        ("bf16_causal", 2, 8, 8, 256, 256, 64, bf16, True, [256, 200], False),
+        ("bf16_gqa_sq_ne_sk_d32", 2, 8, 2, 96, 160, 32, bf16, False, [160, 0], False),
+        ("bf16_d128_odd", 3, 4, 4, 77, 77, 128, bf16, False, [77, 5, 0], False),
+        # partial tiles in both S axes at the main width
+        ("bf16_d64_ragged", 4, 12, 12, 136, 200, 64, bf16, False, [200, 77, 0, 131], False),
+        # causal GQA at D = 128; key 0 is real in both rows, so every causal
+        # row sees a real key (ROADMAP Queue C)
+        ("bf16_gqa_causal_d128", 2, 8, 2, 200, 200, 128, bf16, True, [200, 150], False),
     ]
     # every other (batch bucket, length bucket) shape the serve path gives
     # the kernel, checked untimed and summarised on one line
     grid = []
-    for B in (1, 8, 32, 128):
+    for B in (1, 8, 128):
         for S in (32, 64, 128, 256, 512):
-            if B != 32 or S in (64, 256):
-                lens = rng.integers(1, S + 1, B)
-                lens[-1] = 0 if B > 1 else lens[-1]
-                grid.append((f"grid_B{B}_S{S}", B, 12, 12, S, S, 64, torch.bfloat16,
-                             False, lens, False))
+            lens = rng.integers(1, S + 1, B)
+            lens[-1] = 0 if B > 1 else lens[-1]
+            grid.append((f"grid_B{B}_S{S}", B, 12, 12, S, S, 64, bf16, False, lens, False))
     rows, grid_err = [], 0.0
-    for label, B, NH, NKV, Sq, Sk, D, dtype, causal, lens, timed in cases + grid:
+    for label, B, NH, NKV, Sq, Sk, D, dtype, causal, lens, is_timed in cases + grid:
         q, k, v, bias = _attn_inputs(gen, B, NH, NKV, Sq, Sk, D, dtype, lens)
         out, lse = fa.flash_attention_with_lse(q, k, v, bias, causal=causal)
         torch.cuda.synchronize()
@@ -197,7 +204,7 @@ def kernel_phase() -> dict:
         line = (f"[kernels] flash_attn_fwd {label} q{tuple(q.shape)} k{tuple(k.shape)} "
                 f"{str(dtype)[6:]} causal={causal}: max_abs_err {max_err:.4g} "
                 f"(tol {tol} abs + {tol} rel), lse rel err {lse_err:.3g}")
-        if timed:
+        if is_timed:
             bound, bound_by = _bound_ms(q, k, v, bias, causal)
             def kernel():
                 return fa.flash_attention(q, k, v, bias, causal=causal)
@@ -218,7 +225,7 @@ def kernel_phase() -> dict:
         print(line, flush=True)
         del q, k, v, bias, out, lse, ref, ref_lse
     print(f"[kernels] flash_attn_fwd bf16 [B, 12, S, 64] at the other {len(grid)} serve shapes "
-          f"(B in 1/8/32/128, S in 32..512, a length-0 row in each B > 1): max_abs_err "
+          f"(B in 1/8/128, S in 32..512, a length-0 row in each B > 1): max_abs_err "
           f"{grid_err:.4g} (tol 0.02 abs + 0.02 rel)", flush=True)
     torch.cuda.empty_cache()
     return {r["label"]: r for r in rows}
@@ -313,19 +320,21 @@ def hgmma_counts(sass: str) -> dict:
     return out
 
 
-BWD_BF16 = re.compile(r"bwd_(kv|q)_bf16_kernel<(\d+)>")
+WGMMA_BF16 = re.compile(r"(flash_fwd|bwd_kv|bwd_q)_bf16_kernel<(\d+)>")
 
 
-def backward_instances(ptxas: dict, hgmma: dict) -> dict:
-    """The bf16 backward instances from `ptxas_report` and `hgmma_counts`
-    → {label: registers, spills, hgmma}, by kernel and head dim. Fails if
-    one spills, has no HGMMA, or a kernel lacks a head dim of 32/64/128."""
-    names = sorted((n for n in ptxas if BWD_BF16.fullmatch(n)),
-                   key=lambda n: (BWD_BF16.fullmatch(n).group(1),
-                                  int(BWD_BF16.fullmatch(n).group(2))))
-    have = {BWD_BF16.fullmatch(n).group(1, 2) for n in names}
-    want = {(k, str(d)) for k in ("kv", "q") for d in (32, 64, 128)}
-    check(want <= have, f"bf16 backward instances missing: {sorted(want - have)}")
+def wgmma_instances(ptxas: dict, hgmma: dict) -> dict:
+    """The bf16 kernel instances of B1 (`flash_fwd`), B2 (`bwd_kv`) and B3
+    (`bwd_q`) from `ptxas_report` and `hgmma_counts` → {label: registers,
+    spills, hgmma}, by kernel and head dim. Fails if one spills, has no
+    HGMMA, or a kernel lacks a head dim of 32/64/128."""
+    order = ("flash_fwd", "bwd_kv", "bwd_q")
+    names = sorted((n for n in ptxas if WGMMA_BF16.fullmatch(n)),
+                   key=lambda n: (order.index(WGMMA_BF16.fullmatch(n).group(1)),
+                                  int(WGMMA_BF16.fullmatch(n).group(2))))
+    have = {WGMMA_BF16.fullmatch(n).group(1, 2) for n in names}
+    want = {(k, str(d)) for k in order for d in (32, 64, 128)}
+    check(want <= have, f"bf16 kernel instances missing: {sorted(want - have)}")
     rows = {}
     for n in names:
         rows[n] = dict(ptxas[n], hgmma=hgmma.get(n, 0))
@@ -335,18 +344,19 @@ def backward_instances(ptxas: dict, hgmma: dict) -> dict:
     return rows
 
 
-def backward_build_report() -> dict:
-    """The bf16 backward instances as built (ptxas registers and spills
+@functools.cache
+def build_report() -> dict:
+    """The bf16 B1/B2/B3 instances as built (ptxas registers and spills
     from the build log, HGMMA count from the library's SASS by
-    `cuobjdump -sass`), checked by `backward_instances` and printed."""
+    `cuobjdump -sass`), checked by `wgmma_instances` and printed once."""
     from symbiont_tpu_torch.ops import _build
 
     lib = _build.build()
     sass = subprocess.run([_build.cuobjdump(), "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    rows = backward_instances(ptxas_report((_build.build_dir() / "build.log").read_text()),
-                              hgmma_counts(sass))
-    print("[kernels] bf16 backward instances (ptxas registers, spill bytes stores/loads; "
+    rows = wgmma_instances(ptxas_report((_build.build_dir() / "build.log").read_text()),
+                           hgmma_counts(sass))
+    print("[kernels] bf16 instances (ptxas registers, spill bytes stores/loads; "
           "HGMMA in SASS): " + "; ".join(
               f"{n} {r['registers']} regs, spills {r.get('spill_stores', 0)}/"
               f"{r.get('spill_loads', 0)}, {r['hgmma']} HGMMA" for n, r in rows.items()),
@@ -361,7 +371,7 @@ def backward_kernel_phase(timed: bool = True) -> dict:
     from symbiont_tpu_torch.ops import flash_attention as fa
 
     _build.load()
-    backward_build_report()
+    build_report()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rng = np.random.default_rng(SEED + 2)
     bf16, f32 = torch.bfloat16, torch.float32

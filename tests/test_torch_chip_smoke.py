@@ -66,6 +66,8 @@ _Q64 = ("_ZN50_GLOBAL__N__8cf49797_17_flash_attn_bwd_cu_644af25317bwd_q_bf16_ker
         "ILi64EEEv14CUtensorMap_stS1_S1_S1_S1_PKfS3_P13__nv_bfloat16iiifi")
 _F32 = ("_ZN50_GLOBAL__N__8cf49797_17_flash_attn_bwd_cu_644af25316bwd_q_f32_kernel"
         "ILi64EEEvPKfS3_S3_S3_S3_S3_S3_Pfiiifi")
+_FWD64 = ("_ZN50_GLOBAL__N__1765d581_17_flash_attn_fwd_cu_326302ff21flash_fwd_bf16_kernel"
+          "ILi64EEEv14CUtensorMap_stS1_S1_S1_P13__nv_bfloat16Pfiiiifi")
 PTXAS = f"""\
 ptxas info    : (C7519) warpgroup.arrive is injected in around line 13125 by compiler to allow use of registers in GMMA in function '{_KV64}'
 ptxas info    : Compiling entry function '{_KV64}' for 'sm_90a'
@@ -80,6 +82,11 @@ ptxas info    : Compiling entry function '{_F32}' for 'sm_90a'
 ptxas info    : Function properties for {_F32}
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 64 registers, used 1 barriers, 18816 bytes smem
+ptxas info    : Compiling entry function '{_FWD64}' for 'sm_90a'
+ptxas info    : Function properties for {_FWD64}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 108 registers, used 1 barriers
+ptxas info    : Compile time = 89.746 ms
 """
 SASS = f"""\
 	code for sm_90a
@@ -93,6 +100,12 @@ SASS = f"""\
         /*0b40*/                   HGMMA.64x32x16.F32.BF16 R88, gdesc[UR4], RZ, !UPT, gsb0 ;
 		Function : {_F32}
         /*0000*/                   FFMA R3, R4, R5, R3 ;
+		Function : {_FWD64}
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_ACCELERATORS EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*10b0*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR16], RZ, !UPT ;
+        /*12d0*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR16], R24, gsb0 ;
+        /*4690*/                   HGMMA.64x64x16.F32.BF16 R56, R92, gdesc[UR8].tnspB, R56 ;
+        /*4790*/                   HGMMA.64x64x16.F32.BF16 R56, R24, gdesc[UR8].tnspB, R56, gsb0 ;
 """
 
 
@@ -115,34 +128,77 @@ def test_ptxas_report_reads_registers_and_spills():
 def test_hgmma_counts_per_function():
     assert chip_smoke.hgmma_counts(SASS) == {"bwd_q_bf16_kernel<64>": 2,
                                              "bwd_kv_bf16_kernel<64>": 1,
-                                             "bwd_q_f32_kernel<64>": 0}
+                                             "bwd_q_f32_kernel<64>": 0,
+                                             "flash_fwd_bf16_kernel<64>": 4}
 
 
-def _instances(spill=0, hgmma=4, dims=(32, 64, 128)):
+KERNELS = ("flash_fwd", "bwd_kv", "bwd_q")
+
+
+def _instances(spill=0, hgmma=4, dims=(32, 64, 128), only=KERNELS):
+    """Reports of every bf16 instance; those of the kernels in `only` get
+    `spill`, `hgmma` and `dims`, the others a clean report at all dims."""
     ptxas, counts = {}, {}
-    for k in ("kv", "q"):
-        for d in dims:
-            name = f"bwd_{k}_bf16_kernel<{d}>"
-            ptxas[name] = {"registers": 128, "spill_stores": spill, "spill_loads": 0}
-            counts[name] = hgmma
+    for k in KERNELS:
+        bad = k in only
+        for d in dims if bad else (32, 64, 128):
+            name = f"{k}_bf16_kernel<{d}>"
+            ptxas[name] = {"registers": 128, "spill_stores": spill if bad else 0,
+                           "spill_loads": 0}
+            counts[name] = hgmma if bad else 4
     ptxas["bwd_kv_f32_kernel<64>"] = {"registers": 64, "spill_stores": 8, "spill_loads": 8}
+    ptxas["flash_fwd_f32_kernel<64>"] = {"registers": 80, "spill_stores": 8, "spill_loads": 8}
     return ptxas, counts
 
 
 def test_backward_instances_pass_and_fail():
-    rows = chip_smoke.backward_instances(*_instances())
-    assert list(rows) == [f"bwd_{k}_bf16_kernel<{d}>" for k in ("kv", "q") for d in (32, 64, 128)]
+    rows = chip_smoke.wgmma_instances(*_instances())
+    assert list(rows) == [f"{k}_bf16_kernel<{d}>" for k in KERNELS for d in (32, 64, 128)]
     assert rows["bwd_q_bf16_kernel<128>"]["hgmma"] == 4  # the f32 kernels' spills are not held
+    bwd = ("bwd_kv", "bwd_q")
     with pytest.raises(RuntimeError, match="spills"):
-        chip_smoke.backward_instances(*_instances(spill=4))
+        chip_smoke.wgmma_instances(*_instances(spill=4, only=bwd))
     with pytest.raises(RuntimeError, match="no HGMMA"):
-        chip_smoke.backward_instances(*_instances(hgmma=0))
+        chip_smoke.wgmma_instances(*_instances(hgmma=0, only=bwd))
     with pytest.raises(RuntimeError, match="missing"):
-        chip_smoke.backward_instances(*_instances(dims=(64, 128)))
+        chip_smoke.wgmma_instances(*_instances(dims=(64, 128), only=bwd))
     # parsed from the captured samples: B3 at D = 64 spills there
     with pytest.raises(RuntimeError, match="bwd_q_bf16_kernel<64> spills"):
         ptxas = dict(_instances()[0], **chip_smoke.ptxas_report(PTXAS))
-        chip_smoke.backward_instances(ptxas, dict(_instances()[1], **chip_smoke.hgmma_counts(SASS)))
+        chip_smoke.wgmma_instances(ptxas, dict(_instances()[1], **chip_smoke.hgmma_counts(SASS)))
+
+
+def test_forward_instance_read_from_the_captured_samples():
+    assert chip_smoke.kernel_label(_FWD64) == "flash_fwd_bf16_kernel<64>"
+    assert chip_smoke.ptxas_report(PTXAS)["flash_fwd_bf16_kernel<64>"] == {
+        "registers": 108, "spill_stores": 0, "spill_loads": 0}
+    # the sample's B1 instance passes where it stands in for the clean one
+    ptxas, counts = _instances()
+    rep, hg = chip_smoke.ptxas_report(PTXAS), chip_smoke.hgmma_counts(SASS)
+    ptxas["flash_fwd_bf16_kernel<64>"] = rep["flash_fwd_bf16_kernel<64>"]
+    counts["flash_fwd_bf16_kernel<64>"] = hg["flash_fwd_bf16_kernel<64>"]
+    rows = chip_smoke.wgmma_instances(ptxas, counts)
+    assert rows["flash_fwd_bf16_kernel<64>"] == {"registers": 108, "spill_stores": 0,
+                                                 "spill_loads": 0, "hgmma": 4}
+
+
+@pytest.mark.parametrize("fault, match", [
+    (dict(dims=(32, 128)), r"missing: \[\('flash_fwd', '64'\)\]"),
+    (dict(spill=16), r"flash_fwd_bf16_kernel<32> spills"),
+    (dict(hgmma=0), r"flash_fwd_bf16_kernel<32> has no HGMMA"),
+])
+def test_forward_instances_fail(fault, match):
+    with pytest.raises(RuntimeError, match=match):
+        chip_smoke.wgmma_instances(*_instances(only=("flash_fwd",), **fault))
+
+
+def test_forward_instance_without_hgmma_in_sass_fails():
+    # a B1 instance the SASS lists with no HGMMA (the mma.sync design)
+    ptxas, counts = _instances()
+    sass = SASS.replace("HGMMA", "HMMA")
+    counts["flash_fwd_bf16_kernel<64>"] = chip_smoke.hgmma_counts(sass)["flash_fwd_bf16_kernel<64>"]
+    with pytest.raises(RuntimeError, match="flash_fwd_bf16_kernel<64> has no HGMMA"):
+        chip_smoke.wgmma_instances(ptxas, counts)
 
 
 def test_cuobjdump_lookup(monkeypatch, tmp_path):

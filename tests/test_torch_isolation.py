@@ -1,5 +1,5 @@
 """The port stands alone: no module of symbiont_tpu_torch, and neither
-chip_smoke.py nor scripts/port_bwd_ab.py, imports `jax` or the JAX package
+chip_smoke.py nor scripts/port_kernels_ab.py, imports `jax` or the JAX package
 `symbiont_tpu` (or any of its submodules). Checked on the syntax tree, so
 an import inside a function counts too. `symbiont_tpu_torch` itself is
 allowed."""
@@ -12,7 +12,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "symbiont_tpu"}
 FILES = sorted((ROOT / "symbiont_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "port_bwd_ab.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "port_kernels_ab.py"]
 
 
 def imported_top_levels(source: str) -> set:
@@ -30,7 +30,7 @@ def imported_top_levels(source: str) -> set:
 
 def test_the_scan_covers_the_package():
     rel = {p.relative_to(ROOT).as_posix() for p in FILES}
-    assert {"chip_smoke.py", "scripts/port_bwd_ab.py",
+    assert {"chip_smoke.py", "scripts/port_kernels_ab.py",
             "symbiont_tpu_torch/engine/engine.py",
             "symbiont_tpu_torch/ops/flash_attention.py",
             "symbiont_tpu_torch/models/bert.py",
