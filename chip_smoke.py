@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port runs its main path on a GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--memory-history]
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit (`nvcc`); exits non-zero, printing no result, without them.
@@ -37,10 +37,20 @@ any failure exits non-zero:
              stay finite and fall; one step's gradients with flash must
              match plain attention (cosine >= 0.99); steps/s, tokens/s and
              each kernel's share of a step's device time; the trained
-             masters then serve embeddings through a TorchEngine.
+             masters then serve embeddings through a TorchEngine;
+6. checkpoint — the default multilingual mpnet geometry and a MiniLM +
+             ms-marco pair written from the seed in the hub's layout and
+             served through `model_dir` / `cross_model_dir` with flash;
+7. obs     — the device-memory ledger reconciled on the card, the padding
+             counters, the dispatch ledger, one forced OOM under guard_oom;
+8. memory, quant — what the allocator holds with no engine alive (by
+             allocation site with --memory-history), then the mpnet dir at
+             every `quantize` mode against "none": bytes, cosines, device
+             time and its largest kernels, and the int8/fp8 codes made on
+             the card bit for bit against the CPU's.
 
-Launch counts are set to 0 just before each main path (phases 3-4, and
-phase 5) and read just after. The last two lines are a JSON object with
+Launch counts are set to 0 just before each main path (phases 3-4, 5, 6
+and 8) and read just after. The last two lines are a JSON object with
 every kernel's numbers and `{"ok": true, "device": {...}}`.
 """
 
@@ -54,6 +64,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -84,11 +95,20 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+@functools.cache
+def _side_stream():
+    """The one stream every graph warm-up runs on. torch gives each stream
+    that runs a GEMM a cuBLAS workspace of its own (32 MiB on this card)
+    and keeps it until the process ends, so a new stream per timing held
+    ~470 MB of the card that no claim names."""
+    return torch.cuda.Stream()
+
+
 def graph_ms(fn, iters: int = 50) -> float:
     """Device time per fn() with the host's launch overhead taken out: one
     call captured in a CUDA graph, replayed `iters` times between events.
     Inputs stay in L2 across replays where they fit (50 MB)."""
-    side = torch.cuda.Stream()
+    side = _side_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
@@ -764,21 +784,605 @@ def profile_embed(texts) -> None:
           f"time; top kernels: {top}", flush=True)
 
 
-def main() -> int:
+# ------------------------------------------------------------ checkpoints
+
+# The models of BASELINE.md whose checkpoints the phases below write from
+# SEED in the hub's layout (no download): the default embedder (an XLM-R
+# layout, pad id 1, so positions start at 2), and the #1/#4 pair, a MiniLM
+# embedder and an ms-marco cross-encoder that share BERT's 30,522 vocab.
+MPNET_MULTILINGUAL = dict(  # paraphrase-multilingual-mpnet-base-v2
+    vocab_size=250002, hidden_size=768, num_layers=12, num_heads=12,
+    intermediate_size=3072, max_position_embeddings=514, type_vocab_size=1,
+    layer_norm_eps=1e-5, position_offset=2)
+MINILM_L6 = dict(  # all-MiniLM-L6-v2, and ms-marco-MiniLM-L-6-v2 with a head
+    vocab_size=30522, hidden_size=384, num_layers=6, num_heads=12,
+    intermediate_size=1536, max_position_embeddings=512, type_vocab_size=2,
+    layer_norm_eps=1e-12)
+QUANT_BARS = {"f16": 0.999, "int8": 0.999, "fp8": 0.998}  # cosine vs "none"
+# rerank scores, flash vs plain attention, bf16: about 4x the 0.00124 measured
+# on the MiniLM pair, against random-head scores of about +-0.15
+RERANK_BAR = 5e-3
+# leaves whose int8/fp8 codes [quant] holds bit for bit against the CPU's
+QUANT_PROBES = {"word_embeddings": ("embeddings", "word_embeddings"),
+                "layers[0].query.kernel": ("layers", 0, "attention", "query", "kernel")}
+
+
+def param_counts(geom: dict, with_pooler: bool = False) -> dict:
+    """Parameters of a BERT geometry by kind: "matrix" entries (rank ≥ 2
+    leaves: the three tables and every kernel), "scales" (one per last-axis
+    entry of each matrix, what int8/fp8 adds) and "vector" entries (biases
+    and LayerNorm parameters)."""
+    H, I, L = geom["hidden_size"], geom["intermediate_size"], geom["num_layers"]
+    tables = (geom["vocab_size"] + geom["max_position_embeddings"]
+              + geom["type_vocab_size"]) * H
+    matrix = tables + L * (4 * H * H + 2 * H * I)
+    scales = 3 * H + L * (4 * H + I + H)
+    vector = 2 * H + L * (4 * H + I + H + 4 * H)
+    if with_pooler:  # pooler [H, H] and classifier [H, 1], with biases
+        matrix, scales, vector = matrix + H * H + H, scales + H + 1, vector + H + 1
+    return {"matrix": matrix, "scales": scales, "vector": vector, "total": matrix + vector}
+
+
+def expected_param_bytes(geom: dict, quantize: str, dtype: str = "bfloat16") -> int:
+    """Bytes a TorchEngine holds for an embedder of `geom`: everything in the
+    compute dtype, except int8/fp8 matrices as one-byte codes plus float32
+    scales (the vectors stay in the compute dtype)."""
+    n = param_counts(geom)
+    width = 2 if dtype == "bfloat16" else 4
+    if quantize in ("int8", "fp8"):
+        return n["matrix"] + 4 * n["scales"] + width * n["vector"]
+    if quantize == "f16" and dtype != "bfloat16":
+        return 4 * n["total"]  # bf16 values, held in the float32 compute dtype
+    return width * n["total"]
+
+
+def write_checkpoint(out_dir, params, cfg, fmt: str = "safetensors") -> dict:
+    """Write `params` as a hub-format model dir: "safetensors" through the
+    port's `export_hf_bert` (model.safetensors, tensor names without a
+    prefix), "bin" as a `torch.save`d state dict under `bert.*` names, as
+    the ms-marco cross-encoders ship. Returns the config.json written."""
+    from pathlib import Path
+
+    from symbiont_tpu_torch.models import convert
+
+    out_dir = Path(out_dir)
+    if fmt == "safetensors":
+        convert.export_hf_bert(params, cfg, out_dir)
+    elif fmt == "bin":
+        out_dir.mkdir(parents=True, exist_ok=True)
+        sd = convert.hf_state_dict(params, prefix="bert.")
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()},
+                   out_dir / "pytorch_model.bin")
+        (out_dir / "config.json").write_text(json.dumps(convert.hf_config(cfg), indent=2))
+    else:
+        raise ValueError(f"unknown checkpoint format {fmt!r}")
+    return json.loads((out_dir / "config.json").read_text())
+
+
+def _cosines(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+
+
+def _storage_bytes(*trees) -> dict:
+    """{storage pointer: bytes} of the tensors in `trees` (a QuantTensor
+    gives two), each storage once."""
+    from symbiont_tpu_torch.models import quant
+
+    out = {}
+    for tree in trees:
+        for leaf in quant.leaves(tree):
+            for t in ((leaf.q, leaf.scale) if isinstance(leaf, quant.QuantTensor) else (leaf,)):
+                out.setdefault(t.untyped_storage().data_ptr(), quant.tensor_bytes(t))
+    return out
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def live_cuda_storages() -> dict:
+    """{storage pointer: (bytes, shape, dtype)} of every CUDA tensor the
+    garbage collector can reach (not those held only inside torch, such as
+    autograd's saved tensors or cuBLAS workspaces)."""
+    import gc
+    import warnings
+
+    out = {}
+    with warnings.catch_warnings():  # isinstance on deprecated torch objects warns
+        warnings.simplefilter("ignore")
+        for o in gc.get_objects():
+            try:
+                if isinstance(o, torch.Tensor) and o.is_cuda:
+                    st = o.untyped_storage()
+                    out[st.data_ptr()] = (st.nbytes(), tuple(o.shape),
+                                          str(o.dtype).split(".")[-1])
+            except (RuntimeError, ReferenceError):
+                continue
+    return out
+
+
+def alloc_site(frames, root: str) -> str | None:
+    """Where a block was allocated, from its memory-history frames (innermost
+    first): the innermost two frames in files under `root`, as
+    "file:line function < file:line function"; None without frames."""
+    ours = [f"{f['filename'][len(root):].lstrip('/')}:{f['line']} {f['name']}"
+            for f in frames if f["filename"].startswith(root)]
+    return " < ".join(ours[:2]) or None
+
+
+def group_blocks(segments, reachable, root: str) -> list:
+    """The allocator's active blocks grouped by allocation site (by pool and
+    size where no history was recorded): [(bytes, blocks, site,
+    reachable from Python)], largest first. `segments` is
+    torch.cuda.memory._snapshot()["segments"]; `reachable` the storage
+    pointers the garbage collector reaches."""
+    groups = {}
+    for seg in segments:
+        pool = tuple(seg.get("segment_pool_id") or (0, 0))
+        for blk in seg["blocks"]:
+            if blk["state"] != "active_allocated":
+                continue
+            site = (alloc_site(blk.get("frames") or [], root)
+                    or f"pool {pool}, no history, block of {blk['size']:,}")
+            key = (site, blk["address"] in reachable)
+            n = groups.setdefault(key, [0, 0])
+            n[0] += blk["size"]
+            n[1] += 1
+    return sorted(((b, c, site, r) for (site, r), (b, c) in groups.items()), key=lambda g: -g[0])
+
+
+def allocator_census(top: int = 5) -> str:
+    """What the caching allocator holds right now, by allocation site (run
+    with --memory-history for sites; without it, by pool and block size)."""
+    root = str(Path(__file__).resolve().parent)
+    groups = group_blocks(torch.cuda.memory._snapshot()["segments"],
+                          set(live_cuda_storages()), root)
+    return (f"{sum(g[0] for g in groups):,} bytes in {sum(g[1] for g in groups)} active blocks "
+            f"(memory_allocated {torch.cuda.memory_allocated():,}); largest: " + "; ".join(
+        f"{b:,} in {c} at {site} ({'reachable' if r else 'not reachable'} from Python)"
+        for b, c, site, r in groups[:top]))
+
+
+def clear_cublas_workspaces() -> int:
+    """Free the cuBLAS workspaces torch keeps (one per stream that ran a
+    GEMM) and return the bytes that freed; 0 where torch has no such call.
+    The next GEMM on a stream takes its workspace again."""
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is None:
+        return 0
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    clear()
+    return before - torch.cuda.memory_allocated()
+
+
+def kernel_short(name: str, width: int = 120) -> str:
+    """A profiler's kernel name without its namespaces and argument list,
+    so the functor that tells two elementwise kernels apart stays in view."""
+    for junk in ("void ", "(anonymous namespace)::", "at::native::", "c10::",
+                 "binary_internal::"):
+        name = name.replace(junk, "")
+    return name.split("(", 1)[0][:width]
+
+
+def top_kernels(events, n: int = 5) -> list:
+    """[(name, self device ms, calls)] of the `n` device entries of a
+    profiler's key_averages() with the most self device time."""
+    from torch.autograd import DeviceType
+
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    dev.sort(key=lambda e: -e.self_device_time_total)
+    return [(e.key, e.self_device_time_total / 1e3, e.count) for e in dev[:n]]
+
+
+def _embed_dispatches() -> dict:
+    from symbiont_tpu_torch.obs.xprof import dispatch_ledger
+
+    return {r["executable"]: r["dispatches"] for r in dispatch_ledger.snapshot()
+            if r["executable"].startswith("embed[")}
+
+
+def checkpoint_phase(rng, tmp) -> dict:
+    """The default model from a checkpoint on disk: write the multilingual
+    mpnet geometry from SEED, serve it through `model_dir` with flash (int32
+    ids, RoBERTa positions, the synthetic XLM-R cross-encoder's one-row
+    token-type table), store and rerank; then the MiniLM embedder and
+    ms-marco cross-encoder pair (safetensors and pytorch_model.bin)."""
+    import gc
+
+    from symbiont_tpu_torch.config import EngineConfig, VectorStoreConfig
+    from symbiont_tpu_torch.engine.engine import TorchEngine
+    from symbiont_tpu_torch.memory.vector_store import VectorStore
+    from symbiont_tpu_torch.models import bert as bert_mod
+    from symbiont_tpu_torch.models.convert import load_bert_model
+    from symbiont_tpu_torch.ops import flash_attention as fa
+    from symbiont_tpu_torch.utils.telemetry import metrics
+
+    tmp = Path(tmp)
+    cfg = bert_mod.BertConfig(**MPNET_MULTILINGUAL)
+    t0 = time.perf_counter()
+    params = bert_mod.init_params(torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    probes = {  # (path, rows): a table's rows and transposed kernels
+        "word_embeddings[-12:]": (("embeddings", "word_embeddings"), slice(-12, None)),
+        "query[0]": (("layers", 0, "attention", "query", "kernel"), slice(None)),
+        "mlp.out[-1]": (("layers", -1, "mlp", "out", "kernel"), slice(None)),
+    }
+
+    written = {n: _leaf(params, p)[rows].cpu().numpy() for n, (p, rows) in probes.items()}
+    write_checkpoint(tmp / "mpnet", params, cfg)
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    del params
+    size_mb = (tmp / "mpnet" / "model.safetensors").stat().st_size / 1e6
+
+    back, back_cfg = load_bert_model(tmp / "mpnet")
+    for n, (p, rows) in probes.items():
+        check(np.array_equal(_leaf(back, p)[rows], written[n]),
+              f"{n} read back from model.safetensors differs from what was written")
+    check(back_cfg == cfg, f"config read back {back_cfg} != {cfg}")
+    host_leaves = {n: torch.from_numpy(np.ascontiguousarray(_leaf(back, p)))
+                   for n, p in QUANT_PROBES.items()}
+    del back
+
+    t0 = time.perf_counter()
+    eng = TorchEngine(EngineConfig(model_dir=str(tmp / "mpnet"), attn_impl="flash",
+                                   rerank_enabled=True))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    mcfg = eng.model_cfg
+    check(mcfg == dataclasses.replace(cfg, attn_impl="flash") and mcfg.position_offset == 2,
+          f"loaded geometry {mcfg} != written {cfg}")
+    check(eng._ids_dtype == np.int32, f"ids travel as {eng._ids_dtype}, not int32")
+    for n, (p, rows) in probes.items():
+        got = _leaf(eng.params, p)[rows]
+        want = torch.from_numpy(written[n]).to("cuda", torch.bfloat16)
+        check(torch.equal(got, want), f"engine's {n} != the written leaf in bf16")
+    pbytes = metrics.gauge_get("engine.param_bytes", {"service": "engine", "dtype": "bf16"})
+    check(pbytes == expected_param_bytes(MPNET_MULTILINGUAL, "none"),
+          f"engine.param_bytes {pbytes} != {expected_param_bytes(MPNET_MULTILINGUAL, 'none')}")
+
+    texts = synth_texts(rng, 1000)
+    max_len = min(eng.config.length_buckets[-1], mcfg.max_position_embeddings)
+    true_tokens = sum(len(e) for e in eng.tokenizer.encode_batch(texts, max_len))
+    tok0 = (metrics.get("engine.tokens_real", {"service": "engine"}),
+            metrics.get("engine.tokens_padding", {"service": "engine"}))
+    sig0 = _embed_dispatches()
+    fa.launches = fa.bwd_kv_launches = fa.bwd_q_launches = 0  # ------- main path
+    b0 = eng.stats["embed_batches"]
+    t0 = time.perf_counter()
+    emb = eng.embed_texts(texts)
+    first_s = time.perf_counter() - t0
+    n_batches = eng.stats["embed_batches"] - b0
+    embed_launches = fa.launches
+    tok1 = (metrics.get("engine.tokens_real", {"service": "engine"}),
+            metrics.get("engine.tokens_padding", {"service": "engine"}))
+    sig1 = _embed_dispatches()
+    check(emb.shape == (len(texts), mcfg.hidden_size) and bool(np.isfinite(emb).all()),
+          f"embeddings {emb.shape}, finite {np.isfinite(emb).all()}")
+    check(embed_launches == mcfg.num_layers * n_batches,
+          f"flash launches {embed_launches} != {mcfg.num_layers} x {n_batches} batches")
+    buckets_used = sorted({int(k.split("L=")[1].split(",")[0]) for k in sig1
+                           if sig1[k] != sig0.get(k, 0)})
+    check(buckets_used == [32, 64, 128, 256, 512], f"buckets run {buckets_used}")
+    padded = sum(int(k.split("L=")[1].split(",")[0]) * int(k.split("B=")[1].rstrip("]"))
+                 * (n - sig0.get(k, 0)) for k, n in sig1.items())
+
+    eng_x = TorchEngine(dataclasses.replace(eng.config, attn_impl="xla", rerank_enabled=False),
+                        params=eng.params, model_cfg=mcfg, tokenizer=eng.tokenizer)
+    cos = _cosines(emb[:128], eng_x.embed_texts(texts[:128]))
+    check(float(cos.min()) >= 0.999, f"flash vs plain attention cosine {cos.min():.5f}")
+    del eng_x
+
+    store = VectorStore(VectorStoreConfig(dim=mcfg.hidden_size, data_dir=str(tmp / "store")))
+    store.upsert_rows([f"m{i}" for i in range(len(texts))], emb, [{"text": t} for t in texts])
+    r0 = eng.stats["rerank_batches"]
+    reranked = []
+    for i, q in enumerate(texts[:4]):
+        hits = store.search_fused(eng, q, 8)
+        check(hits[0].id == f"m{i}", f"corpus text m{i} found {hits[0].id} first")
+        scores = eng.rerank(q, [h.payload["text"] for h in hits])
+        check(scores.shape == (8,) and bool(np.isfinite(scores).all()),
+              f"rerank scores {scores}")
+        reranked.append(scores)
+    launches = fa.launches  # ---------------------------------------- main path end
+    rerank_batches = eng.stats["rerank_batches"] - r0
+    check(launches - embed_launches == mcfg.num_layers * (4 + rerank_batches),
+          f"flash launches for 4 fused queries and {rerank_batches} rerank batches: "
+          f"{launches - embed_launches}")
+    n_params = param_counts(MPNET_MULTILINGUAL)["total"]
+    print(f"[checkpoint] paraphrase-multilingual-mpnet-base-v2 geometry (XLM-R, vocab "
+          f"{cfg.vocab_size:,}, {n_params:,} parameters) from seed {SEED}: model.safetensors {size_mb:.1f} MB "
+          f"written in {write_s:.2f} s, TorchEngine(model_dir, flash, rerank) loaded in "
+          f"{load_s:.2f} s; leaves read back bit-equal (transpose included), position_offset "
+          f"{mcfg.position_offset}, int32 ids; engine.param_bytes{{dtype=bf16}} {pbytes:,.0f}; "
+          f"embed_texts of {len(texts)} texts over buckets {buckets_used} in {n_batches} batches: "
+          f"{first_s:.2f} s first call, {len(texts) / first_s:.1f} emb/s (host clock), flash "
+          f"launches {embed_launches} = {mcfg.num_layers} x {n_batches}; flash vs plain cosine "
+          f"min {cos.min():.6f}; 4 fused queries find their own rows, rerank of their top 8 "
+          f"through the one-row token-type table finite (score range "
+          f"{min(s.min() for s in reranked):.4f}..{max(s.max() for s in reranked):.4f})",
+          flush=True)
+
+    # the BASELINE.md #1/#4 pair: MiniLM embedder + ms-marco cross-encoder
+    mini = bert_mod.BertConfig(**MINILM_L6)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    t0 = time.perf_counter()
+    write_checkpoint(tmp / "minilm", bert_mod.init_params(gen, mini), mini)
+    cross_cfg = write_checkpoint(tmp / "msmarco",
+                                 bert_mod.init_params(gen, mini, with_pooler=True), mini, "bin")
+    write2_s = time.perf_counter() - t0
+    t0 = time.perf_counter()  # the host half of a load alone
+    load_bert_model(tmp / "minilm")
+    load_bert_model(tmp / "msmarco", with_pooler=True)
+    convert2_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pair = TorchEngine(EngineConfig(model_dir=str(tmp / "minilm"),
+                                    cross_model_dir=str(tmp / "msmarco"), attn_impl="flash"))
+    torch.cuda.synchronize()
+    load2_s = time.perf_counter() - t0
+    check(pair._ids_dtype == np.uint16 and pair.cross_cfg.type_vocab_size == 2
+          and pair.cross_params["classifier"]["kernel"].shape == (mini.hidden_size, 1),
+          f"MiniLM pair: ids {pair._ids_dtype}, cross {pair.cross_cfg}")
+    e0 = pair.stats["embed_batches"]
+    fa.launches = 0  # ------------------------------------------------ main path
+    t0 = time.perf_counter()
+    emb2 = pair.embed_texts(texts[:256])
+    first2_s = time.perf_counter() - t0
+    n2 = pair.stats["embed_batches"] - e0
+    passages = texts[256:288]
+    flash_scores = pair.rerank(texts[0], passages)
+    pair_launches = fa.launches  # ------------------------------------- main path end
+    check(pair_launches == mini.num_layers * (n2 + pair.stats["rerank_batches"]),
+          f"MiniLM pair flash launches {pair_launches}")
+    plain = TorchEngine(dataclasses.replace(pair.config, attn_impl="xla"), params=pair.params,
+                        model_cfg=pair.model_cfg, tokenizer=pair.tokenizer,
+                        cross_params=pair.cross_params, cross_cfg=pair.cross_cfg)
+    plain_scores = plain.rerank(texts[0], passages)
+    err = np.abs(flash_scores - plain_scores)
+    check(bool(np.isfinite(emb2).all()) and bool(np.isfinite(flash_scores).all()),
+          "MiniLM pair: non-finite output")
+    check(float(err.max()) <= RERANK_BAR,
+          f"rerank flash vs plain max |err| {err.max():.4g} over the bar {RERANK_BAR}")
+    pair_bytes = metrics.gauge_get("engine.param_bytes", {"service": "engine", "dtype": "bf16"})
+    check(pair_bytes == expected_param_bytes(MINILM_L6, "none"),
+          f"MiniLM engine.param_bytes {pair_bytes}")
+    print(f"[checkpoint] all-MiniLM-L6-v2 geometry ({param_counts(MINILM_L6)['total']:,} "
+          f"parameters, model.safetensors) + ms-marco-MiniLM-L-6-v2 geometry "
+          f"({param_counts(MINILM_L6, with_pooler=True)['total']:,} parameters, "
+          f"pytorch_model.bin under bert.* names, model_type {cross_cfg['model_type']}) written "
+          f"in {write2_s:.2f} s, loaded through model_dir + cross_model_dir in {load2_s:.2f} s "
+          f"(their host conversion alone, just before: {convert2_s:.2f} s); "
+          f"engine.param_bytes{{dtype=bf16}} {pair_bytes:,.0f}; embed of 256 texts "
+          f"{first2_s:.2f} s first call; rerank of 32 passages, flash vs plain attention max "
+          f"|err| {err.max():.3g} (bar {RERANK_BAR}); flash launches {pair_launches} = "
+          f"{mini.num_layers} x {n2 + pair.stats['rerank_batches']} batches", flush=True)
+    del pair, plain
+    gc.collect()
+    return {"engine": eng, "store": store, "launches": launches + pair_launches,
+            "true_tokens": true_tokens, "padded_tokens": padded,
+            "tokens": (tok1[0] - tok0[0], tok1[1] - tok0[1]), "mpnet_dir": tmp / "mpnet",
+            "host_leaves": host_leaves}
+
+
+def obs_phase(ck: dict, tmp) -> None:
+    """The engine's memory ledger, padding counters, dispatch ledger and
+    OOM guard, read after the checkpoint phase's serving with its engine and
+    store alive."""
+    from symbiont_tpu_torch.obs.hbm import guard_oom, hbm_ledger, oom_forensics
+    from symbiont_tpu_torch.obs.xprof import dispatch_ledger
+    from symbiont_tpu_torch.utils.telemetry import metrics
+
+    import gc
+
+    eng, store = ck["engine"], ck["store"]
+    gc.collect()  # engines of earlier phases retire their claims
+    torch.cuda.synchronize()
+    rec = hbm_ledger.reconcile()
+    rows = {r["subsystem"]: r["bytes"] for r in rec["subsystems"]}
+    held_ptrs = _storage_bytes(eng.params, eng.cross_params)
+    held = sum(held_ptrs.values())
+    check(rec["basis"] == "memory_stats", f"reconcile basis {rec['basis']}")
+    check(rows.get("engine.params") == held,
+          f"engine.params claims {rows.get('engine.params')}, the engine holds {held}")
+    check(rows.get("memory.corpus", 0) > 0, f"no memory.corpus claim: {rows}")
+    claimed = rows["engine.params"] + rows["memory.corpus"]
+    check(claimed <= rec["bytes_in_use"],
+          f"claims {claimed} exceed the allocator's bytes in use {rec['bytes_in_use']}")
+    real, pad = ck["tokens"]
+    check(real == ck["true_tokens"], f"engine.tokens_real {real} != tokenized {ck['true_tokens']}")
+    check(real + pad == ck["padded_tokens"],
+          f"tokens_real + tokens_padding {real + pad} != padded slots {ck['padded_tokens']}")
+    top = dispatch_ledger.snapshot()[:3]
+    # what the ledger leaves unattributed: live tensors outside the claims
+    claimed_ptrs = set(held_ptrs) | {store._device_corpus.untyped_storage().data_ptr()}
+    outside = sorted((v for k, v in live_cuda_storages().items() if k not in claimed_ptrs),
+                     key=lambda v: -v[0])
+    outside_bytes = sum(v[0] for v in outside)
+    workspaces = clear_cublas_workspaces()
+    unnamed = rec["unattributed_bytes"] - outside_bytes - workspaces
+
+    oom_forensics.configure(postmortem_dir=str(tmp / "postmortem"))
+    site = {"site": "smoke"}
+    before = metrics.get("engine.oom_total", site)
+    raised = None
+    try:
+        with guard_oom("smoke"):
+            torch.empty(2 ** 50, dtype=torch.uint8, device="cuda")
+    except torch.cuda.OutOfMemoryError as e:
+        raised = e
+    count = metrics.get("engine.oom_total", site) - before
+    last = oom_forensics.last
+    check(raised is not None, "torch.empty(2**50) under guard_oom did not raise an OOM")
+    check(count == 1 and last is not None and last["site"] == "smoke"
+          and last["postmortem"] is not None,
+          f"guard_oom recorded {count} OOM(s), verdict {last}")
+    print(f"[obs] reconcile on the card (basis {rec['basis']}): bytes_in_use "
+          f"{rec['bytes_in_use']:,}, engine.params {rows['engine.params']:,} (= the engine's "
+          f"tensors), memory.corpus {rows['memory.corpus']:,}, unattributed "
+          f"{rec['unattributed_bytes']:,} ({rec['unattributed_pct']}%), of which cuBLAS "
+          f"workspaces {workspaces:,} (freed by clearing them), live tensors outside the claims "
+          f"{outside_bytes:,} in {len(outside)} storages (largest "
+          + ", ".join(f"{list(shape)} {dt} {n:,}" for n, shape, dt in outside[:3])
+          + f"), not named {unnamed:,} ({100 * unnamed / max(rec['bytes_in_use'], 1):.2f}% of bytes in "
+          f"use); engine.tokens_real "
+          f"{real:,} = tokenized lengths, + tokens_padding {pad:,} = {ck['padded_tokens']:,} "
+          f"padded slots; dispatch ledger top three: "
+          + "; ".join(f"{r['executable']} x{r['dispatches']} ({r['mean_dispatch_us']} us host "
+                      f"each)" for r in top)
+          + f"; guard_oom('smoke') around torch.empty(2**50) re-raised "
+          f"{type(raised).__name__}, engine.oom_total{{site=smoke}} {count:g}, postmortem "
+          f"written", flush=True)
+
+
+def quant_phase(rng, mpnet_dir, host: dict) -> dict:
+    """The mpnet checkpoint at every quantize mode, flash, one engine at a
+    time: each mode's embeddings of the same 512 texts against "none", its
+    parameter bytes, the allocator's bytes after load, emb/s, the device
+    time of one embed_texts and its largest kernels; for int8 and fp8, the
+    codes and scales the engine made on the card, bit for bit against the
+    same quantization on the CPU of `host` (QUANT_PROBES' float32 leaves as
+    the checkpoint holds them). First, what the allocator holds with no
+    engine alive."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from symbiont_tpu_torch.config import EngineConfig
+    from symbiont_tpu_torch.engine.engine import TorchEngine
+    from symbiont_tpu_torch.models import quant
+    from symbiont_tpu_torch.ops import flash_attention as fa
+    from symbiont_tpu_torch.utils.telemetry import metrics
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    census = allocator_census()
+    workspaces = clear_cublas_workspaces()
+    print(f"[memory] allocator with no engine alive, before [quant]: {census}; cuBLAS "
+          f"workspaces among them {workspaces:,} (freed by clearing them)", flush=True)
+    texts = synth_texts(rng, 512)
+    base, parts, kernels, launches, held = None, [], [], 0, {}
+    for mode in ("none", "f16", "int8", "fp8"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        eng = TorchEngine(EngineConfig(model_dir=str(mpnet_dir), attn_impl="flash",
+                                       quantize=mode))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        allocated = torch.cuda.memory_allocated()
+        label = quant.storage_label(eng.params)
+        pbytes = metrics.gauge_get("engine.param_bytes", {"service": "engine", "dtype": label})
+        want = expected_param_bytes(MPNET_MULTILINGUAL, mode)
+        check(pbytes == want, f"{mode}: engine.param_bytes{{dtype={label}}} {pbytes} != {want}")
+        held[mode] = pbytes
+        codes = ""
+        if mode in ("int8", "fp8"):
+            for name, path in QUANT_PROBES.items():
+                got = _leaf(eng.params, path)
+                ref = quant.quantize_params({"w": host[name]}, mode)["w"]
+                bad_q = int((got.q.cpu().view(torch.uint8) != ref.q.view(torch.uint8)).sum())
+                bad_s = int((got.scale.cpu().view(torch.int32) != ref.scale.view(torch.int32)).sum())
+                check(got.q.dtype == ref.q.dtype and bad_q == 0 and bad_s == 0,
+                      f"{mode}: {name} made on the card differs from the CPU's in {bad_q} of "
+                      f"{ref.q.numel()} codes and {bad_s} of {ref.scale.numel()} scales")
+            codes = (f", codes and scales of {' and '.join(QUANT_PROBES)} bit-equal to the CPU's "
+                     f"({got.q.dtype})")
+        b0 = eng.stats["embed_batches"]
+        fa.launches = 0  # ---------------------------------------------- main path
+        emb = eng.embed_texts(texts)
+        t0 = time.perf_counter()
+        eng.embed_texts(texts)
+        rate = len(texts) / (time.perf_counter() - t0)
+        n = fa.launches  # ---------------------------------------------- main path end
+        layers = eng.model_cfg.num_layers
+        check(n == layers * (eng.stats["embed_batches"] - b0),
+              f"{mode}: flash launches {n} != {layers} x {eng.stats['embed_batches'] - b0}")
+        launches += n
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            eng.embed_texts(texts)
+        events = prof.key_averages()
+        busy_ms = sum(ms for _, ms, _ in top_kernels(events, len(events)))
+        kernels.append(f"{mode}: " + "; ".join(f"{kernel_short(name)} {ms:.2f} ms x{calls}"
+                                               for name, ms, calls in top_kernels(events)))
+        check(bool(np.isfinite(emb).all()), f"{mode}: non-finite embeddings")
+        if mode == "none":
+            base, cos = emb, 1.0
+        else:
+            cos = float(_cosines(base, emb).min())
+            check(cos >= QUANT_BARS[mode], f"{mode}: cosine vs none {cos:.5f} < {QUANT_BARS[mode]}")
+        parts.append(f"{mode}: param_bytes{{dtype={label}}} {pbytes:,.0f} "
+                     f"({pbytes / held['none']:.3f}x none), allocated after load {allocated:,}, "
+                     f"load {load_s:.2f} s, {rate:.1f} emb/s, device time of one embed_texts "
+                     f"{busy_ms:.1f} ms, cosine vs none min {cos:.6f}{codes}")
+        del eng
+    int8_ratio = held["int8"] / held["none"]
+    check(int8_ratio <= 0.55, f"int8 holds {int8_ratio:.3f}x the bytes of none")
+    print(f"[quant] multilingual mpnet checkpoint, flash, {len(texts)} texts (emb/s on the host "
+          f"clock over a second call; device time under torch.profiler): " + "; ".join(parts)
+          + f"; bars f16/int8 0.999, fp8 0.998", flush=True)
+    print("[quant] largest kernels by self device time in one embed_texts: "
+          + " | ".join(kernels), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def main(argv=()) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port's main path on one CUDA card.")
+    ap.add_argument("--memory-history", action="store_true",
+                    help="record the allocator's history from the start, so the [memory] "
+                         "line names where each block still held was allocated (slows "
+                         "every phase)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
               file=sys.stderr)
         return 2
+    if args.memory_history:
+        torch.cuda.memory._record_memory_history(max_entries=200_000, stacks="python")
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)", flush=True)
     rng = np.random.default_rng(SEED)
+    wall = {}  # phase -> host seconds
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        wall[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
     kern = kernel_phase()
+    lap("kernels")
     bwd = backward_kernel_phase()
+    lap("backward kernels")
     serve = main_path(rng)
+    lap("serve")
     train = train_path(np.random.default_rng(SEED + 3))
+    lap("train")
     profile_embed(synth_texts(np.random.default_rng(SEED + 1), 1024))
-    fwd_launches = serve["launches"][0] + train["launches"][0]
+    lap("profile")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ck = checkpoint_phase(np.random.default_rng(SEED + 4), tmp)
+        lap("checkpoint")
+        obs_phase(ck, tmp)
+        lap("obs")
+        ck_launches, mpnet_dir, host_leaves = ck["launches"], ck["mpnet_dir"], ck["host_leaves"]
+        del ck
+        qt = quant_phase(np.random.default_rng(SEED + 5), mpnet_dir, host_leaves)
+        lap("quant")
+    fwd = {"serve": serve["launches"][0], "train": train["launches"][0],
+           "checkpoint": ck_launches, "quant": qt["launches"]}
+    fwd_launches = sum(fwd.values())
+    print("[phases] host seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items())
+          + f"; total {sum(wall.values()):.1f}. flash_attn_fwd launches on the main path: "
+          + ", ".join(f"{k} {v}" for k, v in fwd.items()) + f"; total {fwd_launches}",
+          flush=True)
     entries = []
     for name, src, line, ref, launches, shape in (
             ("flash_attn_fwd", "flash_attn_fwd.cu", 81, kern["enc_S128"], fwd_launches,
@@ -801,4 +1405,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

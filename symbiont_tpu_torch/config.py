@@ -4,8 +4,8 @@ Own copies of `symbiont_tpu.config`'s `QUANTIZE_MODES`, `EngineConfig` and
 `VectorStoreConfig`, with the same fields and defaults, so code written
 against the JAX package's configs constructs these unchanged. Fields that
 steer parts of the JAX engine the port has not taken over yet (the mesh
-data-parallel split, the executable cache, the host prep pipeline, weight
-quantization) are kept for that reason and say so.
+data-parallel split, the executable cache, the host prep pipeline) are kept
+for that reason and say so.
 """
 
 from __future__ import annotations
@@ -20,8 +20,9 @@ QUANTIZE_MODES = ("none", "f16", "int8", "fp8")
 @dataclass
 class EngineConfig:
     model_name: str = "sentence-transformers/paraphrase-multilingual-mpnet-base-v2"
-    # local checkpoint dir (safetensors + config); loading one is not ported
-    # yet (ROADMAP Queue A: model_dir checkpoint loading)
+    # local HF checkpoint dir (config.json + model.safetensors, sharded or
+    # not, or pytorch_model.bin; tokenizer.json when present), read by
+    # models/convert.py
     model_dir: Optional[str] = None
     embedding_dim: int = 768
     # run on the CPU instead of the CUDA device (device.resolve_device)
@@ -45,11 +46,13 @@ class EngineConfig:
     # the JAX engine's background tokenization chunk; the port tokenizes a
     # call's texts in one pass
     host_prep_chunk: int = 2048
+    # cross-encoder checkpoint dir (pooler and classifier head included)
     cross_model_dir: Optional[str] = None
     # synthetic cross-encoder (random weights, embedder geometry) when no
     # cross_model_dir is given
     rerank_enabled: bool = False
-    # only "none" is ported (ROADMAP Queue A: quantization)
+    # weight storage: "none" | "f16" (bf16 matrices) | "int8" | "fp8"
+    # (per-channel codes, models/quant.py)
     quantize: str = "none"
 
     def __post_init__(self) -> None:
@@ -57,10 +60,6 @@ class EngineConfig:
             raise ValueError(
                 f"engine.quantize must be one of {QUANTIZE_MODES}, "
                 f"got {self.quantize!r}")
-        if self.quantize != "none":
-            raise NotImplementedError(
-                f"engine.quantize={self.quantize!r} is not ported to "
-                "symbiont_tpu_torch yet (ROADMAP Queue A: quantization)")
         if self.tenant_lane_depth < 0:
             raise ValueError("engine.tenant_lane_depth must be >= 0")
 

@@ -38,6 +38,8 @@ import torch
 
 from symbiont_tpu_torch.config import VectorStoreConfig
 from symbiont_tpu_torch.device import resolve_device
+from symbiont_tpu_torch.models.quant import tensor_bytes
+from symbiont_tpu_torch.obs.hbm import hbm_ledger
 
 log = logging.getLogger(__name__)
 
@@ -83,6 +85,11 @@ class VectorStore:
         self._dirty = True
         self._wal_file = None
         self.last_load_skipped_lines = 0  # corrupt WAL lines on last load()
+        # the device-memory ledger (obs/hbm.py): the padded device corpus's
+        # bytes, read from the tensor's size (no device sync)
+        hbm_ledger.claim("memory.corpus", self,
+                         lambda vs: (0 if vs._device_corpus is None
+                                     else tensor_bytes(vs._device_corpus)))
         if self.config.data_dir:
             Path(self.config.data_dir).mkdir(parents=True, exist_ok=True)
             self.load()

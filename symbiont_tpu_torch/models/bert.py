@@ -16,6 +16,11 @@ Numerics follow the JAX package's dtype modes:
   under autograd the call goes through the kernels' autograd Function, so
   the fine-tune (`train/trainer.py`) gets gradients through the backward
   kernels. The mask bias carries no gradient.
+
+Every projection goes through `quant.mm` and every table through
+`quant.take`, so a tree of int8/fp8 `QuantTensor` leaves (`models/quant.py`)
+runs unchanged. `take` clamps its indices to the table, as JAX's gathers
+do: a segment id past a one-row token-type table (XLM-R) reads row 0.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from symbiont_tpu_torch.models import quant
 from symbiont_tpu_torch.ops.flash_attention import flash_attention
 
 Params = Any  # nested dict of tensors; "layers" is a list
@@ -76,18 +82,8 @@ def torch_dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
 
 
-def tree_map(fn, tree):
-    """`fn` on every leaf of a nested dict/list parameter tree."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
-def cast_params(params: Params, dtype: torch.dtype) -> Params:
-    """Floating leaves → `dtype` (a no-op on leaves already in it)."""
-    return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t, params)
+tree_map = quant.tree_map
+cast_params = quant.cast_params
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +122,7 @@ def attention(params: Params, x: torch.Tensor, mask_bias: torch.Tensor,
     hd = H // nh
 
     def proj(p):
-        return (x @ p["kernel"] + p["bias"]).view(B, S, nh, hd)
+        return (quant.mm(x, p["kernel"]) + p["bias"]).view(B, S, nh, hd)
 
     q = proj(params["query"])
     k = proj(params["key"])
@@ -146,7 +142,7 @@ def attention(params: Params, x: torch.Tensor, mask_bias: torch.Tensor,
             scores = scores.float() + mask_bias.float()
             probs = torch.softmax(scores, dim=-1).to(x.dtype)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, S, H)
-    return ctx @ params["out"]["kernel"] + params["out"]["bias"]
+    return quant.mm(ctx, params["out"]["kernel"]) + params["out"]["bias"]
 
 
 def encoder_layer(params: Params, x: torch.Tensor, mask_bias: torch.Tensor,
@@ -155,9 +151,9 @@ def encoder_layer(params: Params, x: torch.Tensor, mask_bias: torch.Tensor,
     attn_out = attention(params["attention"], x, mask_bias, cfg)
     x = layer_norm(x + attn_out, params["attention"]["ln"]["scale"],
                    params["attention"]["ln"]["bias"], cfg.layer_norm_eps)
-    h = x @ params["mlp"]["in"]["kernel"] + params["mlp"]["in"]["bias"]
+    h = quant.mm(x, params["mlp"]["in"]["kernel"]) + params["mlp"]["in"]["bias"]
     h = _act(cfg.hidden_act, x.dtype)(h)
-    h = h @ params["mlp"]["out"]["kernel"] + params["mlp"]["out"]["bias"]
+    h = quant.mm(h, params["mlp"]["out"]["kernel"]) + params["mlp"]["out"]["bias"]
     return layer_norm(x + h, params["mlp"]["ln"]["scale"],
                       params["mlp"]["ln"]["bias"], cfg.layer_norm_eps)
 
@@ -166,7 +162,9 @@ def embeddings(params: Params, input_ids: torch.Tensor,
                attention_mask: torch.Tensor, cfg: BertConfig,
                token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     B, S = input_ids.shape
-    tok = params["word_embeddings"][input_ids]
+    # a quantized table's take is float32, so the sum below runs in float32
+    # before the LayerNorm, as in the JAX package
+    tok = quant.take(params["word_embeddings"], input_ids)
     if cfg.position_offset:
         # RoBERTa-style: positions count only non-pad tokens, offset past pad
         mask = attention_mask.to(torch.int64)
@@ -174,10 +172,10 @@ def embeddings(params: Params, input_ids: torch.Tensor,
         positions = positions.clamp(0, cfg.max_position_embeddings - 1)
     else:
         positions = torch.arange(S, device=input_ids.device).expand(B, S)
-    pos = params["position_embeddings"][positions]
+    pos = quant.take(params["position_embeddings"], positions)
     if token_type_ids is None:
         token_type_ids = torch.zeros_like(input_ids)
-    typ = params["token_type_embeddings"][token_type_ids]
+    typ = quant.take(params["token_type_embeddings"], token_type_ids)
     x = tok + pos + typ
     return layer_norm(x, params["ln"]["scale"], params["ln"]["bias"],
                       cfg.layer_norm_eps)
@@ -231,13 +229,13 @@ def cross_encoder_score(params: Params, input_ids: torch.Tensor,
                         token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Cross-encoder relevance score [B] float32 (pooler + linear head)."""
     hidden = bert_encode(params, input_ids, attention_mask, cfg, token_type_ids)
-    # the head runs in float32: in the JAX package the compute-dtype CLS
-    # vector meets the float32-at-rest head weights and promotes
+    # the head is not cast to the compute dtype: as in the JAX package, the
+    # compute-dtype CLS vector meets float32-at-rest weights and promotes
+    # (bf16 ones under f16, int8/fp8 codes under quant.mm)
     pooler, classifier = params["pooler"], params["classifier"]
-    pooled = torch.tanh(hidden[:, 0, :].float() @ pooler["kernel"].float()
-                        + pooler["bias"].float())
-    logits = pooled @ classifier["kernel"].float() + classifier["bias"].float()
-    return logits[..., 0]
+    pooled = torch.tanh(quant.mm(hidden[:, 0, :], pooler["kernel"]) + pooler["bias"])
+    logits = quant.mm(pooled, classifier["kernel"]) + classifier["bias"]
+    return logits[..., 0].float()
 
 
 # ---------------------------------------------------------------------------

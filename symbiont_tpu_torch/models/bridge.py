@@ -4,7 +4,10 @@
 on every leaf (the same nested dict, `"layers"` a list) and returns the
 port's tree of tensors on the device, same keys, same `[in, out]` layout
 and dtypes. The port never imports JAX: the caller turns JAX arrays into
-numpy. A JAX train state is carried across by
+numpy. A quantized leaf (the JAX package's `QuantTensor` after `np.asarray`
+on its `q` and `scale`, or anything else with those two fields) becomes the
+port's `quant.QuantTensor`, its int8 or float8_e4m3fn codes bit for bit. A
+JAX train state is carried across by
 `train.checkpoint.embedder_train_state_from_numpy`.
 """
 
@@ -15,13 +18,21 @@ import torch
 
 from symbiont_tpu_torch.device import resolve_device
 from symbiont_tpu_torch.models.bert import tree_map
+from symbiont_tpu_torch.models.quant import QuantTensor
 
 
-def _tensor(a, device) -> torch.Tensor:
+def _tensor(a, device):
+    if hasattr(a, "q") and hasattr(a, "scale"):
+        return QuantTensor(_tensor(a.q, device), _tensor(a.scale, device))
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16 has no torch twin
         return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
-    return torch.from_numpy(np.array(a)).to(device)  # a copy: JAX's are read-only
+    if a.dtype.name == "float8_e4m3fn":  # nor has ml_dtypes' fp8: move the bits
+        bits = torch.from_numpy(np.array(a.view(np.uint8), order="C"))
+        return bits.view(torch.float8_e4m3fn).to(device)
+    # a C-ordered copy: JAX's arrays are read-only, a converted kernel is a
+    # transposed view
+    return torch.from_numpy(np.array(a, order="C")).to(device)
 
 
 def bert_params_from_numpy(tree, device=None):

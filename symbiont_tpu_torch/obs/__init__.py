@@ -1,0 +1,8 @@
+"""The engine's observability hooks (own copies of the JAX package's
+`symbiont_tpu/obs/` parts the engine records into).
+
+device          : CUDA allocator statistics (`torch.cuda.memory_stats`)
+hbm             : the device-memory claim ledger, `reconcile`, OOM guard
+xprof           : the per-signature dispatch ledger and host-sync counts
+engine_timeline : the embed-flush timeline (padding, packing opportunity)
+"""

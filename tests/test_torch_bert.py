@@ -125,6 +125,30 @@ def test_cross_encoder_score_matches_jax(trees):
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=1e-4)
 
 
+def test_one_row_token_type_table_clamps_as_jax():
+    """An XLM-R-layout cross-encoder (type_vocab_size 1, positions offset
+    past pad id 1) scoring pairs whose segment-B ids are 1, and a word id
+    past the vocab: JAX's gathers clamp both to the table, and so do the
+    port's. Float32 at the bar of tests/test_bert_numerics.py."""
+    geom = dict(GEOM, type_vocab_size=1, position_offset=2, layer_norm_eps=1e-5)
+    jcfg = jbert.BertConfig(**geom, dtype="float32")
+    tcfg = tbert.BertConfig(**geom, dtype="float32")
+    jparams = jbert.init_params(jax.random.key(3), jcfg, with_pooler=True)
+    tparams = bert_params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    assert tparams["embeddings"]["token_type_embeddings"].shape == (1, 64)
+    ids, mask, types = _batch(2, S=48)
+    ids = np.where(mask == 1, ids, 1)  # XLM-R's pad id
+    ids[0, 3] = GEOM["vocab_size"] + 5
+    assert types.max() == 1
+    want = np.asarray(jbert.cross_encoder_score(
+        jparams, jnp.asarray(ids), jnp.asarray(mask), jcfg, jnp.asarray(types)))
+    got = tbert.cross_encoder_score(
+        tparams, torch.from_numpy(ids).long(), torch.from_numpy(mask), tcfg,
+        torch.from_numpy(types).long())
+    assert np.isfinite(want).all()
+    np.testing.assert_allclose(got.numpy(), want, atol=3e-5, rtol=1e-4)
+
+
 def test_normalize_and_cls_pool_match_jax(trees):
     jparams, tparams = trees
     jcfg, tcfg = _cfgs(dtype="float32")

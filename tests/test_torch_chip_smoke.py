@@ -1,8 +1,11 @@
 """The device-free parts of chip_smoke.py: the bounds it computes from
-shapes, the bars it holds the backward kernels to, and its refusal to run
-without a CUDA card (it must print no result there)."""
+shapes, the bars it holds the backward kernels to, the parameter and byte
+counts and the checkpoint writer of its checkpoint and quantization
+phases, and its refusal to run without a CUDA card (it must print no
+result there)."""
 
 import chip_smoke
+import numpy as np
 import pytest
 import torch
 
@@ -56,6 +59,14 @@ def test_refuses_without_cuda(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert chip_smoke.main() != 0
     assert capsys.readouterr().out == ""
+
+
+def test_refuses_without_cuda_with_memory_history(capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main(["--memory-history"]) != 0
+    assert capsys.readouterr().out == ""
+    with pytest.raises(SystemExit):
+        chip_smoke.main(["--no-such-flag"])
 
 
 # Short captured samples of the two reports chip_smoke.py reads on the card:
@@ -226,3 +237,176 @@ def test_cuobjdump_lookup(monkeypatch, tmp_path):
     (tmp_path / "bin" / "cuobjdump").write_text("")
     monkeypatch.setattr(_build, "_nvcc", lambda: str(tmp_path / "bin" / "nvcc"))
     assert _build.cuobjdump() == str(tmp_path / "bin" / "cuobjdump")
+
+
+# The checkpoint and quantization phases' arithmetic and writer.
+
+TINY_XLMR = dict(vocab_size=300, hidden_size=32, num_layers=2, num_heads=4,
+                 intermediate_size=64, max_position_embeddings=34, type_vocab_size=1,
+                 layer_norm_eps=1e-5, position_offset=2)
+
+
+def _leaf_counts(tree):
+    from symbiont_tpu_torch.models import quant
+
+    leaves = list(quant.leaves(tree))
+    return {"matrix": sum(t.numel() for t in leaves if t.ndim >= 2),
+            "scales": sum(t.shape[-1] for t in leaves if t.ndim >= 2),
+            "vector": sum(t.numel() for t in leaves if t.ndim < 2)}
+
+
+@pytest.mark.parametrize("with_pooler", [False, True])
+@pytest.mark.parametrize("geom", [TINY_XLMR, chip_smoke.MINILM_L6], ids=["xlmr", "minilm"])
+def test_param_counts_match_the_initialised_tree(geom, with_pooler):
+    from symbiont_tpu_torch.models import bert as bert_mod
+
+    cfg = bert_mod.BertConfig(**geom)
+    tree = bert_mod.init_params(torch.Generator().manual_seed(0), cfg, with_pooler=with_pooler)
+    want = _leaf_counts(tree)
+    got = chip_smoke.param_counts(geom, with_pooler=with_pooler)
+    assert {k: got[k] for k in want} == want
+    assert got["total"] == want["matrix"] + want["vector"]
+
+
+def test_mpnet_multilingual_geometry_bytes():
+    n = chip_smoke.param_counts(chip_smoke.MPNET_MULTILINGUAL)
+    assert n["total"] == 277_453_056  # paraphrase-multilingual-mpnet-base-v2
+    none = chip_smoke.expected_param_bytes(chip_smoke.MPNET_MULTILINGUAL, "none")
+    int8 = chip_smoke.expected_param_bytes(chip_smoke.MPNET_MULTILINGUAL, "int8")
+    assert none == 2 * n["total"] == 554_906_112
+    assert int8 == chip_smoke.expected_param_bytes(chip_smoke.MPNET_MULTILINGUAL, "fp8")
+    assert int8 == n["matrix"] + 4 * n["scales"] + 2 * n["vector"] == 277_915_392
+    assert int8 / none < 0.55
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("mode", ["none", "f16", "int8", "fp8"])
+def test_expected_param_bytes_is_what_the_engine_holds(mode, dtype):
+    from symbiont_tpu_torch.config import EngineConfig
+    from symbiont_tpu_torch.engine.engine import TorchEngine
+    from symbiont_tpu_torch.models import bert as bert_mod
+    from symbiont_tpu_torch.models import quant
+
+    cfg = bert_mod.BertConfig(**TINY_XLMR)
+    params = bert_mod.init_params(torch.Generator().manual_seed(1), cfg)
+    eng = TorchEngine(EngineConfig(embedding_dim=32, dtype=dtype, quantize=mode),
+                      params=params, model_cfg=cfg, device="cpu")
+    assert quant.param_bytes(eng.params) == chip_smoke.expected_param_bytes(TINY_XLMR, mode, dtype)
+
+
+@pytest.mark.parametrize("fmt", ["safetensors", "bin"])
+def test_write_checkpoint_reads_back(tmp_path, fmt):
+    from symbiont_tpu_torch.models import bert as bert_mod
+    from symbiont_tpu_torch.models.convert import load_bert_model
+
+    cfg = bert_mod.BertConfig(**TINY_XLMR)
+    params = bert_mod.init_params(torch.Generator().manual_seed(2), cfg, with_pooler=True)
+    hf = chip_smoke.write_checkpoint(tmp_path, params, cfg, fmt)
+    # config.json inverts BertConfig.from_hf: XLM-R, pad id 1, one token type
+    assert (hf["model_type"], hf["pad_token_id"], hf["type_vocab_size"]) == ("xlm-roberta", 1, 1)
+    assert (hf["vocab_size"], hf["num_hidden_layers"], hf["layer_norm_eps"]) == (300, 2, 1e-5)
+    name = {"safetensors": "model.safetensors", "bin": "pytorch_model.bin"}[fmt]
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["config.json", name]
+    if fmt == "bin":
+        sd = torch.load(tmp_path / name, weights_only=True)
+        assert "bert.embeddings.word_embeddings.weight" in sd and "classifier.weight" in sd
+    back, back_cfg = load_bert_model(tmp_path, with_pooler=True)
+    assert back_cfg == cfg
+    assert np.array_equal(back["layers"][1]["mlp"]["in"]["kernel"],
+                          params["layers"][1]["mlp"]["in"]["kernel"].numpy())
+    assert np.array_equal(back["classifier"]["kernel"], params["classifier"]["kernel"].numpy())
+    with pytest.raises(ValueError, match="format"):
+        chip_smoke.write_checkpoint(tmp_path / "x", params, cfg, "npz")
+
+
+# Frames as torch's memory history records them (innermost first).
+_ROOT = "/work/repo"
+_FRAMES = [
+    {"filename": "/usr/lib/python3/site-packages/torch/nn/functional.py", "line": 10,
+     "name": "linear"},
+    {"filename": f"{_ROOT}/symbiont_tpu_torch/train/trainer.py", "line": 120, "name": "loss"},
+    {"filename": f"{_ROOT}/symbiont_tpu_torch/train/trainer.py", "line": 200, "name": "step"},
+    {"filename": f"{_ROOT}/chip_smoke.py", "line": 700, "name": "train_path"},
+]
+
+
+def test_alloc_site_names_the_innermost_repo_frames():
+    assert chip_smoke.alloc_site(_FRAMES, _ROOT) == (
+        "symbiont_tpu_torch/train/trainer.py:120 loss < symbiont_tpu_torch/train/trainer.py:200 step")
+    assert chip_smoke.alloc_site(_FRAMES[:1], _ROOT) is None
+    assert chip_smoke.alloc_site([], _ROOT) is None
+
+
+def test_group_blocks_by_site_pool_and_reachability():
+    segments = [
+        {"segment_pool_id": (0, 0), "blocks": [
+            {"address": 100, "size": 4096, "state": "active_allocated", "frames": _FRAMES},
+            {"address": 200, "size": 2048, "state": "active_allocated", "frames": _FRAMES},
+            {"address": 300, "size": 1 << 20, "state": "inactive"},
+            {"address": 400, "size": 512, "state": "active_allocated"}]},
+        {"segment_pool_id": (1, 7), "blocks": [
+            {"address": 500, "size": 8192, "state": "active_allocated", "frames": []}]},
+    ]
+    groups = chip_smoke.group_blocks(segments, reachable={200}, root=_ROOT)
+    site = chip_smoke.alloc_site(_FRAMES, _ROOT)
+    assert groups == [
+        (8192, 1, "pool (1, 7), no history, block of 8,192", False),
+        (4096, 1, site, False),
+        (2048, 1, site, True),
+        (512, 1, "pool (0, 0), no history, block of 512", False),
+    ]
+    assert sum(g[0] for g in groups) == 8192 + 4096 + 2048 + 512  # inactive blocks left out
+
+
+def test_top_kernels_keeps_device_entries_by_self_time():
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ev = [SimpleNamespace(key=k, self_device_time_total=us, count=c, device_type=d)
+          for k, us, c, d in [("aten::mm", 9e6, 1, DeviceType.CPU),
+                              ("gemm", 3000.0, 72, DeviceType.CUDA),
+                              ("mul", 1500.0, 144, DeviceType.CUDA),
+                              ("copy", 4500.0, 10, DeviceType.CUDA)]]
+    assert chip_smoke.top_kernels(ev, 2) == [("copy", 4.5, 10), ("gemm", 3.0, 72)]
+    # the fields it reads exist on a real profile's entries (none on the card here)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        torch.ones(8) @ torch.ones(8)
+    events = prof.key_averages()
+    assert chip_smoke.top_kernels(events) == []
+    assert all(e.self_device_time_total == 0 and e.count >= 1 and e.key for e in events)
+
+
+def test_storage_bytes_counts_each_storage_once():
+    from symbiont_tpu_torch.models import quant
+
+    w = torch.ones(4, 6)
+    qt = quant.quantize_params({"k": torch.randn(5, 3)}, "int8")["k"]
+    got = chip_smoke._storage_bytes({"a": w, "b": [w, qt]}, {"c": torch.zeros(3)})
+    assert sorted(got.values()) == sorted([4 * 6 * 4, 5 * 3, 3 * 4, 3 * 4])
+    assert got[w.untyped_storage().data_ptr()] == 96
+
+
+def test_kernel_short_keeps_the_functor_in_view():
+    mixed = ("void at::native::elementwise_kernel<128, 4, at::native::gpu_kernel_impl<"
+             "at::native::BinaryFunctor<c10::BFloat16, float, float, "
+             "at::native::binary_internal::MulFunctor<float> > >(at::TensorIteratorBase&, "
+             "at::native::BinaryFunctor<c10::BFloat16, float, float, "
+             "at::native::binary_internal::MulFunctor<float> > const&)::{lambda(int)#1}>"
+             "(int, {lambda(int)#1})")
+    assert chip_smoke.kernel_short(mixed) == (
+        "elementwise_kernel<128, 4, gpu_kernel_impl<BinaryFunctor<BFloat16, float, float, "
+        "MulFunctor<float> > >")
+    copy = ("void at::native::vectorized_elementwise_kernel<8, at::native::bfloat16_copy_kernel_cuda"
+            "(at::TensorIteratorBase&)::{lambda()#1}::operator()() const::{lambda(float)#1}, "
+            "std::array<char*, 2ul> >(int, ...)")
+    assert chip_smoke.kernel_short(copy) == "vectorized_elementwise_kernel<8, bfloat16_copy_kernel_cuda"
+    assert chip_smoke.kernel_short("nvjet_tst_192x192_64x3_2x1_v_bz_coopB_NNN") == (
+        "nvjet_tst_192x192_64x3_2x1_v_bz_coopB_NNN")
+    assert len(chip_smoke.kernel_short("k<" + "a" * 500 + ">", width=40)) == 40
+
+
+def test_clear_cublas_workspaces_without_the_call_frees_nothing(monkeypatch):
+    monkeypatch.delattr(torch._C, "_cuda_clearCublasWorkspaces", raising=False)
+    assert chip_smoke.clear_cublas_workspaces() == 0

@@ -134,10 +134,15 @@ def test_plan_cap_and_batch_bucket():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(quantize="int8"), NotImplementedError),
+    (dict(quantize="int8"), None),
     (dict(quantize="int4"), ValueError),
 ])
 def test_config_rejects_unported_quantization(kw, exc):
+    """Every mode of QUANTIZE_MODES constructs (int8 here); a mode outside
+    it is refused."""
+    if exc is None:
+        assert EngineConfig(**kw).quantize == kw["quantize"]
+        return
     with pytest.raises(exc):
         EngineConfig(**kw)
 
@@ -145,8 +150,12 @@ def test_config_rejects_unported_quantization(kw, exc):
 @pytest.mark.parametrize("kw", [dict(model_dir="/nonexistent"),
                                 dict(cross_model_dir="/nonexistent")])
 def test_checkpoint_dirs_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Checkpoint dirs load now: a missing one raises FileNotFoundError, as
+    the JAX loader does."""
+    with pytest.raises(FileNotFoundError, match="nonexistent"):
         TorchEngine(EngineConfig(**ENG, **kw), device="cpu")
+    with pytest.raises(FileNotFoundError, match="nonexistent"):
+        TpuEngine(JaxEngineConfig(**ENG, **kw, data_parallel=False))
 
 
 def test_bad_attn_impl():
@@ -158,3 +167,75 @@ def test_config_defaults_match_jax():
     mine = dataclasses.asdict(EngineConfig())
     theirs = dataclasses.asdict(JaxEngineConfig())
     assert mine == theirs
+
+
+# ------------------------------------------------------- checkpoint dirs
+
+HF_CORPUS = [
+    "the tensor cores multiply matrices in bfloat16",
+    "high bandwidth memory feeds the streaming multiprocessors",
+    "length buckets keep the set of shapes small",
+    "the vector store ranks documents by cosine similarity",
+    "a cross encoder scores the query and the passage together",
+    "checkpoints let a restarted engine skip the conversion step",
+] * 3
+
+
+def _train_wordpiece(out_file) -> int:
+    """A WordPiece tokenizer trained in-process (the format every
+    BERT-family model of BASELINE.md ships), saved as tokenizer.json."""
+    tk = pytest.importorskip("tokenizers")
+    tok = tk.Tokenizer(tk.models.WordPiece(unk_token="[UNK]"))
+    tok.normalizer = tk.normalizers.BertNormalizer(lowercase=True)
+    tok.pre_tokenizer = tk.pre_tokenizers.BertPreTokenizer()
+    trainer = tk.trainers.WordPieceTrainer(
+        vocab_size=200, special_tokens=["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"])
+    tok.train_from_iterator(HF_CORPUS, trainer)
+    tok.post_processor = tk.processors.TemplateProcessing(
+        single="[CLS] $A [SEP]", pair="[CLS] $A [SEP] $B:1 [SEP]:1",
+        special_tokens=[("[CLS]", tok.token_to_id("[CLS]")),
+                        ("[SEP]", tok.token_to_id("[SEP]"))])
+    tok.save(str(out_file))
+    return tok.get_vocab_size()
+
+
+@pytest.fixture(scope="module")
+def hf_dirs(tmp_path_factory):
+    """An embedder dir (model.safetensors + tokenizer.json, as a hub
+    snapshot) and a cross-encoder dir (pytorch_model.bin, bert.* names)."""
+    transformers = pytest.importorskip("transformers")
+    emb_dir = tmp_path_factory.mktemp("embedder")
+    vocab = _train_wordpiece(emb_dir / "tokenizer.json")
+    torch.manual_seed(7)
+    geom = dict(vocab_size=vocab, hidden_size=32, num_hidden_layers=2,
+                num_attention_heads=4, intermediate_size=64, max_position_embeddings=64)
+    transformers.BertModel(transformers.BertConfig(**geom)).eval().save_pretrained(
+        emb_dir, safe_serialization=True)
+    cross_dir = tmp_path_factory.mktemp("cross")
+    transformers.BertForSequenceClassification(
+        transformers.BertConfig(**geom, num_labels=1)).eval().save_pretrained(
+            cross_dir, safe_serialization=False)
+    return emb_dir, cross_dir
+
+
+@pytest.mark.parametrize("attn_impl,tol", [("xla", F32), ("flash", dict(atol=2e-4, rtol=2e-4))])
+def test_model_dir_engine_matches_tpu_engine(hf_dirs, attn_impl, tol):
+    """TorchEngine(model_dir, cross_model_dir) against TpuEngine on the same
+    dirs, both with the tokenizer.json of model_dir: float32, JAX's flash in
+    interpret mode as its own tests run it."""
+    from symbiont_tpu.engine.tokenizer import HFTokenizer as JaxHFTokenizer
+    from symbiont_tpu_torch.engine.tokenizer import HFTokenizer
+
+    emb_dir, cross_dir = hf_dirs
+    kw = dict(ENG, model_dir=str(emb_dir), cross_model_dir=str(cross_dir), attn_impl=attn_impl)
+    jax_eng = TpuEngine(JaxEngineConfig(**kw, data_parallel=False))
+    port = TorchEngine(EngineConfig(**kw), device="cpu")
+    assert isinstance(port.tokenizer, HFTokenizer)
+    assert isinstance(jax_eng.tokenizer, JaxHFTokenizer)
+    assert port.model_cfg.attn_impl == attn_impl and port.model_cfg.hidden_size == 32
+    assert port.cross_params["classifier"]["kernel"].shape == (32, 1)
+    texts = HF_CORPUS[:6] + ["an unseen sentence with words the vocab splits"] * 2
+    np.testing.assert_allclose(port.embed_texts(texts), jax_eng.embed_texts(texts), **tol)
+    query = "which part feeds the multiprocessors?"
+    np.testing.assert_allclose(port.rerank(query, HF_CORPUS[:6]),
+                               jax_eng.rerank(query, HF_CORPUS[:6]), **tol)
