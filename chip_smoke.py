@@ -47,10 +47,20 @@ any failure exits non-zero:
              allocation site with --memory-history), then the mpnet dir at
              every `quantize` mode against "none": bytes, cosines, device
              time and its largest kernels, and the int8/fp8 codes made on
-             the card bit for bit against the CPU's.
+             the card bit for bit against the CPU's;
+9. generate — B1 at the LM prefill's causal GQA shapes against its plain
+             version on the real query rows (timed beside SDPA and the
+             bound); then TinyLlama-1.1B and GPT-2 124M written from the
+             seed in the hub's layout and served by LmEngine through
+             `model_dir` (bf16, flash prefill): exact parameter bytes,
+             greedy and sampled generate_batch per prompt bucket with B1
+             launched once per layer per prefill and never by a decode
+             step, seeded sampling that repeats, flash vs plain prefill at
+             cosine > 0.995 per row; TTFT, decode tok/s at batch 8 and 64
+             and the device's busy share printed with no bar.
 
-Launch counts are set to 0 just before each main path (phases 3-4, 5, 6
-and 8) and read just after. The last two lines are a JSON object with
+Launch counts are set to 0 just before each main path (phases 3-4, 5, 6,
+8 and 9) and read just after. The last two lines are a JSON object with
 every kernel's numbers and `{"ok": true, "device": {...}}`.
 """
 
@@ -60,6 +70,7 @@ import dataclasses
 import functools
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -826,13 +837,14 @@ def param_counts(geom: dict, with_pooler: bool = False) -> dict:
 def expected_param_bytes(geom: dict, quantize: str, dtype: str = "bfloat16") -> int:
     """Bytes a TorchEngine holds for an embedder of `geom`: everything in the
     compute dtype, except int8/fp8 matrices as one-byte codes plus float32
-    scales (the vectors stay in the compute dtype)."""
+    scales and f16 matrices as bf16 (the vectors stay in the compute
+    dtype)."""
     n = param_counts(geom)
     width = 2 if dtype == "bfloat16" else 4
     if quantize in ("int8", "fp8"):
         return n["matrix"] + 4 * n["scales"] + width * n["vector"]
-    if quantize == "f16" and dtype != "bfloat16":
-        return 4 * n["total"]  # bf16 values, held in the float32 compute dtype
+    if quantize == "f16":
+        return 2 * n["matrix"] + width * n["vector"]
     return width * n["total"]
 
 
@@ -1329,6 +1341,429 @@ def quant_phase(rng, mpnet_dir, host: dict) -> dict:
     return {"launches": launches}
 
 
+# ------------------------------------------------------------- generation
+
+# The decoder checkpoints of BASELINE.md #5, as their hub config.json files
+# give them, written from SEED at these widths (no download). The card has
+# no `tokenizers`, so neither dir holds a tokenizer.json and the engine
+# takes its byte tokenizer (ids 0..256) whatever the vocab.
+TINYLLAMA_1B = dict(  # TinyLlama/TinyLlama-1.1B-Chat-v1.0
+    model_type="llama", architectures=["LlamaForCausalLM"], vocab_size=32000,
+    hidden_size=2048, num_hidden_layers=22, num_attention_heads=32, num_key_value_heads=4,
+    intermediate_size=5632, max_position_embeddings=2048, rms_norm_eps=1e-5,
+    rope_theta=10000.0, tie_word_embeddings=False)
+GPT2_124M = dict(  # openai-community/gpt2
+    model_type="gpt2", architectures=["GPT2LMHeadModel"], vocab_size=50257, n_embd=768,
+    n_layer=12, n_head=12, n_positions=1024, layer_norm_epsilon=1e-5)
+GEN_ROWS, GEN_NEW = 8, 64  # prompts per generate_batch, max_new_tokens
+# flash vs plain prefill: next-token distribution cosine per row, the JAX
+# package's bf16 decoder bar (tests/test_lm_engine.py)
+GEN_COS_BAR = 0.995
+
+
+def gpt_param_count(hf: dict) -> int:
+    """Parameters of a GPT-2 or Llama geometry given as its config.json."""
+    from symbiont_tpu_torch.models.gpt import GPTConfig
+
+    c = GPTConfig.from_hf(hf)
+    H, I, V, L = c.hidden_size, c.intermediate_size, c.vocab_size, c.num_layers
+    if c.arch == "gpt2":  # tied head; every linear and LayerNorm has a bias
+        layer = 4 * H + 4 * (H * H + H) + 2 * H * I + I + H
+        return V * H + c.max_position_embeddings * H + 2 * H + L * layer
+    kv = c.kv_heads * c.head_dim
+    layer = 2 * H + 2 * H * H + 2 * H * kv + 3 * H * I
+    return V * H * (1 if c.tie_word_embeddings else 2) + H + L * layer
+
+
+def gpt_state_dict(params, cfg, dtype=torch.bfloat16) -> dict:
+    """The inverse of `convert.convert_gpt`, under the names the hub's files
+    use: GPT-2 under `transformer.*` with Conv1D weights `[in, out]` and q/k/v
+    fused into `c_attn`; Llama under `model.*` with Linear weights `[out,
+    in]`, and `lm_head` when untied. Values on the CPU in `dtype`: bf16
+    tensors, float32 ones as numpy (what `write_safetensors` takes)."""
+    def out(t):
+        t = t.detach().to(dtype).contiguous().cpu()
+        return t if dtype == torch.bfloat16 else t.numpy()
+
+    sd = {}
+    if cfg.arch == "gpt2":
+        sd["transformer.wte.weight"] = out(params["wte"])
+        sd["transformer.wpe.weight"] = out(params["wpe"])
+        sd["transformer.ln_f.weight"] = out(params["ln_f"]["scale"])
+        sd["transformer.ln_f.bias"] = out(params["ln_f"]["bias"])
+        for i, layer in enumerate(params["layers"]):
+            p = f"transformer.h.{i}"
+            for hf, ours in (("ln_1", "ln1"), ("ln_2", "ln2")):
+                sd[f"{p}.{hf}.weight"] = out(layer[ours]["scale"])
+                sd[f"{p}.{hf}.bias"] = out(layer[ours]["bias"])
+            qkv = [layer[n] for n in ("q", "k", "v")]
+            sd[f"{p}.attn.c_attn.weight"] = out(torch.cat([x["kernel"] for x in qkv], 1))
+            sd[f"{p}.attn.c_attn.bias"] = out(torch.cat([x["bias"] for x in qkv]))
+            for hf, ours in (("attn.c_proj", layer["o"]), ("mlp.c_fc", layer["mlp"]["in"]),
+                             ("mlp.c_proj", layer["mlp"]["out"])):
+                sd[f"{p}.{hf}.weight"] = out(ours["kernel"])
+                sd[f"{p}.{hf}.bias"] = out(ours["bias"])
+        return sd
+    sd["model.embed_tokens.weight"] = out(params["wte"])
+    sd["model.norm.weight"] = out(params["ln_f"]["scale"])
+    for i, layer in enumerate(params["layers"]):
+        p = f"model.layers.{i}"
+        sd[f"{p}.input_layernorm.weight"] = out(layer["ln1"]["scale"])
+        sd[f"{p}.post_attention_layernorm.weight"] = out(layer["ln2"]["scale"])
+        for n in ("q", "k", "v", "o"):
+            sd[f"{p}.self_attn.{n}_proj.weight"] = out(layer[n]["kernel"].T)
+        for n in ("gate", "up", "down"):
+            sd[f"{p}.mlp.{n}_proj.weight"] = out(layer["mlp"][n]["kernel"].T)
+    if not cfg.tie_word_embeddings:
+        sd["lm_head.weight"] = out(params["lm_head"]["kernel"].T)
+    return sd
+
+
+def write_gpt_checkpoint(out_dir, params, hf: dict, dtype=torch.bfloat16) -> float:
+    """`params` as a hub-format model dir (config.json + model.safetensors in
+    `dtype`) through the port's own safetensors writer; returns the file's
+    size in bytes."""
+    from symbiont_tpu_torch.models import convert
+    from symbiont_tpu_torch.models.gpt import GPTConfig
+
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    convert.write_safetensors(out_dir / "model.safetensors",
+                              gpt_state_dict(params, GPTConfig.from_hf(hf), dtype))
+    (out_dir / "config.json").write_text(json.dumps(hf, indent=2))
+    return (out_dir / "model.safetensors").stat().st_size
+
+
+def ragged_prompts(rng, lo: int, hi: int, n: int) -> list[str]:
+    """n ASCII prompts whose byte-tokenizer lengths (bytes + BOS) lie in
+    (lo, hi], the last one exactly hi, so they fill the prompt bucket hi."""
+    lens = list(rng.integers(lo + 1, hi + 1, n - 1)) + [hi]
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz "))
+    return ["".join(rng.choice(letters, int(t) - 1)) for t in lens]
+
+
+def left_pad_bias(lengths, S: int, device="cuda") -> torch.Tensor:
+    """The LM prefill's float32 key bias [B, S]: prompts are right-aligned,
+    so a row of length n has its padding first (-1e9) and its n real keys
+    last (0)."""
+    pos = torch.arange(S, device=device)[None, :]
+    pad = S - torch.as_tensor(lengths, device=device)[:, None]
+    return torch.where(pos >= pad, 0.0, -1e9).float().contiguous()
+
+
+def real_query_rows(lengths, S: int, device="cuda") -> torch.Tensor:
+    """[B, 1, S, 1] True on the query rows of real tokens: a right-aligned
+    row of length n has its real queries last."""
+    pad = S - torch.as_tensor(lengths, device=device)
+    return (torch.arange(S, device=device)[None, :] >= pad[:, None])[:, None, :, None]
+
+
+def real_rows_within(out, ref, real, tol: float) -> tuple[bool, float]:
+    """B1's bar, |kernel - plain| <= tol + tol·|plain|, on the `real` query
+    rows only → (within, max |err| there). A padding query under causal
+    attention sees only masked keys: its value depends on the kernel's
+    blocks, and no real token ever reads it (ROADMAP Queue C)."""
+    err = (out.float() - ref.float()).abs()
+    ok = (err <= tol + tol * ref.float().abs()) | ~real
+    return bool(ok.all()), float(err.masked_fill(~real, 0).max())
+
+
+def next_token_cosines(a: torch.Tensor, b: torch.Tensor) -> np.ndarray:
+    """Per row, the cosine of two next-token distributions (softmax of
+    float32 logits [B, V])."""
+    pa, pb = torch.softmax(a.float(), -1), torch.softmax(b.float(), -1)
+    return ((pa * pb).sum(-1) / (pa.norm(dim=-1) * pb.norm(dim=-1))).cpu().numpy()
+
+
+def causal_gqa_kernel_phase(timed: bool = True) -> dict:
+    """B1 at the generate path's prefill shapes: TinyLlama's causal GQA,
+    q [8, 32, S, 64] over k/v [8, 4, S, 64], bf16, left padding, against its
+    plain version on the real query rows; timed beside SDPA (enable_gqa, a
+    float mask with the causal and padding terms) and the bound."""
+    from symbiont_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rng = np.random.default_rng(SEED + 7)
+    rows = {}
+    for S in (256, 1024):
+        lens = list(rng.integers(S // 4, S + 1, GEN_ROWS - 1)) + [S]
+        q = torch.randn((GEN_ROWS, 32, S, 64), generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn((GEN_ROWS, 4, S, 64), generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        bias = left_pad_bias(lens, S)
+        out, lse = fa.flash_attention_with_lse(q, k, v, bias, causal=True)
+        ref, ref_lse = fa.flash_attention_reference(q, k, v, bias, causal=True)
+        real = real_query_rows(lens, S)
+        ok, err = real_rows_within(out, ref, real, 2e-2)
+        lse_err = float((((lse - ref_lse).abs() / (1 + ref_lse.abs())) * real).max())
+        check(bool(torch.isfinite(out.float()).all()), f"causal GQA S={S}: non-finite output")
+        check(ok, f"causal GQA S={S}: max |kernel - plain| {err:.4g} on real rows over 0.02")
+        check(lse_err <= 1e-4, f"causal GQA S={S}: lse relative error {lse_err:.3g} > 1e-4")
+        row = {"label": f"causal_gqa_S{S}", "max_abs_err": err}
+        line = (f"[kernels] flash_attn_fwd causal GQA q{tuple(q.shape)} k{tuple(k.shape)} bf16, "
+                f"left padding, real query rows: max_abs_err {err:.4g} (tol 0.02 abs + 0.02 "
+                f"rel), lse rel err {lse_err:.3g}")
+        if timed:
+            bound, bound_by = _bound_ms(q, k, v, bias, causal=True)
+            ms = graph_ms(lambda: fa.flash_attention(q, k, v, bias, causal=True))
+            plain = graph_ms(lambda: fa.flash_attention_reference(q, k, v, bias, causal=True),
+                             iters=5)
+            causal = torch.ones((S, S), dtype=torch.bool, device="cuda").tril()
+            mask = torch.where(causal[None, None], bias[:, None, None, :], -1e9).bfloat16()
+            lib = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True))
+            row |= {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
+                    "library_ms": lib}
+            line += (f"; ms {ms:.4f} (graph replay), plain_ms {plain:.4f}, library_ms (SDPA, "
+                     f"enable_gqa) {lib:.4f}, bound_ms {bound:.4f} ({bound_by}), "
+                     f"{bound / ms:.1%} of bound")
+        print(line, flush=True)
+        rows[S] = row
+        del q, k, v, bias, out, lse, ref, ref_lse, real
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _median_ms(fn, reps: int = 3) -> float:
+    """Median host-clock ms of fn() over `reps` synchronised calls, after
+    one untimed call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def generate_phase(rng, tmp) -> dict:
+    """BASELINE.md #5 on the card: TinyLlama-1.1B and GPT-2 124M written from
+    SEED in the hub's layout and served by LmEngine through `model_dir`
+    (bf16, flash prefill). Each check fails the run: parameter bytes to the
+    byte; per prompt bucket, greedy and sampled `generate_batch` of 8 ragged
+    prompts at 64 new tokens with B1 launched exactly once per layer per
+    call (the prefill) and never by a decode step; finite logits, tokens in
+    the vocab, the same tokens from the same seed; flash against plain
+    prefill at cosine > 0.995 per row. Printed, with no bar: load seconds,
+    TTFT (prefill ms), decode ms per step and tok/s at batch 8 and 64 in
+    turns, B1's share of one prefill's device time, and one generate_batch
+    under torch.profiler."""
+    import gc
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from symbiont_tpu_torch.config import LmConfig
+    from symbiont_tpu_torch.engine.lm import LmEngine
+    from symbiont_tpu_torch.models import gpt as gpt_mod
+    from symbiont_tpu_torch.ops import flash_attention as fa
+    from symbiont_tpu_torch.utils.telemetry import metrics
+
+    tmp = Path(tmp)
+    cfg = gpt_mod.GPTConfig.from_hf(TINYLLAMA_1B)
+    n_params = gpt_param_count(TINYLLAMA_1B)
+    t0 = time.perf_counter()
+    params = gpt_mod.init_params(torch.Generator(device="cuda").manual_seed(SEED + 6), cfg)
+    probes = {"wte[-4:]": (("wte",), slice(-4, None)),
+              "layers[-1].k": (("layers", -1, "k", "kernel"), slice(None)),
+              "lm_head[:, :8]": (("lm_head", "kernel"), (slice(None), slice(0, 8)))}
+    written = {n: _leaf(params, p)[rows].to(torch.bfloat16) for n, (p, rows) in probes.items()}
+    size = write_gpt_checkpoint(tmp / "tinyllama", params, TINYLLAMA_1B)
+    write_s = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    eng = LmEngine(LmConfig(model_dir=str(tmp / "tinyllama"), dtype="bfloat16",
+                            attn_impl="flash"))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    mcfg, L = eng.model_cfg, eng.model_cfg.num_layers
+    check(mcfg == dataclasses.replace(cfg, attn_impl="flash"), f"loaded geometry {mcfg}")
+    gauge = metrics.gauge_get("lm.param_bytes", {"service": "lm", "dtype": "bfloat16"})
+    check(eng.param_bytes() == gauge == 2 * n_params,
+          f"TinyLlama param_bytes {eng.param_bytes()} (gauge {gauge}) != {2 * n_params}")
+    for n, (p, rows) in probes.items():
+        check(torch.equal(_leaf(eng.params, p)[rows], written[n]),
+              f"engine's {n} != the written bf16 leaf")
+    V = mcfg.vocab_size
+
+    def device_prompts(prompts, rows=GEN_ROWS):
+        ids, mask, new = eng._prepare_prompts(prompts, GEN_NEW, min_rows=rows)
+        return eng._device_ids(ids), eng._device_ids(mask), new
+
+    launches, per_bucket, lo, cached = 0, [], 0, {}
+    for P in eng.config.prompt_buckets:
+        prompts = ragged_prompts(rng, lo, P, GEN_ROWS)
+        lo = P
+        ids, mask, new = device_prompts(prompts)
+        check(tuple(ids.shape) == (GEN_ROWS, P) and new == GEN_NEW,
+              f"bucket {P}: prompts shaped {tuple(ids.shape)}, new bucket {new}")
+        walls = []
+        for temp in (0.0, 0.8):
+            tok0 = eng.stats["tokens_generated"]
+            fa.launches = 0  # ------------------------------------------ main path
+            t0 = time.perf_counter()
+            texts = eng.generate_batch(prompts, [GEN_NEW] * GEN_ROWS, temperature=temp)
+            walls.append(time.perf_counter() - t0)
+            n = fa.launches  # ------------------------------------------ main path end
+            check(n == L, f"bucket {P}, temperature {temp}: B1 launches {n} != {L} per call")
+            made = eng.stats["tokens_generated"] - tok0
+            check(len(texts) == GEN_ROWS and made == GEN_ROWS * GEN_NEW,
+                  f"bucket {P}: {made} tokens counted for {GEN_ROWS} x {GEN_NEW}")
+            launches += n
+        # the model's own functions: logits, tokens and seeds
+        with torch.inference_mode():
+            cache, logits, kv_valid, plen = gpt_mod.prefill(eng.params, ids, mask, mcfg, new)
+            fa.launches = 0
+            done = torch.zeros(GEN_ROWS, dtype=torch.bool, device="cuda")
+            cache, last, *_ = gpt_mod.decode_chunk(eng.params, cache, logits, plen, done,
+                                                   kv_valid, eng._new_generator(SEED), 4,
+                                                   mcfg, 0.8, 40)
+            check(fa.launches == 0, f"bucket {P}: B1 launched {fa.launches} x in 4 decode steps")
+            check(bool(torch.isfinite(logits).all() and torch.isfinite(last).all()),
+                  f"bucket {P}: non-finite logits")
+            runs = [gpt_mod.generate(eng.params, ids, mask, eng._new_generator(SEED), mcfg,
+                                     GEN_NEW, 0.8, 40)[0] for _ in range(2)]
+            check(torch.equal(runs[0], runs[1]), f"bucket {P}: one seed, two token streams")
+            check(int(runs[0].min()) >= 0 and int(runs[0].max()) < V,
+                  f"bucket {P}: tokens outside the vocab")
+            if P in (256, 1024):
+                cached[P] = (ids, mask, logits)
+            del cache, last, kv_valid, runs
+        per_bucket.append(f"P={P}: greedy {walls[0]:.2f} s, sampled {walls[1]:.2f} s")
+
+    # check 3: flash against plain prefill, and TTFT of both
+    eng_x = LmEngine(dataclasses.replace(eng.config, attn_impl="xla"), params=eng.params,
+                     model_cfg=mcfg, tokenizer=eng.tokenizer)
+    cos, ttft = {}, {}
+    with torch.inference_mode():
+        for P, (ids, mask, logits) in cached.items():
+            plain = gpt_mod.prefill(eng_x.params, ids, mask, eng_x.model_cfg, GEN_NEW)[1]
+            cos[P] = next_token_cosines(logits, plain)
+            check(float(cos[P].min()) > GEN_COS_BAR,
+                  f"P={P}: flash vs plain next-token cosine {cos[P].min():.5f}")
+            for name, e in (("flash", eng), ("plain", eng_x)):
+                ttft[P, name] = _median_ms(lambda e=e: gpt_mod.prefill(
+                    e.params, ids, mask, e.model_cfg, GEN_NEW))
+    del eng_x
+
+    # decode speed at batch 8 and 64 after a flash prefill of the 1024
+    # bucket, read in turns (8, 64, 8, 64): the step is host-bound
+    steps, runs, decode = 16, {}, {}
+    long_prompts = ragged_prompts(rng, 256, 1024, 64)
+    with torch.inference_mode():
+        for rows in (GEN_ROWS, 64):
+            ids, mask, new = device_prompts(long_prompts[:rows], rows)
+            state = gpt_mod.prefill(eng.params, ids, mask, mcfg, new)
+            done = torch.zeros(rows, dtype=torch.bool, device="cuda")
+
+            def run(state=state, done=done, P=ids.shape[1]):
+                cache, logits, kv_valid, plen = state
+                gpt_mod.decode_chunk(eng.params, cache._replace(length=P), logits, plen, done,
+                                     kv_valid, eng._new_generator(SEED), steps, mcfg, 0.0, 0)
+
+            runs[rows] = (run, gpt_mod.cache_bytes(state[0]))
+        for rows in (GEN_ROWS, 64, GEN_ROWS, 64):
+            ms = _median_ms(runs[rows][0]) / steps
+            decode.setdefault(rows, []).append((ms, rows * 1e3 / ms))
+        kv_bytes = {rows: kv for rows, (_, kv) in runs.items()}
+        del runs
+
+    # one prefill of the longest bucket under the profiler: B1's share
+    ids, mask, logits = cached[max(cached)]
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        gpt_mod.prefill(eng.params, ids, mask, mcfg, GEN_NEW)
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    prefill_ms = sum(e.self_device_time_total for e in events) / 1e3
+    b1_ms = sum(e.self_device_time_total for e in events if "flash_fwd" in e.key) / 1e3
+    check(prefill_ms > 0, "the profiler saw no device time in a prefill")
+
+    # one generate_batch under the profiler: the device's busy share
+    prompts = ragged_prompts(rng, 64, 256, GEN_ROWS)
+    eng.generate_batch(prompts, [GEN_NEW] * GEN_ROWS, temperature=0.0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.generate_batch(prompts, [GEN_NEW] * GEN_ROWS, temperature=0.0)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    top = "; ".join(f"{kernel_short(name, 80)} {ms:.2f} ms x{calls}"
+                    for name, ms, calls in top_kernels(events))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"[generate] TinyLlama-1.1B geometry (llama, vocab {V:,}, {L} layers, "
+          f"{mcfg.num_heads} heads over {mcfg.kv_heads} KV heads of {mcfg.head_dim}, "
+          f"{n_params:,} parameters) from seed {SEED}: model.safetensors (bf16) "
+          f"{size / 1e9:.2f} GB written in {write_s:.2f} s, LmEngine(model_dir, bf16, flash) "
+          f"loaded in {load_s:.2f} s; param_bytes {2 * n_params:,} (lm.param_bytes gauge "
+          f"equal), leaves read back bit-equal; generate_batch of {GEN_ROWS} ragged prompts x "
+          f"{GEN_NEW} new tokens per prompt bucket, host clock: " + ", ".join(per_bucket)
+          + f"; B1 launches {L} per call (one prefill) and 0 in decode steps; logits finite, "
+          f"sampled tokens repeat under one seed", flush=True)
+    print("[generate] flash vs plain prefill, next-token cosine per row (bar > "
+          f"{GEN_COS_BAR}): " + ", ".join(f"P={P} min {c.min():.6f}" for P, c in cos.items())
+          + "; TTFT (prefill ms, host clock, median of 3): " + ", ".join(
+              f"P={P} {name} {ms:.2f}" for (P, name), ms in ttft.items()), flush=True)
+    print(f"[generate] decode after a flash prefill of the 1024 bucket, {steps} greedy steps, "
+          "read in turns 8, 64, 8, 64 (host clock, median of 3): " + ", ".join(
+              f"batch {b}: " + " and ".join(f"{ms:.2f} ms/step ({tps:,.0f} tok/s)"
+                                            for ms, tps in r)
+              + f", KV cache {kv_bytes[b] / 1e9:.2f} GB" for b, r in decode.items())
+          + f"; one prefill of the {max(cached)} bucket: device time {prefill_ms:.2f} ms, B1 "
+          f"{b1_ms:.3f} ms ({b1_ms / prefill_ms:.2%})", flush=True)
+    print(f"[generate] one generate_batch ({GEN_ROWS} prompts in the 256 bucket, {GEN_NEW} "
+          f"new) under torch.profiler: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({busy_ms / wall_ms:.1%} of wall); top kernels: {top}", flush=True)
+
+    # GPT-2 124M: float32 safetensors as the hub ships it, tied head, no GQA
+    g2 = gpt_mod.GPTConfig.from_hf(GPT2_124M)
+    n2 = gpt_param_count(GPT2_124M)
+    params = gpt_mod.init_params(torch.Generator(device="cuda").manual_seed(SEED + 8), g2)
+    size2 = write_gpt_checkpoint(tmp / "gpt2", params, GPT2_124M, torch.float32)
+    del params
+    t0 = time.perf_counter()
+    eng = LmEngine(LmConfig(model_dir=str(tmp / "gpt2"), dtype="bfloat16", attn_impl="flash"))
+    torch.cuda.synchronize()
+    load2_s = time.perf_counter() - t0
+    check(eng.param_bytes() == 2 * n2, f"GPT-2 param_bytes {eng.param_bytes()} != {2 * n2}")
+    prompts = ragged_prompts(rng, 16, 64, GEN_ROWS)
+    tok0 = eng.stats["tokens_generated"]
+    fa.launches = 0  # ---------------------------------------------------- main path
+    t0 = time.perf_counter()
+    eng.generate_batch(prompts, [GEN_NEW] * GEN_ROWS, temperature=0.8)
+    wall2 = time.perf_counter() - t0
+    n = fa.launches  # ---------------------------------------------------- main path end
+    check(n == eng.model_cfg.num_layers, f"GPT-2: B1 launches {n} != {eng.model_cfg.num_layers}")
+    check(eng.stats["tokens_generated"] - tok0 == GEN_ROWS * GEN_NEW, "GPT-2 token count")
+    launches += n
+    with torch.inference_mode():
+        ids, mask, new = eng._prepare_prompts(prompts, GEN_NEW)
+        logits = gpt_mod.prefill(eng.params, eng._device_ids(ids), eng._device_ids(mask),
+                                 eng.model_cfg, new)[1]
+    check(bool(torch.isfinite(logits).all()), "GPT-2: non-finite logits")
+    print(f"[generate] GPT-2 124M geometry (vocab {g2.vocab_size:,}, tied head, {n2:,} "
+          f"parameters): model.safetensors (float32) {size2 / 1e9:.2f} GB, loaded in "
+          f"{load2_s:.2f} s, param_bytes {2 * n2:,}; generate_batch of {GEN_ROWS} prompts in "
+          f"the {ids.shape[1]} bucket x {GEN_NEW} new, sampled: {wall2:.2f} s; B1 launches {n} "
+          f"= {eng.model_cfg.num_layers} per prefill; logits finite", flush=True)
+    del eng, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches,
+            "ttft": {f"P{P}_{name}": ms for (P, name), ms in ttft.items()},
+            "decode": {f"batch{b}": [{"ms_per_step": ms, "tok_s": tps} for ms, tps in r]
+                       for b, r in decode.items()},
+            "prefill_1024": {"device_ms": prefill_ms, "flash_attn_fwd_ms": b1_ms}}
+
+
 def main(argv=()) -> int:
     import argparse
 
@@ -1376,14 +1811,21 @@ def main(argv=()) -> int:
         del ck
         qt = quant_phase(np.random.default_rng(SEED + 5), mpnet_dir, host_leaves)
         lap("quant")
+        shutil.rmtree(mpnet_dir)  # room on the disk for the decoder checkpoints
+        gqa = causal_gqa_kernel_phase()
+        gen = generate_phase(np.random.default_rng(SEED + 6), tmp)
+        lap("generate")
     fwd = {"serve": serve["launches"][0], "train": train["launches"][0],
-           "checkpoint": ck_launches, "quant": qt["launches"]}
+           "checkpoint": ck_launches, "quant": qt["launches"], "generate": gen["launches"]}
     fwd_launches = sum(fwd.values())
     print("[phases] host seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items())
           + f"; total {sum(wall.values()):.1f}. flash_attn_fwd launches on the main path: "
           + ", ".join(f"{k} {v}" for k, v in fwd.items()) + f"; total {fwd_launches}",
           flush=True)
     entries = []
+    causal_gqa = [{"shape": f"q [8, 32, {S}, 64], k/v [8, 4, {S}, 64] bf16, causal, left "
+                            f"padding", **{k: v for k, v in r.items() if k != "label"}}
+                  for S, r in gqa.items()]
     for name, src, line, ref, launches, shape in (
             ("flash_attn_fwd", "flash_attn_fwd.cu", 81, kern["enc_S128"], fwd_launches,
              "q/k/v [32, 12, 128, 64] bf16, padding bias"),
@@ -1396,6 +1838,9 @@ def main(argv=()) -> int:
                         "replaces": f"symbiont_tpu/ops/flash_attention.py:{line}",
                         "launches": launches, "shape": shape}
                        | {k: v for k, v in ref.items() if k != "label"})
+    entries[0] |= {"generate_launches": gen["launches"], "causal_gqa": causal_gqa,
+                   "generate": {"ttft_ms": gen["ttft"], "decode": gen["decode"],
+                                "prefill_1024": gen["prefill_1024"]}}
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

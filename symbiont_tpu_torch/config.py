@@ -1,11 +1,13 @@
-"""Engine and vector-store configuration of the port.
+"""Engine, LM and vector-store configuration of the port.
 
-Own copies of `symbiont_tpu.config`'s `QUANTIZE_MODES`, `EngineConfig` and
-`VectorStoreConfig`, with the same fields and defaults, so code written
-against the JAX package's configs constructs these unchanged. Fields that
-steer parts of the JAX engine the port has not taken over yet (the mesh
-data-parallel split, the executable cache, the host prep pipeline) are kept
-for that reason and say so.
+Own copies of `symbiont_tpu.config`'s `QUANTIZE_MODES`, `EngineConfig`,
+`LmConfig` and `VectorStoreConfig`, with the same fields and defaults, so
+code written against the JAX package's configs constructs these unchanged.
+Fields that steer parts of the JAX engines the port has not taken over yet
+(the mesh data-parallel split, the executable cache, the host prep
+pipeline; for the LM the generation batcher, streaming, paged KV,
+speculative decoding and the online trainer) are kept for that reason and
+say so; `LmEngine` refuses the settings that would switch those parts on.
 """
 
 from __future__ import annotations
@@ -62,6 +64,102 @@ class EngineConfig:
                 f"got {self.quantize!r}")
         if self.tenant_lane_depth < 0:
             raise ValueError("engine.tenant_lane_depth must be >= 0")
+
+
+@dataclass
+class LmConfig:
+    """Decoder-LM generation (BASELINE.md config #5), the JAX package's
+    fields and defaults. Synthetic mode (no `model_dir`) is a byte-level
+    llama of the width below with random weights."""
+
+    enabled: bool = False
+    model_dir: Optional[str] = None  # GPT-2/Llama checkpoint dir
+    # run on the CPU instead of the CUDA device (device.resolve_device)
+    force_cpu: bool = False
+    # synthetic-mode geometry (used when model_dir is None; byte-level vocab)
+    arch: str = "llama"
+    hidden_size: int = 512
+    num_layers: int = 8
+    num_heads: int = 8
+    intermediate_size: int = 1536
+    max_positions: int = 2048
+    dtype: str = "bfloat16"
+    # "auto" → plain torch attention ("xla"); "flash" → the prefill runs the
+    # CUDA flash-attention kernel, causal, GQA inside; decode steps always
+    # read the cache with plain attention
+    attn_impl: str = "auto"
+    # tensor-parallel decode over a mesh: not ported (ROADMAP A15); "on"
+    # is refused by LmEngine, "auto" and "off" decode on one device
+    tensor_parallel: str = "auto"
+    # one shape set per (prompt bucket, new-token bucket) pair
+    prompt_buckets: List[int] = field(default_factory=lambda: [16, 64, 256, 1024])
+    new_token_buckets: List[int] = field(default_factory=lambda: [16, 64, 128, 256, 1024])
+    temperature: float = 0.8
+    top_k: int = 40
+    seed: int = 0
+    # the generation batcher's window, lanes and session rows, and the
+    # streaming chunk: not ported (ROADMAP A11's rest: GenBatcher,
+    # BatchSession, generate_stream)
+    gen_max_batch: int = 8
+    gen_flush_deadline_ms: float = 30.0
+    gen_tenant_lane_depth: int = 1024
+    session_min_rows: int = 4
+    stream_chunk: int = 16
+    # weight storage: "none" | "f16" | "int8" | "fp8" (models/quant.py),
+    # applied after the cast to the compute dtype
+    quantize: str = "none"
+    # KV-cache storage: "none" keeps compute-dtype slabs, "int8" per-vector
+    # int8 codes with float32 scales
+    kv_quant: str = "none"
+    # KV layout: "dense" only; "paged" is not ported (ROADMAP A12)
+    kv_layout: str = "dense"
+    kv_page_tokens: int = 16
+    kv_pool_pages: int = 0
+    kv_radix: bool = True
+    # speculative decoding: not ported (ROADMAP A13)
+    spec_draft_model: Optional[str] = None
+    spec_k: int = 8
+    # online fine-tune over ingested text: not ported (ROADMAP A14)
+    ingest_train: bool = False
+    ingest_train_steps: int = 2
+    ingest_train_min_chars: int = 512
+    ingest_train_seq_len: int = 64
+    ingest_train_batch: int = 8
+    ingest_train_lr: float = 1e-4
+    train_state_path: Optional[str] = None
+
+    def __post_init__(self) -> None:
+        if self.tensor_parallel not in ("auto", "on", "off"):
+            raise ValueError(
+                f"tensor_parallel must be auto|on|off, got {self.tensor_parallel!r}")
+        if self.quantize not in QUANTIZE_MODES:
+            raise ValueError(
+                f"lm.quantize must be one of {QUANTIZE_MODES}, got {self.quantize!r}")
+        if self.kv_quant not in ("none", "int8"):
+            raise ValueError(f"lm.kv_quant must be none|int8, got {self.kv_quant!r}")
+        if self.kv_layout not in ("dense", "paged"):
+            raise ValueError(f"lm.kv_layout must be dense|paged, got {self.kv_layout!r}")
+        if self.kv_layout == "paged":
+            if self.kv_page_tokens < 1:
+                raise ValueError("lm.kv_page_tokens must be >= 1")
+            bad = [b for b in self.prompt_buckets if b % self.kv_page_tokens]
+            if bad:
+                raise ValueError(
+                    f"kv_page_tokens={self.kv_page_tokens} must divide every prompt "
+                    f"bucket; offending buckets: {bad}")
+            if self.kv_pool_pages < 0:
+                raise ValueError("lm.kv_pool_pages must be >= 0 (0 = auto)")
+        if self.gen_tenant_lane_depth < 0:
+            raise ValueError("lm.gen_tenant_lane_depth must be >= 0")
+        if self.spec_k < 1:
+            raise ValueError(f"lm.spec_k must be >= 1, got {self.spec_k}")
+        if self.stream_chunk > 0:
+            bad = [b for b in self.new_token_buckets
+                   if b > self.stream_chunk and b % self.stream_chunk]
+            if bad:
+                raise ValueError(
+                    f"stream_chunk={self.stream_chunk} must divide every "
+                    f"new_token_bucket larger than it; offending buckets: {bad}")
 
 
 @dataclass

@@ -15,10 +15,12 @@ surface (`embed_texts`, `embed_query`, `embed_and_search`, `rerank`,
 - `quantize`: the float32 parameters are placed on the device, then
   quantized there (`models/quant.py`: bf16, or per-channel int8/fp8 codes)
   and the float32 copy dropped;
-- the encoder's parameters are cast to the compute dtype once, at load, so
-  with `quantize="none"` a bf16 engine holds bf16 where the JAX engine
-  holds float32 and casts per call (same values); `engine.param_bytes`'s
-  `dtype` label says what is held: f32, bf16, int8 or fp8;
+- the encoder's parameters are narrowed to the compute dtype once, at
+  load, and never widened: with `quantize="none"` a bf16 engine holds bf16
+  where the JAX engine holds float32 and casts per call (same values), and
+  under float32 compute f16's bf16 matrices stay bf16, as in the JAX
+  engine; `engine.param_bytes`'s `dtype` label says what is held: f32,
+  bf16, int8 or fp8;
 - `attn_impl` "auto" resolves to the plain torch attention ("xla"),
   "flash" runs the CUDA flash-attention kernel;
 - batches are planned per length bucket, capped at the largest batch
@@ -173,15 +175,17 @@ class TorchEngine:
 
     def _place(self, params):
         """Parameters onto the device, quantized there per
-        `config.quantize`; the encoder's float leaves then in the compute
-        dtype once (the JAX executables cast float32-at-rest weights on
-        every call — same values). A cross-encoder head is not cast: as in
-        the JAX package it meets the compute-dtype CLS vector in float32
-        (models/bert.py cross_encoder_score)."""
+        `config.quantize`; the encoder's float leaves then narrowed to the
+        compute dtype once (the JAX executables cast float32-at-rest
+        weights on every call — same values), never widened, so f16's bf16
+        matrices stay bf16 under float32 compute as in the JAX engine
+        (`bert_encode` casts per call). A cross-encoder head is not cast:
+        as in the JAX package it meets the compute-dtype CLS vector in
+        float32 (models/bert.py cross_encoder_score)."""
         dtype = bert_mod.torch_dtype(self.config.dtype)
         params = bert_mod.tree_map(lambda t: t.to(self.device), params)
         params = quant.quantize_params(params, self.config.quantize)
-        return {key: (bert_mod.cast_params(sub, dtype)
+        return {key: (quant.narrow_params(sub, dtype)
                       if key in ("embeddings", "layers") else sub)
                 for key, sub in params.items()}
 

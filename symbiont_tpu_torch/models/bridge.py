@@ -1,9 +1,9 @@
 """Parameter trees from the JAX package into the port.
 
-`bert_params_from_numpy` takes a JAX BERT parameter tree after `np.asarray`
-on every leaf (the same nested dict, `"layers"` a list) and returns the
-port's tree of tensors on the device, same keys, same `[in, out]` layout
-and dtypes. The port never imports JAX: the caller turns JAX arrays into
+`bert_params_from_numpy` and `gpt_params_from_numpy` take a JAX BERT or GPT
+parameter tree after `np.asarray` on every leaf (the same nested dict,
+`"layers"` a list) and return the port's tree of tensors on the device,
+same keys, same `[in, out]` layout and dtypes. The port never imports JAX: the caller turns JAX arrays into
 numpy. A quantized leaf (the JAX package's `QuantTensor` after `np.asarray`
 on its `q` and `scale`, or anything else with those two fields) becomes the
 port's `quant.QuantTensor`, its int8 or float8_e4m3fn codes bit for bit. A
@@ -40,3 +40,9 @@ def bert_params_from_numpy(tree, device=None):
     on CUDA unless `device="cpu"` (`device.resolve_device`)."""
     dev = resolve_device(device)
     return tree_map(lambda a: _tensor(a, dev), tree)
+
+
+def gpt_params_from_numpy(tree, device=None):
+    """The JAX GPT tree (`models/gpt.py`'s layout, leaves as numpy) → the
+    port's `models.gpt` tree, by the rules of `bert_params_from_numpy`."""
+    return bert_params_from_numpy(tree, device)

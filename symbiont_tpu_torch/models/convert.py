@@ -1,25 +1,26 @@
-"""HF checkpoints → the port's BERT parameter trees, and back.
+"""HF checkpoints → the port's BERT and GPT parameter trees, and back.
 
 The port's copy of `symbiont_tpu/models/convert.py`: a local model dir
 (`config.json` plus `model.safetensors`, a sharded safetensors set with its
 `model.safetensors.index.json`, or `pytorch_model.bin`) becomes the
-`models.bert` tree as float32 numpy arrays, kernels transposed from torch
-Linear's `[out, in]` to `[in, out]`. `models.bridge.bert_params_from_numpy`
-moves the tree onto the device. Layouts: `bert.*` (MiniLM, bge, e5, the
-ms-marco cross-encoder), `roberta.*` (XLM-R, the multilingual mpnet), and
-bare encoder dumps. `export_hf_bert` writes a tree back in the hub's
-layout, so `transformers` and either package load it.
+`models.bert` or `models.gpt` tree as float32 numpy arrays, kernels in
+`[in, out]` layout. `models.bridge` moves a tree onto the device. BERT
+layouts: `bert.*` (MiniLM, bge, e5, the ms-marco cross-encoder),
+`roberta.*` (XLM-R, the multilingual mpnet), and bare encoder dumps;
+`export_hf_bert` writes a tree back in the hub's layout, so `transformers`
+and either package load it. GPT layouts (`convert_gpt`): GPT-2, whose
+Conv1D weights are already `[in, out]` and whose fused `c_attn` is split
+into q, k and v, and Llama/Mistral, whose Linear weights are transposed.
 
 Safetensors files are read and written by the short reader and writer
 below (an 8-byte little-endian header length, a JSON header with
 `__metadata__ {"format": "pt"}`, then raw little-endian data), so a machine
 without the `safetensors` package reads and writes them. A bf16 tensor
-reads back as float32; the converter upcasts every tensor anyway.
+reads back as float32, and a bf16 torch tensor is written as BF16; the
+converter upcasts every tensor anyway.
 
-The GPT family (`convert_gpt`, `load_gpt_model`, the CLI's `--kind gpt`)
-comes with the port's GPT model (ROADMAP Queue A, A10).
-
-    python -m symbiont_tpu_torch.models.convert DIR [--out CKPT] [--pooler]
+    python -m symbiont_tpu_torch.models.convert DIR [--out CKPT] [--kind auto|bert|gpt]
+        [--pooler]
 """
 
 from __future__ import annotations
@@ -33,12 +34,11 @@ import numpy as np
 import torch
 
 from symbiont_tpu_torch.models.bert import BertConfig
+from symbiont_tpu_torch.models.gpt import GPTConfig
 from symbiont_tpu_torch.models.quant import leaves
 
 Params = Any
 
-_GPT_NOT_PORTED = ("GPT checkpoints are not ported to symbiont_tpu_torch yet "
-                   "(ROADMAP Queue A, A10: the GPT model)")
 _GPT_TYPES = ("gpt2", "llama", "mistral")
 
 # safetensors dtype names ↔ numpy; BF16 has no numpy dtype and reads as
@@ -78,18 +78,22 @@ def read_safetensors(path: str | Path) -> Dict[str, np.ndarray]:
     return out
 
 
-def write_safetensors(path: str | Path, tensors: Dict[str, np.ndarray]) -> None:
-    """{name: numpy array} → a `.safetensors` file, `__metadata__` format
-    "pt" (transformers refuses a file without it)."""
+def write_safetensors(path: str | Path, tensors: Dict[str, Any]) -> None:
+    """{name: numpy array, or a bfloat16 torch tensor} → a `.safetensors`
+    file, `__metadata__` format "pt" (transformers refuses a file without
+    it). A bf16 tensor is written as BF16, its bits as they are."""
     if sys.byteorder != "little":
         raise NotImplementedError("write_safetensors writes from little-endian hosts only")
     header: Dict[str, Any] = {"__metadata__": {"format": "pt"}}
     arrays, offset = [], 0
     for name in sorted(tensors):
-        a = np.asarray(tensors[name], order="C")  # ascontiguousarray makes 0-d 1-d
-        if a.dtype not in _ST_NAMES:
+        t, st_dtype = tensors[name], None
+        if isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16:
+            t, st_dtype = t.detach().cpu().contiguous().view(torch.int16).numpy(), "BF16"
+        a = np.asarray(t, order="C")  # ascontiguousarray makes 0-d 1-d
+        if st_dtype is None and a.dtype not in _ST_NAMES:
             raise ValueError(f"tensor {name!r}: dtype {a.dtype} has no safetensors name")
-        header[name] = {"dtype": _ST_NAMES[a.dtype],
+        header[name] = {"dtype": st_dtype or _ST_NAMES[a.dtype],
                         "shape": list(a.shape),
                         "data_offsets": [offset, offset + a.nbytes]}
         arrays.append(a)
@@ -207,11 +211,79 @@ def convert_bert(state_dict: Dict[str, Any], cfg: BertConfig,
 def load_bert_model(model_dir: str | Path, with_pooler: bool = False):
     """(params as float32 numpy, BertConfig) from a local HF model dir."""
     hf_cfg = load_hf_config(model_dir)
-    if hf_cfg.get("model_type") in _GPT_TYPES:
-        raise NotImplementedError(f"{model_dir}: {_GPT_NOT_PORTED}")
     cfg = BertConfig.from_hf(hf_cfg)
     params = convert_bert(load_state_dict(model_dir), cfg, with_pooler=with_pooler)
     return params, cfg
+
+
+def convert_gpt(state_dict: Dict[str, Any], cfg: GPTConfig) -> Params:
+    """An HF GPT-2 or Llama state dict → the `models.gpt` tree (float32
+    numpy, kernels `[in, out]`). GPT-2's Conv1D weights are already
+    `[in, out]` and its fused `c_attn` `[H, 3H]` is split into q/k/v;
+    Llama's Linear weights are transposed, and `lm_head` is read only when
+    the embeddings are untied."""
+    sd = {_strip_prefix(k.replace("transformer.", "")): v for k, v in state_dict.items()}
+
+    def take(name: str) -> np.ndarray:
+        if name not in sd:
+            raise KeyError(f"checkpoint missing tensor {name!r}")
+        return _to_numpy(sd[name]).astype(np.float32)
+
+    params: Params = {"layers": []}
+    if cfg.arch == "gpt2":
+        params["wte"] = take("wte.weight")
+        params["wpe"] = take("wpe.weight")
+        params["ln_f"] = {"scale": take("ln_f.weight"), "bias": take("ln_f.bias")}
+        for i in range(cfg.num_layers):
+            p = f"h.{i}"
+            qw, kw, vw = np.split(take(f"{p}.attn.c_attn.weight"), 3, axis=1)
+            qb, kb, vb = np.split(take(f"{p}.attn.c_attn.bias"), 3)
+            params["layers"].append({
+                "ln1": {"scale": take(f"{p}.ln_1.weight"), "bias": take(f"{p}.ln_1.bias")},
+                "ln2": {"scale": take(f"{p}.ln_2.weight"), "bias": take(f"{p}.ln_2.bias")},
+                "q": {"kernel": qw, "bias": qb},
+                "k": {"kernel": kw, "bias": kb},
+                "v": {"kernel": vw, "bias": vb},
+                "o": {"kernel": take(f"{p}.attn.c_proj.weight"),
+                      "bias": take(f"{p}.attn.c_proj.bias")},
+                "mlp": {
+                    "in": {"kernel": take(f"{p}.mlp.c_fc.weight"),
+                           "bias": take(f"{p}.mlp.c_fc.bias")},
+                    "out": {"kernel": take(f"{p}.mlp.c_proj.weight"),
+                            "bias": take(f"{p}.mlp.c_proj.bias")},
+                },
+            })
+    elif cfg.arch == "llama":
+        params["wte"] = take("embed_tokens.weight")
+        params["ln_f"] = {"scale": take("norm.weight")}
+        for i in range(cfg.num_layers):
+            p = f"layers.{i}"
+
+            def t(name):
+                return take(f"{p}.{name}.weight").T
+
+            params["layers"].append({
+                "ln1": {"scale": take(f"{p}.input_layernorm.weight")},
+                "ln2": {"scale": take(f"{p}.post_attention_layernorm.weight")},
+                "q": {"kernel": t("self_attn.q_proj")},
+                "k": {"kernel": t("self_attn.k_proj")},
+                "v": {"kernel": t("self_attn.v_proj")},
+                "o": {"kernel": t("self_attn.o_proj")},
+                "mlp": {"gate": {"kernel": t("mlp.gate_proj")},
+                        "up": {"kernel": t("mlp.up_proj")},
+                        "down": {"kernel": t("mlp.down_proj")}},
+            })
+        if not cfg.tie_word_embeddings:
+            params["lm_head"] = {"kernel": take("lm_head.weight").T}
+    else:
+        raise ValueError(f"unsupported arch {cfg.arch!r}")
+    return params
+
+
+def load_gpt_model(model_dir: str | Path):
+    """(params as float32 numpy, GPTConfig) from a local HF model dir."""
+    cfg = GPTConfig.from_hf(load_hf_config(model_dir))
+    return convert_gpt(load_state_dict(model_dir), cfg), cfg
 
 
 # ------------------------------------------------------------------ export
@@ -317,8 +389,9 @@ def main(argv=None) -> None:
     if kind == "auto":
         kind = "gpt" if hf_cfg.get("model_type") in _GPT_TYPES else "bert"
     if kind == "gpt":
-        raise NotImplementedError(_GPT_NOT_PORTED)
-    params, cfg = load_bert_model(args.model_dir, with_pooler=args.pooler)
+        params, cfg = load_gpt_model(args.model_dir)
+    else:
+        params, cfg = load_bert_model(args.model_dir, with_pooler=args.pooler)
     n_params = sum(int(np.prod(leaf.shape)) for leaf in leaves(params))
     print(f"{kind}: {type(cfg).__name__} hidden={cfg.hidden_size} "
           f"layers={cfg.num_layers} heads={cfg.num_heads} — "

@@ -149,7 +149,23 @@ def cast_params(params: Params, dtype: torch.dtype) -> Params:
     """Floating leaves → `dtype` (a no-op on leaves already in it);
     `QuantTensor` leaves untouched, so their float32 scales stay float32."""
     def cast(a):
-        if isinstance(a, torch.Tensor) and a.is_floating_point():
+        if isinstance(a, torch.Tensor) and a.is_floating_point() and a.dtype != dtype:
+            return a.to(dtype)
+        return a
+
+    return tree_map(cast, params)
+
+
+def narrow_params(params: Params, dtype: torch.dtype) -> Params:
+    """Floating leaves wider than `dtype` → `dtype`; a leaf already as
+    narrow stays as it is (f16's bf16 matrices under float32 compute, as the
+    JAX engine keeps them), and `QuantTensor` leaves are untouched. The
+    load-time cast that never widens a leaf."""
+    bits = torch.finfo(dtype).bits
+
+    def cast(a):
+        if (isinstance(a, torch.Tensor) and a.is_floating_point()
+                and torch.finfo(a.dtype).bits > bits):
             return a.to(dtype)
         return a
 

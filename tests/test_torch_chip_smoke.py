@@ -1,8 +1,11 @@
 """The device-free parts of chip_smoke.py: the bounds it computes from
 shapes, the bars it holds the backward kernels to, the parameter and byte
-counts and the checkpoint writer of its checkpoint and quantization
-phases, and its refusal to run without a CUDA card (it must print no
-result there)."""
+counts and the checkpoint writers of its checkpoint, quantization and
+generate phases, the generate phase's real-rows comparison, and its
+refusal to run without a CUDA card (it must print no result there) or to
+finish when a check fails."""
+
+import dataclasses
 
 import chip_smoke
 import numpy as np
@@ -410,3 +413,154 @@ def test_kernel_short_keeps_the_functor_in_view():
 def test_clear_cublas_workspaces_without_the_call_frees_nothing(monkeypatch):
     monkeypatch.delattr(torch._C, "_cuda_clearCublasWorkspaces", raising=False)
     assert chip_smoke.clear_cublas_workspaces() == 0
+
+
+# ---------------------------------------------------------------- generate
+
+TINY_LLAMA = dict(chip_smoke.TINYLLAMA_1B, vocab_size=300, hidden_size=32, num_hidden_layers=2,
+                  num_attention_heads=4, num_key_value_heads=2, intermediate_size=48,
+                  max_position_embeddings=64)
+TINY_GPT2 = dict(chip_smoke.GPT2_124M, vocab_size=300, n_embd=32, n_layer=2, n_head=4,
+                 n_positions=64)
+
+
+def test_decoder_geometries_have_their_published_sizes():
+    assert chip_smoke.gpt_param_count(chip_smoke.TINYLLAMA_1B) == 1_100_048_384
+    assert chip_smoke.gpt_param_count(chip_smoke.GPT2_124M) == 124_439_808
+    # bf16 at rest: the bytes [generate] holds param_bytes to
+    assert 2 * chip_smoke.gpt_param_count(chip_smoke.TINYLLAMA_1B) == 2_200_096_768
+
+
+@pytest.mark.parametrize("hf", [TINY_LLAMA, TINY_GPT2, dict(TINY_LLAMA, tie_word_embeddings=True)],
+                         ids=["llama", "gpt2", "llama-tied"])
+def test_gpt_param_count_matches_the_initialised_tree(hf):
+    from symbiont_tpu_torch.models import gpt as gpt_mod
+    from symbiont_tpu_torch.models import quant
+
+    params = gpt_mod.init_params(torch.Generator().manual_seed(0), gpt_mod.GPTConfig.from_hf(hf))
+    assert chip_smoke.gpt_param_count(hf) == sum(t.numel() for t in quant.leaves(params))
+
+
+def _flat(tree, path=()):
+    """{path: leaf} of a nested dict/list tree."""
+    if isinstance(tree, dict):
+        return {p: v for k, sub in tree.items() for p, v in _flat(sub, path + (k,)).items()}
+    if isinstance(tree, list):
+        return {p: v for i, sub in enumerate(tree) for p, v in _flat(sub, path + (i,)).items()}
+    return {path: tree}
+
+
+@pytest.mark.parametrize("hf", [TINY_LLAMA, TINY_GPT2], ids=["llama", "gpt2"])
+def test_gpt_checkpoint_is_the_hubs_layout(hf, tmp_path):
+    """The written dir converts back to the same tree (float32 bit for bit;
+    bf16 as its rounding), and its state dict loads into the `transformers`
+    model of the same config, whose logits are the port's."""
+    transformers = pytest.importorskip("transformers")
+    from symbiont_tpu_torch.models import convert
+    from symbiont_tpu_torch.models import gpt as gpt_mod
+
+    cfg = dataclasses.replace(gpt_mod.GPTConfig.from_hf(hf), dtype="float32")
+    params = gpt_mod.init_params(torch.Generator().manual_seed(3), cfg)
+    for dtype in (torch.float32, torch.bfloat16):
+        chip_smoke.write_gpt_checkpoint(tmp_path / str(dtype), params, hf, dtype)
+        back, back_cfg = convert.load_gpt_model(tmp_path / str(dtype))
+        assert back_cfg == dataclasses.replace(cfg, dtype="bfloat16")
+        got, want = _flat(back), _flat(params)
+        assert sorted(got) == sorted(want)
+        for path, leaf in want.items():
+            assert np.array_equal(got[path], leaf.to(dtype).float().numpy()), path
+    auto = {"llama": transformers.LlamaForCausalLM, "gpt2": transformers.GPT2LMHeadModel}
+    model = auto[hf["model_type"]](transformers.AutoConfig.for_model(**hf)).eval()
+    sd = {k: torch.from_numpy(v) for k, v in chip_smoke.gpt_state_dict(
+        params, cfg, torch.float32).items()}
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    assert unexpected == [] and set(missing) <= {"lm_head.weight"}  # GPT-2 ties it
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, 300, (2, 10)))
+    with torch.no_grad():
+        want = model(ids).logits.numpy()
+    cache = gpt_mod.init_cache(cfg, 2, 10, torch.float32)
+    got, _ = gpt_mod.forward(params, ids, cache, torch.arange(10).expand(2, 10), cfg)
+    np.testing.assert_allclose(got.numpy(), want, atol=3e-5, rtol=1e-4)
+
+
+def test_causal_gqa_bound_counts_the_visible_half_and_kv_heads():
+    def meta(B, NH, S):
+        return torch.empty((B, NH, S, 64), dtype=torch.bfloat16, device="meta")
+
+    bias = torch.empty((8, 1024), device="meta")
+    ms, by = chip_smoke._bound_ms(meta(8, 32, 1024), meta(8, 4, 1024), meta(8, 4, 1024), bias,
+                                  causal=True)
+    # 4·B·NH·D flops per visible (q, k) pair, S(S+1)/2 pairs: 2·B·NH·S(S+1)·D
+    assert (ms, by) == (pytest.approx(2 * 8 * 32 * 1024 * 1025 * 64 / 989e12 * 1e3), "operations")
+    assert ms == pytest.approx(0.0348, abs=1e-4)
+    ms, by = chip_smoke._bound_ms(meta(8, 32, 256), meta(8, 4, 256), meta(8, 4, 256),
+                                  torch.empty((8, 256), device="meta"), causal=True)
+    # q and o at 32 heads, k and v at 4, bias and lse in float32
+    nbytes = 2 * 8 * 32 * 256 * 64 * 2 + 2 * 8 * 4 * 256 * 64 * 2 + 8 * 256 * 4 + 8 * 32 * 256 * 4
+    assert (ms, by) == (pytest.approx(nbytes / 3.35e12 * 1e3), "bytes")
+
+
+def test_real_rows_comparison_skips_padding_queries():
+    lens = [4, 1]
+    bias = chip_smoke.left_pad_bias(lens, 4, device="cpu")
+    assert bias.tolist() == [[0.0] * 4, [-1e9, -1e9, -1e9, 0.0]]
+    real = chip_smoke.real_query_rows(lens, 4, device="cpu")
+    assert real.shape == (2, 1, 4, 1)
+    assert real[:, 0, :, 0].tolist() == [[True] * 4, [False, False, False, True]]
+    ref = torch.ones((2, 3, 4, 8))
+    out = ref.clone()
+    out[1, :, :3] = 50.0  # padding queries: any value passes
+    ok, err = chip_smoke.real_rows_within(out, ref, real, 2e-2)
+    assert ok and err == 0.0
+    out[1, 2, 3, 5] += 0.05  # a real row past 0.02 + 0.02·1
+    ok, err = chip_smoke.real_rows_within(out, ref, real, 2e-2)
+    assert not ok and err == pytest.approx(0.05)
+    out[1, 2, 3, 5] = 1.03
+    assert chip_smoke.real_rows_within(out, ref, real, 2e-2)[0]
+
+
+def test_ragged_prompts_fill_their_bucket():
+    from symbiont_tpu_torch.engine.lm import ByteTokenizer
+
+    tok = ByteTokenizer()
+    prompts = chip_smoke.ragged_prompts(np.random.default_rng(0), 64, 256, 8)
+    lens = [len(tok.encode(p, 1 << 30)) for p in prompts]
+    assert len(prompts) == 8 and all(64 < n <= 256 for n in lens) and lens[-1] == 256
+
+
+def test_next_token_cosines():
+    a = torch.tensor([[1.0, 2.0, 3.0], [0.0, 0.0, 9.0]])
+    got = chip_smoke.next_token_cosines(a, a.clone())
+    assert got == pytest.approx([1.0, 1.0])
+    b = torch.tensor([[3.0, 2.0, 1.0], [0.0, 0.0, 9.0]])
+    got = chip_smoke.next_token_cosines(a, b)
+    assert got[0] < 0.6 and got[1] == pytest.approx(1.0)
+
+
+def test_a_failing_generate_check_fails_the_run(monkeypatch, capsys):
+    """Every phase before [generate] stubbed to pass; a check failing in
+    [generate] leaves main() by its exception (the script exits non-zero)
+    and prints no result."""
+    from pathlib import Path
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(chip_smoke, "card_line", lambda: "card, 700.00 W")
+    launches = {"launches": (0, 0, 0)}
+
+    def checkpoint(rng, tmp):
+        (Path(tmp) / "mpnet").mkdir()
+        return {"launches": 0, "mpnet_dir": Path(tmp) / "mpnet", "host_leaves": {}}
+
+    stubs = dict(kernel_phase=lambda: {}, backward_kernel_phase=lambda: {},
+                 main_path=lambda rng: launches, train_path=lambda rng: launches,
+                 profile_embed=lambda texts: None, synth_texts=lambda rng, n: [],
+                 checkpoint_phase=checkpoint, obs_phase=lambda ck, tmp: None,
+                 quant_phase=lambda rng, d, h: {"launches": 0},
+                 causal_gqa_kernel_phase=lambda: {},
+                 generate_phase=lambda rng, tmp: chip_smoke.check(False, "B1 launches 21 != 22"))
+    for name, fn in stubs.items():
+        monkeypatch.setattr(chip_smoke, name, fn)
+    with pytest.raises(RuntimeError, match="B1 launches 21 != 22"):
+        chip_smoke.main()
+    assert '"ok": true' not in capsys.readouterr().out

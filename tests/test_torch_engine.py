@@ -239,3 +239,29 @@ def test_model_dir_engine_matches_tpu_engine(hf_dirs, attn_impl, tol):
     query = "which part feeds the multiprocessors?"
     np.testing.assert_allclose(port.rerank(query, HF_CORPUS[:6]),
                                jax_eng.rerank(query, HF_CORPUS[:6]), **tol)
+
+
+def test_f16_at_float32_keeps_bf16_matrices_as_tpu_engine():
+    """quantize="f16" under float32 compute holds bf16 matrices and float32
+    vectors, the bytes the JAX engine holds, and embeds within the f32 bars:
+    the load-time cast never widens a leaf."""
+    from symbiont_tpu.models import quant as jquant
+
+    jcfg = jbert.BertConfig(**GEOM)
+    jp = jbert.init_params(jax.random.key(0), jcfg)
+    kw = dict(ENG, quantize="f16")
+    jax_eng = TpuEngine(JaxEngineConfig(**kw, data_parallel=False), params=jp,
+                        model_cfg=jcfg, tokenizer=JaxHashTokenizer(VOCAB))
+    port = TorchEngine(EngineConfig(**kw),
+                       params=bert_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu"),
+                       model_cfg=tbert.BertConfig(**GEOM), tokenizer=HashTokenizer(VOCAB),
+                       device="cpu")
+    assert port.param_bytes() == jquant.param_bytes(jax_eng.params)
+    layer = port.params["layers"][0]
+    assert layer["attention"]["query"]["kernel"].dtype == torch.bfloat16
+    assert layer["attention"]["query"]["bias"].dtype == torch.float32
+    np.testing.assert_allclose(port.embed_texts(TEXTS), jax_eng.embed_texts(TEXTS), **F32)
+    # the synthetic 64-wide engine (30,000 × 64 word table, 6 layers)
+    probe = dict(embedding_dim=64, dtype="float32", quantize="f16")
+    want = jquant.param_bytes(TpuEngine(JaxEngineConfig(**probe, data_parallel=False)).params)
+    assert TorchEngine(EngineConfig(**probe), device="cpu").param_bytes() == want == 4_516_096

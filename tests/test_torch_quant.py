@@ -256,15 +256,21 @@ def test_int8_rerank_scores_match_jax(jparams):
 
 @pytest.mark.parametrize("mode,dtype,label", [
     ("none", "float32", "f32"), ("none", "bfloat16", "bf16"), ("f16", "bfloat16", "bf16"),
-    ("f16", "float32", "f32"), ("int8", "bfloat16", "int8"), ("fp8", "bfloat16", "fp8")])
+    ("f16", "float32", "bf16"), ("int8", "bfloat16", "int8"), ("fp8", "bfloat16", "fp8")])
 def test_param_bytes_gauge_says_what_is_held(jparams, mode, dtype, label):
     _, port = _engines(jparams, mode, dtype)
     held = quant.param_bytes(port.params)
     assert metrics.gauge_get("engine.param_bytes",
                              labels={"service": "engine", "dtype": label}) == held
     n = sum(int(np.prod(leaf.shape)) for leaf in quant.leaves(port.params))
+    width = 2 if dtype == "bfloat16" else 4
     if mode in ("int8", "fp8"):
         # one byte a code, float32 scales, the vectors in the compute dtype
-        assert held < 0.55 * n * (2 if dtype == "bfloat16" else 4)
+        assert held < 0.55 * n * width
+    elif mode == "f16":
+        # bf16 matrices, never widened; the vectors in the compute dtype
+        m = sum(int(np.prod(leaf.shape)) for leaf in quant.leaves(port.params)
+                if leaf.ndim >= 2)
+        assert held == 2 * m + width * (n - m)
     else:
-        assert held == n * (2 if dtype == "bfloat16" else 4)
+        assert held == n * width
