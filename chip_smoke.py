@@ -57,10 +57,20 @@ any failure exits non-zero:
              launched once per layer per prefill and never by a decode
              step, seeded sampling that repeats, flash vs plain prefill at
              cosine > 0.995 per row; TTFT, decode tok/s at batch 8 and 64
-             and the device's busy share printed with no bar.
+             and the device's busy share printed with no bar;
+10. session — streaming and continuous batching on the same two dirs:
+             `generate_stream` joins to `generate()`'s text with B1 only in
+             its prefill; `GenBatcher` serves 24 requests in three waves,
+             some joining a running session; a newcomer prefilled on a
+             second thread while `step()` runs is spliced with its own
+             prefill's logits bit for bit; the KV claim and gauges, a
+             cancel and the timeline; GPT-2 at float32 session rows
+             token-identical to their standalone decodes (or a reported
+             near-tie); B1 held against its plain version at this path's
+             prefill shapes; tok/s, TTFT, TPOT and the busy share printed.
 
 Launch counts are set to 0 just before each main path (phases 3-4, 5, 6,
-8 and 9) and read just after. The last two lines are a JSON object with
+8, 9 and 10) and read just after. The last two lines are a JSON object with
 every kernel's numbers and `{"ok": true, "device": {...}}`.
 """
 
@@ -1764,6 +1774,400 @@ def generate_phase(rng, tmp) -> dict:
             "prefill_1024": {"device_ms": prefill_ms, "flash_attn_fwd_ms": b1_ms}}
 
 
+# ---------------------------------------------------------------- session
+
+# [session]'s sizes on the card: the stream's prompt bucket (lo, hi] and new
+# tokens, the chunk, the session's and GPT-2's prompt buckets, and the
+# batcher's waves (the first wave's budgets, the later waves')
+SESSION = dict(stream_bucket=(256, 1024), new=64, chunk=16, session_bucket=(64, 256),
+               gpt2_bucket=(16, 64), batcher_bucket=(16, 64),
+               first_wave=(24, 32, 40, 48, 56, 64, 64, 64),
+               later_waves=(16, 16, 16, 16, 64, 48, 32, 16), waves=3, wave_gap_s=0.05,
+               max_batch=8)
+# a token that differs from the standalone decode passes only at a near-tie:
+# the standalone's top-2 logit gap under this share of the logits' largest |x|
+TIE_SHARE = 1e-4
+
+
+class IdTokenizer:
+    """Bytes in, as the port's byte tokenizer encodes them (ids 0..255, BOS
+    256), and every id of the model's vocabulary out, as its number in
+    brackets: the card has no `tokenizers` package to read a hub
+    tokenizer.json with, and the byte tokenizer's decode drops every id past
+    255, which is nearly all that a random-weight 32,000-id model samples,
+    so its text would be empty."""
+
+    bos_id = pad_id = 256
+
+    def encode(self, text: str, max_len: int) -> list:
+        return ([self.bos_id] + list(text.encode("utf-8")))[:max_len]
+
+    def decode(self, ids) -> str:
+        return "".join(f"[{int(i)}]" for i in ids)
+
+
+def greedy_trace(eng, prompt: str, max_new: int) -> tuple[list, list]:
+    """The standalone greedy decode of one prompt, step by step →
+    (tokens, per step (top-2 logit gap, largest |logit|)). The same ops in
+    the same order as `eng.generate`, one `decode_chunk` step at a time."""
+    from symbiont_tpu_torch.models import gpt as gpt_mod
+
+    ids, mask, new = eng._prepare_prompts([prompt], max_new)
+    tokens, gaps = [], []
+    with torch.inference_mode():
+        cache, logits, kv_valid, pos = eng._prefill(eng.params, ids, mask, new)
+        done = torch.zeros((1,), dtype=torch.bool, device=eng.device)
+        gen = eng._new_generator(SEED)
+        for _ in range(max_new):
+            top2 = logits[0].topk(2).values
+            gaps.append((float(top2[0] - top2[1]), float(logits[0].abs().max())))
+            cache, logits, pos, done, tok, _ = gpt_mod.decode_chunk(
+                eng.params, cache, logits, pos, done, kv_valid, gen, 1, eng.model_cfg, 0.0, 0)
+            tokens.append(int(tok[0, 0]))
+    return tokens, gaps
+
+
+def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
+    """ROADMAP A11's rest on the card, on the TinyLlama-1.1B and GPT-2 dirs
+    `generate_phase` wrote (bf16, flash prefill; GPT-2 also at float32).
+    Each check fails the run:
+
+    - B1 against its plain version at this path's prefill shapes (a stream
+      row at its bucket, a session of 4 rows, one admission row);
+    - `generate_stream` of one prompt in the 1024 bucket, 64 new tokens in
+      chunks of 16: its deltas join to `generate()`'s text, there is more
+      than one, and B1 launches once per layer (the prefill) and never in a
+      chunk;
+    - `GenBatcher`: 24 requests at max_batch 8 in three waves 50 ms apart on
+      one asyncio loop; every future resolves to text, some join a running
+      session (`admitted_midflight` > 0), and B1 launches once per layer
+      per prefill (session starts and admissions);
+    - a session of 3 ragged prompts (bb 4) steps one chunk; a newcomer
+      prefills on a second thread while `step()` runs here, then is
+      spliced: its carried logits row equals its own prefill's bit for bit;
+      B1 launches once per layer per session start and admission prefill
+      and never in a `step()`; the `lm.kv_cache` claim and
+      `lm.kv_cache_bytes` equal the session cache's bytes; `cancel_tag`
+      drops `lm.kv_rows_active` by one; the timeline has step, admit,
+      finish and cancel events;
+    - GPT-2 at float32: every row of a session with one admission is
+      token-identical to its standalone decode, or differs first where the
+      standalone's top-2 gap is a near-tie (< TIE_SHARE of the logits'
+      largest |x|), which is reported.
+
+    Printed with no bar: the stream's times to its first and last delta,
+    the batcher's tok/s, `lm.ttft_ms` p50/p95, `lm.tpot_ms` p50 and the
+    timeline's decode summary, and the device's busy share of one session
+    under torch.profiler. Text is decoded by `IdTokenizer`. `sizes`,
+    `device` and `lm_kw` let the CPU tests rehearse it at tiny
+    geometries."""
+    import asyncio
+    import gc
+    import threading
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from symbiont_tpu_torch.config import LmConfig
+    from symbiont_tpu_torch.engine.batcher import GenBatcher
+    from symbiont_tpu_torch.engine.lm import LmEngine
+    from symbiont_tpu_torch.models import gpt as gpt_mod
+    from symbiont_tpu_torch.models.bert import torch_dtype
+    from symbiont_tpu_torch.obs.engine_timeline import engine_timeline
+    from symbiont_tpu_torch.obs.hbm import hbm_ledger
+    from symbiont_tpu_torch.obs.xprof import dispatch_ledger
+    from symbiont_tpu_torch.ops import flash_attention as fa
+    from symbiont_tpu_torch.utils.telemetry import metrics
+
+    s = {**SESSION, **(sizes or {})}
+    lm_kw = dict(lm_kw or {})
+    cuda = device == "cuda"
+    tmp = Path(tmp)
+    chunk, new = s["chunk"], s["new"]
+
+    def b1_against_plain(B: int, mc, S: int) -> None:
+        """B1 at one prefill shape of this path (causal, left-padded, the
+        model's heads and dtype) against its plain version on the real
+        query rows, out and lse; not counted."""
+        NH, NKV, D, dtype = mc.num_heads, mc.kv_heads, mc.head_dim, torch_dtype(mc.dtype)
+        gen = torch.Generator(device=device).manual_seed(SEED + 9)
+        lens = [S] + list(rng.integers(1, S + 1, B - 1))
+        q = torch.randn((B, NH, S, D), generator=gen, device=device).to(dtype)
+        k, v = (torch.randn((B, NKV, S, D), generator=gen, device=device).to(dtype)
+                for _ in range(2))
+        bias = left_pad_bias(lens, S, device)
+        before = fa.launches
+        out, lse = fa.flash_attention_with_lse(q, k, v, bias, causal=True)
+        fa.launches = before
+        ref, ref_lse = fa.flash_attention_reference(q, k, v, bias, True)
+        real = real_query_rows(lens, S, device)
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        ok, err = real_rows_within(out, ref, real, tol)
+        lse_err = float(((lse - ref_lse).abs() / (1 + ref_lse.abs())).masked_fill(~real, 0).max())
+        name = f"causal q[{B}, {NH}, {S}, {D}] over {NKV} KV heads, {mc.dtype}"
+        check(ok, f"B1 {name}: |kernel - plain| {err:.4g} over {tol}")
+        check(lse_err <= 1e-4, f"B1 {name}: lse relative error {lse_err:.3g} > 1e-4")
+        print(f"[session] flash_attn_fwd {name}: max_abs_err {err:.4g} on real query rows "
+              f"(tol {tol} abs + {tol} rel), lse rel err {lse_err:.3g}", flush=True)
+
+    def prefills() -> int:
+        return sum(r["dispatches"] for r in dispatch_ledger.snapshot()
+                   if r["executable"].startswith("lm.prefill["))
+
+    eng = LmEngine(LmConfig(model_dir=str(tmp / "tinyllama"), dtype="bfloat16",
+                            attn_impl="flash", stream_chunk=chunk, **lm_kw),
+                   tokenizer=IdTokenizer())
+    L = eng.model_cfg.num_layers
+    labels = {"service": "lm", "kv_dtype": eng.model_cfg.dtype}
+    # every prefill shape below: the stream's row, the session's start and
+    # admission, the batcher's starts and admissions (1 to max_batch rows,
+    # in powers of two) and the profiled session
+    shapes = [(1, s["stream_bucket"][1]), (4, s["session_bucket"][1]),
+              (1, s["session_bucket"][1])]
+    shapes += [(1 << i, s["batcher_bucket"][1]) for i in range(s["max_batch"].bit_length())]
+    for B, S in shapes:
+        b1_against_plain(B, eng.model_cfg, S)
+    counted = 0  # B1 launches on this phase's main path
+
+    # -- generate_stream
+    prompt = ragged_prompts(rng, *s["stream_bucket"], 1)[0]
+    seen, deltas = [], []
+    fa.launches = 0  # ---------------------------------------------------- main path
+    text = eng.generate(prompt, new, temperature=0.0)  # the reference, and a warm-up
+    counted += fa.launches
+    fa.launches = 0
+    t0 = time.perf_counter()
+    for d in eng.generate_stream(prompt, new, temperature=0.0):
+        seen.append((time.perf_counter() - t0, fa.launches))
+        deltas.append(d)
+    stream_launches = fa.launches  # ----------------------------------------- main path end
+    counted += stream_launches
+    check(stream_launches == L and all(n == L for _, n in seen),
+          f"stream: B1 launches {[n for _, n in seen]} by delta, {stream_launches} in all "
+          f"(want {L}, all in the prefill)")
+    check("".join(deltas) == text, "stream: the joined deltas are not generate()'s text")
+    check(len(deltas) > 1, f"stream: {len(deltas)} delta")
+    first_ms, last_ms = seen[0][0] * 1e3, seen[-1][0] * 1e3
+    print(f"[session] generate_stream of a {s['stream_bucket'][1]}-token prompt, {new} new "
+          f"tokens in chunks of {chunk}, greedy: {len(deltas)} deltas joined = generate()'s "
+          f"text; first delta {first_ms:.1f} ms, last {last_ms:.1f} ms (host clock, after "
+          f"one generate() of the same prompt); B1 launches {stream_launches} (the prefill), 0 "
+          f"per chunk", flush=True)
+
+    # -- GenBatcher: 24 requests in three waves
+    waves = []
+    for w in range(s["waves"]):
+        budgets = s["first_wave"] if w == 0 else s["later_waves"]
+        waves.append(list(zip(ragged_prompts(rng, *s["batcher_bucket"], len(budgets)),
+                              budgets)))
+
+    async def serve():
+        b = GenBatcher(eng, max_batch=s["max_batch"])
+        await b.start()
+        try:
+            tasks = []
+            for w, wave in enumerate(waves):
+                if w:
+                    await asyncio.sleep(s["wave_gap_s"])
+                tasks += [asyncio.ensure_future(b.generate(p, int(n), temperature=0.0))
+                          for p, n in wave]
+            return await asyncio.gather(*tasks), dict(b.stats)
+        finally:
+            await b.close()
+
+    engine_timeline.clear()
+    tok0, prefills0 = eng.stats["tokens_generated"], prefills()
+    fa.launches = 0  # ---------------------------------------------------- main path
+    t0 = time.perf_counter()
+    texts, bstats = asyncio.run(serve())
+    batch_s = time.perf_counter() - t0
+    batch_launches = fa.launches  # ------------------------------------------ main path end
+    counted += batch_launches
+    n_prefills = prefills() - prefills0
+    n_req = sum(len(w) for w in waves)
+    toks = eng.stats["tokens_generated"] - tok0
+    check(len(texts) == n_req and all(isinstance(t, str) for t in texts),
+          f"GenBatcher: {sum(isinstance(t, str) for t in texts)} of {n_req} futures gave text")
+    check(bstats["admitted_midflight"] > 0, f"GenBatcher: nothing joined a running session "
+                                            f"({bstats})")
+    check(batch_launches == L * n_prefills,
+          f"GenBatcher: B1 launches {batch_launches} != {L} x {n_prefills} prefills")
+    ttft = metrics.histogram_summary("lm.ttft_ms", {"service": "lm"})
+    tpot = metrics.histogram_summary("lm.tpot_ms", {"service": "lm"})
+    summ = engine_timeline.summary()
+    decode = {k: v for k, v in summ.items() if k.startswith("decode_")}
+    print(f"[session] GenBatcher: {n_req} requests at max_batch {s['max_batch']} in "
+          f"{s['waves']} waves {s['wave_gap_s'] * 1e3:.0f} ms apart: {bstats['sessions']} "
+          f"sessions, {bstats['admitted_midflight']} admitted mid-flight, {toks} tokens in "
+          f"{batch_s:.2f} s = {toks / batch_s:.1f} tok/s (host clock); lm.ttft_ms p50 "
+          f"{ttft['p50']:.1f} p95 {ttft['p95']:.1f} ({ttft['count']} rows), lm.tpot_ms p50 "
+          f"{tpot['p50']:.2f} ({tpot['count']} chunks); B1 launches {batch_launches} = {L} x "
+          f"{n_prefills} prefills; timeline: {decode}; dominant stall: "
+          f"{summ['dominant_stall']}", flush=True)
+
+    # -- one session, one admission on a second thread
+    engine_timeline.clear()
+    prompts = ragged_prompts(rng, *s["session_bucket"], 3)
+    newcomer = ragged_prompts(rng, *s["session_bucket"], 1)[0]
+    fa.launches = 0  # ---------------------------------------------------- main path
+    sess = eng.start_session(prompts, [new] * 3, temperature=0.0)
+    start_launches = fa.launches
+    check((sess.bb, sess.P, sess.capacity()) == (4, s["session_bucket"][1], 1),
+          f"session: bb {sess.bb}, P {sess.P}, capacity {sess.capacity()}")
+    sess.step()  # one chunk: the admitted row will have a gap
+    step_launches = [fa.launches - start_launches]
+    box = {}
+
+    def prepare():
+        try:
+            box["prep"] = sess.prepare_admit([newcomer], [new - 2 * chunk], temperature=[0.0])
+        except Exception as e:  # read on the main thread
+            box["error"] = e
+
+    before = fa.launches
+    th = threading.Thread(target=prepare)
+    th.start()
+    sess.step()  # decodes here while the newcomer prefills there
+    th.join(timeout=600)
+    check(not th.is_alive(), "prepare_admit did not finish")
+    if "error" in box:
+        raise box["error"]
+    admit_launches = fa.launches - before
+    (tag,) = sess.splice(box["prep"])
+    check(tag == 3, f"splice gave tag {tag}")
+    row = next(i for i, r in enumerate(sess.rows) if r is not None and r.tag == tag)
+    session_launches = fa.launches  # ----------------------------------------- main path end
+    counted += session_launches
+    check(start_launches == L and admit_launches == L and step_launches == [0],
+          f"session: B1 launches {start_launches} at start, {admit_launches} for the admission "
+          f"prefill and a step, {step_launches} in a step (want {L}, {L}, [0])")
+    ids = np.full((1, sess.P), getattr(eng.tokenizer, "pad_id", 0), np.int32)
+    mask = np.zeros((1, sess.P), np.int32)
+    own = eng.tokenizer.encode(newcomer, 1 << 30)[-sess.P:]  # as prepare_admit trims it
+    ids[0, :len(own)], mask[0, :len(own)] = own, 1
+    # the admission bytes forecast, read before the newcomer's prefill is
+    # run again alone: there it is measured, with the allocator's peak reset
+    forecast, headroom = eng._admit_bytes_forecast(1), eng.hbm_headroom_bytes()
+    rejects = metrics.get("lm.admit_hbm_rejects")
+    check(eng.can_admit(1) and metrics.get("lm.admit_hbm_rejects") == rejects,
+          f"lm.can_admit(1) refused a row: forecast {forecast:,} bytes, headroom {headroom}")
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(eng.device)
+        live0 = torch.cuda.memory_allocated(eng.device)
+    before = fa.launches
+    with torch.inference_mode():
+        alone = eng._prefill(eng.params, ids, mask, sess.new_bucket, note_peak=False)[1][0]
+    fa.launches = before  # a comparison, not the main path
+    admit_bytes = torch.cuda.max_memory_allocated(eng.device) - live0 if cuda else None
+    if cuda:
+        check(forecast >= admit_bytes, f"the bytes forecast for one admission, {forecast:,}, is "
+                                       f"under what its prefill took, {admit_bytes:,}")
+    print(f"[session] admission bytes: forecast for one row {forecast:,} (scratch term "
+          f"{eng._prefill_peak_growth:,}), headroom {headroom if headroom is None else f'{headroom:,}'}"
+          f", lm.can_admit(1) admits; the newcomer's prefill alone peaks "
+          + (f"{admit_bytes:,} bytes above live" if cuda else "not measured (no card)"),
+          flush=True)
+    check(torch.equal(sess._logits[row], alone),
+          f"spliced row's logits differ from its own prefill by "
+          f"{float((sess._logits[row] - alone).abs().max()):.3g}")
+    nbytes = gpt_mod.cache_bytes(sess._cache)
+    claim = sum(r["bytes"] for r in hbm_ledger.rows() if r["subsystem"] == "lm.kv_cache")
+    gauge = metrics.gauge_get("lm.kv_cache_bytes", labels)
+    check(claim == gauge == nbytes, f"lm.kv_cache claim {claim}, gauge {gauge}, cache {nbytes}")
+    active = metrics.gauge_get("lm.kv_rows_active", labels)
+    check(sess.cancel_tag(0), "cancel_tag(0) found no row")
+    check(metrics.gauge_get("lm.kv_rows_active", labels) == active - 1,
+          f"lm.kv_rows_active {active} -> {metrics.gauge_get('lm.kv_rows_active', labels)}")
+    while not sess.done():
+        sess.step()
+    kinds = {e["kind"] for e in engine_timeline.events()}
+    check({"step", "admit", "finish", "cancel"} <= kinds, f"timeline kinds {sorted(kinds)}")
+    print(f"[session] start_session of 3 ragged prompts in the {sess.P} bucket (bb {sess.bb}), "
+          f"one chunk, then prepare_admit on a second thread beside step() and splice: the "
+          f"spliced row's logits equal its own prefill's bit for bit; B1 launches {L} at the "
+          f"start, {L} for the admission, 0 per step; lm.kv_cache claim = lm.kv_cache_bytes = "
+          f"{nbytes:,} bytes of cache; cancel_tag dropped lm.kv_rows_active {active} -> "
+          f"{active - 1}; timeline kinds {sorted(kinds)}", flush=True)
+
+    # -- one session under the profiler: the device's busy share
+    busy = None
+    prompts = ragged_prompts(rng, *s["batcher_bucket"], s["max_batch"])
+    fa.launches = 0  # ---------------------------------------------------- main path
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        sess = eng.start_session(prompts, [new] * len(prompts), temperature=0.0)
+        while not sess.done():
+            sess.step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof_launches = fa.launches  # ------------------------------------------- main path end
+    counted += prof_launches
+    check(prof_launches == L, f"profiled session: B1 launches {prof_launches} != {L}")
+    if cuda:
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e3
+        check(busy > 0, "the profiler saw no device time in a session")
+    print(f"[session] one session of {len(prompts)} prompts x {new} new under torch.profiler: "
+          f"wall {wall_ms:.1f} ms, device busy "
+          + (f"{busy:.1f} ms ({busy / wall_ms:.1%} of wall)" if busy is not None
+             else "not measured (no card)"), flush=True)
+    del eng, sess
+    gc.collect()
+
+    # -- GPT-2 at float32: every session row against its standalone decode
+    eng = LmEngine(LmConfig(model_dir=str(tmp / "gpt2"), dtype="float32", attn_impl="flash",
+                            stream_chunk=chunk, **lm_kw), tokenizer=IdTokenizer())
+    L2 = eng.model_cfg.num_layers
+    for B in (4, 1):  # the session's start and admission, and the standalone decodes
+        b1_against_plain(B, eng.model_cfg, s["gpt2_bucket"][1])
+    prompts = ragged_prompts(rng, *s["gpt2_bucket"], 4)
+    wants = [new, new - chunk, new, new - 2 * chunk]
+    fa.launches = 0  # ---------------------------------------------------- main path
+    sess = eng.start_session(prompts[:3], wants[:3], temperature=0.0)
+    rows = {r.tag: r for r in sess.rows if r is not None}
+    sess.step()
+    (tag,) = sess.admit(prompts[3:], wants[3:], temperature=[0.0])
+    rows[tag] = next(r for r in sess.rows if r is not None and r.tag == tag)
+    while not sess.done():
+        sess.step()
+    g2_launches = fa.launches  # --------------------------------------------- main path end
+    counted += g2_launches
+    check(g2_launches == 2 * L2, f"GPT-2 session: B1 launches {g2_launches} != 2 x {L2}")
+    ties = []
+    for t, (p, w) in enumerate(zip(prompts, wants)):
+        before = fa.launches
+        want, gaps = greedy_trace(eng, p, w)
+        fa.launches = before  # comparisons, not the main path
+        got = rows[t].tokens
+        check(len(got) == w, f"GPT-2 row {t}: {len(got)} tokens for a budget of {w}")
+        diff = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+        if diff is not None:
+            gap, scale = gaps[diff]
+            check(gap < TIE_SHARE * scale,
+                  f"GPT-2 row {t} differs from its standalone decode at step {diff}, where "
+                  f"the standalone's top-2 gap is {gap:.3g} (bar {TIE_SHARE} x {scale:.3g})")
+            ties.append(f"row {t} step {diff}: top-2 gap {gap:.3g} of |logit| {scale:.3g}")
+    print(f"[session] GPT-2 124M at float32 (flash prefill): a session of 3 prompts in the "
+          f"{sess.P} bucket plus one admitted after one chunk, every row against its "
+          f"standalone greedy decode: " + ("token-identical" if not ties else
+                                           "near-ties " + "; ".join(ties))
+          + f"; B1 launches {g2_launches} = 2 x {L2}", flush=True)
+    del eng, sess
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"launches": counted, "stream": {"first_delta_ms": first_ms, "last_delta_ms": last_ms},
+            "batcher": {"tok_s": toks / batch_s, "ttft_ms_p50": ttft["p50"],
+                        "ttft_ms_p95": ttft["p95"], "tpot_ms_p50": tpot["p50"],
+                        "admitted_midflight": bstats["admitted_midflight"],
+                        "sessions": bstats["sessions"]},
+            "session_busy_pct": None if busy is None else 100.0 * busy / wall_ms,
+            "admit_bytes": {"forecast_1_row": forecast, "headroom": headroom,
+                            "prefill_peak_above_live": admit_bytes},
+            "gpt2_near_ties": ties}
+
+
 def main(argv=()) -> int:
     import argparse
 
@@ -1815,8 +2219,11 @@ def main(argv=()) -> int:
         gqa = causal_gqa_kernel_phase()
         gen = generate_phase(np.random.default_rng(SEED + 6), tmp)
         lap("generate")
+        sess = session_phase(np.random.default_rng(SEED + 10), tmp)
+        lap("session")
     fwd = {"serve": serve["launches"][0], "train": train["launches"][0],
-           "checkpoint": ck_launches, "quant": qt["launches"], "generate": gen["launches"]}
+           "checkpoint": ck_launches, "quant": qt["launches"], "generate": gen["launches"],
+           "session": sess["launches"]}
     fwd_launches = sum(fwd.values())
     print("[phases] host seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items())
           + f"; total {sum(wall.values()):.1f}. flash_attn_fwd launches on the main path: "
@@ -1840,7 +2247,9 @@ def main(argv=()) -> int:
                        | {k: v for k, v in ref.items() if k != "label"})
     entries[0] |= {"generate_launches": gen["launches"], "causal_gqa": causal_gqa,
                    "generate": {"ttft_ms": gen["ttft"], "decode": gen["decode"],
-                                "prefill_1024": gen["prefill_1024"]}}
+                                "prefill_1024": gen["prefill_1024"]},
+                   "session_launches": sess["launches"],
+                   "session": {k: v for k, v in sess.items() if k != "launches"}}
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

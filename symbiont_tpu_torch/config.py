@@ -97,9 +97,9 @@ class LmConfig:
     temperature: float = 0.8
     top_k: int = 40
     seed: int = 0
-    # the generation batcher's window, lanes and session rows, and the
-    # streaming chunk: not ported (ROADMAP A11's rest: GenBatcher,
-    # BatchSession, generate_stream)
+    # the generation batcher's flush window and tenant lanes
+    # (engine/batcher.py), the rows a session reserves for admissions and
+    # the decode steps per streaming or session chunk
     gen_max_batch: int = 8
     gen_flush_deadline_ms: float = 30.0
     gen_tenant_lane_depth: int = 1024

@@ -25,11 +25,12 @@ this one, `models/convert.py` a checkpoint):
 
 The decode loop runs every one of its steps and masks finished rows, as the
 JAX `lax.scan` does, so it never waits on the device between steps.
+`merge_rows` splices freshly prefilled rows into a running decode at a
+chunk boundary (continuous batching), in place.
 
-Not ported yet (ROADMAP Queue A): the paged cache branch and
-`merge_rows`/`merge_cache_rows` (A12); `spec_first`, `draft_chunk`,
-`verify_chunk`, `ingest_pending` and `track_chunk` (A13); `qkv_proj` and
-`block_nocache` (A14, A15).
+Not ported yet (ROADMAP Queue A): the paged cache branch (A12);
+`spec_first`, `draft_chunk`, `verify_chunk`, `ingest_pending` and
+`track_chunk` (A13); `qkv_proj` and `block_nocache` (A14, A15).
 """
 
 from __future__ import annotations
@@ -418,6 +419,73 @@ def decode_chunk(params, cache, cur_logits, cur_pos, done, kv_valid,
         cur_logits, cur_pos = logits[:, 0], cur_pos + 1
     return (cache, cur_logits, cur_pos, done, torch.stack(tokens, dim=1),
             torch.stack(counted, dim=1))
+
+
+def _splice_rows(row_map, n_b: int, device):
+    """Host `row_map` [B] → (destination rows, source rows) as int64
+    tensors on `device`: row i takes b's row row_map[i] where that is
+    >= 0."""
+    rm = np.asarray(row_map.cpu() if isinstance(row_map, torch.Tensor) else row_map,
+                    np.int64)
+    dst = np.nonzero(rm >= 0)[0]
+    if dst.size and int(rm[dst].max()) >= n_b:
+        raise ValueError(f"row_map {rm.tolist()} names a row past the {n_b} prepared ones")
+    return (torch.from_numpy(dst).to(device), torch.from_numpy(rm[dst]).to(device))
+
+
+def _refuse_paged(cache) -> None:
+    if not isinstance(cache, (KVCache, QuantKVCache)):
+        raise ValueError(f"cannot splice rows of a {type(cache).__name__}: the paged KV "
+                         "layout is not ported (ROADMAP A12: paged KV)")
+
+
+def merge_cache_rows(cache_a, cache_b, row_map):
+    """Row splice of two caches of one layout: every tensor field of
+    `cache_a` takes `cache_b`'s row row_map[i] at its row i (batch axis 1,
+    the int8 cache's scale planes too) where row_map[i] >= 0; `length`
+    keeps a's. In place on `cache_a`, which is returned. The JAX version
+    donates cache_a to XLA to get the same effect; here the row copy is an
+    `index_copy_`."""
+    _refuse_paged(cache_a)
+    dst, src = _splice_rows(row_map, cache_b.k.shape[1], cache_a.k.device)
+    if dst.numel():
+        for fa, fb in zip(cache_a, cache_b):
+            if isinstance(fa, torch.Tensor):
+                fa.index_copy_(1, dst, fb.index_select(1, src))
+    return cache_a
+
+
+def merge_rows(cache_a, logits_a, pos_a, done_a, kv_valid_a,
+               cache_b, logits_b, pos_b, done_b, kv_valid_b,
+               row_map, prompt_width: int):
+    """Continuous batching: splice freshly prefilled rows (state b) into a
+    running chunked decode (state a) at a chunk boundary → (cache, logits,
+    pos, done, kv_valid), state a's own tensors written in place.
+
+    row_map [B] (host ints): row_map[i] = j >= 0 replaces a's row i with
+    b's row j; -1 keeps a's row. Both states share the cache layout (the
+    same prompt width and new-token bucket, so T matches). A spliced row's
+    slots [prompt_width, a.length), the steps a decoded before the
+    admission (the gap), are cleared in its kv_valid: the row's own decode
+    writes at slot a.length onward while its logical position carries on
+    from its prompt, so its output is exactly a standalone decode's.
+
+    The JAX package's `_merge_rows_jit` builds new arrays and donates
+    cache_a; here the cache is already written in place and its `length`
+    is a host int, so the splice is an in-place row copy and needs no
+    donation. The paged layout's branch waits for ROADMAP A12 and raises."""
+    _refuse_paged(cache_a)
+    T = cache_a.k.shape[2]
+    t_idx = torch.arange(T, device=kv_valid_b.device)
+    gap = (t_idx >= prompt_width) & (t_idx < cache_a.length)
+    kv_b = kv_valid_b & ~gap[None, :]
+    merge_cache_rows(cache_a, cache_b, row_map)
+    dst, src = _splice_rows(row_map, logits_b.shape[0], logits_a.device)
+    if dst.numel():
+        for a, b in ((logits_a, logits_b), (pos_a, pos_b), (done_a, done_b),
+                     (kv_valid_a, kv_b)):
+            a.index_copy_(0, dst, b.index_select(0, src))
+    return cache_a, logits_a, pos_a, done_a, kv_valid_a
 
 
 def generate(params, prompt_ids: torch.Tensor, prompt_mask: torch.Tensor,

@@ -4,5 +4,7 @@
 device          : CUDA allocator statistics (`torch.cuda.memory_stats`)
 hbm             : the device-memory claim ledger, `reconcile`, OOM guard
 xprof           : the per-signature dispatch ledger and host-sync counts
-engine_timeline : the embed-flush timeline (padding, packing opportunity)
+engine_timeline : the engine timeline (decode steps, admits, finishes,
+                  cancels; embed flushes, packing opportunity)
+usage           : per-tenant usage metering
 """

@@ -1,15 +1,24 @@
-"""The engine's flush timeline, embed half.
+"""The engine's flight recorder: a bounded ring of decode and embed events.
 
-The port's copy of the embed side of `symbiont_tpu/obs/engine_timeline.py`:
-a bounded ring of one event per dispatched embed or rerank batch (bucket,
-rows, real and padded token slots), recorded by `TorchEngine._note_padding`
-from host numbers already in hand, and the windowed packing-opportunity
-estimate `engine.packing_opportunity_pct`: the share of dispatched token
-slots that carried padding, which perfect sequence packing would reclaim.
-`summary` gives the embed fields of the JAX summary.
+The port's copy of `symbiont_tpu/obs/engine_timeline.py`, recorded from
+host values already in hand (no new device syncs):
 
-The decode half (steps, admits, KV occupancy, the prefix probe) comes with
-the LM engine (ROADMAP Queue A, item 11).
+- decode half: `LmEngine`'s `BatchSession` notes one `step` event per
+  decode chunk (wall ms, live rows against the batch bucket, engine-wide
+  KV rows live against allocated, host gap since the last chunk), an
+  `admit` per session start or splice (rows, prefill ms, the share of the
+  new prompts' token prefix that recent prompts already had), a `finish`
+  per request (tokens, engine-side TTFT) and a `cancel` per aborted one;
+  the generation batcher notes its queue depth (`queue`); at a chunk
+  boundary, at most every `_MEM_SAMPLE_S` seconds, the device-memory
+  ledger's claims land as one `mem` event;
+- embed half: `TorchEngine._note_padding` notes one `flush` per embed or
+  rerank batch, and the windowed `engine.packing_opportunity_pct` is the
+  share of dispatched token slots that carried padding.
+
+`summary` gives the JAX summary's dense-layout fields. The paged-KV and
+speculative fields wait for ROADMAP A12 and A13; the resume event, the
+Perfetto export and `configure` come with the stack (A8).
 """
 
 from __future__ import annotations
@@ -17,25 +26,50 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 from symbiont_tpu_torch.utils.telemetry import Metrics, metrics as _global_metrics
 
-FLUSH = "flush"
+STEP, ADMIT, FINISH, CANCEL, QUEUE, FLUSH, MEM = (
+    "step", "admit", "finish", "cancel", "queue", "flush", "mem")
+
+# prompt tokens kept per entry of the prefix probe: overlap past this depth
+# counts as full depth, which bounds the cost of one admit
+_PREFIX_DEPTH = 128
+
+# recent admitted prompts the prefix probe compares a new one against
+_PROMPT_WINDOW = 64
+
+# least seconds between two device-memory samples on the decode path
+_MEM_SAMPLE_S = 0.5
 
 
 class EngineTimeline:
-    """Thread-safe bounded ring of flush events with a windowed packing
-    estimate."""
+    """Thread-safe bounded ring of engine events with windowed probes.
+    `note_*` calls take the lock, append one dict and return; statistics
+    are computed when read."""
 
     def __init__(self, capacity: int = 2048, registry: Optional[Metrics] = None):
         self.registry = registry if registry is not None else _global_metrics
         self._lock = threading.Lock()
         self._ring: deque = deque(maxlen=max(1, int(capacity)))
-        # packing-opportunity window over recent flushes
+        # prefix probe: recent prompts' token prefixes (bounded depth)
+        self._prompts: deque = deque(maxlen=_PROMPT_WINDOW)
+        self._shares: deque = deque(maxlen=256)  # lm.prefix_share_ratio window
+        # packing-opportunity window over recent embed flushes
         self._flushes: deque = deque(maxlen=128)
         self._flush_real = 0
         self._flush_total = 0
+        self._last_mem_t = 0.0  # last device-memory sample (monotonic)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._ring.clear()
+            self._prompts.clear()
+            self._shares.clear()
+            self._flushes.clear()
+            self._flush_real = 0
+            self._flush_total = 0
 
     def __len__(self) -> int:
         with self._lock:
@@ -45,9 +79,75 @@ class EngineTimeline:
         with self._lock:
             return list(self._ring)
 
+    def _append(self, ev: dict) -> None:
+        with self._lock:
+            self._ring.append(ev)
+
+    # ------------------------------------------------------------ recording
+
+    def note_decode_step(self, wall_ms: float, rows_live: int, rows_capacity: int,
+                         kv_rows_live: int, kv_rows_allocated: int, steps: int,
+                         sessions: int = 1, dispatches: Optional[int] = None,
+                         host_gap_ms: Optional[float] = None) -> None:
+        """One decode chunk. `dispatches` and `host_gap_ms` are the chunk's
+        dispatch count and the host time between the previous chunk's
+        device work and this one's."""
+        ev = {"kind": STEP, "t": time.time(), "wall_ms": wall_ms,
+              "rows_live": int(rows_live), "rows_capacity": int(rows_capacity),
+              "kv_rows_live": int(kv_rows_live),
+              "kv_rows_allocated": int(kv_rows_allocated),
+              "steps": int(steps), "sessions": int(sessions)}
+        if host_gap_ms is not None:
+            ev["dispatches"] = int(dispatches or 0)
+            ev["host_gap_ms"] = float(host_gap_ms)
+        self._append(ev)
+        self._maybe_note_memory()
+
+    def _maybe_note_memory(self) -> None:
+        """Sample the device-memory ledger's claims into the ring, at most
+        every _MEM_SAMPLE_S seconds."""
+        now = time.monotonic()
+        with self._lock:
+            if now - self._last_mem_t < _MEM_SAMPLE_S:
+                return
+            self._last_mem_t = now
+        from symbiont_tpu_torch.obs.hbm import hbm_ledger
+
+        rows = hbm_ledger.rows()
+        if not rows:
+            return
+        ev = {"kind": MEM, "t": time.time()}
+        for r in rows:
+            if not r["overlay"]:
+                ev[r["subsystem"]] = r["bytes"]
+        self._append(ev)
+
+    def note_admit(self, rows: int, prefill_ms: float,
+                   prefix_share: Optional[float] = None, kind: str = "start") -> None:
+        """A prefill joined the decode plane: a session start or a splice."""
+        ev = {"kind": ADMIT, "t": time.time(), "rows": int(rows),
+              "prefill_ms": prefill_ms, "admit_kind": kind}
+        if prefix_share is not None:
+            ev["prefix_share"] = prefix_share
+        self._append(ev)
+
+    def note_finish(self, tokens: int, ttft_ms: Optional[float] = None) -> None:
+        ev = {"kind": FINISH, "t": time.time(), "tokens": int(tokens)}
+        if ttft_ms is not None:
+            ev["ttft_ms"] = ttft_ms
+        self._append(ev)
+
+    def note_cancel(self) -> None:
+        self._append({"kind": CANCEL, "t": time.time()})
+
+    def note_queue_depth(self, queue: str, depth: int) -> None:
+        self._append({"kind": QUEUE, "t": time.time(), "queue": str(queue),
+                      "depth": int(depth)})
+
     def note_embed_flush(self, bucket: int, batch_rows: int, n_real: int,
                          real_tokens: int, total_tokens: int) -> None:
-        """One dispatched embed/rerank batch."""
+        """One dispatched embed/rerank batch; also moves the windowed
+        packing-opportunity estimate."""
         with self._lock:
             self._ring.append({"kind": FLUSH, "t": time.time(), "bucket": int(bucket),
                                "batch_rows": int(batch_rows), "n_real": int(n_real),
@@ -66,20 +166,134 @@ class EngineTimeline:
                                     round(100.0 * (1.0 - real / total), 2),
                                     labels={"service": "engine"})
 
+    # --------------------------------------------------------- prefix probe
+
+    def prompt_prefix_share(self, token_rows: Sequence[Sequence[int]]) -> float:
+        """For each new prompt, the longest common token prefix with any
+        recently admitted prompt, as a share of its (depth-bounded) length.
+        Returns the mean over the rows and moves the windowed
+        `lm.prefix_share_ratio` gauge. Host arithmetic on encoded ids."""
+        if not token_rows:
+            return 0.0
+        shares = []
+        with self._lock:
+            registry = list(self._prompts)
+            for row in token_rows:
+                head = tuple(row[:_PREFIX_DEPTH])
+                if not head:
+                    continue
+                best = 0
+                for prev in registry:
+                    if best >= len(head):
+                        break
+                    n = 0
+                    for a, b in zip(head, prev):
+                        if a != b:
+                            break
+                        n += 1
+                    best = max(best, n)
+                shares.append(best / len(head))
+                self._prompts.append(head)
+                registry.append(head)
+            if not shares:
+                return 0.0
+            self._shares.extend(shares)
+            window = list(self._shares)
+        self.registry.gauge_set("lm.prefix_share_ratio", round(sum(window) / len(window), 4),
+                                labels={"service": "lm"})
+        return sum(shares) / len(shares)
+
+    # -------------------------------------------------------------- summary
+
     def summary(self) -> dict:
-        """The embed fields of the JAX timeline's summary, over the ring."""
-        flushes = [e for e in self.events() if e["kind"] == FLUSH]
-        real = sum(e["real_tokens"] for e in flushes)
-        total = sum(e["total_tokens"] for e in flushes)
-        padding_pct = round(100.0 * (total - real) / total, 2) if total else 0.0
-        if not flushes:
-            stall = "no engine traffic recorded"
-        elif padding_pct < 10.0:
-            stall = "none dominant (all measured waste < 10%)"
-        else:
-            stall = f"embed padding (packing opportunity {padding_pct}%)"
-        return {"embed_flushes": len(flushes), "embed_padding_pct": padding_pct,
-                "packing_opportunity_pct": padding_pct, "dominant_stall": stall}
+        """Aggregates over the ring: a recent picture, not a lifetime
+        average."""
+        events = self.events()
+        steps = [e for e in events if e["kind"] == STEP]
+        admits = [e for e in events if e["kind"] == ADMIT]
+        finishes = [e for e in events if e["kind"] == FINISH]
+        cancels = [e for e in events if e["kind"] == CANCEL]
+        flushes = [e for e in events if e["kind"] == FLUSH]
+
+        def pct(num: float, den: float) -> float:
+            return round(100.0 * num / den, 2) if den else 0.0
+
+        def quantile(vals: List[float], q: float) -> float:
+            if not vals:
+                return 0.0
+            vals = sorted(vals)
+            return round(vals[min(len(vals) - 1, int(q * len(vals)))], 2)
+
+        step_ms = [e["wall_ms"] for e in steps]
+        ttfts = [e["ttft_ms"] for e in finishes if "ttft_ms" in e]
+        shares = [e["prefix_share"] for e in admits if "prefix_share" in e]
+        real_tok = sum(e["real_tokens"] for e in flushes)
+        total_tok = sum(e["total_tokens"] for e in flushes)
+        out = {
+            "decode_steps": len(steps),
+            "decode_occupancy_pct": pct(sum(e["rows_live"] for e in steps),
+                                        sum(e["rows_capacity"] for e in steps)),
+            "decode_kv_stranded_pct": pct(
+                sum(e["kv_rows_allocated"] - e["kv_rows_live"] for e in steps),
+                sum(e["kv_rows_allocated"] for e in steps)),
+            "decode_prefix_share_pct": (round(100.0 * sum(shares) / len(shares), 2)
+                                        if shares else 0.0),
+            "decode_admits": len(admits),
+            "decode_finishes": len(finishes),
+            "decode_cancels": len(cancels),
+            "decode_prefill_ms_total": round(sum(e["prefill_ms"] for e in admits), 2),
+            "decode_step_ms_total": round(sum(step_ms), 2),
+            "decode_step_ms_p50": quantile(step_ms, 0.50),
+            "decode_tpot_ms_p50": quantile([e["wall_ms"] / e["steps"] for e in steps
+                                            if e["steps"]], 0.50),
+            "decode_ttft_ms_p50": quantile(ttfts, 0.50),
+            "decode_ttft_ms_p99": quantile(ttfts, 0.99),
+            "embed_flushes": len(flushes),
+            "embed_padding_pct": pct(total_tok - real_tok, total_tok),
+            "packing_opportunity_pct": pct(total_tok - real_tok, total_tok),
+        }
+        gap_steps = [e for e in steps if "host_gap_ms" in e]
+        if gap_steps:
+            gen_tokens = sum(e["steps"] for e in gap_steps)
+            gap_ms = sum(e["host_gap_ms"] for e in gap_steps)
+            busy_ms = sum(e["wall_ms"] for e in gap_steps)
+            out["decode_dispatches_per_token"] = (
+                round(sum(e["dispatches"] for e in gap_steps) / gen_tokens, 4)
+                if gen_tokens else 0.0)
+            out["decode_host_gap_pct"] = pct(gap_ms, gap_ms + busy_ms)
+        out["dominant_stall"] = self._dominant_stall(out)
+        return out
+
+    @staticmethod
+    def _dominant_stall(s: dict) -> str:
+        """Which measured waste dominates the window: each candidate is a
+        share of provisioned work not doing useful decode or prefill."""
+        if not s["decode_steps"] and not s["embed_flushes"]:
+            return "no engine traffic recorded"
+        candidates = []
+        if s["decode_steps"]:
+            candidates.append((f"row underfill (batch occupancy {s['decode_occupancy_pct']}%)",
+                               100.0 - s["decode_occupancy_pct"]))
+            candidates.append((f"stranded KV rows ({s['decode_kv_stranded_pct']}% of "
+                               "allocated slabs)", s["decode_kv_stranded_pct"]))
+            total = s["decode_prefill_ms_total"] + s["decode_step_ms_total"]
+            if total > 0:
+                prefill_pct = round(100.0 * s["decode_prefill_ms_total"] / total, 2)
+                candidates.append((f"admission prefills ({prefill_pct}% of engine wall)",
+                                   prefill_pct))
+            if "decode_host_gap_pct" in s:
+                candidates.append((f"host-dispatch gap ({s['decode_host_gap_pct']}% of chunk "
+                                   f"wall host-side, {s['decode_dispatches_per_token']} "
+                                   "dispatches/token)", s["decode_host_gap_pct"]))
+        if s["embed_flushes"]:
+            candidates.append((f"embed padding (packing opportunity "
+                               f"{s['packing_opportunity_pct']}%)",
+                               s["packing_opportunity_pct"]))
+        label, worst = max(candidates, key=lambda c: c[1])
+        if worst < 10.0:
+            return "none dominant (all measured waste < 10%)"
+        return label
 
 
+# the process-global recorder
 engine_timeline = EngineTimeline()

@@ -6,6 +6,7 @@ refusal to run without a CUDA card (it must print no result there) or to
 finish when a check fails."""
 
 import dataclasses
+from pathlib import Path
 
 import chip_smoke
 import numpy as np
@@ -562,5 +563,77 @@ def test_a_failing_generate_check_fails_the_run(monkeypatch, capsys):
     for name, fn in stubs.items():
         monkeypatch.setattr(chip_smoke, name, fn)
     with pytest.raises(RuntimeError, match="B1 launches 21 != 22"):
+        chip_smoke.main()
+    assert '"ok": true' not in capsys.readouterr().out
+
+
+# ----------------------------------------------------------------- session
+
+TINY_SESSION = dict(stream_bucket=(16, 32), new=16, chunk=4, session_bucket=(8, 16),
+                    gpt2_bucket=(8, 16), batcher_bucket=(8, 16),
+                    first_wave=(6, 8, 10, 12, 14, 16, 16, 16),
+                    later_waves=(4, 4, 4, 4, 16, 12, 8, 4), wave_gap_s=0.0)
+
+
+def test_session_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """[session] end to end on the CPU at tiny geometries, with every check
+    it makes on the card. The CPU path launches no kernel, so the plain
+    forwards of B1 are counted as its launches."""
+    from symbiont_tpu_torch.models import gpt as gpt_mod
+    from symbiont_tpu_torch.ops import flash_attention as fa
+
+    for name, hf, dtype in (("tinyllama", TINY_LLAMA, torch.bfloat16),
+                            ("gpt2", TINY_GPT2, torch.float32)):
+        params = gpt_mod.init_params(torch.Generator().manual_seed(len(name)),
+                                     gpt_mod.GPTConfig.from_hf(hf))
+        chip_smoke.write_gpt_checkpoint(tmp_path / name, params, hf, dtype)
+    forward = fa._forward
+
+    def counted(*a, **kw):
+        fa.launches += 1
+        return forward(*a, **kw)
+
+    monkeypatch.setattr(fa, "_forward", counted)
+    out = chip_smoke.session_phase(
+        np.random.default_rng(0), tmp_path, sizes=TINY_SESSION, device="cpu",
+        lm_kw=dict(force_cpu=True, prompt_buckets=[8, 16, 32], new_token_buckets=[4, 16]))
+    printed = capsys.readouterr().out
+    # B1 against plain at 3 TinyLlama shapes, 4 batcher row counts and 2
+    # GPT-2 shapes; the stream, batcher, session, bytes, profiler and GPT-2
+    assert printed.count("[session] flash_attn_fwd causal") == 9
+    assert printed.count("[session]") == 15
+    assert out["admit_bytes"]["forecast_1_row"] > 0 and out["admit_bytes"]["headroom"] is None
+    assert out["batcher"]["admitted_midflight"] > 0 and out["batcher"]["sessions"] >= 2
+    assert out["batcher"]["tok_s"] > 0 and out["session_busy_pct"] is None
+    assert out["stream"]["last_delta_ms"] >= out["stream"]["first_delta_ms"] > 0
+    # 2 layers: generate() and the stream, the batcher's prefills, a session
+    # start and its admission, the profiled session; GPT-2's start and
+    # admission
+    assert out["launches"] % 2 == 0 and out["launches"] >= 2 * (1 + 2 + 2 + 1) + 2 * 2
+
+
+def test_a_failing_session_check_fails_the_run(monkeypatch, capsys):
+    """Every phase before [session] stubbed to pass; a check failing in
+    [session] leaves main() by its exception and prints no result."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(chip_smoke, "card_line", lambda: "card, 700.00 W")
+    launches = {"launches": (0, 0, 0)}
+
+    def checkpoint(rng, tmp):
+        (Path(tmp) / "mpnet").mkdir()
+        return {"launches": 0, "mpnet_dir": Path(tmp) / "mpnet", "host_leaves": {}}
+
+    stubs = dict(kernel_phase=lambda: {}, backward_kernel_phase=lambda: {},
+                 main_path=lambda rng: launches, train_path=lambda rng: launches,
+                 profile_embed=lambda texts: None, synth_texts=lambda rng, n: [],
+                 checkpoint_phase=checkpoint, obs_phase=lambda ck, tmp: None,
+                 quant_phase=lambda rng, d, h: {"launches": 0},
+                 causal_gqa_kernel_phase=lambda: {},
+                 generate_phase=lambda rng, tmp: {"launches": 0},
+                 session_phase=lambda rng, tmp: chip_smoke.check(False, "admitted_midflight 0"))
+    for name, fn in stubs.items():
+        monkeypatch.setattr(chip_smoke, name, fn)
+    with pytest.raises(RuntimeError, match="admitted_midflight 0"):
         chip_smoke.main()
     assert '"ok": true' not in capsys.readouterr().out

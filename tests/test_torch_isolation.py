@@ -40,6 +40,9 @@ def test_the_scan_covers_the_package():
             "symbiont_tpu_torch/models/convert.py",
             "symbiont_tpu_torch/models/gpt.py",
             "symbiont_tpu_torch/engine/lm.py",
+            "symbiont_tpu_torch/engine/batcher.py",
+            "symbiont_tpu_torch/obs/usage.py",
+            "symbiont_tpu_torch/resilience/admission.py",
             "symbiont_tpu_torch/models/quant.py",
             "symbiont_tpu_torch/obs/device.py",
             "symbiont_tpu_torch/obs/engine_timeline.py",
