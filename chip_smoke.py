@@ -67,10 +67,28 @@ any failure exits non-zero:
              cancel and the timeline; GPT-2 at float32 session rows
              token-identical to their standalone decodes (or a reported
              near-tie); B1 held against its plain version at this path's
-             prefill shapes; tok/s, TTFT, TPOT and the busy share printed.
+             prefill shapes; tok/s, TTFT, TPOT and the busy share printed;
+11. paged  — TinyLlama with `kv_layout="paged"` (pages of 16, radix on,
+             the pool sized automatically, its bytes checked exactly):
+             paged session rows with an admission and a cancel equal the
+             dense session's, B1 once per layer per cold start and
+             admission, 0 per chunk and 0 for a start of full radix hits,
+             a shared 128-token prefix hit; GPT-2 float32 paged rows equal
+             dense ones (kv_quant none and int8); `GenBatcher` on the pool;
+             every page free again; pages and chunk ms against dense,
+             the batcher's readings beside [session]'s, printed;
+12. spec   — speculative decoding on TinyLlama (float32 for the identity
+             checks): self-drafted streams and sessions (dense, paged) give
+             spec-off's tokens at acceptance 1.0 and 9 tokens a dispatch,
+             drafts corrupted from slot 2 accept 2/8 with the same tokens,
+             a drafter at JackFram/llama-68m's geometry loaded through
+             `spec_draft_model`; B1 once per layer for each prefill (target
+             and drafter) and never in a round; a verify forward over a
+             1,024-token cache equal to plain attention's; round costs
+             printed.
 
 Launch counts are set to 0 just before each main path (phases 3-4, 5, 6,
-8, 9 and 10) and read just after. The last two lines are a JSON object with
+8, 9, 10, 11 and 12) and read just after. The last two lines are a JSON object with
 every kernel's numbers and `{"ok": true, "device": {...}}`.
 """
 
@@ -1827,6 +1845,35 @@ def greedy_trace(eng, prompt: str, max_new: int) -> tuple[list, list]:
     return tokens, gaps
 
 
+def b1_against_plain(rng, B: int, mc, S: int, device="cuda", tag="session") -> None:
+    """B1 at one LM prefill shape (causal, left-padded, the model's heads and
+    dtype) against its plain version on the real query rows, out and lse,
+    printed under `tag`; its launch is not counted."""
+    from symbiont_tpu_torch.models.bert import torch_dtype
+    from symbiont_tpu_torch.ops import flash_attention as fa
+
+    NH, NKV, D, dtype = mc.num_heads, mc.kv_heads, mc.head_dim, torch_dtype(mc.dtype)
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    lens = [S] + list(rng.integers(1, S + 1, B - 1))
+    q = torch.randn((B, NH, S, D), generator=gen, device=device).to(dtype)
+    k, v = (torch.randn((B, NKV, S, D), generator=gen, device=device).to(dtype)
+            for _ in range(2))
+    bias = left_pad_bias(lens, S, device)
+    before = fa.launches
+    out, lse = fa.flash_attention_with_lse(q, k, v, bias, causal=True)
+    fa.launches = before
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, bias, True)
+    real = real_query_rows(lens, S, device)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    ok, err = real_rows_within(out, ref, real, tol)
+    lse_err = float(((lse - ref_lse).abs() / (1 + ref_lse.abs())).masked_fill(~real, 0).max())
+    name = f"causal q[{B}, {NH}, {S}, {D}] over {NKV} KV heads, {mc.dtype}"
+    check(ok, f"B1 {name}: |kernel - plain| {err:.4g} over {tol}")
+    check(lse_err <= 1e-4, f"B1 {name}: lse relative error {lse_err:.3g} > 1e-4")
+    print(f"[{tag}] flash_attn_fwd {name}: max_abs_err {err:.4g} on real query rows "
+          f"(tol {tol} abs + {tol} rel), lse rel err {lse_err:.3g}", flush=True)
+
+
 def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
     """ROADMAP A11's rest on the card, on the TinyLlama-1.1B and GPT-2 dirs
     `generate_phase` wrote (bf16, flash prefill; GPT-2 also at float32).
@@ -1861,7 +1908,6 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
     under torch.profiler. Text is decoded by `IdTokenizer`. `sizes`,
     `device` and `lm_kw` let the CPU tests rehearse it at tiny
     geometries."""
-    import asyncio
     import gc
     import threading
 
@@ -1869,10 +1915,8 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from symbiont_tpu_torch.config import LmConfig
-    from symbiont_tpu_torch.engine.batcher import GenBatcher
     from symbiont_tpu_torch.engine.lm import LmEngine
     from symbiont_tpu_torch.models import gpt as gpt_mod
-    from symbiont_tpu_torch.models.bert import torch_dtype
     from symbiont_tpu_torch.obs.engine_timeline import engine_timeline
     from symbiont_tpu_torch.obs.hbm import hbm_ledger
     from symbiont_tpu_torch.obs.xprof import dispatch_ledger
@@ -1884,31 +1928,6 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
     cuda = device == "cuda"
     tmp = Path(tmp)
     chunk, new = s["chunk"], s["new"]
-
-    def b1_against_plain(B: int, mc, S: int) -> None:
-        """B1 at one prefill shape of this path (causal, left-padded, the
-        model's heads and dtype) against its plain version on the real
-        query rows, out and lse; not counted."""
-        NH, NKV, D, dtype = mc.num_heads, mc.kv_heads, mc.head_dim, torch_dtype(mc.dtype)
-        gen = torch.Generator(device=device).manual_seed(SEED + 9)
-        lens = [S] + list(rng.integers(1, S + 1, B - 1))
-        q = torch.randn((B, NH, S, D), generator=gen, device=device).to(dtype)
-        k, v = (torch.randn((B, NKV, S, D), generator=gen, device=device).to(dtype)
-                for _ in range(2))
-        bias = left_pad_bias(lens, S, device)
-        before = fa.launches
-        out, lse = fa.flash_attention_with_lse(q, k, v, bias, causal=True)
-        fa.launches = before
-        ref, ref_lse = fa.flash_attention_reference(q, k, v, bias, True)
-        real = real_query_rows(lens, S, device)
-        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-        ok, err = real_rows_within(out, ref, real, tol)
-        lse_err = float(((lse - ref_lse).abs() / (1 + ref_lse.abs())).masked_fill(~real, 0).max())
-        name = f"causal q[{B}, {NH}, {S}, {D}] over {NKV} KV heads, {mc.dtype}"
-        check(ok, f"B1 {name}: |kernel - plain| {err:.4g} over {tol}")
-        check(lse_err <= 1e-4, f"B1 {name}: lse relative error {lse_err:.3g} > 1e-4")
-        print(f"[session] flash_attn_fwd {name}: max_abs_err {err:.4g} on real query rows "
-              f"(tol {tol} abs + {tol} rel), lse rel err {lse_err:.3g}", flush=True)
 
     def prefills() -> int:
         return sum(r["dispatches"] for r in dispatch_ledger.snapshot()
@@ -1926,7 +1945,7 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
               (1, s["session_bucket"][1])]
     shapes += [(1 << i, s["batcher_bucket"][1]) for i in range(s["max_batch"].bit_length())]
     for B, S in shapes:
-        b1_against_plain(B, eng.model_cfg, S)
+        b1_against_plain(rng, B, eng.model_cfg, S, device)
     counted = 0  # B1 launches on this phase's main path
 
     # -- generate_stream
@@ -1961,26 +1980,10 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
         waves.append(list(zip(ragged_prompts(rng, *s["batcher_bucket"], len(budgets)),
                               budgets)))
 
-    async def serve():
-        b = GenBatcher(eng, max_batch=s["max_batch"])
-        await b.start()
-        try:
-            tasks = []
-            for w, wave in enumerate(waves):
-                if w:
-                    await asyncio.sleep(s["wave_gap_s"])
-                tasks += [asyncio.ensure_future(b.generate(p, int(n), temperature=0.0))
-                          for p, n in wave]
-            return await asyncio.gather(*tasks), dict(b.stats)
-        finally:
-            await b.close()
-
     engine_timeline.clear()
     tok0, prefills0 = eng.stats["tokens_generated"], prefills()
     fa.launches = 0  # ---------------------------------------------------- main path
-    t0 = time.perf_counter()
-    texts, bstats = asyncio.run(serve())
-    batch_s = time.perf_counter() - t0
+    texts, bstats, batch_s = serve_batcher(eng, waves, s["max_batch"], s["wave_gap_s"])
     batch_launches = fa.launches  # ------------------------------------------ main path end
     counted += batch_launches
     n_prefills = prefills() - prefills0
@@ -2112,6 +2115,7 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
           f"wall {wall_ms:.1f} ms, device busy "
           + (f"{busy:.1f} ms ({busy / wall_ms:.1%} of wall)" if busy is not None
              else "not measured (no card)"), flush=True)
+    tinyllama = (eng.params, eng.model_cfg)  # for [paged] and [spec]: no second load
     del eng, sess
     gc.collect()
 
@@ -2120,7 +2124,7 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
                             stream_chunk=chunk, **lm_kw), tokenizer=IdTokenizer())
     L2 = eng.model_cfg.num_layers
     for B in (4, 1):  # the session's start and admission, and the standalone decodes
-        b1_against_plain(B, eng.model_cfg, s["gpt2_bucket"][1])
+        b1_against_plain(rng, B, eng.model_cfg, s["gpt2_bucket"][1], device)
     prompts = ragged_prompts(rng, *s["gpt2_bucket"], 4)
     wants = [new, new - chunk, new, new - 2 * chunk]
     fa.launches = 0  # ---------------------------------------------------- main path
@@ -2165,7 +2169,612 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
             "session_busy_pct": None if busy is None else 100.0 * busy / wall_ms,
             "admit_bytes": {"forecast_1_row": forecast, "headroom": headroom,
                             "prefill_peak_above_live": admit_bytes},
-            "gpt2_near_ties": ties}
+            "gpt2_near_ties": ties, "tinyllama": tinyllama}
+
+
+# ------------------------------------------------------------ paged, spec
+
+# [paged]'s and [spec]'s sizes on the card: the sessions' prompt bucket
+# (lo, hi], new tokens, chunk, the partial hit's shared prefix, the KV page,
+# the drafts a round, and the verify check's rows and cache length
+PAGED = dict(bucket=(128, 256), new=64, chunk=16, prefix=128, page=16, spec_k=8,
+             verify_rows=8, verify_cache=1024)
+# JackFram/llama-68m's config.json: a llama drafter over the Llama-2
+# tokenizer's 32,000 ids, which TinyLlama shares; the hub ships float32
+LLAMA_68M = dict(
+    model_type="llama", architectures=["LlamaForCausalLM"], vocab_size=32000, hidden_size=768,
+    num_hidden_layers=2, num_attention_heads=12, num_key_value_heads=12,
+    intermediate_size=3072, max_position_embeddings=2048, rms_norm_eps=1e-6,
+    tie_word_embeddings=False)
+
+
+def drive_session(eng, prompts, wants, admit=None, cancel_after=None) -> dict:
+    """One greedy session of `prompts` driven to its end; `admit` = (prompt,
+    want) joins after the first step(), `cancel_after` = n cancels tag 0
+    after step n. → its rows' tokens by tag (a cancelled row left out), the
+    start's host ms (synchronised), each step()'s host ms, B1 launches at
+    the start, in step() calls and in the admission, and, paged, the peak
+    pages live and the largest `kv.page_fragmentation_pct` read after a
+    step."""
+    from symbiont_tpu_torch.kv.pool import kv_dtype_label
+    from symbiont_tpu_torch.ops import flash_attention as fa
+    from symbiont_tpu_torch.utils.telemetry import metrics
+
+    labels = {"service": "lm",
+              "kv_dtype": kv_dtype_label(eng.model_cfg.dtype, eng.model_cfg.kv_quant)}
+    cuda = eng.device.type == "cuda"
+    before, t0 = fa.launches, time.perf_counter()
+    sess = eng.start_session(prompts, wants, temperature=0.0)
+    if cuda:
+        torch.cuda.synchronize()
+    out = {"start_ms": (time.perf_counter() - t0) * 1e3, "step_ms": [], "peak_pages": 0,
+           "frag_pct": 0.0, "launches": {"start": fa.launches - before, "steps": 0, "admit": 0},
+           "session": sess}
+    rows = {r.tag: r for r in sess.rows if r is not None}
+    while not sess.done():
+        before, t0 = fa.launches, time.perf_counter()
+        sess.step()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"]["steps"] += fa.launches - before
+        if eng.pool is not None:
+            out["peak_pages"] = max(out["peak_pages"], eng.pool.pages_live)
+            out["frag_pct"] = max(out["frag_pct"],
+                                  metrics.gauge_get("kv.page_fragmentation_pct", labels))
+        n = len(out["step_ms"])
+        if n == 1 and admit is not None:
+            before = fa.launches
+            (tag,) = sess.admit([admit[0]], [admit[1]], temperature=[0.0])
+            out["launches"]["admit"] = fa.launches - before
+            rows[tag] = next(r for r in sess.rows if r is not None and r.tag == tag)
+        if n == cancel_after:
+            check(sess.cancel_tag(0), "cancel_tag(0) found no row")
+            rows.pop(0)
+    out["tokens"] = {t: list(r.tokens) for t, r in rows.items()}
+    return out
+
+
+def timeline_latency(events) -> dict:
+    """TTFT p50/p95 over the finish events and TPOT p50 over the step
+    events of a window, nearest rank as the engine's histograms take them."""
+    def q(vals, p):
+        vals = sorted(vals)
+        return vals[min(len(vals) - 1, int(p * len(vals)))] if vals else 0.0
+
+    ttft = [e["ttft_ms"] for e in events if e["kind"] == "finish" and "ttft_ms" in e]
+    tpot = [e["wall_ms"] / e["steps"] for e in events if e["kind"] == "step" and e["steps"]]
+    return {"ttft_ms_p50": q(ttft, 0.5), "ttft_ms_p95": q(ttft, 0.95), "tpot_ms_p50": q(tpot, 0.5)}
+
+
+def serve_batcher(eng, waves, max_batch: int, wave_gap_s: float):
+    """`GenBatcher` over `waves` of (prompt, budget) pairs, greedy, on one
+    asyncio loop, waves `wave_gap_s` apart → (texts, batcher stats, host
+    seconds)."""
+    import asyncio
+
+    from symbiont_tpu_torch.engine.batcher import GenBatcher
+
+    async def serve():
+        b = GenBatcher(eng, max_batch=max_batch)
+        await b.start()
+        try:
+            tasks = []
+            for w, wave in enumerate(waves):
+                if w:
+                    await asyncio.sleep(wave_gap_s)
+                tasks += [asyncio.ensure_future(b.generate(p, int(n), temperature=0.0))
+                          for p, n in wave]
+            return await asyncio.gather(*tasks), dict(b.stats)
+        finally:
+            await b.close()
+
+    t0 = time.perf_counter()
+    texts, stats = asyncio.run(serve())
+    return texts, stats, time.perf_counter() - t0
+
+
+def paged_phase(rng, tmp, tinyllama, dense_batcher=None, sizes=None, device="cuda",
+                lm_kw=None) -> dict:
+    """ROADMAP A12 on the card: TinyLlama-1.1B (`tinyllama` = the params and
+    config [session] loaded, bf16, flash) with `kv_layout="paged"`, pages of
+    16 tokens, the radix cache on and the pool sized automatically; GPT-2
+    at float32 from its dir. Each check fails the run:
+
+    - the pool's bytes: 2·8·128 + 1 pages × 16 tokens × the model's KV
+      bytes per token, exactly, in the pool, the `kv.page_pool` claim and
+      `lm.kv_cache_bytes`;
+    - a session of 7 ragged prompts in the 256 bucket × 64 new, one
+      admission after the first chunk and one cancel after the second:
+      every row's tokens equal the dense session's; B1 launches once per
+      layer at the start and the admission and never in a step(); pages
+      are mapped (peak > 0);
+    - the same 7 prompts again: every start is a full radix hit, B1
+      launches 0 times, the finished rows' tokens repeat;
+    - a prompt sharing the first 128 tokens of a committed one: 128 hit
+      tokens at its start;
+    - GPT-2 at float32, kv_quant none and int8: a session with an
+      admission, paged rows token-identical to dense ones;
+    - `GenBatcher` of [session]'s 24 requests in three waves on the paged
+      engine: every future gives text, rows join mid-flight, B1 launches
+      once per layer per prefill;
+    - after the phase no page is live and, with the radix cache cleared,
+      every page is free again.
+
+    Printed with no bar: the starts' wall (cold against full hit), the
+    peak pages live and fragmentation against the dense slab's bytes, the
+    median ms a chunk paged against dense, and the batcher's tok/s, TTFT,
+    TPOT and timeline readings beside `dense_batcher` ([session]'s)."""
+    import gc
+
+    from symbiont_tpu_torch.config import LmConfig
+    from symbiont_tpu_torch.engine.lm import LmEngine
+    from symbiont_tpu_torch.models.bert import torch_dtype
+    from symbiont_tpu_torch.obs.engine_timeline import engine_timeline
+    from symbiont_tpu_torch.obs.hbm import hbm_ledger
+    from symbiont_tpu_torch.obs.xprof import dispatch_ledger
+    from symbiont_tpu_torch.ops import flash_attention as fa
+    from symbiont_tpu_torch.utils.telemetry import metrics
+
+    s = {**SESSION, **PAGED, **(sizes or {})}
+    lm_kw = dict(lm_kw or {})
+    tmp = Path(tmp)
+    chunk, new, page = s["chunk"], s["new"], s["page"]
+    params, mcfg = tinyllama
+    L = mcfg.num_layers
+    base = LmConfig(model_dir=str(tmp / "tinyllama"), dtype="bfloat16", attn_impl="flash",
+                    stream_chunk=chunk, kv_page_tokens=page, **lm_kw)
+    def pool_claim() -> int:
+        return sum(r["bytes"] for r in hbm_ledger.rows() if r["subsystem"] == "kv.page_pool")
+
+    dense = LmEngine(base, params=params, model_cfg=mcfg, tokenizer=IdTokenizer())
+    claim0 = pool_claim()
+    eng = LmEngine(dataclasses.replace(base, kv_layout="paged"), params=params, model_cfg=mcfg,
+                   tokenizer=IdTokenizer())
+    pool, counted = eng.pool, 0
+
+    # -- the pool's bytes: one session batch at the largest bucket pair
+    # (every row at its worst case), twice over, plus the scratch page
+    per_token = L * 2 * mcfg.kv_heads * mcfg.head_dim * torch_dtype(mcfg.dtype).itemsize
+    rows = max(base.session_min_rows, base.gen_max_batch)
+    bb = 1 << (rows - 1).bit_length()
+    new_b = max(base.new_token_buckets)
+    span = max(b for b in base.prompt_buckets if b <= mcfg.max_position_embeddings - new_b) + new_b
+    n_pages = 2 * bb * -(-span // page) + 1
+    want_bytes = n_pages * page * per_token
+    claim = pool_claim() - claim0
+    gauge = metrics.gauge_get("lm.kv_cache_bytes", {"service": "lm", "kv_dtype": mcfg.dtype})
+    check(pool.n_pages == n_pages and pool.device_bytes == claim == gauge == want_bytes,
+          f"pool {pool.n_pages} pages, {pool.device_bytes:,} bytes (claim {claim:,}, gauge "
+          f"{gauge:,}); want {n_pages} pages, {want_bytes:,}")
+    total = pool.pages_free
+    print(f"[paged] TinyLlama-1.1B, kv_layout paged, pages of {page} tokens, radix on: pool of "
+          f"{n_pages:,} pages (2 x {bb} rows x {-(-span // page)} blocks + scratch) x {page} tokens "
+          f"x {per_token:,} bytes a token = {want_bytes:,} bytes, the kv.page_pool claim and "
+          f"lm.kv_cache_bytes equal", flush=True)
+
+    # -- paged against dense: 7 prompts, an admission, a cancel
+    prompts = ragged_prompts(rng, *s["bucket"], 8)
+    runs = {}
+    for name, e in (("dense", dense), ("paged", eng)):
+        fa.launches = 0  # ------------------------------------------------ main path
+        runs[name] = drive_session(e, prompts[:7], [new] * 7, admit=(prompts[7], new - chunk),
+                                   cancel_after=2)
+        counted += fa.launches  # ---------------------------------------- main path end
+        check(runs[name]["launches"] == {"start": L, "steps": 0, "admit": L},
+              f"{name} session: B1 launches {runs[name]['launches']} (want {L} at the start "
+              f"and the admission, 0 in steps)")
+    cold = runs["paged"]
+    diff = [t for t in runs["dense"]["tokens"] if cold["tokens"][t] != runs["dense"]["tokens"][t]]
+    check(set(cold["tokens"]) == set(runs["dense"]["tokens"]) and not diff,
+          f"paged rows {diff} differ from the dense session's")
+    check(cold["peak_pages"] > 0, "the paged session mapped 0 pool pages")
+    P = cold["session"].P
+    slab = cold["session"].bb * (P + cold["session"].new_bucket) * per_token
+    paged_ms, dense_ms = (float(np.median(runs[n]["step_ms"])) for n in ("paged", "dense"))
+    print(f"[paged] a session of 7 ragged prompts in the {P} bucket x {new} new, one admitted "
+          f"after the first chunk, one cancelled after the second: paged rows token-identical to "
+          f"the dense session's; B1 launches {L} at the start, {L} for the admission, 0 per step; "
+          f"peak pages live {cold['peak_pages']} = {cold['peak_pages'] * page * per_token:,} bytes "
+          f"against the dense slab's {slab:,}, kv.page_fragmentation_pct up to "
+          f"{cold['frag_pct']:.2f}; median ms a chunk of {chunk} (host clock) paged "
+          f"{paged_ms:.2f}, dense {dense_ms:.2f} ({paged_ms / dense_ms:.3f}x)", flush=True)
+
+    # -- the same prompts again: full radix hits, no prefill
+    hits0 = eng.radix.stats["full_hits"]
+    fa.launches = 0  # ---------------------------------------------------- main path
+    hit = drive_session(eng, prompts[:7], [new] * 7)
+    counted += fa.launches  # -------------------------------------------- main path end
+    check(hit["launches"] == {"start": 0, "steps": 0, "admit": 0},
+          f"full-hit session: B1 launches {hit['launches']} (want none)")
+    check(eng.radix.stats["full_hits"] - hits0 == 7,
+          f"{eng.radix.stats['full_hits'] - hits0} of 7 starts were full hits")
+    diff = [t for t, toks in cold["tokens"].items() if t < 7 and hit["tokens"][t] != toks]
+    check(not diff, f"full-hit rows {diff} differ from the cold session's")
+
+    # -- a prompt sharing the first `prefix` tokens of a committed one
+    engine_timeline.clear()
+    twin = prompts[7][:s["prefix"] - 1] + "".join(
+        rng.choice(list("abcdefghijklmnopqrstuvwxyz "), len(prompts[7]) - s["prefix"] + 1))
+    fa.launches = 0  # ---------------------------------------------------- main path
+    part = drive_session(eng, [twin], [new])
+    counted += fa.launches  # -------------------------------------------- main path end
+    admit_ev = next(e for e in engine_timeline.events() if e["kind"] == "admit")
+    check(admit_ev["hit_tokens"] == s["prefix"] and part["launches"]["start"] == L,
+          f"partial hit: {admit_ev['hit_tokens']} hit tokens (want {s['prefix']}), B1 "
+          f"{part['launches']['start']}")
+    print(f"[paged] the 7 prompts again: 7 full radix hits, B1 launches 0, rows token-identical "
+          f"to the cold run; start wall (host clock, synchronised) cold {cold['start_ms']:.1f} ms, "
+          f"full hit {hit['start_ms']:.1f} ms; a prompt sharing the first {s['prefix']} tokens of "
+          f"a committed one: {admit_ev['hit_tokens']} hit tokens = {s['prefix'] // page} shared "
+          f"pages of {admit_ev['prompt_tokens']} prompt tokens, start {part['start_ms']:.1f} ms; "
+          f"radix {eng.radix.stats}", flush=True)
+
+    # -- GenBatcher on the paged engine: [session]'s waves
+    waves = []
+    for w in range(s["waves"]):
+        budgets = s["first_wave"] if w == 0 else s["later_waves"]
+        waves.append(list(zip(ragged_prompts(rng, *s["batcher_bucket"], len(budgets)), budgets)))
+    engine_timeline.clear()
+    tok0 = eng.stats["tokens_generated"]
+    prefills0 = sum(r["dispatches"] for r in dispatch_ledger.snapshot()
+                    if r["executable"].startswith("lm.prefill["))
+    fa.launches = 0  # ---------------------------------------------------- main path
+    texts, bstats, batch_s = serve_batcher(eng, waves, s["max_batch"], s["wave_gap_s"])
+    batch_launches = fa.launches  # ------------------------------------------ main path end
+    counted += batch_launches
+    n_prefills = sum(r["dispatches"] for r in dispatch_ledger.snapshot()
+                     if r["executable"].startswith("lm.prefill[")) - prefills0
+    n_req = sum(len(w) for w in waves)
+    check(len(texts) == n_req and all(isinstance(t, str) for t in texts),
+          f"paged GenBatcher: {sum(isinstance(t, str) for t in texts)} of {n_req} gave text")
+    check(bstats["admitted_midflight"] > 0, f"paged GenBatcher: none joined mid-flight {bstats}")
+    check(batch_launches == L * n_prefills,
+          f"paged GenBatcher: B1 launches {batch_launches} != {L} x {n_prefills} prefills")
+    toks = eng.stats["tokens_generated"] - tok0
+    lat = timeline_latency(engine_timeline.events())
+    summ = engine_timeline.summary()
+    batcher = {"tok_s": toks / batch_s, **lat, "admitted_midflight": bstats["admitted_midflight"],
+               "sessions": bstats["sessions"]} | {
+        k: summ.get(k) for k in ("decode_occupancy_pct", "decode_kv_stranded_pct",
+                                 "decode_pages_live_pct", "decode_radix_hit_pct")}
+    print(f"[paged] GenBatcher, {n_req} requests in {s['waves']} waves: {bstats['sessions']} "
+          f"sessions, {bstats['admitted_midflight']} admitted mid-flight, {toks} tokens in "
+          f"{batch_s:.2f} s = {batcher['tok_s']:.1f} tok/s; TTFT p50 {lat['ttft_ms_p50']:.1f} "
+          f"p95 {lat['ttft_ms_p95']:.1f} ms, TPOT p50 {lat['tpot_ms_p50']:.2f} ms; timeline "
+          f"occupancy {summ['decode_occupancy_pct']}%, stranded KV {summ['decode_kv_stranded_pct']}"
+          f"%, pages live {summ.get('decode_pages_live_pct')}%; B1 launches {batch_launches} = "
+          f"{L} x {n_prefills} prefills; [session]'s dense run: " + (
+              ", ".join(f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
+                        for k, v in (dense_batcher or {}).items())), flush=True)
+    check(pool.pages_live == 0 and pool.pages_free + pool.pages_retained == total,
+          f"after the phase: {pool.pages_live} pages live, {pool.pages_free} free + "
+          f"{pool.pages_retained} retained of {total}")
+    eng.radix.clear()
+    check(pool.pages_free == total, f"radix cleared: {pool.pages_free} of {total} pages free")
+    result = {"pool_bytes": want_bytes, "pool_pages": n_pages,
+              "start_ms": {"cold": cold["start_ms"], "full_hit": hit["start_ms"],
+                           "partial_hit": part["start_ms"]},
+              "peak_pages": cold["peak_pages"], "peak_bytes": cold["peak_pages"] * page * per_token,
+              "dense_slab_bytes": slab, "fragmentation_pct": cold["frag_pct"],
+              "chunk_ms": {"paged": paged_ms, "dense": dense_ms}, "batcher": batcher}
+    del eng, dense, runs, cold, hit, part
+    gc.collect()
+
+    # -- GPT-2 at float32: paged rows against dense, kv_quant none and int8
+    g2, g2_launches = None, 0
+    prompts = ragged_prompts(rng, *s["gpt2_bucket"], 4)
+    for kv_quant in ("none", "int8"):
+        cfg = LmConfig(model_dir=str(tmp / "gpt2"), dtype="float32", attn_impl="flash",
+                       stream_chunk=chunk, kv_quant=kv_quant, kv_page_tokens=page, **lm_kw)
+        d = LmEngine(cfg, params=g2 and g2[0], model_cfg=g2 and g2[1], tokenizer=IdTokenizer())
+        g2 = g2 or (d.params, d.model_cfg)
+        p = LmEngine(dataclasses.replace(cfg, kv_layout="paged"), params=g2[0], model_cfg=g2[1],
+                     tokenizer=IdTokenizer())
+        fa.launches = 0  # ------------------------------------------------ main path
+        a, b = (drive_session(e, prompts[:3], [new] * 3, admit=(prompts[3], new - chunk))
+                for e in (d, p))
+        g2_launches += fa.launches  # ------------------------------------- main path end
+        check(a["tokens"] == b["tokens"], f"GPT-2 float32, kv_quant {kv_quant}: paged rows "
+                                          f"differ from dense")
+        check(b["peak_pages"] > 0 and p.pool.pages_live == 0,
+              f"GPT-2 paged: peak {b['peak_pages']} pages, {p.pool.pages_live} live after")
+        del d, p, a, b
+    counted += g2_launches
+    check(g2_launches == 2 * 2 * 2 * g2[1].num_layers, f"GPT-2 sessions: B1 {g2_launches}")
+    print(f"[paged] GPT-2 124M at float32: a session of 3 prompts plus one admitted, paged rows "
+          f"token-identical to dense for kv_quant none and int8; B1 launches {g2_launches}; "
+          f"after the phase no page live, every page free once the radix cache is cleared",
+          flush=True)
+    del g2
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": counted, **result}
+
+
+def same_or_near_tie(name: str, got: dict, want: dict, eng, prompts: dict) -> list:
+    """Rows of two greedy runs token for token (tag → tokens): a row may
+    differ only first at a near-tie, where the standalone greedy decode of
+    its prompt (on `eng`) has its top-2 logits closer than TIE_SHARE of the
+    largest |logit|. → the near-ties met, reported."""
+    check(set(got) == set(want), f"{name}: rows {sorted(got)} != {sorted(want)}")
+    ties = []
+    for t in sorted(want):
+        d = next((i for i, (a, b) in enumerate(zip(got[t], want[t])) if a != b), None)
+        if d is None:
+            check(len(got[t]) == len(want[t]), f"{name} row {t}: {len(got[t])} tokens, want "
+                                               f"{len(want[t])}")
+            continue
+        gap, scale = greedy_trace(eng, prompts[t], len(want[t]))[1][d]
+        check(gap < TIE_SHARE * scale, f"{name} row {t} differs at step {d}, where the top-2 "
+                                       f"gap is {gap:.3g} (bar {TIE_SHARE} x {scale:.3g})")
+        ties.append(f"{name} row {t} step {d}: gap {gap:.3g}")
+    return ties
+
+
+def spec_rounds(events, k: int) -> dict:
+    """The spec rounds of a timeline window: their count, mean draft and
+    verify ms, and the mean tokens a live row emitted per target dispatch
+    (its accepted drafts and the correction)."""
+    rounds = [e for e in events if e["kind"] == "step" and "spec_proposed" in e]
+    if not rounds:
+        return {"rounds": 0}
+    per = [e["spec_accepted"] / (e["spec_proposed"] / k) + 1 for e in rounds if e["spec_proposed"]]
+    return {"rounds": len(rounds),
+            "draft_ms": float(np.mean([e["spec_draft_ms"] for e in rounds])),
+            "verify_ms": float(np.mean([e["spec_verify_ms"] for e in rounds])),
+            "tokens_per_round": float(np.mean(per)) if per else 0.0}
+
+
+def spec_phase(rng, tmp, tinyllama, sizes=None, device="cuda", lm_kw=None) -> dict:
+    """ROADMAP A13 on the card, TinyLlama-1.1B the target (`tinyllama`,
+    flash), spec_k 8, greedy. The identity checks run the target at
+    float32: a bf16 forward of k + 1 tokens rounds differently from k + 1
+    one-token forwards, so bf16 greedy speculation may part from plain
+    decode wherever two logits are within its rounding. Each check fails
+    the run:
+
+    - self-drafted (the drafter is the target's own params): a stream and
+      sessions on the dense and paged layouts give spec-off's tokens (or a
+      reported near-tie), acceptance 1.0, 9 tokens per target dispatch, B1
+      launches once per layer for the target's prefill and once for the
+      drafter's, never in a round, a track or an ingest;
+    - drafts corrupted from slot 2 on: acceptance 2/8 and spec-off's tokens;
+    - a drafter at JackFram/llama-68m's published geometry, written from the
+      seed in the hub's layout and loaded through `spec_draft_model`
+      (`validate_spec_draft`, `load_gpt_model`): spec-off's tokens, B1 22 +
+      2 at the start; then the same drafter beside the bf16 target for its
+      round costs (tokens against bf16 spec-off reported, no bar);
+    - one `verify_chunk` at [8, 9] over a 1,024-token bf16 cache: B1 0
+      times, and the logits of its forward under "flash" equal a plain
+      forward's (next-token cosine >= 0.995 at every position), its
+      accepted drafts and correction are the plain logits' argmax;
+    - every sub-phase that should speculate proposed drafts.
+
+    Printed with no bar: draft and verify ms a round, tokens a round,
+    acceptance, the round at which the EMA turned a session plain, and
+    tok/s against plain."""
+    import gc
+    import re
+
+    from symbiont_tpu_torch.config import LmConfig
+    from symbiont_tpu_torch.engine.lm import LmEngine
+    from symbiont_tpu_torch.models import gpt as gpt_mod
+    from symbiont_tpu_torch.obs.engine_timeline import engine_timeline
+    from symbiont_tpu_torch.ops import flash_attention as fa
+
+    s = {**PAGED, **(sizes or {})}
+    lm_kw = dict(lm_kw or {})
+    tmp = Path(tmp)
+    chunk, new, k = s["chunk"], s["new"], s["spec_k"]
+    params, mcfg = tinyllama
+    L = mcfg.num_layers
+    counted, ties = 0, []
+    base = LmConfig(model_dir=str(tmp / "tinyllama"), dtype="float32", attn_impl="flash",
+                    stream_chunk=chunk, spec_k=k, kv_page_tokens=s["page"], **lm_kw)
+    off = LmEngine(base, params=params, model_cfg=mcfg, tokenizer=IdTokenizer())
+    f32 = (off.params, off.model_cfg)  # float32 leaves, shared by every engine below
+
+    def engine(cfg=base, draft=None, **kw):
+        extra = {} if draft is None else dict(draft_params=draft[0], draft_model_cfg=draft[1])
+        return LmEngine(dataclasses.replace(cfg, **kw), params=f32[0], model_cfg=f32[1],
+                        tokenizer=IdTokenizer(), **extra)
+
+    prompts = ragged_prompts(rng, *s["bucket"], 8)
+    by_tag = dict(enumerate(prompts))
+    d_hf = s.get("drafter", LLAMA_68M)
+    dcfg = gpt_mod.GPTConfig.from_hf(d_hf)
+    # B1 at this phase's prefill shapes: the float32 target's sessions and
+    # stream, the llama-68m drafter's (its own dtype, bf16) sessions
+    for B, mc in ((8, off.model_cfg), (1, off.model_cfg), (8, dcfg)):
+        b1_against_plain(rng, B, mc, s["bucket"][1], device, tag="spec")
+
+    def proposed(e, since: int, name: str) -> int:
+        n = e._spec_proposed - since
+        check(n > 0, f"{name}: 0 draft tokens proposed")
+        return n
+
+    # -- self-drafted: a stream, sessions dense and paged
+    on = engine(draft=f32)
+    prompt = prompts[0]
+    want_text = "".join(off.generate_stream(prompt, new, temperature=0.0))
+    fa.launches = 0  # ---------------------------------------------------- main path
+    got_text = "".join(on.generate_stream(prompt, new, temperature=0.0))
+    stream_launches = fa.launches  # ----------------------------------------- main path end
+    counted += stream_launches
+    proposed(on, 0, "self-drafted stream")
+    ids = [[int(x) for x in re.findall(r"\[(\d+)\]", t)] for t in (got_text, want_text)]
+    ties += same_or_near_tie("self-drafted stream", {0: ids[0]}, {0: ids[1]}, off, {0: prompt})
+    check(stream_launches == 2 * L, f"self-drafted stream: B1 launches {stream_launches} != "
+                                    f"{2 * L} (target and drafter prefills)")
+    check(on._spec_accepted == on._spec_proposed,
+          f"self-drafted stream: acceptance {on._spec_accepted}/{on._spec_proposed}")
+    self_runs, refs = {}, {}
+    for layout in ("dense", "paged"):
+        e_off = off if layout == "dense" else engine(kv_layout="paged")
+        e_on = on if layout == "dense" else engine(draft=f32, kv_layout="paged")
+        ref = drive_session(e_off, prompts, [new] * 8)
+        refs[layout] = ref
+        engine_timeline.clear()
+        p0, a0 = e_on._spec_proposed, e_on._spec_accepted
+        fa.launches = 0  # ------------------------------------------------ main path
+        run = drive_session(e_on, prompts, [new] * 8)
+        counted += fa.launches  # ------------------------------------------ main path end
+        n_prop = proposed(e_on, p0, f"self-drafted {layout} session")
+        rate = (e_on._spec_accepted - a0) / n_prop
+        ties += same_or_near_tie(f"self-drafted {layout} session", run["tokens"], ref["tokens"],
+                                 off, by_tag)
+        check(run["launches"] == {"start": 2 * L, "steps": 0, "admit": 0},
+              f"self-drafted {layout} session: B1 launches {run['launches']} (want {2 * L} at "
+              f"the start, 0 in rounds, tracks and ingests)")
+        rounds = spec_rounds(engine_timeline.events(), k)
+        check(rate == 1.0 and rounds["tokens_per_round"] == k + 1,
+              f"self-drafted {layout} session: acceptance {rate}, {rounds}")
+        if layout == "paged":
+            check(run["peak_pages"] > 0 and e_on.pool.pages_live == 0,
+                  f"paged spec session: peak {run['peak_pages']} pages, "
+                  f"{e_on.pool.pages_live} live after")
+        self_runs[layout] = {"acceptance": rate, **rounds,
+                             "tok_s": 8 * new * 1e3 / (run["start_ms"] + sum(run["step_ms"])),
+                             "plain_tok_s": 8 * new * 1e3 / (ref["start_ms"] + sum(ref["step_ms"]))}
+        if layout == "paged":
+            del e_off, e_on
+    print(f"[spec] self-drafted (the target's own params), spec_k {k}, TinyLlama at float32: a "
+          f"stream and sessions of 8 prompts x {new} new, dense and paged, give spec-off's tokens"
+          + (f" (near-ties: {'; '.join(ties)})" if ties else "") + f"; acceptance 1.0, "
+          f"{k + 1} tokens per target dispatch; B1 launches {2 * L} per start or stream ({L} "
+          f"target + {L} drafter prefill), 0 per round, track and ingest; " + "; ".join(
+              f"{n}: {r['rounds']} rounds, draft {r['draft_ms']:.1f} ms, verify "
+              f"{r['verify_ms']:.1f} ms a round, {r['tok_s']:.1f} tok/s against plain "
+              f"{r['plain_tok_s']:.1f}" for n, r in self_runs.items()), flush=True)
+
+    # -- drafts corrupted from slot 2: partial acceptance
+    real = gpt_mod.draft_chunk
+
+    def corrupt(draft_params, d_cache, pending, cur_pos, done, kv_valid, dcfg, spec_k):
+        cache, drafts = real(draft_params, d_cache, pending, cur_pos, done, kv_valid, dcfg,
+                             spec_k)
+        bad = (drafts + 1) % dcfg.vocab_size
+        return cache, torch.where(torch.arange(spec_k, device=drafts.device)[None] >= 2, bad,
+                                  drafts)
+
+    ref = refs["dense"]
+    p0, a0 = on._spec_proposed, on._spec_accepted
+    gpt_mod.draft_chunk = corrupt
+    try:
+        fa.launches = 0  # ------------------------------------------------ main path
+        run = drive_session(on, prompts, [new] * 8)
+        counted += fa.launches  # ------------------------------------------ main path end
+    finally:
+        gpt_mod.draft_chunk = real
+    n_prop = proposed(on, p0, "corrupted session")
+    corrupt_rate = (on._spec_accepted - a0) / n_prop
+    ties += same_or_near_tie("corrupted session", run["tokens"], ref["tokens"], off, by_tag)
+    check(corrupt_rate == 2 / k, f"corrupted drafts: acceptance {corrupt_rate} != 2/{k}")
+    print(f"[spec] drafts corrupted from slot 2: acceptance {on._spec_accepted - a0}/{n_prop} = "
+          f"{corrupt_rate:.4f} (2/{k}), tokens spec-off's", flush=True)
+    del on
+    gc.collect()
+
+    # -- a drafter at JackFram/llama-68m's geometry, through spec_draft_model
+    dparams = gpt_mod.init_params(torch.Generator(device=device).manual_seed(SEED + 12), dcfg)
+    write_gpt_checkpoint(tmp / "llama68m", dparams, d_hf, torch.float32)
+    del dparams
+    d_layers = dcfg.num_layers
+    small = {}
+    for dtype in ("float32", "bfloat16"):
+        if dtype == "float32":
+            e_off = off
+            e_on = LmEngine(dataclasses.replace(base, spec_draft_model=str(tmp / "llama68m")),
+                            params=f32[0], model_cfg=f32[1], tokenizer=IdTokenizer())
+        else:
+            cfg = dataclasses.replace(base, dtype="bfloat16")
+            e_off = LmEngine(cfg, params=params, model_cfg=mcfg, tokenizer=IdTokenizer())
+            e_on = LmEngine(dataclasses.replace(cfg, spec_draft_model=str(tmp / "llama68m")),
+                            params=params, model_cfg=mcfg, tokenizer=IdTokenizer())
+        check(e_on._draft is not None and e_on._draft[1].hidden_size == dcfg.hidden_size,
+              f"the llama-68m drafter did not load ({dtype} target)")
+        ref = refs["dense"] if e_off is off else drive_session(e_off, prompts, [new] * 8)
+        engine_timeline.clear()
+        fa.launches = 0  # ------------------------------------------------ main path
+        run = drive_session(e_on, prompts, [new] * 8)
+        counted += fa.launches  # ------------------------------------------ main path end
+        n_prop = proposed(e_on, 0, f"llama-68m drafter, {dtype} target")
+        check(run["launches"] == {"start": L + d_layers, "steps": 0, "admit": 0},
+              f"llama-68m drafter: B1 launches {run['launches']} (want {L} + {d_layers} at the "
+              "start, 0 in rounds)")
+        if dtype == "float32":
+            ties += same_or_near_tie("llama-68m session", run["tokens"], ref["tokens"], off,
+                                     by_tag)
+        differ = sum(run["tokens"][t] != ref["tokens"][t] for t in ref["tokens"])
+        sess = run["session"]
+        small[dtype] = {"acceptance": e_on._spec_accepted / n_prop,
+                        **spec_rounds(engine_timeline.events(), k),
+                        "plain_after_round": None if sess._spec_on else sess._spec_rounds,
+                        "tok_s": 8 * new * 1e3 / (run["start_ms"] + sum(run["step_ms"])),
+                        "plain_tok_s": 8 * new * 1e3 / (ref["start_ms"] + sum(ref["step_ms"])),
+                        "rows_differing": differ}
+        del e_on, run, ref
+        if dtype == "bfloat16":
+            del e_off
+    print(f"[spec] drafter at JackFram/llama-68m's geometry ({dcfg.num_layers} layers x "
+          f"{dcfg.hidden_size}, {dcfg.num_heads} heads, FFN {dcfg.intermediate_size}, random "
+          f"weights from the seed, float32 safetensors) through spec_draft_model: B1 launches "
+          f"{L} + {d_layers} at the start, 0 per round; float32 target: spec-off's tokens; "
+          + "; ".join(f"{dt} target: acceptance {r['acceptance']:.4f}, {r['rounds']} rounds, "
+                      f"draft {r.get('draft_ms', 0):.2f} ms and verify {r.get('verify_ms', 0):.2f} "
+                      f"ms a round, {r.get('tokens_per_round', 0):.3f} tokens a round, plain after "
+                      f"round {r['plain_after_round']}, {r['tok_s']:.1f} tok/s against plain "
+                      f"{r['plain_tok_s']:.1f}, rows differing from spec-off "
+                      f"{r['rows_differing']}/8" for dt, r in small.items()), flush=True)
+
+    # -- one verify_chunk at [rows, k + 1] over a long cache, bf16, flash
+    eng = LmEngine(dataclasses.replace(base, dtype="bfloat16"), params=params, model_cfg=mcfg,
+                   tokenizer=IdTokenizer())
+    rows, P = s["verify_rows"], s["verify_cache"]
+    long_prompts = ragged_prompts(rng, P // 4, P, rows)
+    ids_np, mask_np, nb = eng._prepare_prompts(long_prompts, k + 1)
+    check(ids_np.shape == (rows, P), f"verify prompts shaped {ids_np.shape}")
+    with torch.inference_mode():
+        cache, logits, kv_valid, pos = eng._prefill(eng.params, ids_np, mask_np, nb)
+        cache = cache._replace(length=P)
+        pending = logits.argmax(-1)
+        drafts = torch.from_numpy(rng.integers(0, mcfg.vocab_size, (rows, k))).to(eng.device)
+        seq = torch.cat([pending[:, None], drafts], 1)
+        positions = pos[:, None] + torch.arange(k + 1, device=eng.device)[None]
+        snap = [t.clone() for t in cache[:-1]]
+        fa.launches = 0  # ------------------------------------------------ main path
+        out = gpt_mod.verify_chunk(eng.params, cache, pending, drafts, pos,
+                                   torch.zeros(rows, dtype=torch.bool, device=eng.device),
+                                   kv_valid, eng._new_generator(SEED), eng.model_cfg,
+                                   temperature=0.0, top_k=0)
+        verify_launches = fa.launches  # -------------------------------------- main path end
+        fwd = {}
+        for impl in ("flash", "xla"):
+            c = type(cache)(*[t.clone() for t in snap], P)
+            fwd[impl] = gpt_mod.forward(eng.params, seq, c, positions,
+                                        dataclasses.replace(eng.model_cfg, attn_impl=impl),
+                                        kv_valid)[0]
+        fa.launches = 0  # the comparison forwards are not the main path
+    check(verify_launches == 0, f"verify_chunk over a {P}-token cache: B1 launches "
+                                f"{verify_launches}")
+    cos = next_token_cosines(fwd["flash"].flatten(0, 1), fwd["xla"].flatten(0, 1))
+    check(float(cos.min()) >= GEN_COS_BAR, f"verify forward flash vs plain: cosine {cos.min():.6f}")
+    em, o = out[7].cpu(), out[5].cpu()
+    argmax = fwd["xla"].argmax(-1).cpu()
+    check(all(torch.equal(o[i, :int(em[i])], argmax[i, :int(em[i])]) for i in range(rows)),
+          "verify_chunk's accepted drafts and correction are not the plain logits' argmax")
+    max_diff = float((fwd["flash"] - fwd["xla"]).abs().max())
+    print(f"[spec] verify_chunk at [{rows}, {k + 1}] over a {P}-token cache (bf16, flash): B1 "
+          f"launches {verify_launches}; its forward's logits against a plain-attention forward: "
+          f"next-token cosine min {cos.min():.6f} (bar {GEN_COS_BAR}), max |diff| {max_diff:.3g}; "
+          f"emitted {em.tolist()}, each the plain argmax", flush=True)
+    del eng, cache, snap, fwd, off
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": counted, "self_drafted": self_runs, "corrupted_acceptance": corrupt_rate,
+            "llama_68m": small, "verify": {"cosine_min": float(cos.min()), "max_abs_diff": max_diff},
+            "near_ties": ties}
 
 
 def main(argv=()) -> int:
@@ -2221,9 +2830,16 @@ def main(argv=()) -> int:
         lap("generate")
         sess = session_phase(np.random.default_rng(SEED + 10), tmp)
         lap("session")
+        tinyllama = sess.pop("tinyllama")
+        paged = paged_phase(np.random.default_rng(SEED + 13), tmp, tinyllama,
+                            dense_batcher=sess["batcher"])
+        lap("paged")
+        spec = spec_phase(np.random.default_rng(SEED + 14), tmp, tinyllama)
+        lap("spec")
+        del tinyllama
     fwd = {"serve": serve["launches"][0], "train": train["launches"][0],
            "checkpoint": ck_launches, "quant": qt["launches"], "generate": gen["launches"],
-           "session": sess["launches"]}
+           "session": sess["launches"], "paged": paged["launches"], "spec": spec["launches"]}
     fwd_launches = sum(fwd.values())
     print("[phases] host seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items())
           + f"; total {sum(wall.values()):.1f}. flash_attn_fwd launches on the main path: "
@@ -2249,7 +2865,11 @@ def main(argv=()) -> int:
                    "generate": {"ttft_ms": gen["ttft"], "decode": gen["decode"],
                                 "prefill_1024": gen["prefill_1024"]},
                    "session_launches": sess["launches"],
-                   "session": {k: v for k, v in sess.items() if k != "launches"}}
+                   "session": {k: v for k, v in sess.items() if k != "launches"},
+                   "paged_launches": paged["launches"],
+                   "paged": {k: v for k, v in paged.items() if k != "launches"},
+                   "spec_launches": spec["launches"],
+                   "spec": {k: v for k, v in spec.items() if k != "launches"}}
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

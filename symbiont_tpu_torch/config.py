@@ -1,18 +1,21 @@
 """Engine, LM and vector-store configuration of the port.
 
 Own copies of `symbiont_tpu.config`'s `QUANTIZE_MODES`, `EngineConfig`,
-`LmConfig` and `VectorStoreConfig`, with the same fields and defaults, so
-code written against the JAX package's configs constructs these unchanged.
-Fields that steer parts of the JAX engines the port has not taken over yet
-(the mesh data-parallel split, the executable cache, the host prep
-pipeline; for the LM the generation batcher, streaming, paged KV,
-speculative decoding and the online trainer) are kept for that reason and
-say so; `LmEngine` refuses the settings that would switch those parts on.
+`LmConfig`, `VectorStoreConfig` and `validate_spec_draft`, with the same
+fields, defaults and checks, so code written against the JAX package's
+configs constructs these unchanged. Fields that steer parts of the JAX
+engines the port has not taken over yet (the mesh data-parallel split, the
+executable cache, the host prep pipeline; for the LM tensor-parallel decode
+and the online trainer) are kept for that reason and say so; `LmEngine`
+refuses the settings that would switch those parts on.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import List, Optional
 
 # Weight-quantization modes of the JAX package (docs/QUANTIZATION.md).
@@ -111,12 +114,18 @@ class LmConfig:
     # KV-cache storage: "none" keeps compute-dtype slabs, "int8" per-vector
     # int8 codes with float32 scales
     kv_quant: str = "none"
-    # KV layout: "dense" only; "paged" is not ported (ROADMAP A12)
+    # KV layout of sessions: "dense" keeps one max-length slab per row;
+    # "paged" keeps K/V in pages of kv_page_tokens tokens (which must divide
+    # every prompt bucket) drawn from one preallocated pool of kv_pool_pages
+    # pages (0 = one session batch at the largest buckets, x2, + scratch),
+    # with the radix prefix cache over committed prompt pages (kv_radix)
     kv_layout: str = "dense"
     kv_page_tokens: int = 16
     kv_pool_pages: int = 0
     kv_radix: bool = True
-    # speculative decoding: not ported (ROADMAP A13)
+    # speculative decoding: a drafter checkpoint dir (its tokenizer and
+    # vocab must match the target's, `validate_spec_draft`; a missing dir
+    # disables speculation with a warning) proposing spec_k tokens a round
     spec_draft_model: Optional[str] = None
     spec_k: int = 8
     # online fine-tune over ingested text: not ported (ROADMAP A14)
@@ -160,6 +169,42 @@ class LmConfig:
                 raise ValueError(
                     f"stream_chunk={self.stream_chunk} must divide every "
                     f"new_token_bucket larger than it; offending buckets: {bad}")
+
+
+def validate_spec_draft(target_dir: str, draft_dir: str) -> None:
+    """Drafter/target compatibility, read from the two checkpoint dirs
+    before any weight is loaded: `config.json` vocab_size parity (required:
+    verification compares token ids directly), and, where both dirs carry
+    one, the same tokenizer file (`tokenizer.json`, else `vocab.json`) by
+    content hash. Raises ValueError on a mismatch; whether draft_dir exists
+    is the caller's concern (the engine warns and decodes plain)."""
+    def vocab(d: str) -> int:
+        p = Path(d) / "config.json"
+        try:
+            return int(json.loads(p.read_text()).get("vocab_size", -1))
+        except (OSError, ValueError) as e:
+            raise ValueError(f"spec_draft_model compat: cannot read {p}: {e}")
+
+    tv, dv = vocab(target_dir), vocab(draft_dir)
+    if tv != dv:
+        raise ValueError(
+            f"spec_draft_model vocab mismatch: target {target_dir!r} has vocab_size={tv} but "
+            f"draft {draft_dir!r} has vocab_size={dv}; speculative verification compares "
+            "token ids directly, so drafter and target must share one tokenizer/vocab")
+
+    def tok_fingerprint(d: str) -> Optional[str]:
+        for name in ("tokenizer.json", "vocab.json"):
+            p = Path(d) / name
+            if p.is_file():
+                return name + ":" + hashlib.sha256(p.read_bytes()).hexdigest()
+        return None
+
+    tf, df = tok_fingerprint(target_dir), tok_fingerprint(draft_dir)
+    if tf is not None and df is not None and tf != df:
+        raise ValueError(
+            f"spec_draft_model tokenizer mismatch: target {target_dir!r} and draft "
+            f"{draft_dir!r} carry different tokenizer files ({tf.split(':')[0]} fingerprints "
+            "differ); draft token ids would not mean the same strings under the target")
 
 
 @dataclass

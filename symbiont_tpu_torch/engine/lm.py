@@ -33,23 +33,38 @@ session samples from a `torch.Generator` of its own, seeded by one draw
 from the engine's under the lock, so its tokens do not depend on what other
 callers interleave.
 
+Paged KV and speculative decoding, as in JAX: with `kv_layout="paged"`
+sessions keep their K/V in one engine-wide page pool (`kv/pool.py`), pages
+growing as rows decode and returning the moment a row finishes, and with
+`kv_radix` a prefix cache (`kv/radix.py`) shares committed prompt pages
+between admissions, a full hit skipping its prefill; streams and
+`generate_batch` stay dense. With a drafter (`draft_params` and
+`draft_model_cfg`, or `spec_draft_model`, a checkpoint dir checked by
+`config.validate_spec_draft`), streams and sessions run draft + verify
+rounds of `spec_k` tokens while the slot margin allows, degrading to plain
+decode (never an error) on a missing drafter dir, a failed draft prefill,
+a pool exhausted in a spec window, or an acceptance EMA near 0.
+
 Observability, as the JAX engine records it: `lm.param_bytes{dtype}`, the
-`lm.params` and `lm.kv_cache` claims in the device-memory ledger, the
-session KV gauges (`lm.kv_rows_active`, `lm.kv_rows_allocated`,
-`lm.kv_stranded_rows`, `lm.kv_cache_bytes`, `lm.kv_rows_per_gib`),
+`lm.params`, `lm.kv_cache` (dense) and `lm.drafter` claims in the
+device-memory ledger (the pool claims itself), the session KV gauges
+(`lm.kv_rows_active`, `lm.kv_rows_allocated`, `lm.kv_stranded_rows`,
+`lm.kv_cache_bytes`, `lm.kv_rows_per_gib`), the pool's `kv.*` gauges and
+`kv.page_fragmentation_pct`, `lm.spec_accept_rate`,
 `lm.decode_tok_per_s`, `lm.hbm_headroom_bytes`, the `lm.ttft_ms` and
 `lm.tpot_ms` histograms, the engine timeline's decode events, per-tenant
-usage, dispatch-ledger rows per prefill, chunk and splice, and
+usage, dispatch-ledger rows per prefill, chunk, round and splice, and
 `maybe_profile("engine.generate")` around each batch.
 
-Not ported yet: the paged KV layout (ROADMAP A12), speculative decoding
-(A13), tensor-parallel decode over a mesh (A15), and the generation
-journal with `generate_stream(resume=...)` (A8). The settings that would
-switch those on raise `ValueError` naming their item; none is ignored.
+Not ported yet: tensor-parallel decode over a mesh (ROADMAP A15), and the
+generation journal with `generate_stream(resume=...)` and the radix
+`peek` it reads (A8). The settings that would switch those on raise
+`ValueError` naming their item; none is ignored.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import threading
@@ -61,13 +76,16 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from symbiont_tpu_torch.config import LmConfig
+from symbiont_tpu_torch.config import LmConfig, validate_spec_draft
 from symbiont_tpu_torch.device import resolve_device
+from symbiont_tpu_torch.kv import paged as paged_mod
+from symbiont_tpu_torch.kv.pool import PagePool, PoolExhausted, kv_dtype_label
+from symbiont_tpu_torch.kv.radix import RadixCache
 from symbiont_tpu_torch.models import gpt as gpt_mod
 from symbiont_tpu_torch.models import quant
 from symbiont_tpu_torch.models.bert import torch_dtype
 from symbiont_tpu_torch.models.convert import load_gpt_model
-from symbiont_tpu_torch.models.gpt import GPTConfig
+from symbiont_tpu_torch.models.gpt import GPTConfig, PagedKVCache
 from symbiont_tpu_torch.obs.device import local_device_stats
 from symbiont_tpu_torch.obs.engine_timeline import engine_timeline
 from symbiont_tpu_torch.obs.hbm import guard_oom, hbm_ledger
@@ -162,14 +180,9 @@ class IncrementalDecoder:
         return text[i:]
 
 
-def _refuse_unported(cfg: LmConfig, mesh, draft_params, draft_model_cfg) -> None:
+def _refuse_unported(cfg: LmConfig, mesh) -> None:
     """The settings of the JAX engine whose parts are not ported raise
     here, naming their ROADMAP item, instead of being ignored."""
-    if cfg.kv_layout == "paged":
-        raise ValueError("kv_layout='paged' is not ported (ROADMAP A12: paged KV)")
-    if cfg.spec_draft_model or draft_params is not None or draft_model_cfg is not None:
-        raise ValueError("speculative decoding (spec_draft_model, draft params) is not "
-                         "ported (ROADMAP A13)")
     if cfg.tensor_parallel == "on" or mesh is not None:
         raise ValueError("tensor-parallel decode (tensor_parallel='on', a mesh) is not "
                          "ported (ROADMAP A15: multi-device)")
@@ -184,7 +197,7 @@ class LmEngine:
                  mesh=None, draft_params=None, draft_model_cfg=None, device=None):
         self.config = config or LmConfig()
         cfg = self.config
-        _refuse_unported(cfg, mesh, draft_params, draft_model_cfg)
+        _refuse_unported(cfg, mesh)
         self.device = resolve_device(device, cfg.force_cpu)
 
         if params is None or model_cfg is None:
@@ -232,7 +245,89 @@ class LmEngine:
         # register from executor threads while scrapes iterate
         self._sessions: "weakref.WeakSet" = weakref.WeakSet()
         self._sessions_lock = threading.Lock()
+        # paged KV: one engine-wide page pool and, optionally, the radix
+        # prefix cache over committed prompt pages; the dense layout leaves
+        # both None
+        self.pool: Optional[PagePool] = None
+        self.radix: Optional[RadixCache] = None
+        if cfg.kv_layout == "paged":
+            mc = self.model_cfg
+            n_pages = cfg.kv_pool_pages or self._auto_pool_pages()
+            self.pool = PagePool(mc.num_layers, n_pages, cfg.kv_page_tokens, mc.kv_heads,
+                                 mc.head_dim, torch_dtype(mc.dtype),
+                                 quantized=mc.kv_quant == "int8",
+                                 dtype_label=kv_dtype_label(mc.dtype, mc.kv_quant),
+                                 device=self.device)
+            if cfg.kv_radix:
+                self.radix = RadixCache(self.pool, cfg.kv_page_tokens)
+            log.info("paged KV pool: %d pages x %d tokens (%.1f MiB%s)", n_pages,
+                     cfg.kv_page_tokens, self.pool.device_bytes / (1 << 20),
+                     ", radix on" if self.radix is not None else "")
+        # speculative decoding: a small drafter proposes spec_k greedy
+        # tokens a round on its own dense, unquantized cache; acceptance
+        # reads only the proposed ids, so the target's layout and KV
+        # quantization cannot break token identity
+        self._draft = None
+        self.spec_k = int(cfg.spec_k)
+        self._spec_proposed = 0  # draft tokens offered to verify_chunk
+        self._spec_accepted = 0  # ... of which the target accepted
+        if draft_params is not None or draft_model_cfg is not None:
+            if draft_params is None or draft_model_cfg is None:
+                raise ValueError("draft_params and draft_model_cfg must be passed together")
+            self._adopt_draft(draft_params, draft_model_cfg)
+        elif cfg.spec_draft_model:
+            if not Path(cfg.spec_draft_model).is_dir():
+                # a missing drafter costs speed only: decode plain
+                log.warning("spec_draft_model %r not found: speculative decoding disabled, "
+                            "plain decode unaffected", cfg.spec_draft_model)
+            else:
+                if cfg.model_dir:
+                    # tokenizer and vocab parity from the checkpoints'
+                    # metadata, before any weight is read
+                    validate_spec_draft(cfg.model_dir, cfg.spec_draft_model)
+                self._adopt_draft(*load_gpt_model(cfg.spec_draft_model))
         self._register_gauges()
+
+    def _adopt_draft(self, d_params, d_cfg: GPTConfig) -> None:
+        """Check and place the drafter. Vocab parity is the one hard
+        requirement (token ids must mean the same to both models); its
+        attention follows the target's resolved `attn_impl`, so a drafter
+        prefill runs B1 under "flash". Floating leaves are cast to the
+        drafter's own dtype and never quantized."""
+        if d_cfg.vocab_size != self.model_cfg.vocab_size:
+            raise ValueError(f"spec draft vocab_size {d_cfg.vocab_size} != target "
+                             f"{self.model_cfg.vocab_size}: drafter and target must share a "
+                             "tokenizer")
+        d_cfg = dataclasses.replace(d_cfg, attn_impl=self.model_cfg.attn_impl)
+        dtype = torch_dtype(d_cfg.dtype)
+
+        def place(a):
+            if isinstance(a, np.ndarray):
+                a = torch.from_numpy(np.ascontiguousarray(a))
+            return quant.cast_params(a.to(self.device), dtype)
+
+        self._draft = (quant.tree_map(place, d_params), d_cfg)
+        log.info("speculative decoding on: drafter %d layers x %d hidden, k=%d",
+                 d_cfg.num_layers, d_cfg.hidden_size, self.spec_k)
+
+    def _largest_span(self) -> int:
+        """Cache slots of a row at the largest usable (prompt, new) bucket
+        pair: the worst case of the page quote, the pool sizing and the
+        dense bytes forecast."""
+        cfg = self.config
+        new_b = max(cfg.new_token_buckets)
+        cap = self.model_cfg.max_position_embeddings - new_b
+        usable = [b for b in cfg.prompt_buckets if b <= cap]
+        return (usable[-1] if usable else max(cap, 1)) + new_b
+
+    def _auto_pool_pages(self) -> int:
+        """`kv_pool_pages=0`: the pages of one session batch at the largest
+        bucket pair (every row at its worst case), twice over for radix
+        retention, plus the scratch page."""
+        cfg = self.config
+        rows = max(cfg.session_min_rows, cfg.gen_max_batch, 1)
+        bb = 1 << (rows - 1).bit_length() if rows > 1 else 1
+        return 2 * bb * -(-self._largest_span() // cfg.kv_page_tokens) + 1
 
     def _new_generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
@@ -263,40 +358,72 @@ class LmEngine:
         the process-global registry and ledger never pin a dead engine.
         Readers never take the engine lock: a scrape must not wait behind a
         decode."""
+        def live_rows(sessions):
+            return sum(sum(1 for r in s.rows if r is not None) for s in sessions)
+
         def kv_stranded(lm):
-            # rows held in dense max-length slabs but not live: batch-bucket
-            # padding and finished or cancelled rows (what paging reclaims)
+            # rows holding KV but not live: on the dense layout batch-bucket
+            # padding and finished or cancelled rows; paged rows return
+            # their pages when they end, so this reads 0 there
             live, alloc = lm.kv_row_counts()
             return alloc - live
 
-        def kv_bytes(lm):
+        def dense_kv_bytes(lm):
             return sum(gpt_mod.cache_bytes(s._cache) for s in lm._live_sessions())
+
+        def kv_bytes(lm):
+            # paged: the pool is the resident allocation
+            return lm.pool.device_bytes if lm.pool is not None else dense_kv_bytes(lm)
 
         def kv_rows_per_gib(lm):
             sessions = lm._live_sessions()
+            if lm.pool is not None:  # live rows per GiB of live pages
+                occupied = lm.pool.pages_live * lm.pool.device_bytes / lm.pool.n_pages
+                return round(live_rows(sessions) * (1 << 30) / occupied, 1) if occupied else 0.0
             total = sum(gpt_mod.cache_bytes(s._cache) for s in sessions)
             rows = sum(s.bb for s in sessions)
             return round(rows * (1 << 30) / total, 1) if total else 0.0
+
+        def page_fragmentation(lm):
+            # mapped page slots live rows do not fill (left padding inside
+            # prompt pages, the open tail of the newest decode page), as a
+            # share of every slot they map
+            toks = slots = 0
+            for sess in lm._live_sessions():
+                t, sl = sess.page_occupancy()
+                toks, slots = toks + t, slots + sl
+            return round(100.0 * (1.0 - toks / slots), 2) if slots else 0.0
+
+        def spec_accept(lm):
+            p = lm._spec_proposed
+            return round(lm._spec_accepted / p, 4) if p else 0.0
 
         def tok_per_s(lm):
             toks, secs = lm.stats["tokens_generated"], lm.stats["decode_s"]
             return toks / secs if secs > 0 else 0.0
 
         labels = {"service": "lm",
-                  "kv_dtype": "int8" if self.model_cfg.kv_quant == "int8"
-                  else self.model_cfg.dtype}
-        for name, reader in (("lm.kv_stranded_rows", kv_stranded),
-                             ("lm.kv_rows_active", lambda lm: lm.kv_row_counts()[0]),
-                             ("lm.kv_rows_allocated", lambda lm: lm.kv_rows_allocated()),
-                             ("lm.kv_cache_bytes", kv_bytes),
-                             ("lm.kv_rows_per_gib", kv_rows_per_gib),
-                             ("lm.decode_tok_per_s", tok_per_s),
-                             # None retires the gauge: right on the CPU,
-                             # which keeps no memory statistics
-                             ("lm.hbm_headroom_bytes", lambda lm: lm.hbm_headroom_bytes())):
+                  "kv_dtype": kv_dtype_label(self.model_cfg.dtype, self.model_cfg.kv_quant)}
+        gauges = [("lm.kv_stranded_rows", kv_stranded),
+                  ("lm.kv_rows_active", lambda lm: lm.kv_row_counts()[0]),
+                  ("lm.kv_rows_allocated", lambda lm: lm.kv_rows_allocated()),
+                  ("lm.kv_cache_bytes", kv_bytes),
+                  ("lm.kv_rows_per_gib", kv_rows_per_gib),
+                  ("lm.decode_tok_per_s", tok_per_s),
+                  # None retires the gauge: right on the CPU, which keeps no
+                  # memory statistics
+                  ("lm.hbm_headroom_bytes", lambda lm: lm.hbm_headroom_bytes())]
+        if self.pool is not None:  # replaces the pool's placeholder
+            gauges.append(("kv.page_fragmentation_pct", page_fragmentation))
+        if self._draft is not None:
+            gauges.append(("lm.spec_accept_rate", spec_accept))
+        for name, reader in gauges:
             metrics.register_weakref_gauge(name, self, reader, labels=labels)
         hbm_ledger.claim("lm.params", self, lambda lm: quant.param_bytes(lm.params))
-        hbm_ledger.claim("lm.kv_cache", self, kv_bytes)
+        if self._draft is not None:
+            hbm_ledger.claim("lm.drafter", self, lambda lm: quant.param_bytes(lm._draft[0]))
+        if self.pool is None:  # the pool claims its own bytes
+            hbm_ledger.claim("lm.kv_cache", self, dense_kv_bytes)
 
     def hbm_headroom_bytes(self) -> Optional[int]:
         """Free bytes of the engine's card: its total memory less the bytes
@@ -458,6 +585,15 @@ class LmEngine:
             self._prefill_peak_growth = max(self._prefill_peak_growth, top - live0)
         return out
 
+    def _draft_prefill(self, prompt_ids: np.ndarray, prompt_mask: np.ndarray,
+                       new_bucket: int):
+        """The drafter's dense cache at the target's (prompt, new) geometry,
+        slot for slot the target's, so both share one kv_valid, pos and
+        done. Call under `torch.inference_mode()`."""
+        draft_params, dcfg = self._draft
+        return gpt_mod.prefill(draft_params, self._device_ids(prompt_ids),
+                               self._device_ids(prompt_mask), dcfg, new_bucket)[0]
+
     def generate_stream(self, prompt: str, max_new_tokens: int,
                         temperature: Optional[float] = None, top_k: Optional[int] = None,
                         tenant: Optional[str] = None, task_id: Optional[str] = None,
@@ -488,10 +624,19 @@ class LmEngine:
         deltas join to exactly `generate()`'s text: both run the same steps
         at the same one-row shape.
 
-        The engine lock is held around the prefill and each chunk, never
-        across a yield, so a consumer that stops reading starves no other
-        caller; the stream's cache belongs to this generator frame, so
-        nothing that runs between its chunks can touch it. `stats` and the
+        With a drafter the loop runs draft + verify rounds instead of plain
+        chunks while the slots left allow a worst-case round (one token for
+        spec_k + 1 slots) and a plain finish; then it folds the pending
+        token back in and decodes plain to the end. The bucket request
+        carries spec_k slots of headroom for that margin. Greedy rounds give
+        plain decode's tokens up to floating-point near-ties: a forward of
+        k + 1 tokens, or a cache with more slots, rounds differently from
+        one-token steps (bf16 random-weight logits tie often).
+
+        The engine lock is held around the prefill and each chunk or round,
+        never across a yield, so a consumer that stops reading starves no
+        other caller; the stream's caches belong to this generator frame, so
+        nothing that runs between its chunks can touch them. `stats` and the
         usage ledger are charged in `finally`, also when the consumer
         closes the stream. `task_id` and `stream` are taken as the JAX
         engine takes them, and without a journal they record nothing;
@@ -504,12 +649,15 @@ class LmEngine:
         top_k = int(cfg.top_k if top_k is None else top_k)
         tenant = tenant or DEFAULT_TENANT
         eos_id = int(getattr(self.tokenizer, "eos_id", -1))
-        prompt_ids, prompt_mask, new_bucket = self._prepare_prompts([prompt], max_new_tokens)
+        spec_on = self._draft is not None
+        prompt_ids, prompt_mask, new_bucket = self._prepare_prompts(
+            [prompt], max_new_tokens + (self.spec_k if spec_on else 0))
         # the cache has new_bucket decode slots: the largest bucket caps
         max_new_tokens = min(max_new_tokens, new_bucket)
         usage.note(tenant, tokens_in=int(prompt_mask[0].sum()))
         chunk = min(cfg.stream_chunk, new_bucket)
         bb, P = prompt_ids.shape
+        sampling = dict(temperature=temperature, top_k=top_k, eos_id=eos_id)
         all_tokens: list = []
         decoder = IncrementalDecoder(self.tokenizer)
         decode_s = 0.0
@@ -520,31 +668,99 @@ class LmEngine:
                 cache, logits, kv_valid, pos = self._prefill(self.params, prompt_ids,
                                                              prompt_mask, new_bucket)
                 done = torch.zeros((bb,), dtype=torch.bool, device=self.device)
-            dt = time.perf_counter() - t0
-            decode_s += dt
+                dt = time.perf_counter() - t0
+                if spec_on:
+                    d_cache = self._draft_prefill(prompt_ids, prompt_mask, new_bucket)
+            decode_s += time.perf_counter() - t0
         dispatch_ledger.note_dispatch(f"lm.prefill[P={P},B={bb},new={new_bucket}]", dt)
+        if spec_on:
+            dispatch_ledger.note_dispatch(f"lm.draft_prefill[P={P},B={bb},new={new_bucket}]",
+                                          decode_s - dt)
+        # spec state: `pending`, the last emitted token, stays out of both
+        # caches until the next round writes it (or ingest_pending folds it
+        # in); slots_used runs ahead of the tokens by the rejected holes
+        pending = None
         slots_used = 0
         stop = False
+        S = self.spec_k + 1
         try:
             while len(all_tokens) < max_new_tokens and not stop:
-                c_n = min(chunk, new_bucket - slots_used)
-                if c_n <= 0:
-                    break
-                with self._lock:
-                    t1 = time.perf_counter()
-                    with torch.inference_mode():
-                        cache, logits, pos, done, toks, counted = gpt_mod.decode_chunk(
-                            self.params, cache, logits, pos, done, kv_valid, gen, c_n,
-                            self.model_cfg, temperature=temperature, top_k=top_k,
-                            eos_id=eos_id)
-                        host = torch.stack((toks[0], counted[0].to(toks.dtype))).cpu().numpy()
-                    dt1 = time.perf_counter() - t1
-                    decode_s += dt1
-                dispatch_ledger.note_dispatch(f"lm.decode_chunk[P={P},B=1,chunk={c_n}]", dt1)
-                # the chunk-boundary fetch above: the stream's one device -> host sync
+                left = max_new_tokens - len(all_tokens)
+                if spec_on and new_bucket - slots_used < S + left - (pending is None):
+                    # no room for a worst-case round and a plain finish: leave
+                    # speculation for good (one row: the margin only shrinks)
+                    if pending is not None:
+                        with self._lock:
+                            t1 = time.perf_counter()
+                            with torch.inference_mode():
+                                cache, logits, pos = gpt_mod.ingest_pending(
+                                    self.params, cache, pending, pos, done, kv_valid,
+                                    self.model_cfg)
+                            dt1 = time.perf_counter() - t1
+                            decode_s += dt1
+                        dispatch_ledger.note_dispatch("lm.ingest_pending[B=1]", dt1)
+                        slots_used += 1
+                        pending = None
+                    spec_on = False
+                if spec_on:
+                    draft_params, dcfg = self._draft
+                    with self._lock:
+                        t1 = time.perf_counter()
+                        with torch.inference_mode():
+                            first = pending is None
+                            if first:
+                                # plain → spec: the first token off the carried
+                                # logits, what the next plain step would sample
+                                pending, c0, done = gpt_mod.spec_first(
+                                    logits, done, gen, self.model_cfg, **sampling)
+                                head = [pending, c0.long()]
+                            t_d = time.perf_counter()
+                            d_cache, drafts = gpt_mod.draft_chunk(
+                                draft_params, d_cache, pending, pos, done, kv_valid, dcfg,
+                                self.spec_k)
+                            t_v = time.perf_counter()
+                            (cache, pending, pos, done, kv_valid, out, counted,
+                             emitted) = gpt_mod.verify_chunk(
+                                self.params, cache, pending, drafts, pos, done, kv_valid, gen,
+                                self.model_cfg, **sampling)
+                            # the round's one device -> host fetch
+                            host = torch.cat(([h[:, None] for h in head] if first else [])
+                                             + [out, counted.long(), emitted[:, None]],
+                                             dim=1)[0].cpu().numpy()
+                        t_end = time.perf_counter()
+                        decode_s += t_end - t1
+                    dispatch_ledger.note_dispatch(f"lm.draft_chunk[P={P},B=1,k={self.spec_k}]",
+                                                  t_v - t_d)
+                    dispatch_ledger.note_dispatch(f"lm.verify_chunk[P={P},B=1,k={self.spec_k}]",
+                                                  t_end - t_v)
+                    if first:
+                        dispatch_ledger.note_dispatch("lm.spec_first[B=1]", t_d - t1)
+                    slots_used += S
+                    n_emit = int(host[-1])
+                    self._spec_proposed += self.spec_k
+                    self._spec_accepted += max(0, n_emit - 1)
+                    body = host[2:] if first else host
+                    pairs = ([(host[0], host[1])] if first else []) + list(
+                        zip(body[:n_emit], body[S:S + n_emit]))
+                else:
+                    c_n = min(chunk, new_bucket - slots_used)
+                    if c_n <= 0:
+                        break  # unreachable while the margin holds
+                    with self._lock:
+                        t1 = time.perf_counter()
+                        with torch.inference_mode():
+                            cache, logits, pos, done, toks, counted = gpt_mod.decode_chunk(
+                                self.params, cache, logits, pos, done, kv_valid, gen, c_n,
+                                self.model_cfg, **sampling)
+                            host = torch.stack((toks[0], counted[0].to(toks.dtype))).cpu().numpy()
+                        dt1 = time.perf_counter() - t1
+                        decode_s += dt1
+                    dispatch_ledger.note_dispatch(f"lm.decode_chunk[P={P},B=1,chunk={c_n}]", dt1)
+                    slots_used += c_n
+                    pairs = zip(host[0], host[1])
+                # the fetch above: the stream's one device -> host sync
                 dispatch_ledger.note_host_sync("LmEngine._generate_stream_impl")
-                slots_used += c_n
-                for t, c in zip(host[0], host[1]):
+                for t, c in pairs:
                     if not c:  # EOS (or a slot after it): the stream ends here
                         stop = True
                         break
@@ -584,57 +800,105 @@ class LmEngine:
         return sum(s.bb for s in self._live_sessions())
 
     def kv_row_counts(self) -> tuple:
-        """(live, allocated) decode rows across live sessions, in one pass."""
+        """(live, allocated) decode rows across live sessions, in one pass.
+        Under the paged layout "allocated" counts the rows holding pages
+        (a finished row returns its pages at once), so the stranded gap of
+        dense slabs reads 0 there."""
         sessions = self._live_sessions()
         live = sum(sum(1 for r in s.rows if r is not None) for s in sessions)
+        if self.pool is not None:
+            return live, sum(s.rows_holding_pages() for s in sessions)
         return live, sum(s.bb for s in sessions)
 
     def pages_reserved(self) -> int:
-        """Pages live sessions may still claim: 0 on the dense layout, the
-        only one ported (the paged pool is ROADMAP A12)."""
-        return 0
+        """Pages live sessions may still claim for rows already admitted
+        (each row's worst-case remaining decode blocks; 0 on the dense
+        layout). Admission leaves this many free or evictable pages
+        untouched, or a session could hit `PoolExhausted` mid-decode."""
+        return sum(s.pages_reserved() for s in self._live_sessions())
 
-    def can_admit(self, n_rows: int = 1, max_kv_rows: int = 0) -> bool:
-        """May `n_rows` more decode rows start? On a card, the fresh device
-        bytes they may need (`_admit_bytes_forecast`) must fit its free
-        bytes, else `lm.admit_hbm_rejects` counts one refusal; on the CPU,
-        which keeps no memory statistics, that forecast is skipped. Then
-        the allocated rows must stay within `max_kv_rows` (<= 0: no cap).
-        The paged layout's page quote waits for ROADMAP A12."""
-        headroom = self.hbm_headroom_bytes()
-        if headroom is not None:
-            if self._admit_bytes_forecast(max(1, int(n_rows))) > headroom:
-                metrics.inc("lm.admit_hbm_rejects")
+    def _pages_needed(self, n_rows: int, prompts=None, max_new_tokens=None) -> int:
+        """Fresh pages `n_rows` admissions need. Without prompts, the worst
+        case at the largest usable (prompt, new) bucket pair; with them,
+        the exact quote: each prompt encoded, bucketed and radix-matched,
+        and the blocks already committed for its prefix cost nothing."""
+        cfg = self.config
+        page = cfg.kv_page_tokens
+        if prompts is None:
+            return max(1, int(n_rows)) * -(-self._largest_span() // page)
+        wants = (list(max_new_tokens) if max_new_tokens is not None
+                 else [max(cfg.new_token_buckets)] * len(prompts))
+        bos = getattr(self.tokenizer, "bos_id", 0)
+        total = 0
+        for prompt, want in zip(prompts, wants):
+            new_b = _round_up(int(want), cfg.new_token_buckets)
+            cap = self.model_cfg.max_position_embeddings - new_b
+            avail = [b for b in cfg.prompt_buckets if b <= cap] or [cap]
+            ids = self.tokenizer.encode(prompt or "", 1 << 30)[-avail[-1]:] or [bos]
+            P = _round_up(len(ids), avail)
+            hit = 0
+            if self.radix is not None:
+                ids_r = np.zeros(P, np.int32)
+                ids_r[P - len(ids):] = ids
+                hit = self.radix.match(P, P - len(ids), ids_r).blocks
+            total += -(-(P + new_b) // page) - hit
+        return total
+
+    def can_admit(self, n_rows: int = 1, max_kv_rows: int = 0, prompts=None,
+                  max_new_tokens=None) -> bool:
+        """May `n_rows` more decode rows start? Under the paged layout the
+        pages come first: the fresh pages they need (the worst case, or the
+        exact quote with radix hits deducted when `prompts` and
+        `max_new_tokens` are given) against the free and evictable pages
+        less those admitted rows may still claim. On a card, the fresh
+        device bytes they may need (`_admit_bytes_forecast`) must fit its
+        free bytes, else `lm.admit_hbm_rejects` counts one refusal; on the
+        CPU, which keeps no memory statistics, that forecast is skipped.
+        Then the allocated rows must stay within `max_kv_rows` (<= 0: no
+        cap)."""
+        n = max(1, int(n_rows))
+        if self.pool is not None:
+            need = self._pages_needed(n, prompts, max_new_tokens)
+            with self.pool.lock:
+                avail = self.pool.pages_free + self.pool.pages_retained - self.pages_reserved()
+            if need > avail:
                 return False
+        headroom = self.hbm_headroom_bytes()
+        if headroom is not None and self._admit_bytes_forecast(n) > headroom:
+            metrics.inc("lm.admit_hbm_rejects")
+            return False
         if max_kv_rows <= 0:
             return True
-        return self.kv_rows_allocated() + max(1, int(n_rows)) <= max_kv_rows
+        return self.kv_rows_allocated() + n <= max_kv_rows
 
     def _admit_bytes_forecast(self, n_rows: int) -> int:
-        """Fresh device bytes `n_rows` admissions may need: each row's dense
-        cache at the largest usable (prompt, new) bucket pair (the int8
-        cache's scale planes included), plus the most bytes one lm.*
+        """Fresh device bytes `n_rows` admissions may need: on the dense
+        layout each row's cache at the largest usable (prompt, new) bucket
+        pair (the int8 cache's scale planes included; paged rows take pages
+        of the resident pool, no fresh bytes), plus the most bytes one lm.*
         prefill under the lock has needed so far (`_prefill`; 0 before the
         first, and on the CPU)."""
-        cfg, mc = self.config, self.model_cfg
-        new_b = max(cfg.new_token_buckets)
-        cap = mc.max_position_embeddings - new_b
-        usable = [b for b in cfg.prompt_buckets if b <= cap]
-        T = (usable[-1] if usable else max(cap, 1)) + new_b
-        slots = mc.num_layers * T * mc.kv_heads
-        if mc.kv_quant == "int8":
-            per_row = 2 * slots * (mc.head_dim + 4)  # int8 codes, float32 scales
-        else:
-            per_row = 2 * slots * mc.head_dim * torch_dtype(mc.dtype).itemsize
+        mc = self.model_cfg
+        per_row = 0
+        if self.pool is None:
+            slots = mc.num_layers * self._largest_span() * mc.kv_heads
+            if mc.kv_quant == "int8":
+                per_row = 2 * slots * (mc.head_dim + 4)  # int8 codes, float32 scales
+            else:
+                per_row = 2 * slots * mc.head_dim * torch_dtype(mc.dtype).itemsize
         return per_row * n_rows + self._prefill_peak_growth
 
     def update_params(self, params) -> None:
         """Swap in new parameters (an online fine-tune's sync), placed as
         at load; serialised with decodes on the engine lock. A running
         stream or session takes them at its next chunk; its cache from the
-        old parameters stays valid context."""
+        old parameters stays valid context. Committed prefix pages and
+        their logits are stale under the new weights: the radix cache is
+        cleared (live rows keep their own pages)."""
         with self._lock:
             self.params = self._place_params(params)
+        if self.radix is not None:
+            self.radix.clear()
 
     def warmup(self, new_bucket: Optional[int] = None) -> None:
         """Run the hot (prompt, new) shape once, so the first request does
@@ -657,42 +921,70 @@ def _real_token_rows(prompt_ids: np.ndarray, prompt_mask: np.ndarray, n: int) ->
     return [prompt_ids[i, :int(prompt_mask[i].sum())].tolist() for i in range(n)]
 
 
+def _right_aligned_rows(prompt_ids: np.ndarray, prompt_mask: np.ndarray) -> tuple:
+    """Host mirror of `gpt._align_prompt`'s token layout: (ids_r [bb, P]
+    with 0 at the left-padding slots, pads [bb]). The radix cache keys
+    pages by exactly the layout the staged prefill writes."""
+    bb, P = prompt_ids.shape
+    ids_r = np.zeros((bb, P), np.int32)
+    pads = np.empty(bb, np.int64)
+    for i in range(bb):
+        ln = int(prompt_mask[i].sum())
+        pads[i] = P - ln
+        if ln:
+            ids_r[i, P - ln:] = prompt_ids[i, :ln]
+    return ids_r, pads
+
+
 class _SessionRow:
     """One request in a session: its tag, budget, tokens so far, the
     tenant it bills, when its prefill started (`created`: a spliced row's
-    TTFT counts its own prefill and wait) and when its first token reached
-    the host."""
+    TTFT counts its own prefill and wait), when its first token reached
+    the host, and whether its whole prompt was a radix hit (its prefill
+    skipped)."""
 
-    __slots__ = ("tag", "want", "tokens", "tenant", "created", "first_tok")
+    __slots__ = ("tag", "want", "tokens", "tenant", "created", "first_tok", "radix_hit")
 
     def __init__(self, tag: int, want: int, tenant: str = DEFAULT_TENANT,
-                 created: Optional[float] = None):
+                 created: Optional[float] = None, radix_hit: bool = False):
         self.tag = tag
         self.want = want
         self.tokens: list = []
         self.tenant = tenant
         self.created = time.perf_counter() if created is None else created
         self.first_tok: Optional[float] = None
+        self.radix_hit = radix_hit
 
 
 class BatchSession:
     """A running chunked batch decode that requests can join at chunk
     boundaries (continuous batching).
 
-    The session decodes in `stream_chunk`-step chunks and, between chunks,
+    The session decodes in `stream_chunk`-step chunks (or, with a drafter,
+    draft + verify rounds while the slot margin allows) and, between them,
     splices newly prefilled rows into free rows (the power-of-two batch
     bucket's padding rows, or rows whose request finished) through
     `gpt.merge_rows`: an admitted request's output is exactly its
     standalone decode's (gap slots masked, logical positions carried on).
 
+    Under the paged layout the session holds a host page table (the
+    authority; the device copy is rebuilt when it changes), maps each row's
+    prompt blocks at its start or admission (radix-shared pages retained,
+    fresh ones allocated), grows decode blocks lazily before each chunk and
+    returns a row's pages the moment it finishes or is cancelled. Its cache
+    is a view built per call over the engine's pool.
+
     Threads: device work runs under the engine lock and inside
     `torch.inference_mode()` (thread-local, so entered by each method);
     `prepare_admit` prefills without the lock, on whatever thread calls
     it, while `step()` decodes on another. On a card the prepared state
-    carries a CUDA event recorded after its prefill on the preparing
+    carries a CUDA event recorded after its prefills on the preparing
     thread's stream; `splice` makes its own stream wait on it and marks the
-    prepared tensors as used there before the rows are copied. The rest of
-    the host bookkeeping has one caller at a time (GenBatcher calls
+    prepared tensors as used there before it writes. A splice writes the
+    shared pool only at the newcomers' fresh pages: shared radix pages,
+    which other sessions are reading, take the scratch page in the scatter
+    table. Page bookkeeping runs under the pool lock. The rest of the host
+    bookkeeping has one caller at a time (GenBatcher calls
     `splice`/`step`/`cancel_tag` in turn).
     """
 
@@ -703,8 +995,11 @@ class BatchSession:
         n = len(prompts)
         if n != len(max_new_tokens):
             raise ValueError("prompts and max_new_tokens length mismatch")
+        # a spec round may burn spec_k + 1 slots for one token: spec_k slots
+        # of bucket headroom keep the margin guard's room
+        headroom = lm.spec_k if lm._draft is not None else 0
         prompt_ids, prompt_mask, self.new_bucket = lm._prepare_prompts(
-            prompts, max(max_new_tokens), min_rows=cfg.session_min_rows)
+            prompts, max(max_new_tokens) + headroom, min_rows=cfg.session_min_rows)
         self.bb, self.P = prompt_ids.shape
         self.chunk = max(1, min(cfg.stream_chunk, self.new_bucket))
         self._temps = lm._norm_sampling_rows(temperature, cfg.temperature, self.bb, n, float)
@@ -717,31 +1012,213 @@ class BatchSession:
         self.rows += [None] * (self.bb - n)  # free rows from the batch bucket
         self.steps_done = 0
         self.decode_s = 0.0
+        dev = lm.device
+        # paged bookkeeping: the host page table (scratch where unmapped),
+        # the pages each row holds a refcount on, its mapped block count
+        self._paged = lm.pool is not None
+        self._plen = prompt_mask.sum(axis=1).astype(np.int64)  # [bb]
+        self._row_pages: list = [[] for _ in range(self.bb)]
+        self._row_blocks = [0] * self.bb
+        if self._paged:
+            page = lm.pool.page_tokens
+            self._n_blocks = -(-(self.P + self.new_bucket) // page)
+            self._prompt_blocks = self.P // page
+            self._pt = np.zeros((self.bb, self._n_blocks), np.int64)
+            self._pt_dev = None
+            self._pt_dirty = True
         # host-side probes on values in hand: prefix overlap with recent
         # prompts, and each tenant's exact prompt tokens
         share = engine_timeline.prompt_prefix_share(_real_token_rows(prompt_ids, prompt_mask, n))
         for i in range(n):
             usage.note(row_tenants[i], tokens_in=int(prompt_mask[i].sum()))
+        # radix match and prompt-page wiring in ONE pool-lock section: a
+        # matched page is retained before any alloc of this start could
+        # evict it
+        matches: list = [None] * self.bb
+        skip_prefill = False
+        hit_tokens = 0
+        if self._paged:
+            ids_r, pads = _right_aligned_rows(prompt_ids, prompt_mask)
+            pool = lm.pool
+            with pool.lock:
+                for i in range(n):
+                    if lm.radix is not None:
+                        matches[i] = lm.radix.match(self.P, int(pads[i]), ids_r[i])
+                        for pid in matches[i].pages:
+                            pool.retain(pid)
+                skip_prefill = lm.radix is not None and n > 0 and all(
+                    matches[i].logits is not None for i in range(n))
+                for i in range(n):
+                    shared = list(matches[i].pages) if matches[i] else []
+                    hit_tokens += max(0, len(shared) * pool.page_tokens - int(pads[i]))
+                    fresh_n = self._prompt_blocks - len(shared)
+                    self._map_prompt(i, shared + (pool.alloc(fresh_n) if fresh_n else []))
+            pool.note_hit_tokens(hit_tokens)
         with lm._lock:
             t0 = time.perf_counter()
             self._gen = lm._child_generator()
             with torch.inference_mode():
-                self._cache, self._logits, self._kv_valid, self._pos = lm._prefill(
-                    lm.params, prompt_ids, prompt_mask, self.new_bucket)
-                self._done = torch.zeros((self.bb,), dtype=torch.bool, device=lm.device)
-            lm._prefill_shapes.add((self.bb, self.P, self.new_bucket))
+                if skip_prefill:
+                    # every real row's whole prompt is committed pages and
+                    # stored logits: no prefill, the row state is restored
+                    for i in range(n):
+                        self.rows[i].radix_hit = True
+                    logits = np.zeros((self.bb, lm.model_cfg.vocab_size), np.float32)
+                    kvv = np.zeros((self.bb, self.P + self.new_bucket), bool)
+                    kvv[:, self.P:] = True
+                    for i in range(n):
+                        logits[i] = matches[i].logits
+                        kvv[i, int(pads[i]):self.P] = True
+                    self._cache = None
+                    self._logits = torch.from_numpy(logits).to(dev)
+                    self._kv_valid = torch.from_numpy(kvv).to(dev)
+                    self._pos = torch.from_numpy(self._plen.copy()).to(dev)
+                else:
+                    staging, self._logits, self._kv_valid, self._pos = lm._prefill(
+                        lm.params, prompt_ids, prompt_mask, self.new_bucket)
+                    lm._prefill_shapes.add((self.bb, self.P, self.new_bucket))
+                    self._cache = staging
+                    if self._paged:
+                        # adopt the staged prefill into the pool: each real
+                        # row's fresh prompt blocks only, bit for bit
+                        scatter = np.zeros((self.bb, self._prompt_blocks), np.int64)
+                        for i in range(n):
+                            nsh = matches[i].blocks if matches[i] else 0
+                            scatter[i, nsh:] = self._pt[i, nsh:self._prompt_blocks]
+                        pool = lm.pool
+                        paged_mod.scatter_prompt(pool.k, pool.v, pool.k_scale, pool.v_scale,
+                                                 staging, torch.from_numpy(scatter).to(dev),
+                                                 self.P)
+                        self._cache = None
+                self._done = torch.zeros((self.bb,), dtype=torch.bool, device=dev)
             prefill_s = time.perf_counter() - t0
             self.decode_s += prefill_s
             lm.stats["sessions"] = lm.stats.get("sessions", 0) + 1
-        dispatch_ledger.note_dispatch(f"lm.prefill[P={self.P},B={self.bb},new={self.new_bucket}]",
-                                      prefill_s)
-        engine_timeline.note_admit(rows=n, prefill_ms=prefill_s * 1000.0, prefix_share=share,
-                                   kind="start")
+        if not skip_prefill:
+            dispatch_ledger.note_dispatch(
+                f"lm.prefill[P={self.P},B={self.bb},new={self.new_bucket}]", prefill_s)
+        if self._paged and lm.radix is not None and n and not skip_prefill:
+            # commit the new prompt blocks and their logits for the next
+            # admission with this prefix (one [bb, V] fetch per start)
+            self._commit(range(n), ids_r, pads, self._logits.cpu().numpy(), range(n))
+        # the drafter: a dense prefill at the same geometry, also after a
+        # full radix hit (it has no radix); a failure decodes plain
+        self._d_cache = None
+        self._pending = None  # [bb] on the device; set in the spec state
+        self._spec_on = lm._draft is not None
+        self._spec_rounds = 0
+        self._spec_ema = None  # EMA of per-round acceptance
+        if self._spec_on:
+            try:
+                with lm._lock:
+                    t1 = time.perf_counter()
+                    with torch.inference_mode():
+                        self._d_cache = lm._draft_prefill(prompt_ids, prompt_mask,
+                                                          self.new_bucket)
+                    dp_s = time.perf_counter() - t1
+                    self.decode_s += dp_s
+                dispatch_ledger.note_dispatch(
+                    f"lm.draft_prefill[P={self.P},B={self.bb},new={self.new_bucket}]", dp_s)
+            except Exception:
+                log.warning("draft prefill failed: the session decodes plain", exc_info=True)
+                self._spec_on = False
+                self._d_cache = None
+        engine_timeline.note_admit(
+            rows=n, prefill_ms=prefill_s * 1000.0, prefix_share=share, kind="start",
+            hit_tokens=hit_tokens if self._paged else None,
+            prompt_tokens=int(self._plen[:n].sum()) if self._paged else None)
         with lm._sessions_lock:  # the KV gauges see live sessions
             lm._sessions.add(self)
         # end of the last device work: step() splits chunk-to-chunk wall
         # into device work and host time from it
         self._last_step_end = time.perf_counter()
+
+    # ------------------------------------------------------- paged KV state
+
+    def _map_prompt(self, i: int, pages: list) -> None:
+        """Row i's prompt blocks map `pages` (its refcounts already held).
+        The caller holds the pool lock."""
+        self._pt[i, :self._prompt_blocks] = pages
+        self._row_pages[i] = pages
+        self._row_blocks[i] = self._prompt_blocks
+        self._pt_dirty = True
+
+    def _commit(self, rows, ids_r, pads, logits_host, src_rows) -> None:
+        """Commit rows' prompt blocks and last-token logits to the radix
+        cache (row i's prompt is the prepared row src_rows[k] of
+        ids_r/pads/logits_host)."""
+        with self.lm.pool.lock:
+            for i, j in zip(rows, src_rows):
+                self.lm.radix.commit(self.P, int(pads[j]), ids_r[j],
+                                     [int(p) for p in self._pt[i, :self._prompt_blocks]],
+                                     logits_host[j])
+
+    def rows_holding_pages(self) -> int:
+        """Rows mapping at least one pool page: the paged layout's
+        allocated rows (a finished row returns its pages at once)."""
+        return sum(1 for pages in self._row_pages if pages)
+
+    def pages_reserved(self) -> int:
+        """Pages this session's live rows may still claim (every row
+        decoding to the session's last slot); 0 on the dense layout."""
+        if not self._paged:
+            return 0
+        return sum(self._n_blocks - self._row_blocks[i]
+                   for i, r in enumerate(self.rows) if r is not None)
+
+    def page_occupancy(self) -> tuple:
+        """(live tokens, mapped page slots) over live rows, the numbers
+        behind kv.page_fragmentation_pct; a shared page counts once per
+        row mapping it."""
+        if not self._paged:
+            return 0, 0
+        page = self.lm.pool.page_tokens
+        toks = slots = 0
+        for i, r in enumerate(self.rows):
+            if r is not None:
+                toks += int(self._plen[i]) + len(r.tokens)
+                slots += self._row_blocks[i] * page
+        return toks, slots
+
+    def _build_cache(self) -> PagedKVCache:
+        """The paged cache view for the next device call: the pool's
+        tensors, this session's device page table (rebuilt from the host
+        one if it changed) and its length, P + steps_done."""
+        pool = self.lm.pool
+        if self._pt_dirty:
+            self._pt_dev = torch.from_numpy(self._pt.copy()).to(self.lm.device)
+            self._pt_dirty = False
+        return PagedKVCache(pool.k, pool.v, pool.k_scale, pool.v_scale, self._pt_dev,
+                            self.P + self.steps_done)
+
+    def _ensure_decode_blocks(self, slots: int) -> None:
+        """Lazy page growth: before a chunk every live row maps enough
+        blocks for cache slots [0, P + steps_done + slots). Rows that end
+        early never claim their tail blocks."""
+        pool = self.lm.pool
+        need = min(self._n_blocks, -(-(self.P + self.steps_done + slots) // pool.page_tokens))
+        with pool.lock:
+            for i, r in enumerate(self.rows):
+                while r is not None and self._row_blocks[i] < need:
+                    pid = pool.alloc(1)[0]
+                    self._pt[i, self._row_blocks[i]] = pid
+                    self._row_pages[i].append(pid)
+                    self._row_blocks[i] += 1
+                    self._pt_dirty = True
+
+    def _release_row_pages(self, i: int) -> None:
+        """Return row i's pages the moment it finishes or is cancelled:
+        committed ones to the pool's retained set, private ones to the free
+        list; its page-table row points at scratch again."""
+        if not self._paged or not self._row_pages[i]:
+            return
+        with self.lm.pool.lock:
+            for pid in self._row_pages[i]:
+                self.lm.pool.release(pid)
+        self._row_pages[i] = []
+        self._row_blocks[i] = 0
+        self._pt[i, :] = paged_mod.SCRATCH_PAGE
+        self._pt_dirty = True
 
     # ------------------------------------------------------------ admission
 
@@ -752,7 +1229,10 @@ class BatchSession:
         return self.new_bucket - self.steps_done
 
     def round_slots(self) -> int:
-        """Decode slots the next step() may use: one chunk."""
+        """Decode slots the next step() may use: one chunk, or a spec
+        round's spec_k + 1 if larger."""
+        if self._spec_on:
+            return max(self.chunk, self.lm.spec_k + 1)
         return self.chunk
 
     def done(self) -> bool:
@@ -760,13 +1240,30 @@ class BatchSession:
 
     def can_admit(self, prompt: str, max_new: int, lookahead_chunks: int = 0) -> bool:
         """A newcomer may join if a row is free, its budget fits the steps
-        the session has left after `lookahead_chunks` more chunks (those
-        that decode while its prefill runs), and its prompt fits the
-        session's prompt bucket untrimmed."""
-        if (self.capacity() == 0
-                or int(max_new) > self.remaining_steps() - lookahead_chunks * self.round_slots()):
+        the session has left after `lookahead_chunks` more rounds (those
+        that decode while its prefill runs) and, in the spec state, the
+        slot that folding the pending token in takes; its prompt fits the
+        session's prompt bucket untrimmed; and, paged, its row's whole span
+        less its radix-shared blocks fits the free and evictable pages not
+        reserved by admitted rows."""
+        debt = 1 if self._pending is not None else 0
+        if (self.capacity() == 0 or int(max_new) > self.remaining_steps() - debt
+                - lookahead_chunks * self.round_slots()):
             return False
-        return len(self.lm.tokenizer.encode(prompt or "", self.P + 1)) <= self.P
+        enc = self.lm.tokenizer.encode(prompt or "", self.P + 1)
+        if len(enc) > self.P:
+            return False
+        if self._paged:
+            pool, radix = self.lm.pool, self.lm.radix
+            enc = enc or [getattr(self.lm.tokenizer, "bos_id", 0)]
+            ids_r = np.zeros(self.P, np.int32)
+            ids_r[self.P - len(enc):] = enc
+            with pool.lock:
+                hit = radix.match(self.P, self.P - len(enc), ids_r).blocks if radix else 0
+                avail = pool.pages_free + pool.pages_retained - self.lm.pages_reserved()
+            if self._n_blocks - hit > avail:
+                return False
+        return True
 
     @staticmethod
     def _admission_rows(k: int) -> int:
@@ -784,15 +1281,18 @@ class BatchSession:
                       temperature=None, top_k=None, tenants=None, task_ids=None) -> dict:
         """Admission, phase 1: tokenize and prefill the newcomers at the
         session's prompt bucket WITHOUT the engine lock, so the prefill does
-        not stall the running chunk. The parameters are read once; a
-        concurrent `update_params` leaves this prefill on the old ones, as
-        it leaves a running stream. Returns the prepared state for
-        `splice`; the session is not touched."""
-        cfg = self.lm.config
+        not stall the running chunk; with a drafter, its rows too. Paged,
+        a radix probe (no refcounts taken) skips the target prefill when
+        every newcomer is a full hit; `splice` matches again under the pool
+        lock. The parameters are read once; a concurrent `update_params`
+        leaves this prefill on the old ones, as it leaves a running stream.
+        Returns the prepared state for `splice`; the session is not
+        touched."""
+        cfg, lm = self.lm.config, self.lm
         t_enter = time.perf_counter()  # the spliced rows' TTFT origin
         k = len(prompts)
         bb2 = self._admission_rows(k)
-        tok = self.lm.tokenizer
+        tok = lm.tokenizer
         bos = getattr(tok, "bos_id", 0)
         ids = np.full((bb2, self.P), getattr(tok, "pad_id", 0), np.int32)
         mask = np.zeros((bb2, self.P), np.int32)
@@ -804,77 +1304,177 @@ class BatchSession:
         mask[k:, 0] = 1
         share = engine_timeline.prompt_prefix_share(_real_token_rows(ids, mask, k))
         n_tokens = [int(mask[j].sum()) for j in range(k)]
-        params = self.lm.params
+        paged = None
+        skip = False
+        if self._paged:
+            ids_r, pads = _right_aligned_rows(ids, mask)
+            if lm.radix is not None:
+                with lm.pool.lock:
+                    skip = k > 0 and all(lm.radix.match(self.P, int(pads[j]), ids_r[j]).logits
+                                         is not None for j in range(k))
+            paged = {"ids_r": ids_r, "pads": pads}
+        params = lm.params
         t0 = time.perf_counter()
+        cache_b = logits_b = kv_valid_b = pos_b = d_cache_b = None
         with torch.inference_mode():
-            cache_b, logits_b, kv_valid_b, pos_b = self.lm._prefill(
-                params, ids, mask, self.new_bucket, note_peak=False)
+            if not skip:
+                cache_b, logits_b, kv_valid_b, pos_b = lm._prefill(
+                    params, ids, mask, self.new_bucket, note_peak=False)
+            if self._spec_on and self._d_cache is not None:
+                # the drafter's rows, also for a full radix hit
+                d_cache_b = lm._draft_prefill(ids, mask, self.new_bucket)
             event = None
-            if self.lm.device.type == "cuda":
+            if lm.device.type == "cuda":
                 event = torch.cuda.Event()
-                event.record(torch.cuda.current_stream(self.lm.device))
-        self.lm._prefill_shapes.add((bb2, self.P, self.new_bucket))
+                event.record(torch.cuda.current_stream(lm.device))
+        if not skip:
+            lm._prefill_shapes.add((bb2, self.P, self.new_bucket))
         prefill_s = time.perf_counter() - t0
-        dispatch_ledger.note_dispatch(f"lm.prefill[P={self.P},B={bb2},new={self.new_bucket}]",
-                                      prefill_s)
+        if not skip:
+            dispatch_ledger.note_dispatch(f"lm.prefill[P={self.P},B={bb2},new={self.new_bucket}]",
+                                          prefill_s)
         return {"k": k, "bb2": bb2, "cache": cache_b, "logits": logits_b,
-                "kv_valid": kv_valid_b, "pos": pos_b, "event": event,
-                "max_new": [int(w) for w in max_new_tokens],
-                "temps": self.lm._norm_sampling_rows(temperature, cfg.temperature, bb2, k, float),
-                "ks": self.lm._norm_sampling_rows(top_k, cfg.top_k, bb2, k, int),
-                "tenants": _norm_tenants(tenants, k), "n_tokens": n_tokens, "prefix_share": share, "t_enter": t_enter,
-                "prefill_s": prefill_s}
+                "kv_valid": kv_valid_b, "pos": pos_b, "d_cache": d_cache_b, "event": event,
+                "paged": paged, "max_new": [int(w) for w in max_new_tokens],
+                "temps": lm._norm_sampling_rows(temperature, cfg.temperature, bb2, k, float),
+                "ks": lm._norm_sampling_rows(top_k, cfg.top_k, bb2, k, int),
+                "tenants": _norm_tenants(tenants, k), "n_tokens": n_tokens,
+                "prefix_share": share, "t_enter": t_enter, "prefill_s": prefill_s}
+
+    def _take_rows(self, prep: dict) -> tuple:
+        """The host half of a splice: newcomer j takes the next free row
+        if its budget still fits and, paged, its pages can be mapped (a
+        fresh radix match under the pool lock, its shared pages retained,
+        fresh ones allocated; a full-hit prep whose hit has since been
+        evicted has nothing to write its pages from and is refused).
+        → (row_map, tags, {row: (j, shared blocks, full-hit logits)}, hit
+        tokens)."""
+        pg, pool, radix = prep["paged"], self.lm.pool, self.lm.radix
+        free = [i for i, r in enumerate(self.rows) if r is None]
+        row_map = np.full((self.bb,), -1, np.int64)
+        tags, taken, hit_tokens = [], {}, 0
+        lock = pool.lock if self._paged else contextlib.nullcontext()
+        with lock:
+            for j in range(prep["k"]):
+                if len(taken) >= len(free) or prep["max_new"][j] > self.remaining_steps():
+                    tags.append(None)
+                    continue
+                i = free[len(taken)]
+                if self._paged:
+                    m = radix.match(self.P, int(pg["pads"][j]), pg["ids_r"][j]) if radix else None
+                    if prep["cache"] is None and (m is None or m.logits is None):
+                        tags.append(None)
+                        continue
+                    shared = list(m.pages) if m is not None else []
+                    for pid in shared:  # before the alloc, which could evict them
+                        pool.retain(pid)
+                    need = self._prompt_blocks - len(shared)
+                    if not pool.can_alloc(need):
+                        for pid in shared:
+                            pool.release(pid)
+                        tags.append(None)
+                        continue
+                    self._map_prompt(i, shared + (pool.alloc(need) if need else []))
+                    hit_tokens += max(0, len(shared) * pool.page_tokens - int(pg["pads"][j]))
+                taken[i] = ((j, len(shared), m and m.logits) if self._paged
+                            else (j, 0, None))
+                row_map[i] = j
+                self.rows[i] = _SessionRow(self._next_tag, prep["max_new"][j],
+                                           tenant=prep["tenants"][j], created=prep["t_enter"],
+                                           radix_hit=self._paged and prep["cache"] is None)
+                usage.note(self.rows[i].tenant, tokens_in=prep["n_tokens"][j])
+                tags.append(self._next_tag)
+                self._next_tag += 1
+                self._temps[i] = prep["temps"][j]
+                self._ks[i] = prep["ks"][j]
+        if self._paged:
+            pool.note_hit_tokens(hit_tokens)
+        return row_map, tags, taken, hit_tokens
 
     def splice(self, prep: dict) -> list:
         """Admission, phase 2: merge prepared rows into free rows at this
-        chunk boundary, under the lock (one row copy, no prefill). Returns
-        a tag per newcomer, or None where it no longer fits: chunks decoded
-        since `prepare_admit` shrank the budget, and truncating would break
-        standalone equivalence, so the caller queues it again."""
-        free = [i for i, r in enumerate(self.rows) if r is None]
-        row_map = np.full((self.bb,), -1, np.int64)
-        tags: list = []
-        taken = 0
-        for j in range(prep["k"]):
-            if taken >= len(free) or prep["max_new"][j] > self.remaining_steps():
-                tags.append(None)
-                continue
-            i = free[taken]
-            taken += 1
-            row_map[i] = j
-            self.rows[i] = _SessionRow(self._next_tag, prep["max_new"][j],
-                                       tenant=prep["tenants"][j], created=prep["t_enter"])
-            usage.note(self.rows[i].tenant, tokens_in=prep["n_tokens"][j])
-            tags.append(self._next_tag)
-            self._next_tag += 1
-            self._temps[i] = prep["temps"][j]
-            self._ks[i] = prep["ks"][j]
-        if taken == 0:
+        chunk boundary, under the lock (row copies, and paged the fresh
+        prompt blocks' scatter; no prefill). In the spec state the pending
+        token is first folded into both caches (one slot), since newcomers
+        carry none. Returns a tag per newcomer, or None where it no longer
+        fits: chunks decoded since `prepare_admit` shrank the budget
+        (truncating would break standalone equivalence), or, paged, its
+        pages cannot be had; the caller queues it again."""
+        if prep["k"] and self._pending is not None:
+            self._to_plain()
+        row_map, tags, taken, hit_tokens = self._take_rows(prep)
+        if not taken:
             # a refused admission still paid its prefill: keep it in the time
             with self.lm._lock:
                 self.decode_s += prep["prefill_s"]
             return tags
-        with self.lm._lock:
+        lm, dev, bb2 = self.lm, self.lm.device, prep["bb2"]
+        with lm._lock:
             t0 = time.perf_counter()
             with torch.inference_mode():
                 if prep["event"] is not None:
-                    stream = torch.cuda.current_stream(self.lm.device)
+                    stream = torch.cuda.current_stream(dev)
                     stream.wait_event(prep["event"])
-                    for t in (*prep["cache"][:-1], prep["logits"], prep["pos"],
-                              prep["kv_valid"]):
-                        t.record_stream(stream)
-                done_b = torch.zeros((prep["bb2"],), dtype=torch.bool, device=self.lm.device)
-                (self._cache, self._logits, self._pos, self._done,
+                    for part in (prep["cache"], prep["d_cache"],
+                                 (prep["logits"], prep["pos"], prep["kv_valid"])):
+                        for t in part or ():
+                            if isinstance(t, torch.Tensor):
+                                t.record_stream(stream)
+                done_b = torch.zeros((bb2,), dtype=torch.bool, device=dev)
+                logits_b, pos_b, kv_valid_b = prep["logits"], prep["pos"], prep["kv_valid"]
+                if self._paged:
+                    pg = prep["paged"]
+                    scatter = np.zeros((bb2, self._prompt_blocks), np.int64)
+                    for i, (j, nsh, _) in taken.items():
+                        # fresh (post-fork) blocks only; others on scratch
+                        scatter[j, nsh:] = self._pt[i, nsh:self._prompt_blocks]
+                    if prep["cache"] is None:
+                        # a full-hit splice: the row state restored on the host
+                        ln = np.zeros((bb2, lm.model_cfg.vocab_size), np.float32)
+                        pn = np.zeros((bb2,), np.int64)
+                        kn = np.zeros((bb2, self.P + self.new_bucket), bool)
+                        kn[:, self.P:] = True
+                        for j, _, hit_logits in taken.values():
+                            pad = int(pg["pads"][j])
+                            ln[j] = hit_logits
+                            pn[j] = self.P - pad
+                            kn[j, pad:self.P] = True
+                        logits_b, pos_b, kv_valid_b = (torch.from_numpy(a).to(dev)
+                                                       for a in (ln, pn, kn))
+                    cache_a = self._build_cache()
+                    cache_b = (prep["cache"], torch.from_numpy(scatter).to(dev), cache_a.page_table)
+                else:
+                    cache_a, cache_b = self._cache, prep["cache"]
+                (cache, self._logits, self._pos, self._done,
                  self._kv_valid) = gpt_mod.merge_rows(
-                    self._cache, self._logits, self._pos, self._done, self._kv_valid,
-                    prep["cache"], prep["logits"], prep["pos"], done_b, prep["kv_valid"],
-                    row_map, prompt_width=self.P)
+                    cache_a, self._logits, self._pos, self._done, self._kv_valid, cache_b,
+                    logits_b, pos_b, done_b, kv_valid_b, row_map, prompt_width=self.P)
+                if not self._paged:
+                    self._cache = cache
+                if self._d_cache is not None:
+                    if prep["d_cache"] is not None:
+                        # the drafter's rows, same row_map; gap validity rides
+                        # the shared kv_valid merge_rows just masked
+                        gpt_mod.merge_cache_rows(self._d_cache, prep["d_cache"], row_map)
+                    else:
+                        # prepared before the drafter failed: speculating over
+                        # rows without drafter content would propose garbage
+                        self._spec_on = False
+                        self._d_cache = None
             merge_s = time.perf_counter() - t0
             self.decode_s += merge_s + prep["prefill_s"]
-            self.lm.stats["admitted"] = self.lm.stats.get("admitted", 0) + taken
+            lm.stats["admitted"] = lm.stats.get("admitted", 0) + len(taken)
         dispatch_ledger.note_dispatch(f"lm.merge_rows[P={self.P},B={self.bb}]", merge_s)
-        engine_timeline.note_admit(rows=taken, prefill_ms=prep["prefill_s"] * 1000.0,
-                                   prefix_share=prep["prefix_share"], kind="splice")
+        if self._paged and lm.radix is not None and prep["cache"] is not None:
+            pg = prep["paged"]
+            self._commit(list(taken), pg["ids_r"], pg["pads"], prep["logits"].cpu().numpy(),
+                         [j for j, _, _ in taken.values()])
+        engine_timeline.note_admit(
+            rows=len(taken), prefill_ms=prep["prefill_s"] * 1000.0,
+            prefix_share=prep["prefix_share"], kind="splice",
+            hit_tokens=hit_tokens if self._paged else None,
+            prompt_tokens=(sum(prep["n_tokens"][j] for j, _, _ in taken.values())
+                           if self._paged else None))
         return tags
 
     def admit(self, prompts: Sequence[str], max_new_tokens: Sequence[int], temperature=None,
@@ -889,14 +1489,15 @@ class BatchSession:
         return tags
 
     def cancel_tag(self, tag: int) -> bool:
-        """Abort one running request (its client went away): its row frees
-        now, admissible at the next chunk boundary, `lm.kv_rows_active`
-        stops counting it, and a session whose rows are all cancelled reads
-        done(). Its tokens are dropped, not published. False when the tag
-        is not live (it finished first)."""
+        """Abort one running request (its client went away): its row and,
+        paged, its pages free now, admissible at the next chunk boundary,
+        `lm.kv_rows_active` stops counting it, and a session whose rows
+        are all cancelled reads done(). Its tokens are dropped, not
+        published. False when the tag is not live (it finished first)."""
         for i, row in enumerate(self.rows):
             if row is not None and row.tag == tag:
                 self.rows[i] = None
+                self._release_row_pages(i)
                 usage.note(row.tenant, tokens_out=len(row.tokens))
                 engine_timeline.note_cancel()
                 with self.lm._lock:
@@ -912,29 +1513,200 @@ class BatchSession:
     # --------------------------------------------------------------- decode
 
     def step(self) -> list:
-        """Decode one chunk → [(tag, text), ...] for every request that
-        finished in it (eos, its own budget or the session's). Under
+        """Decode one chunk, or one draft + verify round when a drafter is
+        attached and the slot margin allows it → [(tag, text), ...] for
+        every request that finished in it (eos, its own budget or the
+        session's). The choice is made again at every boundary. Under
         `guard_oom("lm.batch_step")`: a device OOM leaves its postmortem
         and is raised to the caller, which fails the affected requests."""
         with guard_oom("lm.batch_step"):
             if self.done():
                 return self._drain_all()
+            if self._spec_on and self._d_cache is not None and self._spec_margin_ok():
+                return self._step_spec()
+            if self._pending is not None:
+                self._to_plain()
+                if self.done():  # the ingest slot was the session's last
+                    return self._drain_all()
             return self._step_plain()
 
+    def _spec_margin_ok(self) -> bool:
+        """A spec round may run only while its worst case (one token for
+        spec_k + 1 slots) still leaves room for every live row to finish
+        its budget with plain decode: speculation may waste slots, never
+        truncate a row."""
+        r_max = max((r.want - len(r.tokens) for r in self.rows if r is not None), default=0)
+        return self.remaining_steps() >= self.lm.spec_k + 1 + r_max - (self._pending is None)
+
+    def _cache_in(self):
+        return self._build_cache() if self._paged else self._cache
+
+    def _to_plain(self) -> None:
+        """spec → plain at a chunk boundary: forward `pending` into both
+        caches (one slot each) and recover the carried logits, after which
+        decode_chunk and merge_rows apply unchanged."""
+        if self._pending is None:
+            return
+        lm = self.lm
+        if self._paged:
+            self._ensure_decode_blocks(1)
+        with lm._lock:
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                cache, self._logits, self._pos = gpt_mod.ingest_pending(
+                    lm.params, self._cache_in(), self._pending, self._pos, self._done,
+                    self._kv_valid, lm.model_cfg)
+                if not self._paged:
+                    self._cache = cache
+                if self._d_cache is not None:
+                    # the same token into the drafter's slot, so speculation
+                    # can re-enter later
+                    draft_params, dcfg = lm._draft
+                    self._d_cache = gpt_mod.track_chunk(draft_params, self._d_cache,
+                                                        self._pending[:, None], self._pos - 1,
+                                                        self._kv_valid, dcfg)
+            dt = time.perf_counter() - t0
+            self.decode_s += dt
+            self._last_step_end = time.perf_counter()
+        dispatch_ledger.note_dispatch(f"lm.ingest_pending[B={self.bb}]", dt)
+        self._pending = None
+        self.steps_done += 1
+
+    def _page_fields(self) -> dict:
+        pool = self.lm.pool
+        if not self._paged:
+            return {}
+        return {"pages_free": pool.pages_free, "pages_live": pool.pages_live,
+                "pages_total": pool.n_pages - 1}
+
+    def _step_spec(self) -> list:
+        """One speculative round: the drafter proposes spec_k greedy tokens,
+        the target scores all k + 1 window positions in one forward, and
+        each row advances by its own accepted count. Rejected draft slots
+        become kv_valid holes. A pool exhausted in the spec window turns
+        the session plain for good, never an error; so does an acceptance
+        EMA under 0.1 after 3 rounds."""
+        lm = self.lm
+        S = lm.spec_k + 1
+        if self._paged:
+            try:
+                self._ensure_decode_blocks(S)
+            except PoolExhausted:
+                log.warning("page alloc for a spec window failed: the session decodes plain",
+                            exc_info=True)
+                self._spec_on = False
+                return self.step()
+        draft_params, dcfg = lm._draft
+        with lm._lock:
+            t0 = time.perf_counter()
+            host_gap_s = max(0.0, t0 - self._last_step_end)
+            with torch.inference_mode():
+                first = self._pending is None
+                head = []
+                if first:
+                    # plain → spec: the first token off the carried logits
+                    self._pending, c0, self._done = gpt_mod.spec_first(
+                        self._logits, self._done, self._gen, lm.model_cfg,
+                        temperature=self._temps, top_k=self._ks, eos_id=self._eos)
+                    head = [self._pending[:, None], c0.long()[:, None]]
+                t_d = time.perf_counter()
+                self._d_cache, drafts = gpt_mod.draft_chunk(
+                    draft_params, self._d_cache, self._pending, self._pos, self._done,
+                    self._kv_valid, dcfg, lm.spec_k)
+                if drafts.is_cuda:  # the draft/verify split of the round's wall
+                    torch.cuda.current_stream(drafts.device).synchronize()
+                t_v = time.perf_counter()
+                (cache, self._pending, self._pos, self._done, self._kv_valid, out, counted,
+                 emitted) = gpt_mod.verify_chunk(
+                    lm.params, self._cache_in(), self._pending, drafts, self._pos, self._done,
+                    self._kv_valid, self._gen, lm.model_cfg, temperature=self._temps,
+                    top_k=self._ks, eos_id=self._eos)
+                if not self._paged:
+                    self._cache = cache
+                # the round's one device -> host fetch
+                host = torch.cat(head + [out, counted.long(), emitted[:, None]],
+                                 dim=1).cpu().numpy()
+            t_end = time.perf_counter()
+            step_s, draft_s, verify_s = t_end - t0, t_v - t_d, t_end - t_v
+            self.decode_s += step_s
+            self._last_step_end = time.perf_counter()
+        dispatch_ledger.note_dispatch(f"lm.draft_chunk[P={self.P},B={self.bb},k={lm.spec_k}]",
+                                      draft_s)
+        dispatch_ledger.note_dispatch(f"lm.verify_chunk[P={self.P},B={self.bb},k={lm.spec_k}]",
+                                      verify_s)
+        if first:
+            dispatch_ledger.note_dispatch(f"lm.spec_first[B={self.bb}]", t_d - t0)
+        self.steps_done += S
+        h = 2 if first else 0
+        out, counted, em = host[:, h:h + S], host[:, h + S:h + 2 * S], host[:, -1]
+        live_idx = [i for i, r in enumerate(self.rows) if r is not None]
+        proposed = lm.spec_k * len(live_idx)
+        accepted = sum(max(0, int(em[i]) - 1) for i in live_idx)
+        emitted_total = sum(int(em[i]) for i in live_idx) + (len(live_idx) if first else 0)
+        lm._spec_proposed += proposed
+        lm._spec_accepted += accepted
+        kv_live, kv_alloc = lm.kv_row_counts()
+        mean_emitted = emitted_total / max(1, len(live_idx))
+        engine_timeline.note_decode_step(
+            wall_ms=step_s * 1000.0, rows_live=len(live_idx), rows_capacity=self.bb,
+            kv_rows_live=kv_live, kv_rows_allocated=kv_alloc, steps=mean_emitted,
+            dispatches=2 + first, host_gap_ms=host_gap_s * 1000.0,
+            spec_draft_ms=draft_s * 1000.0, spec_verify_ms=verify_s * 1000.0,
+            spec_proposed=proposed, spec_accepted=accepted, **self._page_fields())
+        if mean_emitted > 0:
+            metrics.observe("lm.tpot_ms", step_s * 1000.0 / mean_emitted,
+                            labels={"service": "lm"})
+        self._note_row_seconds(step_s)
+        # drafter divergence: rounds that burn S slots for ~1 token are
+        # worse than plain decode; off for good, this session
+        rate = accepted / proposed if proposed else 0.0
+        self._spec_rounds += 1
+        self._spec_ema = rate if self._spec_ema is None else 0.5 * self._spec_ema + 0.5 * rate
+        if self._spec_rounds >= 3 and self._spec_ema < 0.1:
+            log.info("spec accept EMA %.2f after %d rounds: the session decodes plain",
+                     self._spec_ema, self._spec_rounds)
+            self._spec_on = False
+
+        def pairs(i):
+            if first:
+                yield host[i, 0], host[i, 1]
+            yield from zip(out[i, :int(em[i])], counted[i, :int(em[i])])
+
+        return self._emit_and_finish(pairs)
+
+    def _note_row_seconds(self, step_s: float) -> None:
+        by_tenant: dict = {}
+        for row in self.rows:
+            if row is not None:
+                by_tenant[row.tenant] = by_tenant.get(row.tenant, 0) + 1
+        for tenant, n_rows in by_tenant.items():
+            usage.note(tenant, kv_row_seconds=step_s * n_rows)
+
     def _step_plain(self) -> list:
+        """One plain chunk; with a live drafter its tokens are also
+        teacher-forced into the drafter's cache (one more small forward),
+        so speculation can re-enter at a later boundary."""
         lm = self.lm
         chunk = min(self.chunk, self.remaining_steps())
+        if self._paged:
+            self._ensure_decode_blocks(chunk)  # host free-list work, off the lock
         with lm._lock:
             t0 = time.perf_counter()
             # host time since the previous chunk's device work: splices,
             # bookkeeping and the batcher's scheduling
             host_gap_s = max(0.0, t0 - self._last_step_end)
             with torch.inference_mode():
-                (self._cache, self._logits, self._pos, self._done, toks,
+                (cache, self._logits, self._pos, self._done, toks,
                  counted) = gpt_mod.decode_chunk(
-                    lm.params, self._cache, self._logits, self._pos, self._done,
+                    lm.params, self._cache_in(), self._logits, self._pos, self._done,
                     self._kv_valid, self._gen, chunk, lm.model_cfg, temperature=self._temps,
                     top_k=self._ks, eos_id=self._eos)
+                if not self._paged:
+                    self._cache = cache
+                if self._spec_on and self._d_cache is not None:
+                    draft_params, dcfg = lm._draft
+                    self._d_cache = gpt_mod.track_chunk(draft_params, self._d_cache, toks,
+                                                        self._pos - chunk, self._kv_valid, dcfg)
                 host = torch.stack((toks, counted.to(toks.dtype))).cpu().numpy()
             step_s = time.perf_counter() - t0
             self.decode_s += step_s
@@ -943,26 +1715,22 @@ class BatchSession:
                                       step_s)
         self.steps_done += chunk
         # occupancy and row-seconds over the rows live DURING the chunk
-        live_rows = [r for r in self.rows if r is not None]
         kv_live, kv_alloc = lm.kv_row_counts()
         engine_timeline.note_decode_step(
-            wall_ms=step_s * 1000.0, rows_live=len(live_rows), rows_capacity=self.bb,
+            wall_ms=step_s * 1000.0, rows_live=self.bb - self.capacity(), rows_capacity=self.bb,
             kv_rows_live=kv_live, kv_rows_allocated=kv_alloc, steps=chunk, dispatches=1,
-            host_gap_ms=host_gap_s * 1000.0)
+            host_gap_ms=host_gap_s * 1000.0, **self._page_fields())
         if chunk:
             metrics.observe("lm.tpot_ms", step_s * 1000.0 / chunk, labels={"service": "lm"})
-        by_tenant: dict = {}
-        for row in live_rows:
-            by_tenant[row.tenant] = by_tenant.get(row.tenant, 0) + 1
-        for tenant, n_rows in by_tenant.items():
-            usage.note(tenant, kv_row_seconds=step_s * n_rows)
+        self._note_row_seconds(step_s)
         toks, counted = host[0], host[1]
         return self._emit_and_finish(lambda i: zip(toks[i], counted[i]))
 
     def _emit_and_finish(self, pairs) -> list:
         """Chunk-boundary bookkeeping of each live row over host values in
-        hand (`pairs(i)` iterates row i's (token, counted) run): tokens,
-        TTFT, finishes."""
+        hand (`pairs(i)` iterates row i's (token, counted) run; after a spec
+        round rows have runs of their own lengths): tokens, TTFT,
+        finishes."""
         now = time.perf_counter()
         finished = []
         for i, row in enumerate(self.rows):
@@ -992,10 +1760,12 @@ class BatchSession:
     def _finish(self, i: int):
         row = self.rows[i]
         self.rows[i] = None
+        self._release_row_pages(i)
         usage.note(row.tenant, tokens_out=len(row.tokens))
         engine_timeline.note_finish(
             tokens=len(row.tokens),
-            ttft_ms=(row.first_tok - row.created) * 1000.0 if row.first_tok is not None else None)
+            ttft_ms=(row.first_tok - row.created) * 1000.0 if row.first_tok is not None else None,
+            radix_hit=row.radix_hit if self._paged else None)
         with self.lm._lock:
             self.lm.stats["generate_calls"] += 1
             self.lm.stats["tokens_generated"] += len(row.tokens)

@@ -11,13 +11,20 @@ this one, `models/convert.py` a checkpoint):
   softmax stays bf16, the float32 one float32;
 - a static-shape KV cache `[L, B, T, kv_heads, head_dim]` written in place,
   S new tokens at cache indices `[length, length + S)`; `kv_quant="int8"`
-  keeps int8 codes with one float32 scale per (position, kv head);
+  keeps int8 codes with one float32 scale per (position, kv head); the
+  paged layout (`kv/paged.py`) keeps K/V in a shared page pool, scattered
+  there through a page table and gathered back into the dense layout's
+  `[B, T, kv_heads, head_dim]` element for element, so the attention below
+  is shared and paged decode is token-identical to dense;
 - GQA as a 5-D einsum that groups query heads on their kv head, no repeat;
   causality runs over cache indices, padding slots masked by `kv_valid`;
-- `attn_impl="flash"`: a prefill (S > 1 against an empty cache) runs the
-  CUDA flash-attention kernel (`ops/flash_attention.py`), causal, GQA
-  inside, on CUDA tensors, and its plain version on CPU ones; decode steps
-  (S == 1) read the cache with the plain path either way;
+- `attn_impl="flash"`: a prefill (S > 1 against an empty cache, length 0)
+  runs the CUDA flash-attention kernel (`ops/flash_attention.py`), causal,
+  GQA inside, on CUDA tensors, and its plain version on CPU ones; every
+  other call (decode steps, and the S > 1 forwards of speculative decoding
+  over a filled cache) reads the cache with the plain path. The JAX
+  package takes its kernel whenever S > 1, which attends over the S fresh
+  tokens only; the port does not (ROADMAP, "Facts a parity test meets");
 - sampling is Gumbel-max over an explicit `torch.Generator`: per-row
   temperature (greedy at ≤ 0) and an exact per-row top-k threshold inside a
   power-of-two bucket. Sampled tokens cannot match the JAX package's
@@ -26,11 +33,13 @@ this one, `models/convert.py` a checkpoint):
 The decode loop runs every one of its steps and masks finished rows, as the
 JAX `lax.scan` does, so it never waits on the device between steps.
 `merge_rows` splices freshly prefilled rows into a running decode at a
-chunk boundary (continuous batching), in place.
+chunk boundary (continuous batching), in place, for all three layouts.
+Speculative decoding (`spec_first`, `draft_chunk`, `verify_chunk`,
+`ingest_pending`, `track_chunk`) drafts k greedy tokens on a small model's
+own dense cache and scores all k+1 positions with one target forward.
 
-Not ported yet (ROADMAP Queue A): the paged cache branch (A12);
-`spec_first`, `draft_chunk`, `verify_chunk`, `ingest_pending` and
-`track_chunk` (A13); `qkv_proj` and `block_nocache` (A14, A15).
+Not ported yet (ROADMAP Queue A): `qkv_proj` and `block_nocache` (A14,
+A15).
 """
 
 from __future__ import annotations
@@ -43,6 +52,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from symbiont_tpu_torch.kv import paged as _paged
+from symbiont_tpu_torch.kv.paged import PagedKVCache
 from symbiont_tpu_torch.models import quant
 from symbiont_tpu_torch.models.bert import torch_dtype
 from symbiont_tpu_torch.ops.flash_attention import MASK_NEG, flash_attention
@@ -191,6 +202,44 @@ def _proj(x, p):
     return out + p["bias"] if "bias" in p else out
 
 
+def _flash_prefill(cfg: GPTConfig, S: int, cache) -> bool:
+    """Whether a forward of S tokens takes the flash kernel: a prefill of
+    S > 1 tokens against an empty cache. The kernel attends over the S
+    fresh tokens only, so a forward over a filled cache (a verify or
+    tracking window) reads the cache instead."""
+    return cfg.attn_impl == "flash" and S > 1 and cache.length == 0
+
+
+def _paged_write_read(cache: PagedKVCache, layer_idx: int, k, v, start: int, T: int, dtype):
+    """The paged layout's half of `_attn`: scatter the S fresh K/V rows
+    through the page table into the pool, in place (int8 codes and scales
+    with `kv_quant="int8"`), then gather each row's whole [0, T) back into
+    the dense layout's [B, T, kv_heads, head_dim], element for element.
+    Slots on the scratch page are garbage, and always masked."""
+    page = cache.page_tokens
+    pt = cache.page_table
+    S = k.shape[1]
+    flat_w = _paged.flat_slot_index(pt, start + torch.arange(S, device=pt.device), page)
+    flat_r = _paged.flat_slot_index(pt, torch.arange(T, device=pt.device), page)
+
+    def write(pool, vals):  # pool[layer] as [n_pages·page, ...], a view
+        pool[layer_idx].flatten(0, 1)[flat_w] = vals.to(pool.dtype)
+
+    def read(pool):
+        return pool[layer_idx].flatten(0, 1)[flat_r]
+
+    if cache.quantized:
+        (k_q, k_s), (v_q, v_s) = quant.kv_channel_quantize(k), quant.kv_channel_quantize(v)
+        for pool, vals in ((cache.k, k_q), (cache.v, v_q), (cache.k_scale, k_s),
+                           (cache.v_scale, v_s)):
+            write(pool, vals)
+        return (quant.kv_dequantize(read(cache.k), read(cache.k_scale), dtype),
+                quant.kv_dequantize(read(cache.v), read(cache.v_scale), dtype))
+    write(cache.k, k)
+    write(cache.v, v)
+    return read(cache.k).to(dtype), read(cache.v).to(dtype)
+
+
 def _attn(layer: Params, x: torch.Tensor, layer_idx: int, cache, cfg: GPTConfig,
           rope, kv_valid: Optional[torch.Tensor], valid: Optional[torch.Tensor]):
     """x [B, S, H] → attention output incl. the o-projection. Writes the S
@@ -208,7 +257,11 @@ def _attn(layer: Params, x: torch.Tensor, layer_idx: int, cache, cfg: GPTConfig,
 
     start = cache.length
     rows = slice(start, start + S)
-    if isinstance(cache, QuantKVCache):
+    if isinstance(cache, PagedKVCache):
+        # a row's slot count is kv_valid's width (the pool has no T axis)
+        k_all, v_all = _paged_write_read(cache, layer_idx, k, v, start, kv_valid.shape[1],
+                                         x.dtype)
+    elif isinstance(cache, QuantKVCache):
         k_q, k_s = quant.kv_channel_quantize(k)
         v_q, v_s = quant.kv_channel_quantize(v)
         cache.k[layer_idx, :, rows] = k_q
@@ -219,7 +272,7 @@ def _attn(layer: Params, x: torch.Tensor, layer_idx: int, cache, cfg: GPTConfig,
         cache.k[layer_idx, :, rows] = k
         cache.v[layer_idx, :, rows] = v
 
-    if cfg.attn_impl == "flash" and S > 1:
+    if _flash_prefill(cfg, S, cache):
         # prefill from empty: the kernel attends over exactly the S fresh
         # tokens, [B, heads, S, D] contiguous, GQA by kv-head index
         bias = None
@@ -233,7 +286,7 @@ def _attn(layer: Params, x: torch.Tensor, layer_idx: int, cache, cfg: GPTConfig,
     if isinstance(cache, QuantKVCache):
         k_all = quant.kv_dequantize(cache.k[layer_idx], cache.k_scale[layer_idx], x.dtype)
         v_all = quant.kv_dequantize(cache.v[layer_idx], cache.v_scale[layer_idx], x.dtype)
-    else:
+    elif isinstance(cache, KVCache):
         k_all, v_all = cache.k[layer_idx].to(x.dtype), cache.v[layer_idx].to(x.dtype)
     # GQA without repeat: query heads grouped onto their kv head
     q5 = q.view(B, S, nkv, nh // nkv, hd)
@@ -272,9 +325,12 @@ def forward(params: Params, input_ids: torch.Tensor, cache, positions: torch.Ten
 
     `positions` [B, S] are the tokens' logical positions (RoPE / wpe);
     `kv_valid` [B, T] is False on padding slots, which attention never
-    reads. With `attn_impl == "flash"` any S > 1 call must be a prefill
-    against an empty cache (length 0): the kernel attends over exactly the
-    S fresh tokens."""
+    reads; the paged layout needs it (its width is a row's slot count).
+    With `attn_impl == "flash"` a call of S > 1 tokens against an empty
+    cache runs the kernel over the S fresh tokens; every other call reads
+    the cache."""
+    if isinstance(cache, PagedKVCache) and kv_valid is None:
+        raise ValueError("a forward over the paged KV layout needs kv_valid")
     dtype = torch_dtype(cfg.dtype)
     # floating leaves → compute dtype (a no-op on leaves already in it);
     # QuantTensor leaves keep their float32 scales
@@ -287,10 +343,10 @@ def forward(params: Params, input_ids: torch.Tensor, cache, positions: torch.Ten
     rope = (_rope_angles(positions, cfg.head_dim, cfg.rope_theta)
             if cfg.arch == "llama" else None)
     valid = None
-    if not (cfg.attn_impl == "flash" and S > 1):
+    if not _flash_prefill(cfg, S, cache):
         # causality over cache indices, where K/V live (they differ from
         # logical positions on padded rows); padding slots via kv_valid
-        T = cache.k.shape[2]
+        T = kv_valid.shape[1] if isinstance(cache, PagedKVCache) else cache.k.shape[2]
         kv_pos = torch.arange(T, device=input_ids.device)
         q_pos = cache.length + torch.arange(S, device=input_ids.device)
         valid = (kv_pos[None, :] <= q_pos[:, None])[None, None, None]
@@ -395,6 +451,16 @@ def prefill(params, prompt_ids: torch.Tensor, prompt_mask: torch.Tensor, cfg: GP
     return cache._replace(length=P), logits[:, -1], kv_valid, prompt_len
 
 
+def _emit_one(tok, done, eos_id: int):
+    """(token, counted, done) after one sampled token, as a decode step
+    books it: a done row emits 0, an eos token is emitted but not counted
+    and ends the row."""
+    tok = torch.where(done, 0, tok)
+    if eos_id >= 0:
+        return tok, ~done & (tok != eos_id), done | (tok == eos_id)
+    return tok, ~done, done
+
+
 def decode_chunk(params, cache, cur_logits, cur_pos, done, kv_valid,
                  generator: torch.Generator, steps: int, cfg: GPTConfig,
                  temperature=0.8, top_k=40, eos_id: int = -1):
@@ -406,13 +472,8 @@ def decode_chunk(params, cache, cur_logits, cur_pos, done, kv_valid,
                                   cfg.vocab_size, cur_logits.device)
     tokens, counted = [], []
     for _ in range(steps):
-        tok = _sample(cur_logits, generator, t, k, bucket)
-        tok = torch.where(done, 0, tok)
-        if eos_id >= 0:
-            counted.append(~done & (tok != eos_id))
-            done = done | (tok == eos_id)
-        else:
-            counted.append(~done)
+        tok, c, done = _emit_one(_sample(cur_logits, generator, t, k, bucket), done, eos_id)
+        counted.append(c)
         tokens.append(tok)
         logits, cache = forward(params, tok[:, None], cache, cur_pos[:, None], cfg, kv_valid)
         cache = cache._replace(length=cache.length + 1)
@@ -421,33 +482,22 @@ def decode_chunk(params, cache, cur_logits, cur_pos, done, kv_valid,
             torch.stack(counted, dim=1))
 
 
-def _splice_rows(row_map, n_b: int, device):
-    """Host `row_map` [B] → (destination rows, source rows) as int64
-    tensors on `device`: row i takes b's row row_map[i] where that is
-    >= 0."""
-    rm = np.asarray(row_map.cpu() if isinstance(row_map, torch.Tensor) else row_map,
-                    np.int64)
-    dst = np.nonzero(rm >= 0)[0]
-    if dst.size and int(rm[dst].max()) >= n_b:
-        raise ValueError(f"row_map {rm.tolist()} names a row past the {n_b} prepared ones")
-    return (torch.from_numpy(dst).to(device), torch.from_numpy(rm[dst]).to(device))
-
-
-def _refuse_paged(cache) -> None:
-    if not isinstance(cache, (KVCache, QuantKVCache)):
-        raise ValueError(f"cannot splice rows of a {type(cache).__name__}: the paged KV "
-                         "layout is not ported (ROADMAP A12: paged KV)")
+def _refuse_layout(cache, what: str, layouts=(KVCache, QuantKVCache)) -> None:
+    if not isinstance(cache, layouts):
+        raise ValueError(f"{what} splices rows of a {' or '.join(c.__name__ for c in layouts)}, "
+                         f"not a {type(cache).__name__}")
 
 
 def merge_cache_rows(cache_a, cache_b, row_map):
-    """Row splice of two caches of one layout: every tensor field of
-    `cache_a` takes `cache_b`'s row row_map[i] at its row i (batch axis 1,
-    the int8 cache's scale planes too) where row_map[i] >= 0; `length`
-    keeps a's. In place on `cache_a`, which is returned. The JAX version
-    donates cache_a to XLA to get the same effect; here the row copy is an
-    `index_copy_`."""
-    _refuse_paged(cache_a)
-    dst, src = _splice_rows(row_map, cache_b.k.shape[1], cache_a.k.device)
+    """Row splice of two dense caches of one layout (the drafter's half of
+    a splice): every tensor field of `cache_a` takes `cache_b`'s row
+    row_map[i] at its row i (batch axis 1, the int8 cache's scale planes
+    too) where row_map[i] >= 0; `length` keeps a's. The gap validity rides
+    the shared kv_valid that `merge_rows` masks. In place on `cache_a`,
+    which is returned. The JAX version donates cache_a to XLA to get the
+    same effect; here the row copy is an `index_copy_`."""
+    _refuse_layout(cache_a, "merge_cache_rows")
+    dst, src = _paged.splice_rows(row_map, cache_b.k.shape[1], cache_a.k.device)
     if dst.numel():
         for fa, fb in zip(cache_a, cache_b):
             if isinstance(fa, torch.Tensor):
@@ -470,22 +520,171 @@ def merge_rows(cache_a, logits_a, pos_a, done_a, kv_valid_a,
     writes at slot a.length onward while its logical position carries on
     from its prompt, so its output is exactly a standalone decode's.
 
-    The JAX package's `_merge_rows_jit` builds new arrays and donates
-    cache_a; here the cache is already written in place and its `length`
-    is a host int, so the splice is an in-place row copy and needs no
-    donation. The paged layout's branch waits for ROADMAP A12 and raises."""
-    _refuse_paged(cache_a)
-    T = cache_a.k.shape[2]
-    t_idx = torch.arange(T, device=kv_valid_b.device)
-    gap = (t_idx >= prompt_width) & (t_idx < cache_a.length)
-    kv_b = kv_valid_b & ~gap[None, :]
+    Three layouts splice here. Dense and int8 caches copy rows field by
+    field. For the paged layout `cache_a` is a `PagedKVCache` and `cache_b`
+    the triple `(staging, scatter_table, new_page_table)`: the dense-staged
+    prefill (None when every admitted row was a full radix hit), the
+    [bb, prompt_width / page] table of each staging row's fresh prompt
+    blocks (scratch elsewhere), and the session's rebuilt page table; the
+    cache half then happens in the pool (`kv/paged.scatter_prompt`) and the
+    row-state half is `kv/paged.merge_row_state`.
+
+    The JAX package builds new arrays and donates cache_a (its pools, for
+    the paged layout); here the caches are written in place and `length`
+    is a host int, so nothing needs donating."""
+    _refuse_layout(cache_a, "merge_rows", (KVCache, QuantKVCache, PagedKVCache))
+    if isinstance(cache_a, PagedKVCache):
+        staging, scatter_table, new_page_table = cache_b
+        if staging is not None:
+            _paged.scatter_prompt(cache_a.k, cache_a.v, cache_a.k_scale, cache_a.v_scale,
+                                  staging, scatter_table, prompt_width)
+        state = _paged.merge_row_state(logits_a, pos_a, done_a, kv_valid_a, logits_b, pos_b,
+                                       done_b, kv_valid_b, row_map, cache_a.length, prompt_width)
+        return (cache_a._replace(page_table=new_page_table), *state)
     merge_cache_rows(cache_a, cache_b, row_map)
-    dst, src = _splice_rows(row_map, logits_b.shape[0], logits_a.device)
-    if dst.numel():
-        for a, b in ((logits_a, logits_b), (pos_a, pos_b), (done_a, done_b),
-                     (kv_valid_a, kv_b)):
-            a.index_copy_(0, dst, b.index_select(0, src))
-    return cache_a, logits_a, pos_a, done_a, kv_valid_a
+    state = _paged.merge_row_state(logits_a, pos_a, done_a, kv_valid_a, logits_b, pos_b, done_b,
+                                   kv_valid_b, row_map, cache_a.length, prompt_width)
+    return (cache_a, *state)
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding: draft k greedy tokens on a small model's own dense
+# cache, score all k+1 positions with ONE target forward, emit the longest
+# accepted prefix and the target's correction.
+#
+# The spec state (beside the plain state decode_chunk carries): the cache
+# holds every emitted token but the last, which rides as `pending` [B], and
+# `cur_pos` is pending's logical position. Each round writes the S = k+1
+# window [pending, d_1..d_k] into both caches (the drafter's k steps plus
+# one more forward of d_k, the target's verify forward), so the two share
+# one kv_valid / cur_pos / done and advance `length` by S a round. Slot j of
+# a row's window stays valid iff j <= the row's accepted count; rejected
+# slots become holes that kv_valid masks, as it masks left padding.
+# ---------------------------------------------------------------------------
+
+
+def spec_first(cur_logits, done, generator: torch.Generator, cfg: GPTConfig,
+               temperature=0.8, top_k=40, eos_id: int = -1):
+    """plain → spec: sample one token from the carried logits (exactly what
+    the next plain step would emit) without forwarding it; it becomes
+    `pending`. Returns (tok, counted, done)."""
+    t, k, bucket = _norm_sampling(temperature, top_k, cur_logits.shape[0], cfg.vocab_size,
+                                  cur_logits.device)
+    return _emit_one(_sample(cur_logits, generator, t, k, bucket), done, eos_id)
+
+
+def draft_chunk(draft_params, d_cache, pending, cur_pos, done, kv_valid,
+                dcfg: GPTConfig, spec_k: int):
+    """The drafter's round: `spec_k` greedy steps from `pending` on its own
+    dense cache, then d_k forwarded once more (logits dropped) so the
+    drafter writes the same k+1 window slots the target's verify writes.
+    Greedy drafts make the proposal a point mass, so a sampled row's
+    acceptance in `verify_chunk` is one coin flip on p_target(draft).
+    Returns (cache, drafts [B, k])."""
+    tok, pos, drafts = pending, cur_pos, []
+    for _ in range(spec_k):
+        tok = torch.where(done, 0, tok)
+        logits, d_cache = forward(draft_params, tok[:, None], d_cache, pos[:, None], dcfg,
+                                  kv_valid)
+        d_cache = d_cache._replace(length=d_cache.length + 1)
+        tok, pos = logits[:, 0].argmax(dim=-1), pos + 1
+        drafts.append(tok)
+    _, d_cache = forward(draft_params, torch.where(done, 0, tok)[:, None], d_cache,
+                         pos[:, None], dcfg, kv_valid)
+    return d_cache._replace(length=d_cache.length + 1), torch.stack(drafts, dim=1)
+
+
+def verify_chunk(params, cache, pending, drafts, cur_pos, done, kv_valid,
+                 generator: torch.Generator, cfg: GPTConfig, temperature=0.8, top_k=40,
+                 eos_id: int = -1):
+    """Score k drafts and emit in ONE target forward → (cache, pending,
+    cur_pos, done, kv_valid, out [B, k+1], counted [B, k+1], emitted [B]);
+    a row's tokens are out[i, :emitted[i]] filtered through counted.
+
+    Greedy rows accept the longest prefix equal to the target's argmax,
+    token-identical to plain decode; sampled rows accept a draft when
+    u < p_target(draft) under the transformed distribution `_sample` draws
+    from, and draw their correction from it with the rejected token masked
+    out (or, every draft accepted, the bonus position's). u and the
+    correction's Gumbel noise come from `generator`, in that order.
+    Rejected window slots become kv_valid holes (a new kv_valid; the one
+    passed in is not written)."""
+    B, k = drafts.shape
+    S = k + 1
+    t, tk, bucket = _norm_sampling(temperature, top_k, B, cfg.vocab_size, drafts.device)
+    seq = torch.where(done[:, None], 0, torch.cat([pending[:, None], drafts], dim=1))
+    positions = cur_pos[:, None] + torch.arange(S, device=drafts.device)[None, :]
+    # logits[:, j] is the next-token distribution after seq[:, :j+1]: slot
+    # j scores d_{j+1}, slot k is the bonus position
+    logits, cache = forward(params, seq, cache, positions, cfg, kv_valid)
+    start = cache.length
+    cache = cache._replace(length=start + S)
+
+    greedy_row = t <= 0.0
+    tgt = logits.argmax(dim=-1)  # [B, S]
+    # the distribution `_sample` draws from, at every window position
+    scaled = _top_k_cut((logits / t.clamp_min(1e-6)[:, None, None]).flatten(0, 1),
+                        tk.repeat_interleave(S), bucket).view(B, S, -1)
+    probs = torch.softmax(scaled, dim=-1)
+    p_d = probs[:, :k].gather(-1, drafts[:, :, None])[..., 0]  # [B, k]
+    u = torch.rand((B, k), generator=generator, device=drafts.device)
+    acc = torch.where(greedy_row[:, None], drafts == tgt[:, :k], u < p_d)
+    m = acc.long().cumprod(dim=1).sum(dim=1)  # [B], 0..k
+
+    drafts_pad = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
+    scaled_m = scaled.gather(1, m[:, None, None].expand(B, 1, scaled.shape[-1]))[:, 0]
+    d_rej = drafts_pad.gather(1, m[:, None])[:, 0]
+    rej = F.one_hot(d_rej, cfg.vocab_size).bool() & ((~greedy_row) & (m < k))[:, None]
+    scaled_m = scaled_m.masked_fill(rej, -math.inf)
+    g = torch.rand(scaled_m.shape, generator=generator, device=drafts.device)
+    sampled_c = (scaled_m - torch.log(-torch.log(g))).argmax(dim=-1)
+    corr = torch.where(greedy_row, tgt.gather(1, m[:, None])[:, 0], sampled_c)
+
+    # slots 0..m-1 the accepted drafts, slot m the correction; an eos token
+    # is emitted but not counted, nothing after it counts, the row goes done
+    jj = torch.arange(S, device=drafts.device)[None, :]
+    out = torch.where(jj < m[:, None], drafts_pad, torch.where(jj == m[:, None], corr[:, None], 0))
+    emit = (jj <= m[:, None]) & ~done[:, None]
+    out = torch.where(emit, out, 0)
+    if eos_id >= 0:
+        hit = emit & (out == eos_id)
+        before = hit.long().cumsum(dim=1) - hit.long()
+        counted = emit & (before == 0) & (out != eos_id)
+        new_done = done | hit.any(dim=1)
+    else:
+        counted, new_done = emit, done
+
+    # rejected slots j > m become holes; a done row's window is junk kept
+    # valid, as plain decode writes forced zeros for done rows
+    m_adv = torch.where(done, k, m)
+    new_kvv = kv_valid.clone()
+    new_kvv[:, start:start + S] = jj <= m_adv[:, None]
+    new_pos = cur_pos + torch.where(done, S, m + 1)
+    new_pending = torch.where(new_done, 0, corr)
+    emitted = torch.where(done, 0, m + 1)
+    return cache, new_pending, new_pos, new_done, new_kvv, out, counted, emitted
+
+
+def ingest_pending(params, cache, pending, cur_pos, done, kv_valid, cfg: GPTConfig):
+    """spec → plain: forward `pending` into the cache (one slot) → (cache,
+    logits [B, V], cur_pos + 1), the logits a plain step at that position
+    carries, so greedy output stays token-identical across the switch."""
+    logits, cache = forward(params, torch.where(done, 0, pending)[:, None], cache,
+                            cur_pos[:, None], cfg, kv_valid)
+    return cache._replace(length=cache.length + 1), logits[:, 0], cur_pos + 1
+
+
+def track_chunk(draft_params, d_cache, toks, start_pos, kv_valid, dcfg: GPTConfig):
+    """The drafter's lockstep through a plain interlude: teacher-force the
+    tokens a plain chunk just wrote into the target's cache (its `toks`,
+    done rows' zeros included) into the drafter's cache at the same slots
+    and positions, in one forward. Keeps the two caches slot-symmetric, so
+    speculation can re-enter after the margin guard or a splice without a
+    drafter prefill."""
+    S = toks.shape[1]
+    positions = start_pos[:, None] + torch.arange(S, device=toks.device)[None, :]
+    _, d_cache = forward(draft_params, toks, d_cache, positions, dcfg, kv_valid)
+    return d_cache._replace(length=d_cache.length + S)
 
 
 def generate(params, prompt_ids: torch.Tensor, prompt_mask: torch.Tensor,

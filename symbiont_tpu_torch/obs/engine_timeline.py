@@ -4,21 +4,27 @@ The port's copy of `symbiont_tpu/obs/engine_timeline.py`, recorded from
 host values already in hand (no new device syncs):
 
 - decode half: `LmEngine`'s `BatchSession` notes one `step` event per
-  decode chunk (wall ms, live rows against the batch bucket, engine-wide
-  KV rows live against allocated, host gap since the last chunk), an
-  `admit` per session start or splice (rows, prefill ms, the share of the
-  new prompts' token prefix that recent prompts already had), a `finish`
-  per request (tokens, engine-side TTFT) and a `cancel` per aborted one;
-  the generation batcher notes its queue depth (`queue`); at a chunk
+  decode chunk or speculative round (wall ms, live rows against the batch
+  bucket, engine-wide KV rows live against allocated, host gap since the
+  last chunk; paged engines add the pool's pages free, live and total,
+  spec rounds their draft and verify ms and draft tokens proposed and
+  accepted), an `admit` per session start or splice (rows, prefill ms, the
+  share of the new prompts' token prefix that recent prompts already had;
+  paged engines add the prompt tokens served from radix-shared pages), a
+  `finish` per request (tokens, engine-side TTFT; paged engines add
+  whether its whole prompt was a radix hit) and a `cancel` per aborted
+  one; the generation batcher notes its queue depth (`queue`); at a chunk
   boundary, at most every `_MEM_SAMPLE_S` seconds, the device-memory
   ledger's claims land as one `mem` event;
 - embed half: `TorchEngine._note_padding` notes one `flush` per embed or
   rerank batch, and the windowed `engine.packing_opportunity_pct` is the
   share of dispatched token slots that carried padding.
 
-`summary` gives the JAX summary's dense-layout fields. The paged-KV and
-speculative fields wait for ROADMAP A12 and A13; the resume event, the
-Perfetto export and `configure` come with the stack (A8).
+`summary` gives the JAX summary's fields, its paged view (radix hit share,
+hit and cold TTFT, live pages) and spec view (rounds, acceptance, draft and
+verify ms) appearing only when such events exist, so dense, spec-off
+recorders read as before. The resume event, the Perfetto export and
+`configure` come with the stack (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -86,20 +92,36 @@ class EngineTimeline:
     # ------------------------------------------------------------ recording
 
     def note_decode_step(self, wall_ms: float, rows_live: int, rows_capacity: int,
-                         kv_rows_live: int, kv_rows_allocated: int, steps: int,
-                         sessions: int = 1, dispatches: Optional[int] = None,
-                         host_gap_ms: Optional[float] = None) -> None:
-        """One decode chunk. `dispatches` and `host_gap_ms` are the chunk's
-        dispatch count and the host time between the previous chunk's
-        device work and this one's."""
+                         kv_rows_live: int, kv_rows_allocated: int, steps: float,
+                         sessions: int = 1, pages_free: Optional[int] = None,
+                         pages_live: Optional[int] = None, pages_total: Optional[int] = None,
+                         dispatches: Optional[int] = None,
+                         host_gap_ms: Optional[float] = None,
+                         spec_draft_ms: Optional[float] = None,
+                         spec_verify_ms: Optional[float] = None,
+                         spec_proposed: Optional[int] = None,
+                         spec_accepted: Optional[int] = None) -> None:
+        """One decode chunk or spec round. `dispatches` and `host_gap_ms`
+        are its dispatch count and the host time between the previous
+        chunk's device work and this one's; `pages_*` the pool's occupancy
+        (paged engines); `spec_*` a round's draft/verify wall split and its
+        proposed/accepted draft tokens, where `steps` is the mean tokens a
+        live row emitted (fractional)."""
         ev = {"kind": STEP, "t": time.time(), "wall_ms": wall_ms,
               "rows_live": int(rows_live), "rows_capacity": int(rows_capacity),
               "kv_rows_live": int(kv_rows_live),
               "kv_rows_allocated": int(kv_rows_allocated),
               "steps": int(steps), "sessions": int(sessions)}
+        if pages_total is not None:
+            ev.update(pages_free=int(pages_free or 0), pages_live=int(pages_live or 0),
+                      pages_total=int(pages_total))
         if host_gap_ms is not None:
             ev["dispatches"] = int(dispatches or 0)
             ev["host_gap_ms"] = float(host_gap_ms)
+        if spec_proposed is not None:
+            ev.update(steps=float(steps), spec_draft_ms=float(spec_draft_ms or 0.0),
+                      spec_verify_ms=float(spec_verify_ms or 0.0),
+                      spec_proposed=int(spec_proposed), spec_accepted=int(spec_accepted or 0))
         self._append(ev)
         self._maybe_note_memory()
 
@@ -123,18 +145,30 @@ class EngineTimeline:
         self._append(ev)
 
     def note_admit(self, rows: int, prefill_ms: float,
-                   prefix_share: Optional[float] = None, kind: str = "start") -> None:
-        """A prefill joined the decode plane: a session start or a splice."""
+                   prefix_share: Optional[float] = None, kind: str = "start",
+                   hit_tokens: Optional[int] = None,
+                   prompt_tokens: Optional[int] = None) -> None:
+        """A prefill joined the decode plane: a session start or a splice.
+        `hit_tokens`/`prompt_tokens` (paged engines): the prompt tokens
+        served from radix-shared pages, of all its prompt tokens."""
         ev = {"kind": ADMIT, "t": time.time(), "rows": int(rows),
               "prefill_ms": prefill_ms, "admit_kind": kind}
         if prefix_share is not None:
             ev["prefix_share"] = prefix_share
+        if prompt_tokens is not None:
+            ev["hit_tokens"] = int(hit_tokens or 0)
+            ev["prompt_tokens"] = int(prompt_tokens)
         self._append(ev)
 
-    def note_finish(self, tokens: int, ttft_ms: Optional[float] = None) -> None:
+    def note_finish(self, tokens: int, ttft_ms: Optional[float] = None,
+                    radix_hit: Optional[bool] = None) -> None:
+        """`radix_hit` (paged engines): the request's whole prompt came from
+        the radix cache and its prefill was skipped."""
         ev = {"kind": FINISH, "t": time.time(), "tokens": int(tokens)}
         if ttft_ms is not None:
             ev["ttft_ms"] = ttft_ms
+        if radix_hit is not None:
+            ev["radix_hit"] = bool(radix_hit)
         self._append(ev)
 
     def note_cancel(self) -> None:
@@ -252,6 +286,21 @@ class EngineTimeline:
             "embed_padding_pct": pct(total_tok - real_tok, total_tok),
             "packing_opportunity_pct": pct(total_tok - real_tok, total_tok),
         }
+        # the paged view: radix hits from the admits' token counts, hit and
+        # cold TTFT, the pool's occupancy from the step snapshots
+        paged_steps = [e for e in steps if "pages_total" in e]
+        paged_admits = [e for e in admits if "prompt_tokens" in e]
+        if paged_steps or paged_admits:
+            out["decode_radix_hit_pct"] = pct(sum(e["hit_tokens"] for e in paged_admits),
+                                              sum(e["prompt_tokens"] for e in paged_admits))
+            out["decode_ttft_hit_ms_p50"] = quantile(
+                [e["ttft_ms"] for e in finishes if "ttft_ms" in e and e.get("radix_hit")], 0.50)
+            out["decode_ttft_cold_ms_p50"] = quantile(
+                [e["ttft_ms"] for e in finishes
+                 if "ttft_ms" in e and e.get("radix_hit") is False], 0.50)
+        if paged_steps:
+            out["decode_pages_live_pct"] = pct(sum(e["pages_live"] for e in paged_steps),
+                                               sum(e["pages_total"] for e in paged_steps))
         gap_steps = [e for e in steps if "host_gap_ms" in e]
         if gap_steps:
             gen_tokens = sum(e["steps"] for e in gap_steps)
@@ -261,6 +310,16 @@ class EngineTimeline:
                 round(sum(e["dispatches"] for e in gap_steps) / gen_tokens, 4)
                 if gen_tokens else 0.0)
             out["decode_host_gap_pct"] = pct(gap_ms, gap_ms + busy_ms)
+        # the spec view: only rounds of a spec-enabled engine carry spec_*
+        spec_steps = [e for e in steps if "spec_proposed" in e]
+        if spec_steps:
+            out["decode_spec_rounds"] = len(spec_steps)
+            out["decode_spec_accept_pct"] = pct(sum(e["spec_accepted"] for e in spec_steps),
+                                                sum(e["spec_proposed"] for e in spec_steps))
+            out["decode_spec_draft_ms_total"] = round(
+                sum(e["spec_draft_ms"] for e in spec_steps), 2)
+            out["decode_spec_verify_ms_total"] = round(
+                sum(e["spec_verify_ms"] for e in spec_steps), 2)
         out["dominant_stall"] = self._dominant_stall(out)
         return out
 
@@ -281,6 +340,13 @@ class EngineTimeline:
                 prefill_pct = round(100.0 * s["decode_prefill_ms_total"] / total, 2)
                 candidates.append((f"admission prefills ({prefill_pct}% of engine wall)",
                                    prefill_pct))
+            if "decode_radix_hit_pct" in s:
+                # prefix overlap the radix cache did not turn into shared
+                # pages: cold prefills of what other sessions already paid for
+                cold = max(0.0, s["decode_prefix_share_pct"] - s["decode_radix_hit_pct"])
+                candidates.append((f"cold prefix prefills (prefix share "
+                                   f"{s['decode_prefix_share_pct']}% vs radix hits "
+                                   f"{s['decode_radix_hit_pct']}%)", round(cold, 2)))
             if "decode_host_gap_pct" in s:
                 candidates.append((f"host-dispatch gap ({s['decode_host_gap_pct']}% of chunk "
                                    f"wall host-side, {s['decode_dispatches_per_token']} "

@@ -637,3 +637,111 @@ def test_a_failing_session_check_fails_the_run(monkeypatch, capsys):
     with pytest.raises(RuntimeError, match="admitted_midflight 0"):
         chip_smoke.main()
     assert '"ok": true' not in capsys.readouterr().out
+
+
+# ------------------------------------------------------------ paged, spec
+
+TINY_PAGED = dict(TINY_SESSION, bucket=(8, 16), new=16, prefix=8, page=4, spec_k=4,
+                  verify_rows=2, verify_cache=32,
+                  drafter=dict(chip_smoke.LLAMA_68M, vocab_size=300, hidden_size=16,
+                               num_hidden_layers=1, num_attention_heads=2,
+                               num_key_value_heads=2, intermediate_size=24,
+                               max_position_embeddings=64))
+TINY_LM_KW = dict(force_cpu=True, prompt_buckets=[8, 16, 32], new_token_buckets=[4, 16, 32])
+
+
+@pytest.fixture
+def tiny_dirs(tmp_path, monkeypatch):
+    """The tiny TinyLlama and GPT-2 dirs, the llama's params as [session]
+    hands them on, and B1's plain forwards counted as its launches (the CPU
+    path launches no kernel)."""
+    from symbiont_tpu_torch.config import LmConfig
+    from symbiont_tpu_torch.engine.lm import LmEngine
+    from symbiont_tpu_torch.models import gpt as gpt_mod
+    from symbiont_tpu_torch.ops import flash_attention as fa
+
+    for name, hf, dtype in (("tinyllama", TINY_LLAMA, torch.bfloat16),
+                            ("gpt2", TINY_GPT2, torch.float32)):
+        params = gpt_mod.init_params(torch.Generator().manual_seed(len(name)),
+                                     gpt_mod.GPTConfig.from_hf(hf))
+        chip_smoke.write_gpt_checkpoint(tmp_path / name, params, hf, dtype)
+    forward = fa._forward
+
+    def counted(*a, **kw):
+        fa.launches += 1
+        return forward(*a, **kw)
+
+    monkeypatch.setattr(fa, "_forward", counted)
+    eng = LmEngine(LmConfig(model_dir=str(tmp_path / "tinyllama"), attn_impl="flash",
+                            **TINY_LM_KW))
+    return tmp_path, (eng.params, eng.model_cfg)
+
+
+def test_paged_phase_rehearses_on_the_cpu(tiny_dirs, capsys):
+    """[paged] end to end on the CPU at tiny geometries (pages of 4 tokens),
+    with every check it makes on the card."""
+    tmp, tinyllama = tiny_dirs
+    out = chip_smoke.paged_phase(np.random.default_rng(0), tmp, tinyllama,
+                                 dense_batcher={"tok_s": 1.0}, sizes=TINY_PAGED, device="cpu",
+                                 lm_kw=TINY_LM_KW)
+    printed = capsys.readouterr().out
+    assert printed.count("[paged]") == 5
+    # 8 rows x (32 + 32) slots / 4-token pages x 2 + scratch; 2 layers x k, v
+    # x 2 KV heads x 8 x bf16 a token
+    assert out["pool_pages"] == 2 * 8 * 16 + 1 and out["pool_bytes"] == 257 * 4 * 2 * 2 * 2 * 8 * 2
+    assert 0 < out["peak_pages"] and out["peak_bytes"] < 8 * out["dense_slab_bytes"]
+    assert out["batcher"]["admitted_midflight"] > 0 and out["batcher"]["tok_s"] > 0
+    assert out["batcher"]["decode_kv_stranded_pct"] == 0.0  # paged rows hold pages
+    # 2 layers: dense and paged starts and admissions, the partial hit, the
+    # batcher's prefills, GPT-2's four sessions with an admission each
+    assert out["launches"] % 2 == 0 and out["launches"] >= 2 * (4 + 1 + 2) + 2 * 8
+
+
+def test_spec_phase_rehearses_on_the_cpu(tiny_dirs, capsys):
+    """[spec] end to end on the CPU at tiny geometries: the self-drafted,
+    corrupted and small-drafter sessions and the verify check."""
+    tmp, tinyllama = tiny_dirs
+    out = chip_smoke.spec_phase(np.random.default_rng(0), tmp, tinyllama, sizes=TINY_PAGED,
+                                device="cpu", lm_kw=TINY_LM_KW)
+    printed = capsys.readouterr().out
+    assert printed.count("[spec] flash_attn_fwd causal") == 3  # B1 at its new shapes
+    assert printed.count("[spec]") == 7
+    assert all(r["acceptance"] == 1.0 and r["tokens_per_round"] == 5.0
+               for r in out["self_drafted"].values())
+    assert out["corrupted_acceptance"] == 2 / 4
+    assert set(out["llama_68m"]) == {"float32", "bfloat16"}
+    assert out["verify"]["cosine_min"] >= chip_smoke.GEN_COS_BAR
+    # 2 layers, a 1-layer drafter: the stream and two self-drafted sessions
+    # (2 + 2 each), the corrupted one (2 + 2), the small drafter's two (2 + 1)
+    assert out["launches"] == 4 * 4 + 2 * 3
+
+
+def test_a_failing_spec_check_fails_the_run(monkeypatch, capsys):
+    """Every phase before [spec] stubbed to pass; a spec phase proposing no
+    drafts leaves main() by its exception and prints no result."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(chip_smoke, "card_line", lambda: "card, 700.00 W")
+    launches = {"launches": (0, 0, 0)}
+
+    def checkpoint(rng, tmp):
+        (Path(tmp) / "mpnet").mkdir()
+        return {"launches": 0, "mpnet_dir": Path(tmp) / "mpnet", "host_leaves": {}}
+
+    stubs = dict(kernel_phase=lambda: {}, backward_kernel_phase=lambda: {},
+                 main_path=lambda rng: launches, train_path=lambda rng: launches,
+                 profile_embed=lambda texts: None, synth_texts=lambda rng, n: [],
+                 checkpoint_phase=checkpoint, obs_phase=lambda ck, tmp: None,
+                 quant_phase=lambda rng, d, h: {"launches": 0},
+                 causal_gqa_kernel_phase=lambda: {},
+                 generate_phase=lambda rng, tmp: {"launches": 0},
+                 session_phase=lambda rng, tmp: {"launches": 0, "batcher": {},
+                                                 "tinyllama": None},
+                 paged_phase=lambda rng, tmp, tl, dense_batcher: {"launches": 0},
+                 spec_phase=lambda rng, tmp, tl: chip_smoke.check(
+                     False, "self-drafted stream: 0 draft tokens proposed"))
+    for name, fn in stubs.items():
+        monkeypatch.setattr(chip_smoke, name, fn)
+    with pytest.raises(RuntimeError, match="0 draft tokens proposed"):
+        chip_smoke.main()
+    assert '"ok": true' not in capsys.readouterr().out

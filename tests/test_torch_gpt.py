@@ -118,6 +118,40 @@ def test_forward_logits_and_cache_match_jax(arch, nkv, attn_impl):
     assert tcache.length == P  # forward leaves the length to its caller
 
 
+@pytest.mark.parametrize("arch,nkv", ARCHS)
+def test_flash_forward_over_a_filled_cache_reads_the_cache(arch, nkv):
+    """A forward of S > 1 tokens over a non-empty cache (a speculative
+    verify or tracking window) under attn_impl="flash" attends over the
+    whole cache, as JAX's "xla" does: 4 tokens over an 8-token cache. The
+    JAX flash branch attends over the 4 fresh tokens only (ROADMAP, "Facts
+    a parity test meets"; checked here too), so the port takes its kernel
+    only from an empty cache."""
+    jcfg, _ = _cfgs(arch, nkv, attn_impl="xla")
+    _, tcfg = _cfgs(arch, nkv, attn_impl="flash")
+    jp, tp = _params(arch, nkv)
+    jp = jax.tree.map(jnp.asarray, jp)
+    rng = np.random.default_rng(8)
+    ids = rng.integers(1, 97, (2, 12)).astype(np.int32)
+    pos = np.tile(np.arange(12, dtype=np.int32), (2, 1))
+    kv = np.ones((2, 16), bool)
+    jcache = jgpt.init_cache(jcfg, 2, 16, jnp.float32)
+    _, jcache = jgpt.forward(jp, jnp.asarray(ids[:, :8]), jcache, jnp.asarray(pos[:, :8]), jcfg,
+                             jnp.asarray(kv))
+    want, _ = jgpt.forward(jp, jnp.asarray(ids[:, 8:]), jcache._replace(length=jnp.asarray(8)),
+                           jnp.asarray(pos[:, 8:]), jcfg, jnp.asarray(kv))
+    tcache = tgpt.init_cache(tcfg, 2, 16, torch.float32)
+    _, tcache = tgpt.forward(tp, _t(ids[:, :8]), tcache, _t(pos[:, :8]), tcfg,
+                             torch.from_numpy(kv))
+    got, _ = tgpt.forward(tp, _t(ids[:, 8:]), tcache._replace(length=8), _t(pos[:, 8:]), tcfg,
+                          torch.from_numpy(kv))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    jax_flash, _ = jgpt.forward(jp, jnp.asarray(ids[:, 8:]),
+                                jcache._replace(length=jnp.asarray(8)), jnp.asarray(pos[:, 8:]),
+                                dataclasses.replace(jcfg, attn_impl="flash"), jnp.asarray(kv))
+    off = float(np.abs(np.asarray(jax_flash) - np.asarray(want)).max())
+    assert off > 100 * F32["atol"], off  # the JAX flash branch drops the cache
+
+
 def _softmax_cos(a, b):
     pa = torch.softmax(torch.from_numpy(np.array(a, np.float32)), -1)
     pb = torch.softmax(torch.from_numpy(np.array(b, np.float32)), -1)

@@ -48,7 +48,11 @@ def test_the_scan_covers_the_package():
             "symbiont_tpu_torch/obs/engine_timeline.py",
             "symbiont_tpu_torch/obs/hbm.py",
             "symbiont_tpu_torch/obs/xprof.py",
-            "symbiont_tpu_torch/utils/telemetry.py"} <= rel
+            "symbiont_tpu_torch/utils/telemetry.py",
+            "symbiont_tpu_torch/kv/__init__.py",
+            "symbiont_tpu_torch/kv/paged.py",
+            "symbiont_tpu_torch/kv/pool.py",
+            "symbiont_tpu_torch/kv/radix.py"} <= rel
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -117,15 +117,31 @@ def test_config_validation_matches_jax(kw):
 
 
 @pytest.mark.parametrize("config_kw,engine_kw,item", [
-    (dict(kv_layout="paged", kv_page_tokens=8), {}, "A12"),
-    (dict(spec_draft_model="/some/drafter"), {}, "A13"),
-    ({}, dict(draft_params={}, draft_model_cfg=tgpt.GPTConfig()), "A13"),
     (dict(tensor_parallel="on"), {}, "A15"),
     ({}, dict(mesh=object()), "A15"),
 ])
 def test_unported_settings_raise_and_name_their_item(config_kw, engine_kw, item):
     with pytest.raises(ValueError, match=item):
         LmEngine(LmConfig(**{**TINY, **config_kw}), device="cpu", **engine_kw)
+
+
+@pytest.mark.parametrize("config_kw,engine_kw", [
+    (dict(kv_layout="paged", kv_page_tokens=8), {}),
+    (dict(spec_draft_model="/no/such/drafter"), {}),
+    ({}, dict(draft_params="same", draft_model_cfg="same")),
+])
+def test_paged_and_spec_settings_are_ported(config_kw, engine_kw):
+    """kv_layout="paged", a drafter dir (missing here: speculation off with
+    a warning, as in JAX) and draft params (the target's own) construct an
+    engine that generates (tests/test_torch_kv_paged.py and
+    tests/test_torch_spec.py hold them to JAX)."""
+    if engine_kw:
+        donor = _port()
+        engine_kw = dict(draft_params=donor.params, draft_model_cfg=donor.model_cfg)
+    eng = LmEngine(LmConfig(**{**TINY, **config_kw}), device="cpu", **engine_kw)
+    assert (eng.pool is not None) == ("kv_layout" in config_kw)
+    assert (eng._draft is not None) == bool(engine_kw)
+    assert isinstance(eng.generate("hello", 8), str)
 
 
 def test_journal_is_not_ported():

@@ -110,7 +110,9 @@ def test_merge_rows_matches_jax_bit_for_bit(quant, row_map):
 def test_merge_rows_refuses_other_layouts_naming_paged_kv():
     a, b, P, length = _carried_states(np.random.default_rng(0), False)
     state = [torch.from_numpy(x) for x in a[1:]]
-    with pytest.raises(ValueError, match="A12"):
+    # dense and int8 caches splice here, the paged layout by its own branch
+    # (tests/test_torch_kv_paged.py); anything else is refused
+    with pytest.raises(ValueError, match="QuantKVCache or PagedKVCache, not a tuple"):
         tgpt.merge_rows(("not", "a", "cache"), *state, ("b",), *state, [0, -1, -1, -1], P)
     cache = tgpt.KVCache(*map(torch.from_numpy, a[0]), length)
     with pytest.raises(ValueError, match="past the 2 prepared"):
