@@ -85,10 +85,23 @@ any failure exits non-zero:
              `spec_draft_model`; B1 once per layer for each prefill (target
              and drafter) and never in a round; a verify forward over a
              1,024-token cache equal to plain attention's; round costs
-             printed.
+             printed;
+13. stack  — the port's SymbiontStack built from a SymbiontConfig (the
+             [serve] engine with flash and its cross-encoder, LmEngine on
+             the GPT-2 dir, embedded stores, in-process bus, the gateway
+             on a free port) driven over HTTP: 64 pages of 32 sentences
+             ingested through /api/submit-url, 50 semantic searches with
+             rerank (every one on the fused hop, hits = the store's
+             search_fused, rerank scores = engine.rerank), 4 greedy
+             streamed generations watched on /api/events (text =
+             LmEngine.generate); stored vectors vs embed_texts; B1 once
+             per layer per embed batch, fused query, rerank batch and LM
+             prefill; /readyz, /metrics, /api/traces, /api/health/engine;
+             sentences/s, search p50/p95 and TTFT beside [serve]'s,
+             [search]'s and [generate]'s.
 
 Launch counts are set to 0 just before each main path (phases 3-4, 5, 6,
-8, 9, 10, 11 and 12) and read just after. The last two lines are a JSON object with
+8, 9, 10, 11, 12 and 13) and read just after. The last two lines are a JSON object with
 every kernel's numbers and `{"ok": true, "device": {...}}`.
 """
 
@@ -659,7 +672,8 @@ def main_path(rng) -> dict:
           f"({exact} with identical lists, the rest equal up to the query's bf16 rounding); "
           f"reranked {reranked} hits; fused query p50 {np.median(lat) * 1e3:.3f} ms, "
           f"max {max(lat) * 1e3:.3f} ms over {len(lat)} (host clock)", flush=True)
-    return {"launches": counts}
+    return {"launches": counts, "emb_s_first": len(texts) / first_s,
+            "emb_s_second": len(texts) / second_s, "fused_p50_ms": float(np.median(lat)) * 1e3}
 
 
 def _pairs(tokenizer, texts, q_bucket: int, p_bucket: int, n: int, lo: int, hi: int):
@@ -2777,6 +2791,511 @@ def spec_phase(rng, tmp, tinyllama, sizes=None, device="cuda", lm_kw=None) -> di
             "near_ties": ties}
 
 
+# ------------------------------------------------------------------ stack
+
+# [stack]'s sizes on the card: pages x sentences a page (2,048 sentences,
+# [serve]'s bulk embed), the semantic queries and their top_k, the greedy
+# stream requests, the non-stream requests posted at once (the GenBatcher
+# takes them into one session), their new tokens and prompt bucket (lo, hi],
+# and the seconds any one wait may take before the phase fails
+STACK = dict(pages=64, sentences=32, queries=50, top_k=5, gen=4, batch=4, gen_new=64,
+             gen_bucket=(16, 64), timeout_s=180.0)
+
+
+def stack_pages(rng, pages: int, per_page: int) -> tuple[dict, list]:
+    """`pages` HTML pages of `per_page` sentences each, one <p> a sentence,
+    from synth_texts (words of lowercase letters, so each sentence ends at
+    the full stop added to it) → ({url: html}, [(url, sentences), ...])."""
+    texts = synth_texts(rng, pages * per_page)
+    html, docs = {}, []
+    for p in range(pages):
+        sents = [t + "." for t in texts[p * per_page:(p + 1) * per_page]]
+        url = f"http://pages.invalid/doc{p}"
+        html[url] = ("<html><body><article>"
+                     + "".join(f"<p>{s}</p>" for s in sents) + "</article></body></html>")
+        docs.append((url, sents))
+    return html, docs
+
+
+def _http(port: int, method: str, path: str, body=None, timeout: float = 60.0,
+          accept: str = "application/json", headers=None):
+    """One HTTP request to the stack's gateway → (status, raw body bytes)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", "Accept": accept, **(headers or {})},
+        method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+_EXPOSITION_LINE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="([^"\\]|\\.)*",?)*\})?'
+    r' [-+]?(\d+(\.\d*)?([eE][-+]?\d+)?|\.\d+([eE][-+]?\d+)?|NaN|[-+]?Inf)( \d+)?$')
+
+
+def exposition_families(text: str) -> set:
+    """The metric names of a Prometheus 0.0.4 exposition; every sample line
+    must parse (name, labels, value)."""
+    names = set()
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        check(bool(_EXPOSITION_LINE.match(line)), f"/metrics line does not parse: {line!r}")
+        names.add(line.split("{", 1)[0].split(" ", 1)[0])
+    return names
+
+
+def span_totals(before: dict, after: dict) -> dict:
+    """Per span name, the calls and host milliseconds between two
+    `metrics.snapshot()["histograms"]` readings (`span.<name>.ms`), most
+    time first. Handlers overlap, so the totals explain where host time
+    went, not a partition of the wall."""
+    out = {}
+    for key, s in after.items():
+        if not (key.startswith("span.") and key.endswith(".ms")):
+            continue
+        b = before.get(key, {"count": 0, "sum": 0.0})
+        n, ms = s["count"] - b["count"], s["sum"] - b["sum"]
+        if n:
+            out[key[len("span."):-len(".ms")]] = {"calls": n, "ms": ms}
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]["ms"]))
+
+
+def lm_prefills(metrics) -> int:
+    """LM prefills dispatched so far, from the dispatch ledger's counters
+    (`xla.dispatches_total{executable="lm.prefill[...]"}`), which outlive
+    the ledger's bounded rows."""
+    return int(sum(v for k, v in metrics.snapshot()["counters"].items()
+                   if k.startswith('xla.dispatches_total{executable="lm.prefill[')))
+
+
+def span_names(tree) -> set:
+    """Every span name in a `/api/traces/<id>` tree."""
+    if isinstance(tree, dict):
+        return ({tree["name"]} if isinstance(tree.get("name"), str) else set()).union(
+            *(span_names(v) for v in tree.values()))
+    if isinstance(tree, list):
+        return set().union(*(span_names(v) for v in tree))
+    return set()
+
+
+def stack_phase(rng, tmp, sizes=None, device="cuda", engine_kw=None, lm_kw=None,
+                serve=None) -> dict:
+    """The port's SymbiontStack built from a SymbiontConfig as a deployment
+    builds it (no engine passed in): the full-width synthetic TorchEngine
+    of [serve] with flash attention and its cross-encoder, the embedded
+    vector and graph stores in `tmp`, the in-process bus, the gateway on a
+    free port, and LmEngine on [generate]'s GPT-2 124M dir behind
+    `text_generator`. Over real HTTP it ingests `pages` synthetic pages
+    (`/api/submit-url`, a fetcher that touches no network), runs
+    `queries` semantic searches with rerank, streams `gen` greedy
+    generations one after another and then posts `batch` non-stream ones at
+    once, all watched by one `/api/events` client. Each check fails the
+    run: B1 against its plain version at every LM prefill shape the phase
+    runs (the LM's dtype and heads, the prompts' bucket, 1 to `batch`
+    rows); the store and the graph at their counts; every search on the
+    fused hop, its hits those of the store's own `search_fused`, its rerank
+    scores `engine.rerank`'s; stored vectors at cosine >= 0.999 to
+    `embed_texts`; each stream's text `LmEngine.generate`'s (or a reported
+    near-tie) with its partials and final event on the SSE stream; the
+    batched requests in one GenBatcher session, their texts the rows of
+    `LmEngine.generate_batch` of the same prompts (or near-ties); B1
+    launched once per layer per embed batch, fused query, rerank batch and
+    LM prefill of the window; /readyz, /metrics, /api/traces/recent and
+    /api/health/engine; no task left after stop()."""
+    import asyncio
+    import threading
+
+    from symbiont_tpu_torch.bus.inproc import InprocBus
+    from symbiont_tpu_torch.config import (ApiConfig, EngineConfig, GraphStoreConfig, LmConfig,
+                                           SymbiontConfig, TextGeneratorConfig,
+                                           VectorStoreConfig)
+    from symbiont_tpu_torch.ops import flash_attention as fa
+    from symbiont_tpu_torch.runner import SymbiontStack
+    from symbiont_tpu_torch.utils.telemetry import metrics
+
+    s = dict(STACK, **(sizes or {}))
+    tmp = Path(tmp)
+    if not (tmp / "gpt2" / "config.json").exists():
+        from symbiont_tpu_torch.models import gpt as gpt_mod
+
+        params = gpt_mod.init_params(torch.Generator(device=device).manual_seed(SEED + 8),
+                                     gpt_mod.GPTConfig.from_hf(GPT2_124M))
+        write_gpt_checkpoint(tmp / "gpt2", params, GPT2_124M, torch.float32)
+        del params
+    html, docs = stack_pages(rng, s["pages"], s["sentences"])
+    n_sent = s["pages"] * s["sentences"]
+    prompts = ragged_prompts(rng, *s["gen_bucket"], s["gen"])
+    batch_prompts = ragged_prompts(rng, *s["gen_bucket"], s["batch"])
+    cpu = device == "cpu"
+    cfg = SymbiontConfig(
+        engine=EngineConfig(**{"attn_impl": "flash", "rerank_enabled": True,
+                               "force_cpu": cpu, **(engine_kw or {})}),
+        vector_store=VectorStoreConfig(data_dir=str(tmp / "stack_vs")),
+        graph_store=GraphStoreConfig(data_dir=str(tmp / "stack_gs")),
+        text_generator=TextGeneratorConfig(markov_state_path=str(tmp / "stack_markov.json")),
+        api=ApiConfig(host="127.0.0.1", port=0, sse_keepalive_s=1.0),
+        lm=LmConfig(**{"enabled": True, "model_dir": str(tmp / "gpt2"), "attn_impl": "flash",
+                       **(lm_kw or {})}))
+    limit = s["timeout_s"]
+    ready_seen: list = []
+
+    def fetcher(url: str) -> str:
+        return html[url]
+
+    async def wait_for(pred, what: str) -> None:
+        t_end = time.monotonic() + limit
+        while not pred():
+            check(time.monotonic() < t_end, f"{what}: stalled past {limit:.0f} s")
+            await asyncio.sleep(0.005)
+
+    def poll_ready(stack) -> None:
+        """/readyz from a second thread while the stack starts: 503 until
+        mark_ready (when a poll lands in that window), then 200."""
+        t_end = time.monotonic() + limit
+        while time.monotonic() < t_end:
+            try:
+                port = stack.api.port
+            except AttributeError:  # no gateway yet, or its socket not bound
+                port = None
+            if port:
+                try:
+                    st = _http(port, "GET", "/readyz", timeout=limit)[0]
+                except OSError:
+                    st = None
+                if st is not None:
+                    ready_seen.append(st)
+                    if st == 200:
+                        return
+            time.sleep(0.002)
+
+    async def scenario() -> dict:
+        loop = asyncio.get_running_loop()
+
+        def http(method, path, body=None, accept="application/json", headers=None):
+            return loop.run_in_executor(None, lambda: _http(port, method, path, body,
+                                                            timeout=limit, accept=accept,
+                                                            headers=headers))
+
+        async def ok_json(method, path, body=None, headers=None):
+            st, raw = await http(method, path, body, headers=headers)
+            check(200 <= st < 300, f"{method} {path}: HTTP {st} {raw[:300]!r}")
+            return json.loads(raw or b"{}")
+
+        t0 = time.perf_counter()
+        stack = SymbiontStack(cfg, bus=InprocBus(), fetcher=fetcher)
+        poller = threading.Thread(target=poll_ready, args=(stack,), daemon=True)
+        poller.start()
+        await stack.start()
+        try:
+            start_s = time.perf_counter() - t0
+            await loop.run_in_executor(None, poller.join, limit)
+            port = stack.api.port
+            eng, lm, store = stack.engine, stack.lm, stack.vector_store
+            lm.tokenizer = IdTokenizer()  # every id out, as [session] reads GPT-2
+            layers, lm_layers = eng.model_cfg.num_layers, lm.model_cfg.num_layers
+            out = {"start_s": start_s}
+            sse = {"partials": {}, "finals": {}, "first_t": {}, "final_t": {}}
+
+            async def sse_reader() -> None:
+                reader, writer = await asyncio.open_connection("127.0.0.1", port)
+                writer.write(b"GET /api/events HTTP/1.1\r\nHost: x\r\n\r\n")
+                await writer.drain()
+                try:
+                    while True:
+                        line = await reader.readline()
+                        if not line:
+                            return
+                        if not line.startswith(b"data: "):
+                            continue
+                        ev = json.loads(line[6:])
+                        tid = ev["original_task_id"]
+                        if "text_delta" in ev:
+                            sse["partials"].setdefault(tid, []).append(ev)
+                            sse["first_t"].setdefault(tid, time.perf_counter())
+                        else:
+                            sse["finals"][tid] = ev["generated_text"]
+                            sse["final_t"][tid] = time.perf_counter()
+                finally:
+                    writer.close()
+
+            # B1 against its plain version at every LM prefill shape below:
+            # a stream's row, and the batcher's session start and admissions
+            # (1 to `batch` rows, in powers of two), all in the one prompt
+            # bucket the prompts reach, at the LM's heads and dtype
+            for B in (1 << i for i in range(s["batch"].bit_length())):
+                b1_against_plain(rng, B, lm.model_cfg, s["gen_bucket"][1], device, tag="stack")
+            stats0 = dict(eng.stats)
+            bstats0 = dict(stack._lm_batcher.stats)
+            prefill0 = lm_prefills(metrics)
+            fa.launches = 0  # ----------------------------------------------- main path
+            # ingest: every page through perception → preprocessing (the
+            # MicroBatcher, B1) → vector memory and the knowledge graph
+            hist0 = metrics.snapshot()["histograms"]
+            t_ing = time.perf_counter()
+            for url in html:
+                await ok_json("POST", "/api/submit-url", {"url": url})
+            posts_s = time.perf_counter() - t_ing
+            await wait_for(lambda: store.count() >= n_sent, f"ingest ({store.count()} of {n_sent})")
+            ingest_s = time.perf_counter() - t_ing
+            ingest_spans = span_totals(hist0, metrics.snapshot()["histograms"])
+            await wait_for(lambda: stack.graph_store.counts()["Document"] >= s["pages"],
+                           "knowledge graph documents")
+            stats1 = dict(eng.stats)
+            # search: the fused hop (B1) and the rerank hop (B1)
+            queries = [docs[i % len(docs)][1][i % s["sentences"]] for i in range(s["queries"] // 2)]
+            queries += [" ".join(q.split()[:12]) for q in queries][:s["queries"] - len(queries)]
+            fused0 = metrics.get("api.fused_search")
+            fallback0 = metrics.get("api.fused_search_fallback")
+            lat, answers = [], []
+            for i, q in enumerate(queries):
+                t1 = time.perf_counter()
+                # the first search carries its own trace id, read back below
+                body = await ok_json("POST", "/api/search/semantic",
+                                     {"query_text": q, "top_k": s["top_k"], "rerank": True},
+                                     headers={"X-Trace-Id": "stack-search"} if i == 0 else None)
+                lat.append((time.perf_counter() - t1) * 1e3)
+                check(body["error_message"] is None and len(body["results"]) == s["top_k"],
+                      f"search {q[:40]!r}: {body['error_message']}, "
+                      f"{len(body['results'])} results")
+                answers.append(body["results"])
+            fused = metrics.get("api.fused_search") - fused0
+            fallbacks = metrics.get("api.fused_search_fallback") - fallback0
+            # generate: greedy streams, one SSE client watching
+            reader = asyncio.create_task(sse_reader())
+            await asyncio.sleep(0.2)
+            gen_t0 = {}
+            for i, p in enumerate(prompts):
+                tid = f"stack-gen-{i}"
+                gen_t0[tid] = time.perf_counter()
+                await ok_json("POST", "/api/generate-text",
+                              {"task_id": tid, "prompt": p, "max_length": s["gen_new"],
+                               "stream": True, "temperature": 0.0})
+                await wait_for(lambda: tid in sse["finals"], f"generation {tid}")
+            # batched: non-stream requests posted at once from as many
+            # threads, which the GenBatcher behind text_generator serves
+            together = threading.Barrier(len(batch_prompts), timeout=limit)
+
+            def post_at_once(tid, p):
+                together.wait()
+                return _http(port, "POST", "/api/generate-text",
+                             {"task_id": tid, "prompt": p, "max_length": s["gen_new"],
+                              "stream": False, "temperature": 0.0}, timeout=limit)
+
+            btids = [f"stack-batch-{i}" for i in range(len(batch_prompts))]
+            t_batch = time.perf_counter()
+            replies = await asyncio.gather(*(loop.run_in_executor(None, post_at_once, t, p)
+                                             for t, p in zip(btids, batch_prompts)))
+            for tid, (st, raw) in zip(btids, replies):
+                check(200 <= st < 300, f"POST /api/generate-text {tid}: HTTP {st} {raw[:300]!r}")
+            await wait_for(lambda: all(t in sse["finals"] for t in btids), "batched generations")
+            batch_ms = (time.perf_counter() - t_batch) * 1e3
+            counted = fa.launches  # ----------------------------------------- main path end
+            stats2 = dict(eng.stats)
+            prefills = lm_prefills(metrics) - prefill0
+            sessions = stack._lm_batcher.stats["sessions"] - bstats0["sessions"]
+            admitted = (stack._lm_batcher.stats["admitted_midflight"]
+                        - bstats0["admitted_midflight"])
+
+            # ---- what came out, held against the engines driven directly
+            check(store.count() == n_sent, f"store holds {store.count()} rows, want {n_sent}")
+            check(stack.graph_store.counts()["Document"] == s["pages"],
+                  f"graph documents {stack.graph_store.counts()['Document']} != {s['pages']}")
+            with store._lock:
+                rows = [(p["sentence_text"], store._vectors[i].copy())
+                        for i, p in enumerate(store._payloads)]
+            pick = rng.choice(len(rows), min(64, len(rows)), replace=False)
+            stored = np.stack([rows[i][1] for i in pick])
+            direct = eng.embed_texts([rows[i][0] for i in pick])
+            cos = _cosines(stored, direct)
+            check(float(cos.min()) >= 0.999, f"stored vs embed_texts cosine {cos.min():.5f} < 0.999")
+            check(fused == len(queries) and fallbacks == 0,
+                  f"{fused} of {len(queries)} searches on the fused hop, {fallbacks} fell back "
+                  f"to the 2-hop path")
+            ties = 0
+            max_rr = 0.0
+            for q, res in zip(queries, answers):
+                want = store.search_fused(eng, q, 2 * s["top_k"])
+                got_ids = {r["qdrant_point_id"] for r in res}
+                want_ids = {h.id for h in want[:s["top_k"]]}
+                if got_ids != want_ids:
+                    by_id = {h.id: h.score for h in want}
+                    kth = want[s["top_k"] - 1].score
+                    check(all(i in by_id and by_id[i] >= kth - 2.0 ** -8 for i in got_ids),
+                          f"search {q[:40]!r}: hits {sorted(got_ids)} != search_fused "
+                          f"{sorted(want_ids)} beyond a near-tie")
+                    ties += 1
+                scores = eng.rerank(q, [r["payload"]["sentence_text"] for r in res])
+                err = np.abs(scores - np.array([r["score"] for r in res], np.float32))
+                max_rr = max(max_rr, float(err.max()))
+            check(max_rr <= RERANK_BAR, f"gateway rerank vs engine.rerank max |err| {max_rr:.4g} "
+                                        f"over the bar {RERANK_BAR}")
+            def ids_of(text: str) -> list:
+                return [int(x) for x in re.findall(r"\[(\d+)\]", text)]
+
+            texts_ties, direct_first, direct_total = [], [], []
+            for i, p in enumerate(prompts):
+                tid = f"stack-gen-{i}"
+                parts = sse["partials"].get(tid, [])
+                check(bool(parts) and parts[-1]["done"], f"{tid}: SSE partials {len(parts)}, "
+                                                         f"no done chunk")
+                joined = "".join(c["text_delta"] for c in parts)
+                final = sse["finals"][tid]
+                check(joined == final, f"{tid}: the partials do not join to the final text")
+                want = lm.generate(p, s["gen_new"], temperature=0.0)
+                if final != want:
+                    texts_ties += same_or_near_tie("stack", {i: ids_of(final)},
+                                                   {i: ids_of(want)}, lm, {i: p})
+                # the same stream on the engine directly: its first chunk and
+                # its end, beside the gateway's
+                t1 = time.perf_counter()
+                deltas = []
+                for d in lm.generate_stream(p, s["gen_new"], temperature=0.0):
+                    if not deltas:
+                        direct_first.append((time.perf_counter() - t1) * 1e3)
+                    deltas.append(d)
+                direct_total.append((time.perf_counter() - t1) * 1e3)
+                check("".join(deltas) == want, f"{tid}: the direct stream is not generate()'s text")
+            # the batched rows: one session of all of them, as generate_batch
+            # decodes them (at bf16 a row's numbers depend on the batch's
+            # shape, so the reference is a batch of the same rows)
+            check(sessions == 1 and admitted == 0,
+                  f"the {len(btids)} requests posted at once took {sessions} GenBatcher sessions "
+                  f"and {admitted} admissions, not one session")
+            t1 = time.perf_counter()
+            wants = lm.generate_batch(batch_prompts, [s["gen_new"]] * len(batch_prompts),
+                                      temperature=0.0)
+            direct_batch_ms = (time.perf_counter() - t1) * 1e3
+            batch_ties = []
+            for i, (tid, p, want) in enumerate(zip(btids, batch_prompts, wants)):
+                check(tid not in sse["partials"], f"{tid}: a non-stream request sent partials")
+                if sse["finals"][tid] != want:
+                    batch_ties += same_or_near_tie("stack batch", {i: ids_of(sse["finals"][tid])},
+                                                   {i: ids_of(want)}, lm, {i: p})
+            reader.cancel()
+            await asyncio.gather(reader, return_exceptions=True)
+
+            embed_b = stats2["embed_batches"] - stats0["embed_batches"]
+            qsearch = stats2["qsearch_calls"] - stats0["qsearch_calls"]
+            rerank_b = stats2["rerank_batches"] - stats0["rerank_batches"]
+            want_b1 = layers * (embed_b + qsearch + rerank_b) + lm_layers * prefills
+            equation = (f"{counted} = {layers} x ({embed_b} embed batches + {qsearch} fused queries "
+                        f"+ {rerank_b} rerank batches) + {lm_layers} x {prefills} LM prefills")
+            check(counted == want_b1 and prefills == len(prompts) + 1
+                  and qsearch == len(queries),
+                  f"B1 launches: {equation} does not hold (want {want_b1}, and "
+                  f"{len(prompts) + 1} LM prefills)")
+
+            # ---- surfaces
+            check(bool(ready_seen) and ready_seen[-1] == 200, f"/readyz answers {ready_seen[-3:]}")
+            st, raw = await http("GET", "/metrics", accept="text/plain")
+            check(st == 200, f"/metrics: HTTP {st}")
+            fams = exposition_families(raw.decode())
+            check(any(f.startswith("symbiont_engine_") for f in fams)
+                  and any(f.startswith("symbiont_span_") for f in fams),
+                  f"/metrics families lack engine_* or span_*: {sorted(fams)[:20]}")
+            recent = (await ok_json("GET", "/api/traces/recent"))["traces"]
+            check(bool(recent) and all(t["error_count"] == 0 for t in recent),
+                  f"/api/traces/recent: {str(recent)[:300]}")
+            names = span_names(await ok_json("GET", "/api/traces/stack-search"))
+            check({"api.search", "engine.query.search", "engine.rerank"} <= names,
+                  f"the search's trace holds {sorted(names)}, not gateway -> engine")
+            health = await ok_json("GET", "/api/health/engine")
+            check(health["ok"] and health["stats"]["embed_batches"] == eng.stats["embed_batches"],
+                  f"/api/health/engine: {str(health)[:300]}")
+            flushes = stats1["embed_calls"] - stats0["embed_calls"]
+            out.update({
+                "ingest": {"sentences": n_sent, "seconds": ingest_s, "posts_s": posts_s,
+                           "spans": ingest_spans,
+                           "sentences_per_s": n_sent / ingest_s, "flushes": flushes,
+                           "rows_per_flush": n_sent / flushes,
+                           "embed_batches": stats1["embed_batches"] - stats0["embed_batches"],
+                           "sampled": len(pick), "cosine_min": float(cos.min())},
+                "search": {"queries": len(queries), "fused": fused, "fallbacks": fallbacks,
+                           "p50_ms": float(np.percentile(lat, 50)),
+                           "p95_ms": float(np.percentile(lat, 95)), "near_ties": ties,
+                           "rerank_max_abs_err": max_rr},
+                "generate": {"requests": len(prompts), "new_tokens": s["gen_new"],
+                             "chunk": min(lm.config.stream_chunk, s["gen_new"]),
+                             "first_chunk_ms": [(sse["first_t"][t] - gen_t0[t]) * 1e3
+                                                for t in gen_t0],
+                             "total_ms": [(sse["final_t"][t] - gen_t0[t]) * 1e3 for t in gen_t0],
+                             "direct_first_chunk_ms": direct_first,
+                             "direct_total_ms": direct_total,
+                             "partials": [len(sse["partials"][t]) for t in gen_t0],
+                             "near_ties": texts_ties},
+                "batched": {"requests": len(btids), "sessions": sessions, "admitted": admitted,
+                            "ms": batch_ms, "direct_ms": direct_batch_ms,
+                            "near_ties": batch_ties},
+                "b1": {"launches": counted, "equation": equation},
+                "readyz": {"503_seen": ready_seen.count(503), "polls": len(ready_seen)},
+                "search_trace_spans": sorted(names),
+                "recent_traces": len(recent),
+            })
+        except BaseException:
+            await stack.stop()  # a failed check leaves no server or task behind
+            raise
+        await stack.stop()
+        await asyncio.sleep(0.05)
+        left = [t for t in asyncio.all_tasks()
+                if t is not asyncio.current_task() and not t.done()]
+        check(not left, f"tasks left after stop(): {[t.get_name() for t in left]}")
+        return out
+
+    out = asyncio.run(scenario())
+    ing, se, ge = out["ingest"], out["search"], out["generate"]
+    print(f"[stack] SymbiontStack up in {out['start_s']:.1f} s (TorchEngine flash + "
+          f"cross-encoder, LmEngine GPT-2, in-process bus, gateway on 127.0.0.1); /readyz "
+          f"{out['readyz']['503_seen']} x 503 of {out['readyz']['polls']} polls while "
+          f"starting, then 200", flush=True)
+    serve_s = "" if not serve else (f"; [serve] {serve['emb_s_first']:.1f} / "
+                                    f"{serve['emb_s_second']:.1f} emb/s direct")
+    print(f"[stack] ingest: {s['pages']} pages, {ing['sentences']} sentences over HTTP in "
+          f"{ing['seconds']:.2f} s = {ing['sentences_per_s']:.1f} sentences/s (first POST to "
+          f"the last row){serve_s}; {ing['flushes']} MicroBatcher flushes, "
+          f"{ing['rows_per_flush']:.1f} rows a flush, {ing['embed_batches']} embed batches; "
+          f"graph {s['pages']} documents; {ing['sampled']} stored vectors vs embed_texts cosine min "
+          f"{ing['cosine_min']:.6f}", flush=True)
+    print(f"[stack] ingest host time by span (calls, ms; handlers overlap): the {s['pages']} POSTs "
+          f"answered after {ing['posts_s']:.2f} s; " + ", ".join(
+              f"{k} {v['calls']} / {v['ms']:.1f}" for k, v in ing["spans"].items()), flush=True)
+    direct_s = "" if not serve else f"; [search] direct search_fused p50 {serve['fused_p50_ms']:.3f} ms"
+    print(f"[stack] search: {se['queries']} queries top_k {s['top_k']} with rerank, "
+          f"{se['fused']} on the fused hop, {se['fallbacks']} fallbacks; HTTP p50 "
+          f"{se['p50_ms']:.2f} ms, p95 {se['p95_ms']:.2f} ms{direct_s}; hits = search_fused "
+          f"({se['near_ties']} near-ties); rerank vs engine.rerank max |err| "
+          f"{se['rerank_max_abs_err']:.3g}", flush=True)
+    def ms(xs):
+        return ", ".join(f"{x:.1f}" for x in xs)
+
+    print(f"[stack] generate: {ge['requests']} greedy streams x {ge['new_tokens']} tokens "
+          f"(GPT-2, flash prefill), one after another: POST to the first {ge['chunk']}-token "
+          f"chunk {ms(ge['first_chunk_ms'])} ms, to the final event {ms(ge['total_ms'])} ms on "
+          f"/api/events; the same streams on LmEngine.generate_stream directly: first chunk "
+          f"{ms(ge['direct_first_chunk_ms'])} ms, end {ms(ge['direct_total_ms'])} ms; partials "
+          f"{ge['partials']} and a final event each; text = LmEngine.generate "
+          f"({len(ge['near_ties'])} near-ties)", flush=True)
+    bt = out["batched"]
+    print(f"[stack] batched: {bt['requests']} non-stream requests x {ge['new_tokens']} tokens "
+          f"posted at once: {bt['sessions']} GenBatcher session, {bt['admitted']} admissions; "
+          f"first POST to the last final event {bt['ms']:.1f} ms, LmEngine.generate_batch of the "
+          f"same prompts directly {bt['direct_ms']:.1f} ms; texts = its rows "
+          f"({len(bt['near_ties'])} near-ties)", flush=True)
+    print(f"[stack] B1 launches {out['b1']['equation']}; /metrics parses with engine_* and "
+          f"span_* families; /api/traces/recent lists {out['recent_traces']} traces, no error, and a search's "
+          f"trace holds {', '.join(out['search_trace_spans'])}; "
+          f"/api/health/engine stats; no task left after stop()", flush=True)
+    return {"launches": out["b1"]["launches"], **{k: v for k, v in out.items() if k != "b1"},
+            "b1_equation": out["b1"]["equation"]}
+
+
 def main(argv=()) -> int:
     import argparse
 
@@ -2837,9 +3356,12 @@ def main(argv=()) -> int:
         spec = spec_phase(np.random.default_rng(SEED + 14), tmp, tinyllama)
         lap("spec")
         del tinyllama
+        stack = stack_phase(np.random.default_rng(SEED + 15), tmp, serve=serve)
+        lap("stack")
     fwd = {"serve": serve["launches"][0], "train": train["launches"][0],
            "checkpoint": ck_launches, "quant": qt["launches"], "generate": gen["launches"],
-           "session": sess["launches"], "paged": paged["launches"], "spec": spec["launches"]}
+           "session": sess["launches"], "paged": paged["launches"], "spec": spec["launches"],
+           "stack": stack["launches"]}
     fwd_launches = sum(fwd.values())
     print("[phases] host seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items())
           + f"; total {sum(wall.values()):.1f}. flash_attn_fwd launches on the main path: "
@@ -2869,7 +3391,9 @@ def main(argv=()) -> int:
                    "paged_launches": paged["launches"],
                    "paged": {k: v for k, v in paged.items() if k != "launches"},
                    "spec_launches": spec["launches"],
-                   "spec": {k: v for k, v in spec.items() if k != "launches"}}
+                   "spec": {k: v for k, v in spec.items() if k != "launches"},
+                   "stack_launches": stack["launches"],
+                   "stack": {k: v for k, v in stack.items() if k != "launches"}}
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

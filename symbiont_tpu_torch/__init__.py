@@ -10,10 +10,12 @@ Ported so far: the embedding path (SURVEY.md fact 1) — text → tokenizer →
 length/batch buckets → BERT encoder → masked mean pool → cosine top-k over a
 device-resident corpus, plus the cross-encoder rerank; the encoder
 fine-tune (contrastive train step) through the flash-attention backward;
-and one-shot text generation from GPT-2 and Llama checkpoints.
+text generation from GPT-2 and Llama checkpoints (streams, continuous
+batching, paged KV, speculation); and the single-process stack around the
+engines (bus, services, gateway, runner).
 
-config    : EngineConfig / LmConfig / VectorStoreConfig (same fields and
-            defaults)
+config    : every section of the JAX config, SymbiontConfig and
+            load_config (same fields, defaults and SYMBIONT_* names)
 device    : the one device resolver (CUDA unless the caller asks for the CPU)
 engine    : TorchEngine (embed / fused query search / rerank), LmEngine
             (generation), bucketing, tokenizer
@@ -24,6 +26,19 @@ ops       : hand-written CUDA kernels (flash-attention forward and
 train     : contrastive train step (AdamW on float32 masters) and
             checkpoints in the JAX package's format
 memory    : VectorStore with a CUDA-resident corpus
+kv        : the paged KV pool and the radix prefix cache
+graph     : the embedded sqlite knowledge-graph store
+bus       : the in-process message bus (pub/sub, request-reply, durable
+            streams with a dead-letter store)
+schema    : the wire structs and the binary embeddings frame
+services  : perception, preprocessing, vector memory, knowledge graph,
+            text generator, the engine plane and the HTTP/SSE gateway
+resilience: admission control, the dead-letter store, fault injection,
+            loop supervision
+obs       : device memory, dispatch ledger, engine timeline, usage, the
+            span flight recorder and its Prometheus, Chrome-trace and
+            critical-path renderings
+runner    : SymbiontStack, the whole stack in one process
 """
 
 __version__ = "0.1.0"

@@ -1,23 +1,23 @@
-"""Continuous batching of generation requests in front of the LM engine.
+"""Async micro-batching queues in front of the engines.
 
-The port's copy of `symbiont_tpu/engine/batcher.py`'s generation half:
+The port's copy of `symbiont_tpu/engine/batcher.py`. Two policies over one
+loop (`_BatcherBase`: wake on a submission, wait up to the flush deadline
+for the batch to fill, then flush at most `max_batch` items, with up to
+`max_inflight_flushes` flushes in the air):
 
-- `TenantLanes`: per-tenant bounded FIFO lanes drained in stride-fair
-  order (`resilience/admission.py`'s `StrideClock`), so a tenant with 80
-  queued requests interleaves 1:1 with one holding 2;
-- `GenBatcher`: its run loop wakes on a submission, waits up to the
-  flush deadline for the batch to fill and takes at most `max_batch`
-  requests; those start a decode session together (`LmEngine.start_session`), and at every chunk
-  boundary queued requests join it in free rows (`BatchSession.can_admit`,
-  `prepare_admit` on an executor thread overlapped with the next chunk,
-  then `splice`). It drives the engine by duck type.
+- `MicroBatcher` (embedding): aggregates submissions and embeds them in
+  one `TorchEngine.embed_texts` call on an executor thread, so two flushes
+  can be in flight on one engine (`EngineConfig.max_inflight_flushes`).
+- `GenBatcher` (generation): requests that arrive within one flush window
+  start a decode session together (`LmEngine.start_session`), and at every
+  chunk boundary queued requests join it in free rows
+  (`BatchSession.can_admit`, `prepare_admit` on an executor thread
+  overlapped with the next chunk, then `splice`). It serves one flush at a
+  time and drives the engine by duck type.
 
-The embedding `MicroBatcher` comes with the stack (ROADMAP A8), and with
-it the loop base the two batchers share in JAX (`_BatcherBase`), its
-overlapped flushes (`max_inflight_flushes` > 1) and their
-`batcher.overlap_ratio` gauge: generation serves one flush at a time,
-since sessions take newcomers at chunk boundaries instead and two
-sessions would only contend on the LM lock.
+`TenantLanes` keeps per-tenant bounded FIFO lanes drained in stride-fair
+order (`resilience/admission.py`'s `StrideClock`), so a tenant with 80
+queued requests interleaves 1:1 with one holding 2.
 """
 
 from __future__ import annotations
@@ -27,9 +27,13 @@ import logging
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
+import numpy as np
+
+from symbiont_tpu_torch.engine.engine import TorchEngine
 from symbiont_tpu_torch.obs.engine_timeline import engine_timeline
+from symbiont_tpu_torch.obs.usage import usage
 from symbiont_tpu_torch.resilience.admission import (
     DEFAULT_TENANT,
     OVERFLOW_TENANT,
@@ -44,6 +48,16 @@ log = logging.getLogger(__name__)
 # overflow lane (tenant names come from clients)
 MAX_TENANT_LANES = 256
 
+# a tenant's interactive work (a query embed) rides the lane "<tenant>#q",
+# which the stride clock interleaves with the same tenant's bulk lane, so
+# a query never waits out its own tenant's ingest backlog
+INTERACTIVE_LANE_SUFFIX = "#q"
+
+
+def interactive_lane(tenant: str) -> str:
+    """The fairness-lane identity for one tenant's interactive work."""
+    return f"{tenant}{INTERACTIVE_LANE_SUFFIX}"
+
 
 class TenantLanes:
     """Per-tenant FIFO lanes drained in stride-fair order. One tenant
@@ -53,9 +67,8 @@ class TenantLanes:
     It has the deque surface the batcher uses (`len`, truth, iteration in
     drain order without consuming) and the fair
     `append/peek/popleft/requeue_front/drain_fair` cycle. Items without a
-    `.tenant` ride the default lane. Every tenant weighs the same here;
-    per-tenant weights come with the admission plane's configuration
-    (ROADMAP A8)."""
+    `.tenant` ride the default lane. Every tenant weighs the same here, as
+    in the JAX batchers, which pass their lanes no weights."""
 
     def __init__(self, kind: str = "batcher", max_per_tenant: int = 0):
         self.kind = kind
@@ -166,6 +179,315 @@ class TenantLanes:
         return min(times) if times else None
 
 
+class _BatcherBase:
+    """Queue + wake + deadline-flush loop shared by the embed and generation
+    batchers. Subclasses define `_size(item)` (how much of max_batch an item
+    consumes) and `_flush(batch)` (resolve every item's future).
+
+    `max_inflight_flushes` > 1 lets the loop start flush N+1 while flush N's
+    results are still materializing — on a network-attached device a flush
+    tail is ~an RTT of pure waiting, so overlapping flushes keeps the chip
+    fed (the engine's entry points are thread-safe by design; see
+    engine.py's concurrency contract): batch N+1 tokenizes/pads/dispatches
+    on its own executor thread while batch N's forward runs. Generation
+    keeps it at 1: decode sessions admit newcomers at chunk boundaries
+    instead, and two sessions would only contend on the LM lock.
+
+    Result-order contract under overlap: each submission's future is bound
+    to its exact slice of its OWN flush, so flush N+1 completing before
+    flush N (a short batch overtaking a long one) resolves the later
+    submitters first but can never mis-route rows — per-submission results
+    are positionally exact regardless of flush completion order (pinned by
+    tests/test_coalesce.py's slow-forward ordering test).
+
+    Live accounting for the double-buffering (engine-plane gauges):
+    `batcher.inflight` is the flush count currently in the air and
+    `batcher.overlap_ratio` is the fraction of cumulative flush seconds
+    that ran concurrently with another flush — 0.0 means lockstep (no
+    overlap won), approaching 1-1/k means the window of k stayed full."""
+
+    # metric label distinguishing the two policies over one registry
+    kind = "batcher"
+
+    def __init__(self, max_batch: int, deadline_s: float,
+                 max_inflight_flushes: int = 1, lane_depth: int = 0):
+        self.max_batch = max_batch
+        self.deadline_s = deadline_s
+        # per-tenant bounded lanes drained stride-fair (TenantLanes): the
+        # single-tenant case degenerates to the old FIFO deque; under a
+        # multi-tenant backlog the chunk composition interleaves tenants so
+        # an edge-bypassing hot tenant cannot starve the rest at the device
+        self._queue: TenantLanes = TenantLanes(kind=self.kind,
+                                               max_per_tenant=lane_depth)
+        self._queued = 0
+        self._wake = asyncio.Event()
+        self._task: Optional[asyncio.Task] = None
+        self._closed = False
+        self._inflight = asyncio.Semaphore(max_inflight_flushes)
+        self._flushes: set = set()
+        # overlap accounting (all touched on the event-loop thread only):
+        # span = Σ individual flush durations; busy = wall seconds with ≥1
+        # flush in flight. span - busy is flush time that OVERLAPPED another
+        # flush — overlap_ratio = 1 - busy/span.
+        self._inflight_n = 0
+        self._busy_since = 0.0
+        self._flush_busy_s = 0.0
+        self._flush_span_s = 0.0
+
+    async def start(self) -> None:
+        if self._task is None:
+            self._task = asyncio.create_task(
+                self._run(), name=type(self).__name__)
+            self._register_gauges()
+
+    def _register_gauges(self) -> None:
+        """Engine-plane queue gauges, read at scrape time. Weakref-bound
+        (register_weakref_gauge): a dead or closed batcher's gauges retire
+        themselves — tests churn through batchers and the registry must not
+        pin them."""
+        labels = {"service": "engine", "batcher": self.kind}
+
+        def depth(b):
+            return None if b._closed else b._queued
+
+        def oldest_wait_s(b):
+            if b._closed:
+                return None
+            if not b._queue:
+                return 0.0
+            # per-lane FIFO (requeues go to the FRONT), so the oldest item
+            # is the earliest lane head
+            t = b._queue.oldest_submit()
+            return 0.0 if t is None else max(0.0, time.monotonic() - t)
+
+        def inflight(b):
+            return None if b._closed else b._inflight_n
+
+        def overlap_ratio(b):
+            if b._closed:
+                return None
+            span = b._flush_span_s
+            if span <= 0.0:
+                return 0.0
+            return round(max(0.0, 1.0 - b._flush_busy_s / span), 4)
+
+        metrics.register_weakref_gauge("batcher.queue_depth", self, depth,
+                                       labels=labels)
+        metrics.register_weakref_gauge("batcher.oldest_wait_s", self,
+                                       oldest_wait_s, labels=labels)
+        metrics.register_weakref_gauge("batcher.inflight", self, inflight,
+                                       labels=labels)
+        metrics.register_weakref_gauge("batcher.overlap_ratio", self,
+                                       overlap_ratio, labels=labels)
+
+    async def close(self) -> None:
+        self._closed = True
+        self._wake.set()
+        if self._task is not None:
+            await self._task
+            self._task = None
+        if self._flushes:
+            await asyncio.gather(*self._flushes, return_exceptions=True)
+        # a flush can re-queue items (splice rejection, unadmittable keep)
+        # after _run has already exited — with no loop left to serve them,
+        # their futures would hang forever. All flushes are done now, so the
+        # queue is final: fail what's left.
+        leftovers = self._queue.drain_fair()
+        self._queued = 0
+        for item in leftovers:
+            if not item.future.done():
+                item.future.set_exception(RuntimeError("batcher closed"))
+
+    def _submit(self, item) -> None:
+        if self._closed:
+            raise RuntimeError("batcher closed")
+        item._t_submit = time.monotonic()  # queue-age gauge reads this
+        self._queue.append(item)
+        self._queued += self._size(item)
+        self._wake.set()
+
+    def _requeue(self, items: List) -> None:
+        """Put stolen-but-unserved items back, ahead of anything submitted
+        meanwhile (preserve per-lane arrival order), and wake the run loop —
+        it may have parked on a cleared _wake after the steal emptied the
+        queue; without a wake the re-queued items sit unserved until an
+        unrelated submission arrives."""
+        if not items:
+            return
+        self._queue.requeue_front(items)
+        self._queued += sum(self._size(k) for k in items)
+        self._wake.set()
+
+    def _take_chunk(self) -> List:
+        """Pop up to max_batch's worth of items (always at least one),
+        composed across tenant lanes in stride-fair order."""
+        taken: List = []
+        size = 0
+        while self._queue and (not taken
+                               or size + self._size(self._queue.peek()) <= self.max_batch):
+            item = self._queue.popleft()
+            size += self._size(item)
+            taken.append(item)
+        self._queued -= size
+        if taken:
+            labels = {"service": "engine", "batcher": self.kind}
+            fill = size / self.max_batch if self.max_batch else 0.0
+            metrics.observe("batcher.flush_fill_ratio", fill, labels=labels)
+            metrics.gauge_set("batcher.last_flush_fill_ratio", round(fill, 4),
+                              labels=labels)
+            # decode-plane flight recorder: queue depth AFTER the take —
+            # the backlog a flush boundary leaves behind, on the same time
+            # axis as the step/flush counters (obs/engine_timeline.py)
+            engine_timeline.note_queue_depth(self.kind, self._queued)
+        return taken
+
+    async def _run(self) -> None:
+        while True:
+            if not self._queue:
+                if self._closed:
+                    return
+                self._wake.clear()
+                await self._wake.wait()
+                continue
+            if self._queued < self.max_batch and not self._closed:
+                # deadline flush: give late arrivals a short window to batch up
+                try:
+                    await asyncio.wait_for(self._sleep_until_full(),
+                                           self.deadline_s)
+                except asyncio.TimeoutError:
+                    pass
+            await self._inflight.acquire()
+            chunk = self._take_chunk()
+            if not chunk:
+                # an in-flight session's chunk-boundary admission can drain
+                # the queue while we waited on the semaphore
+                self._inflight.release()
+                continue
+            t = asyncio.create_task(self._flush_release(chunk))
+            self._flushes.add(t)
+            t.add_done_callback(self._flushes.discard)
+
+    async def _flush_release(self, batch: List) -> None:
+        t0 = time.monotonic()
+        self._inflight_n += 1
+        if self._inflight_n == 1:
+            self._busy_since = t0
+        try:
+            await self._flush(batch)
+        finally:
+            self._inflight.release()
+            t1 = time.monotonic()
+            self._flush_span_s += t1 - t0
+            self._inflight_n -= 1
+            if self._inflight_n == 0:
+                self._flush_busy_s += t1 - self._busy_since
+
+    async def _sleep_until_full(self) -> None:
+        while self._queued < self.max_batch and not self._closed:
+            self._wake.clear()
+            await self._wake.wait()
+
+    # subclass interface -----------------------------------------------------
+
+    def _size(self, item) -> int:
+        raise NotImplementedError
+
+    async def _flush(self, batch: List) -> None:
+        raise NotImplementedError
+
+
+@dataclass
+class _Pending:
+    texts: List[str]
+    future: asyncio.Future
+    # engine-plane fairness: the lane this item queues in (bus-header tenant
+    # threaded down by the calling service; default lane otherwise)
+    tenant: str = DEFAULT_TENANT
+
+
+class MicroBatcher(_BatcherBase):
+    kind = "embed"
+
+    def __init__(self, engine: TorchEngine, max_batch: Optional[int] = None,
+                 flush_deadline_ms: Optional[float] = None,
+                 max_inflight_flushes: Optional[int] = None,
+                 lane_depth: Optional[int] = None):
+        deadline = (flush_deadline_ms if flush_deadline_ms is not None
+                    else engine.config.flush_deadline_ms) / 1000.0
+        from symbiont_tpu_torch.config import EngineConfig
+
+        mb = max_batch or engine.config.max_batch
+        # mesh-aware flush sizing (docs/SCALING.md): round the flush cap up
+        # to a multiple of the mesh 'data' axis so a full flush splits into
+        # EVEN replica shards — a cap of, say, 100 over 8 replicas would
+        # batch-bucket to 104 and ship 4 permanent pad rows per full flush.
+        # Stub engines without DP accounting (tests) default to 1.
+        nd = getattr(engine, "_n_data", 1)
+        if nd > 1:
+            mb = ((mb + nd - 1) // nd) * nd
+        super().__init__(mb, deadline,
+                         max_inflight_flushes=(
+                             max_inflight_flushes
+                             if max_inflight_flushes is not None
+                             # duck-typed test configs may predate the
+                             # field; fall back to the REAL dataclass
+                             # default so a future tuning there is never
+                             # shadowed by a stale literal here
+                             else getattr(
+                                 engine.config, "max_inflight_flushes",
+                                 EngineConfig.max_inflight_flushes)),
+                         lane_depth=(
+                             lane_depth if lane_depth is not None
+                             else getattr(engine.config, "tenant_lane_depth",
+                                          EngineConfig.tenant_lane_depth)))
+        self.engine = engine
+
+    async def embed(self, texts: Sequence[str],
+                    tenant: Optional[str] = None) -> np.ndarray:
+        """Submit texts; resolves with [n, dim] when their batch flushes.
+        `tenant` picks the fairness lane (engine-plane fairness survives
+        edge bypass — docs/RESILIENCE.md); None rides the default lane."""
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        self._submit(_Pending(list(texts), fut,
+                              tenant=tenant or DEFAULT_TENANT))
+        return await fut
+
+    def _size(self, item: _Pending) -> int:
+        return len(item.texts)
+
+    @staticmethod
+    def _usage_tenant(lane: str) -> str:
+        """The BILLING identity behind a fairness lane: interactive lanes
+        ('<tenant>#q') charge the tenant itself — the lane split is a
+        scheduling detail, not a second customer."""
+        if lane.endswith(INTERACTIVE_LANE_SUFFIX):
+            return lane[: -len(INTERACTIVE_LANE_SUFFIX)] or DEFAULT_TENANT
+        return lane
+
+    async def _flush(self, batch: List) -> None:
+        texts: List[str] = []
+        for p in batch:
+            texts.extend(p.texts)
+            # usage ledger (obs/usage.py): embed rows billed per tenant at
+            # the flush that carries them
+            usage.note(self._usage_tenant(p.tenant), embed_rows=len(p.texts))
+        try:
+            # off the event loop: the forward is host- and device-bound
+            vecs = await asyncio.get_running_loop().run_in_executor(
+                None, self.engine.embed_texts, texts)
+            offset = 0
+            for p in batch:
+                n = len(p.texts)
+                if not p.future.cancelled():
+                    p.future.set_result(vecs[offset:offset + n])
+                offset += n
+        except Exception as e:  # propagate to every waiter
+            log.exception("batch embed failed")
+            for p in batch:
+                if not p.future.cancelled():
+                    p.future.set_exception(e)
+
+
 @dataclass
 class _PendingGen:
     prompt: str
@@ -183,17 +505,15 @@ class _PendingGen:
         return self.cancel is not None and self.cancel.is_set()
 
 
-class GenBatcher:
+class GenBatcher(_BatcherBase):
     """Continuous batching for generation. Requests that arrive within one
     flush window start a session together; at every chunk boundary queued
     requests join it in free rows when their budget fits the steps left
     and their prompt fits the session's prompt bucket, and otherwise wait
     for the next session. Per-request temperature and top_k ride as per-row
-    values; requests group by new-token bucket.
-
-    The run loop wakes on a submission, waits up to the flush deadline for
-    `max_batch` requests, then takes at most that many and serves them
-    before it takes more. `batcher.inflight` is 1 while it serves."""
+    values; requests group by new-token bucket. One flush is served at a
+    time: sessions take newcomers at chunk boundaries instead, and two
+    sessions would only contend on the LM lock."""
 
     kind = "generate"
 
@@ -202,111 +522,13 @@ class GenBatcher:
         from symbiont_tpu_torch.config import LmConfig
 
         cfg = lm.config
-        self.lm = lm
-        self.max_batch = max_batch or cfg.gen_max_batch
-        self.deadline_s = (flush_deadline_ms if flush_deadline_ms is not None
-                           else cfg.gen_flush_deadline_ms) / 1000.0
+        deadline = (flush_deadline_ms if flush_deadline_ms is not None
+                    else cfg.gen_flush_deadline_ms) / 1000.0
         if lane_depth is None:
             lane_depth = getattr(cfg, "gen_tenant_lane_depth", LmConfig.gen_tenant_lane_depth)
-        self._queue: TenantLanes = TenantLanes(kind=self.kind, max_per_tenant=lane_depth)
-        self._wake = asyncio.Event()
-        self._task: Optional[asyncio.Task] = None
-        self._closed = False
-        self._serving = False
+        super().__init__(max_batch or cfg.gen_max_batch, deadline, lane_depth=lane_depth)
+        self.lm = lm
         self.stats = {"sessions": 0, "admitted_midflight": 0}
-
-    async def start(self) -> None:
-        if self._task is None:
-            self._task = asyncio.create_task(self._run(), name=type(self).__name__)
-            self._register_gauges()
-
-    def _register_gauges(self) -> None:
-        """Queue gauges read at scrape time, weakref-bound: a dead or
-        closed batcher's gauges retire."""
-        labels = {"service": "engine", "batcher": self.kind}
-
-        def depth(b):
-            return None if b._closed else len(b._queue)
-
-        def oldest_wait_s(b):
-            if b._closed:
-                return None
-            t = b._queue.oldest_submit() if b._queue else None
-            return 0.0 if t is None else max(0.0, time.monotonic() - t)
-
-        def inflight(b):
-            return None if b._closed else int(b._serving)
-
-        for name, reader in (("batcher.queue_depth", depth),
-                             ("batcher.oldest_wait_s", oldest_wait_s),
-                             ("batcher.inflight", inflight)):
-            metrics.register_weakref_gauge(name, self, reader, labels=labels)
-
-    async def close(self) -> None:
-        self._closed = True
-        self._wake.set()
-        if self._task is not None:
-            await self._task
-            self._task = None
-        # a session's deferred requests go back to the queue as it ends;
-        # with no loop left to serve them their futures would hang
-        for item in self._queue.drain_fair():
-            if not item.future.done():
-                item.future.set_exception(RuntimeError("batcher closed"))
-
-    def _submit(self, item) -> None:
-        if self._closed:
-            raise RuntimeError("batcher closed")
-        item._t_submit = time.monotonic()  # the queue-age gauge reads it
-        self._queue.append(item)
-        self._wake.set()
-
-    def _requeue(self, items: List) -> None:
-        """Put taken but unserved items back ahead of later submissions and
-        wake the run loop, which would otherwise wait for an unrelated
-        submission."""
-        if not items:
-            return
-        self._queue.requeue_front(items)
-        self._wake.set()
-
-    def _take_chunk(self) -> List:
-        """Pop up to max_batch items, composed across tenant lanes in
-        stride-fair order."""
-        taken = [self._queue.popleft() for _ in range(min(len(self._queue), self.max_batch))]
-        if taken:
-            labels = {"service": "engine", "batcher": self.kind}
-            fill = len(taken) / self.max_batch
-            metrics.observe("batcher.flush_fill_ratio", fill, labels=labels)
-            metrics.gauge_set("batcher.last_flush_fill_ratio", round(fill, 4), labels=labels)
-            # the backlog a flush leaves behind, on the timeline's time axis
-            engine_timeline.note_queue_depth(self.kind, len(self._queue))
-        return taken
-
-    async def _run(self) -> None:
-        while True:
-            if not self._queue:
-                if self._closed:
-                    return
-                self._wake.clear()
-                await self._wake.wait()
-                continue
-            if len(self._queue) < self.max_batch and not self._closed:
-                # deadline flush: late arrivals get a short window to join
-                try:
-                    await asyncio.wait_for(self._sleep_until_full(), self.deadline_s)
-                except asyncio.TimeoutError:
-                    pass
-            self._serving = True
-            try:
-                await self._flush(self._take_chunk())
-            finally:
-                self._serving = False
-
-    async def _sleep_until_full(self) -> None:
-        while len(self._queue) < self.max_batch and not self._closed:
-            self._wake.clear()
-            await self._wake.wait()
 
     async def generate(self, prompt: str, max_new_tokens: int,
                        temperature: Optional[float] = None, top_k: Optional[int] = None,
@@ -323,6 +545,9 @@ class GenBatcher:
                                  fut, cancel=cancel, tenant=tenant or DEFAULT_TENANT,
                                  task_id=task_id))
         return await fut
+
+    def _size(self, item: _PendingGen) -> int:
+        return 1
 
     def _bucket(self, max_new: int) -> int:
         for b in self.lm.config.new_token_buckets:
@@ -442,6 +667,7 @@ class GenBatcher:
         items this session can never take (`deferred`), and start the
         prepare of those admitted → (future, items) or None."""
         candidates = self._queue.drain_fair()
+        self._queued -= sum(self._size(c) for c in candidates)
         try:
             take, retry, defer = await loop.run_in_executor(
                 None, self._filter_candidates, sess, candidates)

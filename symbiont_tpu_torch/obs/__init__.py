@@ -7,4 +7,8 @@ xprof           : the per-signature dispatch ledger and host-sync counts
 engine_timeline : the engine timeline (decode steps, admits, finishes,
                   cancels; embed flushes, packing opportunity)
 usage           : per-tenant usage metering
+trace_store     : the span flight recorder (copy)
+prometheus      : Prometheus/OpenMetrics exposition (copy)
+chrome_trace    : Chrome Trace Format export (copy)
+critical_path   : a trace's blocking chain and self time (copy)
 """

@@ -23,8 +23,10 @@ host values already in hand (no new device syncs):
 `summary` gives the JAX summary's fields, its paged view (radix hit share,
 hit and cold TTFT, live pages) and spec view (rounds, acceptance, draft and
 verify ms) appearing only when such events exist, so dense, spec-off
-recorders read as before. The resume event, the Perfetto export and
-`configure` come with the stack (ROADMAP A8).
+recorders read as before. `configure` sizes the ring and the prompt window
+at boot (a capacity of 0 turns the recorder off); the gateway renders the
+Perfetto export (`obs/chrome_trace.py`). The resume event comes with the
+generation journal (ROADMAP A8 stage 2).
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ class EngineTimeline:
     def __init__(self, capacity: int = 2048, registry: Optional[Metrics] = None):
         self.registry = registry if registry is not None else _global_metrics
         self._lock = threading.Lock()
+        self._enabled = int(capacity) > 0
         self._ring: deque = deque(maxlen=max(1, int(capacity)))
         # prefix probe: recent prompts' token prefixes (bounded depth)
         self._prompts: deque = deque(maxlen=_PROMPT_WINDOW)
@@ -67,6 +70,14 @@ class EngineTimeline:
         self._flush_real = 0
         self._flush_total = 0
         self._last_mem_t = 0.0  # last device-memory sample (monotonic)
+
+    def configure(self, capacity: int, prompt_window: int) -> None:
+        """Apply ObsConfig sizing (runner, at boot), keeping the newest
+        events; a capacity of 0 turns the recorder off."""
+        with self._lock:
+            self._enabled = int(capacity) > 0
+            self._ring = deque(self._ring, maxlen=max(1, int(capacity)))
+            self._prompts = deque(self._prompts, maxlen=max(1, int(prompt_window)))
 
     def clear(self) -> None:
         with self._lock:
@@ -86,6 +97,8 @@ class EngineTimeline:
             return list(self._ring)
 
     def _append(self, ev: dict) -> None:
+        if not self._enabled:
+            return
         with self._lock:
             self._ring.append(ev)
 
@@ -182,6 +195,8 @@ class EngineTimeline:
                          real_tokens: int, total_tokens: int) -> None:
         """One dispatched embed/rerank batch; also moves the windowed
         packing-opportunity estimate."""
+        if not self._enabled:
+            return
         with self._lock:
             self._ring.append({"kind": FLUSH, "t": time.time(), "bucket": int(bucket),
                                "batch_rows": int(batch_rows), "n_real": int(n_real),
@@ -207,7 +222,7 @@ class EngineTimeline:
         recently admitted prompt, as a share of its (depth-bounded) length.
         Returns the mean over the rows and moves the windowed
         `lm.prefix_share_ratio` gauge. Host arithmetic on encoded ids."""
-        if not token_rows:
+        if not self._enabled or not token_rows:
             return 0.0
         shares = []
         with self._lock:

@@ -13,9 +13,13 @@ The port's copy of `symbiont_tpu/obs/hbm.py`'s claim ledger and OOM guard:
   `engine.oom_total{site}`, leaves a postmortem (the reconcile and the
   engine timeline's tail) in a bounded directory, and is re-raised.
 
-The JAX ledger's live-array census and the per-executable `peak_temp_bytes`
-have no torch counterpart yet (ROADMAP Queue A, item 8): a `reconcile`
-without CUDA therefore has no softer basis to fall back to.
+`configure`, `claim_value`, `register_gauges` and `register_zero` are the
+JAX ledger's, for the runner's boot and `/metrics`
+(`hbm.attributed_bytes{subsystem}`, `hbm.unattributed_bytes{device}`,
+`engine.oom_total{site}`). The JAX ledger's live-array census and the
+per-executable `peak_temp_bytes` have no torch counterpart yet (A7's
+leftovers, ROADMAP): a `reconcile` without CUDA therefore has no softer
+basis to fall back to, and `GET /api/memory/census` answers 501.
 """
 
 from __future__ import annotations
@@ -44,10 +48,25 @@ class HbmLedger:
     sum. Readers must read host-side metadata only (tensor sizes), never
     synchronise with the device."""
 
-    def __init__(self):
+    def __init__(self, registry: Optional[Metrics] = None):
+        self.registry = registry if registry is not None else _global_metrics
         self._lock = threading.Lock()
-        # (subsystem, id(owner)) -> (weakref, reader, overlay)
+        # (subsystem, id(owner)) -> (weakref or None, reader, overlay)
         self._claims: Dict[Tuple[str, int], tuple] = {}
+        self._enabled = True
+        # bounded read-side cache for the scrape gauges: one reader pass
+        # per max_age window
+        self._cache: Optional[Tuple[float, List[dict]]] = None
+
+    def configure(self, enabled: bool = True) -> None:
+        with self._lock:
+            self._enabled = bool(enabled)
+            self._cache = None
+
+    def clear(self) -> None:
+        with self._lock:
+            self._claims.clear()
+            self._cache = None
 
     def claim(self, subsystem: str, owner, reader: Callable, overlay: bool = False) -> None:
         """Register (or replace) `owner`'s claim on `subsystem`. `reader(owner)`
@@ -57,22 +76,43 @@ class HbmLedger:
         with self._lock:
             self._claims[(str(subsystem), id(owner))] = (weakref.ref(owner), reader,
                                                          bool(overlay))
+            self._cache = None
+
+    def claim_value(self, subsystem: str, nbytes: int, overlay: bool = False) -> None:
+        """Ownerless static claim (boot-time constants); 0 removes it."""
+        key = (str(subsystem), 0)
+        with self._lock:
+            if nbytes:
+                self._claims[key] = (None, (lambda n=int(nbytes): n), bool(overlay))
+            else:
+                self._claims.pop(key, None)
+            self._cache = None
 
     def __len__(self) -> int:
         with self._lock:
             return len(self._claims)
 
-    def rows(self) -> List[dict]:
+    def rows(self, max_age_s: float = 0.0) -> List[dict]:
         """Per-subsystem rows `{subsystem, bytes, overlay}`, largest first.
-        Readers run outside the ledger's lock; dead owners retire."""
+        Readers run outside the ledger's lock; dead owners retire. With
+        `max_age_s` a read that recent is served from the cache."""
+        now = time.monotonic()
         with self._lock:
+            if not self._enabled:
+                return []
+            if (max_age_s > 0.0 and self._cache is not None
+                    and now - self._cache[0] <= max_age_s):
+                return [dict(r) for r in self._cache[1]]
             claims = dict(self._claims)
         per: Dict[str, List] = {}
         dead = []
         for key, (ref, reader, overlay) in claims.items():
             try:
-                owner = ref()
-                v = None if owner is None else reader(owner)
+                if ref is None:
+                    v = reader()
+                else:
+                    owner = ref()
+                    v = None if owner is None else reader(owner)
             except Exception:
                 log.debug("hbm claim %s failed this read", key[0], exc_info=True)
                 continue  # a transient failure keeps the claim
@@ -89,6 +129,8 @@ class HbmLedger:
         rows = [{"subsystem": name, "bytes": int(v), "overlay": bool(ov)}
                 for name, (v, ov) in per.items()]
         rows.sort(key=lambda r: (-r["bytes"], r["subsystem"]))
+        with self._lock:
+            self._cache = (now, [dict(r) for r in rows])
         return rows
 
     def attributed_bytes(self, rows: Optional[List[dict]] = None) -> int:
@@ -124,6 +166,41 @@ class HbmLedger:
             "devices": devices,
         }
 
+    def register_gauges(self, registry: Optional[Metrics] = None) -> None:
+        """One `hbm.attributed_bytes{subsystem}` gauge per subsystem claimed
+        so far, and `hbm.unattributed_bytes{device}` per device that reports
+        allocator statistics, all read at scrape time. The runner calls it
+        once the engines have claimed."""
+        registry = registry or self.registry
+
+        def sub_reader(name: str):
+            def fn():
+                for r in self.rows(max_age_s=1.0):
+                    if r["subsystem"] == name:
+                        return r["bytes"]
+                return 0
+            return fn
+
+        for r in self.rows():
+            registry.register_gauge("hbm.attributed_bytes", sub_reader(r["subsystem"]),
+                                    labels={"subsystem": r["subsystem"]})
+
+        def unattributed():
+            rec = self.reconcile()
+            return rec["unattributed_bytes"] if rec["basis"] == "memory_stats" else None
+
+        from symbiont_tpu_torch.obs.device import local_device_stats
+
+        for idx, platform, _stats in local_device_stats():
+            registry.register_gauge("hbm.unattributed_bytes", unattributed,
+                                    labels={"device": str(idx), "platform": str(platform)})
+
+    def register_zero(self, registry: Optional[Metrics] = None) -> None:
+        """The hbm family at zero, so `/metrics` shows it before any
+        subsystem claims bytes."""
+        (registry or self.registry).gauge_set("hbm.attributed_bytes", 0,
+                                              labels={"subsystem": "all"})
+
 
 # ------------------------------------------------------------- OOM forensics
 
@@ -152,13 +229,25 @@ class OomForensics:
         self._lock = threading.Lock()
         self._dir = os.path.join(tempfile.gettempdir(), "symbiont_hbm")
         self._max_files = 4
+        self._enabled = True
         self._seq = 0
         self._last: Optional[dict] = None
 
-    def configure(self, postmortem_dir: str) -> None:
-        """Write postmortems into `postmortem_dir`."""
+    def configure(self, postmortem_dir: Optional[str] = None,
+                  max_files: Optional[int] = None,
+                  enabled: Optional[bool] = None) -> None:
+        """Write postmortems into `postmortem_dir`, keep at most
+        `max_files`; `enabled=False` counts OOMs and writes nothing."""
         with self._lock:
-            self._dir = str(postmortem_dir)
+            if postmortem_dir:
+                self._dir = str(postmortem_dir)
+            if max_files is not None:
+                self._max_files = max(1, int(max_files))
+            if enabled is not None:
+                self._enabled = bool(enabled)
+
+    def register_zero(self, registry: Optional[Metrics] = None) -> None:
+        (registry or self.registry).inc("engine.oom_total", 0, labels={"site": "all"})
 
     @property
     def last(self) -> Optional[dict]:
@@ -182,6 +271,8 @@ class OomForensics:
         write failed; the counter counts either way)."""
         self.registry.inc("engine.oom_total", labels={"site": site})
         with self._lock:
+            if not self._enabled:
+                return None
             self._seq += 1
             seq = self._seq
         report = {"site": site, "ts": round(time.time(), 3),

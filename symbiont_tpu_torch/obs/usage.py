@@ -41,6 +41,16 @@ class UsageMeter:
         # the bound counts identities ever seen, not those tracked now
         self._seen: set = {DEFAULT_TENANT}
 
+    def set_max_tenants(self, n: int) -> None:
+        self.max_tenants = max(1, int(n))
+
+    def register_zero(self) -> None:
+        """Every counter family at zero up front, so `/metrics` shows all
+        the kinds on every boot, not only after matching traffic."""
+        for kind in KINDS:
+            self.registry.inc(f"tenant.usage.{kind}", 0,
+                              labels={"tenant": DEFAULT_TENANT})
+
     def _resolve(self, tenant: Optional[str]) -> str:
         t = (tenant or "").strip() or DEFAULT_TENANT
         with self._lock:

@@ -8,17 +8,30 @@ The counter families keep the JAX package's names
 (`xla.dispatches_total{executable}`), so one dashboard reads both.
 
 The port runs eagerly and compiles nothing, so there is no `note_compile`
-and no cost or memory analysis per executable. XLA's cost model and the
-on-demand `DeviceTraceCapture` wait for the stack on the port (ROADMAP
-Queue A, item 8).
+and no cost or memory analysis per executable. The on-demand
+`DeviceTraceCapture` is one of A7's leftovers (ROADMAP); the gateway's
+`POST /api/profile/device` answers 501 until it lands.
 """
 
 from __future__ import annotations
 
 import threading
 from collections import OrderedDict
+from typing import Optional
 
 from symbiont_tpu_torch.utils.telemetry import metrics
+
+
+# the host-sync sites the port's engines count at, each exported at zero
+# by `register_zero` so a site that never fires still shows (the JAX
+# package reads its list from the lint allowlist)
+KNOWN_SYNC_SITES = (
+    "LmEngine._generate_stream_impl",
+    "TorchEngine.embed_and_search",
+    "TorchEngine.embed_texts",
+    "TorchEngine.rerank",
+    "TorchEngine.warmup",
+)
 
 
 class _SigStats:
@@ -38,9 +51,25 @@ class DispatchLedger:
         self._lock = threading.Lock()
         self._rows: "OrderedDict[str, _SigStats]" = OrderedDict()
         self._max = max(1, int(max_executables))
+        self._enabled = True
+
+    def configure(self, enabled: bool = True,
+                  max_executables: Optional[int] = None) -> None:
+        with self._lock:
+            self._enabled = bool(enabled)
+            if max_executables is not None:
+                self._max = max(1, int(max_executables))
+                while len(self._rows) > self._max:
+                    self._rows.popitem(last=False)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._rows.clear()
 
     def note_dispatch(self, signature: str, wall_s: float) -> None:
         """One call of `signature` and the host wall around its enqueue."""
+        if not self._enabled:
+            return
         with self._lock:
             st = self._rows.get(signature)
             if st is None:
@@ -55,7 +84,16 @@ class DispatchLedger:
 
     def note_host_sync(self, site: str, n: int = 1) -> None:
         """`n` device → host fetches at `site`."""
+        if not self._enabled:
+            return
         self.registry.inc("engine.host_syncs_total", n, labels={"site": site})
+
+    def register_zero(self) -> None:
+        """The ledger's counter families at zero, one host-sync series per
+        known site, so `/metrics` shows them before any traffic."""
+        self.registry.inc("xla.dispatches_total", 0, labels={"executable": "all"})
+        for site in KNOWN_SYNC_SITES:
+            self.registry.inc("engine.host_syncs_total", 0, labels={"site": site})
 
     def __len__(self) -> int:
         with self._lock:

@@ -32,6 +32,7 @@ shape with NH == NKV.
 from __future__ import annotations
 
 import math
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -45,7 +46,10 @@ HEAD_DIMS = (32, 64, 128)
 
 # Kernel launches since the last reset (chip_smoke.py sets them to 0 before
 # driving the main path and reads them after). They count launches only:
-# the CPU path through the plain versions does not count.
+# the CPU path through the plain versions does not count. Two threads can
+# launch at once (the stack's embed batcher keeps two flushes in flight), so
+# each count moves under `_count_lock`.
+_count_lock = threading.Lock()
 launches = 0          # forward, csrc/flash_attn_fwd.cu
 bwd_kv_launches = 0   # dK/dV/dbias, csrc/flash_attn_bwd.cu
 bwd_q_launches = 0    # dQ, csrc/flash_attn_bwd.cu
@@ -232,7 +236,8 @@ def _forward(q, k, v, kv_bias, causal, scale):
         raise RuntimeError(f"flash_attn_fwd launch failed: cudaError {rc} "
                            f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})")
     global launches
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out, lse
 
 
@@ -254,7 +259,8 @@ def bwd_kv(q, k, v, kv_bias, g, lse, delta, causal, scale):
         raise RuntimeError(f"flash_attn_bwd_kv launch failed: cudaError {rc} "
                            f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})")
     global bwd_kv_launches
-    bwd_kv_launches += 1
+    with _count_lock:
+        bwd_kv_launches += 1
     return dk, dv, dbias_h
 
 
@@ -272,7 +278,8 @@ def bwd_q(q, k, v, kv_bias, g, lse, delta, causal, scale):
         raise RuntimeError(f"flash_attn_bwd_q launch failed: cudaError {rc} "
                            f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})")
     global bwd_q_launches
-    bwd_q_launches += 1
+    with _count_lock:
+        bwd_q_launches += 1
     return dq
 
 

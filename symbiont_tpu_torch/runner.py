@@ -1,0 +1,442 @@
+"""Single-process runner: bus + engine + all services.
+
+The port's counterpart of the JAX package's `symbiont_tpu/runner.py`
+(ROADMAP A8 stage 1): the same services, subjects, wire bytes and HTTP
+routes, with `TorchEngine` (`attn_impl="flash"` puts the hand-written
+flash-attention kernel under every embed flush, fused query and rerank
+batch) and `LmEngine` + `GenBatcher` behind `text_generator` when
+`lm.enabled`. It runs on the CUDA device unless the config asks for the CPU
+(`engine.force_cpu`, `lm.force_cpu`), and never falls back to it. The
+settings of planes not ported yet raise a `ValueError` naming their ROADMAP
+item before anything starts (`_refuse_unported`): the TCP bus, the external
+stores, the supervisor/heartbeat/fleet plane, the SLO watchdog, the
+generation journal (A8 stage 2), the online LM trainer (A14), a serving
+mesh over more than one device (A15), and the on-demand device trace and
+live-array census settings (A7's leftovers).
+
+The reference needs docker-compose with 10 containers to run at all
+(reference: docker-compose.yml:1-151); this runner hosts the full pipeline in
+one process over the in-proc bus (the TCP bus and the broker, which let a
+subset of the services run as a process of its own, are A8 stage 2). Usage:
+
+    python -m symbiont_tpu_torch.runner            # full stack, config from env
+    SYMBIONT_API_PORT=8080 python -m symbiont_tpu_torch.runner
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import os
+import signal
+import tempfile
+from typing import Optional
+
+from symbiont_tpu_torch import subjects
+from symbiont_tpu_torch.bus import connect
+from symbiont_tpu_torch.config import ObsConfig, SymbiontConfig, load_config
+from symbiont_tpu_torch.engine.engine import TorchEngine
+from symbiont_tpu_torch.services.api import ApiService
+from symbiont_tpu_torch.services.knowledge_graph import KnowledgeGraphService
+from symbiont_tpu_torch.services.perception import PerceptionService
+from symbiont_tpu_torch.services.preprocessing import PreprocessingService
+from symbiont_tpu_torch.services.text_generator import TextGeneratorService
+from symbiont_tpu_torch.services.vector_memory import VectorMemoryService
+
+log = logging.getLogger(__name__)
+
+
+_OBS_DEFAULTS = ObsConfig()
+
+
+def _refuse_unported(cfg: SymbiontConfig, mesh) -> None:
+    """Every setting that would switch on a plane the port has not taken
+    over raises here, naming its ROADMAP item, before any service starts.
+    All of them are off in the default config, so `SymbiontStack()` runs
+    whole."""
+    stage2 = "is not ported yet (ROADMAP A8 stage 2)"
+    if not cfg.bus.url.startswith("inproc://"):
+        raise ValueError(f"bus.url={cfg.bus.url!r}: the TCP bus and the broker {stage2}")
+    if cfg.vector_store.uri:
+        raise ValueError(f"vector_store.uri: the external Qdrant backend {stage2}")
+    if cfg.graph_store.uri:
+        raise ValueError(f"graph_store.uri: the external Neo4j backend {stage2}")
+    if cfg.runner.role:
+        raise ValueError(f"runner.role={cfg.runner.role!r}: the process supervisor, "
+                         f"drain and the fleet plane {stage2}")
+    if cfg.runner.heartbeat_s > 0:
+        raise ValueError(f"runner.heartbeat_s={cfg.runner.heartbeat_s}: liveness "
+                         f"heartbeats for the process supervisor {stage2}")
+    if cfg.obs.slo_p99_ms:
+        raise ValueError(f"obs.slo_p99_ms: the SLO watchdog {stage2}")
+    if cfg.gen_journal.enabled:
+        raise ValueError(f"gen_journal.enabled: the generation journal and resume {stage2}")
+    if cfg.lm.ingest_train:
+        raise ValueError("lm.ingest_train: the online LM trainer is not ported yet "
+                         "(ROADMAP A14)")
+    # the on-demand device trace and the live-array census are A7's
+    # leftovers: a value other than the default would be read by nothing
+    for name in ("xprof_trace_dir", "xprof_trace_max_s", "hbm_census_groups"):
+        if getattr(cfg.obs, name) != getattr(_OBS_DEFAULTS, name):
+            raise ValueError(f"obs.{name}: the on-demand device trace and the "
+                             "live-array census are not ported yet (ROADMAP A7)")
+    shape = cfg.parallel.mesh_shape
+    if mesh is not None or (cfg.parallel.enabled and shape is not None
+                            and any(int(s) > 1 for s in shape)):
+        raise ValueError("a serving mesh over more than one device is not ported "
+                         "yet (ROADMAP A15); the stack serves on one device")
+
+
+class SymbiontStack:
+    """Builds and owns the full service stack; also the e2e-test harness."""
+
+    def __init__(self, config: Optional[SymbiontConfig] = None, bus=None,
+                 engine: Optional[TorchEngine] = None, mesh=None,
+                 fetcher=None):
+        self.config = config or load_config()
+        self._bus_override = bus
+        self._engine_override = engine
+        self._mesh = mesh
+        self._fetcher = fetcher
+        self.services: list = []
+        self.bus = None
+        self.engine = None
+        self.lm = None
+        self._lm_batcher = None
+        self.vector_store = None
+        self.graph_store = None
+        self.api: Optional[ApiService] = None
+
+    KNOWN_SERVICES = {"all", "perception", "preprocessing", "vector_memory",
+                      "knowledge_graph", "text_generator", "api", "engine"}
+
+    async def start(self) -> None:
+        cfg = self.config
+        want = {s.strip() for s in cfg.runner.services.split(",") if s.strip()}
+        unknown = want - self.KNOWN_SERVICES
+        if unknown or not want:
+            raise ValueError(
+                f"unknown service name(s) {sorted(unknown)} in runner.services; "
+                f"known: {sorted(self.KNOWN_SERVICES)}")
+
+        def on(name: str) -> bool:
+            return "all" in want or name in want
+
+        _refuse_unported(cfg, self._mesh)
+
+        # observability plane (symbiont_tpu_torch/obs/): size the flight recorder,
+        # apply histogram bucket bounds BEFORE any traffic observes into
+        # them, and register the standard process_* host gauges
+        from symbiont_tpu_torch.obs.device import register_process_gauges
+        from symbiont_tpu_torch.obs.engine_timeline import engine_timeline
+        from symbiont_tpu_torch.obs.trace_store import trace_store
+        from symbiont_tpu_torch.obs.usage import usage
+        from symbiont_tpu_torch.utils.telemetry import metrics
+
+        if trace_store.capacity != cfg.obs.trace_capacity:
+            trace_store.set_capacity(cfg.obs.trace_capacity)
+        # tail-based retention (obs/trace_store.py): errored / SLO-breach /
+        # slowest-decile traces pin into a bounded keep-set; healthy
+        # traces sample at the configured rate. Gauges read the store's
+        # own counters at scrape time (the store cannot import telemetry).
+        trace_store.configure_retention(
+            sample_rate=cfg.obs.trace_sample_rate,
+            keep_traces=cfg.obs.trace_keep_traces)
+        metrics.register_gauge("obs.trace_pinned_traces",
+                               trace_store.pinned_traces)
+        metrics.register_gauge("obs.trace_sampled_out",
+                               lambda: trace_store.sampled_out)
+        metrics.register_gauge("obs.trace_pin_evicted",
+                               lambda: trace_store.pin_evictions)
+        # decode-plane flight recorder (obs/engine_timeline.py) + the
+        # per-tenant usage ledger (obs/usage.py): sized here, zero-
+        # registered so the doc-drift contract covers every family at boot
+        engine_timeline.configure(cfg.obs.timeline_capacity,
+                                  cfg.obs.timeline_prompt_window)
+        metrics.register_gauge("obs.timeline_events",
+                               engine_timeline.__len__)
+        usage.set_max_tenants(cfg.obs.usage_max_tenants)
+        usage.register_zero()
+        # compute-plane profiler (obs/xprof.py): size the per-executable
+        # dispatch ledger + device-trace capture, then zero-register the
+        # xla.dispatches_total / engine.host_syncs_total families so the
+        # doc-drift sweep (and /metrics) sees them before any dispatch —
+        # one series per allowlisted host-sync site, even if it never fires
+        from symbiont_tpu_torch.obs.xprof import dispatch_ledger
+        dispatch_ledger.configure(enabled=cfg.obs.xprof_enabled,
+                                  max_executables=cfg.obs.xprof_executables)
+        dispatch_ledger.register_zero()
+        metrics.register_gauge("obs.xprof_executables",
+                               dispatch_ledger.__len__)
+        # hbm attribution plane (obs/hbm.py): configure the subsystem
+        # byte ledger + OOM forensics, zero-register their families for
+        # the doc-drift sweep. Per-claim gauges register LATER (after
+        # services boot, when the engines have claimed) — see _start's
+        # device-gauge block.
+        from symbiont_tpu_torch.obs.hbm import hbm_ledger, oom_forensics
+        hbm_ledger.configure(enabled=cfg.obs.hbm_enabled)
+        # the default postmortem dir (JAX's fixed /tmp path) resolves under
+        # this process's temp dir, which follows TMPDIR
+        pm_dir = cfg.obs.hbm_postmortem_dir
+        if pm_dir == _OBS_DEFAULTS.hbm_postmortem_dir:
+            pm_dir = os.path.join(tempfile.gettempdir(), "symbiont_hbm")
+        oom_forensics.configure(postmortem_dir=pm_dir,
+                                max_files=cfg.obs.hbm_postmortem_max,
+                                enabled=cfg.obs.hbm_enabled)
+        hbm_ledger.register_zero()
+        oom_forensics.register_zero()
+        # kv.* page-pool/radix families at zero BEFORE the engine exists
+        # (zero-returning callbacks a real PagePool later replaces) — the
+        # doc-drift sweep sees them even on a stub stack with no LM
+        from symbiont_tpu_torch.kv.pool import register_zero_gauges
+        register_zero_gauges(cfg.lm.dtype, cfg.lm.kv_quant)
+        if cfg.obs.histogram_buckets_ms:
+            metrics.set_bucket_bounds(cfg.obs.histogram_buckets_ms)
+        register_process_gauges()  # platform-guarded no-op off Linux
+
+        self.services = []
+        self.bus = self._bus_override or await connect(cfg.bus.url)
+
+        # API gateway starts FIRST (when hosted): liveness (/healthz) and
+        # readiness (/readyz → 503) must answer DURING engine placement /
+        # engine placement, so a load balancer keeps traffic away from a cold
+        # process instead of timing out against a socket that doesn't exist
+        # yet. mark_ready() flips only at the very end of start(), once
+        # params are placed.
+        if on("api"):
+            admission_ctl = ladder = None
+            if cfg.admission.enabled:
+                from symbiont_tpu_torch.resilience.admission import (
+                    AdmissionController,
+                    DegradationLadder,
+                )
+
+                admission_ctl = AdmissionController(cfg.admission)
+                # SLO-aware shedding: the JAX stack's watchdog drives the
+                # ladder; without it (A8 stage 2) the ladder stays at rung 0
+                ladder = DegradationLadder(
+                    recovery_passes=cfg.admission.shed_recovery_passes,
+                    hold_s=cfg.admission.shed_hold_s,
+                    degraded_top_k=cfg.admission.degraded_top_k)
+            self.api = ApiService(
+                self.bus, cfg.api, cfg.bus,
+                admission=admission_ctl, ladder=ladder,
+                # capacity-aware generation admission: consult the live
+                # LM's KV-row occupancy before accepting a stream (late-
+                # bound — the LM is constructed below)
+                gen_capacity=(
+                    (lambda: self.lm is None
+                     or self.lm.can_admit(1, cfg.admission.max_kv_rows))
+                    if cfg.admission.enabled else None),
+                admission_config=(cfg.admission if cfg.admission.enabled
+                                  else None),
+                defer_ready=True)
+            await self.api.start()
+
+        # Serving mesh: the port serves on one device. The default
+        # cfg.parallel resolves to it and builds nothing; a mesh over more
+        # than one device was refused above (ROADMAP A15).
+
+        # at-least-once pipeline (SURVEY.md §5.3): one durable stream captures
+        # the fire-and-forget subjects; each consumer acks after its side
+        # effect lands. Request-reply subjects stay core (their failure mode
+        # is the caller's timeout + retry). Both the native broker AND the
+        # default in-proc bus implement the stream contract now (resilience
+        # plane) — bus.durable works on the single-process stack.
+        pipeline_stream = None
+        if cfg.bus.durable and hasattr(self.bus, "add_stream"):
+            pipeline_stream = "pipeline"
+            await self.bus.add_stream(
+                pipeline_stream,
+                [subjects.DATA_RAW_TEXT_DISCOVERED,
+                 subjects.DATA_TEXT_WITH_EMBEDDINGS,
+                 subjects.DATA_PROCESSED_TEXT_TOKENIZED],
+                ack_wait_s=cfg.bus.durable_ack_wait_s,
+                max_deliver=cfg.bus.durable_max_deliver)
+        elif cfg.bus.durable:
+            log.warning("bus.durable requested but transport %s has no "
+                        "durable streams (use inproc:// or symbus://)",
+                        cfg.bus.url)
+        # size the dead-letter quarantine behind GET /api/dlq (inproc bus)
+        if hasattr(self.bus, "dlq"):
+            self.bus.dlq.capacity = cfg.resilience.dlq_capacity
+        if on("preprocessing") or on("engine"):
+            self.engine = self._engine_override or TorchEngine(cfg.engine)
+        if on("vector_memory") or on("engine"):
+            # vector store dim follows the engine's actual hidden size; in a
+            # standalone vector_memory worker (no engine in-process) the
+            # configured dim must match the remote engine's model
+            vs_cfg = cfg.vector_store
+            if self.engine and vs_cfg.dim != self.engine.model_cfg.hidden_size:
+                import dataclasses
+
+                vs_cfg = dataclasses.replace(
+                    vs_cfg, dim=self.engine.model_cfg.hidden_size)
+            elif self.engine is None:
+                log.warning("vector store dim=%d taken from config "
+                            "(no in-process engine to follow)", vs_cfg.dim)
+            # uri set (or reference QDRANT_URI alias) → external Qdrant
+            # backend (A8 stage 2, refused above); else the embedded store
+            # the embedded store, on the engine's device (the CPU when the
+            # config asks for it and there is no engine in-process)
+            from symbiont_tpu_torch.memory import make_vector_store
+
+            device = (self.engine.device if self.engine is not None
+                      else ("cpu" if cfg.engine.force_cpu else None))
+            self.vector_store = make_vector_store(vs_cfg, device=device)
+            if not on("vector_memory"):
+                # engine-only deployment: VectorMemoryService isn't there to
+                # run the startup ensure, so do it here (idempotent);
+                # executor because external backends block on HTTP retries
+                await asyncio.get_running_loop().run_in_executor(
+                    None, self.vector_store.ensure_collection)
+        if on("knowledge_graph") or on("engine"):
+            # uri set (or reference NEO4J_URI alias) → external Neo4j backend
+            from symbiont_tpu_torch.graph import make_graph_store
+
+            self.graph_store = make_graph_store(cfg.graph_store)
+            if not on("knowledge_graph"):
+                await asyncio.get_running_loop().run_in_executor(
+                    None, self.graph_store.ensure_schema)  # engine-only: see above
+
+        lm_batcher = None
+        if cfg.lm.enabled and (on("text_generator") or on("engine")):
+            from symbiont_tpu_torch.engine.batcher import GenBatcher
+            from symbiont_tpu_torch.engine.lm import LmEngine
+
+            self.lm = LmEngine(cfg.lm)
+            # one generation micro-batcher shared by the bus surface and the
+            # engine plane: concurrent requests decode as one batch. Stored
+            # on self BEFORE anything else can raise, so stop() always
+            # closes its task.
+            lm_batcher = self._lm_batcher = GenBatcher(self.lm)
+            await lm_batcher.start()
+
+        # ONE micro-batching queue in front of the device, shared by every
+        # in-process caller (preprocessing pipeline + engine.* plane) — two
+        # queues would mean concurrent forwards on one engine, the hazard
+        # SURVEY.md §5.2 exists to prevent
+        batcher = None
+        if self.engine is not None:
+            from symbiont_tpu_torch.engine.batcher import MicroBatcher
+
+            batcher = MicroBatcher(self.engine)
+
+        if self.engine is not None or self.lm is not None:
+            # device-plane memory gauges (bytes in use / peak / limit per
+            # CUDA device) — only once an engine is in play; a CPU-only or
+            # api-only process registers nothing
+            from symbiont_tpu_torch.obs.device import register_device_gauges
+            from symbiont_tpu_torch.obs.hbm import hbm_ledger
+
+            register_device_gauges()
+            # the engines/pools/corpus have claimed by now: expose the
+            # ledger as hbm.attributed_bytes{subsystem} gauges (+ the
+            # per-device residual where the backend reports stats)
+            hbm_ledger.register_gauges()
+
+        if on("perception"):
+            self.services.append(
+                PerceptionService(self.bus, cfg.perception, fetcher=self._fetcher))
+        if on("preprocessing"):
+            self.services.append(
+                PreprocessingService(self.bus, self.engine, batcher=batcher,
+                     durable_stream=pipeline_stream))
+        if on("vector_memory"):
+            self.services.append(VectorMemoryService(
+                self.bus, self.vector_store, durable_stream=pipeline_stream,
+                coalesce=cfg.vector_store.coalesce,
+                coalesce_max_rows=cfg.vector_store.coalesce_max_rows,
+                coalesce_max_age_ms=cfg.vector_store.coalesce_max_age_ms))
+        if on("knowledge_graph"):
+            self.services.append(KnowledgeGraphService(
+                self.bus, self.graph_store, durable_stream=pipeline_stream))
+        if on("text_generator"):
+            # with the LM backend active, skip Markov ingest training — the
+            # chain would grow unboundedly while never being used to generate
+            lm_stream = (self.lm.generate_stream
+                         if self.lm is not None and cfg.lm.stream_chunk > 0
+                         else None)
+            # lm.ingest_train (the online trainer, A14) was refused above
+            lm_trainer = None
+            self.services.append(
+                TextGeneratorService(self.bus, lm_batcher=lm_batcher,
+                                     lm_stream=lm_stream,
+                                     train_on_ingest=lm_batcher is None,
+                                     state_path=(cfg.text_generator
+                                                 .markov_state_path),
+                                     lm_trainer=lm_trainer,
+                                     lm_train_min_chars=(
+                                         cfg.lm.ingest_train_min_chars),
+                                     lm_train_steps=cfg.lm.ingest_train_steps,
+                                     # durability plane: the service owns
+                                     # mark_done (journal entries survive
+                                     # until the result is PUBLISHED) and
+                                     # adopts orphaned streams republished
+                                     # by the supervisor
+                                     # the generation journal and resume
+                                     # are A8 stage 2: no journal, and a
+                                     # resume request gets the service's
+                                     # own "no lm_resume" answer
+                                     journal=None,
+                                     lm_resume=None,
+                                     resume_max_attempts=(
+                                         cfg.gen_journal.resume_max_attempts),
+                                     resume_backoff_s=(
+                                         cfg.gen_journal.resume_backoff_s)))
+        if on("engine"):
+            from symbiont_tpu_torch.services.engine_service import EngineService
+
+            self.services.append(EngineService(
+                self.bus, engine=self.engine, batcher=batcher, lm=self.lm,
+                lm_batcher=lm_batcher,
+                vector_store=self.vector_store, graph_store=self.graph_store,
+                coalesce=cfg.vector_store.coalesce,
+                coalesce_max_rows=cfg.vector_store.coalesce_max_rows,
+                coalesce_max_age_ms=cfg.vector_store.coalesce_max_age_ms))
+        for s in self.services:
+            # handler timeout/retry + loop-supervisor knobs (resilience
+            # plane); services may further tune their own fields after
+            s.apply_resilience(cfg.resilience)
+            await s.start()
+        if self.api is not None:
+            # everything behind the gateway is placed: flip /readyz to 200
+            self.api.mark_ready()
+            log.info("symbiont stack up: api on %s:%s", cfg.api.host, self.api.port)
+        else:
+            log.info("symbiont stack up (no api): %s", sorted(want))
+        # the fleet plane, heartbeats and the drain protocol run only with
+        # runner.role / runner.heartbeat_s, refused above (A8 stage 2)
+
+    async def stop(self) -> None:
+        if self.api:
+            await self.api.stop()
+        for s in self.services:
+            await s.stop()
+        if self._lm_batcher is not None:
+            await self._lm_batcher.close()
+        if self.graph_store:
+            self.graph_store.close()
+        if self.bus and self._bus_override is None:
+            await self.bus.close()
+
+
+async def main() -> None:
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    stack = SymbiontStack()
+    await stack.start()
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        try:
+            loop.add_signal_handler(sig, stop.set)
+        except NotImplementedError:
+            pass
+    await stop.wait()
+    await stack.stop()
+
+
+if __name__ == "__main__":
+    asyncio.run(main())

@@ -631,7 +631,8 @@ def test_a_failing_session_check_fails_the_run(monkeypatch, capsys):
                  quant_phase=lambda rng, d, h: {"launches": 0},
                  causal_gqa_kernel_phase=lambda: {},
                  generate_phase=lambda rng, tmp: {"launches": 0},
-                 session_phase=lambda rng, tmp: chip_smoke.check(False, "admitted_midflight 0"))
+                 session_phase=lambda rng, tmp: chip_smoke.check(False, "admitted_midflight 0"),
+                 stack_phase=lambda rng, tmp, serve: {"launches": 0})
     for name, fn in stubs.items():
         monkeypatch.setattr(chip_smoke, name, fn)
     with pytest.raises(RuntimeError, match="admitted_midflight 0"):
@@ -739,9 +740,106 @@ def test_a_failing_spec_check_fails_the_run(monkeypatch, capsys):
                                                  "tinyllama": None},
                  paged_phase=lambda rng, tmp, tl, dense_batcher: {"launches": 0},
                  spec_phase=lambda rng, tmp, tl: chip_smoke.check(
-                     False, "self-drafted stream: 0 draft tokens proposed"))
+                     False, "self-drafted stream: 0 draft tokens proposed"),
+                 stack_phase=lambda rng, tmp, serve: {"launches": 0})
     for name, fn in stubs.items():
         monkeypatch.setattr(chip_smoke, name, fn)
     with pytest.raises(RuntimeError, match="0 draft tokens proposed"):
         chip_smoke.main()
     assert '"ok": true' not in capsys.readouterr().out
+
+
+# ------------------------------------------------------------------- stack
+
+TINY_STACK = dict(pages=4, sentences=4, queries=6, top_k=3, gen=2, gen_new=8,
+                  gen_bucket=(8, 16), timeout_s=60.0)
+TINY_STACK_ENGINE = dict(embedding_dim=64, length_buckets=[16, 32], batch_buckets=[2, 8],
+                         max_batch=8, dtype="float32")
+
+
+def test_stack_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """[stack] end to end on the CPU at tiny geometries (a 64-wide, 6-layer
+    synthetic encoder, the tiny GPT-2 dir), with every check it makes on
+    the card: the CPU path launches no kernel, so B1's plain forwards are
+    counted as its launches and the launch equation is held on them."""
+    from symbiont_tpu_torch.models import gpt as gpt_mod
+    from symbiont_tpu_torch.ops import flash_attention as fa
+
+    params = gpt_mod.init_params(torch.Generator().manual_seed(4),
+                                 gpt_mod.GPTConfig.from_hf(TINY_GPT2))
+    chip_smoke.write_gpt_checkpoint(tmp_path / "gpt2", params, TINY_GPT2, torch.float32)
+    forward = fa._forward
+
+    def counted(*a, **kw):
+        with fa._count_lock:
+            fa.launches += 1
+        return forward(*a, **kw)
+
+    monkeypatch.setattr(fa, "_forward", counted)
+    out = chip_smoke.stack_phase(np.random.default_rng(0), tmp_path, sizes=TINY_STACK,
+                                 device="cpu", engine_kw=TINY_STACK_ENGINE, lm_kw=TINY_LM_KW)
+    printed = capsys.readouterr().out
+    # B1 at the LM's prefill shapes: 1, 2 and 4 rows in the 16 bucket
+    assert printed.count("[stack] flash_attn_fwd causal") == 3
+    assert "causal q[4, 4, 16, 8] over 4 KV heads, bfloat16" in printed
+    assert printed.count("[stack]") == 10
+    assert out["ingest"]["sentences"] == 16 and out["ingest"]["flushes"] >= 1
+    assert "perception.handle" in out["ingest"]["spans"]
+    assert out["search"]["fused"] == 6 and out["search"]["fallbacks"] == 0
+    assert out["generate"]["requests"] == 2 and all(n >= 2 for n in out["generate"]["partials"])
+    assert len(out["generate"]["direct_first_chunk_ms"]) == 2
+    assert out["batched"]["requests"] == 4 and out["batched"]["sessions"] == 1
+    # 6 encoder layers: 16 sentences in >= 2 batches, 6 fused queries, 6
+    # rerank batches; 2 GPT-2 layers: 2 stream prefills and 1 session start
+    assert out["launches"] >= 6 * (2 + 6 + 6) + 2 * 3
+    assert f"{out['launches']} = 6 x (" in out["b1_equation"]
+
+
+def test_a_failing_stack_check_fails_the_run(monkeypatch, capsys):
+    """Every phase before [stack] stubbed to pass; a search that took the
+    2-hop fallback fails [stack], which leaves main() by its exception and
+    prints no result."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(chip_smoke, "card_line", lambda: "card, 700.00 W")
+    launches = {"launches": (0, 0, 0)}
+
+    def checkpoint(rng, tmp):
+        (Path(tmp) / "mpnet").mkdir()
+        return {"launches": 0, "mpnet_dir": Path(tmp) / "mpnet", "host_leaves": {}}
+
+    stubs = dict(kernel_phase=lambda: {}, backward_kernel_phase=lambda: {},
+                 main_path=lambda rng: launches, train_path=lambda rng: launches,
+                 profile_embed=lambda texts: None, synth_texts=lambda rng, n: [],
+                 checkpoint_phase=checkpoint, obs_phase=lambda ck, tmp: None,
+                 quant_phase=lambda rng, d, h: {"launches": 0},
+                 causal_gqa_kernel_phase=lambda: {},
+                 generate_phase=lambda rng, tmp: {"launches": 0},
+                 session_phase=lambda rng, tmp: {"launches": 0, "batcher": {},
+                                                 "tinyllama": None},
+                 paged_phase=lambda rng, tmp, tl, dense_batcher: {"launches": 0},
+                 spec_phase=lambda rng, tmp, tl: {"launches": 0},
+                 stack_phase=lambda rng, tmp, serve: chip_smoke.check(
+                     False, "49 of 50 searches on the fused hop, 1 fell back"))
+    for name, fn in stubs.items():
+        monkeypatch.setattr(chip_smoke, name, fn)
+    with pytest.raises(RuntimeError, match="1 fell back"):
+        chip_smoke.main()
+    assert '"ok": true' not in capsys.readouterr().out
+
+
+def test_exposition_families_parse_and_refuse_a_bad_line():
+    text = ("# HELP symbiont_engine_x x\n# TYPE symbiont_engine_x gauge\n"
+            'symbiont_engine_x{service="engine"} 1.5\nsymbiont_span_y_count 3\n'
+            'symbiont_span_y_bucket{le="+Inf"} 3\n')
+    assert chip_smoke.exposition_families(text) == {"symbiont_engine_x", "symbiont_span_y_count",
+                                                    "symbiont_span_y_bucket"}
+    with pytest.raises(RuntimeError, match="does not parse"):
+        chip_smoke.exposition_families("symbiont_engine_x{service=engine} 1\n")
+
+
+def test_span_names_walks_a_trace_tree():
+    tree = {"trace_id": "t", "roots": [{"name": "api.search", "children": [
+        {"name": "engine.query.search", "children": []},
+        {"name": "engine.rerank", "children": []}]}]}
+    assert chip_smoke.span_names(tree) == {"api.search", "engine.query.search", "engine.rerank"}

@@ -52,7 +52,12 @@ def test_the_scan_covers_the_package():
             "symbiont_tpu_torch/kv/__init__.py",
             "symbiont_tpu_torch/kv/paged.py",
             "symbiont_tpu_torch/kv/pool.py",
-            "symbiont_tpu_torch/kv/radix.py"} <= rel
+            "symbiont_tpu_torch/kv/radix.py",
+            "symbiont_tpu_torch/runner.py",
+            "symbiont_tpu_torch/services/api.py",
+            "symbiont_tpu_torch/bus/inproc.py",
+            "symbiont_tpu_torch/schema/frames.py",
+            "symbiont_tpu_torch/config.py"} <= rel
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -1,0 +1,369 @@
+"""The port's stack alone on the CPU: its health, readiness, metrics and
+trace surfaces; generation over the SSE stream on the Markov backend and
+on the LM backend (a tiny synthetic llama, streamed and batched); durable
+at-least-once delivery (a malformed payload quarantined in `/api/dlq`, and
+its replay); a quota 429 with Retry-After; the routes that answer 501;
+and every setting of a plane not ported yet raising a `ValueError` that
+names its ROADMAP item before anything starts."""
+
+import asyncio
+import json
+import tempfile
+import urllib.error
+import urllib.request
+
+import pytest
+
+from symbiont_tpu_torch import subjects
+from symbiont_tpu_torch.bus.connect import connect
+from symbiont_tpu_torch.bus.inproc import InprocBus
+from symbiont_tpu_torch.config import (AdmissionConfig, ApiConfig, BusConfig, EngineConfig,
+                                       GraphStoreConfig, LmConfig, ObsConfig, SymbiontConfig,
+                                       TextGeneratorConfig, VectorStoreConfig)
+from symbiont_tpu_torch.graph import make_graph_store
+from symbiont_tpu_torch.memory import make_vector_store
+from symbiont_tpu_torch.runner import SymbiontStack
+from symbiont_tpu_torch.services.api import ApiService
+
+PAGE = """<html><body><article><p>Matrix engines multiply quickly. Vector memory
+stores every sentence!</p><p>Graphs link tokens to documents?</p></article></body></html>"""
+TINY_LM = dict(enabled=True, force_cpu=True, arch="llama", hidden_size=32, num_layers=2,
+               num_heads=4, intermediate_size=64, max_positions=256, dtype="float32",
+               prompt_buckets=[8, 16, 64], new_token_buckets=[8, 16], temperature=0.0)
+
+
+def _config(tmp_path, lm=False, **sections):
+    cfg = SymbiontConfig(
+        engine=EngineConfig(embedding_dim=32, length_buckets=[16, 32], batch_buckets=[2, 8],
+                            max_batch=8, dtype="float32", flush_deadline_ms=2.0,
+                            rerank_enabled=True, force_cpu=True),
+        vector_store=VectorStoreConfig(dim=32, data_dir=str(tmp_path / "vs"),
+                                       shard_capacity=64),
+        graph_store=GraphStoreConfig(data_dir=str(tmp_path / "gs")),
+        text_generator=TextGeneratorConfig(markov_state_path=str(tmp_path / "markov.json")),
+        api=ApiConfig(host="127.0.0.1", port=0, sse_keepalive_s=0.5),
+        lm=LmConfig(**TINY_LM) if lm else LmConfig())
+    for name, section in sections.items():
+        setattr(cfg, name, section)
+    return cfg
+
+
+def _http(port, method, path, body=None, headers=None):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=json.dumps(body).encode() if body is not None else None,
+        headers={"Content-Type": "application/json", **(headers or {})}, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _scenario(cfg, body):
+    """Run `body(stack, http)` against a started stack, then stop it."""
+
+    async def main():
+        bus = InprocBus()
+        stack = SymbiontStack(cfg, bus=bus, fetcher=lambda url: PAGE)
+        await stack.start()
+        loop = asyncio.get_running_loop()
+
+        def http(*a, **kw):
+            return loop.run_in_executor(None, lambda: _http(stack.api.port, *a, **kw))
+
+        try:
+            return await body(stack, http)
+        finally:
+            await stack.stop()
+            await bus.close()
+
+    return asyncio.run(main())
+
+
+async def _until(pred, timeout=30.0):
+    for _ in range(int(timeout / 0.02)):
+        if pred():
+            return
+        await asyncio.sleep(0.02)
+    raise AssertionError("condition not reached")
+
+
+async def _sse_events(port, n, out):
+    """Read `n` data events from /api/events into `out`."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(b"GET /api/events HTTP/1.1\r\nHost: x\r\n\r\n")
+    await writer.drain()
+    try:
+        while len(out) < n:
+            line = await reader.readline()
+            if not line:
+                return
+            if line.startswith(b"data: "):
+                out.append(json.loads(line[6:]))
+    finally:
+        writer.close()
+
+
+def test_health_metrics_and_trace_surfaces(tmp_path):
+    async def body(stack, http):
+        st, _, raw = await http("POST", "/api/submit-url", {"url": "http://x/doc"})
+        assert st == 200
+        await _until(lambda: stack.vector_store.count() >= 3)
+        # the registry is the process's: count from here
+        fused0 = json.loads((await http("GET", "/api/metrics"))[2])["counters"].get(
+            "api.fused_search", 0)
+        st, _, raw = await http("POST", "/api/search/semantic",
+                                {"query_text": "matrix", "top_k": 2, "rerank": True},
+                                headers={"X-Trace-Id": "trace-surface"})
+        assert st == 200 and json.loads(raw)["error_message"] is None
+        assert (await http("GET", "/healthz"))[0] == 200
+        st, _, raw = await http("GET", "/readyz")
+        assert st == 200 and json.loads(raw)["status"] == "ready"
+        st, hdr, text = await http("GET", "/metrics")
+        text = text.decode()
+        assert st == 200 and hdr["Content-Type"].startswith("text/plain")
+        assert 'symbiont_batcher_queue_depth{batcher="embed"' in text
+        assert "symbiont_engine_" in text and "# TYPE symbiont_span_duration_ms" in text
+        st, hdr, om = await http("GET", "/metrics",
+                                 headers={"Accept": "application/openmetrics-text"})
+        assert st == 200 and om.decode().rstrip().endswith("# EOF")
+        st, _, raw = await http("GET", "/api/metrics")
+        snap = json.loads(raw)
+        assert st == 200 and snap["counters"]["api.fused_search"] - fused0 == 1
+        st, _, raw = await http("GET", "/api/traces/recent")
+        assert st == 200 and json.loads(raw)["traces"]
+        st, _, raw = await http("GET", "/api/traces/trace-surface")
+        tree = raw.decode()
+        assert st == 200
+        for name in ("api.search", "engine.query.search", "engine.rerank"):
+            assert f'"{name}"' in tree
+        assert (await http("GET", "/api/traces/trace-surface/critical_path"))[0] == 200
+        st, _, raw = await http("GET", "/api/traces/trace-surface/export?fmt=chrome")
+        assert st == 200 and json.loads(raw)["traceEvents"]
+        st, _, raw = await http("GET", "/api/health/engine")
+        health = json.loads(raw)
+        assert st == 200 and health["stats"]["embed_batches"] >= 1
+        assert health["backends"] == {"embed": True, "rerank": True, "generate": False,
+                                      "vector": True, "graph": True}
+
+    _scenario(_config(tmp_path), body)
+
+
+def test_readyz_is_503_until_mark_ready():
+    async def main():
+        bus = InprocBus()
+        api = ApiService(bus, ApiConfig(host="127.0.0.1", port=0), BusConfig(),
+                         defer_ready=True)
+        await api.start()
+        loop = asyncio.get_running_loop()
+        try:
+            before = await loop.run_in_executor(None, _http, api.port, "GET", "/readyz")
+            live = await loop.run_in_executor(None, _http, api.port, "GET", "/healthz")
+            api.mark_ready()
+            after = await loop.run_in_executor(None, _http, api.port, "GET", "/readyz")
+        finally:
+            await api.stop()
+            await bus.close()
+        return before[0], live[0], after[0]
+
+    assert asyncio.run(main()) == (503, 200, 200)
+
+
+def test_markov_generation_reaches_the_sse_stream(tmp_path):
+    async def body(stack, http):
+        st, _, _ = await http("POST", "/api/submit-url", {"url": "http://x/doc"})
+        assert st == 200
+        textgen = next(s for s in stack.services if s.name == "text_generator")
+        await _until(lambda: textgen.markov.chain)
+        events = []
+        reader = asyncio.create_task(_sse_events(stack.api.port, 1, events))
+        await asyncio.sleep(0.2)
+        st, _, _ = await http("POST", "/api/generate-text",
+                              {"task_id": "m-1", "prompt": None, "max_length": 6})
+        assert st == 200
+        await asyncio.wait_for(reader, 10)
+        assert events[0]["original_task_id"] == "m-1" and events[0]["generated_text"]
+
+    _scenario(_config(tmp_path), body)
+
+
+def test_lm_generation_streams_partials_and_batches(tmp_path):
+    async def body(stack, http):
+        assert stack.lm is not None and stack._lm_batcher is not None
+        events = []
+        # the stream: its partials, a done chunk, then the final message;
+        # then a batched request's final message
+        reader = asyncio.create_task(_sse_events(stack.api.port, 99, events))
+        await asyncio.sleep(0.2)
+        st, _, _ = await http("POST", "/api/generate-text",
+                              {"task_id": "s-1", "prompt": "hello there", "max_length": 16,
+                               "stream": True, "temperature": 0.0})
+        assert st == 200
+        await _until(lambda: any(e.get("original_task_id") == "s-1"
+                                 and "generated_text" in e for e in events))
+        st, _, _ = await http("POST", "/api/generate-text",
+                              {"task_id": "b-1", "prompt": "hello there", "max_length": 16,
+                               "temperature": 0.0})
+        assert st == 200
+        await _until(lambda: any(e.get("original_task_id") == "b-1" for e in events))
+        reader.cancel()
+        partials = [e for e in events if e["original_task_id"] == "s-1" and "text_delta" in e]
+        final = next(e["generated_text"] for e in events
+                     if e["original_task_id"] == "s-1" and "generated_text" in e)
+        batched = next(e["generated_text"] for e in events if e["original_task_id"] == "b-1")
+        assert len(partials) >= 2 and partials[-1]["done"]
+        assert [p["seq"] for p in partials] == sorted(p["seq"] for p in partials)
+        assert "".join(p["text_delta"] for p in partials) == final
+        want = stack.lm.generate("hello there", 16, temperature=0.0)
+        assert final == want and batched == want
+
+    _scenario(_config(tmp_path, lm=True), body)
+
+
+def test_malformed_durable_delivery_is_quarantined_and_replayed(tmp_path):
+    cfg = _config(tmp_path, bus=BusConfig(durable=True, durable_ack_wait_s=0.1,
+                                          durable_max_deliver=2))
+
+    async def body(stack, http):
+        await stack.bus.publish(subjects.DATA_TEXT_WITH_EMBEDDINGS, b"{not json")
+
+        async def dlq():
+            return json.loads((await http("GET", "/api/dlq"))[2])
+
+        for _ in range(300):
+            listing = await dlq()
+            if listing["size"]:
+                break
+            await asyncio.sleep(0.05)
+        assert listing["available"] and listing["size"] >= 1
+        entry = listing["entries"][0]
+        assert entry["subject"] == subjects.DATA_TEXT_WITH_EMBEDDINGS
+        assert entry["deliveries"] == 2
+        st, _, raw = await http("POST", "/api/dlq/replay", {"id": entry["id"]})
+        assert st == 200 and json.loads(raw)["replayed"] == 1
+        # still malformed: it fails its fresh budget and is quarantined again
+        for _ in range(300):
+            listing = await dlq()
+            if listing["size"] and listing["entries"][0]["id"] != entry["id"]:
+                break
+            await asyncio.sleep(0.05)
+        assert listing["size"] == 1 and listing["entries"][0]["id"] != entry["id"]
+        st, _, raw = await http("POST", "/api/dlq/replay", {"id": entry["id"]})
+        assert st == 404
+
+    _scenario(cfg, body)
+
+
+def test_quota_answers_429_with_retry_after(tmp_path):
+    cfg = _config(tmp_path, admission=AdmissionConfig(ingest_rate=0.001, ingest_burst=1.0))
+
+    async def body(stack, http):
+        headers = {"X-Symbiont-Tenant": "burst"}
+        assert (await http("POST", "/api/submit-url", {"url": "http://x/doc"},
+                           headers=headers))[0] == 200
+        st, hdr, raw = await http("POST", "/api/submit-url", {"url": "http://x/doc"},
+                                  headers=headers)
+        assert st == 429 and json.loads(raw)["reason"] == "quota"
+        assert int(hdr["Retry-After"]) >= 1
+        # another tenant is untouched
+        assert (await http("POST", "/api/submit-url", {"url": "http://x/doc"},
+                           headers={"X-Symbiont-Tenant": "calm"}))[0] == 200
+
+    _scenario(cfg, body)
+
+
+def test_a7_leftovers_answer_501(tmp_path):
+    async def body(stack, http):
+        for method, path in (("GET", "/api/memory/census"), ("POST", "/api/profile/device")):
+            st, _, raw = await http(method, path, {} if method == "POST" else None)
+            assert st == 501 and "A7" in json.loads(raw)["message"]
+        st, _, raw = await http("GET", "/api/engine/executables")
+        rows = json.loads(raw)
+        assert st == 200 and "roofline" in rows and "executables" in rows
+
+    _scenario(_config(tmp_path), body)
+
+
+def _set(cfg, section, **fields):
+    for k, v in fields.items():
+        setattr(getattr(cfg, section), k, v)
+    return cfg
+
+
+@pytest.mark.parametrize("section,fields,item", [
+    ("bus", dict(url="symbus://127.0.0.1:4233"), "A8 stage 2"),
+    ("bus", dict(url="nats://127.0.0.1:4222"), "A8 stage 2"),
+    ("vector_store", dict(uri="http://qdrant:6333"), "A8 stage 2"),
+    ("graph_store", dict(uri="bolt://neo4j:7687"), "A8 stage 2"),
+    ("runner", dict(role="embed"), "A8 stage 2"),
+    ("runner", dict(heartbeat_s=0.5), "A8 stage 2"),
+    ("obs", dict(slo_p99_ms=["api.search=500"]), "A8 stage 2"),
+    ("gen_journal", dict(enabled=True), "A8 stage 2"),
+    ("lm", dict(ingest_train=True), "A14"),
+    ("parallel", dict(mesh_shape=[2, 1]), "A15"),
+    ("obs", dict(xprof_trace_dir="/srv/traces"), "A7"),
+    ("obs", dict(xprof_trace_max_s=5.0), "A7"),
+    ("obs", dict(hbm_census_groups=8), "A7"),
+])
+def test_unported_settings_raise_naming_their_item(tmp_path, section, fields, item):
+    cfg = _set(_config(tmp_path), section, **fields)
+    stack = SymbiontStack(cfg, bus=InprocBus())
+    with pytest.raises(ValueError, match=item):
+        asyncio.run(stack.start())
+    assert stack.api is None and not stack.services  # nothing started
+
+
+@pytest.mark.parametrize("explicit", [False, True])
+def test_postmortems_go_under_the_temp_dir_unless_a_dir_is_set(tmp_path, monkeypatch,
+                                                               explicit):
+    """JAX's default postmortem dir is a fixed /tmp path; the port's stack
+    resolves it under the process's temp dir, and takes a set dir as is."""
+    from symbiont_tpu_torch.obs.hbm import oom_forensics
+
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path / "tmpdir"))
+    cfg = _config(tmp_path)
+    if explicit:
+        cfg.obs = ObsConfig(hbm_postmortem_dir=str(tmp_path / "pm"))
+
+    async def body(stack, http):
+        return oom_forensics._dir
+
+    want = tmp_path / "pm" if explicit else tmp_path / "tmpdir" / "symbiont_hbm"
+    assert _scenario(cfg, body) == str(want)
+
+
+def test_a_mesh_argument_raises_naming_a15(tmp_path):
+    stack = SymbiontStack(_config(tmp_path), bus=InprocBus(), mesh=object())
+    with pytest.raises(ValueError, match="A15"):
+        asyncio.run(stack.start())
+
+
+@pytest.mark.parametrize("call,item", [
+    (lambda: asyncio.run(connect("symbus://127.0.0.1:4233")), "A8 stage 2"),
+    (lambda: make_vector_store(VectorStoreConfig(uri="http://q:6333")), "A8 stage 2"),
+    (lambda: make_graph_store(GraphStoreConfig(uri="bolt://n:7687")), "A8 stage 2"),
+])
+def test_unported_backends_raise_naming_their_item(call, item):
+    with pytest.raises(ValueError, match=item):
+        call()
+
+
+def test_the_default_stack_needs_cuda_and_never_falls_back(tmp_path):
+    """Without CUDA the default engine raises; nothing runs on the CPU
+    behind the caller's back."""
+    cfg = _config(tmp_path)
+    cfg.engine = EngineConfig(embedding_dim=32)
+
+    async def main():
+        bus = InprocBus()
+        stack = SymbiontStack(cfg, bus=bus)
+        try:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                await stack.start()
+            assert stack.engine is None
+        finally:
+            await stack.stop()
+            await bus.close()
+
+    asyncio.run(main())
