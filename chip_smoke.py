@@ -98,20 +98,38 @@ any failure exits non-zero:
              per layer per embed batch, fused query, rerank batch and LM
              prefill; /readyz, /metrics, /api/traces, /api/health/engine;
              sentences/s, search p50/p95 and TTFT beside [serve]'s,
-             [search]'s and [generate]'s.
+             [search]'s and [generate]'s;
+14. fleet  — the stack as supervised OS processes over the port's TCP bus
+             and broker (`ProcessSupervisor`, heartbeats), in the JAX
+             package's multi-process layouts, with the embed role and the
+             adopting generation role in this process so that B1 is
+             counted where it launches: 32 pages of 32 sentences through
+             the perception process and 20 2-hop searches with rerank
+             (hits = search_fused on the memory role's rows), a trace
+             stitched over 3 processes, /metrics and /api/fleet naming
+             every role, a scale-in drain; then 4 greedy GPT-2 float32
+             streams, the worker holding some SIGKILLed after their second
+             chunk and its journal's tails adopted by the survivor: SSE
+             seq gapless, tokens = generate(), journals drained,
+             gen.resumes counted, B1 against its plain version at every
+             stream and resume prefill bucket; kill to the first replayed
+             delta, the re-prefill's ms and each role's device memory.
 
 Launch counts are set to 0 just before each main path (phases 3-4, 5, 6,
-8, 9, 10, 11, 12 and 13) and read just after. The last two lines are a JSON object with
+8, 9, 10, 11, 12, 13 and 14) and read just after. The last two lines are a JSON object with
 every kernel's numbers and `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
+import asyncio
 import dataclasses
 import functools
 import json
+import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1859,16 +1877,18 @@ def greedy_trace(eng, prompt: str, max_new: int) -> tuple[list, list]:
     return tokens, gaps
 
 
-def b1_against_plain(rng, B: int, mc, S: int, device="cuda", tag="session") -> None:
+def b1_against_plain(rng, B: int, mc, S: int, device="cuda", tag="session",
+                     lens=None) -> None:
     """B1 at one LM prefill shape (causal, left-padded, the model's heads and
     dtype) against its plain version on the real query rows, out and lse,
-    printed under `tag`; its launch is not counted."""
+    printed under `tag`; its launch is not counted. `lens` gives the rows'
+    real lengths (default: one full row, the others drawn)."""
     from symbiont_tpu_torch.models.bert import torch_dtype
     from symbiont_tpu_torch.ops import flash_attention as fa
 
     NH, NKV, D, dtype = mc.num_heads, mc.kv_heads, mc.head_dim, torch_dtype(mc.dtype)
     gen = torch.Generator(device=device).manual_seed(SEED + 9)
-    lens = [S] + list(rng.integers(1, S + 1, B - 1))
+    lens = list(lens) if lens is not None else [S] + list(rng.integers(1, S + 1, B - 1))
     q = torch.randn((B, NH, S, D), generator=gen, device=device).to(dtype)
     k, v = (torch.randn((B, NKV, S, D), generator=gen, device=device).to(dtype)
             for _ in range(2))
@@ -1881,7 +1901,8 @@ def b1_against_plain(rng, B: int, mc, S: int, device="cuda", tag="session") -> N
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     ok, err = real_rows_within(out, ref, real, tol)
     lse_err = float(((lse - ref_lse).abs() / (1 + ref_lse.abs())).masked_fill(~real, 0).max())
-    name = f"causal q[{B}, {NH}, {S}, {D}] over {NKV} KV heads, {mc.dtype}"
+    name = (f"causal q[{B}, {NH}, {S}, {D}] over {NKV} KV heads, {mc.dtype}"
+            + ("" if lens[0] == S else f", {lens[0]} real rows"))
     check(ok, f"B1 {name}: |kernel - plain| {err:.4g} over {tol}")
     check(lse_err <= 1e-4, f"B1 {name}: lse relative error {lse_err:.3g} > 1e-4")
     print(f"[{tag}] flash_attn_fwd {name}: max_abs_err {err:.4g} on real query rows "
@@ -3296,15 +3317,701 @@ def stack_phase(rng, tmp, sizes=None, device="cuda", engine_kw=None, lm_kw=None,
             "b1_equation": out["b1"]["equation"]}
 
 
+FLEET = dict(pages=32, sentences=32, queries=20, top_k=5, gen=4, gen_new=64, chunk=16,
+             gen_bucket=(16, 64), heartbeat_s=0.5, timeout_s=180.0)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def config_env(section: str, fields: dict) -> dict:
+    """`fields` of one config section as the `SYMBIONT_<SECTION>_<FIELD>`
+    variables `load_config` reads (lists as JSON, booleans as 1/0)."""
+    def text(v):
+        if isinstance(v, bool):
+            return "1" if v else "0"
+        return json.dumps(v) if isinstance(v, (list, tuple)) else str(v)
+
+    return {f"SYMBIONT_{section.upper()}_{k.upper()}": text(v) for k, v in fields.items()}
+
+
+def serve_pages(pages: dict):
+    """A localhost HTTP server handing `pages` ({path: html}) to the
+    perception role's process, which fetches what it is told to; → the
+    server (its port at `server_address[1]`), serving on a thread."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Pages(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_GET(self):
+            body = pages.get(self.path, "").encode()
+            self.send_response(200 if body else 404)
+            self.send_header("Content-Type", "text/html")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Pages)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv
+
+
+def card_memory_used_mib() -> int | None:
+    """The card's memory in use over all processes, MiB, as nvidia-smi
+    reports it; None without nvidia-smi. (It lists no process of this
+    machine by pid, so a process's share is read as a difference.)"""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                              "--format=csv,noheader,nounits"], capture_output=True,
+                             text=True, timeout=30).stdout.split()
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return int(out[0]) if out and out[0].isdigit() else None
+
+
+def search_hops(tree) -> list:
+    """The spans of a stitched `/api/traces/<id>` tree in start order, as
+    (name, role, duration ms, self ms): self is the time no child covers."""
+    from symbiont_tpu_torch.obs.critical_path import annotate_self_times
+
+    annotate_self_times(tree)
+    rows, stack = [], list(tree.get("roots", []))
+    while stack:
+        n = stack.pop()
+        stack.extend(n["children"])
+        rows.append((n["start_ms"], n["name"], (n.get("fields") or {}).get("role", "gateway"),
+                     n["duration_ms"], n["self_ms"]))
+    return [r[1:] for r in sorted(rows)]
+
+
+def journal_chunks(path):
+    """The chunk records of one journal file, in order (done markers and a
+    torn last line skipped)."""
+    for line in Path(path).read_text().splitlines():
+        try:
+            rec = json.loads(line)
+        except ValueError:
+            continue
+        if isinstance(rec, dict) and "tokens" in rec:
+            yield rec
+
+
+def journal_records(path) -> dict:
+    """Per task id, the chunk records a journal file holds."""
+    out: dict = {}
+    for rec in journal_chunks(path):
+        out[rec["task_id"]] = out.get(rec["task_id"], 0) + 1
+    return out
+
+
+def journal_tokens(jdir) -> dict:
+    """Per task id, the most tokens any record in `jdir`'s journals (live
+    and rotated aside) holds: a stream's whole output once its last chunk
+    is journalled, whichever worker wrote it."""
+    out: dict = {}
+    for path in sorted(Path(jdir).glob("*.genlog*")):
+        for rec in journal_chunks(path):
+            if len(rec["tokens"]) >= len(out.get(rec["task_id"], [])):
+                out[rec["task_id"]] = list(rec["tokens"])
+    return out
+
+
+def exposition_roles(text: str) -> set:
+    """Every `role` label value of a /metrics exposition."""
+    return set(re.findall(r'role="([^"]+)"', text))
+
+
+def trace_processes(tree) -> int:
+    """Processes a stitched `/api/traces/<id>` tree spans: the gateway's
+    own spans, and one per pid its remote spans carry."""
+    pids, local = set(), [False]
+
+    def walk(n):
+        f = n.get("fields") or {}
+        if "pid" in f:
+            pids.add(f["pid"])
+        else:
+            local[0] = True
+        for c in n.get("children", []):
+            walk(c)
+
+    for root in tree.get("roots", []):
+        walk(root)
+    return len(pids) + local[0]
+
+
+async def _until(pred, what: str, limit: float, poll: float = 0.01):
+    t_end = time.monotonic() + limit
+    while True:
+        got = pred()
+        if asyncio.iscoroutine(got):
+            got = await got
+        if got:
+            return got
+        check(time.monotonic() < t_end, f"{what}: not reached in {limit:.0f} s")
+        await asyncio.sleep(poll)
+
+
+def _fleet_env(tmp, device) -> dict:
+    """What every supervised role's process gets: fast fleet publishes, its
+    stores under `tmp`, the checkout on its path, and the embed engine on
+    the CPU (no role process holds one: those that would run in this
+    process), so a role without a CUDA engine never opens a context."""
+    return {"SYMBIONT_OBS_FLEET_PUBLISH_S": "0.3", "SYMBIONT_ENGINE_FORCE_CPU": "1",
+            "SYMBIONT_VECTOR_STORE_DATA_DIR": str(tmp / "fleet_vs"),
+            "SYMBIONT_GRAPH_STORE_DATA_DIR": str(tmp / "fleet_gs"),
+            "SYMBIONT_TEXT_GENERATOR_MARKOV_STATE_PATH": str(tmp / "fleet_markov.json"),
+            "PYTHONPATH": str(Path(__file__).resolve().parent)}
+
+
+async def _fleet_search(rng, tmp, s, device, engine_kw, sup_log) -> dict:
+    """Ingest and search over a supervised deployment (JAX's
+    load_multiproc layout): the port's broker, gateway (2-hop search, as
+    there), perception, memory and graphgen as supervised processes, the
+    embed role (preprocessing + the engine plane for rerank) a
+    SymbiontStack in this process on the same bus, so its B1 launches are
+    counted where they happen."""
+    from symbiont_tpu_torch import subjects
+    from symbiont_tpu_torch.config import (BusConfig, EngineConfig, GraphStoreConfig, ObsConfig,
+                                           RunnerConfig, SymbiontConfig, TextGeneratorConfig,
+                                           VectorStoreConfig)
+    from symbiont_tpu_torch.ops import flash_attention as fa
+    from symbiont_tpu_torch.resilience.procsup import (ProcessSupervisor, pybroker_spec,
+                                                       runner_spec)
+    from symbiont_tpu_torch.runner import SymbiontStack
+
+    limit = s["timeout_s"]
+    html, docs = stack_pages(rng, s["pages"], s["sentences"])
+    n_sent = s["pages"] * s["sentences"]
+    pages = {url.split("pages.invalid", 1)[1]: body for url, body in html.items()}
+    srv = serve_pages(pages)
+    urls = [f"http://127.0.0.1:{srv.server_address[1]}{path}" for path in pages]
+    broker_port, api_port = _free_port(), _free_port()
+    bus_url = f"symbus://127.0.0.1:{broker_port}"
+    ecfg = EngineConfig(**{"attn_impl": "flash", "rerank_enabled": True,
+                           "force_cpu": device == "cpu", **(engine_kw or {})})
+    # at-least-once ingest, as JAX's layout runs it: the pipeline's subjects
+    # on a durable stream of the broker, acked after each side effect
+    durable = dict(durable=True, durable_ack_wait_s=30.0, durable_max_deliver=10)
+    common = {**_fleet_env(tmp, device), **config_env("bus", durable)}
+    hb = dict(heartbeat_s=s["heartbeat_s"], heartbeat_timeout_s=30.0)
+    # no exporter of the supervisor's own: it shares this process with a
+    # role, whose exporter already sends the process's registry (procsup.*
+    # included, which /api/fleet folds from any role) and spans
+    sup = ProcessSupervisor(bus_url=bus_url, stdio=sup_log, fleet_telemetry=False)
+    sup.add_worker(pybroker_spec(broker_port, str(tmp / "fleet_bus")))
+    sup.add_worker(runner_spec("gateway", "api", bus_url, env={
+        **common, "SYMBIONT_API_HOST": "127.0.0.1", "SYMBIONT_API_PORT": str(api_port),
+        "SYMBIONT_API_FUSED_SEARCH": "0"}, **hb))
+    sup.add_worker(runner_spec("perception", "perception", bus_url, env=common, **hb))
+    # the memory role's store on the host, one capacity block for the
+    # whole corpus (a search scores every row of the block)
+    sup.add_worker(runner_spec("memory", "vector_memory", bus_url, env={
+        **common, "SYMBIONT_VECTOR_STORE_DIM": str(ecfg.embedding_dim),
+        "SYMBIONT_VECTOR_STORE_SHARD_CAPACITY": str(max(256, n_sent))}, **hb))
+    sup.add_worker(runner_spec("graphgen", "knowledge_graph,text_generator", bus_url,
+                               env=common, **hb))
+    roles = ("gateway", "perception", "memory", "graphgen")
+    embed = SymbiontStack(SymbiontConfig(
+        engine=ecfg, bus=BusConfig(url=bus_url, **durable),
+        vector_store=VectorStoreConfig(data_dir=str(tmp / "fleet_embed_vs")),
+        graph_store=GraphStoreConfig(data_dir=str(tmp / "fleet_embed_gs")),
+        text_generator=TextGeneratorConfig(markov_state_path=None),
+        runner=RunnerConfig(services="preprocessing,engine", role="embed",
+                            heartbeat_s=s["heartbeat_s"]),
+        obs=ObsConfig(fleet_publish_s=0.3)))
+    loop = asyncio.get_running_loop()
+
+    def http(method, path, body=None, headers=None, accept="application/json"):
+        def call():
+            try:
+                return _http(api_port, method, path, body, timeout=limit, accept=accept,
+                             headers=headers)
+            except OSError:
+                return 0, b""  # the gateway's socket is not bound yet
+        return loop.run_in_executor(None, call)
+
+    async def ok_json(method, path, body=None, headers=None):
+        st, raw = await http(method, path, body, headers)
+        check(200 <= st < 300, f"[fleet] {method} {path}: HTTP {st} {raw[:300]!r}")
+        return json.loads(raw or b"{}")
+
+    async def store_count() -> int:
+        try:
+            reply = await embed.bus.request(subjects.TASKS_MEMORY_COUNT, b"{}", timeout=5.0)
+            return int(json.loads(reply.data).get("count") or 0)
+        except (TimeoutError, ConnectionError, ValueError):
+            return -1
+
+    out: dict = {}
+    t_boot = time.monotonic()
+    used0 = card_memory_used_mib()
+    await sup.start()
+    try:
+        for role in roles:
+            await sup.wait_role_up(role, after=t_boot - 1, timeout_s=limit)
+        # the four supervised roles hold no engine: they must not have
+        # opened a CUDA context (each would take hundreds of MiB)
+        used1 = card_memory_used_mib()
+        roles_mib = None if used0 is None else used1 - used0
+        check(roles_mib is None or roles_mib < 128,
+              f"[fleet] the card's memory rose {roles_mib} MiB while {', '.join(roles)} "
+              f"started: a role without an engine opened a CUDA context")
+        await embed.start()
+        await _until(lambda: _ready(api_port), "the gateway's /readyz", limit, poll=0.05)
+        out["boot_s"] = time.monotonic() - t_boot
+        eng = embed.engine
+        layers = eng.model_cfg.num_layers
+        stats0 = dict(eng.stats)
+        fa.launches = 0  # ------------------------------------------------- main path
+        t_ing = time.perf_counter()
+        for url in urls:
+            await ok_json("POST", "/api/submit-url", {"url": url})
+
+        async def ingested():
+            return await store_count() >= n_sent
+        await _until(ingested, f"ingest of {n_sent} sentences", limit, poll=0.05)
+        ingest_s = time.perf_counter() - t_ing
+        queries = [docs[i % len(docs)][1][i % s["sentences"]] for i in range(s["queries"])]
+        lat, answers = [], []
+        for i, q in enumerate(queries):
+            t1 = time.perf_counter()
+            body = await ok_json("POST", "/api/search/semantic",
+                                 {"query_text": q, "top_k": s["top_k"], "rerank": True},
+                                 headers=({"X-Trace-Id": "fleet-search"}
+                                          if i == len(queries) - 1 else None))
+            lat.append((time.perf_counter() - t1) * 1e3)
+            check(body["error_message"] is None and len(body["results"]) == s["top_k"],
+                  f"[fleet] search {q[:40]!r}: {body['error_message']}, "
+                  f"{len(body['results'])} results")
+            answers.append(body["results"])
+        counted = fa.launches  # -------------------------------------------- main path end
+        stats1 = dict(eng.stats)
+        embed_b = stats1["embed_batches"] - stats0["embed_batches"]
+        qsearch = stats1["qsearch_calls"] - stats0["qsearch_calls"]
+        rerank_b = stats1["rerank_batches"] - stats0["rerank_batches"]
+        want_b1 = layers * (embed_b + qsearch + rerank_b)
+        equation = (f"{counted} = {layers} x ({embed_b} embed batches + {qsearch} fused "
+                    f"queries + {rerank_b} rerank batches)")
+        check(counted == want_b1 and rerank_b >= len(queries) and embed_b >= 1,
+              f"[fleet] embed role's B1 launches: {equation} does not hold")
+        gw = (await ok_json("GET", "/api/metrics"))["counters"]
+        fallbacks = int(gw.get("api.fused_search_fallback", 0))
+        check(fallbacks == 0, f"[fleet] {fallbacks} searches took the 2-hop fallback")
+        # the federated surfaces: one stitched trace, one role-labelled
+        # exposition, the roll-up
+        all_roles = set(roles) | {"embed"}
+
+        hops = {"api.search", "preprocessing.handle", "vector_memory.search", "engine.rerank"}
+
+        async def stitched():
+            # every hop's span federated (each role publishes every 0.3 s)
+            st, raw = await http("GET", "/api/traces/fleet-search")
+            tree = json.loads(raw) if st == 200 else {}
+            return tree if (trace_processes(tree) >= 3 and len(tree.get("roots", [])) == 1
+                            and hops <= span_names(tree)) else None
+        tree = await _until(stitched, "a search trace stitched over 3 processes", limit, 0.1)
+
+        async def exposition():
+            st, raw = await http("GET", "/metrics", accept="text/plain")
+            text = raw.decode() if st == 200 else ""
+            return text if all_roles <= exposition_roles(text) else None
+        text = await _until(exposition, f"/metrics labelled with {sorted(all_roles)}", limit,
+                            0.1)
+        exposition_families(text)
+        fleet = await ok_json("GET", "/api/fleet")
+        check(all_roles <= set(fleet["roles"]), f"[fleet] /api/fleet lists "
+                                                f"{sorted(fleet['roles'])}, not every role")
+        # a scale-in drain: a second perception replica out, then drained
+        t_out = time.monotonic()
+        added = (await sup.scale_role("perception", 2))["added"]
+        await sup.wait_role_up(added[0], after=t_out, timeout_s=limit)
+        drained = (await sup.scale_role("perception", 1))["drained"]
+        _, replica, clean, drain_s = sup.drain_events[-1]
+        check(drained == added and replica == added[0] and clean,
+              f"[fleet] scale-in of {added}: drained {drained}, clean {clean}")
+        out.update({
+            "ingest": {"sentences": n_sent, "seconds": ingest_s,
+                       "sentences_per_s": n_sent / ingest_s, "embed_batches": embed_b},
+            "search": {"queries": len(queries), "p50_ms": float(np.percentile(lat, 50)),
+                       "p95_ms": float(np.percentile(lat, 95)), "fallbacks": fallbacks},
+            "b1": {"launches": counted, "equation": equation},
+            "trace_processes": trace_processes(tree), "roles": sorted(fleet["roles"]),
+            "search_hops": search_hops(tree),
+            "drain": {"replica": replica, "clean": clean, "seconds": drain_s},
+            "memory": {"embed (this process, allocated)": torch.cuda.memory_allocated()
+                       if device == "cuda" else None,
+                       "gateway, perception, memory, graphgen (card MiB)": roles_mib},
+        })
+    finally:
+        await embed.stop()
+        await sup.stop()
+        srv.shutdown()
+    check(all(w.proc is None or w.proc.poll() is not None for w in sup.workers.values()),
+          "[fleet] a supervised process outlived stop()")
+    # what came out: the memory role's rows, read back from its journal,
+    # hold the HTTP hits to search_fused on this process's engine
+    from symbiont_tpu_torch.graph.store import GraphStore
+    from symbiont_tpu_torch.memory.vector_store import VectorStore
+
+    store = VectorStore(VectorStoreConfig(dim=eng.model_cfg.hidden_size,
+                                          data_dir=str(tmp / "fleet_vs")), device=eng.device)
+    check(store.count() == n_sent, f"[fleet] the memory role holds {store.count()} rows, "
+                                   f"want {n_sent}")
+    graph = GraphStore(GraphStoreConfig(data_dir=str(tmp / "fleet_gs")))
+    docs_n = graph.counts()["Document"]
+    graph.close()
+    check(docs_n == s["pages"], f"[fleet] graph documents {docs_n} != {s['pages']}")
+    ties, max_rr = 0, 0.0
+    for q, res in zip(queries, answers):
+        want = store.search_fused(eng, q, 2 * s["top_k"])
+        got_ids = {r["qdrant_point_id"] for r in res}
+        if got_ids != {h.id for h in want[:s["top_k"]]}:
+            by_id = {h.id: h.score for h in want}
+            kth = want[s["top_k"] - 1].score
+            check(all(i in by_id and by_id[i] >= kth - 2.0 ** -8 for i in got_ids),
+                  f"[fleet] search {q[:40]!r}: hits {sorted(got_ids)} != search_fused beyond "
+                  f"a near-tie")
+            ties += 1
+        scores = eng.rerank(q, [r["payload"]["sentence_text"] for r in res])
+        max_rr = max(max_rr, float(np.abs(scores - np.array([r["score"] for r in res],
+                                                             np.float32)).max()))
+    check(max_rr <= RERANK_BAR, f"[fleet] rerank vs engine.rerank max |err| {max_rr:.4g}")
+    out["search"].update({"near_ties": ties, "rerank_max_abs_err": max_rr})
+    out["graph_documents"] = docs_n
+    return out
+
+
+def _ready(port: int) -> bool:
+    try:
+        return _http(port, "GET", "/readyz", timeout=5)[0] == 200
+    except OSError:
+        return False
+
+
+async def _fleet_durable(rng, tmp, s, device, lm_kw, sup_log) -> dict:
+    """Durable generation over a supervised deployment (JAX's
+    load_multiproc_gen layout): the port's broker, the gateway and gen1 as
+    supervised processes, gen2 a SymbiontStack in this process, both
+    generation roles on one GPT-2 dir at float32 with flash prefill and the
+    journal on. `gen` greedy streams are posted at once and watched on
+    /api/events; once every stream gen1 holds has sent its second chunk,
+    gen1 is SIGKILLed, the supervisor rescues its journal's tails and gen2
+    adopts them, re-prefilling each prompt + generated prefix through B1."""
+    from symbiont_tpu_torch import subjects
+    from symbiont_tpu_torch.config import (BusConfig, GenJournalConfig, LmConfig, ObsConfig,
+                                           RunnerConfig, SymbiontConfig, TextGeneratorConfig)
+    from symbiont_tpu_torch.obs.engine_timeline import engine_timeline
+    from symbiont_tpu_torch.ops import flash_attention as fa
+    from symbiont_tpu_torch.resilience.genlog import GenJournal
+    from symbiont_tpu_torch.resilience.procsup import (ProcessSupervisor, pybroker_spec,
+                                                       runner_spec)
+    from symbiont_tpu_torch.runner import SymbiontStack
+    from symbiont_tpu_torch.services.text_generator import TextGeneratorService
+    from symbiont_tpu_torch.utils.telemetry import metrics
+
+    limit = s["timeout_s"]
+    prompts = ragged_prompts(rng, *s["gen_bucket"], s["gen"])
+    tids = [f"fleet-gen-{i}" for i in range(len(prompts))]
+    jdir = tmp / "fleet_genlog"
+    lm_fields = {"enabled": True, "model_dir": str(tmp / "gpt2"), "dtype": "float32",
+                 "attn_impl": "flash", "stream_chunk": s["chunk"], **(lm_kw or {})}
+    broker_port, api_port = _free_port(), _free_port()
+    bus_url = f"symbus://127.0.0.1:{broker_port}"
+    common = _fleet_env(tmp, device)
+    hb = dict(heartbeat_s=s["heartbeat_s"], heartbeat_timeout_s=30.0)
+    sup = ProcessSupervisor(bus_url=bus_url, stdio=sup_log, fleet_telemetry=False)
+    sup.add_worker(pybroker_spec(broker_port, str(tmp / "fleet_gen_bus")))
+    sup.add_worker(runner_spec("gateway", "api", bus_url, env={
+        **common, "SYMBIONT_API_HOST": "127.0.0.1", "SYMBIONT_API_PORT": str(api_port),
+        "SYMBIONT_API_SSE_KEEPALIVE_S": "0.5"}, **hb))
+    gen1 = runner_spec("gen1", "text_generator", bus_url, env={
+        **common, **config_env("lm", lm_fields),
+        **config_env("gen_journal", {"enabled": True, "dir": str(jdir)})}, **hb)
+    # the runner's main through this script, for its id tokenizer (below)
+    gen1.argv = [sys.executable, str(Path(__file__).resolve()), "--fleet-worker"]
+    sup.add_worker(gen1)
+    gen2 = SymbiontStack(SymbiontConfig(
+        bus=BusConfig(url=bus_url), lm=LmConfig(**lm_fields),
+        gen_journal=GenJournalConfig(enabled=True, dir=str(jdir)),
+        text_generator=TextGeneratorConfig(markov_state_path=None),
+        runner=RunnerConfig(services="text_generator", role="gen2",
+                            heartbeat_s=s["heartbeat_s"]),
+        obs=ObsConfig(fleet_publish_s=0.3)))
+    loop = asyncio.get_running_loop()
+    sse = {t: [] for t in tids}
+    finals: dict = {}
+    published: list = []  # (wall t, task, seq) of every partial on the bus
+
+    async def sse_reader():
+        reader, writer = await asyncio.open_connection("127.0.0.1", api_port)
+        writer.write(b"GET /api/events HTTP/1.1\r\nHost: x\r\n\r\n")
+        await writer.drain()
+        try:
+            while True:
+                line = await reader.readline()
+                if not line:
+                    return
+                if line.startswith(b"data: "):
+                    ev = json.loads(line[6:])
+                    tid = ev.get("original_task_id")
+                    if tid in sse and "text_delta" in ev:
+                        sse[tid].append(ev)
+                    elif tid in sse:
+                        finals[tid] = ev["generated_text"]
+        finally:
+            writer.close()
+
+    async def bus_reader(sub):
+        async for msg in sub:
+            ev = json.loads(msg.data)
+            published.append((time.time(), ev["original_task_id"], ev["seq"]))
+
+    def post(tid, prompt):
+        return _http(api_port, "POST", "/api/generate-text",
+                     {"task_id": tid, "prompt": prompt, "max_length": s["gen_new"],
+                      "stream": True, "temperature": 0.0}, timeout=limit)
+
+    out: dict = {}
+    tasks = []
+    t_boot = time.monotonic()
+    used0 = card_memory_used_mib()
+    await sup.start()
+    try:
+        for role in ("gateway", "gen1"):
+            await sup.wait_role_up(role, after=t_boot - 1, timeout_s=limit)
+        used1 = card_memory_used_mib()  # gen1 up: its context, weights and cache
+        await gen2.start()
+        await _until(lambda: _ready(api_port), "the gateway's /readyz", limit, poll=0.05)
+        out["boot_s"] = time.monotonic() - t_boot
+        lm = gen2.lm
+        # every id out as text, in both generation roles (gen1's through
+        # --fleet-worker): the card has no tokenizer package, and the byte
+        # tokenizer would drop nearly every GPT-2 id, so chunks would send
+        # no delta
+        lm.tokenizer = IdTokenizer()
+        mc = lm.model_cfg
+        [svc] = [x for x in gen2.services if isinstance(x, TextGeneratorService)]
+        # B1 against its plain version at this path's prefill shapes: the
+        # buckets of the prompts' streams and of each resume's prompt +
+        # generated prefix after 1 to 3 chunks (one row, causal, GPT-2's
+        # heads, float32), each at the shortest real row it meets there
+        shapes: dict = {}
+        for prompt in prompts:
+            ids = lm.tokenizer.encode(prompt, 1 << 30)
+            for k in range(s["gen_new"] // s["chunk"]):
+                body = ids + [0] * (k * s["chunk"])
+                P = lm._prepare_prompts([""], s["gen_new"] - k * s["chunk"],
+                                        encoded=[body])[0].shape[1]
+                shapes[P] = min(shapes.get(P, P), len(body))
+        for P, n in sorted(shapes.items()):
+            b1_against_plain(rng, 1, mc, P, device, tag="fleet", lens=[n])
+        sub = await gen2.bus.subscribe(subjects.EVENTS_TEXT_GENERATED_PARTIAL)
+        tasks.append(asyncio.create_task(bus_reader(sub)))
+        tasks.append(asyncio.create_task(sse_reader()))
+        await asyncio.sleep(0.3)  # the SSE client is registered
+        prefill0 = lm_prefills(metrics)
+        resumes0, orphans0 = metrics.get("gen.resumes"), metrics.get("gen.orphans")
+        abandoned0 = metrics.get("gen.resume_abandoned")
+        n_events0 = len(engine_timeline.events())
+        fa.launches = 0  # ------------------------------------------------- main path
+        replies = await asyncio.gather(*(loop.run_in_executor(None, post, t, p)
+                                         for t, p in zip(tids, prompts)))
+        for tid, (st, raw) in zip(tids, replies):
+            check(200 <= st < 300, f"[fleet] POST /api/generate-text {tid}: HTTP {st}")
+        # who holds what: gen2 (this process) knows its own tasks; gen1's
+        # journal names its own, a record a chunk. Killed once each of its
+        # streams has journalled a chunk and one has journalled a second
+        # (the journal is written before a chunk is sent: the earliest sign)
+        held2, gen1_recs = set(), {}
+
+        def kill_now() -> bool:
+            path = jdir / "gen1.genlog"
+            gen1_recs.clear()
+            gen1_recs.update(journal_records(path) if path.exists() else {})
+            held2.update(set(svc._inflight) | set(svc._completed_recent))
+            return (len(held2) + len(gen1_recs) == len(tids)
+                    and bool(gen1_recs) and max(gen1_recs.values()) >= 2)
+
+        await _until(kill_now, "gen1's second journalled chunk", limit, poll=0.002)
+        os.kill(sup.pid("gen1"), signal.SIGKILL)
+        t_kill = time.time()
+        held1 = sorted(gen1_recs)  # read before the kill: the rescue rotates the file
+        await _until(lambda: all(t in finals for t in tids), "every stream's final event",
+                     limit)
+        await _until(lambda: all(not GenJournal(p).live_tails()
+                                 for p in jdir.glob("*.genlog")),
+                     "journals with no live tail", limit)
+        counted = fa.launches  # -------------------------------------------- main path end
+        prefills = lm_prefills(metrics) - prefill0
+        resumes = metrics.get("gen.resumes") - resumes0
+        orphans = metrics.get("gen.orphans") - orphans0
+        abandoned = metrics.get("gen.resume_abandoned") - abandoned0
+        resume_ev = [e for e in engine_timeline.events()[n_events0:] if e["kind"] == "resume"]
+        # every tail the supervisor rescued from gen1's journal (its streams
+        # not marked done when it died) was adopted, once
+        check(resumes == len(resume_ev) == orphans >= 1 and abandoned == 0,
+              f"[fleet] gen.orphans {orphans}, gen.resumes {resumes}, {len(resume_ev)} resume "
+              f"events, abandoned {abandoned}")
+        want_b1 = mc.num_layers * prefills
+        equation = (f"{counted} = {mc.num_layers} x ({prefills - resumes} stream prefills + "
+                    f"{resumes} resume re-prefills)")
+        check(counted == want_b1 and prefills == len(tids) - len(held1) + resumes,
+              f"[fleet] gen2's B1 launches: {equation} does not hold")
+        # the first partial of a resumed stream published after gen2 noted
+        # its first resume (what gen1 sent before its death can still be in
+        # flight after the kill): the replay of a journalled chunk
+        adopted_t = min(e["t"] for e in resume_ev)
+        first_replay = min((t for t, tid, _ in published if tid in held1 and t >= adopted_t),
+                           default=None)
+        check(first_replay is not None, "[fleet] no resumed delta published after the kill")
+        # what came out: seq gapless and unrepeated, partials = the final
+        # text, and every stream's tokens (from the journals) = generate()
+        ties = []
+        ids_of = journal_tokens(jdir)
+        tok = lm.tokenizer
+        wants = {i: [int(x) for x in re.findall(r"\[(\d+)\]",
+                                                  lm.generate(p, s["gen_new"], 0.0))]
+                 for i, p in enumerate(prompts)}
+        for i, t in enumerate(tids):
+            seqs = [e["seq"] for e in sse[t]]
+            check(seqs == list(range(len(seqs))) and sse[t][-1]["done"],
+                  f"[fleet] {t}: SSE seq {seqs} has a gap or a duplicate")
+            joined = "".join(e["text_delta"] for e in sse[t])
+            check(joined == finals[t] == tok.decode(ids_of.get(t, [])),
+                  f"[fleet] {t}: partials, final text and journalled tokens disagree")
+            if ids_of.get(t) != wants[i]:
+                ties += same_or_near_tie(f"fleet {t}", {i: ids_of.get(t, [])}, {i: wants[i]},
+                                         lm, {i: prompts[i]})
+        st, raw = await loop.run_in_executor(None, lambda: _http(
+            api_port, "GET", "/metrics", timeout=limit, accept="text/plain"))
+        text = raw.decode() if st == 200 else ""
+        check({"gateway", "gen1", "gen2"} <= exposition_roles(text),
+              f"[fleet] /metrics roles {sorted(exposition_roles(text))}")
+        fed = {m.group(1): float(m.group(2)) for m in re.finditer(
+            r'symbiont_device_bytes_in_use\{[^}]*role="([^"]+)"[^}]*\} (\S+)', text)}
+        out.update({
+            "streams": len(tids), "held_by_gen1": len(held1), "resumed": resumes,
+            "kill_to_first_replayed_delta_ms": (first_replay - t_kill) * 1e3,
+            "resume_prefill_ms": [e["prefill_ms"] for e in resume_ev],
+            "resume_tokens": [e["tokens"] for e in resume_ev],
+            "b1": {"launches": counted, "equation": equation},
+            "near_ties": ties, "gen_orphans": orphans,
+            "memory": {"gen2 (this process, allocated)": torch.cuda.memory_allocated()
+                       if device == "cuda" else None,
+                       "gen1 (its federated device.bytes_in_use)": fed.get("gen1"),
+                       "gateway and gen1 (card MiB)": (None if used0 is None
+                                                       else used1 - used0)},
+        })
+    finally:
+        for task in tasks:
+            task.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
+        await gen2.stop()
+        await sup.stop()
+    check(all(w.proc is None or w.proc.poll() is not None for w in sup.workers.values()),
+          "[fleet] a supervised process outlived stop()")
+    return out
+
+
+def fleet_phase(rng, tmp, sizes=None, device="cuda", engine_kw=None, lm_kw=None) -> dict:
+    """ROADMAP A8 stage 2 on the card: the port's stack as supervised OS
+    processes over its own TCP bus and broker, in the role layouts of the
+    JAX package's multi-process runs. Ingest and search: `pages` pages of
+    `sentences` sentences through /api/submit-url and `queries` searches
+    with rerank over HTTP, their hits held to search_fused on the memory
+    role's rows and their scores to engine.rerank; a stitched trace over 3
+    processes, the role-labelled /metrics and /api/fleet of every role, a
+    scale-in drain. Durable generation: `gen` greedy GPT-2 streams at
+    float32, the worker holding some SIGKILLed after their second chunk,
+    each stream's SSE seq gapless, its tokens `generate()`'s (or a named
+    near-tie), the journals drained, `gen.resumes` counted. B1 against its
+    plain version at every prefill shape of the generation roles, and its
+    launches counted in this process, which hosts the embed role and the
+    adopting generation role, and held to the launch equation. Every child
+    is stopped on every exit path. The GPT-2 dir is the one [generate]
+    writes in `tmp` (written here when absent)."""
+    s = dict(FLEET, **(sizes or {}))
+    tmp = Path(tmp)
+    if not (tmp / "gpt2" / "config.json").exists():
+        from symbiont_tpu_torch.models import gpt as gpt_mod
+
+        params = gpt_mod.init_params(torch.Generator(device=device).manual_seed(SEED + 8),
+                                     gpt_mod.GPTConfig.from_hf(GPT2_124M))
+        write_gpt_checkpoint(tmp / "gpt2", params, GPT2_124M, torch.float32)
+        del params
+    card = card_line() if device == "cuda" else "cpu"
+    with open(tmp / "fleet_workers.log", "ab") as log:
+        try:
+            search = asyncio.run(_fleet_search(rng, tmp, s, device, engine_kw, log))
+            durable = asyncio.run(_fleet_durable(rng, tmp, s, device, lm_kw, log))
+        except BaseException:
+            log.flush()
+            tail = (tmp / "fleet_workers.log").read_text(errors="replace")[-3000:]
+            print(f"[fleet] the supervised processes' last output:\n{tail}", file=sys.stderr)
+            raise
+    ing, se = search["ingest"], search["search"]
+    print(f"[fleet] ({card}) ingest and search over the port's broker: gateway, perception, "
+          f"memory, graphgen supervised (up in {search['boot_s']:.1f} s), embed in this "
+          f"process; {ing['sentences']} sentences in {ing['seconds']:.2f} s = "
+          f"{ing['sentences_per_s']:.1f} sentences/s; {se['queries']} searches with rerank "
+          f"(2-hop: the store is the memory role's), HTTP p50 {se['p50_ms']:.2f} ms, p95 "
+          f"{se['p95_ms']:.2f} ms, {se['fallbacks']} fallbacks, hits = search_fused on the "
+          f"memory role's rows ({se['near_ties']} near-ties), rerank max |err| "
+          f"{se['rerank_max_abs_err']:.3g}; graph {search['graph_documents']} documents",
+          flush=True)
+    print(f"[fleet] ({card}) the last search's spans (role: ms, self ms), in start order: "
+          + ", ".join(f"{name} ({role}: {ms:.2f}, {own:.2f})"
+                      for name, role, ms, own in search["search_hops"])
+, flush=True)
+    print(f"[fleet] ({card}) a search's trace stitched over {search['trace_processes']} "
+          f"processes; /metrics and /api/fleet name {', '.join(search['roles'])}; scale-in "
+          f"drained {search['drain']['replica']} cleanly in {search['drain']['seconds']:.2f} "
+          f"s; B1 launches {search['b1']['equation']}; device memory "
+          f"{search['memory']}", flush=True)
+    du = durable
+    print(f"[fleet] ({card}) durable generation: {du['streams']} greedy GPT-2 float32 streams "
+          f"x {s['gen_new']} tokens, chunks of {s['chunk']}; gen1 held {du['held_by_gen1']} "
+          f"and was SIGKILLed once one had journalled its second chunk; {du['resumed']} "
+          f"resumed on gen2 "
+          f"(gen.orphans {du['gen_orphans']}); SIGKILL to the first replayed delta "
+          f"{du['kill_to_first_replayed_delta_ms']:.1f} ms; resume re-prefill ms "
+          f"{[round(x, 3) for x in du['resume_prefill_ms']]} over "
+          f"{du['resume_tokens']} generated tokens; SSE seq gapless, tokens = generate() "
+          f"({len(du['near_ties'])} near-ties); journals drained; B1 launches "
+          f"{du['b1']['equation']}; device memory {du['memory']}", flush=True)
+    return {"launches": search["b1"]["launches"] + durable["b1"]["launches"],
+            "search": search, "durable": durable}
+
+
 def main(argv=()) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port's main path on one CUDA card.")
+    ap.add_argument("--fleet-worker", action="store_true",
+                    help="run one generation role of [fleet]: the runner's main, its config "
+                         "from SYMBIONT_* as the supervisor sets it, with the id tokenizer "
+                         "[fleet] reads GPT-2 through")
     ap.add_argument("--memory-history", action="store_true",
                     help="record the allocator's history from the start, so the [memory] "
                          "line names where each block still held was allocated (slows "
                          "every phase)")
     args = ap.parse_args(argv)
+    if args.fleet_worker:
+        from symbiont_tpu_torch import runner
+        from symbiont_tpu_torch.engine import lm
+
+        lm.ByteTokenizer = IdTokenizer  # what LmEngine takes without a tokenizer.json
+        asyncio.run(runner.main())
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
               file=sys.stderr)
@@ -3358,10 +4065,12 @@ def main(argv=()) -> int:
         del tinyllama
         stack = stack_phase(np.random.default_rng(SEED + 15), tmp, serve=serve)
         lap("stack")
+        fleet = fleet_phase(np.random.default_rng(SEED + 16), tmp)
+        lap("fleet")
     fwd = {"serve": serve["launches"][0], "train": train["launches"][0],
            "checkpoint": ck_launches, "quant": qt["launches"], "generate": gen["launches"],
            "session": sess["launches"], "paged": paged["launches"], "spec": spec["launches"],
-           "stack": stack["launches"]}
+           "stack": stack["launches"], "fleet": fleet["launches"]}
     fwd_launches = sum(fwd.values())
     print("[phases] host seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items())
           + f"; total {sum(wall.values()):.1f}. flash_attn_fwd launches on the main path: "
@@ -3393,7 +4102,9 @@ def main(argv=()) -> int:
                    "spec_launches": spec["launches"],
                    "spec": {k: v for k, v in spec.items() if k != "launches"},
                    "stack_launches": stack["launches"],
-                   "stack": {k: v for k, v in stack.items() if k != "launches"}}
+                   "stack": {k: v for k, v in stack.items() if k != "launches"},
+                   "fleet_launches": fleet["launches"],
+                   "fleet": {k: v for k, v in fleet.items() if k != "launches"}}
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

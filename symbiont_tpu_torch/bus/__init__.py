@@ -1,8 +1,9 @@
 """Message fabric — the DCN/control plane.
 
-Copy of the JAX package's `symbiont_tpu/bus/__init__.py`. The port has the
-in-process transport only; the TCP one below comes with ROADMAP A8 stage 2
-and `connect` refuses its URLs until then.
+Copy of the JAX package's `symbiont_tpu/bus/__init__.py`, with both
+transports: the in-process bus and the TCP client (`bus/tcp.py`) of the
+native broker or of its Python twin (`python -m
+symbiont_tpu_torch.bus.pybroker`).
 
 The reference glues its services with core NATS: plain subscribe (no queue
 groups — two replicas would double-process, SURVEY.md §1-L3 notes),

@@ -20,7 +20,7 @@ import json
 import os
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, List, Optional
 
 # Weight-quantization modes of the JAX package (docs/QUANTIZATION.md).
 QUANTIZE_MODES = ("none", "f16", "int8", "fp8")
@@ -478,6 +478,8 @@ class ObsConfig:
         if not self.hbm_postmortem_dir:
             raise ValueError("obs.hbm_postmortem_dir must be non-empty")
         # malformed SLO entries fail at boot, not silently never fire
+        from symbiont_tpu_torch.obs.watchdog import parse_thresholds
+
         parse_thresholds(self.slo_p99_ms)
 
 
@@ -685,6 +687,8 @@ class AutoscaleConfig:
             raise ValueError(
                 "autoscale.in_clean_passes and budget_ops must be >= 1")
         # malformed role bounds fail at boot, not silently never scale
+        from symbiont_tpu_torch.resilience.autoscale import parse_role_bounds
+
         parse_role_bounds(self.roles)
 
 
@@ -911,67 +915,3 @@ def _validate(cfg: SymbiontConfig) -> None:
         if post is not None:
             post()
     cfg.__post_init__()
-
-
-# The two boot-time parsers the sections validate with. The JAX package
-# keeps them beside their consumers (`obs/watchdog.py`,
-# `resilience/autoscale.py`), planes the port has not taken over yet
-# (ROADMAP A8 stage 2); these are copies, so the port's `load_config`
-# refuses what the JAX one refuses.
-def parse_thresholds(entries: List[str]) -> Dict[str, float]:
-    """``["api.search=500", "preprocessing.handle=2000"]`` → {span: p99_ms}.
-    Raises ValueError on malformed entries — a typo'd SLO must fail at boot,
-    not silently never fire."""
-    out: Dict[str, float] = {}
-    for entry in entries:
-        name, sep, raw = entry.partition("=")
-        name = name.strip()
-        if not sep or not name:
-            raise ValueError(
-                f"SLO threshold {entry!r} must look like 'span.name=p99_ms'")
-        try:
-            limit = float(raw)
-        except ValueError:
-            raise ValueError(
-                f"SLO threshold {entry!r}: {raw!r} is not a number") from None
-        if limit <= 0:
-            raise ValueError(f"SLO threshold {entry!r} must be positive")
-        out[name] = limit
-    return out
-
-
-@dataclass(frozen=True)
-class RoleBounds:
-    """Replica bounds of one elastic role ("embed=1:4")."""
-
-    min: int
-    max: int
-
-
-def parse_role_bounds(spec: str) -> Dict[str, RoleBounds]:
-    """`"embed=1:4,decode=1:2"` → {"embed": RoleBounds(1, 4), ...}.
-    Raises ValueError on malformed entries — a typo'd bound must fail at
-    boot, not silently never scale. min >= 1 (the base replica never
-    retires), max >= min."""
-    out: Dict[str, RoleBounds] = {}
-    for entry in (spec or "").split(","):
-        entry = entry.strip()
-        if not entry:
-            continue
-        name, sep, raw = entry.partition("=")
-        name = name.strip()
-        lo, sep2, hi = raw.partition(":")
-        if not sep or not sep2 or not name:
-            raise ValueError(
-                f"autoscale role {entry!r} must look like 'role=min:max'")
-        try:
-            bounds = RoleBounds(int(lo), int(hi))
-        except ValueError:
-            raise ValueError(
-                f"autoscale role {entry!r}: bounds must be integers"
-            ) from None
-        if bounds.min < 1 or bounds.max < bounds.min:
-            raise ValueError(
-                f"autoscale role {entry!r}: need 1 <= min <= max")
-        out[name] = bounds
-    return out

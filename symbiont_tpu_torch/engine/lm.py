@@ -31,7 +31,9 @@ cap and a forecast of the fresh device bytes; `engine/batcher.py`'s
 `GenBatcher` drives sessions for concurrent requests. Each stream and each
 session samples from a `torch.Generator` of its own, seeded by one draw
 from the engine's under the lock, so its tokens do not depend on what other
-callers interleave.
+callers interleave. A stream draws each chunk (or speculative round) from
+a generator seeded by its base seed and the chunk's index, so a journal
+that records the two restores the draws at any chunk boundary.
 
 Paged KV and speculative decoding, as in JAX: with `kv_layout="paged"`
 sessions keep their K/V in one engine-wide page pool (`kv/pool.py`), pages
@@ -56,10 +58,19 @@ device-memory ledger (the pool claims itself), the session KV gauges
 usage, dispatch-ledger rows per prefill, chunk, round and splice, and
 `maybe_profile("engine.generate")` around each batch.
 
-Not ported yet: tensor-parallel decode over a mesh (ROADMAP A15), and the
-generation journal with `generate_stream(resume=...)` and the radix
-`peek` it reads (A8). The settings that would switch those on raise
-`ValueError` naming their item; none is ignored.
+Durable generation, as in JAX: with a `journal` (resilience/genlog.py)
+attached, every stream with a `task_id` and every session row with one
+appends a resume snapshot at each chunk boundary, from host values already
+in hand; `generate_stream(resume=tail)` re-prefills the journalled prompt +
+generated prefix (the prefill a cold stream runs, B1 under "flash") and
+continues it, replaying the last journalled chunk at its original `seq`.
+The journal's `key` of a sampled stream is `[base seed]` and `key_splits`
+the chunks it consumed: a sampled tail resumes only on this package's
+engine (a JAX tail's threefry key is refused), a greedy one (`key: null`)
+on either.
+
+Not ported yet: tensor-parallel decode over a mesh (ROADMAP A15). The
+settings that would switch it on raise `ValueError` naming the item.
 """
 
 from __future__ import annotations
@@ -95,6 +106,9 @@ from symbiont_tpu_torch.resilience.admission import DEFAULT_TENANT
 from symbiont_tpu_torch.utils.telemetry import maybe_profile, metrics
 
 log = logging.getLogger(__name__)
+
+# odd 64-bit stride between the seeds of a stream's successive chunks
+_CHUNK_SEED_STRIDE = 0x9E3779B97F4A7C15
 
 
 class ByteTokenizer:
@@ -231,6 +245,12 @@ class LmEngine:
         self.tokenizer = tokenizer
         self._generator = self._new_generator(cfg.seed)
         self._lock = threading.Lock()
+        # durability plane (resilience/genlog.py): when set, streams and
+        # session rows with a task_id journal a resume snapshot at each
+        # chunk boundary, from host values in hand (no device sync of its
+        # own); the service owns the terminal mark_done, so a crash in the
+        # publish window still resumes
+        self.journal = None
         # prefill shapes (rows, prompt bucket, new bucket) already run by
         # session starts and admissions: the batcher's guess of whether an
         # admission prefill is cheap (GenBatcher._filter_candidates)
@@ -332,26 +352,25 @@ class LmEngine:
     def _new_generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
 
-    def _child_generator(self) -> torch.Generator:
-        """A generator of its own for one stream or session, seeded by one
-        draw from the engine's. The caller holds the engine lock."""
+    def _draw_seed(self) -> int:
+        """One draw from the engine's generator. The caller holds the
+        engine lock."""
         seed = torch.randint(0, 2 ** 62, (1,), generator=self._generator, device=self.device)
-        return self._new_generator(int(seed.item()))
+        return int(seed.item())
+
+    def _child_generator(self) -> torch.Generator:
+        """A generator of its own for one session, seeded by one draw from
+        the engine's. The caller holds the engine lock."""
+        return self._new_generator(self._draw_seed())
+
+    def _chunk_generator(self, base: int, n: int) -> torch.Generator:
+        """The generator of a stream's n-th chunk or round, a function of
+        its base seed and n only."""
+        return self._new_generator((base + n * _CHUNK_SEED_STRIDE) % (1 << 63))
 
     def _live_sessions(self) -> list:
         with self._sessions_lock:
             return [s for s in self._sessions if not s.done()]
-
-    @property
-    def journal(self):
-        """The generation journal of the JAX engine: not ported (ROADMAP
-        A8); only None may be set."""
-        return None
-
-    @journal.setter
-    def journal(self, value) -> None:
-        if value is not None:
-            raise ValueError("the generation journal is not ported (ROADMAP A8: the stack)")
 
     def _register_gauges(self) -> None:
         """The LM plane's gauges and device-memory claims, weakref-bound so
@@ -633,37 +652,88 @@ class LmEngine:
         k + 1 tokens, or a cache with more slots, rounds differently from
         one-token steps (bf16 random-weight logits tie often).
 
+        Durability: with `task_id` set and a journal attached, every chunk
+        appends a resume snapshot before its delta is yielded, so a crash
+        anywhere leaves a tail whose replay re-emits at most one delivered
+        chunk (deduped by seq at the SSE hub) and loses none. `resume` is
+        such a tail: the journalled prompt + generated prefix is
+        re-prefilled exactly (content-relative positions continue greedy
+        decode token for token), the last journalled chunk's delta is
+        replayed at its original seq, and the chunk generators go on from
+        the journalled base seed and chunk count. A snapshot taken in the
+        spec state journals its last token as the un-ingested `pending`:
+        it stays out of the re-prefill, and the slot margin is restored so
+        every mode and clamp decision replays. The orphan is adopted in
+        this engine's journal before anything is emitted.
+
         The engine lock is held around the prefill and each chunk or round,
         never across a yield, so a consumer that stops reading starves no
         other caller; the stream's caches belong to this generator frame, so
         nothing that runs between its chunks can touch them. `stats` and the
         usage ledger are charged in `finally`, also when the consumer
-        closes the stream. `task_id` and `stream` are taken as the JAX
-        engine takes them, and without a journal they record nothing;
-        `resume=` needs the journal (ROADMAP A8) and raises."""
-        if resume is not None:
-            raise ValueError("generate_stream(resume=...) needs the generation journal, "
-                             "which is not ported (ROADMAP A8: the stack)")
+        closes the stream."""
         cfg = self.config
         temperature = float(cfg.temperature if temperature is None else temperature)
         top_k = int(cfg.top_k if top_k is None else top_k)
         tenant = tenant or DEFAULT_TENANT
         eos_id = int(getattr(self.tokenizer, "eos_id", -1))
+        jr = self.journal
+        journaling = jr is not None and jr.enabled and bool(task_id)
         spec_on = self._draft is not None
-        prompt_ids, prompt_mask, new_bucket = self._prepare_prompts(
-            [prompt], max_new_tokens + (self.spec_k if spec_on else 0))
-        # the cache has new_bucket decode slots: the largest bucket caps
-        max_new_tokens = min(max_new_tokens, new_bucket)
+        spec_cap = spec_on  # at the stream's start; spec_on may fall back
+        headroom = self.spec_k if spec_on else 0
+        all_tokens: list = []
+        seq = 0
+        chunk_start = 0
+        decoder = IncrementalDecoder(self.tokenizer)
+        if resume is not None:
+            all_tokens = [int(t) for t in (resume.get("tokens") or [])]
+            chunk_start = int(resume.get("chunk_start") or 0)
+            seq = int(resume.get("seq") or 0)
+            decoder._emitted = resume.get("text") or ""
+            my_prompt_ids = [int(t) for t in resume["prompt_ids"]]
+            # a spec-state snapshot's last token was not in the dead
+            # worker's cache: it stays out of the re-prefill and keeps its
+            # slot (the + cut)
+            cut = 1 if (spec_on and resume.get("spec") and all_tokens) else 0
+            body = all_tokens[:len(all_tokens) - cut]
+            remaining = max(1, max_new_tokens - len(all_tokens) + cut)
+            # the spec/plain decision and the plain-chunk clamp read the
+            # slot margin, so a resume reproduces the journalled margin
+            # exactly; the original bucket held it, so a bucket fits
+            spec_slots = resume.get("spec_slots") if spec_on else None
+            want_slots = (max(remaining, int(spec_slots)) if spec_slots is not None
+                          else remaining + headroom)
+            prompt_ids, prompt_mask, new_bucket = self._prepare_prompts(
+                [""], want_slots, encoded=[my_prompt_ids + body])
+            max_new_tokens = min(max_new_tokens, len(all_tokens) + new_bucket - cut)
+        else:
+            cut = 0
+            prompt_ids, prompt_mask, new_bucket = self._prepare_prompts(
+                [prompt], max_new_tokens + headroom)
+            # the cache has new_bucket decode slots: the largest bucket caps
+            max_new_tokens = min(max_new_tokens, new_bucket)
+            my_prompt_ids = prompt_ids[0][prompt_mask[0].astype(bool)].tolist()
         usage.note(tenant, tokens_in=int(prompt_mask[0].sum()))
         chunk = min(cfg.stream_chunk, new_bucket)
         bb, P = prompt_ids.shape
         sampling = dict(temperature=temperature, top_k=top_k, eos_id=eos_id)
-        all_tokens: list = []
-        decoder = IncrementalDecoder(self.tokenizer)
         decode_s = 0.0
+        key_base = None  # what the journal records of a sampled stream's draws
+        n_splits = 0  # chunk generators consumed from the base seed
         with self._lock:
             t0 = time.perf_counter()  # inside the lock: this stream's own work
-            gen = self._child_generator()
+            base = self._draw_seed()
+            if resume is not None and resume.get("key") is not None:
+                key = [int(x) for x in resume["key"]]
+                if len(key) != 1:
+                    raise ValueError(
+                        f"resume key of {len(key)} words: a sampled tail resumes only "
+                        "on the package whose engine journalled it")
+                base, key_base = key[0], key
+                n_splits = int(resume.get("key_splits") or 0)
+            elif journaling and temperature > 0.0:
+                key_base = [base]
             with torch.inference_mode():
                 cache, logits, kv_valid, pos = self._prefill(self.params, prompt_ids,
                                                              prompt_mask, new_bucket)
@@ -683,8 +753,45 @@ class LmEngine:
         slots_used = 0
         stop = False
         S = self.spec_k + 1
+        if resume is not None and spec_on and resume.get("spec_slots") is not None:
+            slots_used = max(0, new_bucket - int(resume["spec_slots"]))
+        if cut:
+            # a spec-state tail: its last token is the pending one
+            pending = torch.tensor([all_tokens[-1]], dtype=torch.long, device=self.device)
+
+        def _snapshot(text_before: str) -> dict:
+            return {"task_id": task_id, "tenant": tenant, "stream": stream,
+                    "prompt_ids": my_prompt_ids, "max_new": int(max_new_tokens),
+                    "temperature": temperature, "top_k": top_k,
+                    "tokens": list(all_tokens), "chunk_start": chunk_start,
+                    "text": text_before, "seq": seq,
+                    "key": key_base, "key_splits": n_splits,
+                    # tokens[-1] is the un-ingested pending token
+                    "spec": bool(spec_on and pending is not None and not stop),
+                    # the slot margin a resume replays its decisions from
+                    "spec_slots": (new_bucket - slots_used) if spec_cap else None}
+
         try:
+            if resume is not None:
+                # adopt the orphan in this journal before emitting anything:
+                # a crash before the next chunk must leave a tail here too
+                if journaling:
+                    jr.append(_snapshot(decoder._emitted))
+                # the prefix tokens still radix-resident here (a side-effect
+                # free probe; the dense re-prefill does not read them)
+                warm = 0
+                if self.radix is not None:
+                    ids_r, pads = _right_aligned_rows(prompt_ids, prompt_mask)
+                    warm = self.radix.peek(P, int(pads[0]), ids_r[0])
+                engine_timeline.note_resume(tokens=len(all_tokens), prefill_ms=dt * 1000.0,
+                                            warm_tokens=warm)
+                delta = decoder.push(all_tokens)
+                if delta:  # the journalled last chunk again, at its seq
+                    yield delta
+                    seq += 1
             while len(all_tokens) < max_new_tokens and not stop:
+                gen = self._chunk_generator(base, n_splits)
+                n_splits += 1
                 left = max_new_tokens - len(all_tokens)
                 if spec_on and new_bucket - slots_used < S + left - (pending is None):
                     # no room for a worst-case round and a plain finish: leave
@@ -760,6 +867,7 @@ class LmEngine:
                     pairs = zip(host[0], host[1])
                 # the fetch above: the stream's one device -> host sync
                 dispatch_ledger.note_host_sync("LmEngine._generate_stream_impl")
+                chunk_start = len(all_tokens)
                 for t, c in pairs:
                     if not c:  # EOS (or a slot after it): the stream ends here
                         stop = True
@@ -767,9 +875,14 @@ class LmEngine:
                     all_tokens.append(int(t))
                     if len(all_tokens) >= max_new_tokens:
                         break
+                # journal before the yield: a kill in the yield window
+                # replays this chunk at this seq (deduped), never drops it
+                if journaling:
+                    jr.append(_snapshot(decoder._emitted))
                 delta = decoder.push(all_tokens)
                 if delta:
                     yield delta
+                    seq += 1
             final_delta = decoder.flush(all_tokens)
             if final_delta:
                 yield final_delta
@@ -790,7 +903,8 @@ class LmEngine:
         boundaries: drive it with `session.step()`, admit with
         `session.admit()` or `prepare_admit` + `splice`. `tenants` (one per
         prompt) routes the usage ledger; `task_ids` are taken as the JAX
-        engine takes them and, without a journal, record nothing."""
+        engine takes them: with a journal attached, each row with one
+        journals a resume snapshot at every chunk boundary."""
         return BatchSession(self, prompts, max_new_tokens, temperature, top_k,
                             tenants=tenants, task_ids=task_ids)
 
@@ -941,15 +1055,21 @@ class _SessionRow:
     tenant it bills, when its prefill started (`created`: a spliced row's
     TTFT counts its own prefill and wait), when its first token reached
     the host, and whether its whole prompt was a radix hit (its prefill
-    skipped)."""
+    skipped). `task_id` keys the row's journal snapshots (a row without
+    one is not journalled) and `prompt_ids` are its exact post-trim prompt
+    ids, what a resume re-prefills."""
 
-    __slots__ = ("tag", "want", "tokens", "tenant", "created", "first_tok", "radix_hit")
+    __slots__ = ("tag", "want", "tokens", "tenant", "created", "first_tok", "radix_hit",
+                 "task_id", "prompt_ids")
 
     def __init__(self, tag: int, want: int, tenant: str = DEFAULT_TENANT,
-                 created: Optional[float] = None, radix_hit: bool = False):
+                 created: Optional[float] = None, radix_hit: bool = False,
+                 task_id: Optional[str] = None, prompt_ids=None):
         self.tag = tag
         self.want = want
         self.tokens: list = []
+        self.task_id = task_id
+        self.prompt_ids = prompt_ids
         self.tenant = tenant
         self.created = time.perf_counter() if created is None else created
         self.first_tok: Optional[float] = None
@@ -1006,7 +1126,10 @@ class BatchSession:
         self._ks = lm._norm_sampling_rows(top_k, cfg.top_k, self.bb, n, int)
         self._eos = int(getattr(lm.tokenizer, "eos_id", -1))
         row_tenants = _norm_tenants(tenants, n)
-        self.rows: list = [_SessionRow(i, min(int(w), self.new_bucket), tenant=row_tenants[i])
+        row_task_ids = list(task_ids) if task_ids else [None] * n
+        self.rows: list = [_SessionRow(i, min(int(w), self.new_bucket), tenant=row_tenants[i],
+                                       task_id=row_task_ids[i],
+                                       prompt_ids=prompt_ids[i][prompt_mask[i] > 0].tolist())
                            for i, w in enumerate(max_new_tokens)]
         self._next_tag = n
         self.rows += [None] * (self.bb - n)  # free rows from the batch bucket
@@ -1339,6 +1462,8 @@ class BatchSession:
                 "temps": lm._norm_sampling_rows(temperature, cfg.temperature, bb2, k, float),
                 "ks": lm._norm_sampling_rows(top_k, cfg.top_k, bb2, k, int),
                 "tenants": _norm_tenants(tenants, k), "n_tokens": n_tokens,
+                "task_ids": list(task_ids) if task_ids else [None] * k,
+                "prompt_row_ids": [ids[j, :n_tokens[j]].tolist() for j in range(k)],
                 "prefix_share": share, "t_enter": t_enter, "prefill_s": prefill_s}
 
     def _take_rows(self, prep: dict) -> tuple:
@@ -1381,7 +1506,9 @@ class BatchSession:
                 row_map[i] = j
                 self.rows[i] = _SessionRow(self._next_tag, prep["max_new"][j],
                                            tenant=prep["tenants"][j], created=prep["t_enter"],
-                                           radix_hit=self._paged and prep["cache"] is None)
+                                           radix_hit=self._paged and prep["cache"] is None,
+                                           task_id=prep["task_ids"][j],
+                                           prompt_ids=prep["prompt_row_ids"][j])
                 usage.note(self.rows[i].tenant, tokens_in=prep["n_tokens"][j])
                 tags.append(self._next_tag)
                 self._next_tag += 1
@@ -1500,6 +1627,10 @@ class BatchSession:
                 self._release_row_pages(i)
                 usage.note(row.tenant, tokens_out=len(row.tokens))
                 engine_timeline.note_cancel()
+                if self.lm.journal is not None and row.task_id:
+                    # a cancelled row is terminal: it must never come back
+                    # as a resume after a later worker death
+                    self.lm.journal.mark_done(row.task_id)
                 with self.lm._lock:
                     self.lm.stats["cancelled"] = self.lm.stats.get("cancelled", 0) + 1
                     self.lm.stats["tokens_generated"] += len(row.tokens)
@@ -1729,10 +1860,12 @@ class BatchSession:
     def _emit_and_finish(self, pairs) -> list:
         """Chunk-boundary bookkeeping of each live row over host values in
         hand (`pairs(i)` iterates row i's (token, counted) run; after a spec
-        round rows have runs of their own lengths): tokens, TTFT,
-        finishes."""
+        round rows have runs of their own lengths): tokens, journal
+        snapshots, TTFT, finishes."""
         now = time.perf_counter()
         finished = []
+        jr = self.lm.journal
+        journaling = jr is not None and jr.enabled
         for i, row in enumerate(self.rows):
             if row is None:
                 continue
@@ -1745,6 +1878,18 @@ class BatchSession:
                 row.tokens.append(int(t))
                 if len(row.tokens) >= row.want:
                     break
+            if journaling and row.task_id and row.prompt_ids is not None:
+                # the row's resume snapshot, from the host values above. A
+                # row carries no stream seq and no generator state: the
+                # session's draws are shared by its rows, so a greedy row
+                # resumes token for token and a sampled one on fresh draws
+                jr.append({"task_id": row.task_id, "tenant": row.tenant, "stream": False,
+                           "prompt_ids": row.prompt_ids, "max_new": int(row.want),
+                           "temperature": self._temps[i], "top_k": self._ks[i],
+                           "tokens": list(row.tokens), "chunk_start": len(row.tokens),
+                           "text": "", "seq": 0, "key": None, "key_splits": 0,
+                           # tokens[-1] is the pending token, not in the cache
+                           "spec": self._pending is not None})
             if not had_tokens and row.tokens and row.first_tok is None:
                 # engine-side TTFT: the row's prefill started → its first
                 # token on the host

@@ -13,7 +13,10 @@ host values already in hand (no new device syncs):
   paged engines add the prompt tokens served from radix-shared pages), a
   `finish` per request (tokens, engine-side TTFT; paged engines add
   whether its whole prompt was a radix hit) and a `cancel` per aborted
-  one; the generation batcher notes its queue depth (`queue`); at a chunk
+  one, and a `resume` per orphaned stream adopted from a dead worker's
+  journal (tokens it had generated, the re-prefill's ms, the prefix tokens
+  still radix-resident here); the generation batcher notes its queue depth
+  (`queue`); at a chunk
   boundary, at most every `_MEM_SAMPLE_S` seconds, the device-memory
   ledger's claims land as one `mem` event;
 - embed half: `TorchEngine._note_padding` notes one `flush` per embed or
@@ -25,8 +28,7 @@ hit and cold TTFT, live pages) and spec view (rounds, acceptance, draft and
 verify ms) appearing only when such events exist, so dense, spec-off
 recorders read as before. `configure` sizes the ring and the prompt window
 at boot (a capacity of 0 turns the recorder off); the gateway renders the
-Perfetto export (`obs/chrome_trace.py`). The resume event comes with the
-generation journal (ROADMAP A8 stage 2).
+Perfetto export (`obs/chrome_trace.py`).
 """
 
 from __future__ import annotations
@@ -38,8 +40,8 @@ from typing import List, Optional, Sequence
 
 from symbiont_tpu_torch.utils.telemetry import Metrics, metrics as _global_metrics
 
-STEP, ADMIT, FINISH, CANCEL, QUEUE, FLUSH, MEM = (
-    "step", "admit", "finish", "cancel", "queue", "flush", "mem")
+STEP, ADMIT, FINISH, CANCEL, QUEUE, FLUSH, RESUME, MEM = (
+    "step", "admit", "finish", "cancel", "queue", "flush", "resume", "mem")
 
 # prompt tokens kept per entry of the prefix probe: overlap past this depth
 # counts as full depth, which bounds the cost of one admit
@@ -186,6 +188,23 @@ class EngineTimeline:
 
     def note_cancel(self) -> None:
         self._append({"kind": CANCEL, "t": time.time()})
+
+    def note_resume(self, tokens: int, prefill_ms: float,
+                    warm_tokens: Optional[int] = None) -> None:
+        """One orphaned generation stream adopted on this engine (a
+        journal tail, resilience/genlog.py): `tokens` the dead worker had
+        generated, `prefill_ms` of re-prefilling prompt + generated prefix,
+        `warm_tokens` of that prefix still radix-resident here (kv/radix.py
+        `peek`). Counts `gen.resumes` (and `gen.resume_warm_tokens`), the
+        adopting side of the supervisor's `gen.orphans`."""
+        self.registry.inc("gen.resumes")
+        if warm_tokens:
+            self.registry.inc("gen.resume_warm_tokens", int(warm_tokens))
+        ev = {"kind": RESUME, "t": time.time(),
+              "tokens": int(tokens), "prefill_ms": float(prefill_ms)}
+        if warm_tokens is not None:
+            ev["warm_tokens"] = int(warm_tokens)
+        self._append(ev)
 
     def note_queue_depth(self, queue: str, depth: int) -> None:
         self._append({"kind": QUEUE, "t": time.time(), "queue": str(queue),

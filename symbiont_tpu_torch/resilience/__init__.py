@@ -1,6 +1,7 @@
 """The port's resilience plane, copies of the JAX package's modules:
 `admission` (quotas, fair queues, deadlines, the degradation ladder),
 `dlq` (the dead-letter store behind `GET /api/dlq`), `faults` (seeded
-fault injection) and `supervisor` (restart-with-backoff for service
-loops). The breaker, the store wrappers, the process supervisor, the
-autoscaler and the generation journal are ROADMAP A8 stage 2."""
+fault injection), `supervisor` (restart-with-backoff for service loops),
+`breaker` and `stores` (the circuit breaker and the spill wrappers of the
+external stores), `procsup` (the process supervisor), `autoscale` (the
+elastic autoscaler and its drains) and `genlog` (the generation journal)."""

@@ -1,23 +1,27 @@
 """Single-process runner: bus + engine + all services.
 
 The port's counterpart of the JAX package's `symbiont_tpu/runner.py`
-(ROADMAP A8 stage 1): the same services, subjects, wire bytes and HTTP
-routes, with `TorchEngine` (`attn_impl="flash"` puts the hand-written
-flash-attention kernel under every embed flush, fused query and rerank
-batch) and `LmEngine` + `GenBatcher` behind `text_generator` when
-`lm.enabled`. It runs on the CUDA device unless the config asks for the CPU
-(`engine.force_cpu`, `lm.force_cpu`), and never falls back to it. The
-settings of planes not ported yet raise a `ValueError` naming their ROADMAP
-item before anything starts (`_refuse_unported`): the TCP bus, the external
-stores, the supervisor/heartbeat/fleet plane, the SLO watchdog, the
-generation journal (A8 stage 2), the online LM trainer (A14), a serving
-mesh over more than one device (A15), and the on-demand device trace and
+(ROADMAP A8): the same services, subjects, wire bytes and HTTP routes, with
+`TorchEngine` (`attn_impl="flash"` puts the hand-written flash-attention
+kernel under every embed flush, fused query and rerank batch) and
+`LmEngine` + `GenBatcher` behind `text_generator` when `lm.enabled`. It
+runs on the CUDA device unless the config asks for the CPU
+(`engine.force_cpu`, `lm.force_cpu`), and never falls back to it. As in
+JAX, `bus.url` picks the in-process bus or the TCP bus to a broker,
+`vector_store.uri` / `graph_store.uri` the external stores behind their
+breakers, `runner.role` / `runner.heartbeat_s` the fleet plane, the
+heartbeats and the drain protocol of a supervised role
+(resilience/procsup.py), `obs.slo_p99_ms` the SLO watchdog and
+`gen_journal.enabled` the generation journal. The settings of parts not
+ported yet raise a `ValueError` naming their ROADMAP item before anything
+starts (`_refuse_unported`): the online LM trainer (A14), a serving mesh
+over more than one device (A15), and the on-demand device trace and
 live-array census settings (A7's leftovers).
 
 The reference needs docker-compose with 10 containers to run at all
 (reference: docker-compose.yml:1-151); this runner hosts the full pipeline in
-one process over the in-proc bus (the TCP bus and the broker, which let a
-subset of the services run as a process of its own, are A8 stage 2). Usage:
+one process over the in-proc bus (or any subset against a broker via
+config.bus.url). Usage:
 
     python -m symbiont_tpu_torch.runner            # full stack, config from env
     SYMBIONT_API_PORT=8080 python -m symbiont_tpu_torch.runner
@@ -54,23 +58,6 @@ def _refuse_unported(cfg: SymbiontConfig, mesh) -> None:
     over raises here, naming its ROADMAP item, before any service starts.
     All of them are off in the default config, so `SymbiontStack()` runs
     whole."""
-    stage2 = "is not ported yet (ROADMAP A8 stage 2)"
-    if not cfg.bus.url.startswith("inproc://"):
-        raise ValueError(f"bus.url={cfg.bus.url!r}: the TCP bus and the broker {stage2}")
-    if cfg.vector_store.uri:
-        raise ValueError(f"vector_store.uri: the external Qdrant backend {stage2}")
-    if cfg.graph_store.uri:
-        raise ValueError(f"graph_store.uri: the external Neo4j backend {stage2}")
-    if cfg.runner.role:
-        raise ValueError(f"runner.role={cfg.runner.role!r}: the process supervisor, "
-                         f"drain and the fleet plane {stage2}")
-    if cfg.runner.heartbeat_s > 0:
-        raise ValueError(f"runner.heartbeat_s={cfg.runner.heartbeat_s}: liveness "
-                         f"heartbeats for the process supervisor {stage2}")
-    if cfg.obs.slo_p99_ms:
-        raise ValueError(f"obs.slo_p99_ms: the SLO watchdog {stage2}")
-    if cfg.gen_journal.enabled:
-        raise ValueError(f"gen_journal.enabled: the generation journal and resume {stage2}")
     if cfg.lm.ingest_train:
         raise ValueError("lm.ingest_train: the online LM trainer is not ported yet "
                          "(ROADMAP A14)")
@@ -106,6 +93,21 @@ class SymbiontStack:
         self.vector_store = None
         self.graph_store = None
         self.api: Optional[ApiService] = None
+        self.watchdog = None  # obs.watchdog.SloWatchdog when configured
+        self._heartbeat_task: Optional[asyncio.Task] = None
+        # drain protocol (resilience/autoscale.py scale-in): flipped by a
+        # `_sys.drain.<role>` message from the supervisor; `drained` wakes
+        # main() so the process exits once the drain completes
+        self.draining = False
+        self.drained = asyncio.Event()
+        self._drain_sub = None
+        self._drain_task: Optional[asyncio.Task] = None
+        self._hb_role = ""
+        # fleet telemetry plane (obs/fleet.py): the per-role exporter and,
+        # in the API-role process, the aggregator behind the federated
+        # /metrics + /api/fleet surfaces
+        self.fleet_exporter = None
+        self.fleet = None
 
     KNOWN_SERVICES = {"all", "perception", "preprocessing", "vector_memory",
                       "knowledge_graph", "text_generator", "api", "engine"}
@@ -126,7 +128,9 @@ class SymbiontStack:
 
         # observability plane (symbiont_tpu_torch/obs/): size the flight recorder,
         # apply histogram bucket bounds BEFORE any traffic observes into
-        # them, and register the standard process_* host gauges
+        # them, register the standard process_* host gauges, and, when p99
+        # thresholds are configured, run the SLO watchdog over the span
+        # histograms every service handler feeds
         from symbiont_tpu_torch.obs.device import register_process_gauges
         from symbiont_tpu_torch.obs.engine_timeline import engine_timeline
         from symbiont_tpu_torch.obs.trace_store import trace_store
@@ -193,6 +197,14 @@ class SymbiontStack:
         if cfg.obs.histogram_buckets_ms:
             metrics.set_bucket_bounds(cfg.obs.histogram_buckets_ms)
         register_process_gauges()  # platform-guarded no-op off Linux
+        if cfg.obs.slo_p99_ms:
+            from symbiont_tpu_torch.obs.watchdog import SloWatchdog, parse_thresholds
+
+            self.watchdog = SloWatchdog(parse_thresholds(cfg.obs.slo_p99_ms),
+                                        interval_s=cfg.obs.slo_interval_s,
+                                        burn_fast_s=cfg.obs.slo_burn_fast_s,
+                                        burn_slow_s=cfg.obs.slo_burn_slow_s)
+            self.watchdog.start()
 
         self.services = []
         self.bus = self._bus_override or await connect(cfg.bus.url)
@@ -212,12 +224,14 @@ class SymbiontStack:
                 )
 
                 admission_ctl = AdmissionController(cfg.admission)
-                # SLO-aware shedding: the JAX stack's watchdog drives the
-                # ladder; without it (A8 stage 2) the ladder stays at rung 0
+                # SLO-aware shedding: the watchdog's breach passes drive
+                # the degradation ladder the gateway consults per request
                 ladder = DegradationLadder(
                     recovery_passes=cfg.admission.shed_recovery_passes,
                     hold_s=cfg.admission.shed_hold_s,
                     degraded_top_k=cfg.admission.degraded_top_k)
+                if self.watchdog is not None:
+                    self.watchdog.add_listener(ladder.on_slo_pass)
             self.api = ApiService(
                 self.bus, cfg.api, cfg.bus,
                 admission=admission_ctl, ladder=ladder,
@@ -276,14 +290,15 @@ class SymbiontStack:
                 log.warning("vector store dim=%d taken from config "
                             "(no in-process engine to follow)", vs_cfg.dim)
             # uri set (or reference QDRANT_URI alias) → external Qdrant
-            # backend (A8 stage 2, refused above); else the embedded store
-            # the embedded store, on the engine's device (the CPU when the
-            # config asks for it and there is no engine in-process)
-            from symbiont_tpu_torch.memory import make_vector_store
+            # backend behind its breaker; else the embedded store on the
+            # engine's device (the CPU when the config asks for it and
+            # there is no engine in-process)
+            from symbiont_tpu_torch.memory.qdrant_backend import make_vector_store
 
             device = (self.engine.device if self.engine is not None
                       else ("cpu" if cfg.engine.force_cpu else None))
-            self.vector_store = make_vector_store(vs_cfg, device=device)
+            self.vector_store = make_vector_store(vs_cfg, device=device,
+                                                  resilience=cfg.resilience)
             if not on("vector_memory"):
                 # engine-only deployment: VectorMemoryService isn't there to
                 # run the startup ensure, so do it here (idempotent);
@@ -292,9 +307,10 @@ class SymbiontStack:
                     None, self.vector_store.ensure_collection)
         if on("knowledge_graph") or on("engine"):
             # uri set (or reference NEO4J_URI alias) → external Neo4j backend
-            from symbiont_tpu_torch.graph import make_graph_store
+            from symbiont_tpu_torch.graph.neo4j_backend import make_graph_store
 
-            self.graph_store = make_graph_store(cfg.graph_store)
+            self.graph_store = make_graph_store(cfg.graph_store,
+                                                resilience=cfg.resilience)
             if not on("knowledge_graph"):
                 await asyncio.get_running_loop().run_in_executor(
                     None, self.graph_store.ensure_schema)  # engine-only: see above
@@ -305,6 +321,21 @@ class SymbiontStack:
             from symbiont_tpu_torch.engine.lm import LmEngine
 
             self.lm = LmEngine(cfg.lm)
+            if cfg.gen_journal.enabled:
+                # durable generation sessions: the engine snapshots every
+                # stream at its chunk boundaries to <dir>/<role>.genlog;
+                # the process supervisor republishes the tails if this
+                # process dies mid-stream
+                from pathlib import Path
+
+                from symbiont_tpu_torch.resilience.genlog import GenJournal
+
+                jrole = cfg.runner.role or "local"
+                self.lm.journal = GenJournal(
+                    Path(cfg.gen_journal.dir) / f"{jrole}.genlog",
+                    max_bytes=cfg.gen_journal.max_bytes,
+                    max_tasks=cfg.gen_journal.max_tasks,
+                    fsync=cfg.gen_journal.fsync)
             # one generation micro-batcher shared by the bus surface and the
             # engine plane: concurrent requests decode as one batch. Stored
             # on self BEFORE anything else can raise, so stop() always
@@ -374,12 +405,12 @@ class SymbiontStack:
                                      # until the result is PUBLISHED) and
                                      # adopts orphaned streams republished
                                      # by the supervisor
-                                     # the generation journal and resume
-                                     # are A8 stage 2: no journal, and a
-                                     # resume request gets the service's
-                                     # own "no lm_resume" answer
-                                     journal=None,
-                                     lm_resume=None,
+                                     journal=(self.lm.journal
+                                              if self.lm is not None
+                                              else None),
+                                     lm_resume=(self.lm.generate_stream
+                                                if self.lm is not None
+                                                else None),
                                      resume_max_attempts=(
                                          cfg.gen_journal.resume_max_attempts),
                                      resume_backoff_s=(
@@ -405,10 +436,157 @@ class SymbiontStack:
             log.info("symbiont stack up: api on %s:%s", cfg.api.host, self.api.port)
         else:
             log.info("symbiont stack up (no api): %s", sorted(want))
-        # the fleet plane, heartbeats and the drain protocol run only with
-        # runner.role / runner.heartbeat_s, refused above (A8 stage 2)
+        # fleet telemetry plane (obs/fleet.py): active whenever this
+        # process runs as a NAMED role in a supervised deployment
+        # (runner.role set, or heartbeats on) — a default single-process
+        # stack keeps the pre-fleet /metrics byte-identical. The exporter
+        # ships this role's metric deltas + finished spans; the API-role
+        # process additionally hosts the aggregator that merges every
+        # role's telemetry into the federated /metrics, the stitched
+        # cross-process traces, and GET /api/fleet.
+        fleet_on = (cfg.obs.fleet_export
+                    and (bool(cfg.runner.role) or cfg.runner.heartbeat_s > 0))
+        if fleet_on:
+            from symbiont_tpu_torch.obs.fleet import (
+                FleetAggregator,
+                TelemetryExporter,
+                subscribe_telemetry,
+            )
+
+            role = cfg.runner.role or "+".join(sorted(want))
+            if self.api is not None:
+                self.fleet = FleetAggregator(
+                    local_role=role, max_roles=cfg.obs.fleet_roles_max)
+                self.fleet.attach(await subscribe_telemetry(self.bus))
+                self.api.fleet = self.fleet
+            self.fleet_exporter = TelemetryExporter(
+                lambda: self.bus, role=role,
+                publish_s=cfg.obs.fleet_publish_s,
+                spans_max=cfg.obs.fleet_spans_max,
+                pending_max=cfg.obs.fleet_pending_max,
+                metrics_max=cfg.obs.fleet_metrics_max,
+                full_every=cfg.obs.fleet_full_every)
+            self.fleet_exporter.start()
+        # process-failure plane: liveness heartbeats for the supervisor
+        # (resilience/procsup.py), plus the drain subscription the elastic
+        # autoscaler's scale-in rides (resilience/autoscale.py). Started
+        # LAST — a heartbeat promises the whole stack is placed and
+        # consuming, not just that python booted.
+        if cfg.runner.heartbeat_s > 0 or cfg.runner.role:
+            role = self._hb_role = cfg.runner.role or "+".join(sorted(want))
+            self._drain_sub = await self.bus.subscribe(
+                f"{subjects.SYS_DRAIN}.{role}")
+            self._drain_task = asyncio.create_task(
+                self._drain_loop(), name="runner-drain")
+        if cfg.runner.heartbeat_s > 0:
+            self._heartbeat_task = asyncio.create_task(
+                self._heartbeat_loop(self._hb_role, cfg.runner.heartbeat_s),
+                name="runner-heartbeat")
+
+    def _heartbeat_payload(self, role: str) -> bytes:
+        """One liveness beat. `capacity`/`draining` are the elastic-
+        autoscaler fields: capacity 1 means this replica is serving, 0
+        means it is draining out and the supervisor should neither route
+        hang verdicts at it nor count it as serving headroom. Keys and
+        their order are BYTE-PARITY with common.hpp heartbeat_payload
+        (cpp-parity lint rule + tests/test_fleet.py pin both)."""
+        import json
+        import os
+
+        return json.dumps({"role": role, "pid": os.getpid(),
+                           "capacity": 0 if self.draining else 1,
+                           "draining": self.draining}).encode()
+
+    async def _heartbeat_loop(self, role: str, interval_s: float) -> None:
+        from symbiont_tpu_torch.utils.telemetry import metrics
+
+        while True:
+            try:
+                await self.bus.publish(
+                    f"{subjects.SYS_HEARTBEAT}.{role}",
+                    self._heartbeat_payload(role))
+                metrics.inc("runner.heartbeats", labels={"role": role})
+            except ConnectionError:
+                # broker gap: the TcpBus send-gate already waited its
+                # bounded window; skip this beat and keep beating — the
+                # supervisor treats broker-down as "don't judge workers"
+                log.debug("heartbeat publish failed (bus disconnected)")
+            except RuntimeError:
+                return  # bus closed: stack is stopping
+            await asyncio.sleep(interval_s)
+
+    async def _drain_loop(self) -> None:
+        """Wait for the supervisor's drain request and run the protocol.
+        One-shot: the first `_sys.drain.<role>` message retires this
+        process."""
+        async for _msg in self._drain_sub:
+            await self.drain()
+            return
+
+    async def drain(self) -> None:
+        """The worker half of the drain protocol (scale-in,
+        resilience/autoscale.py): stop pulling new durable deliveries
+        (consumers detach — unacked work redelivers to surviving queue-
+        group members), let in-flight handlers finish, flush the
+        UpsertCoalescer (ack-after-flush waits release), finish in-flight
+        generation sessions, publish a final heartbeat with
+        `draining: true`, and wake main() to exit. Idempotent."""
+        from symbiont_tpu_torch.utils.telemetry import metrics
+
+        if self.draining:
+            return
+        self.draining = True
+        metrics.gauge_set("runner.draining", 1)
+        log.info("drain requested: detaching consumers and flushing")
+        if self.api is not None:
+            # a draining gateway goes /readyz 503 first so the LB routes
+            # around it before the socket disappears
+            self.api.mark_not_ready()
+        for s in self.services:
+            await s.drain()
+        if self._lm_batcher is not None:
+            # finishes in-flight generation sessions (close() runs every
+            # pending flush to completion before failing the leftovers)
+            await self._lm_batcher.close()
+        if self._hb_role:
+            try:
+                # the final beat: tells the supervisor (and /api/fleet)
+                # this exit is a DRAIN, not a death
+                await self.bus.publish(
+                    f"{subjects.SYS_HEARTBEAT}.{self._hb_role}",
+                    self._heartbeat_payload(self._hb_role))
+            except Exception:
+                log.debug("final draining heartbeat failed", exc_info=True)
+        log.info("drain complete: exiting")
+        self.drained.set()
 
     async def stop(self) -> None:
+        if self._drain_task is not None:
+            self._drain_task.cancel()
+            try:
+                await self._drain_task
+            except (asyncio.CancelledError, Exception):
+                pass
+            self._drain_task = None
+        if self._drain_sub is not None:
+            self._drain_sub.close()
+            self._drain_sub = None
+        if self.fleet_exporter is not None:
+            await self.fleet_exporter.stop()
+            self.fleet_exporter = None
+        if self.fleet is not None:
+            await self.fleet.detach()
+            self.fleet = None
+        if self._heartbeat_task is not None:
+            self._heartbeat_task.cancel()
+            try:
+                await self._heartbeat_task
+            except (asyncio.CancelledError, Exception):
+                pass
+            self._heartbeat_task = None
+        if self.watchdog is not None:
+            await self.watchdog.stop()
+            self.watchdog = None
         if self.api:
             await self.api.stop()
         for s in self.services:
@@ -434,7 +612,17 @@ async def main() -> None:
             loop.add_signal_handler(sig, stop.set)
         except NotImplementedError:
             pass
-    await stop.wait()
+    # exit on an operator signal OR a completed drain (the supervisor's
+    # scale-in request — resilience/autoscale.py): a drained worker's last
+    # act is a clean rc-0 exit, which the supervisor treats as retirement,
+    # not a crash
+    waits = [asyncio.ensure_future(stop.wait()),
+             asyncio.ensure_future(stack.drained.wait())]
+    try:
+        await asyncio.wait(waits, return_when=asyncio.FIRST_COMPLETED)
+    finally:
+        for w in waits:
+            w.cancel()
     await stack.stop()
 
 

@@ -2,9 +2,15 @@
 chip_smoke.py nor scripts/port_kernels_ab.py, imports `jax` or the JAX package
 `symbiont_tpu` (or any of its submodules). Checked on the syntax tree, so
 an import inside a function counts too. `symbiont_tpu_torch` itself is
-allowed."""
+allowed. No string in those files names a module of the JAX package either
+(a `-m` argv, an `importlib` name): a child process launched by such a
+string would run the JAX package. The supervisor's specs launch the
+port's runner and broker."""
 
 import ast
+import importlib.util
+import re
+import sys
 from pathlib import Path
 
 import pytest
@@ -57,7 +63,12 @@ def test_the_scan_covers_the_package():
             "symbiont_tpu_torch/services/api.py",
             "symbiont_tpu_torch/bus/inproc.py",
             "symbiont_tpu_torch/schema/frames.py",
-            "symbiont_tpu_torch/config.py"} <= rel
+            "symbiont_tpu_torch/config.py",
+            "symbiont_tpu_torch/bus/tcp.py",
+            "symbiont_tpu_torch/bus/pybroker.py",
+            "symbiont_tpu_torch/resilience/procsup.py",
+            "symbiont_tpu_torch/resilience/genlog.py",
+            "symbiont_tpu_torch/obs/fleet.py"} <= rel
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -78,3 +89,43 @@ def test_no_jax_or_jax_package_import(path):
 ])
 def test_scanner_matches_exact_top_level_name(src, bad):
     assert imported_top_levels(src) & FORBIDDEN == bad
+
+
+_JAX_MODULE = re.compile(r"\bsymbiont_tpu\.[A-Za-z_]")
+
+
+def jax_module_strings(source: str) -> list:
+    """String constants (f-string parts included) that name a module of
+    the JAX package, e.g. "symbiont_tpu.runner"."""
+    return [node.value for node in ast.walk(ast.parse(source))
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and _JAX_MODULE.search(node.value)]
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_string_names_a_jax_package_module(path):
+    bad = jax_module_strings(path.read_text())
+    assert not bad, f"{path.relative_to(ROOT)} names {bad}"
+
+
+@pytest.mark.parametrize("src,flagged", [
+    ('argv = [sys.executable, "-m", "symbiont_tpu.runner"]', True),
+    ('importlib.import_module("symbiont_tpu.bus.pybroker")', True),
+    ('f"{x} symbiont_tpu.resilience"', True),
+    ('argv = [sys.executable, "-m", "symbiont_tpu_torch.runner"]', False),
+    ('"""the port of symbiont_tpu."""', False),
+    ('"symbiont_tpu/bus/tcp.py"', False),
+])
+def test_string_scanner_matches_module_names(src, flagged):
+    assert bool(jax_module_strings(src)) is flagged
+
+
+def test_supervisor_specs_launch_the_ports_modules():
+    from symbiont_tpu_torch.resilience.procsup import pybroker_spec, runner_spec
+
+    runner = runner_spec("gen1", "text_generator", "symbus://127.0.0.1:4233")
+    broker = pybroker_spec(4233, "data/symbus")
+    assert runner.argv == [sys.executable, "-m", "symbiont_tpu_torch.runner"]
+    assert broker.argv[:3] == [sys.executable, "-m", "symbiont_tpu_torch.bus.pybroker"]
+    for mod in (runner.argv[2], broker.argv[2]):
+        assert importlib.util.find_spec(mod) is not None

@@ -144,12 +144,21 @@ def test_paged_and_spec_settings_are_ported(config_kw, engine_kw):
     assert isinstance(eng.generate("hello", 8), str)
 
 
-def test_journal_is_not_ported():
-    eng = _port()
-    eng.journal = None
+def test_journal_is_not_ported(tmp_path):
+    """The journal is ported (ROADMAP A8 stage 2; tests/test_torch_resume.py
+    holds it to JAX's): an engine starts without one, as JAX's does, and a
+    journal set on it records the streams that carry a task id, and only
+    those."""
+    from symbiont_tpu_torch.resilience.genlog import GenJournal
+
+    eng = _port(stream_chunk=4)
     assert eng.journal is None
-    with pytest.raises(ValueError, match="A8"):
-        eng.journal = object()
+    eng.journal = GenJournal(tmp_path / "lm.genlog")
+    text = "".join(eng.generate_stream("hello", 8, task_id="t-1"))
+    "".join(eng.generate_stream("hello", 8))
+    tails = eng.journal.live_tails()
+    assert list(tails) == ["t-1"] and len(tails["t-1"]["tokens"]) == 8
+    assert text == eng.generate("hello", 8)
 
 
 def test_default_device_without_cuda_raises():

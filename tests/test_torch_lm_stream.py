@@ -5,8 +5,9 @@ for token, for llama GQA and gpt2 with dense and int8 KV, including a
 multi-byte character split across chunks and `max_new` trims; the same
 dispatch-ledger rows, host syncs and usage as JAX; a closed stream still
 records its stats; a paused consumer holds no lock; sampled streams repeat
-under one seed whatever runs between their chunks; `resume=` raises
-naming its ROADMAP item."""
+under one seed whatever runs between their chunks; a resume of a tail
+the port cannot continue raises. tests/test_torch_resume.py holds the
+journal and resume against JAX's."""
 
 import threading
 
@@ -147,9 +148,15 @@ def test_sampled_stream_repeats_under_one_seed():
 
 
 def test_resume_raises_naming_the_journal():
+    """A resume the port cannot continue raises instead of producing text
+    some other way: a sampled tail whose key is not the port's one-word
+    base seed (JAX journals a two-word threefry key). Without a journal,
+    task_id and stream record nothing."""
     port = _port(**STREAM)
-    with pytest.raises(ValueError, match="A8"):
-        next(port.generate_stream("x", 8, resume={"tokens": [1]}))
-    # task_id and stream are taken and, without a journal, record nothing
+    tail = {"task_id": "t", "prompt_ids": [256, 104, 105], "tokens": [1, 2, 3, 4],
+            "chunk_start": 0, "text": "", "seq": 0, "key": [7, 9], "key_splits": 1}
+    with pytest.raises(ValueError, match="journalled"):
+        next(port.generate_stream("", 8, temperature=0.8, resume=tail))
+    assert port.journal is None
     assert "".join(port.generate_stream("x", 8, task_id="t-1", stream=False)) == \
         port.generate("x", 8)

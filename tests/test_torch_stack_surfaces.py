@@ -3,8 +3,12 @@ trace surfaces; generation over the SSE stream on the Markov backend and
 on the LM backend (a tiny synthetic llama, streamed and batched); durable
 at-least-once delivery (a malformed payload quarantined in `/api/dlq`, and
 its replay); a quota 429 with Retry-After; the routes that answer 501;
-and every setting of a plane not ported yet raising a `ValueError` that
-names its ROADMAP item before anything starts."""
+every setting of A8 stage 2 starting its plane (the TCP bus to a broker,
+the external stores behind their breakers, the fleet plane, heartbeats,
+the SLO watchdog, the generation journal), backends that fail loudly
+instead of falling back, and every setting of a part not ported yet
+raising a `ValueError` that names its ROADMAP item before anything
+starts."""
 
 import asyncio
 import json
@@ -20,8 +24,8 @@ from symbiont_tpu_torch.bus.inproc import InprocBus
 from symbiont_tpu_torch.config import (AdmissionConfig, ApiConfig, BusConfig, EngineConfig,
                                        GraphStoreConfig, LmConfig, ObsConfig, SymbiontConfig,
                                        TextGeneratorConfig, VectorStoreConfig)
-from symbiont_tpu_torch.graph import make_graph_store
-from symbiont_tpu_torch.memory import make_vector_store
+from symbiont_tpu_torch.graph.neo4j_backend import make_graph_store
+from symbiont_tpu_torch.memory.qdrant_backend import make_vector_store
 from symbiont_tpu_torch.runner import SymbiontStack
 from symbiont_tpu_torch.services.api import ApiService
 
@@ -292,14 +296,6 @@ def _set(cfg, section, **fields):
 
 
 @pytest.mark.parametrize("section,fields,item", [
-    ("bus", dict(url="symbus://127.0.0.1:4233"), "A8 stage 2"),
-    ("bus", dict(url="nats://127.0.0.1:4222"), "A8 stage 2"),
-    ("vector_store", dict(uri="http://qdrant:6333"), "A8 stage 2"),
-    ("graph_store", dict(uri="bolt://neo4j:7687"), "A8 stage 2"),
-    ("runner", dict(role="embed"), "A8 stage 2"),
-    ("runner", dict(heartbeat_s=0.5), "A8 stage 2"),
-    ("obs", dict(slo_p99_ms=["api.search=500"]), "A8 stage 2"),
-    ("gen_journal", dict(enabled=True), "A8 stage 2"),
     ("lm", dict(ingest_train=True), "A14"),
     ("parallel", dict(mesh_shape=[2, 1]), "A15"),
     ("obs", dict(xprof_trace_dir="/srv/traces"), "A7"),
@@ -312,6 +308,150 @@ def test_unported_settings_raise_naming_their_item(tmp_path, section, fields, it
     with pytest.raises(ValueError, match=item):
         asyncio.run(stack.start())
     assert stack.api is None and not stack.services  # nothing started
+
+
+def _plane_broker(stack_cfg, scheme):
+    """A port broker for `bus.url`; the stack dials it itself."""
+    from symbiont_tpu_torch.bus.pybroker import PyBroker
+
+    broker = PyBroker(port=0)
+
+    async def start():
+        await broker.start()
+        stack_cfg.bus.url = f"{scheme}://127.0.0.1:{broker.bound_port}"
+    return broker, start
+
+
+async def _plane_bus(stack):
+    from symbiont_tpu_torch.bus.tcp import TcpBus
+
+    assert isinstance(stack.bus, TcpBus)
+    sub = await stack.bus.subscribe("plane.echo")
+    await stack.bus.publish("plane.echo", b"over tcp")
+    assert (await sub.next(5)).data == b"over tcp"
+
+
+async def _plane_qdrant(stack, state):
+    from symbiont_tpu_torch.memory.qdrant_backend import QdrantStore
+    from symbiont_tpu_torch.resilience.stores import ResilientVectorStore
+
+    assert isinstance(stack.vector_store, ResilientVectorStore)
+    assert isinstance(stack.vector_store.inner, QdrantStore)
+    await stack.bus.publish(subjects.TASKS_PERCEIVE_URL, json.dumps({"url": "u"}).encode())
+    await _until(lambda: len(state["collections"].get(stack.config.vector_store.collection,
+                                                      {}).get("points", {})) >= 3)
+
+
+async def _plane_neo4j(stack, state):
+    from symbiont_tpu_torch.graph.neo4j_backend import Neo4jGraphStore
+    from symbiont_tpu_torch.resilience.stores import ResilientGraphStore
+
+    assert isinstance(stack.graph_store, ResilientGraphStore)
+    assert isinstance(stack.graph_store.inner, Neo4jGraphStore)
+    await stack.bus.publish(subjects.TASKS_PERCEIVE_URL, json.dumps({"url": "u"}).encode())
+    await _until(lambda: any("HAS_SENTENCE" in st for st, _ in state["statements"]))
+
+
+async def _plane_fleet(stack):
+    assert stack.fleet_exporter is not None and stack.fleet is not None
+    assert stack.api.fleet is stack.fleet and stack._drain_sub is not None
+    await stack.fleet_exporter.publish_once()
+    await _until(lambda: "gateway" in stack.fleet.rollup()["roles"])
+
+
+async def _plane_heartbeats(stack):
+    role = stack._hb_role
+    sub = await stack.bus.subscribe(f"{subjects.SYS_HEARTBEAT}.{role}")
+    beat = json.loads((await sub.next(10)).data)
+    assert beat["role"] == role and beat["capacity"] == 1 and beat["draining"] is False
+
+
+async def _plane_watchdog(stack):
+    from symbiont_tpu_torch.obs.watchdog import SloWatchdog
+
+    assert isinstance(stack.watchdog, SloWatchdog)
+    assert stack.watchdog.thresholds == {"api.search": 500.0}
+    assert stack.api.ladder is not None  # breach passes drive its rungs
+    assert stack.api.ladder.on_slo_pass in stack.watchdog.listeners
+
+
+async def _plane_journal(stack, tmp_path):
+    from symbiont_tpu_torch.resilience.genlog import GenJournal
+    from symbiont_tpu_torch.services.text_generator import TextGeneratorService
+
+    assert isinstance(stack.lm.journal, GenJournal)
+    assert stack.lm.journal.path == tmp_path / "genlog" / "local.genlog"
+    [svc] = [s for s in stack.services if isinstance(s, TextGeneratorService)]
+    assert svc.journal is stack.lm.journal and svc.lm_resume == stack.lm.generate_stream
+
+
+@pytest.mark.parametrize("plane", ["symbus", "nats", "qdrant", "neo4j", "role", "heartbeat",
+                                   "slo", "journal"])
+def test_stage2_settings_start_their_planes(tmp_path, plane):
+    """Each setting that the port refused before A8 stage 2 now starts its
+    plane: the TCP bus to a broker (`symbus://`, `nats://`), the external
+    stores behind their breakers (stub servers), the fleet plane and drain
+    subscription of a named role, heartbeats, the SLO watchdog wired to the
+    shedding ladder, and the generation journal handed to the service."""
+    from http.server import ThreadingHTTPServer
+    import threading
+
+    from tests.test_neo4j_backend import _FakeNeo4j
+    from tests.test_qdrant_backend import _FakeQdrant
+
+    cfg = _config(tmp_path, lm=plane == "journal")
+    broker = server = None
+    checks = {"role": _plane_fleet, "heartbeat": _plane_heartbeats, "slo": _plane_watchdog,
+              "journal": lambda st: _plane_journal(st, tmp_path)}
+    if plane in ("symbus", "nats"):
+        broker, start_broker = _plane_broker(cfg, plane)
+        checks[plane] = _plane_bus
+    elif plane in ("qdrant", "neo4j"):
+        handler, attr = ((_FakeQdrant, "fake_store") if plane == "qdrant"
+                         else (_FakeNeo4j, "state"))
+        state = ({"collections": {}} if plane == "qdrant"
+                 else {"statements": [], "auth": [], "paths": []})
+        server = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+        setattr(server, attr, state)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        uri = f"http://127.0.0.1:{server.server_address[1]}"
+        cfg.resilience.spill_dir = str(tmp_path / "spill")
+        if plane == "qdrant":
+            _set(cfg, "vector_store", uri=uri)
+            checks[plane] = lambda st: _plane_qdrant(st, state)
+        else:
+            _set(cfg, "graph_store", uri=uri)
+            checks[plane] = lambda st: _plane_neo4j(st, state)
+    else:
+        section, fields = {"role": ("runner", dict(role="gateway")),
+                           "heartbeat": ("runner", dict(heartbeat_s=0.1)),
+                           "slo": ("obs", dict(slo_p99_ms=["api.search=500"])),
+                           "journal": ("gen_journal", dict(enabled=True,
+                                                           dir=str(tmp_path / "genlog")))}[plane]
+        _set(cfg, section, **fields)
+        if plane == "slo":
+            cfg.admission = AdmissionConfig(enabled=True)
+
+    async def main():
+        if broker is not None:
+            await start_broker()
+        bus = None if broker is not None else InprocBus()
+        stack = SymbiontStack(cfg, bus=bus, fetcher=lambda url: PAGE)
+        try:
+            await stack.start()
+            await checks[plane](stack)
+        finally:
+            await stack.stop()
+            if bus is not None:
+                await bus.close()
+            if broker is not None:
+                await broker.stop()
+
+    try:
+        asyncio.run(main())
+    finally:
+        if server is not None:
+            server.shutdown()
 
 
 @pytest.mark.parametrize("explicit", [False, True])
@@ -339,13 +479,18 @@ def test_a_mesh_argument_raises_naming_a15(tmp_path):
         asyncio.run(stack.start())
 
 
-@pytest.mark.parametrize("call,item", [
-    (lambda: asyncio.run(connect("symbus://127.0.0.1:4233")), "A8 stage 2"),
-    (lambda: make_vector_store(VectorStoreConfig(uri="http://q:6333")), "A8 stage 2"),
-    (lambda: make_graph_store(GraphStoreConfig(uri="bolt://n:7687")), "A8 stage 2"),
+@pytest.mark.parametrize("call,error,match", [
+    (lambda: asyncio.run(connect("symbus://127.0.0.1:1", retries=2, retry_delay_s=0.01)),
+     ConnectionError, "unreachable"),
+    (lambda: make_vector_store(VectorStoreConfig(uri="grpc://q:6334")), ValueError,
+     "REST endpoint"),
+    (lambda: make_graph_store(GraphStoreConfig(uri="bolt://n:7687")), ValueError, "bolt"),
 ])
-def test_unported_backends_raise_naming_their_item(call, item):
-    with pytest.raises(ValueError, match=item):
+def test_backends_fail_loudly_and_never_fall_back(call, error, match):
+    """An unreachable broker fails after its retries instead of switching
+    to the in-process bus; an external store URL the backend cannot speak
+    fails at once instead of leaving the embedded store in its place."""
+    with pytest.raises(error, match=match):
         call()
 
 
