@@ -28,7 +28,11 @@ any failure exits non-zero:
              engine with plain attention;
 4. search  — the embeddings go into the port's VectorStore; fused queries
              must return the hits of search(embed_query(q)); the top hits
-             are reranked;
+             are reranked; then [graphs]: a fresh engine's embed, rerank
+             and fused-query CUDA graphs bit-equal to the eager forwards
+             at every serve signature, captures counted once, B1 counted
+             through replays, eager against graphed emb/s and fused p50,
+             capture ms, graph pool bytes and the busy share;
 5. train   — the encoder fine-tune at the same width: contrastive_train_step
              on 32 (query, passage) pairs made by the port's tokenizer and
              bucketing (queries at 64 tokens, passages at 256), several
@@ -68,6 +72,11 @@ any failure exits non-zero:
              token-identical to their standalone decodes (or a reported
              near-tie); B1 held against its plain version at this path's
              prefill shapes; tok/s, TTFT, TPOT and the busy share printed;
+             then [graphs]: TinyLlama's decode chunk as a CUDA graph on its
+             carry against the eager chunk (greedy logits bit-equal,
+             greedy, sampled and int8-KV tokens equal, ms a step), a
+             GenBatcher cold and warm, GPT-2 f32 streams and a session =
+             generate();
 11. paged  — TinyLlama with `kv_layout="paged"` (pages of 16, radix on,
              the pool sized automatically, its bytes checked exactly):
              paged session rows with an admission and a cancel equal the
@@ -123,6 +132,7 @@ every kernel's numbers and `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import functools
 import json
@@ -629,16 +639,19 @@ def main_path(rng) -> dict:
     texts = synth_texts(rng, 2048)
 
     fa.launches = fa.bwd_kv_launches = fa.bwd_q_launches = 0  # ------- main path
-    b0 = eng.stats["embed_batches"]
+    b0, c0 = eng.stats["embed_batches"], eng.stats["compiles"]
     t0 = time.perf_counter()
     emb = eng.embed_texts(texts)
     first_s = time.perf_counter() - t0
-    n_batches = eng.stats["embed_batches"] - b0
+    n_batches, n_caps = eng.stats["embed_batches"] - b0, eng.stats["compiles"] - c0
     embed_launches = fa.launches
     check(emb.shape == (len(texts), cfg.hidden_size), f"embed shape {emb.shape}")
     check(bool(np.isfinite(emb).all()), "non-finite embeddings")
-    check(embed_launches == cfg.num_layers * n_batches,
-          f"flash launches {embed_launches} != {cfg.num_layers} x {n_batches} batches")
+    # a first batch of a signature captures its graph: one eager warm-up
+    # run, then the replay, so B1 runs L times more per capture
+    check(embed_launches == cfg.num_layers * (n_batches + n_caps),
+          f"flash launches {embed_launches} != {cfg.num_layers} x ({n_batches} batches + "
+          f"{n_caps} captures)")
     t0 = time.perf_counter()
     eng.embed_texts(texts)
     second_s = time.perf_counter() - t0
@@ -651,8 +664,8 @@ def main_path(rng) -> dict:
     check(float(cos.min()) >= 0.999, f"flash vs plain attention cosine {cos.min():.5f} < 0.999")
     toks = sum(min(len(t.split()) + 2, 512) for t in texts)
     print(f"[serve] embed_texts {len(texts)} texts ({toks} tokens) in {n_batches} batches: "
-          f"flash launches {embed_launches} = {cfg.num_layers} x {n_batches}; "
-          f"{len(texts) / first_s:.1f} emb/s first call, {len(texts) / second_s:.1f} emb/s "
+          f"flash launches {embed_launches} = {cfg.num_layers} x ({n_batches} + {n_caps} "
+          f"captures); {len(texts) / first_s:.1f} emb/s first call, {len(texts) / second_s:.1f} emb/s "
           f"second call (host clock, tokenization included); "
           f"flash vs plain attention cosine min {cos.min():.6f} over 128 rows", flush=True)
     del eng_x
@@ -690,8 +703,15 @@ def main_path(rng) -> dict:
           f"({exact} with identical lists, the rest equal up to the query's bf16 rounding); "
           f"reranked {reranked} hits; fused query p50 {np.median(lat) * 1e3:.3f} ms, "
           f"max {max(lat) * 1e3:.3f} ms over {len(lat)} (host clock)", flush=True)
+    del eng, store
+    import gc
+
+    gc.collect()  # the serve engine's graphs go, so the pool bytes read are this phase's
+    torch.cuda.empty_cache()
+    graphs = graphs_encoder_phase(texts)
     return {"launches": counts, "emb_s_first": len(texts) / first_s,
-            "emb_s_second": len(texts) / second_s, "fused_p50_ms": float(np.median(lat)) * 1e3}
+            "emb_s_second": len(texts) / second_s, "fused_p50_ms": float(np.median(lat)) * 1e3,
+            "graphs": graphs}
 
 
 def _pairs(tokenizer, texts, q_bucket: int, p_bucket: int, n: int, lo: int, hi: int):
@@ -855,6 +875,230 @@ def profile_embed(texts) -> None:
           f"time; top kernels: {top}", flush=True)
 
 
+def busy_share(fn) -> tuple:
+    """(host wall ms, device busy ms) of one fn() under torch.profiler:
+    the device-side kernels' self time, which a CUDA graph's replayed
+    kernels report one by one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0)
+    return wall_ms, busy_us / 1e3
+
+
+def graphs_encoder_phase(texts, device="cuda", engine_kw=None, n_queries: int = 8) -> dict:
+    """ROADMAP A16 stage 1 on the card: a fresh TorchEngine at the serve
+    geometry (`EngineConfig()`, flash, its cross-encoder) runs embed,
+    rerank and the fused query as captured CUDA graphs. Each check fails
+    the run:
+
+    - `embed_texts` of `texts` (serve's 2,048) captures one graph per
+      (L, B) it dispatches (`compiles` = the distinct signatures), and a
+      second pass captures none; B1 launches L x (batches + captures) on
+      the first pass (a capture's warm-up runs it once eagerly) and L x
+      batches on the second, replays counted;
+    - every signature's graph output is bit-equal to the eager
+      `bert_mod.embed_sentences` on the same batch, and the whole graphed
+      `embed_texts` to an eager one planned the same way;
+    - rerank batches bit-equal to the eager `cross_encoder_score`, and the
+      fused queries' scores and rows bit-equal to the eager
+      `cosine_topk` of the eager query embedding, hits included;
+
+    and prints emb/s eager against graphed on the same texts, the fused
+    query's p50 eager against graphed, each signature's capture ms, the
+    bytes the graph pools hold and the device's busy share of a graphed
+    `embed_texts` (as [profile] reads it). `device`, `engine_kw` let the
+    CPU tests rehearse its eager half at a tiny geometry."""
+    from symbiont_tpu_torch.config import EngineConfig, VectorStoreConfig
+    from symbiont_tpu_torch.engine.bucketing import (
+        choose_bucket, pad_batch_rows_ids, pad_ids_rows, plan_batches)
+    from symbiont_tpu_torch.engine.engine import TorchEngine
+    from symbiont_tpu_torch.engine.graphs import graph_pool_bytes
+    from symbiont_tpu_torch.memory.vector_store import VectorStore, cosine_topk
+    from symbiont_tpu_torch.models import bert as bert_mod
+    from symbiont_tpu_torch.ops import flash_attention as fa
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    eng = TorchEngine(EngineConfig(attn_impl="flash", rerank_enabled=True, **(engine_kw or {})),
+                      device=device)
+    cfg, L = eng.model_cfg, eng.model_cfg.num_layers
+    max_len, buckets = eng._buckets(cfg)
+
+    def plan(seqs):
+        """The batches embed_texts dispatches: (L, B, rows, ids, lens, n_real)."""
+        out = []
+        for bucket, idx in plan_batches([len(e) for e in seqs], buckets, eng._plan_cap):
+            ids, lens = pad_ids_rows([seqs[i] for i in idx], bucket, eng.tokenizer.pad_id,
+                                     dtype=eng._ids_dtype)
+            bb = eng._batch_bucket(len(idx))
+            out.append((bucket, bb, idx, *pad_batch_rows_ids(ids, lens, bb)))
+        return out
+
+    def dev(ids, lens):
+        ids_d = eng._widen_ids(eng._host(ids).to(eng.device), eng._ids_dtype == np.uint16)
+        lens_d = torch.from_numpy(lens).to(eng.device)
+        mask = (torch.arange(ids.shape[1], device=eng.device) < lens_d[:, None]).to(torch.int32)
+        return ids_d, lens_d, mask
+
+    def eager_embed(ids, lens, normalize=None):
+        ids_d, _, mask = dev(ids, lens)
+        e = bert_mod.embed_sentences(eng.params, ids_d, mask, cfg, pooling=eng.pooling,
+                                     normalize=eng.normalize if normalize is None else normalize)
+        return e.to(torch.bfloat16) if eng._d2h_bf16 and normalize is None else e
+
+    def eager_embed_texts():
+        """embed_texts as the eager engine ran it: tokenize, one forward a
+        batch, one cat and one fetch."""
+        seqs = eng.tokenizer.encode_batch(list(texts), max_len)
+        outs, rows = [], []
+        for _, _, idx, ids, lens, n_real in plan(seqs):
+            outs.append(eager_embed(ids, lens)[:n_real])
+            rows.extend(idx)
+        out = np.zeros((len(texts), cfg.hidden_size), np.float32)
+        out[rows] = torch.cat(outs).float().cpu().numpy()
+        return out
+
+    batches = plan(eng.tokenizer.encode_batch(list(texts), max_len))
+    sigs = sorted({(b[0], b[1]) for b in batches})
+    with torch.inference_mode():
+        fa.launches = 0  # ---------------------------------------------------- main path
+        c0 = eng.stats["compiles"]
+        t0 = time.perf_counter()
+        emb = eng.embed_texts(texts)
+        cold_s = time.perf_counter() - t0
+        caps = eng.stats["compiles"] - c0
+        b1_cold = fa.launches
+        fa.launches = 0
+        t0 = time.perf_counter()
+        emb2 = eng.embed_texts(texts)
+        graphed_s = time.perf_counter() - t0
+        b1_warm = fa.launches  # -------------------------------------------- main path end
+        check(caps == len(sigs), f"embed_texts captured {caps} graphs for {len(sigs)} signatures")
+        check(eng.stats["compiles"] - c0 == caps, "a second embed_texts captured again")
+        check(b1_cold == L * (len(batches) + (caps if cuda else 0)),
+              f"B1 launches {b1_cold} != {L} x ({len(batches)} batches + {caps} captures)")
+        check(b1_warm == L * len(batches), f"B1 launches {b1_warm} != {L} x {len(batches)} "
+                                           f"batches on the second pass")
+        check(np.array_equal(emb, emb2), "two graphed passes differ")
+        eager_embed_texts()  # warm
+        sync()
+        t0 = time.perf_counter()
+        emb_e = eager_embed_texts()
+        eager_s = time.perf_counter() - t0
+        check(np.array_equal(emb2, emb_e), "graphed embed_texts is not bit-equal to eager")
+        first = {}
+        for b in batches:
+            first.setdefault((b[0], b[1]), b)
+        for (Lb, B), (_, _, _, ids, lens, _) in first.items():
+            got = eng._get_executable("embed", Lb, B)(eng._host(ids), torch.from_numpy(lens),
+                                                      lock=eng._replay_lock)
+            check(torch.equal(got, eager_embed(ids, lens)),
+                  f"embed[L={Lb},B={B}]: graph output is not bit-equal to embed_sentences")
+
+        # rerank: the graphed batches against the eager cross-encoder
+        query, passages = texts[-1], texts[:64]
+        rc0 = eng.stats["compiles"]
+        scores = eng.rerank(query, passages)
+        pairs = [eng.tokenizer.encode_pair(query, p, max_len) for p in passages]
+        want = np.zeros(len(passages), np.float32)
+        for bucket, idx in plan_batches([len(i) for i, _ in pairs], buckets, eng._plan_cap):
+            ids, lens = pad_ids_rows([pairs[i][0] for i in idx], bucket, eng.tokenizer.pad_id,
+                                     dtype=eng._ids_dtype)
+            bb = eng._batch_bucket(len(idx))
+            ids, lens, n_real = pad_batch_rows_ids(ids, lens, bb)
+            ids_d, lens_d, mask = dev(ids, lens)
+            len_a = torch.zeros(bb, dtype=torch.int64, device=eng.device)
+            len_a[:n_real] = torch.tensor([min(sum(1 for t in pairs[i][1] if t == 0), bucket)
+                                           for i in idx], device=eng.device)
+            pos = torch.arange(bucket, device=eng.device)
+            types = ((pos >= len_a[:, None]) & (pos < lens_d[:, None])).to(torch.int64)
+            want[idx] = bert_mod.cross_encoder_score(eng.cross_params, ids_d, mask,
+                                                     eng.cross_cfg, types)[:n_real].cpu().numpy()
+        check(np.array_equal(scores, want), "graphed rerank is not bit-equal to eager: max "
+                                            f"|err| {np.abs(scores - want).max():.3g}")
+        rerank_sigs = eng.stats["compiles"] - rc0
+
+        # the fused query over serve's rows in a store of one capacity block
+        store = VectorStore(VectorStoreConfig(dim=cfg.hidden_size, data_dir=""), device=device)
+        store.upsert_rows([f"d{i}" for i in range(len(texts))], emb, [{}] * len(texts))
+        queries = texts[:n_queries // 2] + [" ".join(t.split()[:12])
+                                            for t in texts[n_queries // 2:n_queries]]
+        qc0 = eng.stats["compiles"]
+        store.warm_fused(eng)
+        warm_caps = eng.stats["compiles"] - qc0
+        lat_g, lat_e = [], []
+        for j, q in enumerate(queries * 3):
+            if j == len(queries):
+                qc1 = eng.stats["compiles"]  # the buckets the warm missed, captured once
+            t0 = time.perf_counter()
+            hits = store.search_fused(eng, q, 8)
+            lat_g.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            with store._lock:
+                store._sync_device()
+                corpus, n = store._device_corpus, store.count()
+                k = store._k_static(8, n, corpus.shape[0])
+            enc = eng.tokenizer.encode(q, max_len)
+            ids, lens = pad_ids_rows([enc], choose_bucket(len(enc), buckets),
+                                     eng.tokenizer.pad_id, dtype=eng._ids_dtype)
+            s_e, i_e = cosine_topk(corpus, eager_embed(ids, lens, normalize=True)[0], n, k)
+            s_e, i_e = s_e.cpu().numpy(), i_e.cpu().numpy()
+            lat_e.append(time.perf_counter() - t0)
+            s_g, i_g = eng.embed_and_search(q, corpus, n, k)
+            check(np.array_equal(s_g, s_e) and np.array_equal(i_g, i_e),
+                  f"fused query {q[:30]!r}: graphed scores/rows differ from eager")
+            check([h.id for h in hits] == [f"d{i}" for i in i_e[:8]],
+                  f"fused hits {[h.id for h in hits]} != eager rows {i_e[:8]}")
+        check(eng.stats["compiles"] == qc1, "a fused query captured twice")
+        query_caps = qc1 - qc0 - warm_caps
+        sync()
+
+    capture_ms = ({f"{k[0]}[L={k[1]},B={k[2]}]": round(exe.capture_s * 1e3, 3)
+                   for k, exe in eng._exec_cache.items()} if cuda else "not measured")
+    pool = graph_pool_bytes() if cuda else None
+    claim = eng._graph_pool.nbytes() if cuda else None  # the engine.graphs claim
+    busy = busy_share(lambda: eng.embed_texts(texts)) if cuda else None
+    out = {"signatures": len(sigs), "batches": len(batches), "b1_cold": b1_cold,
+           "b1_warm": b1_warm, "emb_s_eager": len(texts) / eager_s,
+           "emb_s_graphed": len(texts) / graphed_s, "emb_s_cold": len(texts) / cold_s,
+           "rerank_captures": rerank_sigs, "fused_captures": warm_caps + query_caps,
+           "fused_p50_ms_eager": float(np.median(lat_e)) * 1e3,
+           "fused_p50_ms_graphed": float(np.median(lat_g)) * 1e3,
+           "capture_ms": capture_ms, "graph_pool_bytes": pool, "engine_graphs_claim": claim,
+           "compiles": eng.stats["compiles"], "compile_s": eng.stats["compile_s"],
+           "busy_pct": None if busy is None else 100.0 * busy[1] / busy[0]}
+    print(f"[graphs] encoder {cfg.hidden_size} wide x {L} layers {cfg.dtype}: embed_texts of "
+          f"{len(texts)} texts in {len(batches)} batches over {len(sigs)} signatures "
+          f"{[f'{a}x{b}' for a, b in sigs]}: {caps} captures, 0 on the second pass; B1 "
+          f"{b1_cold} = {L} x ({len(batches)} + {caps if cuda else 0}) cold, {b1_warm} = {L} x "
+          f"{len(batches)} warm (replays counted); every signature's graph bit-equal to "
+          f"embed_sentences; emb/s eager {out['emb_s_eager']:.1f}, graphed "
+          f"{out['emb_s_graphed']:.1f} (cold pass {out['emb_s_cold']:.1f}), host clock, "
+          f"tokenization included", flush=True)
+    print(f"[graphs] rerank of {len(passages)} passages bit-equal to cross_encoder_score "
+          f"({rerank_sigs} captures); {len(queries) * 3} fused queries bit-equal to the eager "
+          f"cosine_topk, hits equal (warm_fused captured {warm_caps}, the queries {query_caps} "
+          f"more in buckets it missed, repeats none): p50 eager "
+          f"{out['fused_p50_ms_eager']:.3f} ms, graphed {out['fused_p50_ms_graphed']:.3f} ms",
+          flush=True)
+    pool_s = ("not measured" if pool is None else
+              f"{pool:,} bytes, of which the engine's graphs keep {claim:,} allocated (its "
+              f"engine.graphs claim)")
+    busy_s = ("not measured" if busy is None
+              else f"{busy[1]:.1f} of {busy[0]:.1f} ms ({out['busy_pct']:.1f}%)")
+    print(f"[graphs] compiles {out['compiles']}, compile_s {out['compile_s']:.3f}; capture ms "
+          f"per signature {capture_ms}; graph pools hold {pool_s}; a graphed embed_texts "
+          f"keeps the device busy {busy_s}", flush=True)
+    return out
+
+
 # ------------------------------------------------------------ checkpoints
 
 # The models of BASELINE.md whose checkpoints the phases below write from
@@ -952,6 +1196,13 @@ def _leaf(tree, path):
     for k in path:
         tree = tree[k]
     return tree
+
+
+def graph_pool_ranges() -> list:
+    """[(start, end)] of the allocator's segments in CUDA-graph pools."""
+    return [(seg["address"], seg["address"] + seg["total_size"])
+            for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id") or (0, 0)) != (0, 0)]
 
 
 def live_cuda_storages() -> dict:
@@ -1122,19 +1373,20 @@ def checkpoint_phase(rng, tmp) -> dict:
             metrics.get("engine.tokens_padding", {"service": "engine"}))
     sig0 = _embed_dispatches()
     fa.launches = fa.bwd_kv_launches = fa.bwd_q_launches = 0  # ------- main path
-    b0 = eng.stats["embed_batches"]
+    b0, c0 = eng.stats["embed_batches"], eng.stats["compiles"]
     t0 = time.perf_counter()
     emb = eng.embed_texts(texts)
     first_s = time.perf_counter() - t0
-    n_batches = eng.stats["embed_batches"] - b0
+    n_batches, n_caps = eng.stats["embed_batches"] - b0, eng.stats["compiles"] - c0
     embed_launches = fa.launches
     tok1 = (metrics.get("engine.tokens_real", {"service": "engine"}),
             metrics.get("engine.tokens_padding", {"service": "engine"}))
     sig1 = _embed_dispatches()
     check(emb.shape == (len(texts), mcfg.hidden_size) and bool(np.isfinite(emb).all()),
           f"embeddings {emb.shape}, finite {np.isfinite(emb).all()}")
-    check(embed_launches == mcfg.num_layers * n_batches,
-          f"flash launches {embed_launches} != {mcfg.num_layers} x {n_batches} batches")
+    check(embed_launches == mcfg.num_layers * (n_batches + n_caps),
+          f"flash launches {embed_launches} != {mcfg.num_layers} x ({n_batches} batches + "
+          f"{n_caps} captures)")
     buckets_used = sorted({int(k.split("L=")[1].split(",")[0]) for k in sig1
                            if sig1[k] != sig0.get(k, 0)})
     check(buckets_used == [32, 64, 128, 256, 512], f"buckets run {buckets_used}")
@@ -1149,7 +1401,7 @@ def checkpoint_phase(rng, tmp) -> dict:
 
     store = VectorStore(VectorStoreConfig(dim=mcfg.hidden_size, data_dir=str(tmp / "store")))
     store.upsert_rows([f"m{i}" for i in range(len(texts))], emb, [{"text": t} for t in texts])
-    r0 = eng.stats["rerank_batches"]
+    r0, c1 = eng.stats["rerank_batches"], eng.stats["compiles"]
     reranked = []
     for i, q in enumerate(texts[:4]):
         hits = store.search_fused(eng, q, 8)
@@ -1159,10 +1411,10 @@ def checkpoint_phase(rng, tmp) -> dict:
               f"rerank scores {scores}")
         reranked.append(scores)
     launches = fa.launches  # ---------------------------------------- main path end
-    rerank_batches = eng.stats["rerank_batches"] - r0
-    check(launches - embed_launches == mcfg.num_layers * (4 + rerank_batches),
-          f"flash launches for 4 fused queries and {rerank_batches} rerank batches: "
-          f"{launches - embed_launches}")
+    rerank_batches, caps = eng.stats["rerank_batches"] - r0, eng.stats["compiles"] - c1
+    check(launches - embed_launches == mcfg.num_layers * (4 + rerank_batches + caps),
+          f"flash launches for 4 fused queries, {rerank_batches} rerank batches and {caps} "
+          f"captures: {launches - embed_launches}")
     n_params = param_counts(MPNET_MULTILINGUAL)["total"]
     print(f"[checkpoint] paraphrase-multilingual-mpnet-base-v2 geometry (XLM-R, vocab "
           f"{cfg.vocab_size:,}, {n_params:,} parameters) from seed {SEED}: model.safetensors {size_mb:.1f} MB "
@@ -1171,7 +1423,8 @@ def checkpoint_phase(rng, tmp) -> dict:
           f"{mcfg.position_offset}, int32 ids; engine.param_bytes{{dtype=bf16}} {pbytes:,.0f}; "
           f"embed_texts of {len(texts)} texts over buckets {buckets_used} in {n_batches} batches: "
           f"{first_s:.2f} s first call, {len(texts) / first_s:.1f} emb/s (host clock), flash "
-          f"launches {embed_launches} = {mcfg.num_layers} x {n_batches}; flash vs plain cosine "
+          f"launches {embed_launches} = {mcfg.num_layers} x ({n_batches} + {n_caps} captures); "
+          f"flash vs plain cosine "
           f"min {cos.min():.6f}; 4 fused queries find their own rows, rerank of their top 8 "
           f"through the one-row token-type table finite (score range "
           f"{min(s.min() for s in reranked):.4f}..{max(s.max() for s in reranked):.4f})",
@@ -1197,7 +1450,7 @@ def checkpoint_phase(rng, tmp) -> dict:
     check(pair._ids_dtype == np.uint16 and pair.cross_cfg.type_vocab_size == 2
           and pair.cross_params["classifier"]["kernel"].shape == (mini.hidden_size, 1),
           f"MiniLM pair: ids {pair._ids_dtype}, cross {pair.cross_cfg}")
-    e0 = pair.stats["embed_batches"]
+    e0, pc0 = pair.stats["embed_batches"], pair.stats["compiles"]
     fa.launches = 0  # ------------------------------------------------ main path
     t0 = time.perf_counter()
     emb2 = pair.embed_texts(texts[:256])
@@ -1206,7 +1459,8 @@ def checkpoint_phase(rng, tmp) -> dict:
     passages = texts[256:288]
     flash_scores = pair.rerank(texts[0], passages)
     pair_launches = fa.launches  # ------------------------------------- main path end
-    check(pair_launches == mini.num_layers * (n2 + pair.stats["rerank_batches"]),
+    pair_caps = pair.stats["compiles"] - pc0
+    check(pair_launches == mini.num_layers * (n2 + pair.stats["rerank_batches"] + pair_caps),
           f"MiniLM pair flash launches {pair_launches}")
     plain = TorchEngine(dataclasses.replace(pair.config, attn_impl="xla"), params=pair.params,
                         model_cfg=pair.model_cfg, tokenizer=pair.tokenizer,
@@ -1229,7 +1483,8 @@ def checkpoint_phase(rng, tmp) -> dict:
           f"engine.param_bytes{{dtype=bf16}} {pair_bytes:,.0f}; embed of 256 texts "
           f"{first2_s:.2f} s first call; rerank of 32 passages, flash vs plain attention max "
           f"|err| {err.max():.3g} (bar {RERANK_BAR}); flash launches {pair_launches} = "
-          f"{mini.num_layers} x {n2 + pair.stats['rerank_batches']} batches", flush=True)
+          f"{mini.num_layers} x ({n2 + pair.stats['rerank_batches']} batches + {pair_caps} "
+          f"captures)", flush=True)
     del pair, plain
     gc.collect()
     return {"engine": eng, "store": store, "launches": launches + pair_launches,
@@ -1259,7 +1514,10 @@ def obs_phase(ck: dict, tmp) -> None:
     check(rows.get("engine.params") == held,
           f"engine.params claims {rows.get('engine.params')}, the engine holds {held}")
     check(rows.get("memory.corpus", 0) > 0, f"no memory.corpus claim: {rows}")
-    claimed = rows["engine.params"] + rows["memory.corpus"]
+    # the graphs' pools: what the served shapes' captures keep allocated
+    graphs = rows.get("engine.graphs", 0) + rows.get("memory.search_graphs", 0)
+    check(rows.get("engine.graphs", 0) > 0, f"no engine.graphs claim: {rows}")
+    claimed = rows["engine.params"] + rows["memory.corpus"] + graphs
     check(claimed <= rec["bytes_in_use"],
           f"claims {claimed} exceed the allocator's bytes in use {rec['bytes_in_use']}")
     real, pad = ck["tokens"]
@@ -1269,7 +1527,9 @@ def obs_phase(ck: dict, tmp) -> None:
     top = dispatch_ledger.snapshot()[:3]
     # what the ledger leaves unattributed: live tensors outside the claims
     claimed_ptrs = set(held_ptrs) | {store._device_corpus.untyped_storage().data_ptr()}
-    outside = sorted((v for k, v in live_cuda_storages().items() if k not in claimed_ptrs),
+    pools = graph_pool_ranges()
+    outside = sorted((v for k, v in live_cuda_storages().items()
+                      if k not in claimed_ptrs and not any(a <= k < b for a, b in pools)),
                      key=lambda v: -v[0])
     outside_bytes = sum(v[0] for v in outside)
     workspaces = clear_cublas_workspaces()
@@ -1292,7 +1552,9 @@ def obs_phase(ck: dict, tmp) -> None:
           f"guard_oom recorded {count} OOM(s), verdict {last}")
     print(f"[obs] reconcile on the card (basis {rec['basis']}): bytes_in_use "
           f"{rec['bytes_in_use']:,}, engine.params {rows['engine.params']:,} (= the engine's "
-          f"tensors), memory.corpus {rows['memory.corpus']:,}, unattributed "
+          f"tensors), memory.corpus {rows['memory.corpus']:,}, engine.graphs "
+          f"{rows['engine.graphs']:,}, memory.search_graphs "
+          f"{rows.get('memory.search_graphs', 0):,}, unattributed "
           f"{rec['unattributed_bytes']:,} ({rec['unattributed_pct']}%), of which cuBLAS "
           f"workspaces {workspaces:,} (freed by clearing them), live tensors outside the claims "
           f"{outside_bytes:,} in {len(outside)} storages (largest "
@@ -1361,7 +1623,7 @@ def quant_phase(rng, mpnet_dir, host: dict) -> dict:
                       f"{ref.q.numel()} codes and {bad_s} of {ref.scale.numel()} scales")
             codes = (f", codes and scales of {' and '.join(QUANT_PROBES)} bit-equal to the CPU's "
                      f"({got.q.dtype})")
-        b0 = eng.stats["embed_batches"]
+        b0, c0 = eng.stats["embed_batches"], eng.stats["compiles"]
         fa.launches = 0  # ---------------------------------------------- main path
         emb = eng.embed_texts(texts)
         t0 = time.perf_counter()
@@ -1369,8 +1631,9 @@ def quant_phase(rng, mpnet_dir, host: dict) -> dict:
         rate = len(texts) / (time.perf_counter() - t0)
         n = fa.launches  # ---------------------------------------------- main path end
         layers = eng.model_cfg.num_layers
-        check(n == layers * (eng.stats["embed_batches"] - b0),
-              f"{mode}: flash launches {n} != {layers} x {eng.stats['embed_batches'] - b0}")
+        batches_caps = eng.stats["embed_batches"] - b0 + eng.stats["compiles"] - c0
+        check(n == layers * batches_caps,
+              f"{mode}: flash launches {n} != {layers} x {batches_caps} batches and captures")
         launches += n
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             eng.embed_texts(texts)
@@ -2016,10 +2279,11 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
                               budgets)))
 
     engine_timeline.clear()
-    tok0, prefills0 = eng.stats["tokens_generated"], prefills()
+    tok0, prefills0, carriers0 = eng.stats["tokens_generated"], prefills(), eng.carrier_stats()
     fa.launches = 0  # ---------------------------------------------------- main path
     texts, bstats, batch_s = serve_batcher(eng, waves, s["max_batch"], s["wave_gap_s"])
     batch_launches = fa.launches  # ------------------------------------------ main path end
+    carriers = carrier_traffic(carriers0, eng.carrier_stats())
     counted += batch_launches
     n_prefills = prefills() - prefills0
     n_req = sum(len(w) for w in waves)
@@ -2041,7 +2305,7 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
           f"{ttft['p50']:.1f} p95 {ttft['p95']:.1f} ({ttft['count']} rows), lm.tpot_ms p50 "
           f"{tpot['p50']:.2f} ({tpot['count']} chunks); B1 launches {batch_launches} = {L} x "
           f"{n_prefills} prefills; timeline: {decode}; dominant stall: "
-          f"{summ['dominant_stall']}", flush=True)
+          f"{summ['dominant_stall']}; decode {carriers_text(carriers)}", flush=True)
 
     # -- one session, one admission on a second thread
     engine_timeline.clear()
@@ -2119,6 +2383,7 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
           f"lm.kv_rows_active {active} -> {metrics.gauge_get('lm.kv_rows_active', labels)}")
     while not sess.done():
         sess.step()
+    sess.close()
     kinds = {e["kind"] for e in engine_timeline.events()}
     check({"step", "admit", "finish", "cancel"} <= kinds, f"timeline kinds {sorted(kinds)}")
     print(f"[session] start_session of 3 ragged prompts in the {sess.P} bucket (bb {sess.bb}), "
@@ -2138,6 +2403,7 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
         sess = eng.start_session(prompts, [new] * len(prompts), temperature=0.0)
         while not sess.done():
             sess.step()
+        sess.close()
         wall_ms = (time.perf_counter() - t0) * 1e3
     prof_launches = fa.launches  # ------------------------------------------- main path end
     counted += prof_launches
@@ -2170,6 +2436,7 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
     rows[tag] = next(r for r in sess.rows if r is not None and r.tag == tag)
     while not sess.done():
         sess.step()
+    sess.close()
     g2_launches = fa.launches  # --------------------------------------------- main path end
     counted += g2_launches
     check(g2_launches == 2 * L2, f"GPT-2 session: B1 launches {g2_launches} != 2 x {L2}")
@@ -2196,11 +2463,18 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    return {"launches": counted, "stream": {"first_delta_ms": first_ms, "last_delta_ms": last_ms},
+    graphs = graphs_lm_phase(rng, tmp, device=device, lm_kw=lm_kw, sizes=dict(
+        bucket=s["session_bucket"], rows=s["max_batch"], new=new, chunk=chunk,
+        gpt2_bucket=s["gpt2_bucket"], batcher=dict(
+            bucket=s["batcher_bucket"], first_wave=s["first_wave"],
+            later_waves=s["later_waves"], waves=s["waves"], wave_gap_s=s["wave_gap_s"],
+            max_batch=s["max_batch"])))
+    return {"graphs": graphs,
+            "launches": counted, "stream": {"first_delta_ms": first_ms, "last_delta_ms": last_ms},
             "batcher": {"tok_s": toks / batch_s, "ttft_ms_p50": ttft["p50"],
                         "ttft_ms_p95": ttft["p95"], "tpot_ms_p50": tpot["p50"],
                         "admitted_midflight": bstats["admitted_midflight"],
-                        "sessions": bstats["sessions"]},
+                        "sessions": bstats["sessions"], "carriers": carriers},
             "session_busy_pct": None if busy is None else 100.0 * busy / wall_ms,
             "admit_bytes": {"forecast_1_row": forecast, "headroom": headroom,
                             "prefill_peak_above_live": admit_bytes},
@@ -2208,6 +2482,245 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
 
 
 # ------------------------------------------------------------ paged, spec
+
+GRAPHS_LM = dict(bucket=(128, 256), rows=8, new=64, chunk=16, gpt2_bucket=(16, 64),
+                 batcher=dict(bucket=(16, 64), first_wave=(24, 32, 40, 48, 56, 64, 64, 64),
+                              later_waves=(16, 16, 16, 16, 64, 48, 32, 16), waves=3,
+                              wave_gap_s=0.05, max_batch=8))
+
+
+def graphs_lm_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
+    """ROADMAP A16 stage 2 on the card, on the TinyLlama-1.1B (bf16) and
+    GPT-2 (float32) dirs `generate_phase` wrote. The decode chunk as a
+    CUDA graph bound to its carry (`engine/lm._CarryDecoder`) against the
+    same chunks run eagerly through `gpt.decode_chunk`, from one prefill,
+    at batch 8 in the 256 bucket, 64 new tokens in chunks of 16. Each
+    check fails the run:
+
+    - dense cache, greedy: tokens equal and the final logits bit-equal;
+      sampled (temperature 0.8, top-k 40, one seed): tokens equal;
+    - int8 KV cache, greedy: tokens equal;
+    - no B1 launch in any chunk, captured or replayed;
+    - GPT-2 float32: `generate_stream` (its full chunks replay a graph)
+      and a `BatchSession` with an admission after its first chunk give
+      `generate()`'s tokens (or a reported near-tie).
+
+    Printed: decode ms a step, eager against graphed replays, each
+    capture's ms, and `GenBatcher` tok/s over [session]'s three waves twice
+    on one engine: cold (each new geometry's first chunk captures) and
+    warm (every chunk replays), with the device's busy share of the warm
+    pass. `sizes`, `device` and `lm_kw` let the CPU tests rehearse it at
+    tiny geometries."""
+    from symbiont_tpu_torch.config import LmConfig
+    from symbiont_tpu_torch.engine.lm import LmEngine, _CarryDecoder
+    from symbiont_tpu_torch.models import gpt as gpt_mod
+    from symbiont_tpu_torch.obs.engine_timeline import engine_timeline
+    from symbiont_tpu_torch.ops import flash_attention as fa
+
+    s = {**GRAPHS_LM, **(sizes or {})}
+    lm_kw = dict(lm_kw or {})
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    tmp = Path(tmp)
+    chunk, new = s["chunk"], s["new"]
+    prompts = ragged_prompts(rng, *s["bucket"], s["rows"])
+    out: dict = {}
+
+    def ids_of(text: str) -> list:
+        return [int(x) for x in re.findall(r"\[(\d+)\]", text)]
+
+    def run(eng, temp, top_k, graphed: bool) -> dict:
+        """One prefill, then new / chunk chunks → tokens, final logits,
+        per-chunk ms (synchronised) and B1 launches in the chunks."""
+        cfg = eng.model_cfg
+        ids, mask, nb = eng._prepare_prompts(prompts, new)
+        bb = ids.shape[0]
+        temps = eng._norm_sampling_rows(temp, 0.0, bb, len(prompts), float)
+        ks = eng._norm_sampling_rows(top_k, 0, bb, len(prompts), int)
+        gen = torch.Generator(device=eng.device).manual_seed(SEED)
+        carrier = _CarryDecoder(eng.device, eng._graph_pool)
+        toks, ms = [], []
+        with torch.inference_mode():
+            cache, logits, kv_valid, pos = eng._prefill(eng.params, ids, mask, nb)
+            done = torch.zeros((bb,), dtype=torch.bool, device=eng.device)
+            sync()
+            before = fa.launches
+            for _ in range(new // chunk):
+                t0 = time.perf_counter()
+                if graphed:
+                    cache, logits, pos, done, kv_valid, t, _ = carrier.chunk(
+                        eng.params, cfg, gen, cache, logits, pos, done, kv_valid, chunk, temps,
+                        ks, -1, f"lm.decode_chunk[P={ids.shape[1]},B={bb},chunk={chunk}]")
+                else:
+                    cache, logits, pos, done, t, _ = gpt_mod.decode_chunk(
+                        eng.params, cache, logits, pos, done, kv_valid, gen, chunk, cfg,
+                        temperature=temps, top_k=ks, eos_id=-1)
+                toks.append(t.cpu())
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        exe = next(iter(carrier.exes.values()), None)
+        return {"tokens": torch.cat(toks, dim=1), "logits": logits.clone(), "ms": ms,
+                "launches": fa.launches - before,
+                "capture_ms": None if exe is None or not cuda else exe.capture_s * 1e3}
+
+    for kv in ("none", "int8"):
+        eng = LmEngine(LmConfig(model_dir=str(tmp / "tinyllama"), dtype="bfloat16",
+                                attn_impl="flash", stream_chunk=chunk, kv_quant=kv, **lm_kw),
+                       tokenizer=IdTokenizer())
+        cases = (("greedy", 0.0, 0),) + ((("sampled", 0.8, 40),) if kv == "none" else ())
+        for label, temp, top_k in cases:
+            e = run(eng, temp, top_k, graphed=False)
+            g = run(eng, temp, top_k, graphed=True)
+            name = f"{kv} {label}"
+            check(torch.equal(e["tokens"], g["tokens"]),
+                  f"{name}: graphed tokens differ from eager at "
+                  f"{(e['tokens'] != g['tokens']).nonzero()[:4].tolist()}")
+            check(e["launches"] == 0 and g["launches"] == 0,
+                  f"{name}: B1 launched {e['launches']} / {g['launches']} times in decode chunks")
+            if label == "greedy":
+                check(torch.equal(e["logits"], g["logits"]),
+                      f"{name}: the final logits of the graphed decode differ from eager "
+                      f"(max |err| {(e['logits'] - g['logits']).abs().max().item():.3g})")
+            out[name] = {"eager_ms_step": float(np.median(e["ms"][1:])) / chunk,
+                         "graphed_ms_step": float(np.median(g["ms"][1:])) / chunk,
+                         "first_chunk_ms": g["ms"][0], "capture_ms": g["capture_ms"]}
+        if kv == "none":  # GenBatcher over [session]'s waves, cold then warm
+            b = s["batcher"]
+            waves = [list(zip(ragged_prompts(rng, *b["bucket"], len(budgets)), budgets))
+                     for budgets in [b["first_wave"]] + [b["later_waves"]] * (b["waves"] - 1)]
+            runs = {}
+            # the reference: the same waves on a fresh engine of the same
+            # checkpoint whose chunks all run eagerly (as before A16)
+            eng_e = LmEngine(eng.config, tokenizer=IdTokenizer())
+            with eager_chunks():
+                texts, bstats, secs = serve_batcher(eng_e, waves, b["max_batch"],
+                                                    b["wave_gap_s"])
+            check(all(isinstance(t, str) for t in texts), "eager GenBatcher returned no text")
+            runs["eager"] = {"tok_s": eng_e.stats["tokens_generated"] / secs,
+                             "sessions": bstats["sessions"]}
+            del eng_e
+            for label in ("cold", "warm"):
+                engine_timeline.clear()
+                tok0, c0 = eng.stats["tokens_generated"], eng.carrier_stats()
+                run_b = lambda: serve_batcher(eng, waves, b["max_batch"], b["wave_gap_s"])  # noqa: E731
+                if label == "warm" and cuda:
+                    holder = {}
+                    wall_ms, busy_ms = busy_share(lambda: holder.update(r=run_b()))
+                    texts, bstats, secs = holder["r"]
+                else:
+                    texts, bstats, secs = run_b()
+                    busy_ms = wall_ms = None
+                check(all(isinstance(t, str) for t in texts), "GenBatcher returned no text")
+                runs[label] = {"tok_s": (eng.stats["tokens_generated"] - tok0) / secs,
+                               "sessions": bstats["sessions"], "seconds": secs,
+                               "busy_pct": None if busy_ms is None else 100 * busy_ms / wall_ms,
+                               "carriers": carrier_traffic(c0, eng.carrier_stats()),
+                               # the free carriers' captures, all made in the cold pass
+                               "capture_s": sum(x.capture_s for c in eng._free_carriers.values()
+                                                for x in c.exes.values()),
+                               "capture_parts": [
+                                   {k: round(v, 3) for k, v in x.capture_parts.items()}
+                                   for c in eng._free_carriers.values()
+                                   for x in c.exes.values()],
+                               "step_ms": sorted(e["wall_ms"] for e in engine_timeline.events()
+                                                 if e["kind"] == "step")}
+            # the warm batcher's texts: one wave of max_batch at once is one
+            # session, whose rows are generate_batch's on the same prompts
+            wave = waves[0]
+            texts, bstats, _ = serve_batcher(eng, [wave], b["max_batch"], 0.0)
+            check((bstats["sessions"], bstats["admitted_midflight"]) == (1, 0),
+                  f"one wave of {len(wave)}: {bstats['sessions']} sessions, "
+                  f"{bstats['admitted_midflight']} admissions (want 1, 0)")
+            ref = eng.generate_batch([p for p, _ in wave], [n for _, n in wave],
+                                     temperature=0.0)
+            runs["warm_wave_ties"] = same_or_near_tie(
+                "graphs warm GenBatcher wave", {i: ids_of(t) for i, t in enumerate(texts)},
+                {i: ids_of(t) for i, t in enumerate(ref)}, eng,
+                {i: p for i, (p, _) in enumerate(wave)})
+            out["sampled_streams"] = sampled_streams(eng, prompts[0], new)
+            free = eng.carrier_stats()
+            runs["held"] = {"free_carriers": free["free"], "lm.carrier_pool": free["free_bytes"],
+                            "lm.decode_graphs": eng._graph_pool.nbytes() if cuda else None,
+                            "budget": eng._carrier_budget(next(iter(
+                                eng._free_carriers.values())))}
+            out["batcher"] = runs
+        del eng
+
+    # GPT-2 float32: a stream and a session with an admission against generate()
+    g2 = LmEngine(LmConfig(model_dir=str(tmp / "gpt2"), dtype="float32", attn_impl="flash",
+                           stream_chunk=chunk, **lm_kw), tokenizer=IdTokenizer())
+    g2_prompts = ragged_prompts(rng, *s["gpt2_bucket"], 5)
+    # the admitted row's budget fits what the session has left after a chunk
+    budgets = [new] * 4 + [new - chunk]
+    want = {i: g2.generate(p, budgets[i], temperature=0.0) for i, p in enumerate(g2_prompts)}
+    stream = "".join(g2.generate_stream(g2_prompts[0], new, temperature=0.0))
+    ties = same_or_near_tie("graphs GPT-2 stream", {0: ids_of(stream)}, {0: ids_of(want[0])},
+                            g2, {0: g2_prompts[0]})
+    # three rows in a batch bucket of 4, the fourth prompt admitted into the
+    # free row after the first chunk
+    run_s = drive_session(g2, g2_prompts[1:4], budgets[1:4], admit=(g2_prompts[4], budgets[4]))
+    got = {1 + t: toks for t, toks in run_s["tokens"].items()}
+    ties += same_or_near_tie("graphs GPT-2 session", got, {i: ids_of(want[i]) for i in range(1, 5)},
+                             g2, dict(enumerate(g2_prompts)))
+    # GenBatcher on GPT-2 float32, cold then warm, over the same waves:
+    # every text against the standalone generate() of its prompt
+    b = s["batcher"]
+    waves = [list(zip(ragged_prompts(rng, *b["bucket"], len(budgets)), budgets))
+             for budgets in [b["first_wave"]] + [b["later_waves"]] * (b["waves"] - 1)]
+    flat = [pn for w in waves for pn in w]
+    alone = {i: ids_of(g2.generate(p, n, temperature=0.0)) for i, (p, n) in enumerate(flat)}
+    g2_batcher = {}
+    for label in ("cold", "warm"):
+        c0 = g2.carrier_stats()
+        texts, bstats, _ = serve_batcher(g2, waves, b["max_batch"], b["wave_gap_s"])
+        ties += same_or_near_tie(f"graphs GPT-2 GenBatcher {label}",
+                                 {i: ids_of(t) for i, t in enumerate(texts)}, alone, g2,
+                                 dict(enumerate(p for p, _ in flat)))
+        g2_batcher[label] = {"sessions": bstats["sessions"],
+                             "admitted": bstats["admitted_midflight"],
+                             "carriers": carrier_traffic(c0, g2.carrier_stats())}
+    out["gpt2"] = {"near_ties": ties, "session_steps": len(run_s["step_ms"]),
+                   "batcher": g2_batcher}
+    d, q = out["none greedy"], out["int8 greedy"]
+    print(f"[graphs] TinyLlama decode, batch {s['rows']}, bucket {s['bucket'][1]}, {new} tokens "
+          f"in chunks of {chunk}: dense greedy tokens and final logits graphed = eager, sampled "
+          f"(0.8, top-k 40, one seed) tokens graphed = eager, int8 KV greedy tokens graphed = "
+          f"eager, no B1 in a chunk; ms a step eager {d['eager_ms_step']:.3f}, graphed "
+          f"{d['graphed_ms_step']:.3f} (int8 {q['eager_ms_step']:.3f} / "
+          f"{q['graphed_ms_step']:.3f}, sampled {out['none sampled']['eager_ms_step']:.3f} / "
+          f"{out['none sampled']['graphed_ms_step']:.3f}); capture ms "
+          f"{[round(v['capture_ms'], 1) for v in out.values() if v.get('capture_ms')]}",
+          flush=True)
+    bc, bw = out["batcher"]["cold"], out["batcher"]["warm"]
+    busy = "not measured" if bw["busy_pct"] is None else f"{bw['busy_pct']:.1f}%"
+    ss, held = out["sampled_streams"], out["batcher"]["held"]
+    print(f"[graphs] GenBatcher over the session phase's 3 waves: eager on a fresh engine "
+          f"{out['batcher']['eager']['tok_s']:.1f} tok/s ({out['batcher']['eager']['sessions']} "
+          f"sessions); graphed on one engine, cold "
+          f"{bc['tok_s']:.1f} tok/s ({bc['sessions']} sessions; {carriers_text(bc['carriers'])}"
+          f"; a new geometry's first chunk captures: {bc['capture_s']:.2f} s of captures in "
+          f"{bc['seconds']:.2f} s, by part {bc['capture_parts']}; {len(bc['step_ms'])} steps, {sum(bc['step_ms']):.0f} ms in "
+          f"all, the longest {[round(x) for x in bc['step_ms'][-5:]]} ms), warm "
+          f"{bw['tok_s']:.1f} tok/s ({len(bw['step_ms'])} steps, {sum(bw['step_ms']):.0f} ms) "
+          f"({carriers_text(bw['carriers'])}), device busy {busy} of the warm pass; then one "
+          f"wave of {len(s['batcher']['first_wave'])} at once = generate_batch of its prompts "
+          f"(near-ties {out['batcher']['warm_wave_ties'] or 'none'}); two sampled "
+          f"generate_streams (0.8, top-k 40), the second on the first's carrier "
+          f"({ss['second']['exes']} executable, {ss['second']['replays']} replays in all), each "
+          f"= its {ss['first']['tokens']} tokens decoded eagerly from _chunk_generator(base, n); "
+          f"then the engine holds {held['free_carriers']} free carriers of "
+          f"{held['lm.carrier_pool']:,} bytes (budget {held['budget']:,}) and "
+          + ("decode graphs not measured" if held["lm.decode_graphs"] is None else
+             f"{held['lm.decode_graphs']:,} bytes allocated in its decode graphs' pool"),
+          flush=True)
+    gb = out["gpt2"]["batcher"]
+    print(f"[graphs] GPT-2 float32: generate_stream and a session with an admission = "
+          f"generate(); GenBatcher over the same waves, cold ({gb['cold']['sessions']} "
+          f"sessions, {gb['cold']['admitted']} admitted; {carriers_text(gb['cold']['carriers'])}"
+          f") and warm ({carriers_text(gb['warm']['carriers'])}): every text = generate() of "
+          f"its prompt; near-ties {ties or 'none'}", flush=True)
+    return out
+
 
 # [paged]'s and [spec]'s sizes on the card: the sessions' prompt bucket
 # (lo, hi], new tokens, chunk, the partial hit's shared prefix, the KV page,
@@ -2264,6 +2777,7 @@ def drive_session(eng, prompts, wants, admit=None, cancel_after=None) -> dict:
         if n == cancel_after:
             check(sess.cancel_tag(0), "cancel_tag(0) found no row")
             rows.pop(0)
+    sess.close()
     out["tokens"] = {t: list(r.tokens) for t, r in rows.items()}
     return out
 
@@ -2278,6 +2792,96 @@ def timeline_latency(events) -> dict:
     ttft = [e["ttft_ms"] for e in events if e["kind"] == "finish" and "ttft_ms" in e]
     tpot = [e["wall_ms"] / e["steps"] for e in events if e["kind"] == "step" and e["steps"]]
     return {"ttft_ms_p50": q(ttft, 0.5), "ttft_ms_p95": q(ttft, 0.95), "tpot_ms_p50": q(tpot, 0.5)}
+
+
+@contextlib.contextmanager
+def eager_chunks():
+    """Inside, every decode carrier runs its chunks eagerly through
+    `gpt.decode_chunk` (no executable, no capture): the pre-A16 decode a
+    graphed pass is timed against. A reference for the measurement only;
+    the port has no such switch."""
+    from symbiont_tpu_torch.engine.lm import _CarryDecoder
+    from symbiont_tpu_torch.models import gpt as gpt_mod
+
+    graphed = _CarryDecoder.chunk
+
+    def chunk(self, params, cfg, gen, cache, logits, pos, done, kv_valid, steps, temps, ks,
+              eos_id, sig):
+        cache, logits, pos, done, toks, counted = gpt_mod.decode_chunk(
+            params, cache, logits, pos, done, kv_valid, gen, steps, cfg, temperature=temps,
+            top_k=ks, eos_id=eos_id)
+        return cache, logits, pos, done, kv_valid, toks, counted
+
+    _CarryDecoder.chunk = chunk
+    try:
+        yield
+    finally:
+        _CarryDecoder.chunk = graphed
+
+
+def carrier_traffic(before: dict, after: dict) -> dict:
+    """The decode carriers taken between two `LmEngine.carrier_stats()`
+    readings: takes, distinct geometries (rows x prompt bucket + new
+    bucket), how many found a free carrier of their geometry (its graphs
+    captured already) and that share of the takes."""
+    geoms = {k: n - before["by_geometry"].get(k, 0) for k, n in after["by_geometry"].items()}
+    takes, reused = after["takes"] - before["takes"], after["reused"] - before["reused"]
+    return {"takes": takes, "geometries": sum(1 for n in geoms.values() if n),
+            "reused": reused, "repeat_share": reused / takes if takes else 0.0,
+            "by_geometry": {f"{k[1]}x{k[2]}+{k[3]}": n for k, n in geoms.items() if n}}
+
+
+def carriers_text(c: dict) -> str:
+    return (f"{c['takes']} carriers taken over {c['geometries']} "
+            f"geometr{'y' if c['geometries'] == 1 else 'ies'} "
+            f"{c['by_geometry']}, {c['reused']} found theirs free (repeat share "
+            f"{c['repeat_share']:.1%})")
+
+
+def sampled_streams(eng, prompt: str, new: int) -> dict:
+    """Two sampled `generate_stream`s (temperature 0.8, top-k 40) of one
+    prompt, one after the other: the second borrows the carrier the first
+    gave back and replays the executable the first built (on the card its
+    captured graph), the carrier's generator reseeded per chunk. Each
+    stream's tokens are held against the same chunks decoded eagerly from a
+    fresh prefill, each chunk drawing from a new generator of
+    `_chunk_generator(base, n)`, `base` drawn as the stream draws it. →
+    per stream: carriers reused, the carrier's executables and replays."""
+    from symbiont_tpu_torch.models import gpt as gpt_mod
+
+    chunk, cfg = eng.config.stream_chunk, eng.model_cfg
+    res = {}
+    for label in ("first", "second"):
+        state, c0 = eng._generator.get_state(), eng.carrier_stats()
+        text = "".join(eng.generate_stream(prompt, new, temperature=0.8, top_k=40))
+        c1 = eng.carrier_stats()
+        g = torch.Generator(device=eng.device)
+        g.set_state(state)
+        base = int(torch.randint(0, 2 ** 62, (1,), generator=g, device=eng.device).item())
+        ids, mask, nb = eng._prepare_prompts([prompt], new)
+        want = []
+        with torch.inference_mode():
+            cache, logits, kv_valid, pos = eng._prefill(eng.params, ids, mask, nb,
+                                                        note_peak=False)
+            done = torch.zeros((1,), dtype=torch.bool, device=eng.device)
+            for n in range(new // chunk):
+                cache, logits, pos, done, t, _ = gpt_mod.decode_chunk(
+                    eng.params, cache, logits, pos, done, kv_valid,
+                    eng._chunk_generator(base, n), chunk, cfg, temperature=0.8, top_k=40,
+                    eos_id=-1)
+                want += t[0].tolist()
+        got = [int(x) for x in re.findall(r"\[(\d+)\]", text)]
+        first = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y),
+                     min(len(got), len(want)))
+        check(got == want, f"sampled stream ({label}): tokens differ from its eager chunks "
+                           f"from token {first}")
+        (key,) = [k for k, n in c1["by_geometry"].items() if n != c0["by_geometry"].get(k, 0)]
+        dec = eng._free_carriers[key]
+        res[label] = {"reused": c1["reused"] - c0["reused"], "exes": len(dec.exes),
+                      "replays": sum(e.replays for e in dec.exes.values()), "tokens": len(got)}
+    check(res["second"]["reused"] == 1 and res["second"]["exes"] == res["first"]["exes"],
+          f"the second sampled stream did not replay the first one's executable: {res}")
+    return res
 
 
 def serve_batcher(eng, waves, max_batch: int, wave_gap_s: float):
@@ -3053,9 +3657,12 @@ def stack_phase(rng, tmp, sizes=None, device="cuda", engine_kw=None, lm_kw=None,
             # bucket the prompts reach, at the LM's heads and dtype
             for B in (1 << i for i in range(s["batch"].bit_length())):
                 b1_against_plain(rng, B, lm.model_cfg, s["gen_bucket"][1], device, tag="stack")
+            engine_svc = next(sv for sv in stack.services if sv.name == "engine")
+            while engine_svc._warm_task is not None and not engine_svc._warm_task.done():
+                await asyncio.sleep(0.05)  # the fused warm-up's captures are set-up
             stats0 = dict(eng.stats)
             bstats0 = dict(stack._lm_batcher.stats)
-            prefill0 = lm_prefills(metrics)
+            prefill0, carriers0 = lm_prefills(metrics), lm.carrier_stats()
             fa.launches = 0  # ----------------------------------------------- main path
             # ingest: every page through perception → preprocessing (the
             # MicroBatcher, B1) → vector memory and the knowledge graph
@@ -3121,6 +3728,7 @@ def stack_phase(rng, tmp, sizes=None, device="cuda", engine_kw=None, lm_kw=None,
             counted = fa.launches  # ----------------------------------------- main path end
             stats2 = dict(eng.stats)
             prefills = lm_prefills(metrics) - prefill0
+            carriers = carrier_traffic(carriers0, lm.carrier_stats())
             sessions = stack._lm_batcher.stats["sessions"] - bstats0["sessions"]
             admitted = (stack._lm_batcher.stats["admitted_midflight"]
                         - bstats0["admitted_midflight"])
@@ -3206,9 +3814,13 @@ def stack_phase(rng, tmp, sizes=None, device="cuda", engine_kw=None, lm_kw=None,
             embed_b = stats2["embed_batches"] - stats0["embed_batches"]
             qsearch = stats2["qsearch_calls"] - stats0["qsearch_calls"]
             rerank_b = stats2["rerank_batches"] - stats0["rerank_batches"]
-            want_b1 = layers * (embed_b + qsearch + rerank_b) + lm_layers * prefills
+            # a capture's warm-up runs B1 once more on the card; a CPU
+            # executable is the eager function and captures nothing
+            caps = stats2["compiles"] - stats0["compiles"] if device == "cuda" else 0
+            want_b1 = layers * (embed_b + qsearch + rerank_b + caps) + lm_layers * prefills
             equation = (f"{counted} = {layers} x ({embed_b} embed batches + {qsearch} fused queries "
-                        f"+ {rerank_b} rerank batches) + {lm_layers} x {prefills} LM prefills")
+                        f"+ {rerank_b} rerank batches + {caps} captures) + {lm_layers} x "
+                        f"{prefills} LM prefills")
             check(counted == want_b1 and prefills == len(prompts) + 1
                   and qsearch == len(queries),
                   f"B1 launches: {equation} does not hold (want {want_b1}, and "
@@ -3255,6 +3867,7 @@ def stack_phase(rng, tmp, sizes=None, device="cuda", engine_kw=None, lm_kw=None,
                 "batched": {"requests": len(btids), "sessions": sessions, "admitted": admitted,
                             "ms": batch_ms, "direct_ms": direct_batch_ms,
                             "near_ties": batch_ties},
+                "carriers": carriers,
                 "b1": {"launches": counted, "equation": equation},
                 "readyz": {"503_seen": ready_seen.count(503), "polls": len(ready_seen)},
                 "search_trace_spans": sorted(names),
@@ -3308,7 +3921,8 @@ def stack_phase(rng, tmp, sizes=None, device="cuda", engine_kw=None, lm_kw=None,
           f"posted at once: {bt['sessions']} GenBatcher session, {bt['admitted']} admissions; "
           f"first POST to the last final event {bt['ms']:.1f} ms, LmEngine.generate_batch of the "
           f"same prompts directly {bt['direct_ms']:.1f} ms; texts = its rows "
-          f"({len(bt['near_ties'])} near-ties)", flush=True)
+          f"({len(bt['near_ties'])} near-ties); the streams and the batch: decode "
+          f"{carriers_text(out['carriers'])}", flush=True)
     print(f"[stack] B1 launches {out['b1']['equation']}; /metrics parses with engine_* and "
           f"span_* families; /api/traces/recent lists {out['recent_traces']} traces, no error, and a search's "
           f"trace holds {', '.join(out['search_trace_spans'])}; "
@@ -3483,6 +4097,7 @@ async def _fleet_search(rng, tmp, s, device, engine_kw, sup_log) -> dict:
     from symbiont_tpu_torch.config import (BusConfig, EngineConfig, GraphStoreConfig, ObsConfig,
                                            RunnerConfig, SymbiontConfig, TextGeneratorConfig,
                                            VectorStoreConfig)
+    from symbiont_tpu_torch.obs.hbm import hbm_ledger
     from symbiont_tpu_torch.ops import flash_attention as fa
     from symbiont_tpu_torch.resilience.procsup import (ProcessSupervisor, pybroker_spec,
                                                        runner_spec)
@@ -3570,6 +4185,9 @@ async def _fleet_search(rng, tmp, s, device, engine_kw, sup_log) -> dict:
         out["boot_s"] = time.monotonic() - t_boot
         eng = embed.engine
         layers = eng.model_cfg.num_layers
+        engine_svc = next(sv for sv in embed.services if sv.name == "engine")
+        while engine_svc._warm_task is not None and not engine_svc._warm_task.done():
+            await asyncio.sleep(0.05)  # the fused warm-up's captures are set-up
         stats0 = dict(eng.stats)
         fa.launches = 0  # ------------------------------------------------- main path
         t_ing = time.perf_counter()
@@ -3598,9 +4216,11 @@ async def _fleet_search(rng, tmp, s, device, engine_kw, sup_log) -> dict:
         embed_b = stats1["embed_batches"] - stats0["embed_batches"]
         qsearch = stats1["qsearch_calls"] - stats0["qsearch_calls"]
         rerank_b = stats1["rerank_batches"] - stats0["rerank_batches"]
-        want_b1 = layers * (embed_b + qsearch + rerank_b)
+        # a capture's warm-up runs B1 once more on the card (none on the CPU)
+        caps = stats1["compiles"] - stats0["compiles"] if device == "cuda" else 0
+        want_b1 = layers * (embed_b + qsearch + rerank_b + caps)
         equation = (f"{counted} = {layers} x ({embed_b} embed batches + {qsearch} fused "
-                    f"queries + {rerank_b} rerank batches)")
+                    f"queries + {rerank_b} rerank batches + {caps} captures)")
         check(counted == want_b1 and rerank_b >= len(queries) and embed_b >= 1,
               f"[fleet] embed role's B1 launches: {equation} does not hold")
         gw = (await ok_json("GET", "/api/metrics"))["counters"]
@@ -3649,6 +4269,8 @@ async def _fleet_search(rng, tmp, s, device, engine_kw, sup_log) -> dict:
             "drain": {"replica": replica, "clean": clean, "seconds": drain_s},
             "memory": {"embed (this process, allocated)": torch.cuda.memory_allocated()
                        if device == "cuda" else None,
+                       "this process's claims": {r["subsystem"]: r["bytes"]
+                                                 for r in hbm_ledger.rows() if r["bytes"]},
                        "gateway, perception, memory, graphgen (card MiB)": roles_mib},
         })
     finally:
@@ -3922,6 +4544,12 @@ async def _fleet_durable(rng, tmp, s, device, lm_kw, sup_log) -> dict:
     return out
 
 
+# the port's owners of device memory, named when only a cyclic collection
+# frees them
+CYCLIC_OWNERS = ("TorchEngine", "LmEngine", "VectorStore", "SymbiontStack", "BatchSession",
+                 "Executable", "_CarryDecoder", "PagePool")
+
+
 def fleet_phase(rng, tmp, sizes=None, device="cuda", engine_kw=None, lm_kw=None) -> dict:
     """ROADMAP A8 stage 2 on the card: the port's stack as supervised OS
     processes over its own TCP bus and broker, in the role layouts of the
@@ -3949,6 +4577,25 @@ def fleet_phase(rng, tmp, sizes=None, device="cuda", engine_kw=None, lm_kw=None)
         write_gpt_checkpoint(tmp / "gpt2", params, GPT2_124M, torch.float32)
         del params
     card = card_line() if device == "cuda" else "cpu"
+    before = None
+    if device == "cuda":
+        # what earlier phases left allocated in this process, and what of
+        # it only a cyclic collection frees (nothing, unless an engine's
+        # objects refer back to it)
+        import gc
+        from collections import Counter
+
+        allocated = torch.cuda.memory_allocated()
+        gc.set_debug(gc.DEBUG_SAVEALL)  # the collection's objects kept to be named
+        gc.collect()
+        owners = Counter(type(o).__name__ for o in gc.garbage
+                         if type(o).__name__ in CYCLIC_OWNERS)
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.collect()
+        before = {"allocated": allocated,
+                  "freed_by_gc": allocated - torch.cuda.memory_allocated(),
+                  "owners": dict(owners)}
     with open(tmp / "fleet_workers.log", "ab") as log:
         try:
             search = asyncio.run(_fleet_search(rng, tmp, s, device, engine_kw, log))
@@ -3976,7 +4623,11 @@ def fleet_phase(rng, tmp, sizes=None, device="cuda", engine_kw=None, lm_kw=None)
           f"processes; /metrics and /api/fleet name {', '.join(search['roles'])}; scale-in "
           f"drained {search['drain']['replica']} cleanly in {search['drain']['seconds']:.2f} "
           f"s; B1 launches {search['b1']['equation']}; device memory "
-          f"{search['memory']}", flush=True)
+          f"{search['memory']}; before the phase "
+          + ("not measured" if before is None else
+             f"{before['allocated']:,} bytes allocated in this process, of which "
+             f"gc.collect() freed {before['freed_by_gc']:,} (device owners among what it "
+             f"collected: {before['owners'] or 'none'})"), flush=True)
     du = durable
     print(f"[fleet] ({card}) durable generation: {du['streams']} greedy GPT-2 float32 streams "
           f"x {s['gen_new']} tokens, chunks of {s['chunk']}; gen1 held {du['held_by_gen1']} "
@@ -3989,7 +4640,7 @@ def fleet_phase(rng, tmp, sizes=None, device="cuda", engine_kw=None, lm_kw=None)
           f"({len(du['near_ties'])} near-ties); journals drained; B1 launches "
           f"{du['b1']['equation']}; device memory {du['memory']}", flush=True)
     return {"launches": search["b1"]["launches"] + durable["b1"]["launches"],
-            "search": search, "durable": durable}
+            "search": search, "durable": durable, "before": before}
 
 
 def main(argv=()) -> int:
@@ -4103,6 +4754,7 @@ def main(argv=()) -> int:
                    "spec": {k: v for k, v in spec.items() if k != "launches"},
                    "stack_launches": stack["launches"],
                    "stack": {k: v for k, v in stack.items() if k != "launches"},
+                   "graphs_encoder": serve["graphs"],
                    "fleet_launches": fleet["launches"],
                    "fleet": {k: v for k, v in fleet.items() if k != "launches"}}
     print(card)

@@ -583,6 +583,7 @@ class GenBatcher(_BatcherBase):
         # budget over its shrinking steps): parked until it ends, not
         # queued again, or every boundary would take and tokenize them anew
         deferred: List = []
+        sess = None
         try:
             sess = await loop.run_in_executor(None, lambda: self.lm.start_session(
                 [p.prompt for p in group], [p.max_new for p in group],
@@ -643,6 +644,10 @@ class GenBatcher(_BatcherBase):
                 if not p.future.done():
                     p.future.set_exception(e)
         finally:
+            # the session is stepped and spliced no more: its cache goes
+            # back to the engine (a done session may still take a splice)
+            if sess is not None:
+                sess.close()
             # deferred items never joined: the next session takes them, at
             # the front of the queue
             self._requeue(deferred)

@@ -42,21 +42,44 @@ ledger, the `engine.sentences_embedded` gauge, the padding series
 `engine.bucket_pad_waste_ratio`, the flush timeline), one dispatch-ledger
 row per `embed[L=..,B=..]` / `qsearch[...]` / `rerank[...]` signature, one
 `engine.host_syncs_total{site}` per fetch, every batch under `guard_oom`,
-and `maybe_profile` around embed, qsearch and rerank. `engine.compiles` and
-`engine.compile_s` are not registered: the engine runs eagerly and
-compiles nothing (no executable cache, CUDA graphs or `torch.compile`).
+and `maybe_profile` around embed, qsearch and rerank.
 
-Not ported yet (ROADMAP Queue A): the mesh data-parallel split. The entry
-points are safe to call from several threads: device work goes to the one
-current stream in call order, and `_stats_lock` guards the counters.
+Executables, as the JAX engine's (`_get_executable`): one per `(kind, L,
+B)` for `embed`, `rerank` and `qsearch` (whose `B` is `(capacity, k)` and
+whose key also names the corpus buffer), least recently used first out
+past `executable_cache_size`. On CUDA an executable is a CUDA graph
+(`engine/graphs.py`) captured at its first call and replayed after, B1
+inside; its capture is what the JAX engine's first-call compile is:
+`stats["compiles"]`, `stats["compile_s"]` (the warm-up run, the capture
+and the first replay), the `engine.compiles` / `engine.compile_s` gauges,
+one `note_compile` in the dispatch ledger and one `engine.compile` span on
+the `engine-compiles` trace. On the CPU (asked for explicitly) the same
+executables run eagerly, so the cache and its counts behave the same.
+Bulk embeds run in a pipeline: a prep thread tokenizes chunk N+1 of
+`host_prep_chunk` texts while chunk N dispatches, and every batch's
+result is fetched in groups of `CONCAT_FETCH_MAX`, each group's
+device-to-host copy (into pinned host memory on CUDA) started before any
+is read.
+
+Not ported yet (ROADMAP Queue A): the mesh data-parallel split.
+
+Concurrency, as in JAX: the entry points are safe to call from several
+threads. `_lock` guards the executable cache and the prep pool,
+`_stats_lock` the counters, and `_replay_lock` one batch's replay: the copy
+in, the replay and the enqueued copy out, never a whole call, so a bulk
+embed does not hold an interactive rerank or fused query behind it. The
+engine's graphs share one memory pool; the lock is what keeps one graph's
+replay from overwriting another's outputs before they are copied out.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import threading
 import time
+import weakref
 from typing import Optional, Sequence
 
 import numpy as np
@@ -68,10 +91,10 @@ from symbiont_tpu_torch.engine.bucketing import (
     choose_bucket,
     pad_batch_rows_ids,
     pad_ids_rows,
-    pad_to_bucket,
     padding_stats,
     plan_batches,
 )
+from symbiont_tpu_torch.engine.graphs import ExecCache, Executable, GraphPool
 from symbiont_tpu_torch.engine.tokenizer import Tokenizer, load_tokenizer
 from symbiont_tpu_torch.memory.vector_store import cosine_topk
 from symbiont_tpu_torch.models import bert as bert_mod
@@ -79,6 +102,7 @@ from symbiont_tpu_torch.models import quant
 from symbiont_tpu_torch.models.bert import BertConfig
 from symbiont_tpu_torch.models.bridge import bert_params_from_numpy
 from symbiont_tpu_torch.models.convert import load_bert_model
+from symbiont_tpu_torch.obs.device import record_compile_event
 from symbiont_tpu_torch.obs.engine_timeline import engine_timeline
 from symbiont_tpu_torch.obs.hbm import guard_oom, hbm_ledger
 from symbiont_tpu_torch.obs.xprof import dispatch_ledger
@@ -87,7 +111,31 @@ from symbiont_tpu_torch.utils.telemetry import maybe_profile, metrics
 log = logging.getLogger(__name__)
 
 
+def _start_host_copies(results) -> tuple:
+    """Start the device-to-host copy of every result before any is read:
+    each CUDA tensor is copied, non-blocking, into pinned host memory, and
+    one event after the last copy marks them all done. Returns the host
+    tensors and the event to wait on (None on the CPU, where the results
+    are host tensors already)."""
+    results = list(results)
+    if not results or results[0].device.type != "cuda":
+        return results, None
+    hosts = []
+    for r in results:
+        h = torch.empty(r.shape, dtype=r.dtype, pin_memory=True)
+        h.copy_(r, non_blocking=True)
+        hosts.append(h)
+    done = torch.cuda.Event()
+    done.record()
+    return hosts, done
+
+
 class TorchEngine:
+    # most batches fused into one device-to-host fetch (a torch.cat on the
+    # device, then one copy), as in the JAX engine: it bounds the transient
+    # concat buffer to CONCAT_FETCH_MAX × max_batch rows
+    CONCAT_FETCH_MAX = 16
+
     def __init__(
         self,
         config: Optional[EngineConfig] = None,
@@ -158,17 +206,36 @@ class TorchEngine:
         self._ids_dtype = (np.uint16 if self.model_cfg.vocab_size <= 65535
                            else np.int32)
         self._d2h_bf16 = self.config.dtype == "bfloat16"
-        self._stats_lock = threading.Lock()
+        self._lock = threading.Lock()  # guards the prep pool's creation
+        self._stats_lock = threading.Lock()  # guards the counters below
+        self._replay_lock = threading.Lock()  # one batch's copy in, replay, copy out
+        self._exec_cache = ExecCache(self.config.executable_cache_size)
+        # the engine's graphs share one memory pool (replays are serialised)
+        self._graph_pool = GraphPool() if self.device.type == "cuda" else None
+        self._prep_pool = None  # lazy 1-thread pool for the ingest pipeline
+        # compile_s: each executable's first call, host wall (on CUDA the
+        # warm-up run, the capture and the first replay)
         self.stats = {"embed_calls": 0, "embed_batches": 0,
                       "sentences_embedded": 0, "rerank_calls": 0,
-                      "rerank_batches": 0, "qsearch_calls": 0}
-        metrics.register_weakref_gauge(
-            "engine.sentences_embedded", self,
-            lambda eng: eng._stat("sentences_embedded"), labels={"service": "engine"})
+                      "rerank_batches": 0, "qsearch_calls": 0, "compiles": 0,
+                      "compile_s": 0.0}
+        self._register_gauges()
         metrics.gauge_set("engine.param_bytes", quant.param_bytes(self.params),
                           labels={"service": "engine",
                                   "dtype": quant.storage_label(self.params)})
         hbm_ledger.claim("engine.params", self, TorchEngine.param_bytes)
+        if self._graph_pool is not None:  # the graphs' outputs and held buffers
+            hbm_ledger.claim("engine.graphs", self, lambda e: e._graph_pool.nbytes())
+
+    def _register_gauges(self) -> None:
+        """`engine.compiles`, `engine.compile_s` and
+        `engine.sentences_embedded` under a service label, weakref-bound so
+        the registry never keeps a dead engine alive."""
+        labels = {"service": "engine"}
+        for key in ("compiles", "compile_s", "sentences_embedded"):
+            metrics.register_weakref_gauge(f"engine.{key}", self,
+                                           functools.partial(TorchEngine._stat, key=key),
+                                           labels=labels)
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
@@ -220,26 +287,103 @@ class TorchEngine:
         return max_len, [b for b in self.config.length_buckets
                          if b <= cfg.max_position_embeddings]
 
-    def _ids(self, ids: np.ndarray) -> torch.Tensor:
-        # uint16 ids travel as their int16 bit pattern (torch's uint16 is a
-        # partial dtype) and are widened and unmasked on the device
-        if ids.dtype == np.uint16:
-            t = torch.from_numpy(ids.view(np.int16)).to(self.device)
-            return t.to(torch.int64) & 0xFFFF
-        return torch.from_numpy(ids).to(self.device).to(torch.int64)
+    @staticmethod
+    def _host(a: np.ndarray) -> torch.Tensor:
+        """A host array as a CPU tensor for an executable's input. uint16
+        ids travel as their int16 bit pattern (torch's uint16 is a partial
+        dtype) and are widened and unmasked on the device."""
+        return torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16 else a)
 
-    def _lengths_mask(self, lengths: np.ndarray, L: int):
-        lens = torch.from_numpy(lengths).to(self.device)
-        pos = torch.arange(L, device=self.device)
-        return lens, (pos < lens[:, None]).to(torch.int32)
+    @staticmethod
+    def _widen_ids(ids: torch.Tensor, uint16: bool) -> torch.Tensor:
+        """Ids on the device as int64, uint16 bit patterns unmasked."""
+        ids = ids.to(torch.int64)
+        return ids & 0xFFFF if uint16 else ids
 
-    def _dispatch(self, sig: str, fn, *args):
-        """One batch of signature `sig`: run under the OOM guard, and its
-        host wall (the enqueue: the device runs on) into the dispatch
-        ledger."""
+    # ---------------------------------------------------------- executables
+
+    def _get_executable(self, kind: str, L: int, B, corpus: Optional[torch.Tensor] = None
+                        ) -> Executable:
+        """The executable of `(kind, L, B)`, built on a miss (JAX's
+        `_get_executable`). For `qsearch`, `B` is `(capacity, k)` and the
+        key also holds the corpus buffer's address: the graph reads that
+        buffer, so two stores of one capacity never share one (the
+        executable keeps its corpus alive while it is cached). A miss
+        builds an `Executable`, which captures at its first call; of two
+        threads that race one cold key, the loser drops its executable and
+        takes the winner's, so a key counts one compile. Neither the
+        functions nor their first-call hook hold the engine (the hook holds
+        a weakref), so a dropped engine frees its graphs without a cyclic
+        collection."""
+        key = (kind, L, B) if corpus is None else (kind, L, B, corpus.data_ptr())
+        exe = self._exec_cache.get(key)
+        if exe is not None:
+            return exe
+        widen = functools.partial(TorchEngine._widen_ids, uint16=self._ids_dtype == np.uint16)
+        d2h_bf16 = self._d2h_bf16
+        if kind == "embed":
+            params, cfg = self.params, self.model_cfg
+            pooling, normalize = self.pooling, self.normalize
+
+            def fn(ids, lengths):
+                # the mask rebuilt on the device from the lengths; bf16
+                # engines ship bf16 results back (half the d2h bytes)
+                mask = (torch.arange(L, device=ids.device) < lengths[:, None]).to(torch.int32)
+                emb = bert_mod.embed_sentences(params, widen(ids), mask, cfg,
+                                               pooling=pooling, normalize=normalize)
+                return emb.to(torch.bfloat16) if d2h_bf16 else emb
+        elif kind == "qsearch":
+            # the fused interactive query: forward, pool, normalise, cosine
+            # against the device corpus and top-k in one program
+            params, cfg, pooling = self.params, self.model_cfg, self.pooling
+            k = B[1]
+
+            def fn(ids, lengths, n_valid):
+                mask = (torch.arange(L, device=ids.device) < lengths[:, None]).to(torch.int32)
+                emb = bert_mod.embed_sentences(params, widen(ids), mask, cfg,
+                                               pooling=pooling, normalize=True)
+                return cosine_topk(corpus, emb[0], n_valid, k)
+        elif kind == "rerank":
+            params, cfg = self.cross_params, self.cross_cfg
+
+            def fn(ids, lengths, len_a):
+                # mask and token-type ids rebuilt on the device from two [B]
+                # length vectors
+                pos = torch.arange(L, device=ids.device)
+                mask = (pos < lengths[:, None]).to(torch.int32)
+                types = ((pos >= len_a[:, None]) & (pos < lengths[:, None])).to(torch.int64)
+                return bert_mod.cross_encoder_score(params, widen(ids), mask, cfg, types)
+        else:
+            raise ValueError(kind)
+        sig = f"{kind}[L={L},B={B}]"
+        ref = weakref.ref(self)
+
+        def on_first(seconds: float) -> None:
+            engine = ref()
+            if engine is not None:
+                engine._note_compile(sig, seconds)
+
+        exe, won = self._exec_cache.put(key, Executable(fn, self.device, pool=self._graph_pool,
+                                                        on_first=on_first))
+        if won:
+            self._bump(compiles=1)
+        return exe
+
+    def _note_compile(self, sig: str, seconds: float) -> None:
+        """An executable's first call: its seconds into `compile_s`, a
+        compile in the dispatch ledger (no cost analysis) and a span on the
+        `engine-compiles` trace, as the JAX engine's `_time_first_call`."""
+        self._bump(compile_s=seconds)
+        dispatch_ledger.note_compile(sig, None)
+        record_compile_event("engine.compile", seconds, start_s=time.time() - seconds,
+                             signature=sig)
+
+    def _dispatch(self, sig: str, exe: Executable, *inputs):
+        """One batch of signature `sig` through its executable, under the
+        OOM guard, its host wall into the dispatch ledger."""
         t0 = time.perf_counter()
         with guard_oom(f"engine.{sig}"):
-            out = fn(*args)
+            out = exe(*inputs, lock=self._replay_lock)
         dispatch_ledger.note_dispatch(sig, time.perf_counter() - t0)
         return out
 
@@ -262,39 +406,85 @@ class TorchEngine:
 
     # ---------------------------------------------------------------- embed
 
-    def _embed_batch(self, ids: np.ndarray, lengths: np.ndarray) -> torch.Tensor:
-        _, mask = self._lengths_mask(lengths, ids.shape[1])
-        emb = bert_mod.embed_sentences(self.params, self._ids(ids), mask,
-                                       self.model_cfg, pooling=self.pooling,
-                                       normalize=self.normalize)
-        return emb.to(torch.bfloat16) if self._d2h_bf16 else emb
+    def _prep_executor(self):
+        """The 1-thread pool that tokenizes the next ingest chunk while the
+        calling thread pads and dispatches the current one."""
+        with self._lock:
+            if self._prep_pool is None:
+                from concurrent.futures import ThreadPoolExecutor
+
+                self._prep_pool = ThreadPoolExecutor(max_workers=1,
+                                                     thread_name_prefix="engine-prep")
+        return self._prep_pool
+
+    def _dispatch_embed(self, encoded, offset: int, buckets, pending) -> None:
+        """Plan, pad and dispatch one tokenized chunk; each batch's result
+        stays on the device until the fetch. `offset` maps chunk-local
+        indices back to the caller's rows."""
+        lengths = [len(e) for e in encoded]
+        for bucket, indices in plan_batches(lengths, buckets, self._plan_cap):
+            ids, lens = pad_ids_rows([encoded[i] for i in indices], bucket,
+                                     self.tokenizer.pad_id, dtype=self._ids_dtype)
+            bb = self._batch_bucket(len(indices))
+            ids, lens, n_real = pad_batch_rows_ids(ids, lens, bb)
+            self._note_padding([lengths[i] for i in indices], bucket, bb, n_real)
+            exe = self._get_executable("embed", bucket, bb)
+            out = self._dispatch(f"embed[L={bucket},B={bb}]", exe, self._host(ids),
+                                 torch.from_numpy(lens))
+            rows = [offset + i for i in indices] if offset else indices
+            pending.append((rows, n_real, out))
+
+    def _fetch(self, pending, out: np.ndarray, site: str) -> None:
+        """Every pending batch's real rows into `out`: batches concatenated
+        on the device in groups of CONCAT_FETCH_MAX, every group's copy to
+        the host started before any is read; one host sync per group."""
+        groups = [pending[i:i + self.CONCAT_FETCH_MAX]
+                  for i in range(0, len(pending), self.CONCAT_FETCH_MAX)]
+        hosts, done = _start_host_copies(
+            grp[0][2] if len(grp) == 1 else torch.cat([b for _, _, b in grp])
+            for grp in groups)
+        if done is not None:
+            done.synchronize()
+        for grp, host in zip(groups, hosts):
+            allv = host.float().numpy()
+            off = 0
+            for rows, n_real, res in grp:
+                out[rows] = allv[off:off + n_real]
+                off += res.shape[0]
+        dispatch_ledger.note_host_sync(site, len(groups))
 
     def embed_texts(self, texts: Sequence[str]) -> np.ndarray:
-        """Texts → [n, hidden] float32 embeddings."""
+        """Texts → [n, hidden] float32 embeddings.
+
+        Pipelined as in JAX: a prep thread tokenizes chunk N+1 while this
+        thread pads and dispatches chunk N (`host_prep_chunk` texts a
+        chunk); every batch's result is fetched at the end."""
         H = self.model_cfg.hidden_size
         if len(texts) == 0:
             return np.zeros((0, H), np.float32)
         max_len, buckets = self._buckets(self.model_cfg)
-        rows, results = [], []
-        with maybe_profile("engine.embed"), torch.inference_mode():
-            encoded = self.tokenizer.encode_batch(list(texts), max_len)
-            lengths = [len(e) for e in encoded]
-            for bucket, indices in plan_batches(lengths, buckets, self._plan_cap):
-                ids, lens = pad_ids_rows([encoded[i] for i in indices], bucket,
-                                         self.tokenizer.pad_id,
-                                         dtype=self._ids_dtype)
-                bb = self._batch_bucket(len(indices))
-                ids, lens, n_real = pad_batch_rows_ids(ids, lens, bb)
-                self._note_padding([lengths[i] for i in indices], bucket, bb, n_real)
-                out = self._dispatch(f"embed[L={bucket},B={bb}]", self._embed_batch,
-                                     ids, lens)
-                results.append(out[:n_real])
-                rows.extend(indices)
-            fetched = torch.cat(results).cpu()
-            dispatch_ledger.note_host_sync("TorchEngine.embed_texts")
         out = np.zeros((len(texts), H), np.float32)
-        out[rows] = fetched.float().numpy()
-        self._bump(embed_calls=1, embed_batches=len(results),
+        chunk = self.config.host_prep_chunk
+        pending = []
+        with maybe_profile("engine.embed"), torch.inference_mode():
+            if 0 < chunk < len(texts):
+                texts = list(texts)
+                pool = self._prep_executor()
+                fut = pool.submit(self.tokenizer.encode_batch, texts[:chunk], max_len)
+                for start in range(0, len(texts), chunk):
+                    encoded = fut.result()
+                    nxt = start + chunk
+                    if nxt < len(texts):
+                        # prefetch before dispatching this chunk: chunk N+1
+                        # tokenizes while chunk N dispatches
+                        fut = pool.submit(self.tokenizer.encode_batch,
+                                          texts[nxt:nxt + chunk], max_len)
+                    self._dispatch_embed(encoded, start, buckets, pending)
+            else:
+                self._dispatch_embed(self.tokenizer.encode_batch(list(texts), max_len),
+                                     0, buckets, pending)
+            self._fetch(pending, out, "TorchEngine.embed_texts")
+        self._bump(embed_calls=1, embed_batches=len(pending),
                    sentences_embedded=len(texts))
         return out
 
@@ -302,45 +492,32 @@ class TorchEngine:
         """Single query embedding (the tasks.embedding.for_query path)."""
         return self.embed_texts([text])[0]
 
-    def _qsearch(self, ids: np.ndarray, mask: np.ndarray, corpus_dev: torch.Tensor,
-                 n_valid: int, top_k: int):
-        emb = bert_mod.embed_sentences(
-            self.params, self._ids(ids), torch.from_numpy(mask).to(self.device),
-            self.model_cfg, pooling=self.pooling, normalize=True)
-        return cosine_topk(corpus_dev, emb[0], n_valid, top_k)
-
     def embed_and_search(self, text: str, corpus_dev: torch.Tensor,
                          n_valid: int, top_k: int):
         """Fused interactive query: tokenize on the host, then embed,
         normalise, score against the device corpus (rows L2-normalized,
-        `[cap, D]` on this engine's device) and take the top-k in one call.
-        Returns (scores[k], idx[k]) as numpy."""
+        `[cap, D]` on this engine's device) and take the top-k in one
+        executable; `n_valid` travels into it as a device scalar. Returns
+        (scores[k], idx[k]) as numpy."""
         max_len, buckets = self._buckets(self.model_cfg)
         cap = corpus_dev.shape[0]
         with maybe_profile("engine.qsearch"), torch.inference_mode():
             encoded = self.tokenizer.encode(text, max_len)
             bucket = choose_bucket(len(encoded), buckets)
-            ids, mask = pad_to_bucket([encoded], bucket, self.tokenizer.pad_id,
-                                      dtype=self._ids_dtype)
-            scores, idx = self._dispatch(f"qsearch[L={bucket},B={(cap, top_k)}]",
-                                         self._qsearch, ids, mask, corpus_dev,
-                                         n_valid, top_k)
-            scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
+            ids, lens = pad_ids_rows([encoded], bucket, self.tokenizer.pad_id,
+                                     dtype=self._ids_dtype)
+            exe = self._get_executable("qsearch", bucket, (cap, top_k), corpus=corpus_dev)
+            scores, idx = self._dispatch(f"qsearch[L={bucket},B={(cap, top_k)}]", exe,
+                                         self._host(ids), torch.from_numpy(lens),
+                                         torch.tensor(n_valid, dtype=torch.int64))
+            (scores, idx), done = _start_host_copies((scores, idx))
+            if done is not None:
+                done.synchronize()
             dispatch_ledger.note_host_sync("TorchEngine.embed_and_search")
         self._bump(qsearch_calls=1)
-        return scores, idx
+        return scores.numpy(), idx.numpy()
 
     # --------------------------------------------------------------- rerank
-
-    def _rerank_batch(self, ids: np.ndarray, lengths: np.ndarray,
-                      len_a: np.ndarray) -> torch.Tensor:
-        # mask and token-type ids rebuilt on the device from two [B] vectors
-        lens, mask = self._lengths_mask(lengths, ids.shape[1])
-        pos = torch.arange(ids.shape[1], device=self.device)
-        la = torch.from_numpy(len_a).to(self.device)
-        types = ((pos >= la[:, None]) & (pos < lens[:, None])).to(torch.int64)
-        return bert_mod.cross_encoder_score(self.cross_params, self._ids(ids),
-                                            mask, self.cross_cfg, types)
 
     def rerank(self, query: str, passages: Sequence[str]) -> np.ndarray:
         """Cross-encoder scores for (query, passage) pairs. The pairs are
@@ -350,7 +527,8 @@ class TorchEngine:
         if len(passages) == 0:
             return np.zeros((0,), np.float32)
         max_len, buckets = self._buckets(self.cross_cfg)
-        rows, results = [], []
+        out = np.zeros((len(passages),), np.float32)
+        pending = []
         with maybe_profile("engine.rerank"), torch.inference_mode():
             pairs = [self.tokenizer.encode_pair(query, p, max_len) for p in passages]
             lengths = [len(ids) for ids, _ in pairs]
@@ -358,42 +536,40 @@ class TorchEngine:
             a_widths = [sum(1 for t in types if t == 0) for _, types in pairs]
             for bucket, indices in plan_batches(lengths, buckets, self._plan_cap):
                 ids, lens = pad_ids_rows([pairs[i][0] for i in indices], bucket,
-                                         self.tokenizer.pad_id,
-                                         dtype=self._ids_dtype)
+                                         self.tokenizer.pad_id, dtype=self._ids_dtype)
                 bb = self._batch_bucket(len(indices))
                 ids, lens, n_real = pad_batch_rows_ids(ids, lens, bb)
                 self._note_padding([lengths[i] for i in indices], bucket, bb, n_real)
                 len_a = np.zeros(bb, np.int32)
                 len_a[:n_real] = [min(a_widths[i], bucket) for i in indices]
-                out = self._dispatch(f"rerank[L={bucket},B={bb}]", self._rerank_batch,
-                                     ids, lens, len_a)
-                results.append(out[:n_real])
-                rows.extend(indices)
-            fetched = torch.cat(results).cpu()
-            dispatch_ledger.note_host_sync("TorchEngine.rerank")
-        out = np.zeros((len(passages),), np.float32)
-        out[rows] = fetched.numpy()
-        self._bump(rerank_calls=1, rerank_batches=len(results))
+                exe = self._get_executable("rerank", bucket, bb)
+                pending.append((indices, n_real, self._dispatch(
+                    f"rerank[L={bucket},B={bb}]", exe, self._host(ids),
+                    torch.from_numpy(lens), torch.from_numpy(len_a))))
+            self._fetch(pending, out, "TorchEngine.rerank")
+        self._bump(rerank_calls=1, rerank_batches=len(pending))
         return out
 
     # ---------------------------------------------------------------- warm
 
     def warmup(self, buckets: Optional[Sequence[int]] = None,
                batches: Optional[Sequence[int]] = None) -> None:
-        """Run the hot (bucket, batch) shapes once, rerank included when a
+        """Capture the hot (bucket, batch) executables, rerank's too when a
         cross-encoder is loaded, so the first request does not pay the
-        kernel build, library loading and allocator growth."""
+        capture, the kernel build, library loading or allocator growth."""
         with torch.inference_mode():
             for L in buckets or self.config.length_buckets[:2]:
                 for B in batches or self.config.batch_buckets[:2]:
                     bb = self._batch_bucket(B)
-                    ids = np.ones((bb, L), self._ids_dtype)
-                    lens = np.full((bb,), L, np.int32)
-                    self._dispatch(f"embed[L={L},B={bb}]", self._embed_batch,
-                                   ids, lens).cpu()
+                    ids = self._host(np.ones((bb, L), self._ids_dtype))
+                    lens = torch.full((bb,), L, dtype=torch.int32)
+                    out = self._dispatch(f"embed[L={L},B={bb}]",
+                                         self._get_executable("embed", L, bb), ids, lens)
+                    out.cpu()
                     dispatch_ledger.note_host_sync("TorchEngine.warmup")
                     if self.cross_params is not None:
-                        len_a = np.full((bb,), L // 2, np.int32)
-                        self._dispatch(f"rerank[L={L},B={bb}]", self._rerank_batch,
+                        len_a = torch.full((bb,), L // 2, dtype=torch.int32)
+                        self._dispatch(f"rerank[L={L},B={bb}]",
+                                       self._get_executable("rerank", L, bb),
                                        ids, lens, len_a).cpu()
                         dispatch_ledger.note_host_sync("TorchEngine.warmup")

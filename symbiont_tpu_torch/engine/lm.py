@@ -69,6 +69,25 @@ the chunks it consumed: a sampled tail resumes only on this package's
 engine (a JAX tail's threefry key is refused), a greedy one (`key: null`)
 on either.
 
+Decode executables, as JAX's `_decode_chunk_jit` (A16 stage 2): a decode
+chunk writes its K/V at a device slot index (`gpt.decode_chunk`), so on
+CUDA a chunk of `stream_chunk` steps is a graph captured on its carry (the
+cache, logits, pos, done and kv_valid it reads and writes in place, what
+the JAX executable donates) and replayed for every later chunk
+(`_CarryDecoder`). Carriers are lent out of an engine-owned pool by
+geometry (KV layout, rows, prompt bucket, new bucket): `generate_batch`,
+a stream and a dense session prefill into the borrowed carrier's cache,
+sample from its generator (seeded by one draw from the engine's, or per
+chunk from a stream's base seed) and give it back at their end (a
+session when its owner closes it), so every caller of a geometry replays
+the graph its first one captured, as JAX reuses its executable per shape.
+The pool keeps one free carrier a geometry, within the bytes of one
+session at the largest geometry the configuration admits. The carry that `merge_rows` splices in
+place stays bound; a shorter last chunk runs eagerly. The generator is
+registered with the graph, so a replay draws what the eager chunk would.
+Prefills, the paged layout's chunks and the spec plane's rounds stay eager
+(ROADMAP A16 stage 3). On the CPU the same executables run eagerly.
+
 Not ported yet: tensor-parallel decode over a mesh (ROADMAP A15). The
 settings that would switch it on raise `ValueError` naming the item.
 """
@@ -89,6 +108,7 @@ import torch
 
 from symbiont_tpu_torch.config import LmConfig, validate_spec_draft
 from symbiont_tpu_torch.device import resolve_device
+from symbiont_tpu_torch.engine.graphs import Executable, GraphPool
 from symbiont_tpu_torch.kv import paged as paged_mod
 from symbiont_tpu_torch.kv.pool import PagePool, PoolExhausted, kv_dtype_label
 from symbiont_tpu_torch.kv.radix import RadixCache
@@ -202,6 +222,99 @@ def _refuse_unported(cfg: LmConfig, mesh) -> None:
                          "ported (ROADMAP A15: multi-device)")
 
 
+class _CarryDecoder:
+    """Decode chunks as executables bound to one carry: the dense or int8
+    cache, logits, pos, done and kv_valid a chunk reads and writes in
+    place (the state the JAX `_decode_chunk_jit` donates). On CUDA each
+    (steps, top-k bucket, eos, generator) is a graph captured on the carry
+    at its first chunk and replayed after, the generator registered with
+    it; on the CPU the same chunk runs eagerly. The chunk decodes at the
+    device slot `gpt.decode_chunk` takes from a 0-d `length`, so one graph
+    serves every chunk of its shape.
+
+    The engine lends carriers out of a pool by geometry (`_take_carrier`):
+    a `generate_batch` call, a stream or a dense session prefills into the
+    carrier's cache (`cache0`), draws from its generator (`generator`,
+    reseeded per use) and gives it back when it is retired, so the next
+    caller of that geometry replays the graphs already captured, as JAX
+    reuses its executable per shape. A carrier holds no reference to the
+    engine: a dropped engine frees its pool without a cyclic collection.
+
+    `chunk` adopts the state it is given: a tensor that is not the bound
+    one (a new prefill's, or what spec rounds, `ingest_pending` and an
+    eager last chunk hand back) is copied into the bound one, which the
+    caller keeps from then on. A cache whose slabs are not the bound ones
+    rebinds the decoder (its graphs dropped). The caller holds the engine
+    lock."""
+
+    def __init__(self, device, pool: Optional[GraphPool] = None, key=None, cache0=None):
+        self.device = torch.device(device)
+        self.pool = pool  # the engine's graph pool (None on the CPU)
+        self.key = key  # (kv_quant, rows, prompt bucket, new bucket)
+        self.cache0 = cache0  # the cache a borrower prefills into
+        self.gen: Optional[torch.Generator] = None
+        self.carry = None
+        self.exes: dict = {}
+
+    def nbytes(self) -> int:
+        """Device bytes of the cache a borrower prefills into."""
+        return 0 if self.cache0 is None else gpt_mod.cache_bytes(self.cache0)
+
+    def generator(self, seed: int) -> torch.Generator:
+        """The carrier's generator, seeded with `seed` (the graphs that
+        draw from it are registered with it once)."""
+        if self.gen is None:
+            self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        else:
+            self.gen.manual_seed(seed)
+        return self.gen
+
+    def _adopt(self, cache, logits, pos, done, kv_valid):
+        if self.carry is None or self.carry[0].k is not cache.k:
+            self.carry = (cache, logits, pos, done, kv_valid)
+            self.exes.clear()
+            return self.carry
+        bound = self.carry[1:]
+        for cur, mine in zip((logits, pos, done, kv_valid), bound):
+            if cur is not mine:
+                mine.copy_(cur)
+        return (cache, *bound)
+
+    def chunk(self, params, cfg: GPTConfig, gen: torch.Generator, cache, logits, pos, done,
+              kv_valid, steps: int, temps, ks, eos_id: int, sig: str):
+        """`steps` decode steps of the model `params`/`cfg` → (cache,
+        logits, pos, done, kv_valid, tokens, counted): `gpt.decode_chunk`'s
+        results with kv_valid beside them, the state tensors the bound ones
+        (the caller keeps them), the cache's host length advanced by
+        `steps`."""
+        cache, logits, pos, done, kv_valid = self._adopt(cache, logits, pos, done, kv_valid)
+        t, k, bucket = gpt_mod._norm_sampling(temps, ks, logits.shape[0], cfg.vocab_size)
+        key = (steps, bucket, eos_id, gen)
+        exe = self.exes.get(key)
+        if exe is None or exe.params is not params:
+            base = cache
+
+            def fn(slot, t, k, n=steps):
+                _, lg, ps, dn, toks, counted = gpt_mod.decode_chunk(
+                    params, base._replace(length=slot), logits, pos, done, kv_valid, gen,
+                    n, cfg, eos_id=eos_id, sampling=(t, k, bucket))
+                logits.copy_(lg)
+                pos.copy_(ps)
+                done.copy_(dn)
+                return toks, counted
+
+            cuda = self.device.type == "cuda"
+            exe = self.exes[key] = Executable(
+                fn, self.device, pool=self.pool, generators=(gen,) if cuda else (),
+                carry=(logits, pos, done),
+                on_first=lambda s: dispatch_ledger.note_compile(sig, None),
+                warm=lambda slot, t, k: fn(slot, t, k, n=1))  # one step's kernels
+            exe.params = params
+        toks, counted = exe(torch.tensor(cache.length, dtype=torch.int64), t, k)
+        return (cache._replace(length=cache.length + steps), logits, pos, done, kv_valid, toks,
+                counted)
+
+
 class LmEngine:
     """Owns the LM's parameters on one device and decodes batches of
     prompts. Thread-safe: `_lock` serialises decodes and parameter swaps."""
@@ -245,6 +358,15 @@ class LmEngine:
         self.tokenizer = tokenizer
         self._generator = self._new_generator(cfg.seed)
         self._lock = threading.Lock()
+        # decode executables (CUDA graphs on the card) share one pool; their
+        # replays are serialised by _lock. Free carriers wait in a pool, one
+        # a geometry, least recently returned first, so a geometry's next
+        # batch, stream or session replays the graphs its last one captured
+        self._graph_pool = GraphPool() if self.device.type == "cuda" else None
+        self._free_carriers: dict = {}
+        self._carrier_geometries: dict = {}  # geometry -> carriers taken
+        self._carrier_counts = {"new": 0, "reused": 0}
+        self._carriers_lock = threading.Lock()
         # durability plane (resilience/genlog.py): when set, streams and
         # session rows with a task_id journal a resume snapshot at each
         # chunk boundary, from host values in hand (no device sync of its
@@ -363,10 +485,13 @@ class LmEngine:
         the engine's. The caller holds the engine lock."""
         return self._new_generator(self._draw_seed())
 
-    def _chunk_generator(self, base: int, n: int) -> torch.Generator:
+    def _chunk_generator(self, base: int, n: int,
+                         carrier: Optional["_CarryDecoder"] = None) -> torch.Generator:
         """The generator of a stream's n-th chunk or round, a function of
-        its base seed and n only."""
-        return self._new_generator((base + n * _CHUNK_SEED_STRIDE) % (1 << 63))
+        its base seed and n only: the stream's carrier's generator reseeded
+        (the one its decode graphs are registered with), or a new one."""
+        seed = (base + n * _CHUNK_SEED_STRIDE) % (1 << 63)
+        return self._new_generator(seed) if carrier is None else carrier.generator(seed)
 
     def _live_sessions(self) -> list:
         with self._sessions_lock:
@@ -443,6 +568,10 @@ class LmEngine:
             hbm_ledger.claim("lm.drafter", self, lambda lm: quant.param_bytes(lm._draft[0]))
         if self.pool is None:  # the pool claims its own bytes
             hbm_ledger.claim("lm.kv_cache", self, dense_kv_bytes)
+        # the free carriers' caches (a lent one is its session's lm.kv_cache)
+        hbm_ledger.claim("lm.carrier_pool", self, lambda lm: lm.carrier_stats()["free_bytes"])
+        if self._graph_pool is not None:
+            hbm_ledger.claim("lm.decode_graphs", self, lambda lm: lm._graph_pool.nbytes())
 
     def hbm_headroom_bytes(self) -> Optional[int]:
         """Free bytes of the engine's card: its total memory less the bytes
@@ -564,10 +693,8 @@ class LmEngine:
         with self._lock:
             t0 = time.perf_counter()
             with maybe_profile("engine.generate"), torch.inference_mode():
-                tokens, lengths = gpt_mod.generate(
-                    self.params, self._device_ids(prompt_ids), self._device_ids(prompt_mask),
-                    self._generator, self.model_cfg, max_new_tokens=new_bucket,
-                    temperature=temps, top_k=ks, eos_id=int(eos_id))
+                tokens, lengths = self._decode_batch(prompt_ids, prompt_mask, new_bucket,
+                                                     temps, ks, int(eos_id))
                 tokens = tokens.cpu().numpy()  # the fetch waits for the whole decode
                 lengths = lengths.cpu().numpy()
             self.stats["generate_calls"] += 1
@@ -579,8 +706,97 @@ class LmEngine:
                 out.append(self.tokenizer.decode(tokens[i, :k]))
         return out
 
+    def _take_carrier(self, bb: int, P: int, new_bucket: int) -> _CarryDecoder:
+        """The free carrier of this geometry from the pool, or a new one
+        with a zeroed dense (or int8) cache; `_give_carrier` returns it.
+        Counts the take as a reuse or a new carrier, by geometry."""
+        cfg = self.model_cfg
+        key = (cfg.kv_quant, bb, P, new_bucket)
+        with self._carriers_lock:
+            self._carrier_geometries[key] = self._carrier_geometries.get(key, 0) + 1
+            dec = self._free_carriers.pop(key, None)
+            self._carrier_counts["reused" if dec is not None else "new"] += 1
+        if dec is not None:
+            return dec
+        return _CarryDecoder(self.device, self._graph_pool, key,
+                             gpt_mod.init_cache(cfg, bb, P + new_bucket, torch_dtype(cfg.dtype),
+                                                self.device))
+
+    def _give_carrier(self, dec: _CarryDecoder) -> None:
+        """Back into the pool: one free carrier a geometry (the one given
+        back last), the least recently returned dropped first past
+        `_carrier_budget` bytes."""
+        with self._carriers_lock:
+            self._free_carriers.pop(dec.key, None)
+            self._free_carriers[dec.key] = dec
+            budget = self._carrier_budget(dec)
+            held = sum(c.nbytes() for c in self._free_carriers.values())
+            while held > budget and self._free_carriers:
+                held -= self._free_carriers.pop(next(iter(self._free_carriers))).nbytes()
+
+    def _carrier_budget(self, dec: _CarryDecoder) -> int:
+        """The free carriers' bytes bound: the cache of one session at the
+        largest geometry the configuration admits (`gen_max_batch` rows
+        rounded to a power of two, the largest prompt and new-token buckets
+        within the positions), what a single request of that geometry would
+        hold anyway. Read off `dec`'s bytes per row and slot."""
+        cfg = self.config
+        _, bb, P, new = dec.key
+        slots = min(self.model_cfg.max_position_embeddings,
+                    max(cfg.prompt_buckets) + max(cfg.new_token_buckets))
+        rows = 1 << (max(1, cfg.gen_max_batch) - 1).bit_length()
+        return dec.nbytes() * rows * slots // (bb * (P + new))
+
+    def carrier_stats(self) -> dict:
+        """The carrier pool's traffic: takes by geometry, how many found a
+        free carrier of theirs (their graphs already captured), and the
+        free carriers held with their bytes."""
+        with self._carriers_lock:
+            free = list(self._free_carriers.values())
+            geoms = dict(self._carrier_geometries)
+            counts = dict(self._carrier_counts)
+        taken = sum(geoms.values())
+        return {"takes": taken, "geometries": len(geoms), "by_geometry": geoms, **counts,
+                "repeat_share": counts["reused"] / taken if taken else 0.0,
+                "free": len(free), "free_bytes": sum(c.nbytes() for c in free)}
+
+    def _decode_batch(self, prompt_ids: np.ndarray, prompt_mask: np.ndarray,
+                      new_bucket: int, temps, ks, eos_id: int):
+        """`gpt.generate` on a carrier of this geometry: the prefill written
+        into its cache, eagerly, then the decode as chunks of
+        `stream_chunk` steps through the carrier's executable (the graph a
+        stream or session of the geometry replays too; a shorter last chunk
+        runs eagerly), sampling from the carrier's generator seeded by one
+        draw from the engine's → (tokens, lengths) on the device. Call
+        under the lock and inference mode."""
+        bb, P = prompt_ids.shape
+        chunk = max(1, min(self.config.stream_chunk, new_bucket))
+        dec = self._take_carrier(bb, P, new_bucket)
+        try:
+            gen = dec.generator(self._draw_seed())
+            cache, logits, kv_valid, pos = gpt_mod.prefill(
+                self.params, self._device_ids(prompt_ids), self._device_ids(prompt_mask),
+                self.model_cfg, new_bucket, cache=dec.cache0)
+            done = torch.zeros((bb,), dtype=torch.bool, device=self.device)
+            toks, counted = [], []
+            for start in range(0, new_bucket, chunk):
+                n = min(chunk, new_bucket - start)
+                if n == chunk:
+                    cache, logits, pos, done, kv_valid, t, c = dec.chunk(
+                        self.params, self.model_cfg, gen, cache, logits, pos, done, kv_valid, n,
+                        temps, ks, eos_id, f"lm.decode_chunk[P={P},B={bb},chunk={n}]")
+                else:
+                    cache, logits, pos, done, t, c = gpt_mod.decode_chunk(
+                        self.params, cache, logits, pos, done, kv_valid, gen, n,
+                        self.model_cfg, temperature=temps, top_k=ks, eos_id=eos_id)
+                toks.append(t)
+                counted.append(c)
+        finally:
+            self._give_carrier(dec)
+        return torch.cat(toks, dim=1), torch.cat(counted, dim=1).sum(dim=1)
+
     def _prefill(self, params, prompt_ids: np.ndarray, prompt_mask: np.ndarray,
-                 new_bucket: int, note_peak: bool = True):
+                 new_bucket: int, note_peak: bool = True, cache=None):
         """`gpt.prefill` of host prompt arrays → (cache, logits, kv_valid,
         prompt_len) on the device. Call under `torch.inference_mode()`.
 
@@ -597,7 +813,7 @@ class LmEngine:
             live0 = torch.cuda.memory_allocated(self.device)
             peak0 = torch.cuda.max_memory_allocated(self.device)
         out = gpt_mod.prefill(params, self._device_ids(prompt_ids), self._device_ids(prompt_mask),
-                              self.model_cfg, new_bucket)
+                              self.model_cfg, new_bucket, cache=cache)
         if cuda:
             peak = torch.cuda.max_memory_allocated(self.device)
             top = peak if peak > peak0 else torch.cuda.memory_allocated(self.device)
@@ -734,9 +950,13 @@ class LmEngine:
                 n_splits = int(resume.get("key_splits") or 0)
             elif journaling and temperature > 0.0:
                 key_base = [base]
+            # the stream's carrier: its cache takes the prefill, and full
+            # plain chunks replay its graph
+            carrier = self._take_carrier(bb, P, new_bucket)
             with torch.inference_mode():
                 cache, logits, kv_valid, pos = self._prefill(self.params, prompt_ids,
-                                                             prompt_mask, new_bucket)
+                                                             prompt_mask, new_bucket,
+                                                             cache=carrier.cache0)
                 done = torch.zeros((bb,), dtype=torch.bool, device=self.device)
                 dt = time.perf_counter() - t0
                 if spec_on:
@@ -790,7 +1010,7 @@ class LmEngine:
                     yield delta
                     seq += 1
             while len(all_tokens) < max_new_tokens and not stop:
-                gen = self._chunk_generator(base, n_splits)
+                gen = self._chunk_generator(base, n_splits, carrier)
                 n_splits += 1
                 left = max_new_tokens - len(all_tokens)
                 if spec_on and new_bucket - slots_used < S + left - (pending is None):
@@ -856,9 +1076,16 @@ class LmEngine:
                     with self._lock:
                         t1 = time.perf_counter()
                         with torch.inference_mode():
-                            cache, logits, pos, done, toks, counted = gpt_mod.decode_chunk(
-                                self.params, cache, logits, pos, done, kv_valid, gen, c_n,
-                                self.model_cfg, **sampling)
+                            if c_n == chunk:
+                                (cache, logits, pos, done, kv_valid, toks,
+                                 counted) = carrier.chunk(
+                                    self.params, self.model_cfg, gen, cache, logits, pos,
+                                    done, kv_valid, c_n, temperature, top_k, eos_id,
+                                    f"lm.decode_chunk[P={P},B=1,chunk={c_n}]")
+                            else:  # a shorter last chunk runs eagerly
+                                cache, logits, pos, done, toks, counted = gpt_mod.decode_chunk(
+                                    self.params, cache, logits, pos, done, kv_valid, gen, c_n,
+                                    self.model_cfg, **sampling)
                             host = torch.stack((toks[0], counted[0].to(toks.dtype))).cpu().numpy()
                         dt1 = time.perf_counter() - t1
                         decode_s += dt1
@@ -888,6 +1115,7 @@ class LmEngine:
                 yield final_delta
         finally:
             # on a normal end and on close (the client went away)
+            self._give_carrier(carrier)
             usage.note(tenant, tokens_out=len(all_tokens), kv_row_seconds=decode_s * bb)
             with self._lock:
                 self.stats["generate_calls"] += 1
@@ -901,7 +1129,8 @@ class LmEngine:
                       task_ids=None) -> "BatchSession":
         """Open a chunked batch decode that new requests can join at chunk
         boundaries: drive it with `session.step()`, admit with
-        `session.admit()` or `prepare_admit` + `splice`. `tenants` (one per
+        `session.admit()` or `prepare_admit` + `splice`, and `close()` it
+        when done with it. `tenants` (one per
         prompt) routes the usage ledger; `task_ids` are taken as the JAX
         engine takes them: with a journal attached, each row with one
         journals a resume snapshot at every chunk boundary."""
@@ -1016,7 +1245,8 @@ class LmEngine:
 
     def warmup(self, new_bucket: Optional[int] = None) -> None:
         """Run the hot (prompt, new) shape once, so the first request does
-        not pay the kernel build, library loading and allocator growth."""
+        not pay the decode graph's capture, the kernel build, library
+        loading and allocator growth."""
         self.generate("warmup", new_bucket or self.config.new_token_buckets[0])
 
 
@@ -1177,9 +1407,16 @@ class BatchSession:
                     fresh_n = self._prompt_blocks - len(shared)
                     self._map_prompt(i, shared + (pool.alloc(fresh_n) if fresh_n else []))
             pool.note_hit_tokens(hit_tokens)
+        # a dense session borrows a carrier until it is closed: its cache
+        # takes the prefill, its generator is the session's, and full
+        # chunks replay its graph
+        self._closed = False
+        self._carrier = None if self._paged else lm._take_carrier(self.bb, self.P,
+                                                                   self.new_bucket)
         with lm._lock:
             t0 = time.perf_counter()
-            self._gen = lm._child_generator()
+            self._gen = (lm._child_generator() if self._carrier is None
+                         else self._carrier.generator(lm._draw_seed()))
             with torch.inference_mode():
                 if skip_prefill:
                     # every real row's whole prompt is committed pages and
@@ -1198,7 +1435,8 @@ class BatchSession:
                     self._pos = torch.from_numpy(self._plen.copy()).to(dev)
                 else:
                     staging, self._logits, self._kv_valid, self._pos = lm._prefill(
-                        lm.params, prompt_ids, prompt_mask, self.new_bucket)
+                        lm.params, prompt_ids, prompt_mask, self.new_bucket,
+                        cache=None if self._carrier is None else self._carrier.cache0)
                     lm._prefill_shapes.add((self.bb, self.P, self.new_bucket))
                     self._cache = staging
                     if self._paged:
@@ -1527,6 +1765,7 @@ class BatchSession:
         fits: chunks decoded since `prepare_admit` shrank the budget
         (truncating would break standalone equivalence), or, paged, its
         pages cannot be had; the caller queues it again."""
+        self._check_open()
         if prep["k"] and self._pending is not None:
             self._to_plain()
         row_map, tags, taken, hit_tokens = self._take_rows(prep)
@@ -1650,6 +1889,7 @@ class BatchSession:
         session's). The choice is made again at every boundary. Under
         `guard_oom("lm.batch_step")`: a device OOM leaves its postmortem
         and is raised to the caller, which fails the affected requests."""
+        self._check_open()
         with guard_oom("lm.batch_step"):
             if self.done():
                 return self._drain_all()
@@ -1660,6 +1900,29 @@ class BatchSession:
                 if self.done():  # the ingest slot was the session's last
                     return self._drain_all()
             return self._step_plain()
+
+    def close(self) -> None:
+        """Retire the session: a dense session's carrier (its cache and
+        decode graphs) goes back to the engine's pool for the next borrower
+        of its geometry. The owner calls it once it will neither step nor
+        splice the session again (`GenBatcher` after its loop; a session
+        is also a context manager): a session that is done may still take
+        a splice and decode on, so being done does not retire it. A step
+        or splice after `close` raises. Idempotent."""
+        self._closed = True
+        carrier, self._carrier = self._carrier, None
+        if carrier is not None:
+            self.lm._give_carrier(carrier)
+
+    def __enter__(self) -> "BatchSession":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def _check_open(self) -> None:
+        if self._closed:
+            raise RuntimeError("the session is closed: its cache went back to the engine")
 
     def _spec_margin_ok(self) -> bool:
         """A spec round may run only while its worst case (one token for
@@ -1827,13 +2090,21 @@ class BatchSession:
             # bookkeeping and the batcher's scheduling
             host_gap_s = max(0.0, t0 - self._last_step_end)
             with torch.inference_mode():
-                (cache, self._logits, self._pos, self._done, toks,
-                 counted) = gpt_mod.decode_chunk(
-                    lm.params, self._cache_in(), self._logits, self._pos, self._done,
-                    self._kv_valid, self._gen, chunk, lm.model_cfg, temperature=self._temps,
-                    top_k=self._ks, eos_id=self._eos)
-                if not self._paged:
-                    self._cache = cache
+                if self._carrier is not None and chunk == self.chunk:
+                    # a full dense chunk replays the session's decode graph
+                    (self._cache, self._logits, self._pos, self._done, self._kv_valid, toks,
+                     counted) = self._carrier.chunk(
+                        lm.params, lm.model_cfg, self._gen, self._cache, self._logits,
+                        self._pos, self._done, self._kv_valid, chunk, self._temps, self._ks, self._eos,
+                        f"lm.decode_chunk[P={self.P},B={self.bb},chunk={chunk}]")
+                else:  # paged, or a shorter last chunk: eagerly
+                    (cache, self._logits, self._pos, self._done, toks,
+                     counted) = gpt_mod.decode_chunk(
+                        lm.params, self._cache_in(), self._logits, self._pos, self._done,
+                        self._kv_valid, self._gen, chunk, lm.model_cfg,
+                        temperature=self._temps, top_k=self._ks, eos_id=self._eos)
+                    if not self._paged:
+                        self._cache = cache
                 if self._spec_on and self._d_cache is not None:
                     draft_params, dcfg = lm._draft
                     self._d_cache = gpt_mod.track_chunk(draft_params, self._d_cache, toks,

@@ -29,6 +29,7 @@ Locking: every method runs under the pool's RLock (`self._lock` is
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -67,7 +68,16 @@ class RadixCache:
         self._lock = pool.lock
         self._roots: Dict[Tuple[int, int], _Node] = {}  # (P, pad) → root
         self._page_nodes: Dict[int, _Node] = {}
-        pool._on_evict = self.forget_page
+        # the pool reaches back through a weakref, so a dropped engine's
+        # pool and cache (the page slabs) free without a cyclic collection
+        ref = weakref.ref(self)
+
+        def on_evict(pid: int) -> None:
+            radix = ref()
+            if radix is not None:
+                radix.forget_page(pid)
+
+        pool._on_evict = on_evict
         self.stats = {"hits": 0, "full_hits": 0, "misses": 0, "committed_pages": 0}
 
     def _blocks(self, row_ids: np.ndarray) -> List[tuple]:

@@ -11,6 +11,16 @@ so the top-k here is a stable descending sort (`cosine_topk`), shared with
 the engine's fused query search. The mesh-sharded corpus of the JAX store
 is not ported (ROADMAP Queue A: multi-device).
 
+The device corpus is one buffer per capacity: a sync writes the rows into
+it in place, and a new buffer replaces it only when upserts cross a
+capacity block (or the collection's dim changes). So the store's search
+executables and the engine's fused `qsearch` ones (CUDA graphs on the
+card, `engine/graphs.py`) read one address for as long as the capacity
+holds, with the row count as a device scalar among their inputs. `k` is
+bucketed by `_k_static`, as in JAX, so a store has one search executable
+per (capacity, k bucket); `warm_fused` builds the engine's fused ones for
+the current capacity and `fused_warm_stale` says when a block was crossed.
+
 API parity with the reference's Qdrant adapter:
 - ensure_collection (dim + cosine at startup):
   reference vector_memory_service/src/main.rs:24-119
@@ -38,6 +48,7 @@ import torch
 
 from symbiont_tpu_torch.config import VectorStoreConfig
 from symbiont_tpu_torch.device import resolve_device
+from symbiont_tpu_torch.engine.graphs import Executable, GraphPool
 from symbiont_tpu_torch.models.quant import tensor_bytes
 from symbiont_tpu_torch.obs.hbm import hbm_ledger
 
@@ -54,6 +65,7 @@ def cosine_topk(corpus: torch.Tensor, query: torch.Tensor, n_valid: int,
     indices [k]), equal scores in row order."""
     scores = (corpus.to(torch.bfloat16).float()
               @ query.to(torch.bfloat16).float())
+    # n_valid may be a host int or a device scalar (an executable's input)
     valid = torch.arange(corpus.shape[0], device=corpus.device) < n_valid
     scores = torch.where(valid, scores, torch.full_like(scores, float("-inf")))
     top, idx = torch.sort(scores, descending=True, stable=True)
@@ -83,6 +95,10 @@ class VectorStore:
         self._device_corpus = None  # padded [capacity, D] bf16 on device
         self._device_rows = 0  # rows valid in the device copy
         self._dirty = True
+        self._search_fns: Dict[tuple, Executable] = {}
+        self._replay_lock = threading.Lock()  # the search graphs' replays
+        self._graph_pool = GraphPool() if self.device.type == "cuda" else None
+        self._warmed_capacity: Optional[int] = None  # capacity warm_fused built for
         self._wal_file = None
         self.last_load_skipped_lines = 0  # corrupt WAL lines on last load()
         # the device-memory ledger (obs/hbm.py): the padded device corpus's
@@ -90,6 +106,8 @@ class VectorStore:
         hbm_ledger.claim("memory.corpus", self,
                          lambda vs: (0 if vs._device_corpus is None
                                      else tensor_bytes(vs._device_corpus)))
+        if self._graph_pool is not None:
+            hbm_ledger.claim("memory.search_graphs", self, lambda vs: vs._graph_pool.nbytes())
         if self.config.data_dir:
             Path(self.config.data_dir).mkdir(parents=True, exist_ok=True)
             self.load()
@@ -214,17 +232,46 @@ class VectorStore:
         return max(block, ((n + block - 1) // block) * block)
 
     def _sync_device(self) -> None:
+        """The rows into the device buffer of the current capacity, in
+        place; a new zeroed buffer only when the capacity (or the dim)
+        changed. Copies run on the current stream, so a search enqueued
+        before the sync reads the rows as they were and one enqueued after
+        reads them as written."""
         n = len(self._ids)
         if self._device_corpus is not None and not self._dirty and self._device_rows == n:
             return
         cap = self._capacity(n)
-        padded = torch.zeros((cap, self.dim), dtype=torch.bfloat16,
-                             device=self.device)
+        if self._device_corpus is None or tuple(self._device_corpus.shape) != (cap, self.dim):
+            self._device_corpus = torch.zeros((cap, self.dim), dtype=torch.bfloat16,
+                                              device=self.device)
+            self._search_fns.clear()  # bound to the old buffer
         if n:
-            padded[:n] = torch.from_numpy(self._vectors).to(self.device)
-        self._device_corpus = padded
+            self._device_corpus[:n] = torch.from_numpy(self._vectors).to(self.device)
         self._device_rows = n
         self._dirty = False
+
+    def _get_search_fn(self, cap: int, k: int) -> Executable:
+        """The search executable of (capacity, k bucket) on the current
+        buffer: the query [D] and the row count in, (scores, rows) out."""
+        key = (cap, k)
+        exe = self._search_fns.get(key)
+        if exe is None:
+            corpus = self._device_corpus
+
+            def fn(query, n_valid):
+                return cosine_topk(corpus, query, n_valid, k)
+
+            exe = self._search_fns[key] = Executable(fn, self.device, pool=self._graph_pool)
+        return exe
+
+    def _k_static(self, top_k: int, n: int, cap: int) -> int:
+        """Static k bucket (next power of two ≥ k, ≤ cap) bounds the
+        executables, floored at 8 so every query with top_k ≤ 8 shares one
+        per capacity, as in the JAX store; the caller trims the surplus."""
+        k = 8
+        while k < min(top_k, n):
+            k *= 2
+        return min(k, cap)
 
     def _hits_from(self, scores, idx, top_k: int) -> List[SearchHit]:
         hits = []
@@ -238,27 +285,31 @@ class VectorStore:
     def search(self, query: Sequence[float], top_k: int) -> List[SearchHit]:
         """Exact cosine top-k (reference search handler: main.rs:230-456).
 
-        The device call runs OUTSIDE the store lock: every sync builds a new
-        corpus tensor, so a snapshot of (corpus, n) taken under the lock
-        stays valid, and concurrent ingest/search callers never stall
-        behind a search."""
+        The device call runs OUTSIDE the store lock, on a snapshot of (the
+        capacity's buffer, n) taken under it. Rows only append (an upsert
+        overwrites its row in place), and a sync writes the buffer in place
+        on the current stream, so the search reads, in stream order, the
+        buffer as it was before or after a concurrent upsert's copy, and
+        rows [0, n) are rows of the snapshot's ids either way. Concurrent
+        ingest and search callers never stall behind a search."""
         with self._lock:
             n = len(self._ids)
             if n == 0 or top_k <= 0:
                 return []
             self._sync_device()
-            corpus = self._device_corpus
-            cap = corpus.shape[0]
+            cap = self._device_corpus.shape[0]
             q = np.asarray(query, np.float32)
             if q.shape != (self.dim,):
                 raise ValueError(f"query dim {q.shape} != collection dim {self.dim}")
-            k = min(top_k, cap)
+            fn = self._get_search_fn(cap, self._k_static(top_k, n, cap))
         qn = float(np.linalg.norm(q))
         q = q / qn if qn > 0 else q
-        scores, idx = cosine_topk(corpus, torch.from_numpy(q).to(self.device),
-                                  n, k)
+        with torch.inference_mode():
+            scores, idx = fn(torch.from_numpy(q), torch.tensor(n, dtype=torch.int64),
+                             lock=self._replay_lock)
+            scores, idx = scores.cpu(), idx.cpu()
         with self._lock:
-            return self._hits_from(scores.cpu(), idx.cpu(), top_k)
+            return self._hits_from(scores, idx, top_k)
 
     def search_fused(self, engine, text: str, top_k: int) -> List[SearchHit]:
         """Interactive-query fast path: hand the device-resident corpus to the
@@ -271,12 +322,44 @@ class VectorStore:
                 return []
             self._sync_device()
             corpus = self._device_corpus
-            k = min(top_k, corpus.shape[0])
+            k = self._k_static(top_k, n, corpus.shape[0])
         # device call outside the lock — see search() for why the snapshot
         # stays valid
         scores, idx = engine.embed_and_search(text, corpus, n, k)
         with self._lock:
             return self._hits_from(scores, idx, top_k)
+
+    def warm_fused(self, engine, word_counts: Sequence[int] = (3, 40, 150),
+                   top_ks: Optional[Sequence[int]] = None) -> None:
+        """Build the engine's fused embed+top-k executables (CUDA graphs on
+        the card) for the store's current capacity across the query length
+        buckets, an empty store included (its capacity is the first
+        block), so the first fused query of each (length bucket, capacity)
+        does not pay a capture inside the gateway's probe timeout. Warms
+        every power-of-two k bucket up to config.warm_top_k and records the
+        warmed capacity (`fused_warm_stale`)."""
+        if top_ks is None:
+            top_ks = [8]
+            while top_ks[-1] < self.config.warm_top_k:
+                top_ks.append(top_ks[-1] * 2)
+        with self._lock:
+            self._sync_device()
+            corpus = self._device_corpus
+            n = len(self._ids)
+            ks = sorted({self._k_static(k, max(n, k), corpus.shape[0]) for k in top_ks})
+        for k in ks:
+            for wc in word_counts:
+                engine.embed_and_search("warm " * wc, corpus, n, k)
+        with self._lock:
+            self._warmed_capacity = corpus.shape[0]
+
+    def fused_warm_stale(self) -> bool:
+        """True when upserts have crossed a capacity block since the last
+        warm_fused: the next fused query would pay a fresh capture, so the
+        owner should re-run warm_fused in the background."""
+        with self._lock:
+            return (self._warmed_capacity is not None
+                    and self._capacity(len(self._ids)) != self._warmed_capacity)
 
     # --------------------------------------------------------- persistence
 

@@ -10,7 +10,9 @@ this one, `models/convert.py` a checkpoint):
 - norms take float32 statistics and return the compute dtype; the bf16
   softmax stays bf16, the float32 one float32;
 - a static-shape KV cache `[L, B, T, kv_heads, head_dim]` written in place,
-  S new tokens at cache indices `[length, length + S)`; `kv_quant="int8"`
+  S new tokens at cache indices `[length, length + S)`, `length` a host int
+  or, in `decode_chunk`, a 0-d device tensor (JAX's `length: jax.Array`),
+  so a chunk has no host value in it and can be a CUDA graph; `kv_quant="int8"`
   keeps int8 codes with one float32 scale per (position, kv head); the
   paged layout (`kv/paged.py`) keeps K/V in a shared page pool, scattered
   there through a page table and gathered back into the dense layout's
@@ -122,11 +124,15 @@ class GPTConfig:
 
 class KVCache(NamedTuple):
     """Static-shape per-layer cache: k/v [L, B, max_len, kv_heads,
-    head_dim]; `length` is the number of slots written, a host int."""
+    head_dim]; `length` is the number of slots written: a host int, or a
+    0-d int64 device tensor (JAX's `length: jax.Array`), with which a
+    forward writes its K/V at a slot index held on the device and builds
+    its mask there, so the step has no host value in it and a CUDA graph
+    can replay it at any slot (`decode_chunk` decodes so)."""
 
     k: torch.Tensor
     v: torch.Tensor
-    length: int
+    length: Any
 
 
 class QuantKVCache(NamedTuple):
@@ -138,7 +144,7 @@ class QuantKVCache(NamedTuple):
     v: torch.Tensor
     k_scale: torch.Tensor  # f32 [L, B, T, kv_heads]
     v_scale: torch.Tensor
-    length: int
+    length: Any  # a host int or a 0-d device tensor, as KVCache's
 
 
 def init_cache(cfg: GPTConfig, batch: int, max_len: int, dtype: torch.dtype,
@@ -207,7 +213,8 @@ def _flash_prefill(cfg: GPTConfig, S: int, cache) -> bool:
     S > 1 tokens against an empty cache. The kernel attends over the S
     fresh tokens only, so a forward over a filled cache (a verify or
     tracking window) reads the cache instead."""
-    return cfg.attn_impl == "flash" and S > 1 and cache.length == 0
+    return (cfg.attn_impl == "flash" and S > 1
+            and not isinstance(cache.length, torch.Tensor) and cache.length == 0)
 
 
 def _paged_write_read(cache: PagedKVCache, layer_idx: int, k, v, start: int, T: int, dtype):
@@ -256,7 +263,17 @@ def _attn(layer: Params, x: torch.Tensor, layer_idx: int, cache, cfg: GPTConfig,
         q, k = _rope(q, *rope), _rope(k, *rope)
 
     start = cache.length
-    rows = slice(start, start + S)
+    # a device slot index writes through index_copy_ (no host value); a
+    # host int through a slice
+    rows = (start + torch.arange(S, device=x.device) if isinstance(start, torch.Tensor)
+            else slice(start, start + S))
+
+    def put(slab, vals):
+        if isinstance(rows, slice):
+            slab[layer_idx, :, rows] = vals
+        else:
+            slab[layer_idx].index_copy_(1, rows, vals.to(slab.dtype))
+
     if isinstance(cache, PagedKVCache):
         # a row's slot count is kv_valid's width (the pool has no T axis)
         k_all, v_all = _paged_write_read(cache, layer_idx, k, v, start, kv_valid.shape[1],
@@ -264,13 +281,13 @@ def _attn(layer: Params, x: torch.Tensor, layer_idx: int, cache, cfg: GPTConfig,
     elif isinstance(cache, QuantKVCache):
         k_q, k_s = quant.kv_channel_quantize(k)
         v_q, v_s = quant.kv_channel_quantize(v)
-        cache.k[layer_idx, :, rows] = k_q
-        cache.v[layer_idx, :, rows] = v_q
-        cache.k_scale[layer_idx, :, rows] = k_s
-        cache.v_scale[layer_idx, :, rows] = v_s
+        put(cache.k, k_q)
+        put(cache.v, v_q)
+        put(cache.k_scale, k_s)
+        put(cache.v_scale, v_s)
     else:
-        cache.k[layer_idx, :, rows] = k
-        cache.v[layer_idx, :, rows] = v
+        put(cache.k, k)
+        put(cache.v, v)
 
     if _flash_prefill(cfg, S, cache):
         # prefill from empty: the kernel attends over exactly the S fresh
@@ -438,13 +455,19 @@ def _align_prompt(prompt_ids: torch.Tensor, prompt_mask: torch.Tensor,
 
 
 def prefill(params, prompt_ids: torch.Tensor, prompt_mask: torch.Tensor, cfg: GPTConfig,
-            max_new_tokens: int):
+            max_new_tokens: int, cache=None):
     """Prompt forward against a fresh cache with room for `max_new_tokens`
     more → (cache, next_logits [B, V], kv_valid, prompt_len), the carry a
-    decode loop resumes from."""
+    decode loop resumes from. `cache`: a dense or int8 cache of that
+    geometry to write into instead (length 0; slots past the prompt keep
+    what they held, which no step reads before it writes them)."""
     B, P = prompt_ids.shape
-    cache = init_cache(cfg, B, P + max_new_tokens, torch_dtype(cfg.dtype),
-                       prompt_ids.device)
+    if cache is None:
+        cache = init_cache(cfg, B, P + max_new_tokens, torch_dtype(cfg.dtype),
+                           prompt_ids.device)
+    elif cache.length != 0 or cache.k.shape[1:3] != (B, P + max_new_tokens):
+        raise ValueError(f"prefill into a cache of {tuple(cache.k.shape)}, length "
+                         f"{cache.length}: want [_, {B}, {P + max_new_tokens}, ...] at 0")
     ids_r, positions, kv_valid, prompt_len = _align_prompt(prompt_ids, prompt_mask,
                                                            max_new_tokens)
     logits, cache = forward(params, ids_r, cache, positions, cfg, kv_valid, last_only=True)
@@ -463,13 +486,27 @@ def _emit_one(tok, done, eos_id: int):
 
 def decode_chunk(params, cache, cur_logits, cur_pos, done, kv_valid,
                  generator: torch.Generator, steps: int, cfg: GPTConfig,
-                 temperature=0.8, top_k=40, eos_id: int = -1):
+                 temperature=0.8, top_k=40, eos_id: int = -1, sampling=None):
     """`steps` decode steps from a carried state → (cache, logits, pos, done,
     tokens [B, steps], counted [B, steps]). Each step samples from the
     carried logits, masks rows already done (their token is 0), and runs
-    the sampled tokens through the model at their positions."""
-    t, k, bucket = _norm_sampling(temperature, top_k, cur_logits.shape[0],
-                                  cfg.vocab_size, cur_logits.device)
+    the sampled tokens through the model at their positions.
+
+    A dense or int8 cache decodes at a device slot index: a host `length`
+    becomes a 0-d device tensor first, and the returned cache's `length`
+    is the caller's kind again (int + steps, or the advanced tensor). The
+    paged layout keeps its host length (its page table is host work).
+    `sampling`: the `_norm_sampling` triple, built outside the chunk, in
+    place of temperature and top_k; with it the chunk makes no host value
+    and no host sync, so it can be captured as a CUDA graph."""
+    if sampling is None:
+        sampling = _norm_sampling(temperature, top_k, cur_logits.shape[0], cfg.vocab_size,
+                                  cur_logits.device)
+    t, k, bucket = sampling
+    host_length = None if isinstance(cache.length, torch.Tensor) else cache.length
+    if host_length is not None and not isinstance(cache, PagedKVCache):
+        cache = cache._replace(length=torch.full((), host_length, dtype=torch.int64,
+                                                 device=cur_logits.device))
     tokens, counted = [], []
     for _ in range(steps):
         tok, c, done = _emit_one(_sample(cur_logits, generator, t, k, bucket), done, eos_id)
@@ -478,6 +515,8 @@ def decode_chunk(params, cache, cur_logits, cur_pos, done, kv_valid,
         logits, cache = forward(params, tok[:, None], cache, cur_pos[:, None], cfg, kv_valid)
         cache = cache._replace(length=cache.length + 1)
         cur_logits, cur_pos = logits[:, 0], cur_pos + 1
+    if host_length is not None:
+        cache = cache._replace(length=host_length + steps)
     return (cache, cur_logits, cur_pos, done, torch.stack(tokens, dim=1),
             torch.stack(counted, dim=1))
 

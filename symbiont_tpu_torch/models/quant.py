@@ -108,8 +108,10 @@ def _div(t: torch.Tensor, c: float) -> torch.Tensor:
     """`t / c` rounded as IEEE division on every device. On CUDA, torch
     turns a division by a Python number into a product with its float32
     reciprocal, which can land one ulp away (and the codes after it one
-    step away); a divisor on `t`'s own device is divided exactly."""
-    return t / torch.tensor(c, dtype=t.dtype, device=t.device)
+    step away); a divisor on `t`'s own device is divided exactly. It is
+    made by a fill there, not copied from the host, so a CUDA graph can
+    capture it."""
+    return t / torch.full((), c, dtype=t.dtype, device=t.device)
 
 
 def channel_quantize(w: torch.Tensor, amax: float, qdtype: torch.dtype) -> QuantTensor:

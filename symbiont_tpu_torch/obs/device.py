@@ -11,6 +11,11 @@ The port's counterpart of `symbiont_tpu/obs/device.py`'s
 The CPU keeps no such statistics: without CUDA both functions return
 nothing and register nothing. `register_process_gauges` is a copy of the
 JAX module's: the standard `process_*` gauges read from `/proc/self`.
+
+`record_compile_event` is a copy of the JAX function: every executable's
+first call (a CUDA graph's capture, `engine/graphs.py`) lands as a span on
+the well-known trace `engine-compiles`, so a storm of captures shows on
+the timeline (`GET /api/traces/engine-compiles/export?fmt=chrome`).
 """
 
 from __future__ import annotations
@@ -22,9 +27,14 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from symbiont_tpu_torch.obs.trace_store import SpanRecord, trace_store
+from symbiont_tpu_torch.utils.ids import generate_uuid
 from symbiont_tpu_torch.utils.telemetry import Metrics, metrics as _global_metrics
 
 log = logging.getLogger(__name__)
+
+# the well-known flight-recorder trace id of the compile (capture) events
+COMPILE_TRACE_ID = "engine-compiles"
 
 _DEVICE_SERIES = (
     ("device.bytes_in_use", "bytes_in_use"),
@@ -54,6 +64,16 @@ def local_device_stats() -> List[Tuple[int, str, dict]]:
         except RuntimeError:
             log.debug("memory stats of cuda:%d unavailable", i, exc_info=True)
     return out
+
+
+def record_compile_event(name: str, duration_s: float,
+                         start_s: Optional[float] = None, **fields) -> None:
+    """Append one compile to the ``engine-compiles`` timeline trace."""
+    start = start_s if start_s is not None else time.time() - duration_s
+    trace_store.record(SpanRecord(
+        trace_id=COMPILE_TRACE_ID, span_id=generate_uuid(), parent_id=None,
+        name=name, start_s=start, duration_ms=duration_s * 1000.0,
+        status="ok", fields={k: str(v) for k, v in fields.items()}))
 
 
 def register_device_gauges(registry: Optional[Metrics] = None) -> int:

@@ -7,8 +7,10 @@ its dispatch count and the host wall spent enqueuing it, plus
 The counter families keep the JAX package's names
 (`xla.dispatches_total{executable}`), so one dashboard reads both.
 
-The port runs eagerly and compiles nothing, so there is no `note_compile`
-and no cost or memory analysis per executable. The on-demand
+`note_compile` counts each capture of an engine's CUDA graph (the port's
+executables, `engine/graphs.py`) as the JAX ledger counts a compile; the
+cost and memory analysis the JAX ledger takes from XLA is not read, so
+those fields stay unset (A7's rest). The on-demand
 `DeviceTraceCapture` is one of A7's leftovers (ROADMAP); the gateway's
 `POST /api/profile/device` answers 501 until it lands.
 """
@@ -35,11 +37,12 @@ KNOWN_SYNC_SITES = (
 
 
 class _SigStats:
-    __slots__ = ("dispatches", "wall_s")
+    __slots__ = ("dispatches", "wall_s", "compiles")
 
     def __init__(self) -> None:
         self.dispatches = 0
         self.wall_s = 0.0
+        self.compiles = 0
 
 
 class DispatchLedger:
@@ -66,21 +69,36 @@ class DispatchLedger:
         with self._lock:
             self._rows.clear()
 
+    def _entry(self, signature: str) -> _SigStats:
+        # caller holds self._lock
+        st = self._rows.get(signature)
+        if st is None:
+            st = self._rows[signature] = _SigStats()
+            while len(self._rows) > self._max:
+                self._rows.popitem(last=False)
+        else:
+            self._rows.move_to_end(signature)
+        return st
+
     def note_dispatch(self, signature: str, wall_s: float) -> None:
         """One call of `signature` and the host wall around its enqueue."""
         if not self._enabled:
             return
         with self._lock:
-            st = self._rows.get(signature)
-            if st is None:
-                st = self._rows[signature] = _SigStats()
-                while len(self._rows) > self._max:
-                    self._rows.popitem(last=False)
-            else:
-                self._rows.move_to_end(signature)
+            st = self._entry(signature)
             st.dispatches += 1
             st.wall_s += wall_s
         self.registry.inc("xla.dispatches_total", labels={"executable": signature})
+
+    def note_compile(self, signature: str, cost: Optional[dict],
+                     memory: Optional[dict] = None) -> None:
+        """First call of an executable: its capture. `cost` and `memory`
+        keep the JAX signature; the port passes None (not analysed)."""
+        del cost, memory
+        if not self._enabled:
+            return
+        with self._lock:
+            self._entry(signature).compiles += 1
 
     def note_host_sync(self, site: str, n: int = 1) -> None:
         """`n` device → host fetches at `site`."""
@@ -102,11 +120,12 @@ class DispatchLedger:
     def snapshot(self) -> list:
         """Per-signature rows, most dispatches first."""
         with self._lock:
-            rows = [(sig, st.dispatches, st.wall_s) for sig, st in self._rows.items()]
-        out = [{"executable": sig, "dispatches": n,
+            rows = [(sig, st.dispatches, st.wall_s, st.compiles)
+                    for sig, st in self._rows.items()]
+        out = [{"executable": sig, "dispatches": n, "compiles": compiles,
                 "host_wall_ms": round(wall * 1000.0, 3),
                 "mean_dispatch_us": round(wall / n * 1e6, 1) if n else 0.0}
-               for sig, n, wall in rows]
+               for sig, n, wall, compiles in rows]
         out.sort(key=lambda r: -r["dispatches"])
         return out
 

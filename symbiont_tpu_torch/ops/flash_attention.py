@@ -49,10 +49,54 @@ HEAD_DIMS = (32, 64, 128)
 # the CPU path through the plain versions does not count. Two threads can
 # launch at once (the stack's embed batcher keeps two flushes in flight), so
 # each count moves under `_count_lock`.
+#
+# A call made while the current stream captures a CUDA graph launches
+# nothing: it records the kernel into the graph. It goes to the capturing
+# thread's tally instead (`take_captured`), and every replay of that graph
+# adds the tally to the counts (`note_replay`), so a replayed launch counts
+# once per replay, where the device runs it.
 _count_lock = threading.Lock()
 launches = 0          # forward, csrc/flash_attn_fwd.cu
 bwd_kv_launches = 0   # dK/dV/dbias, csrc/flash_attn_bwd.cu
 bwd_q_launches = 0    # dQ, csrc/flash_attn_bwd.cu
+_captured = threading.local()
+
+
+def _count(i: int) -> None:
+    """One launch of kernel i (0 B1, 1 B2, 2 B3), or, under a capture on
+    this thread's current stream, one kernel recorded into the graph."""
+    global launches, bwd_kv_launches, bwd_q_launches
+    if torch.cuda.is_current_stream_capturing():
+        tally = getattr(_captured, "tally", [0, 0, 0])
+        tally[i] += 1
+        _captured.tally = tally
+        return
+    with _count_lock:
+        if i == 0:
+            launches += 1
+        elif i == 1:
+            bwd_kv_launches += 1
+        else:
+            bwd_q_launches += 1
+
+
+def take_captured() -> Tuple[int, int, int]:
+    """This thread's kernels recorded since the last call: (B1, B2, B3)
+    per replay of the graph just captured. Resets the tally."""
+    tally = getattr(_captured, "tally", [0, 0, 0])
+    _captured.tally = [0, 0, 0]
+    return tuple(tally)
+
+
+def note_replay(counts: Tuple[int, int, int], replays: int = 1) -> None:
+    """`replays` replays of a graph that holds `counts` kernels."""
+    global launches, bwd_kv_launches, bwd_q_launches
+    if not any(counts):
+        return
+    with _count_lock:
+        launches += counts[0] * replays
+        bwd_kv_launches += counts[1] * replays
+        bwd_q_launches += counts[2] * replays
 
 
 def _check(q, k, v, kv_bias) -> None:
@@ -235,9 +279,7 @@ def _forward(q, k, v, kv_bias, causal, scale):
     if rc != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: cudaError {rc} "
                            f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})")
-    global launches
-    with _count_lock:
-        launches += 1
+    _count(0)
     return out, lse
 
 
@@ -258,9 +300,7 @@ def bwd_kv(q, k, v, kv_bias, g, lse, delta, causal, scale):
     if rc != 0:
         raise RuntimeError(f"flash_attn_bwd_kv launch failed: cudaError {rc} "
                            f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})")
-    global bwd_kv_launches
-    with _count_lock:
-        bwd_kv_launches += 1
+    _count(1)
     return dk, dv, dbias_h
 
 
@@ -277,9 +317,7 @@ def bwd_q(q, k, v, kv_bias, g, lse, delta, causal, scale):
     if rc != 0:
         raise RuntimeError(f"flash_attn_bwd_q launch failed: cudaError {rc} "
                            f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})")
-    global bwd_q_launches
-    with _count_lock:
-        bwd_q_launches += 1
+    _count(2)
     return dq
 
 

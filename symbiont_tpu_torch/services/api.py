@@ -746,9 +746,9 @@ class ApiService:
 
     def _engine_executables(self) -> Tuple[int, str]:
         """``GET /api/engine/executables``: the dispatch ledger's
-        per-signature rows (dispatches, host wall per dispatch). The port
-        runs eagerly and has no cost model, so no row carries a roofline
-        grade; the payload says so."""
+        per-signature rows (dispatches, captures, host wall per dispatch).
+        The port's captured graphs carry no cost analysis, so no row
+        carries a roofline grade; the payload says so."""
         from symbiont_tpu_torch.obs.xprof import dispatch_ledger
 
         rows = dispatch_ledger.snapshot()

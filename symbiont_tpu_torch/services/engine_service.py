@@ -1,11 +1,11 @@
 """Engine service — the TPU-owning process's bus frontend.
 
-Copy of the JAX package's `symbiont_tpu/services/engine_service.py`, with
-one change: the JAX service pre-compiles the fused query's XLA programs in
-the background (`_spawn_fused_warm` through the store's `warm_fused` and
-`fused_warm_stale`) and re-warms when upserts cross a capacity block. The
-port runs eagerly, so nothing is compiled and that path is gone; a CUDA
-graph capture of the fused query would take its place (ROADMAP A16).
+Copy of the JAX package's `symbiont_tpu/services/engine_service.py`. In
+the port the fused query's executables that `_spawn_fused_warm` builds in
+the background (through the store's `warm_fused`, again when
+`fused_warm_stale` says upserts crossed a capacity block) are CUDA graphs
+captured on the card rather than XLA programs; the comments below speak
+of the JAX package's compiles, which a capture takes the place of.
 
 This is the "sun" of the architecture (SURVEY.md §7 design stance): exactly one
 process owns the device (engine + LM + vector store + graph store), and every
@@ -88,6 +88,8 @@ class EngineService(Service):
         self.lm_batcher = lm_batcher
         self.vector_store = vector_store
         self.graph_store = graph_store
+        self._warm_task: Optional[asyncio.Task] = None
+        self._warm_failed = False  # last warm errored → next upsert retries
         # cross-REQUEST upsert coalescing (services/coalesce.py): the native
         # vector_memory shells each batch points per request, but N workers
         # × M in-flight requests still cost one store call (WAL fsync +
@@ -110,6 +112,47 @@ class EngineService(Service):
         if self._upsert_coalescer is not None:
             await self._upsert_coalescer.start()
         await super().start()
+        self._spawn_fused_warm()
+
+    def _fused_enabled(self) -> bool:
+        return (self.engine is not None and self.vector_store is not None
+                and getattr(self.vector_store, "supports_fused", False))
+
+    def _spawn_fused_warm(self) -> None:
+        """Background-compile the fused query executables for the store's
+        current capacity across the query length buckets (works for an empty
+        store too — capacity is the first block), so interactive queries
+        don't eat the 20-40s TPU compile inside the gateway's probe timeout.
+        Queries arriving mid-warmup fall back to the 2-hop path; the store
+        lock is never held across a compile. Re-invoked when upserts cross a
+        capacity block (the executables are capacity-keyed)."""
+        if not self._fused_enabled():
+            return
+        if self._warm_task is not None and not self._warm_task.done():
+            return  # one warmup at a time; stale check re-fires after it
+        self._warm_failed = False
+
+        async def warm() -> None:
+            loop = asyncio.get_running_loop()
+            try:
+                await loop.run_in_executor(
+                    None, self.vector_store.warm_fused, self.engine)
+                log.info("fused query executables warmed")
+            except Exception:
+                log.exception("fused warmup failed (non-fatal)")
+                self._warm_failed = True  # next upsert retries
+                return
+            # an upsert may have crossed a capacity block while this warm
+            # was compiling (spawn attempts during a live warm are no-ops) —
+            # re-check so the stale window closes without waiting for the
+            # next upsert. Executor: the staleness check takes the store
+            # lock, which a concurrent device sync can hold for a while.
+            if await loop.run_in_executor(
+                    None, self.vector_store.fused_warm_stale):
+                self._warm_task = None
+                self._spawn_fused_warm()
+
+        self._warm_task = asyncio.create_task(warm(), name="fused-warmup")
 
     async def drain(self) -> None:
         # drain protocol (resilience/autoscale.py): immediate-flush mode
@@ -120,6 +163,8 @@ class EngineService(Service):
         await super().drain()
 
     async def stop(self) -> None:
+        if self._warm_task is not None:
+            self._warm_task.cancel()
         await super().stop()
         if self._upsert_coalescer is not None:
             await self._upsert_coalescer.stop()
@@ -367,6 +412,15 @@ class EngineService(Service):
                 # and small — straight through, no coalescing
                 n = await self._run_store(self.vector_store.upsert,
                                           points)
+            if self._fused_enabled() and (
+                    self._warm_failed or await self._run_store(
+                        self.vector_store.fused_warm_stale)):
+                # upserts crossed a capacity block (or the last warm failed):
+                # the fused executables are keyed by capacity, so the next
+                # query would pay a fresh XLA compile — re-warm in the
+                # background before it arrives. Executor: the staleness check
+                # takes the store lock (see _spawn_fused_warm)
+                self._spawn_fused_warm()
             return {"upserted": n}
         await self._handle(msg, "vector.upsert", op)
 

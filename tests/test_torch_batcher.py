@@ -136,6 +136,9 @@ def test_requeue_wakes_the_run_loop():
         def done(self):
             return self.steps_left <= 0
 
+        def close(self):
+            self.closed = True
+
     class FakeLm:
         config = SimpleNamespace(gen_max_batch=8, gen_flush_deadline_ms=1.0,
                                  new_token_buckets=[16], temperature=1.0, top_k=0)

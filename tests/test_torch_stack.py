@@ -272,6 +272,18 @@ def test_route_bodies_have_the_same_keys(runs, path):
     assert extra <= set(tb)
 
 
+def test_engine_health_stats_have_the_same_keys(runs):
+    """`/api/health/engine`'s `stats`: the port's keys are JAX's (its
+    executables count `compiles` and `compile_s` as JAX's do), plus the
+    per-call batch counts the port also keeps."""
+    j, t = runs
+    jstats = j["routes"]["/api/health/engine"][1]["stats"]
+    tstats = t["routes"]["/api/health/engine"][1]["stats"]
+    assert {"compiles", "compile_s"} <= set(jstats)
+    assert set(tstats) - {"embed_batches", "rerank_batches"} == set(jstats)
+    assert tstats["compiles"] >= 1 and tstats["compile_s"] > 0
+
+
 def test_search_bodies_have_the_same_keys(runs):
     j, t = runs
     for key in j["search"]:
