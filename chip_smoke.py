@@ -35,13 +35,20 @@ any failure exits non-zero:
              capture ms, graph pool bytes and the busy share;
 5. train   — the encoder fine-tune at the same width: contrastive_train_step
              on 32 (query, passage) pairs made by the port's tokenizer and
-             bucketing (queries at 64 tokens, passages at 256), several
-             steps on one batch, then one step of 16 pairs at 512; each
-             step must launch B1, B2 and B3 twice per layer, the loss must
-             stay finite and fall; one step's gradients with flash must
-             match plain attention (cosine >= 0.99); steps/s, tokens/s and
-             each kernel's share of a step's device time; the trained
-             masters then serve embeddings through a TorchEngine;
+             bucketing (queries at 64 tokens, passages at 256), 8 steps on
+             one batch as a CUDA graph (forward, backward and a capturable
+             AdamW) with loss and grad norm bit-equal to the same AdamW
+             stepped eagerly, whose masters must agree with the
+             non-capturable AdamW the CPU runs stepped on the same
+             gradients (rtol 1e-6), then one step of 16 pairs at 512;
+             each step
+             must launch B1, B2 and B3 twice per layer (twice more at a
+             shape's capture), the loss must stay finite and fall; one
+             step's gradients with flash must match plain attention
+             (cosine >= 0.99); steps/s and the busy share eager against
+             graphed, tokens/s and each kernel's share of a step's device
+             time; the trained masters then serve embeddings through a
+             TorchEngine;
 6. checkpoint — the default multilingual mpnet geometry and a MiniLM +
              ms-marco pair written from the seed in the hub's layout and
              served through `model_dir` / `cross_model_dir` with flash;
@@ -76,16 +83,25 @@ any failure exits non-zero:
              carry against the eager chunk (greedy logits bit-equal,
              greedy, sampled and int8-KV tokens equal, ms a step), a
              GenBatcher cold and warm, GPT-2 f32 streams and a session =
-             generate();
+             generate(); and the prefill executables at rows 1 and 8 and
+             the buckets 64/256/1024 on both dirs, graphed = eager bit for
+             bit, TTFT eager against graphed and each capture by part (a
+             comparison: B1 in their replays checked, not counted; the
+             main paths above count it), and the prefill executables an
+             engine holds after its GenBatcher, their bytes within their
+             bound;
 11. paged  — TinyLlama with `kv_layout="paged"` (pages of 16, radix on,
              the pool sized automatically, its bytes checked exactly):
              paged session rows with an admission and a cancel equal the
              dense session's, B1 once per layer per cold start and
              admission, 0 per chunk and 0 for a start of full radix hits,
-             a shared 128-token prefix hit; GPT-2 float32 paged rows equal
-             dense ones (kv_quant none and int8); `GenBatcher` on the pool;
-             every page free again; pages and chunk ms against dense,
-             the batcher's readings beside [session]'s, printed;
+             a shared 128-token prefix hit; the graphed paged chunk's rows
+             equal an eagerly run paged engine's; GPT-2 float32 paged rows
+             equal dense ones (kv_quant none and int8); `GenBatcher` on the
+             pool; every page free again; pages and chunk ms (graphed
+             paged, graphed dense, eager paged), the batcher's readings
+             beside [session]'s and the prefill executables' bytes beside
+             the pool's, printed;
 12. spec   — speculative decoding on TinyLlama (float32 for the identity
              checks): self-drafted streams and sessions (dense, paged) give
              spec-off's tokens at acceptance 1.0 and 9 tokens a dispatch,
@@ -125,7 +141,10 @@ any failure exits non-zero:
              delta, the re-prefill's ms and each role's device memory.
 
 Launch counts are set to 0 just before each main path (phases 3-4, 5, 6,
-8, 9, 10, 11, 12, 13 and 14) and read just after. The last two lines are a JSON object with
+8, 9, 10, 11, 12, 13 and 14) and read just after. On the card every LM
+prefill, decode chunk and train step is a replayed CUDA graph: a graph's
+kernels count once per replay, and a capture's eager warm-up adds one
+more run of them (`capture_b1`). The last two lines are a JSON object with
 every kernel's numbers and `{"ok": true, "device": {...}}`.
 """
 
@@ -740,9 +759,52 @@ def _launch_counts(fa) -> tuple:
     return fa.launches, fa.bwd_kv_launches, fa.bwd_q_launches
 
 
+def _set_launch_counts(fa, counts: tuple) -> None:
+    fa.launches, fa.bwd_kv_launches, fa.bwd_q_launches = counts
+
+
+def _cpu_adamw(trainer, params) -> tuple:
+    """`make_embedder_train_state(params)` with the AdamW the CPU steps:
+    not capturable, its step counts on the host."""
+    state, tx = trainer.make_embedder_train_state(params)
+    for group in tx.param_groups:
+        group["capturable"] = False
+    for st in tx.state.values():
+        st["step"] = st["step"].to("cpu", torch.float32)
+    return state, tx
+
+
+@torch.no_grad()
+def capturable_gaps(trainer, state_e, state_f, e_metrics, a_metrics) -> dict:
+    """The capturable AdamW (`state_e`, stepped eagerly) against the
+    non-capturable one: `state_f` stepped on the same gradients, whose
+    masters must agree at rtol 1e-6 with atol 1e-9 (a hundred-thousandth
+    of a step of lr 1e-4), their largest gap and unequal share read; and
+    a run on its own from the same masters (`a_metrics`), whose first
+    step's loss and grad norm must be bit-equal, every step's relative gap
+    read."""
+    pairs = list(zip(trainer.tree_leaves(state_e.params), trainer.tree_leaves(state_f.params)))
+    return {"fed_close": all(torch.allclose(a, b, rtol=1e-6, atol=1e-9) for a, b in pairs),
+            "fed_masters_abs": max(float((a - b).abs().max()) for a, b in pairs),
+            "fed_masters_unequal": (sum(int((a != b).sum()) for a, b in pairs)
+                                    / sum(a.numel() for a, _ in pairs)),
+            **{f"alone_{k}_rel": [float(abs(a[i] - b[i]) / abs(b[i]))
+                                  for a, b in zip(e_metrics, a_metrics)]
+               for i, k in enumerate(("loss", "grad_norm"))}}
+
+
 def train_path(rng) -> dict:
     """The encoder fine-tune at full width: contrastive_train_step on the
-    card through the flash-attention forward and both backward kernels."""
+    card through the flash-attention forward and both backward kernels, a
+    CUDA graph per batch shape (A16 stage 3). Each check fails the run:
+    flash against plain gradients; 8 graphed steps of one batch whose loss
+    and grad norm are bit-equal to the same steps of the same capturable
+    AdamW run eagerly from the same masters, and whose masters end
+    bit-equal; that eager capturable run against the non-capturable AdamW
+    the CPU steps with (`capturable_gaps`); B1/B2/B3 launched 2L times a
+    step, replayed, and 2L more at a shape's capture (its eager warm-up);
+    the loss falls. Printed: steps/s eager against graphed, and each one's
+    device busy share under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -768,6 +830,14 @@ def train_path(rng) -> dict:
     untrained = TorchEngine(EngineConfig(attn_impl="flash"), params=params, model_cfg=cfg,
                             tokenizer=tok).embed_texts(probe)
     state, tx = trainer.make_embedder_train_state(params)
+    # the same masters under their own capturable AdamW, stepped eagerly
+    state_e, tx_e = trainer.make_embedder_train_state(params)
+    eager_step = trainer._step_fn(state_e.params, tx_e, cfg)
+    # and twice under the CPU's AdamW (not capturable, its step counts on
+    # the host), the arithmetic the tests hold to JAX's: one fed the
+    # capturable run's gradients, one stepping on its own
+    fed, alone = (_cpu_adamw(trainer, params) for _ in range(2))
+    plain_step = trainer._step_fn(alone[0].params, alone[1], cfg)
     del params
 
     # one step's gradients with flash vs plain attention, same masters
@@ -780,9 +850,34 @@ def train_path(rng) -> dict:
     cos = float(torch.nn.functional.cosine_similarity(grads["flash"], grads["xla"], dim=0))
     ratio = float(grads["flash"].norm() / grads["xla"].norm())
     check(cos >= 0.99, f"flash vs plain attention gradient cosine {cos:.5f} < 0.99")
-    del grads
+    # the loss keeps its autograd graph, and with it the masters' gradient
+    # accumulators on this stream, alive: a capture's backward on the side
+    # stream would then depend on this one
+    del grads, loss
 
-    steps, per_step, losses, n_steps = [], [], [], 8
+    # the reference first: 8 eager steps of the capturable AdamW, each
+    # step's gradients then stepped by the CPU's AdamW too (untimed)
+    n_steps = 8
+    e_steps, e_metrics = [], []
+    grads_e = [p.grad for p in trainer.tree_leaves(state_e.params)]
+    grads_f = [p.grad for p in trainer.tree_leaves(fed[0].params)]
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e_metrics.append(eager_step(batch["q_ids"], batch["q_mask"], batch["p_ids"],
+                                    batch["p_mask"]))
+        float(e_metrics[-1][0])  # a host sync: the step has run
+        e_steps.append(time.perf_counter() - t0)
+        torch._foreach_copy_(grads_f, grads_e)
+        fed[1].step()
+    a_metrics = [plain_step(batch["q_ids"], batch["q_mask"], batch["p_ids"], batch["p_mask"])
+                 for _ in range(n_steps)]
+    cap_gap = capturable_gaps(trainer, state_e, fed[0], e_metrics, a_metrics)
+    check(cap_gap["fed_close"] and cap_gap["alone_loss_rel"][0] == 0
+          and cap_gap["alone_grad_norm_rel"][0] == 0,
+          f"the capturable AdamW against the non-capturable one: {cap_gap}")
+    del fed, alone, plain_step, grads_e, grads_f
+    steps, per_step, losses, g_metrics = [], [], [], []
     fa.launches = fa.bwd_kv_launches = fa.bwd_q_launches = 0  # ------- main path
     for _ in range(n_steps):
         before = _launch_counts(fa)
@@ -791,7 +886,10 @@ def train_path(rng) -> dict:
         state, m = trainer.contrastive_train_step(state, batch, cfg, tx)
         losses.append(float(m["loss"]))  # a host sync: the step has run
         steps.append(time.perf_counter() - t0)
+        g_metrics.append((m["loss"], m["grad_norm"]))
         per_step.append(tuple(a - b for a, b in zip(_launch_counts(fa), before)))
+    same_masters = all(torch.equal(a, b) for a, b in zip(
+        trainer.tree_leaves(state.params), trainer.tree_leaves(state_e.params)))
     before = _launch_counts(fa)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -801,24 +899,47 @@ def train_path(rng) -> dict:
     per_step.append(tuple(a - b for a, b in zip(_launch_counts(fa), before)))
     counts = _launch_counts(fa)  # ------------------------------------ main path end
 
-    check(all(c == (2 * L,) * 3 for c in per_step),
-          f"launches per step (fwd, B2, B3) {per_step} != {(2 * L,) * 3}")
+    # a batch shape's first step captures its graph: the eager warm-up runs
+    # the step once more
+    want = [(4 * L,) * 3] + [(2 * L,) * 3] * (n_steps - 1) + [(4 * L,) * 3]
+    check(per_step == want, f"launches per step (fwd, B2, B3) {per_step} != {want}")
+    check(all(torch.equal(g[0], e[0]) and torch.equal(g[1], e[1])
+              for g, e in zip(g_metrics, e_metrics)),
+          "graphed steps' (loss, grad norm) differ from the eager capturable AdamW's: "
+          f"{[(float(a), float(b)) for a, b in g_metrics]} vs "
+          f"{[(float(a), float(b)) for a, b in e_metrics]}")
+    check(same_masters, "the masters after 8 graphed steps differ from the eager steps'")
     check(bool(np.isfinite(losses + [loss512]).all()), f"non-finite loss {losses} {loss512}")
     check(losses[-1] < losses[0], f"loss did not fall on the repeated batch: {losses}")
     toks = sum(int(batch[f"{s}_ids"].numel()) for s in ("q", "p"))
     real = sum(int(batch[f"{s}_mask"].sum()) for s in ("q", "p"))
-    warm = steps[2:]  # the first steps pay the allocator's and cuBLAS's warm-up
+    warm = steps[2:]  # the first steps pay the capture and the allocator's warm-up
     sps = len(warm) / sum(warm)
+    e_sps = len(e_steps[2:]) / sum(e_steps[2:])
     print(f"[train] contrastive_train_step, {cfg.hidden_size} hidden, {L} layers, bf16, "
           f"attn_impl=flash, 32 pairs (queries at 64, passages at 256 tokens): launches per "
-          f"step fwd/B2/B3 {per_step[0][0]}/{per_step[0][1]}/{per_step[0][2]} in every step; "
+          f"step fwd/B2/B3 {per_step[1][0]}/{per_step[1][1]}/{per_step[1][2]} in every replayed "
+          f"step, {per_step[0][0]}/{per_step[0][1]}/{per_step[0][2]} in a capturing one; "
           f"loss {' '.join(f'{x:.4f}' for x in losses)}; grad_norm {float(m['grad_norm']):.4f}; "
-          f"{sps:.3f} steps/s, {sps * toks:.0f} padded tokens/s ({sps * real:.0f} real) over "
-          f"steps 3-{n_steps} (host clock, synchronised); 16 pairs at the 512 bucket: loss "
+          f"graphed: loss and grad norm of all {n_steps} steps bit-equal to the same capturable "
+          f"AdamW stepped eagerly from the same masters; that one against the "
+          f"non-capturable AdamW (the CPU's) on the same gradients: masters within rtol 1e-6 + "
+          f"atol 1e-9, largest |gap| {cap_gap['fed_masters_abs']:.3g}, "
+          f"{cap_gap['fed_masters_unequal']:.3%} of elements not bit-equal; on its own, relative "
+          f"loss gap by step {' '.join(f'{x:.2g}' for x in cap_gap['alone_loss_rel'])}, grad "
+          f"norm {' '.join(f'{x:.2g}' for x in cap_gap['alone_grad_norm_rel'])}; "
+          f"{sps:.3f} steps/s graphed, "
+          f"{e_sps:.3f} eager ({sps / e_sps:.2f}x), {sps * toks:.0f} padded tokens/s "
+          f"({sps * real:.0f} real) over steps 3-{n_steps} (host clock, synchronised); 16 pairs "
+          f"at the 512 bucket (a capture): loss "
           f"{loss512:.4f}, {step512_s * 1e3:.1f} ms; flash vs plain attention gradient cosine "
           f"{cos:.6f}, norm ratio {ratio:.6f}", flush=True)
 
-    # device time by kernel for one step of the repeated batch
+    # device time by kernel for one eager step and one replayed step
+    before = _launch_counts(fa)
+    e_wall, e_busy = busy_share(lambda: eager_step(batch["q_ids"], batch["q_mask"],
+                                                   batch["p_ids"], batch["p_mask"]))
+    _set_launch_counts(fa, before)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state, _ = trainer.contrastive_train_step(state, batch, cfg, tx)
@@ -831,8 +952,9 @@ def train_path(rng) -> dict:
              for name, tag in (("flash_attn_fwd", "flash_fwd"), ("flash_attn_bwd_kv", "bwd_kv_"),
                                ("flash_attn_bwd_q", "bwd_q_"))}
     top = "; ".join(f"{k[:50]} {t / busy:.1%}" for k, t in sorted(kernels, key=lambda kv: -kv[1])[:6])
-    print(f"[train] one step under torch.profiler: wall {wall_us / 1e3:.1f} ms, device busy "
-          f"{busy / 1e3:.1f} ms ({busy / wall_us:.1%} of wall); share of device time: "
+    print(f"[train] one step under torch.profiler: eager wall {e_wall:.1f} ms, device busy "
+          f"{e_busy:.1f} ms ({e_busy / e_wall:.1%}); graphed wall {wall_us / 1e3:.1f} ms, device "
+          f"busy {busy / 1e3:.1f} ms ({busy / wall_us:.1%} of wall); share of device time: "
           + ", ".join(f"{k} {v:.1%}" for k, v in share.items()) + f"; top kernels: {top}",
           flush=True)
 
@@ -844,7 +966,11 @@ def train_path(rng) -> dict:
     check(moved > 0, "the trained params embed exactly as the untrained ones")
     print(f"[train] TorchEngine(params=trained masters) embeds {len(probe)} texts with flash: "
           f"finite, max |trained - untrained| {moved:.4g}", flush=True)
-    return {"launches": counts}
+    del state_e, tx_e, eager_step
+    return {"launches": counts, "steps_per_s": {"graphed": sps, "eager": e_sps},
+            "capturable_gap": cap_gap,
+            "busy_pct": {"graphed": 100 * busy / wall_us, "eager": 100 * e_busy / e_wall},
+            "step_ms": {"graphed": 1e3 / sps, "eager": 1e3 / e_sps}}
 
 
 def profile_embed(texts) -> None:
@@ -919,7 +1045,7 @@ def graphs_encoder_phase(texts, device="cuda", engine_kw=None, n_queries: int = 
     from symbiont_tpu_torch.engine.bucketing import (
         choose_bucket, pad_batch_rows_ids, pad_ids_rows, plan_batches)
     from symbiont_tpu_torch.engine.engine import TorchEngine
-    from symbiont_tpu_torch.engine.graphs import graph_pool_bytes
+    from symbiont_tpu_torch.graphs import graph_pool_bytes
     from symbiont_tpu_torch.memory.vector_store import VectorStore, cosine_topk
     from symbiont_tpu_torch.models import bert as bert_mod
     from symbiont_tpu_torch.ops import flash_attention as fa
@@ -1847,6 +1973,34 @@ def causal_gqa_kernel_phase(timed: bool = True) -> dict:
     return rows
 
 
+def capture_b1(eng) -> int:
+    """B1 launches the LM engine's prefill captures have added so far: on
+    the card a capture's eager warm-up runs the prefill once more (the
+    target's layers, or the drafter's); 0 on the CPU, which captures
+    nothing, and without the flash prefill."""
+    if eng.model_cfg.attn_impl != "flash":
+        return 0
+    n = eng.prefill_captures["target"] * eng.model_cfg.num_layers
+    if eng._draft is not None:
+        n += eng.prefill_captures["draft"] * eng._draft[1].num_layers
+    return n
+
+
+def prefill_held(eng) -> tuple:
+    """The prefill executables `eng` holds (`LmEngine.prefill_stats`): a
+    model's caches must keep within their bound, unless one shape alone is
+    over it. → (the stats, a text to print)."""
+    st = eng.prefill_stats()
+    for m, n in st["cache_bytes"].items():
+        check(n <= st["budget"][m] or st["shapes"][m] == 1,
+              f"{m} prefill executables: {st['shapes'][m]} shapes hold {n:,} bytes of caches, "
+              f"over their bound {st['budget'][m]:,}")
+    return st, "prefill executables held: " + "; ".join(
+        f"{m} {st['shapes'][m]} shapes, caches {st['cache_bytes'][m]:,} bytes (bound "
+        f"{st['budget'][m]:,})" for m in st["shapes"]) + (
+        f"; their graph pool {st['pool_bytes']:,} bytes allocated")
+
+
 def _median_ms(fn, reps: int = 3) -> float:
     """Median host-clock ms of fn() over `reps` synchronised calls, after
     one untimed call."""
@@ -1928,12 +2082,15 @@ def generate_phase(rng, tmp) -> dict:
         walls = []
         for temp in (0.0, 0.8):
             tok0 = eng.stats["tokens_generated"]
+            caps0 = capture_b1(eng)
             fa.launches = 0  # ------------------------------------------ main path
             t0 = time.perf_counter()
             texts = eng.generate_batch(prompts, [GEN_NEW] * GEN_ROWS, temperature=temp)
             walls.append(time.perf_counter() - t0)
             n = fa.launches  # ------------------------------------------ main path end
-            check(n == L, f"bucket {P}, temperature {temp}: B1 launches {n} != {L} per call")
+            cap = capture_b1(eng) - caps0  # the bucket's first call captures its prefill
+            check(n == L + cap, f"bucket {P}, temperature {temp}: B1 launches {n} != {L} per "
+                                f"call + {cap} for a capture")
             made = eng.stats["tokens_generated"] - tok0
             check(len(texts) == GEN_ROWS and made == GEN_ROWS * GEN_NEW,
                   f"bucket {P}: {made} tokens counted for {GEN_ROWS} x {GEN_NEW}")
@@ -2029,7 +2186,8 @@ def generate_phase(rng, tmp) -> dict:
           f"loaded in {load_s:.2f} s; param_bytes {2 * n_params:,} (lm.param_bytes gauge "
           f"equal), leaves read back bit-equal; generate_batch of {GEN_ROWS} ragged prompts x "
           f"{GEN_NEW} new tokens per prompt bucket, host clock: " + ", ".join(per_bucket)
-          + f"; B1 launches {L} per call (one prefill) and 0 in decode steps; logits finite, "
+          + f"; B1 launches {L} per call (one prefill, replayed; a bucket's first call adds {L} "
+          f"for its capture) and 0 in decode steps; logits finite, "
           f"sampled tokens repeat under one seed", flush=True)
     print("[generate] flash vs plain prefill, next-token cosine per row (bar > "
           f"{GEN_COS_BAR}): " + ", ".join(f"P={P} min {c.min():.6f}" for P, c in cos.items())
@@ -2064,7 +2222,9 @@ def generate_phase(rng, tmp) -> dict:
     eng.generate_batch(prompts, [GEN_NEW] * GEN_ROWS, temperature=0.8)
     wall2 = time.perf_counter() - t0
     n = fa.launches  # ---------------------------------------------------- main path end
-    check(n == eng.model_cfg.num_layers, f"GPT-2: B1 launches {n} != {eng.model_cfg.num_layers}")
+    L2 = eng.model_cfg.num_layers
+    check(n == L2 + capture_b1(eng), f"GPT-2: B1 launches {n} != {L2} + {capture_b1(eng)} "
+                                     "for the prefill's capture")
     check(eng.stats["tokens_generated"] - tok0 == GEN_ROWS * GEN_NEW, "GPT-2 token count")
     launches += n
     with torch.inference_mode():
@@ -2076,7 +2236,7 @@ def generate_phase(rng, tmp) -> dict:
           f"parameters): model.safetensors (float32) {size2 / 1e9:.2f} GB, loaded in "
           f"{load2_s:.2f} s, param_bytes {2 * n2:,}; generate_batch of {GEN_ROWS} prompts in "
           f"the {ids.shape[1]} bucket x {GEN_NEW} new, sampled: {wall2:.2f} s; B1 launches {n} "
-          f"= {eng.model_cfg.num_layers} per prefill; logits finite", flush=True)
+          f"= {L2} per prefill + {L2} for its capture; logits finite", flush=True)
     del eng, logits
     gc.collect()
     torch.cuda.empty_cache()
@@ -2096,7 +2256,7 @@ SESSION = dict(stream_bucket=(256, 1024), new=64, chunk=16, session_bucket=(64, 
                gpt2_bucket=(16, 64), batcher_bucket=(16, 64),
                first_wave=(24, 32, 40, 48, 56, 64, 64, 64),
                later_waves=(16, 16, 16, 16, 64, 48, 32, 16), waves=3, wave_gap_s=0.05,
-               max_batch=8)
+               max_batch=8, prefill_buckets=(64, 256, 1024))
 # a token that differs from the standalone decode passes only at a near-tie:
 # the standalone's top-2 logit gap under this share of the logits' largest |x|
 TIE_SHARE = 1e-4
@@ -2280,20 +2440,24 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
 
     engine_timeline.clear()
     tok0, prefills0, carriers0 = eng.stats["tokens_generated"], prefills(), eng.carrier_stats()
+    caps0 = capture_b1(eng)
     fa.launches = 0  # ---------------------------------------------------- main path
     texts, bstats, batch_s = serve_batcher(eng, waves, s["max_batch"], s["wave_gap_s"])
     batch_launches = fa.launches  # ------------------------------------------ main path end
     carriers = carrier_traffic(carriers0, eng.carrier_stats())
+    batch_caps = capture_b1(eng) - caps0
     counted += batch_launches
     n_prefills = prefills() - prefills0
+    held, held_text = prefill_held(eng)
     n_req = sum(len(w) for w in waves)
     toks = eng.stats["tokens_generated"] - tok0
     check(len(texts) == n_req and all(isinstance(t, str) for t in texts),
           f"GenBatcher: {sum(isinstance(t, str) for t in texts)} of {n_req} futures gave text")
     check(bstats["admitted_midflight"] > 0, f"GenBatcher: nothing joined a running session "
-                                            f"({bstats})")
-    check(batch_launches == L * n_prefills,
-          f"GenBatcher: B1 launches {batch_launches} != {L} x {n_prefills} prefills")
+                                            f"({bstats}; timeline {engine_timeline.summary()})")
+    check(batch_launches == L * n_prefills + batch_caps,
+          f"GenBatcher: B1 launches {batch_launches} != {L} x {n_prefills} prefills + "
+          f"{batch_caps} for their captures")
     ttft = metrics.histogram_summary("lm.ttft_ms", {"service": "lm"})
     tpot = metrics.histogram_summary("lm.tpot_ms", {"service": "lm"})
     summ = engine_timeline.summary()
@@ -2304,16 +2468,19 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
           f"{batch_s:.2f} s = {toks / batch_s:.1f} tok/s (host clock); lm.ttft_ms p50 "
           f"{ttft['p50']:.1f} p95 {ttft['p95']:.1f} ({ttft['count']} rows), lm.tpot_ms p50 "
           f"{tpot['p50']:.2f} ({tpot['count']} chunks); B1 launches {batch_launches} = {L} x "
-          f"{n_prefills} prefills; timeline: {decode}; dominant stall: "
-          f"{summ['dominant_stall']}; decode {carriers_text(carriers)}", flush=True)
+          f"{n_prefills} prefills + {batch_caps} for {batch_caps // L} captures; timeline: {decode}; dominant stall: "
+          f"{summ['dominant_stall']}; decode {carriers_text(carriers)}, free carriers "
+          f"{eng.carrier_stats()['free_bytes']:,} bytes; {held_text}", flush=True)
 
     # -- one session, one admission on a second thread
     engine_timeline.clear()
     prompts = ragged_prompts(rng, *s["session_bucket"], 3)
     newcomer = ragged_prompts(rng, *s["session_bucket"], 1)[0]
+    caps0 = capture_b1(eng)
     fa.launches = 0  # ---------------------------------------------------- main path
     sess = eng.start_session(prompts, [new] * 3, temperature=0.0)
     start_launches = fa.launches
+    start_caps = capture_b1(eng) - caps0
     check((sess.bb, sess.P, sess.capacity()) == (4, s["session_bucket"][1], 1),
           f"session: bb {sess.bb}, P {sess.P}, capacity {sess.capacity()}")
     sess.step()  # one chunk: the admitted row will have a gap
@@ -2335,14 +2502,17 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
     if "error" in box:
         raise box["error"]
     admit_launches = fa.launches - before
+    admit_caps = capture_b1(eng) - caps0 - start_caps
     (tag,) = sess.splice(box["prep"])
     check(tag == 3, f"splice gave tag {tag}")
     row = next(i for i, r in enumerate(sess.rows) if r is not None and r.tag == tag)
     session_launches = fa.launches  # ----------------------------------------- main path end
     counted += session_launches
-    check(start_launches == L and admit_launches == L and step_launches == [0],
+    check(start_launches == L + start_caps and admit_launches == L + admit_caps
+          and step_launches == [0],
           f"session: B1 launches {start_launches} at start, {admit_launches} for the admission "
-          f"prefill and a step, {step_launches} in a step (want {L}, {L}, [0])")
+          f"prefill and a step, {step_launches} in a step (want {L} + {start_caps}, {L} + "
+          f"{admit_caps} for captures, [0])")
     ids = np.full((1, sess.P), getattr(eng.tokenizer, "pad_id", 0), np.int32)
     mask = np.zeros((1, sess.P), np.int32)
     own = eng.tokenizer.encode(newcomer, 1 << 30)[-sess.P:]  # as prepare_admit trims it
@@ -2359,7 +2529,7 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
         live0 = torch.cuda.memory_allocated(eng.device)
     before = fa.launches
     with torch.inference_mode():
-        alone = eng._prefill(eng.params, ids, mask, sess.new_bucket, note_peak=False)[1][0]
+        alone = eng._prefill(eng.params, ids, mask, sess.new_bucket)[1][0]
     fa.launches = before  # a comparison, not the main path
     admit_bytes = torch.cuda.max_memory_allocated(eng.device) - live0 if cuda else None
     if cuda:
@@ -2396,6 +2566,7 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
     # -- one session under the profiler: the device's busy share
     busy = None
     prompts = ragged_prompts(rng, *s["batcher_bucket"], s["max_batch"])
+    caps0 = capture_b1(eng)
     fa.launches = 0  # ---------------------------------------------------- main path
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=acts) as prof:
@@ -2407,7 +2578,9 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     prof_launches = fa.launches  # ------------------------------------------- main path end
     counted += prof_launches
-    check(prof_launches == L, f"profiled session: B1 launches {prof_launches} != {L}")
+    cap = capture_b1(eng) - caps0
+    check(prof_launches == L + cap,
+          f"profiled session: B1 launches {prof_launches} != {L} + {cap} for a capture")
     if cuda:
         busy = sum(e.self_device_time_total for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA) / 1e3
@@ -2439,7 +2612,9 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
     sess.close()
     g2_launches = fa.launches  # --------------------------------------------- main path end
     counted += g2_launches
-    check(g2_launches == 2 * L2, f"GPT-2 session: B1 launches {g2_launches} != 2 x {L2}")
+    check(g2_launches == 2 * L2 + capture_b1(eng),
+          f"GPT-2 session: B1 launches {g2_launches} != 2 x {L2} + {capture_b1(eng)} for "
+          "captures")
     ties = []
     for t, (p, w) in enumerate(zip(prompts, wants)):
         before = fa.launches
@@ -2469,12 +2644,17 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
             bucket=s["batcher_bucket"], first_wave=s["first_wave"],
             later_waves=s["later_waves"], waves=s["waves"], wave_gap_s=s["wave_gap_s"],
             max_batch=s["max_batch"])))
+    # the prefill executables on both dirs against eager prefills: their B1
+    # launches are checked there, and counted on the main paths above
+    graphs["prefill"] = graphs_prefill_phase(rng, tmp, device=device, lm_kw=lm_kw, sizes=dict(
+        rows=(1, s["max_batch"]), buckets=s["prefill_buckets"], new=new))
     return {"graphs": graphs,
             "launches": counted, "stream": {"first_delta_ms": first_ms, "last_delta_ms": last_ms},
             "batcher": {"tok_s": toks / batch_s, "ttft_ms_p50": ttft["p50"],
                         "ttft_ms_p95": ttft["p95"], "tpot_ms_p50": tpot["p50"],
                         "admitted_midflight": bstats["admitted_midflight"],
-                        "sessions": bstats["sessions"], "carriers": carriers},
+                        "sessions": bstats["sessions"], "carriers": carriers,
+                        "prefill_held": held},
             "session_busy_pct": None if busy is None else 100.0 * busy / wall_ms,
             "admit_bytes": {"forecast_1_row": forecast, "headroom": headroom,
                             "prefill_peak_above_live": admit_bytes},
@@ -2592,7 +2772,7 @@ def graphs_lm_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
             # the reference: the same waves on a fresh engine of the same
             # checkpoint whose chunks all run eagerly (as before A16)
             eng_e = LmEngine(eng.config, tokenizer=IdTokenizer())
-            with eager_chunks():
+            with eager_executables():
                 texts, bstats, secs = serve_batcher(eng_e, waves, b["max_batch"],
                                                     b["wave_gap_s"])
             check(all(isinstance(t, str) for t in texts), "eager GenBatcher returned no text")
@@ -2722,6 +2902,130 @@ def graphs_lm_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
     return out
 
 
+GRAPHS_PREFILL = dict(rows=(1, 8), buckets=(64, 256, 1024), new=64, reps=5)
+
+
+def graphs_prefill_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
+    """ROADMAP A16 stage 3's prefill executables on the card, on the
+    TinyLlama-1.1B (bf16) and GPT-2 (float32) dirs `generate_phase` wrote,
+    at rows 1 and 8 and the prompt buckets 64, 256 and 1024 (GPT-2's 1,024
+    positions leave the 1024 bucket no room for new tokens), 64 new. Each
+    check fails the run:
+
+    - `LmEngine._prefill` (the executable of (target, kv_quant, rows, P,
+      new), captured at its first call and replayed after) against
+      `gpt.prefill` run eagerly on the same prompts: logits, kv_valid,
+      prompt_len and the cache's prompt slots bit-equal, at the first call
+      and at a replay;
+    - B1 launches L per replay, and L more at the capture (its eager
+      warm-up).
+
+    Printed: TTFT (the prefill's host wall, synchronised, median of
+    `reps`) eager against graphed in one call, the first call's wall and
+    its capture by part. A comparison harness, not a main path: its
+    launches are checked, not counted in the `kernels` line. `sizes`,
+    `device` and `lm_kw` let the CPU tests rehearse it at tiny geometries.
+    → {"checked_launches": B1 launches of the graphed calls, each counted
+    with no eager call inside, per model and shape: the times}."""
+    import gc
+
+    from symbiont_tpu_torch.config import LmConfig
+    from symbiont_tpu_torch.engine.lm import LmEngine
+    from symbiont_tpu_torch.models import gpt as gpt_mod
+    from symbiont_tpu_torch.ops import flash_attention as fa
+
+    s = {**GRAPHS_PREFILL, **(sizes or {})}
+    lm_kw = dict(lm_kw or {})
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    tmp = Path(tmp)
+    out: dict = {"checked_launches": 0}
+
+    def wall_ms(fn) -> float:
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3
+
+    for name, dtype in (("tinyllama", "bfloat16"), ("gpt2", "float32")):
+        eng = LmEngine(LmConfig(model_dir=str(tmp / name), dtype=dtype, attn_impl="flash",
+                                **{**lm_kw, "prompt_buckets": list(s["buckets"]),
+                                   "new_token_buckets": [s["new"]]}),
+                       tokenizer=IdTokenizer())
+        mcfg, L = eng.model_cfg, eng.model_cfg.num_layers
+        rows_out = {}
+        for rows in s["rows"]:
+            for P in s["buckets"]:
+                if P + s["new"] > mcfg.max_position_embeddings:
+                    continue
+                prompts = ragged_prompts(rng, P // 2, P, rows)
+                ids, mask, nb = eng._prepare_prompts(prompts, s["new"], min_rows=rows)
+                check(ids.shape == (rows, P), f"{name}: prompts shaped {ids.shape}, want "
+                                              f"{(rows, P)}")
+
+                def eager():
+                    with torch.inference_mode():
+                        return gpt_mod.prefill(eng.params, eng._device_ids(ids),
+                                               eng._device_ids(mask), mcfg, nb)
+
+                def graphed():
+                    with torch.inference_mode():
+                        return eng._prefill(eng.params, ids, mask, nb)
+
+                want = eager()
+                caps0, before = capture_b1(eng), fa.launches
+                box = {}
+                first_ms = wall_ms(lambda: box.update(got=graphed()))
+                got = box["got"]
+                cold = fa.launches - before
+                before = fa.launches
+                again = graphed()
+                warm = fa.launches - before
+                cap = capture_b1(eng) - caps0
+                out["checked_launches"] += cold + warm
+                check(cold == L + cap and warm == L and (cap == L or not cuda),
+                      f"{name} {rows}x{P}: B1 launches {cold} at the first call, {warm} at a "
+                      f"replay (want {L} + {L} for the capture, {L})")
+                for label, g in (("first call", got), ("replay", again)):
+                    same = all(torch.equal(a, b) for a, b in zip(g[1:], want[1:]))
+                    same_kv = all(torch.equal(a[:, :, :P], b[:, :, :P])
+                                  for a, b in zip(g[0], want[0]) if isinstance(a, torch.Tensor))
+                    check(same and same_kv, f"{name} {rows}x{P} {label}: graphed prefill "
+                                            f"differs from eager (outputs {same}, cache {same_kv})")
+                del want, got, again
+                e_ms = [wall_ms(eager) for _ in range(s["reps"])]
+                before = fa.launches
+                g_ms = [wall_ms(graphed) for _ in range(s["reps"])]
+                timed = fa.launches - before
+                out["checked_launches"] += timed
+                check(timed == L * s["reps"], f"{name} {rows}x{P}: B1 launches {timed} over "
+                                              f"{s['reps']} replays (want {L} each)")
+                exe = eng._prefills.get(("target", mcfg.kv_quant, rows, P, nb))
+                rows_out[f"{rows}x{P}"] = {
+                    "eager_ms": float(np.median(e_ms)), "graphed_ms": float(np.median(g_ms)),
+                    "first_ms": first_ms,
+                    "capture_ms": exe.capture_s * 1e3 if cuda else None,
+                    "capture_parts_ms": ({k: round(v * 1e3, 2)
+                                          for k, v in exe.capture_parts.items()}
+                                         if cuda else None)}
+        out[name] = rows_out
+        print(f"[graphs] prefill executables, {name} ({dtype}, {L} layers), {s['new']} new: "
+              f"logits, kv_valid, prompt_len and the prompt slots graphed = eager at every "
+              f"shape, first call and replay; B1 {L} per replay, {L} more at a capture; TTFT "
+              f"ms eager / graphed (host clock, synchronised, median of {s['reps']}), first call "
+              f"(capture) ms and its parts: " + "; ".join(
+                  f"{k} {v['eager_ms']:.2f} / {v['graphed_ms']:.2f} ({v['eager_ms'] / v['graphed_ms']:.2f}x), "
+                  f"first {v['first_ms']:.1f}"
+                  + ("" if v["capture_parts_ms"] is None else f" {v['capture_parts_ms']}")
+                  for k, v in rows_out.items()), flush=True)
+        del eng
+        gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
 # [paged]'s and [spec]'s sizes on the card: the sessions' prompt bucket
 # (lo, hi], new tokens, chunk, the partial hit's shared prefix, the KV page,
 # the drafts a round, and the verify check's rows and cache length
@@ -2741,9 +3045,10 @@ def drive_session(eng, prompts, wants, admit=None, cancel_after=None) -> dict:
     want) joins after the first step(), `cancel_after` = n cancels tag 0
     after step n. → its rows' tokens by tag (a cancelled row left out), the
     start's host ms (synchronised), each step()'s host ms, B1 launches at
-    the start, in step() calls and in the admission, and, paged, the peak
-    pages live and the largest `kv.page_fragmentation_pct` read after a
-    step."""
+    the start, in step() calls and in the admission, each less the
+    launches of a prefill capture's warm-up made there (those apart, in
+    `capture_launches`), and, paged, the peak pages live and the largest
+    `kv.page_fragmentation_pct` read after a step."""
     from symbiont_tpu_torch.kv.pool import kv_dtype_label
     from symbiont_tpu_torch.ops import flash_attention as fa
     from symbiont_tpu_torch.utils.telemetry import metrics
@@ -2751,13 +3056,15 @@ def drive_session(eng, prompts, wants, admit=None, cancel_after=None) -> dict:
     labels = {"service": "lm",
               "kv_dtype": kv_dtype_label(eng.model_cfg.dtype, eng.model_cfg.kv_quant)}
     cuda = eng.device.type == "cuda"
+    caps0 = capture_b1(eng)
     before, t0 = fa.launches, time.perf_counter()
     sess = eng.start_session(prompts, wants, temperature=0.0)
     if cuda:
         torch.cuda.synchronize()
+    caps = {"start": capture_b1(eng) - caps0, "admit": 0}
     out = {"start_ms": (time.perf_counter() - t0) * 1e3, "step_ms": [], "peak_pages": 0,
-           "frag_pct": 0.0, "launches": {"start": fa.launches - before, "steps": 0, "admit": 0},
-           "session": sess}
+           "frag_pct": 0.0, "session": sess, "capture_launches": caps,
+           "launches": {"start": fa.launches - before - caps["start"], "steps": 0, "admit": 0}}
     rows = {r.tag: r for r in sess.rows if r is not None}
     while not sess.done():
         before, t0 = fa.launches, time.perf_counter()
@@ -2770,9 +3077,10 @@ def drive_session(eng, prompts, wants, admit=None, cancel_after=None) -> dict:
                                   metrics.gauge_get("kv.page_fragmentation_pct", labels))
         n = len(out["step_ms"])
         if n == 1 and admit is not None:
-            before = fa.launches
+            before, caps0 = fa.launches, capture_b1(eng)
             (tag,) = sess.admit([admit[0]], [admit[1]], temperature=[0.0])
-            out["launches"]["admit"] = fa.launches - before
+            caps["admit"] = capture_b1(eng) - caps0
+            out["launches"]["admit"] = fa.launches - before - caps["admit"]
             rows[tag] = next(r for r in sess.rows if r is not None and r.tag == tag)
         if n == cancel_after:
             check(sess.cancel_tag(0), "cancel_tag(0) found no row")
@@ -2795,28 +3103,19 @@ def timeline_latency(events) -> dict:
 
 
 @contextlib.contextmanager
-def eager_chunks():
-    """Inside, every decode carrier runs its chunks eagerly through
-    `gpt.decode_chunk` (no executable, no capture): the pre-A16 decode a
-    graphed pass is timed against. A reference for the measurement only;
+def eager_executables():
+    """Inside, every executable runs its function eagerly (no capture, no
+    replay): the pre-A16 prefills, decode chunks and train steps a graphed
+    pass is timed and held against. A reference for the measurement only;
     the port has no such switch."""
-    from symbiont_tpu_torch.engine.lm import _CarryDecoder
-    from symbiont_tpu_torch.models import gpt as gpt_mod
+    from symbiont_tpu_torch.graphs import Executable
 
-    graphed = _CarryDecoder.chunk
-
-    def chunk(self, params, cfg, gen, cache, logits, pos, done, kv_valid, steps, temps, ks,
-              eos_id, sig):
-        cache, logits, pos, done, toks, counted = gpt_mod.decode_chunk(
-            params, cache, logits, pos, done, kv_valid, gen, steps, cfg, temperature=temps,
-            top_k=ks, eos_id=eos_id)
-        return cache, logits, pos, done, kv_valid, toks, counted
-
-    _CarryDecoder.chunk = chunk
+    graphed = Executable._run
+    Executable._run = lambda self, inputs, lock: self.fn(*(x.to(self.device) for x in inputs))
     try:
         yield
     finally:
-        _CarryDecoder.chunk = graphed
+        Executable._run = graphed
 
 
 def carrier_traffic(before: dict, after: dict) -> dict:
@@ -2861,8 +3160,7 @@ def sampled_streams(eng, prompt: str, new: int) -> dict:
         ids, mask, nb = eng._prepare_prompts([prompt], new)
         want = []
         with torch.inference_mode():
-            cache, logits, kv_valid, pos = eng._prefill(eng.params, ids, mask, nb,
-                                                        note_peak=False)
+            cache, logits, kv_valid, pos = eng._prefill(eng.params, ids, mask, nb)
             done = torch.zeros((1,), dtype=torch.bool, device=eng.device)
             for n in range(new // chunk):
                 cache, logits, pos, done, t, _ = gpt_mod.decode_chunk(
@@ -3001,21 +3299,37 @@ def paged_phase(rng, tmp, tinyllama, dense_batcher=None, sizes=None, device="cud
         check(runs[name]["launches"] == {"start": L, "steps": 0, "admit": L},
               f"{name} session: B1 launches {runs[name]['launches']} (want {L} at the start "
               f"and the admission, 0 in steps)")
+    # the same session on a paged engine (no radix) whose executables all
+    # run eagerly: the pre-A16 paged decode the graphed one is held to
+    eager_p = LmEngine(dataclasses.replace(base, kv_layout="paged", kv_radix=False),
+                       params=params, model_cfg=mcfg, tokenizer=IdTokenizer())
+    with eager_executables():
+        runs["eager paged"] = drive_session(eager_p, prompts[:7], [new] * 7,
+                                            admit=(prompts[7], new - chunk), cancel_after=2)
+    del eager_p
+    gc.collect()
     cold = runs["paged"]
-    diff = [t for t in runs["dense"]["tokens"] if cold["tokens"][t] != runs["dense"]["tokens"][t]]
-    check(set(cold["tokens"]) == set(runs["dense"]["tokens"]) and not diff,
-          f"paged rows {diff} differ from the dense session's")
+    for ref in ("dense", "eager paged"):
+        diff = [t for t in runs[ref]["tokens"] if cold["tokens"][t] != runs[ref]["tokens"][t]]
+        check(set(cold["tokens"]) == set(runs[ref]["tokens"]) and not diff,
+              f"graphed paged rows {diff} differ from the {ref} session's")
     check(cold["peak_pages"] > 0, "the paged session mapped 0 pool pages")
     P = cold["session"].P
     slab = cold["session"].bb * (P + cold["session"].new_bucket) * per_token
-    paged_ms, dense_ms = (float(np.median(runs[n]["step_ms"])) for n in ("paged", "dense"))
+    paged_ms, dense_ms, eager_ms = (float(np.median(runs[n]["step_ms"]))
+                                    for n in ("paged", "dense", "eager paged"))
     print(f"[paged] a session of 7 ragged prompts in the {P} bucket x {new} new, one admitted "
-          f"after the first chunk, one cancelled after the second: paged rows token-identical to "
-          f"the dense session's; B1 launches {L} at the start, {L} for the admission, 0 per step; "
-          f"peak pages live {cold['peak_pages']} = {cold['peak_pages'] * page * per_token:,} bytes "
+          f"after the first chunk, one cancelled after the second: graphed paged rows "
+          f"token-identical to the dense session's and to the same session's on a paged engine "
+          f"run eagerly; B1 launches {L} at the start, {L} for the admission, 0 per step (and "
+          f"{cold['capture_launches']} for the prefills' captures); peak pages live "
+          f"{cold['peak_pages']} = {cold['peak_pages'] * page * per_token:,} bytes "
           f"against the dense slab's {slab:,}, kv.page_fragmentation_pct up to "
-          f"{cold['frag_pct']:.2f}; median ms a chunk of {chunk} (host clock) paged "
-          f"{paged_ms:.2f}, dense {dense_ms:.2f} ({paged_ms / dense_ms:.3f}x)", flush=True)
+          f"{cold['frag_pct']:.2f}; median ms a chunk of {chunk} (host clock, the step's fetch "
+          f"included) graphed paged {paged_ms:.2f}, graphed dense {dense_ms:.2f} "
+          f"({paged_ms / dense_ms:.3f}x), eager paged {eager_ms:.2f} "
+          f"({eager_ms / dense_ms:.3f}x); ms a step {paged_ms / chunk:.3f} / "
+          f"{dense_ms / chunk:.3f} / {eager_ms / chunk:.3f}", flush=True)
 
     # -- the same prompts again: full radix hits, no prefill
     hits0 = eng.radix.stats["full_hits"]
@@ -3056,18 +3370,22 @@ def paged_phase(rng, tmp, tinyllama, dense_batcher=None, sizes=None, device="cud
     tok0 = eng.stats["tokens_generated"]
     prefills0 = sum(r["dispatches"] for r in dispatch_ledger.snapshot()
                     if r["executable"].startswith("lm.prefill["))
+    caps0 = capture_b1(eng)
     fa.launches = 0  # ---------------------------------------------------- main path
     texts, bstats, batch_s = serve_batcher(eng, waves, s["max_batch"], s["wave_gap_s"])
     batch_launches = fa.launches  # ------------------------------------------ main path end
+    batch_caps = capture_b1(eng) - caps0
     counted += batch_launches
     n_prefills = sum(r["dispatches"] for r in dispatch_ledger.snapshot()
                      if r["executable"].startswith("lm.prefill[")) - prefills0
+    held, held_text = prefill_held(eng)
     n_req = sum(len(w) for w in waves)
     check(len(texts) == n_req and all(isinstance(t, str) for t in texts),
           f"paged GenBatcher: {sum(isinstance(t, str) for t in texts)} of {n_req} gave text")
     check(bstats["admitted_midflight"] > 0, f"paged GenBatcher: none joined mid-flight {bstats}")
-    check(batch_launches == L * n_prefills,
-          f"paged GenBatcher: B1 launches {batch_launches} != {L} x {n_prefills} prefills")
+    check(batch_launches == L * n_prefills + batch_caps,
+          f"paged GenBatcher: B1 launches {batch_launches} != {L} x {n_prefills} prefills + "
+          f"{batch_caps} for their captures")
     toks = eng.stats["tokens_generated"] - tok0
     lat = timeline_latency(engine_timeline.events())
     summ = engine_timeline.summary()
@@ -3081,9 +3399,11 @@ def paged_phase(rng, tmp, tinyllama, dense_batcher=None, sizes=None, device="cud
           f"p95 {lat['ttft_ms_p95']:.1f} ms, TPOT p50 {lat['tpot_ms_p50']:.2f} ms; timeline "
           f"occupancy {summ['decode_occupancy_pct']}%, stranded KV {summ['decode_kv_stranded_pct']}"
           f"%, pages live {summ.get('decode_pages_live_pct')}%; B1 launches {batch_launches} = "
-          f"{L} x {n_prefills} prefills; [session]'s dense run: " + (
+          f"{L} x {n_prefills} prefills + {batch_caps} for captures; {held_text}, beside the "
+          f"page pool's {want_bytes:,}; [session]'s dense run: " + (
               ", ".join(f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
-                        for k, v in (dense_batcher or {}).items())), flush=True)
+                        for k, v in (dense_batcher or {}).items()
+                        if not isinstance(v, dict))), flush=True)
     check(pool.pages_live == 0 and pool.pages_free + pool.pages_retained == total,
           f"after the phase: {pool.pages_live} pages live, {pool.pages_free} free + "
           f"{pool.pages_retained} retained of {total}")
@@ -3094,12 +3414,13 @@ def paged_phase(rng, tmp, tinyllama, dense_batcher=None, sizes=None, device="cud
                            "partial_hit": part["start_ms"]},
               "peak_pages": cold["peak_pages"], "peak_bytes": cold["peak_pages"] * page * per_token,
               "dense_slab_bytes": slab, "fragmentation_pct": cold["frag_pct"],
-              "chunk_ms": {"paged": paged_ms, "dense": dense_ms}, "batcher": batcher}
+              "chunk_ms": {"paged": paged_ms, "dense": dense_ms, "eager_paged": eager_ms},
+              "batcher": batcher, "prefill_held": held}
     del eng, dense, runs, cold, hit, part
     gc.collect()
 
     # -- GPT-2 at float32: paged rows against dense, kv_quant none and int8
-    g2, g2_launches = None, 0
+    g2, g2_launches, g2_caps = None, 0, 0
     prompts = ragged_prompts(rng, *s["gpt2_bucket"], 4)
     for kv_quant in ("none", "int8"):
         cfg = LmConfig(model_dir=str(tmp / "gpt2"), dtype="float32", attn_impl="flash",
@@ -3116,9 +3437,11 @@ def paged_phase(rng, tmp, tinyllama, dense_batcher=None, sizes=None, device="cud
                                           f"differ from dense")
         check(b["peak_pages"] > 0 and p.pool.pages_live == 0,
               f"GPT-2 paged: peak {b['peak_pages']} pages, {p.pool.pages_live} live after")
+        g2_caps += capture_b1(d) + capture_b1(p)
         del d, p, a, b
     counted += g2_launches
-    check(g2_launches == 2 * 2 * 2 * g2[1].num_layers, f"GPT-2 sessions: B1 {g2_launches}")
+    check(g2_launches == 2 * 2 * 2 * g2[1].num_layers + g2_caps,
+          f"GPT-2 sessions: B1 {g2_launches} != 8 x {g2[1].num_layers} + {g2_caps} for captures")
     print(f"[paged] GPT-2 124M at float32: a session of 3 prompts plus one admitted, paged rows "
           f"token-identical to dense for kv_quant none and int8; B1 launches {g2_launches}; "
           f"after the phase no page live, every page free once the radix cache is cleared",
@@ -3243,8 +3566,9 @@ def spec_phase(rng, tmp, tinyllama, sizes=None, device="cuda", lm_kw=None) -> di
     proposed(on, 0, "self-drafted stream")
     ids = [[int(x) for x in re.findall(r"\[(\d+)\]", t)] for t in (got_text, want_text)]
     ties += same_or_near_tie("self-drafted stream", {0: ids[0]}, {0: ids[1]}, off, {0: prompt})
-    check(stream_launches == 2 * L, f"self-drafted stream: B1 launches {stream_launches} != "
-                                    f"{2 * L} (target and drafter prefills)")
+    check(stream_launches == 2 * L + capture_b1(on),
+          f"self-drafted stream: B1 launches {stream_launches} != {2 * L} (target and drafter "
+          f"prefills) + {capture_b1(on)} for their captures")
     check(on._spec_accepted == on._spec_proposed,
           f"self-drafted stream: acceptance {on._spec_accepted}/{on._spec_proposed}")
     self_runs, refs = {}, {}
@@ -3663,6 +3987,7 @@ def stack_phase(rng, tmp, sizes=None, device="cuda", engine_kw=None, lm_kw=None,
             stats0 = dict(eng.stats)
             bstats0 = dict(stack._lm_batcher.stats)
             prefill0, carriers0 = lm_prefills(metrics), lm.carrier_stats()
+            lm_caps0 = capture_b1(lm)
             fa.launches = 0  # ----------------------------------------------- main path
             # ingest: every page through perception → preprocessing (the
             # MicroBatcher, B1) → vector memory and the knowledge graph
@@ -3817,10 +4142,12 @@ def stack_phase(rng, tmp, sizes=None, device="cuda", engine_kw=None, lm_kw=None,
             # a capture's warm-up runs B1 once more on the card; a CPU
             # executable is the eager function and captures nothing
             caps = stats2["compiles"] - stats0["compiles"] if device == "cuda" else 0
-            want_b1 = layers * (embed_b + qsearch + rerank_b + caps) + lm_layers * prefills
+            lm_caps = capture_b1(lm) - lm_caps0  # the LM prefills' captures, likewise
+            want_b1 = (layers * (embed_b + qsearch + rerank_b + caps) + lm_layers * prefills
+                       + lm_caps)
             equation = (f"{counted} = {layers} x ({embed_b} embed batches + {qsearch} fused queries "
                         f"+ {rerank_b} rerank batches + {caps} captures) + {lm_layers} x "
-                        f"{prefills} LM prefills")
+                        f"{prefills} LM prefills + {lm_caps} for their captures")
             check(counted == want_b1 and prefills == len(prompts) + 1
                   and qsearch == len(queries),
                   f"B1 launches: {equation} does not hold (want {want_b1}, and "
@@ -4440,7 +4767,7 @@ async def _fleet_durable(rng, tmp, s, device, lm_kw, sup_log) -> dict:
         tasks.append(asyncio.create_task(bus_reader(sub)))
         tasks.append(asyncio.create_task(sse_reader()))
         await asyncio.sleep(0.3)  # the SSE client is registered
-        prefill0 = lm_prefills(metrics)
+        prefill0, lm_caps0 = lm_prefills(metrics), capture_b1(lm)
         resumes0, orphans0 = metrics.get("gen.resumes"), metrics.get("gen.orphans")
         abandoned0 = metrics.get("gen.resume_abandoned")
         n_events0 = len(engine_timeline.events())
@@ -4483,9 +4810,10 @@ async def _fleet_durable(rng, tmp, s, device, lm_kw, sup_log) -> dict:
         check(resumes == len(resume_ev) == orphans >= 1 and abandoned == 0,
               f"[fleet] gen.orphans {orphans}, gen.resumes {resumes}, {len(resume_ev)} resume "
               f"events, abandoned {abandoned}")
-        want_b1 = mc.num_layers * prefills
+        lm_caps = capture_b1(lm) - lm_caps0  # a prefill capture's warm-up (none on the CPU)
+        want_b1 = mc.num_layers * prefills + lm_caps
         equation = (f"{counted} = {mc.num_layers} x ({prefills - resumes} stream prefills + "
-                    f"{resumes} resume re-prefills)")
+                    f"{resumes} resume re-prefills) + {lm_caps} for their captures")
         check(counted == want_b1 and prefills == len(tids) - len(held1) + resumes,
               f"[fleet] gen2's B1 launches: {equation} does not hold")
         # the first partial of a resumed stream published after gen2 noted
@@ -4757,6 +5085,8 @@ def main(argv=()) -> int:
                    "graphs_encoder": serve["graphs"],
                    "fleet_launches": fleet["launches"],
                    "fleet": {k: v for k, v in fleet.items() if k != "launches"}}
+    for e in entries:  # the train step's graph runs all three
+        e["train_graph"] = {k: v for k, v in train.items() if k != "launches"}
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -76,8 +76,8 @@ class EngineConfig:
     tenant_lane_depth: int = 4096
     # mesh data parallelism: not ported (ROADMAP Queue A: multi-device)
     data_parallel: bool = True
-    # the JAX engine's compiled-executable cache bound; the port runs
-    # eagerly and keeps no cache
+    # the executable cache bound (`TorchEngine._get_executable`), as the
+    # JAX engine's compiled-executable cache
     executable_cache_size: int = 64
     # the JAX engine's background tokenization chunk; the port tokenizes a
     # call's texts in one pass

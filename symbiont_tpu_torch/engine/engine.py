@@ -48,7 +48,7 @@ Executables, as the JAX engine's (`_get_executable`): one per `(kind, L,
 B)` for `embed`, `rerank` and `qsearch` (whose `B` is `(capacity, k)` and
 whose key also names the corpus buffer), least recently used first out
 past `executable_cache_size`. On CUDA an executable is a CUDA graph
-(`engine/graphs.py`) captured at its first call and replayed after, B1
+(`graphs.py`) captured at its first call and replayed after, B1
 inside; its capture is what the JAX engine's first-call compile is:
 `stats["compiles"]`, `stats["compile_s"]` (the warm-up run, the capture
 and the first replay), the `engine.compiles` / `engine.compile_s` gauges,
@@ -94,7 +94,7 @@ from symbiont_tpu_torch.engine.bucketing import (
     padding_stats,
     plan_batches,
 )
-from symbiont_tpu_torch.engine.graphs import ExecCache, Executable, GraphPool
+from symbiont_tpu_torch.graphs import ExecCache, Executable, GraphPool
 from symbiont_tpu_torch.engine.tokenizer import Tokenizer, load_tokenizer
 from symbiont_tpu_torch.memory.vector_store import cosine_topk
 from symbiont_tpu_torch.models import bert as bert_mod

@@ -69,24 +69,37 @@ the chunks it consumed: a sampled tail resumes only on this package's
 engine (a JAX tail's threefry key is refused), a greedy one (`key: null`)
 on either.
 
-Decode executables, as JAX's `_decode_chunk_jit` (A16 stage 2): a decode
-chunk writes its K/V at a device slot index (`gpt.decode_chunk`), so on
-CUDA a chunk of `stream_chunk` steps is a graph captured on its carry (the
-cache, logits, pos, done and kv_valid it reads and writes in place, what
-the JAX executable donates) and replayed for every later chunk
-(`_CarryDecoder`). Carriers are lent out of an engine-owned pool by
+Decode executables, as JAX's `_decode_chunk_jit` (A16 stages 2-3): a
+decode chunk writes its K/V at a device slot index (`gpt.decode_chunk`),
+so on CUDA a chunk of `stream_chunk` steps is a graph captured on its
+carry (the cache, logits, pos, done and kv_valid it reads and writes in
+place, what the JAX executable donates) and replayed for every later
+chunk (`_CarryDecoder`). Carriers are lent out of an engine-owned pool by
 geometry (KV layout, rows, prompt bucket, new bucket): `generate_batch`,
-a stream and a dense session prefill into the borrowed carrier's cache,
-sample from its generator (seeded by one draw from the engine's, or per
-chunk from a stream's base seed) and give it back at their end (a
-session when its owner closes it), so every caller of a geometry replays
-the graph its first one captured, as JAX reuses its executable per shape.
-The pool keeps one free carrier a geometry, within the bytes of one
-session at the largest geometry the configuration admits. The carry that `merge_rows` splices in
-place stays bound; a shorter last chunk runs eagerly. The generator is
-registered with the graph, so a replay draws what the eager chunk would.
-Prefills, the paged layout's chunks and the spec plane's rounds stay eager
-(ROADMAP A16 stage 3). On the CPU the same executables run eagerly.
+a stream and a session take the borrowed carrier's cache (dense) or page
+table (paged), sample from its generator (seeded by one draw from the
+engine's, or per chunk from a stream's base seed) and give it back at
+their end (a session when its owner closes it), so every caller of a
+geometry replays the graph its first one captured, as JAX reuses its
+executable per shape. The pool keeps one free carrier a geometry, within
+the bytes of one session at the largest geometry the configuration
+admits. The carry that `merge_rows` splices in place stays bound; a
+shorter last chunk runs eagerly. The generator is registered with the
+graph, so a replay draws what the eager chunk would.
+
+Prefill executables, as JAX's `prefill` jitted per (B, P, max_new): one
+executable per (model, kv_quant, rows, prompt bucket, new bucket)
+(`_prefill`), its static inputs the prompt ids and mask, its outputs the
+logits, `kv_valid` and `prompt_len`, writing a cache of its own in place.
+Every prefill replays it: a carrier's borrower takes the prompt slots
+copied into the carrier's cache, an admission or a drafter a clone, a
+paged session the scatter into its pages. These graphs keep a pool and a
+replay lock of their own (`_stage_lock`), so an admission prefill replays
+beside a decoding `step()` without the engine lock. A model's executables
+are bounded by their caches' bytes, the cache of one session at the
+largest geometry the configuration admits, least recently used first out
+(`_trim_prefills`). The spec plane's rounds stay eager (ROADMAP A16 stage
+4). On the CPU the same executables run eagerly.
 
 Not ported yet: tensor-parallel decode over a mesh (ROADMAP A15). The
 settings that would switch it on raise `ValueError` naming the item.
@@ -108,7 +121,7 @@ import torch
 
 from symbiont_tpu_torch.config import LmConfig, validate_spec_draft
 from symbiont_tpu_torch.device import resolve_device
-from symbiont_tpu_torch.engine.graphs import Executable, GraphPool
+from symbiont_tpu_torch.graphs import ExecCache, Executable, GraphPool
 from symbiont_tpu_torch.kv import paged as paged_mod
 from symbiont_tpu_torch.kv.pool import PagePool, PoolExhausted, kv_dtype_label
 from symbiont_tpu_torch.kv.radix import RadixCache
@@ -233,31 +246,38 @@ class _CarryDecoder:
     serves every chunk of its shape.
 
     The engine lends carriers out of a pool by geometry (`_take_carrier`):
-    a `generate_batch` call, a stream or a dense session prefills into the
-    carrier's cache (`cache0`), draws from its generator (`generator`,
-    reseeded per use) and gives it back when it is retired, so the next
-    caller of that geometry replays the graphs already captured, as JAX
-    reuses its executable per shape. A carrier holds no reference to the
-    engine: a dropped engine frees its pool without a cyclic collection.
+    a `generate_batch` call, a stream or a dense session takes its prefill
+    in the carrier's cache (`cache0`), a paged session writes its page
+    table into the carrier's (`page_table`, `[rows, n_blocks]`, which the
+    paged chunk's graph reads), and each draws from the carrier's generator
+    (`generator`, reseeded per use) and gives it back when it is retired,
+    so the next caller of that geometry replays the graphs already
+    captured, as JAX reuses its executable per shape. A carrier holds no
+    reference to the engine: a dropped engine frees its pool without a
+    cyclic collection.
 
     `chunk` adopts the state it is given: a tensor that is not the bound
     one (a new prefill's, or what spec rounds, `ingest_pending` and an
     eager last chunk hand back) is copied into the bound one, which the
-    caller keeps from then on. A cache whose slabs are not the bound ones
-    rebinds the decoder (its graphs dropped). The caller holds the engine
-    lock."""
+    caller keeps from then on. A cache whose slabs or page table are not
+    the bound ones rebinds the decoder (its graphs dropped). The caller
+    holds the engine lock."""
 
-    def __init__(self, device, pool: Optional[GraphPool] = None, key=None, cache0=None):
+    def __init__(self, device, pool: Optional[GraphPool] = None, key=None, cache0=None,
+                 page_table: Optional[torch.Tensor] = None):
         self.device = torch.device(device)
         self.pool = pool  # the engine's graph pool (None on the CPU)
-        self.key = key  # (kv_quant, rows, prompt bucket, new bucket)
-        self.cache0 = cache0  # the cache a borrower prefills into
+        self.key = key  # (KV layout, rows, prompt bucket, new bucket)
+        self.cache0 = cache0  # dense: the cache a borrower's prefill lands in
+        self.page_table = page_table  # paged: the device page table
         self.gen: Optional[torch.Generator] = None
         self.carry = None
         self.exes: dict = {}
 
     def nbytes(self) -> int:
-        """Device bytes of the cache a borrower prefills into."""
+        """Device bytes of the carrier's cache or page table."""
+        if self.page_table is not None:
+            return quant.tensor_bytes(self.page_table)
         return 0 if self.cache0 is None else gpt_mod.cache_bytes(self.cache0)
 
     def generator(self, seed: int) -> torch.Generator:
@@ -270,7 +290,9 @@ class _CarryDecoder:
         return self.gen
 
     def _adopt(self, cache, logits, pos, done, kv_valid):
-        if self.carry is None or self.carry[0].k is not cache.k:
+        if (self.carry is None or self.carry[0].k is not cache.k
+                or getattr(self.carry[0], "page_table", None)
+                is not getattr(cache, "page_table", None)):
             self.carry = (cache, logits, pos, done, kv_valid)
             self.exes.clear()
             return self.carry
@@ -367,6 +389,19 @@ class LmEngine:
         self._carrier_geometries: dict = {}  # geometry -> carriers taken
         self._carrier_counts = {"new": 0, "reused": 0}
         self._carriers_lock = threading.Lock()
+        # prefill executables, one per (model, kv_quant, rows, prompt
+        # bucket, new bucket), each writing a cache of its own: their graphs
+        # keep a pool of their own, and `_stage_lock` serialises their
+        # replays with what reads their caches, so an admission prefill
+        # replays beside a decoding step() without the engine lock. Lock
+        # order: `_lock` before `_stage_lock`. Bounded by their caches'
+        # bytes (`_trim_prefills`), not by a count
+        self._prefills = ExecCache(None)
+        self._stage_pool = GraphPool() if self.device.type == "cuda" else None
+        self._stage_lock = threading.Lock()
+        # prefill captures by model ("target", "draft"): on the card each
+        # runs the prefill once more eagerly (its B1 launches included)
+        self.prefill_captures = {"target": 0, "draft": 0}
         # durability plane (resilience/genlog.py): when set, streams and
         # session rows with a task_id journal a resume snapshot at each
         # chunk boundary, from host values in hand (no device sync of its
@@ -374,12 +409,12 @@ class LmEngine:
         # publish window still resumes
         self.journal = None
         # prefill shapes (rows, prompt bucket, new bucket) already run by
-        # session starts and admissions: the batcher's guess of whether an
-        # admission prefill is cheap (GenBatcher._filter_candidates)
+        # session starts and admissions, so captured: the batcher's guess of
+        # whether an admission prefill is cheap (GenBatcher._filter_candidates)
         self._prefill_shapes: set = set()
-        # the most bytes one lm.* prefill taken under the lock has needed
-        # above what was live at its start: the scratch term of the
-        # admission bytes forecast (`_prefill`)
+        # the most bytes one target prefill executable took at its capture
+        # (its cache, the eager warm-up's peak, the graph's pool growth):
+        # the scratch term of the admission bytes forecast (`_prefill`)
         self._prefill_peak_growth = 0
         self.stats = {"generate_calls": 0, "tokens_generated": 0, "decode_s": 0.0}
         # live sessions (BatchSession registers itself), weak so a finished
@@ -480,11 +515,6 @@ class LmEngine:
         seed = torch.randint(0, 2 ** 62, (1,), generator=self._generator, device=self.device)
         return int(seed.item())
 
-    def _child_generator(self) -> torch.Generator:
-        """A generator of its own for one session, seeded by one draw from
-        the engine's. The caller holds the engine lock."""
-        return self._new_generator(self._draw_seed())
-
     def _chunk_generator(self, base: int, n: int,
                          carrier: Optional["_CarryDecoder"] = None) -> torch.Generator:
         """The generator of a stream's n-th chunk or round, a function of
@@ -572,6 +602,7 @@ class LmEngine:
         hbm_ledger.claim("lm.carrier_pool", self, lambda lm: lm.carrier_stats()["free_bytes"])
         if self._graph_pool is not None:
             hbm_ledger.claim("lm.decode_graphs", self, lambda lm: lm._graph_pool.nbytes())
+            hbm_ledger.claim("lm.prefill_graphs", self, lambda lm: lm.prefill_bytes())
 
     def hbm_headroom_bytes(self) -> Optional[int]:
         """Free bytes of the engine's card: its total memory less the bytes
@@ -706,46 +737,66 @@ class LmEngine:
                 out.append(self.tokenizer.decode(tokens[i, :k]))
         return out
 
-    def _take_carrier(self, bb: int, P: int, new_bucket: int) -> _CarryDecoder:
-        """The free carrier of this geometry from the pool, or a new one
-        with a zeroed dense (or int8) cache; `_give_carrier` returns it.
-        Counts the take as a reuse or a new carrier, by geometry."""
+    def _take_carrier(self, bb: int, P: int, new_bucket: int,
+                      paged: bool = False) -> _CarryDecoder:
+        """The free carrier of this geometry from the pool, or a new one:
+        dense, with a zeroed dense (or int8) cache; paged, with a device
+        page table `[bb, n_blocks]` on the scratch page. `_give_carrier`
+        returns it. Counts the take as a reuse or a new carrier, by
+        geometry, whose first entry is the KV layout (`kv_quant`, or
+        "paged/" and it)."""
         cfg = self.model_cfg
-        key = (cfg.kv_quant, bb, P, new_bucket)
+        key = ((f"paged/{cfg.kv_quant}" if paged else cfg.kv_quant), bb, P, new_bucket)
         with self._carriers_lock:
             self._carrier_geometries[key] = self._carrier_geometries.get(key, 0) + 1
             dec = self._free_carriers.pop(key, None)
             self._carrier_counts["reused" if dec is not None else "new"] += 1
         if dec is not None:
             return dec
+        if paged:
+            n_blocks = -(-(P + new_bucket) // self.pool.page_tokens)
+            return _CarryDecoder(self.device, self._graph_pool, key, page_table=torch.full(
+                (bb, n_blocks), paged_mod.SCRATCH_PAGE, dtype=torch.int64, device=self.device))
         return _CarryDecoder(self.device, self._graph_pool, key,
                              gpt_mod.init_cache(cfg, bb, P + new_bucket, torch_dtype(cfg.dtype),
                                                 self.device))
 
     def _give_carrier(self, dec: _CarryDecoder) -> None:
         """Back into the pool: one free carrier a geometry (the one given
-        back last), the least recently returned dropped first past
-        `_carrier_budget` bytes."""
+        back last), the least recently returned of its layout (dense caches,
+        or paged page tables) dropped first past `_carrier_budget` bytes."""
+        def paged(key):
+            return key[0].startswith("paged/")
+
         with self._carriers_lock:
             self._free_carriers.pop(dec.key, None)
             self._free_carriers[dec.key] = dec
             budget = self._carrier_budget(dec)
-            held = sum(c.nbytes() for c in self._free_carriers.values())
-            while held > budget and self._free_carriers:
-                held -= self._free_carriers.pop(next(iter(self._free_carriers))).nbytes()
+            mine = [k for k in self._free_carriers if paged(k) == paged(dec.key)]
+            held = sum(self._free_carriers[k].nbytes() for k in mine)
+            for k in mine:
+                if held <= budget:
+                    break
+                held -= self._free_carriers.pop(k).nbytes()
 
     def _carrier_budget(self, dec: _CarryDecoder) -> int:
-        """The free carriers' bytes bound: the cache of one session at the
-        largest geometry the configuration admits (`gen_max_batch` rows
-        rounded to a power of two, the largest prompt and new-token buckets
-        within the positions), what a single request of that geometry would
-        hold anyway. Read off `dec`'s bytes per row and slot."""
-        cfg = self.config
+        """The free carriers' bytes bound: `_session_bytes` read off `dec`'s
+        bytes per row and slot."""
         _, bb, P, new = dec.key
-        slots = min(self.model_cfg.max_position_embeddings,
-                    max(cfg.prompt_buckets) + max(cfg.new_token_buckets))
-        rows = 1 << (max(1, cfg.gen_max_batch) - 1).bit_length()
-        return dec.nbytes() * rows * slots // (bb * (P + new))
+        return self._session_bytes(dec.nbytes(), bb, P + new)
+
+    def _session_bytes(self, nbytes: int, rows: int, slots: int) -> int:
+        """The cache of one session at the largest geometry the
+        configuration admits (`gen_max_batch` rows rounded to a power of
+        two, the largest prompt and new-token buckets within the
+        positions), what a single request of that geometry would hold
+        anyway: scaled from `nbytes`, what a cache of the same model at
+        `rows` x `slots` holds."""
+        cfg = self.config
+        most = min(self.model_cfg.max_position_embeddings,
+                   max(cfg.prompt_buckets) + max(cfg.new_token_buckets))
+        bb = 1 << (max(1, cfg.gen_max_batch) - 1).bit_length()
+        return nbytes * bb * most // (rows * slots)
 
     def carrier_stats(self) -> dict:
         """The carrier pool's traffic: takes by geometry, how many found a
@@ -762,8 +813,8 @@ class LmEngine:
 
     def _decode_batch(self, prompt_ids: np.ndarray, prompt_mask: np.ndarray,
                       new_bucket: int, temps, ks, eos_id: int):
-        """`gpt.generate` on a carrier of this geometry: the prefill written
-        into its cache, eagerly, then the decode as chunks of
+        """`gpt.generate` on a carrier of this geometry: the prefill's
+        executable replayed into its cache, then the decode as chunks of
         `stream_chunk` steps through the carrier's executable (the graph a
         stream or session of the geometry replays too; a shorter last chunk
         runs eagerly), sampling from the carrier's generator seeded by one
@@ -774,9 +825,8 @@ class LmEngine:
         dec = self._take_carrier(bb, P, new_bucket)
         try:
             gen = dec.generator(self._draw_seed())
-            cache, logits, kv_valid, pos = gpt_mod.prefill(
-                self.params, self._device_ids(prompt_ids), self._device_ids(prompt_mask),
-                self.model_cfg, new_bucket, cache=dec.cache0)
+            cache, logits, kv_valid, pos = self._prefill(self.params, prompt_ids, prompt_mask,
+                                                         new_bucket, cache=dec.cache0)
             done = torch.zeros((bb,), dtype=torch.bool, device=self.device)
             toks, counted = [], []
             for start in range(0, new_bucket, chunk):
@@ -796,38 +846,136 @@ class LmEngine:
         return torch.cat(toks, dim=1), torch.cat(counted, dim=1).sum(dim=1)
 
     def _prefill(self, params, prompt_ids: np.ndarray, prompt_mask: np.ndarray,
-                 new_bucket: int, note_peak: bool = True, cache=None):
-        """`gpt.prefill` of host prompt arrays → (cache, logits, kv_valid,
-        prompt_len) on the device. Call under `torch.inference_mode()`.
+                 new_bucket: int, cache=None, adopt=None, model: str = "target"):
+        """`gpt.prefill` of host prompt arrays through the executable of
+        (model, kv_quant, rows, P, new bucket) → (cache, logits, kv_valid,
+        prompt_len) on the device; `model` "target" (`params` the target's,
+        possibly an older tree an admission read) or "draft" (the drafter's
+        own). The executable writes a cache of its own, and the caller takes
+        what it keeps of it under `_stage_lock`: `cache` (a carrier's, of
+        that geometry, length 0) gets the prompt slots copied in and is
+        returned; `adopt(staged)` reads the staged cache in place (a paged
+        session's scatter into its pages; the cache returned is None);
+        otherwise the cache returned is a clone. Call under
+        `torch.inference_mode()`.
 
-        With `note_peak`, records the call's peak bytes above what was live
-        at its start (its cache included): the scratch term of
-        `_admit_bytes_forecast`. The allocator keeps one peak for the whole
-        process, so the reading is exact only when this call raises it;
-        else the bytes it leaves allocated are the floor taken. Other
-        threads' allocations in the meantime count too: the admission
-        prefill, which runs beside a decoding `step()`, passes
-        `note_peak=False`."""
-        cuda = self.device.type == "cuda" and note_peak
-        if cuda:
-            live0 = torch.cuda.memory_allocated(self.device)
-            peak0 = torch.cuda.max_memory_allocated(self.device)
-        out = gpt_mod.prefill(params, self._device_ids(prompt_ids), self._device_ids(prompt_mask),
-                              self.model_cfg, new_bucket, cache=cache)
-        if cuda:
-            peak = torch.cuda.max_memory_allocated(self.device)
-            top = peak if peak > peak0 else torch.cuda.memory_allocated(self.device)
-            self._prefill_peak_growth = max(self._prefill_peak_growth, top - live0)
+        The first call of a key captures its graph on the card (there is no
+        eager fallback): its growth in device bytes, the executable's cache,
+        the eager warm-up's peak and the graph pool's growth, is the
+        scratch term of `_admit_bytes_forecast` when it is the target's (a
+        replay allocates only its outputs). The allocator keeps one peak for
+        the whole process, so the reading is exact only when the capture
+        raises it, and other threads' allocations meanwhile count too (an
+        overestimate)."""
+        cfg = self.model_cfg if model == "target" else self._draft[1]
+        bb, P = prompt_ids.shape
+        key = (model, cfg.kv_quant, bb, P, new_bucket)
+        cuda = self.device.type == "cuda"
+        ids, mask = (torch.from_numpy(np.ascontiguousarray(a)).long()
+                     for a in (prompt_ids, prompt_mask))
+        with self._stage_lock:
+            exe = self._prefills.get(key)
+            fresh = exe is None or exe.params is not params
+            if fresh:
+                if cuda:
+                    live0 = torch.cuda.memory_allocated(self.device)
+                    peak0 = torch.cuda.max_memory_allocated(self.device)
+                exe = self._prefill_exe(key, params, cfg, stale=exe)
+            logits, kv_valid, prompt_len = exe(ids, mask)
+            if fresh and cuda:
+                self.prefill_captures[model] += 1
+                if model == "target":
+                    peak = torch.cuda.max_memory_allocated(self.device)
+                    top = peak if peak > peak0 else torch.cuda.memory_allocated(self.device)
+                    self._prefill_peak_growth = max(self._prefill_peak_growth, top - live0)
+            if fresh:
+                self._trim_prefills(key)
+            staged = exe.cache._replace(length=P)
+            if adopt is not None:
+                adopt(staged)
+                out = None
+            elif cache is not None:
+                for dst, src in zip(cache, staged):
+                    if isinstance(dst, torch.Tensor):
+                        dst[:, :, :P].copy_(src[:, :, :P])
+                out = cache._replace(length=P)
+            else:
+                out = type(staged)(*(t.clone() if isinstance(t, torch.Tensor) else t
+                                     for t in staged))
+        return out, logits, kv_valid, prompt_len
+
+    def _prefill_exe(self, key, params, cfg: GPTConfig, stale=None) -> Executable:
+        """The prefill executable of `key` on `params`, cached (in place of
+        `stale`, one on older parameters, whose cache it takes over)."""
+        _, _, bb, P, new_bucket = key
+        cache = (stale.cache if stale is not None else
+                 gpt_mod.init_cache(cfg, bb, P + new_bucket, torch_dtype(cfg.dtype), self.device))
+
+        def fn(ids, mask):
+            _, logits, kv_valid, prompt_len = gpt_mod.prefill(params, ids, mask, cfg, new_bucket,
+                                                              cache=cache)
+            return logits, kv_valid, prompt_len
+
+        name = "lm.prefill" if key[0] == "target" else "lm.draft_prefill"
+        sig = f"{name}[P={P},B={bb},new={new_bucket}]"
+        exe = Executable(fn, self.device, pool=self._stage_pool,
+                         on_first=lambda s: dispatch_ledger.note_compile(sig, None))
+        exe.params, exe.cache = params, cache
+        if stale is not None:
+            self._prefills.drop(key)
+        return self._prefills.put(key, exe)[0]
+
+    def _trim_prefills(self, keep) -> None:
+        """Drop the least recently used prefill executables of `keep`'s
+        model, never `keep`'s own, while their caches hold more than
+        `_session_bytes`. On the card the stream is synchronised first: a
+        replay of one may still be running. Call under `_stage_lock`."""
+        mine = [(k, gpt_mod.cache_bytes(e.cache)) for k, e in self._prefills.items()
+                if k[0] == keep[0]]
+        held = sum(n for _, n in mine)
+        _, _, bb, P, new = keep
+        budget = self._session_bytes(dict(mine)[keep], bb, P + new)
+        drop = []
+        for k, n in mine:
+            if held <= budget:
+                break
+            if k != keep:
+                drop.append(k)
+                held -= n
+        if drop and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        for k in drop:
+            self._prefills.drop(k)
+            if k[0] == "target":
+                self._prefill_shapes.discard(k[2:])  # no longer warm
+
+    def prefill_stats(self) -> dict:
+        """The prefill executables held, by model ("target", "draft"):
+        their shapes, their caches' bytes and those caches' bound
+        (`_trim_prefills`); and the bytes allocated in their graphs' pool."""
+        out = {"shapes": {}, "cache_bytes": {}, "budget": {},
+               "pool_bytes": self._stage_pool.nbytes() if self._stage_pool is not None else 0}
+        for (model, _, bb, P, new), exe in self._prefills.items():
+            n = gpt_mod.cache_bytes(exe.cache)
+            out["shapes"][model] = out["shapes"].get(model, 0) + 1
+            out["cache_bytes"][model] = out["cache_bytes"].get(model, 0) + n
+            out["budget"][model] = self._session_bytes(n, bb, P + new)
         return out
+
+    def prefill_bytes(self) -> int:
+        """Device bytes the prefill executables hold: their caches and the
+        pool their graphs share (the `lm.prefill_graphs` claim)."""
+        st = self.prefill_stats()
+        return sum(st["cache_bytes"].values()) + st["pool_bytes"]
 
     def _draft_prefill(self, prompt_ids: np.ndarray, prompt_mask: np.ndarray,
                        new_bucket: int):
         """The drafter's dense cache at the target's (prompt, new) geometry,
         slot for slot the target's, so both share one kv_valid, pos and
-        done. Call under `torch.inference_mode()`."""
-        draft_params, dcfg = self._draft
-        return gpt_mod.prefill(draft_params, self._device_ids(prompt_ids),
-                               self._device_ids(prompt_mask), dcfg, new_bucket)[0]
+        done: a clone out of the drafter's prefill executable. Call under
+        `torch.inference_mode()`."""
+        return self._prefill(self._draft[0], prompt_ids, prompt_mask, new_bucket,
+                             model="draft")[0]
 
     def generate_stream(self, prompt: str, max_new_tokens: int,
                         temperature: Optional[float] = None, top_k: Optional[int] = None,
@@ -950,8 +1098,8 @@ class LmEngine:
                 n_splits = int(resume.get("key_splits") or 0)
             elif journaling and temperature > 0.0:
                 key_base = [base]
-            # the stream's carrier: its cache takes the prefill, and full
-            # plain chunks replay its graph
+            # the stream's carrier: its cache takes the prefill's prompt
+            # slots, and full plain chunks replay its graph
             carrier = self._take_carrier(bb, P, new_bucket)
             with torch.inference_mode():
                 cache, logits, kv_valid, pos = self._prefill(self.params, prompt_ids,
@@ -1377,7 +1525,6 @@ class BatchSession:
             self._n_blocks = -(-(self.P + self.new_bucket) // page)
             self._prompt_blocks = self.P // page
             self._pt = np.zeros((self.bb, self._n_blocks), np.int64)
-            self._pt_dev = None
             self._pt_dirty = True
         # host-side probes on values in hand: prefix overlap with recent
         # prompts, and each tenant's exact prompt tokens
@@ -1407,16 +1554,15 @@ class BatchSession:
                     fresh_n = self._prompt_blocks - len(shared)
                     self._map_prompt(i, shared + (pool.alloc(fresh_n) if fresh_n else []))
             pool.note_hit_tokens(hit_tokens)
-        # a dense session borrows a carrier until it is closed: its cache
-        # takes the prefill, its generator is the session's, and full
+        # a session borrows a carrier until it is closed: its cache (dense)
+        # takes the prefill's prompt slots, or its page table (paged) is the
+        # one the chunks read; its generator is the session's, and full
         # chunks replay its graph
         self._closed = False
-        self._carrier = None if self._paged else lm._take_carrier(self.bb, self.P,
-                                                                   self.new_bucket)
+        self._carrier = lm._take_carrier(self.bb, self.P, self.new_bucket, paged=self._paged)
         with lm._lock:
             t0 = time.perf_counter()
-            self._gen = (lm._child_generator() if self._carrier is None
-                         else self._carrier.generator(lm._draw_seed()))
+            self._gen = self._carrier.generator(lm._draw_seed())
             with torch.inference_mode():
                 if skip_prefill:
                     # every real row's whole prompt is committed pages and
@@ -1434,23 +1580,24 @@ class BatchSession:
                     self._kv_valid = torch.from_numpy(kvv).to(dev)
                     self._pos = torch.from_numpy(self._plen.copy()).to(dev)
                 else:
-                    staging, self._logits, self._kv_valid, self._pos = lm._prefill(
-                        lm.params, prompt_ids, prompt_mask, self.new_bucket,
-                        cache=None if self._carrier is None else self._carrier.cache0)
-                    lm._prefill_shapes.add((self.bb, self.P, self.new_bucket))
-                    self._cache = staging
+                    adopt = None
                     if self._paged:
-                        # adopt the staged prefill into the pool: each real
-                        # row's fresh prompt blocks only, bit for bit
+                        # the staged prefill into the pool: each real row's
+                        # fresh prompt blocks only, bit for bit
                         scatter = np.zeros((self.bb, self._prompt_blocks), np.int64)
                         for i in range(n):
                             nsh = matches[i].blocks if matches[i] else 0
                             scatter[i, nsh:] = self._pt[i, nsh:self._prompt_blocks]
+                        scatter = torch.from_numpy(scatter).to(dev)
                         pool = lm.pool
-                        paged_mod.scatter_prompt(pool.k, pool.v, pool.k_scale, pool.v_scale,
-                                                 staging, torch.from_numpy(scatter).to(dev),
-                                                 self.P)
-                        self._cache = None
+
+                        def adopt(staged):
+                            paged_mod.scatter_prompt(pool.k, pool.v, pool.k_scale, pool.v_scale,
+                                                     staged, scatter, self.P)
+                    self._cache, self._logits, self._kv_valid, self._pos = lm._prefill(
+                        lm.params, prompt_ids, prompt_mask, self.new_bucket,
+                        cache=self._carrier.cache0, adopt=adopt)
+                    lm._prefill_shapes.add((self.bb, self.P, self.new_bucket))
                 self._done = torch.zeros((self.bb,), dtype=torch.bool, device=dev)
             prefill_s = time.perf_counter() - t0
             self.decode_s += prefill_s
@@ -1543,13 +1690,15 @@ class BatchSession:
 
     def _build_cache(self) -> PagedKVCache:
         """The paged cache view for the next device call: the pool's
-        tensors, this session's device page table (rebuilt from the host
-        one if it changed) and its length, P + steps_done."""
+        tensors, the carrier's device page table (the host one's bytes
+        copied in, enqueued after every call that read it before, when the
+        host one changed) and its length, P + steps_done."""
         pool = self.lm.pool
+        table = self._carrier.page_table
         if self._pt_dirty:
-            self._pt_dev = torch.from_numpy(self._pt.copy()).to(self.lm.device)
+            table.copy_(torch.from_numpy(self._pt.copy()), non_blocking=True)
             self._pt_dirty = False
-        return PagedKVCache(pool.k, pool.v, pool.k_scale, pool.v_scale, self._pt_dev,
+        return PagedKVCache(pool.k, pool.v, pool.k_scale, pool.v_scale, table,
                             self.P + self.steps_done)
 
     def _ensure_decode_blocks(self, slots: int) -> None:
@@ -1633,9 +1782,10 @@ class BatchSession:
         return 1 << (k - 1).bit_length() if k > 1 else 1
 
     def prefill_warm(self, k: int) -> bool:
-        """Whether admitting k newcomers prefills at a shape the engine has
-        already run (its first run pays library loading and allocator
-        growth)."""
+        """Whether admitting k newcomers prefills at a shape a session start
+        or an admission has already run, as JAX's compiled shapes: its
+        executable is captured (its first run pays the capture) and has not
+        been dropped since (`_trim_prefills`)."""
         return (self._admission_rows(k), self.P, self.new_bucket) in self.lm._prefill_shapes
 
     def prepare_admit(self, prompts: Sequence[str], max_new_tokens: Sequence[int],
@@ -1679,8 +1829,10 @@ class BatchSession:
         cache_b = logits_b = kv_valid_b = pos_b = d_cache_b = None
         with torch.inference_mode():
             if not skip:
-                cache_b, logits_b, kv_valid_b, pos_b = lm._prefill(
-                    params, ids, mask, self.new_bucket, note_peak=False)
+                # replayed under the prefill executables' own lock, never
+                # the engine's; the rows come back as a clone
+                cache_b, logits_b, kv_valid_b, pos_b = lm._prefill(params, ids, mask,
+                                                                   self.new_bucket)
             if self._spec_on and self._d_cache is not None:
                 # the drafter's rows, also for a full radix hit
                 d_cache_b = lm._draft_prefill(ids, mask, self.new_bucket)
@@ -2090,14 +2242,16 @@ class BatchSession:
             # bookkeeping and the batcher's scheduling
             host_gap_s = max(0.0, t0 - self._last_step_end)
             with torch.inference_mode():
-                if self._carrier is not None and chunk == self.chunk:
-                    # a full dense chunk replays the session's decode graph
-                    (self._cache, self._logits, self._pos, self._done, self._kv_valid, toks,
+                if chunk == self.chunk:
+                    # a full chunk replays the session's decode graph
+                    (cache, self._logits, self._pos, self._done, self._kv_valid, toks,
                      counted) = self._carrier.chunk(
-                        lm.params, lm.model_cfg, self._gen, self._cache, self._logits,
-                        self._pos, self._done, self._kv_valid, chunk, self._temps, self._ks, self._eos,
-                        f"lm.decode_chunk[P={self.P},B={self.bb},chunk={chunk}]")
-                else:  # paged, or a shorter last chunk: eagerly
+                        lm.params, lm.model_cfg, self._gen, self._cache_in(), self._logits,
+                        self._pos, self._done, self._kv_valid, chunk, self._temps, self._ks,
+                        self._eos, f"lm.decode_chunk[P={self.P},B={self.bb},chunk={chunk}]")
+                    if not self._paged:
+                        self._cache = cache
+                else:  # a shorter last chunk: eagerly
                     (cache, self._logits, self._pos, self._done, toks,
                      counted) = gpt_mod.decode_chunk(
                         lm.params, self._cache_in(), self._logits, self._pos, self._done,

@@ -1,8 +1,9 @@
-"""Executables: the port's counterpart of `jax.jit` and the engines' caches.
+"""Executables: the port's counterpart of `jax.jit`, for the engines and the
+trainer, and their caches.
 
-The JAX engines keep one compiled program per shape signature and
-dispatch it asynchronously, so the host pays one dispatch per batch. The
-port's counterpart is a CUDA graph: a function run once on static input
+The JAX engines and the JAX train step keep one compiled program per
+shape signature and dispatch it asynchronously, so the host pays one
+dispatch per batch. The port's counterpart is a CUDA graph: a function run once on static input
 buffers while the stream is captured, then replayed by one host call
 whatever the number of kernels inside. An `Executable` holds one such
 program:
@@ -10,8 +11,9 @@ program:
 - on CUDA, a `torch.cuda.CUDAGraph`, its static inputs (device buffers the
   host copies each call's values into), its static outputs (read back or
   cloned before the next replay) and the flash-attention launches the
-  capture recorded (`ops/flash_attention.take_captured`), which every
-  replay adds to the launch counts;
+  capture recorded on its stream (`ops/flash_attention.take_captured`,
+  the backward's B2 and B3 included, which autograd's device thread
+  records), which every replay adds to the launch counts;
 - on the CPU, the eager function: the same cache, LRU and counts, so the
   CPU tests hold them to the JAX engine's.
 
@@ -25,8 +27,9 @@ process. A capture that fails raises: there is no eager fallback on CUDA.
 The kernels take their TMA descriptors as launch parameters encoded from
 the tensors' addresses, so a graph replays on the addresses of its
 capture: the static buffers are what make a replay right. The graphs of
-one owner (an engine) share one memory pool; the owner serialises their
-replays with one lock held from the copy in to the enqueued copy out, so
+one owner (an engine, an optimizer's steps) share one memory pool; the
+owner serialises their replays with one lock held from the copy in to
+the enqueued copy out, so
 one graph's intermediates never overwrite another's outputs before they
 are read. Static inputs live outside the pool.
 """
@@ -178,7 +181,7 @@ class Executable:
             parts["warm"] = time.perf_counter() - t0 - parts["lock_wait"]
             for g, st in zip(self.generators, states):
                 g.set_state(st)
-            fa.take_captured()  # nothing of this thread's is pending
+            fa.take_captured(side)  # nothing of an earlier capture is pending
             graph = torch.cuda.CUDAGraph()
             for g in self.generators:
                 graph.register_generator_state(g)
@@ -190,7 +193,7 @@ class Executable:
                 try:
                     out = self.fn(*self.static_in)
                 except BaseException:
-                    fa.take_captured()
+                    fa.take_captured(side)
                     try:
                         graph.capture_end()
                     except RuntimeError:
@@ -199,7 +202,7 @@ class Executable:
                 t_end = time.perf_counter()
                 graph.capture_end()
             parts["end"] = time.perf_counter() - t_end
-            self.counts = fa.take_captured()
+            self.counts = fa.take_captured(side)
             torch.cuda.current_stream(self.device).wait_stream(side)
             self.graph, self.static_out = graph, out
             if self.pool is not None:
@@ -245,12 +248,14 @@ class Executable:
 
 class ExecCache:
     """The engines' executable cache: one `Executable` per key, least
-    recently used first out past `size`, as `TpuEngine._exec_cache`. Two
-    threads that miss one cold key both build; the loser drops its
-    executable and takes the winner's, so one key never counts twice."""
+    recently used first out past `size` (None: no count bound, the owner
+    bounds the cache by what it holds, with `drop`), as
+    `TpuEngine._exec_cache`. Two threads that miss one cold key both
+    build; the loser drops its executable and takes the winner's, so one
+    key never counts twice."""
 
-    def __init__(self, size: int):
-        self.size = max(1, int(size))
+    def __init__(self, size: Optional[int]):
+        self.size = None if size is None else max(1, int(size))
         self._lock = threading.Lock()
         self._entries: "OrderedDict[object, Executable]" = OrderedDict()
 
@@ -273,9 +278,14 @@ class ExecCache:
                 self._entries.move_to_end(key)
                 return have, False
             self._entries[key] = exe
-            while len(self._entries) > self.size:
+            while self.size is not None and len(self._entries) > self.size:
                 self._entries.popitem(last=False)
             return exe, True
+
+    def drop(self, key) -> None:
+        """Forget `key`'s executable (one bound to replaced state)."""
+        with self._lock:
+            self._entries.pop(key, None)
 
     def items(self) -> list:
         with self._lock:

@@ -18,13 +18,16 @@ in it is garbage; what is read from it is always masked (causality,
 `kv_valid`, or a padding row's discarded output).
 
 Where JAX donates the pools through every call, the port writes them in
-place (`index_put_` on the flattened token axis), and `length` is a host
-int, as in the port's other two layouts.
+place (`index_put_` on the flattened token axis). `length` is a host int
+or a 0-d device tensor, as in the port's other two layouts: a decode chunk
+takes the device slot (JAX's `length: jax.Array`), so on the card it is a
+CUDA graph bound to a session's device page table, which the session
+writes in place (`copy_`) before each chunk that follows a change.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -39,14 +42,15 @@ class PagedKVCache(NamedTuple):
     int8 with `kv_quant="int8"`). `k_scale`/`v_scale`: float32 [L, n_pages,
     page, kv_heads] (a zero-size page axis when unquantized, so one tuple
     covers both). `page_table`: [B, n_blocks] int64 into the page axis.
-    `length`: slots written, a host int."""
+    `length`: slots written, a host int or a 0-d int64 device tensor (a
+    decode chunk's slot)."""
 
     k: torch.Tensor
     v: torch.Tensor
     k_scale: torch.Tensor
     v_scale: torch.Tensor
     page_table: torch.Tensor
-    length: int
+    length: Any
 
     @property
     def page_tokens(self) -> int:
@@ -126,7 +130,7 @@ def merge_row_state(logits_a, pos_a, done_a, kv_valid_a, logits_b, pos_b, done_b
     takes b's row row_map[i] where that is >= 0, with `merge_rows`' gap
     contract (a spliced row's slots [prompt_width, length), the steps the
     session decoded before the admission, stay invalid). The cache half
-    happens in the pool (`scatter_prompt` and the host page table); the
+    happens in the pool (`scatter_prompt` and the session's page table); the
     dense layouts' `merge_rows` shares this half. Returns state a's four
     tensors."""
     T = kv_valid_a.shape[1]

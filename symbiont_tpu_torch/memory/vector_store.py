@@ -15,7 +15,7 @@ The device corpus is one buffer per capacity: a sync writes the rows into
 it in place, and a new buffer replaces it only when upserts cross a
 capacity block (or the collection's dim changes). So the store's search
 executables and the engine's fused `qsearch` ones (CUDA graphs on the
-card, `engine/graphs.py`) read one address for as long as the capacity
+card, `graphs.py`) read one address for as long as the capacity
 holds, with the row count as a device scalar among their inputs. `k` is
 bucketed by `_k_static`, as in JAX, so a store has one search executable
 per (capacity, k bucket); `warm_fused` builds the engine's fused ones for
@@ -48,7 +48,7 @@ import torch
 
 from symbiont_tpu_torch.config import VectorStoreConfig
 from symbiont_tpu_torch.device import resolve_device
-from symbiont_tpu_torch.engine.graphs import Executable, GraphPool
+from symbiont_tpu_torch.graphs import Executable, GraphPool
 from symbiont_tpu_torch.models.quant import tensor_bytes
 from symbiont_tpu_torch.obs.hbm import hbm_ledger
 

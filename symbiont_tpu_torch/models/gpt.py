@@ -12,7 +12,8 @@ this one, `models/convert.py` a checkpoint):
 - a static-shape KV cache `[L, B, T, kv_heads, head_dim]` written in place,
   S new tokens at cache indices `[length, length + S)`, `length` a host int
   or, in `decode_chunk`, a 0-d device tensor (JAX's `length: jax.Array`),
-  so a chunk has no host value in it and can be a CUDA graph; `kv_quant="int8"`
+  so a chunk has no host value in it and can be a CUDA graph, on every
+  layout; `kv_quant="int8"`
   keeps int8 codes with one float32 scale per (position, kv head); the
   paged layout (`kv/paged.py`) keeps K/V in a shared page pool, scattered
   there through a page table and gathered back into the dense layout's
@@ -217,12 +218,16 @@ def _flash_prefill(cfg: GPTConfig, S: int, cache) -> bool:
             and not isinstance(cache.length, torch.Tensor) and cache.length == 0)
 
 
-def _paged_write_read(cache: PagedKVCache, layer_idx: int, k, v, start: int, T: int, dtype):
+def _paged_write_read(cache: PagedKVCache, layer_idx: int, k, v, start, T: int, dtype):
     """The paged layout's half of `_attn`: scatter the S fresh K/V rows
     through the page table into the pool, in place (int8 codes and scales
-    with `kv_quant="int8"`), then gather each row's whole [0, T) back into
-    the dense layout's [B, T, kv_heads, head_dim], element for element.
-    Slots on the scratch page are garbage, and always masked."""
+    with `kv_quant="int8"`, at the same flat indices), then gather each
+    row's whole [0, T) back into the dense layout's [B, T, kv_heads,
+    head_dim], element for element. `start` is a host int or a 0-d device
+    tensor: the write indices come from it and the read indices from the
+    static T, both on the device, so a decode chunk over the page table
+    has no host value in it. Slots on the scratch page are garbage, and
+    always masked."""
     page = cache.page_tokens
     pt = cache.page_table
     S = k.shape[1]
@@ -492,19 +497,20 @@ def decode_chunk(params, cache, cur_logits, cur_pos, done, kv_valid,
     carried logits, masks rows already done (their token is 0), and runs
     the sampled tokens through the model at their positions.
 
-    A dense or int8 cache decodes at a device slot index: a host `length`
-    becomes a 0-d device tensor first, and the returned cache's `length`
-    is the caller's kind again (int + steps, or the advanced tensor). The
-    paged layout keeps its host length (its page table is host work).
-    `sampling`: the `_norm_sampling` triple, built outside the chunk, in
-    place of temperature and top_k; with it the chunk makes no host value
-    and no host sync, so it can be captured as a CUDA graph."""
+    Every layout decodes at a device slot index: a host `length` becomes a
+    0-d device tensor first, and the returned cache's `length` is the
+    caller's kind again (int + steps, or the advanced tensor). The paged
+    layout reads its page table on the device as it is; the host work of
+    growing it happens before the chunk. `sampling`: the `_norm_sampling`
+    triple, built outside the chunk, in place of temperature and top_k;
+    with it the chunk makes no host value and no host sync, so it can be
+    captured as a CUDA graph."""
     if sampling is None:
         sampling = _norm_sampling(temperature, top_k, cur_logits.shape[0], cfg.vocab_size,
                                   cur_logits.device)
     t, k, bucket = sampling
     host_length = None if isinstance(cache.length, torch.Tensor) else cache.length
-    if host_length is not None and not isinstance(cache, PagedKVCache):
+    if host_length is not None:
         cache = cache._replace(length=torch.full((), host_length, dtype=torch.int64,
                                                  device=cur_logits.device))
     tokens, counted = [], []
@@ -570,7 +576,9 @@ def merge_rows(cache_a, logits_a, pos_a, done_a, kv_valid_a,
 
     The JAX package builds new arrays and donates cache_a (its pools, for
     the paged layout); here the caches are written in place and `length`
-    is a host int, so nothing needs donating."""
+    is a host int at a splice, so nothing needs donating. The paged
+    layout's `new_page_table` is the session's device table, written in
+    place before the splice, so a captured chunk reads the splice."""
     _refuse_layout(cache_a, "merge_rows", (KVCache, QuantKVCache, PagedKVCache))
     if isinstance(cache_a, PagedKVCache):
         staging, scatter_table, new_page_table = cache_b

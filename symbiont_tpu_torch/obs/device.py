@@ -13,7 +13,7 @@ nothing and register nothing. `register_process_gauges` is a copy of the
 JAX module's: the standard `process_*` gauges read from `/proc/self`.
 
 `record_compile_event` is a copy of the JAX function: every executable's
-first call (a CUDA graph's capture, `engine/graphs.py`) lands as a span on
+first call (a CUDA graph's capture, `graphs.py`) lands as a span on
 the well-known trace `engine-compiles`, so a storm of captures shows on
 the timeline (`GET /api/traces/engine-compiles/export?fmt=chrome`).
 """

@@ -8,7 +8,7 @@ The counter families keep the JAX package's names
 (`xla.dispatches_total{executable}`), so one dashboard reads both.
 
 `note_compile` counts each capture of an engine's CUDA graph (the port's
-executables, `engine/graphs.py`) as the JAX ledger counts a compile; the
+executables, `graphs.py`) as the JAX ledger counts a compile; the
 cost and memory analysis the JAX ledger takes from XLA is not read, so
 those fields stay unset (A7's rest). The on-demand
 `DeviceTraceCapture` is one of A7's leftovers (ROADMAP); the gateway's

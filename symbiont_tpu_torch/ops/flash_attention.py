@@ -51,25 +51,26 @@ HEAD_DIMS = (32, 64, 128)
 # each count moves under `_count_lock`.
 #
 # A call made while the current stream captures a CUDA graph launches
-# nothing: it records the kernel into the graph. It goes to the capturing
-# thread's tally instead (`take_captured`), and every replay of that graph
-# adds the tally to the counts (`note_replay`), so a replayed launch counts
-# once per replay, where the device runs it.
+# nothing: it records the kernel into the graph. It goes to that stream's
+# tally instead (`take_captured`), and every replay of that graph adds the
+# tally to the counts (`note_replay`), so a replayed launch counts once per
+# replay, where the device runs it. The tally is the stream's, not the
+# thread's: a captured backward launches B2 and B3 from autograd's device
+# thread, on the capturing stream.
 _count_lock = threading.Lock()
 launches = 0          # forward, csrc/flash_attn_fwd.cu
 bwd_kv_launches = 0   # dK/dV/dbias, csrc/flash_attn_bwd.cu
 bwd_q_launches = 0    # dQ, csrc/flash_attn_bwd.cu
-_captured = threading.local()
+_captured: dict = {}  # capturing stream handle -> [B1, B2, B3] recorded
 
 
 def _count(i: int) -> None:
     """One launch of kernel i (0 B1, 1 B2, 2 B3), or, under a capture on
-    this thread's current stream, one kernel recorded into the graph."""
+    the current stream, one kernel recorded into the graph."""
     global launches, bwd_kv_launches, bwd_q_launches
     if torch.cuda.is_current_stream_capturing():
-        tally = getattr(_captured, "tally", [0, 0, 0])
-        tally[i] += 1
-        _captured.tally = tally
+        with _count_lock:
+            _captured.setdefault(torch.cuda.current_stream().cuda_stream, [0, 0, 0])[i] += 1
         return
     with _count_lock:
         if i == 0:
@@ -80,12 +81,15 @@ def _count(i: int) -> None:
             bwd_q_launches += 1
 
 
-def take_captured() -> Tuple[int, int, int]:
-    """This thread's kernels recorded since the last call: (B1, B2, B3)
-    per replay of the graph just captured. Resets the tally."""
-    tally = getattr(_captured, "tally", [0, 0, 0])
-    _captured.tally = [0, 0, 0]
-    return tuple(tally)
+def take_captured(stream=None) -> Tuple[int, int, int]:
+    """The kernels recorded on `stream` (the current one by default) since
+    the last call: (B1, B2, B3) per replay of the graph just captured
+    there. Resets its tally."""
+    if stream is None and not torch.cuda.is_available():
+        return (0, 0, 0)  # nothing captures without CUDA
+    handle = (stream or torch.cuda.current_stream()).cuda_stream
+    with _count_lock:
+        return tuple(_captured.pop(handle, [0, 0, 0]))
 
 
 def note_replay(counts: Tuple[int, int, int], replays: int = 1) -> None:

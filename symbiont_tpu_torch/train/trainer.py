@@ -12,7 +12,23 @@ plus the bias-corrected moment step, the same formula term by term.
 
 `TrainState.opt_state` is the optimizer's own state (`tx.state`: per leaf
 `step`, `exp_avg` = optax's `mu`, `exp_avg_sq` = `nu`), filled at creation
-so a checkpoint can be restored into it before the first step.
+so a checkpoint can be restored into it before the first step; the
+gradients are allocated there too, and every step zeroes them in place.
+
+The step is an executable, as JAX jits `contrastive_train_step` with the
+state donated: one per (pairs, q bucket, p bucket) and config
+(`graphs.py`), kept for its optimizer (`step_executables`). On CUDA it is
+a graph that holds the forward (B1), the backward through
+`_FlashAttention` (B2 and B3) and the AdamW update, bound to the masters,
+moments, step counts and gradients in place, with the loss and the grad
+norm as its outputs; the AdamW there is `capturable=True` (its step
+counts on the device, bias corrections as device ops), eager or replayed
+alike. Its step counts are float64, so the bias corrections 1 - β^t are
+taken in float64 as the CPU's AdamW takes them on the host: in float32,
+1 - 0.999 is off by 1.3e-5 of itself. On the CPU the same executable
+runs the step eagerly, with the step counts on the host (a capturable
+AdamW refuses CPU tensors). A restore writes the state in place
+(`train/checkpoint.load_train_state`), so a graph survives it.
 
 With `cfg.attn_impl="flash"` the encoder's attention runs the CUDA
 flash-attention forward and the fused backward kernels (dK/dV/dbias, dQ)
@@ -25,14 +41,20 @@ GPT model (ROADMAP Queue A).
 
 from __future__ import annotations
 
+import weakref
 from typing import Any, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from symbiont_tpu_torch.graphs import Executable, GraphPool
 from symbiont_tpu_torch.models import bert as bert_mod
 
 Params = Any
+
+# each optimizer's step executables, by (q shape, p shape, cfg), and the
+# pool their graphs share; an entry goes with its optimizer
+_STEPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 ADAM_BETAS = (0.9, 0.999)  # optax.adam's defaults
 ADAM_EPS = 1e-8
@@ -58,17 +80,22 @@ def tree_leaves(tree) -> list:
 def make_embedder_train_state(params: Params, learning_rate: float = 1e-4
                               ) -> Tuple[TrainState, torch.optim.AdamW]:
     """float32 master copies of `params` (on their device) and the AdamW
-    over them, its moments zero, as `optax.adamw(...).init` gives them."""
+    over them, its moments zero, as `optax.adamw(...).init` gives them, and
+    zero gradients. On CUDA the AdamW is capturable, its step counts
+    float64 on the device."""
     masters = bert_mod.tree_map(
         lambda t: t.detach().to(torch.float32).clone().requires_grad_(), params)
     leaves = tree_leaves(masters)
+    on_card = bool(leaves) and leaves[0].is_cuda
     tx = torch.optim.AdamW(leaves, lr=learning_rate, betas=ADAM_BETAS,
-                           eps=ADAM_EPS, weight_decay=WEIGHT_DECAY)
+                           eps=ADAM_EPS, weight_decay=WEIGHT_DECAY, capturable=on_card)
     for p in leaves:
-        # the layout AdamW builds lazily at its first step (step on the host)
-        tx.state[p] = {"step": torch.tensor(0.0, dtype=torch.float32),
+        # the layout AdamW builds lazily at its first step
+        tx.state[p] = {"step": (torch.tensor(0.0, dtype=torch.float64, device=p.device)
+                                if on_card else torch.tensor(0.0, dtype=torch.float32)),
                        "exp_avg": torch.zeros_like(p),
                        "exp_avg_sq": torch.zeros_like(p)}
+        p.grad = torch.zeros_like(p)
     return TrainState(masters, tx.state, 0), tx
 
 
@@ -91,19 +118,69 @@ def global_norm(tensors) -> torch.Tensor:
         torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors]))
 
 
+def _step_fn(params: Params, tx, cfg):
+    """One AdamW step over `params` as a function of the batch's four
+    tensors → (loss, grad_norm): the gradients zeroed in place (a leaf that
+    gets none keeps zeros, as JAX gives an unused leaf), one backward into
+    them, the norm taken before the update."""
+    leaves = tree_leaves(params)
+    tx_ref = weakref.ref(tx)  # the executable must not keep the optimizer alive
+
+    def step(q_ids, q_mask, p_ids, p_mask):
+        grads = [p.grad for p in leaves]
+        torch._foreach_zero_(grads)
+        loss = contrastive_loss(params, {"q_ids": q_ids, "q_mask": q_mask, "p_ids": p_ids,
+                                         "p_mask": p_mask}, cfg)
+        loss.backward()
+        gnorm = global_norm(grads)
+        tx_ref().step()
+        return loss.detach(), gnorm
+
+    return step
+
+
+def step_executables(tx) -> dict:
+    """The step executables built for the optimizer `tx`, by (q shape, p
+    shape, cfg)."""
+    return dict(_STEPS[tx]["exes"]) if tx in _STEPS else {}
+
+
+def _step_executable(state: TrainState, batch: dict, cfg, tx) -> Executable:
+    """The step's executable for this batch shape, kept for `tx`: one per
+    (pairs, q bucket, p bucket, cfg), built on the state's masters. On
+    CUDA its capture's warm-up runs a whole step, and the masters, moments
+    and step counts come back to what they held before it (`carry`)."""
+    leaves = tree_leaves(state.params)
+    device = leaves[0].device
+    own = _STEPS.get(tx)
+    if own is None:
+        own = _STEPS[tx] = {"exes": {},
+                            "pool": GraphPool() if device.type == "cuda" else None}
+    key = (tuple(batch["q_ids"].shape), tuple(batch["p_ids"].shape), cfg)
+    exe = own["exes"].get(key)
+    if exe is None or exe.params is not state.params:
+        carry = None
+        if device.type == "cuda":
+            moments = [tx.state[p] for p in leaves]
+            carry = [t.detach() for t in leaves] + [m[k] for m in moments
+                                                    for k in ("step", "exp_avg", "exp_avg_sq")]
+        exe = own["exes"][key] = Executable(_step_fn(state.params, tx, cfg), device,
+                                            pool=own["pool"], carry=carry)
+        exe.params = state.params
+    return exe
+
+
 def contrastive_train_step(state: TrainState, batch: dict, cfg, tx
                            ) -> Tuple[TrainState, dict]:
     """One AdamW step on the contrastive loss → (state, {"loss",
-    "grad_norm"}). The masters are updated in place; the metrics are
-    device scalars (no host sync here), grad_norm taken before the update."""
-    leaves = tree_leaves(state.params)
-    tx.zero_grad(set_to_none=True)
-    loss = contrastive_loss(state.params, batch, cfg)
-    loss.backward()
-    for p in leaves:
-        if p.grad is None:  # JAX gives an unused leaf a zero gradient
-            p.grad = torch.zeros_like(p)
-    gnorm = global_norm([p.grad for p in leaves])
-    tx.step()
+    "grad_norm"}), through the step's executable (a replayed graph on
+    CUDA). The masters are updated in place; the metrics are device
+    scalars (no host sync here), grad_norm taken before the update. On
+    CUDA a batch shape's first step captures: the caller must not then
+    hold an autograd graph over the masters (a loss of its own), whose
+    gradient accumulators would tie the capture's backward to another
+    stream, and the capture raises."""
+    exe = _step_executable(state, batch, cfg, tx)
+    loss, gnorm = exe(batch["q_ids"], batch["q_mask"], batch["p_ids"], batch["p_mask"])
     return (TrainState(state.params, tx.state, state.step + 1),
-            {"loss": loss.detach(), "grad_norm": gnorm})
+            {"loss": loss, "grad_norm": gnorm})

@@ -28,7 +28,7 @@ from symbiont_tpu.services.engine_service import EngineService as JaxEngineServi
 from symbiont_tpu_torch import subjects as tsubjects
 from symbiont_tpu_torch.bus.inproc import InprocBus as PortBus
 from symbiont_tpu_torch.config import EngineConfig, VectorStoreConfig
-from symbiont_tpu_torch.engine import graphs
+from symbiont_tpu_torch import graphs
 from symbiont_tpu_torch.engine.engine import TorchEngine
 from symbiont_tpu_torch.engine.tokenizer import HashTokenizer
 from symbiont_tpu_torch.memory.vector_store import VectorStore

@@ -38,7 +38,7 @@ def test_the_scan_covers_the_package():
     rel = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert {"chip_smoke.py", "scripts/port_kernels_ab.py",
             "symbiont_tpu_torch/engine/engine.py",
-            "symbiont_tpu_torch/engine/graphs.py",
+            "symbiont_tpu_torch/graphs.py",
             "symbiont_tpu_torch/ops/flash_attention.py",
             "symbiont_tpu_torch/models/bert.py",
             "symbiont_tpu_torch/memory/vector_store.py",

@@ -464,3 +464,96 @@ def test_pool_bytes_claim_replaces_the_dense_claim():
     assert metrics.gauge_get("lm.kv_cache_bytes", labels) == port.pool.device_bytes
     # auto sizing: one session batch at the largest buckets, x2, + scratch
     assert port.pool.n_pages == 2 * 4 * -(-(64 + 32) // 16) + 1
+
+
+# ------------------------------------------------- the device-slot paged chunk
+
+
+def _paged_chunk(length_on_device: bool, kv_quant: str):
+    """A 2-row prompt prefilled dense, scattered into a pool through a page
+    table, then 8 greedy steps of `gpt.decode_chunk` over the paged cache
+    at a host length or a 0-d device one → (tokens, logits, pools)."""
+    _, port = _pair(**PAGED, kv_quant=kv_quant)
+    cfg, page, P, new = port.model_cfg, 4, 8, 8
+    ids = torch.tensor([[5, 6, 7, 8, 9, 10, 11, 12], [20, 21, 22, 0, 0, 0, 0, 0]])
+    mask = (ids > 0).long()
+    staged, logits, kv_valid, pos = tgpt.prefill(port.params, ids, mask, cfg, new)
+    n_blocks = (P + new) // page
+    pools = paged.init_pool_arrays(cfg.num_layers, 2 * n_blocks + 1, page, cfg.kv_heads,
+                                   cfg.head_dim, torch.float32, kv_quant == "int8")
+    table = torch.arange(1, 2 * n_blocks + 1).view(2, n_blocks)
+    paged.scatter_prompt(*pools, staged, table[:, :P // page], P)
+    cache = tgpt.PagedKVCache(*pools, table, torch.tensor(P) if length_on_device else P)
+    out = tgpt.decode_chunk(port.params, cache, logits, pos, torch.zeros(2, dtype=torch.bool),
+                            kv_valid, torch.Generator().manual_seed(0), new, cfg, 0.0, 0)
+    return out, pools, staged
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_paged_decode_chunk_at_a_device_slot(kv_quant):
+    """The paged chunk at a 0-d device slot (what the CUDA graph replays)
+    writes the pool and decodes exactly as at a host length, and as the
+    dense chunk over the same prompt; the returned length keeps the
+    caller's kind."""
+    (host, host_pools, _), (dev, dev_pools, staged) = (_paged_chunk(d, kv_quant)
+                                                        for d in (False, True))
+    assert host[0].length == 16 and int(dev[0].length) == 16
+    assert isinstance(dev[0].length, torch.Tensor)
+    for a, b in zip(host[1:], dev[1:]):
+        assert torch.equal(a, b)
+    for a, b in zip(host_pools, dev_pools):
+        assert torch.equal(a, b)
+    _, port = _pair(**PAGED, kv_quant=kv_quant)
+    dense = tgpt.decode_chunk(port.params, staged, *(_dense_state(port, staged)), 8,
+                              port.model_cfg, 0.0, 0)
+    assert torch.equal(dense[4], dev[4])  # the tokens
+
+
+def _dense_state(port, staged):
+    ids = torch.tensor([[5, 6, 7, 8, 9, 10, 11, 12], [20, 21, 22, 0, 0, 0, 0, 0]])
+    mask = (ids > 0).long()
+    cache, logits, kv_valid, pos = tgpt.prefill(port.params, ids, mask, port.model_cfg, 8)
+    for a, b in zip(staged, cache):
+        if isinstance(a, torch.Tensor):
+            a.copy_(b)
+    return logits, pos, torch.zeros(2, dtype=torch.bool), kv_valid, \
+        torch.Generator().manual_seed(0)
+
+
+def test_device_slot_paged_sessions_with_radix_hits_match_dense_and_jax(paged_pair):
+    """Sessions whose chunks all go through the paged carrier's executable
+    (its device page table written in place, never rebound): a cold start
+    with an admission and a cancel, the same prompt again as a full radix
+    hit, and a shared prefix as a partial hit, token-identical to the
+    port's dense engine and to the JAX paged engine."""
+    jax_eng, port, dense, _ = paged_pair
+    tables, real = [], tgpt.decode_chunk
+
+    def spy(params, cache, *a, **kw):
+        if isinstance(cache, tgpt.PagedKVCache):
+            tables.append(cache.page_table)
+        return real(params, cache, *a, **kw)
+
+    prompts = ["a shared prefix of some length, then one", "a shared prefix of some length, "
+               "then one", "a shared prefix of some length, then two"]
+
+    def run(eng):
+        return [_admit_and_cancel(eng)] + [
+            _drain(eng.start_session([p], [12], temperature=0.0)) for p in prompts]
+
+    want = run(dense)
+    full0, hits0 = port.radix.stats["full_hits"], port.radix.stats["hits"]
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tgpt, "decode_chunk", spy)
+    try:
+        assert run(port) == want
+    finally:
+        mp.undo()
+    assert run(jax_eng) == want
+    # the second start is a full hit, the third a partial one
+    assert port.radix.stats["full_hits"] > full0 and port.radix.stats["hits"] > hits0 + 1
+    # every paged chunk read its session's carrier table: one tensor a
+    # session (these four are never closed, so each took a carrier of its
+    # own), written in place between chunks
+    assert len(tables) > 4 and len({id(t) for t in tables}) == 4
+    assert port.pool.pages_live == 0
