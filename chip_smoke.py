@@ -111,7 +111,20 @@ any failure exits non-zero:
              and drafter) and never in a round; a verify forward over a
              1,024-token cache equal to plain attention's; round costs
              printed;
-13. stack  — the port's SymbiontStack built from a SymbiontConfig (the
+13. lmtrain — the online LM fine-tune: B2 and B3 causal at GPT-2's
+             training shapes ([8, 12, S, 64], S 64 and 1024, bf16 and f32,
+             no bias) against their plain versions, timed beside SDPA's
+             causal backward and the bound; `OnlineLmTrainer` on an f32
+             GPT-2 124M LmEngine over a repeated document, each step one
+             replayed CUDA graph (B1, B2, B3 once per layer), its loss, grad
+             norm and masters bit-equal to the capturable AdamW stepped
+             eagerly, that one within rtol 1e-6 of the CPU's AdamW on the
+             same gradients, the loss falling by pass; the sync into the
+             engine keeps its tensors and graphs, and its greedy tokens
+             equal a fresh engine's on the masters; one pass at 1024; then
+             a SymbiontStack with `lm.ingest_train` trained by pages posted
+             to the gateway, no failed pass, its greedy text changed;
+14. stack  — the port's SymbiontStack built from a SymbiontConfig (the
              [serve] engine with flash and its cross-encoder, LmEngine on
              the GPT-2 dir, embedded stores, in-process bus, the gateway
              on a free port) driven over HTTP: 64 pages of 32 sentences
@@ -124,7 +137,7 @@ any failure exits non-zero:
              prefill; /readyz, /metrics, /api/traces, /api/health/engine;
              sentences/s, search p50/p95 and TTFT beside [serve]'s,
              [search]'s and [generate]'s;
-14. fleet  — the stack as supervised OS processes over the port's TCP bus
+15. fleet  — the stack as supervised OS processes over the port's TCP bus
              and broker (`ProcessSupervisor`, heartbeats), in the JAX
              package's multi-process layouts, with the embed role and the
              adopting generation role in this process so that B1 is
@@ -141,7 +154,7 @@ any failure exits non-zero:
              delta, the re-prefill's ms and each role's device memory.
 
 Launch counts are set to 0 just before each main path (phases 3-4, 5, 6,
-8, 9, 10, 11, 12, 13 and 14) and read just after. On the card every LM
+8, 9, 10, 11, 12, 13, 14 and 15) and read just after. On the card every LM
 prefill, decode chunk and train step is a replayed CUDA graph: a graph's
 kernels count once per replay, and a capture's eager warm-up adds one
 more run of them (`capture_b1`). The last two lines are a JSON object with
@@ -763,15 +776,28 @@ def _set_launch_counts(fa, counts: tuple) -> None:
     fa.launches, fa.bwd_kv_launches, fa.bwd_q_launches = counts
 
 
-def _cpu_adamw(trainer, params) -> tuple:
-    """`make_embedder_train_state(params)` with the AdamW the CPU steps:
-    not capturable, its step counts on the host."""
-    state, tx = trainer.make_embedder_train_state(params)
+def _cpu_adamw(trainer, params, make=None) -> tuple:
+    """`make(params)` (`make_embedder_train_state` by default) with the
+    AdamW the CPU steps: not capturable, its step counts on the host."""
+    state, tx = (make or trainer.make_embedder_train_state)(params)
     for group in tx.param_groups:
         group["capturable"] = False
     for st in tx.state.values():
         st["step"] = st["step"].to("cpu", torch.float32)
     return state, tx
+
+
+@torch.no_grad()
+def adamw_gaps(trainer, state_e, state_f) -> dict:
+    """The masters of `state_e` (the capturable AdamW) against `state_f`
+    (the non-capturable one stepped on the same gradients): within rtol
+    1e-6 and atol 1e-9 (a hundred-thousandth of a step of lr 1e-4), their
+    largest gap and the share of elements not bit-equal."""
+    pairs = list(zip(trainer.tree_leaves(state_e.params), trainer.tree_leaves(state_f.params)))
+    return {"fed_close": all(torch.allclose(a, b, rtol=1e-6, atol=1e-9) for a, b in pairs),
+            "fed_masters_abs": max(float((a - b).abs().max()) for a, b in pairs),
+            "fed_masters_unequal": (sum(int((a != b).sum()) for a, b in pairs)
+                                    / sum(a.numel() for a, _ in pairs))}
 
 
 @torch.no_grad()
@@ -783,11 +809,7 @@ def capturable_gaps(trainer, state_e, state_f, e_metrics, a_metrics) -> dict:
     a run on its own from the same masters (`a_metrics`), whose first
     step's loss and grad norm must be bit-equal, every step's relative gap
     read."""
-    pairs = list(zip(trainer.tree_leaves(state_e.params), trainer.tree_leaves(state_f.params)))
-    return {"fed_close": all(torch.allclose(a, b, rtol=1e-6, atol=1e-9) for a, b in pairs),
-            "fed_masters_abs": max(float((a - b).abs().max()) for a, b in pairs),
-            "fed_masters_unequal": (sum(int((a != b).sum()) for a, b in pairs)
-                                    / sum(a.numel() for a, _ in pairs)),
+    return {**adamw_gaps(trainer, state_e, state_f),
             **{f"alone_{k}_rel": [float(abs(a[i] - b[i]) / abs(b[i]))
                                   for a, b in zip(e_metrics, a_metrics)]
                for i, k in enumerate(("loss", "grad_norm"))}}
@@ -805,9 +827,6 @@ def train_path(rng) -> dict:
     step, replayed, and 2L more at a shape's capture (its eager warm-up);
     the loss falls. Printed: steps/s eager against graphed, and each one's
     device busy share under torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from symbiont_tpu_torch.config import EngineConfig
     from symbiont_tpu_torch.engine.engine import TorchEngine
     from symbiont_tpu_torch.engine.tokenizer import load_tokenizer
@@ -940,22 +959,12 @@ def train_path(rng) -> dict:
     e_wall, e_busy = busy_share(lambda: eager_step(batch["q_ids"], batch["q_mask"],
                                                    batch["p_ids"], batch["p_mask"]))
     _set_launch_counts(fa, before)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, _ = trainer.contrastive_train_step(state, batch, cfg, tx)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy = sum(t for _, t in kernels)
-    share = {name: sum(t for k, t in kernels if tag in k) / busy
-             for name, tag in (("flash_attn_fwd", "flash_fwd"), ("flash_attn_bwd_kv", "bwd_kv_"),
-                               ("flash_attn_bwd_q", "bwd_q_"))}
-    top = "; ".join(f"{k[:50]} {t / busy:.1%}" for k, t in sorted(kernels, key=lambda kv: -kv[1])[:6])
+    wall_ms, kernels = device_kernels(lambda: trainer.contrastive_train_step(state, batch, cfg,
+                                                                             tx))
+    busy = sum(t for _, t in kernels) / 1e3
     print(f"[train] one step under torch.profiler: eager wall {e_wall:.1f} ms, device busy "
-          f"{e_busy:.1f} ms ({e_busy / e_wall:.1%}); graphed wall {wall_us / 1e3:.1f} ms, device "
-          f"busy {busy / 1e3:.1f} ms ({busy / wall_us:.1%} of wall); share of device time: "
-          + ", ".join(f"{k} {v:.1%}" for k, v in share.items()) + f"; top kernels: {top}",
+          f"{e_busy:.1f} ms ({e_busy / e_wall:.1%}); graphed wall {wall_ms:.1f} ms, device "
+          f"busy {busy:.1f} ms ({busy / wall_ms:.1%} of wall); {kernel_shares(kernels)}",
           flush=True)
 
     trained = TorchEngine(EngineConfig(attn_impl="flash"),
@@ -969,7 +978,7 @@ def train_path(rng) -> dict:
     del state_e, tx_e, eager_step
     return {"launches": counts, "steps_per_s": {"graphed": sps, "eager": e_sps},
             "capturable_gap": cap_gap,
-            "busy_pct": {"graphed": 100 * busy / wall_us, "eager": 100 * e_busy / e_wall},
+            "busy_pct": {"graphed": 100 * busy / wall_ms, "eager": 100 * e_busy / e_wall},
             "step_ms": {"graphed": 1e3 / sps, "eager": 1e3 / e_sps}}
 
 
@@ -1001,9 +1010,9 @@ def profile_embed(texts) -> None:
           f"time; top kernels: {top}", flush=True)
 
 
-def busy_share(fn) -> tuple:
-    """(host wall ms, device busy ms) of one fn() under torch.profiler:
-    the device-side kernels' self time, which a CUDA graph's replayed
+def device_kernels(fn) -> tuple:
+    """(host wall ms, [(kernel, self device µs), ...]) of one fn() under
+    torch.profiler: the device-side kernels, which a CUDA graph's replayed
     kernels report one by one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1013,9 +1022,26 @@ def busy_share(fn) -> tuple:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0)
-    return wall_ms, busy_us / 1e3
+    return wall_ms, [(e.key, e.self_device_time_total) for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+
+def busy_share(fn) -> tuple:
+    """(host wall ms, device busy ms) of one fn() (`device_kernels`)."""
+    wall_ms, kernels = device_kernels(fn)
+    return wall_ms, sum(t for _, t in kernels) / 1e3
+
+
+def kernel_shares(kernels) -> str:
+    """B1's, B2's and B3's shares of the device time in `kernels`
+    (`device_kernels`) and the six largest kernels, as a line prints them."""
+    busy = sum(t for _, t in kernels)
+    share = {name: sum(t for k, t in kernels if tag in k) / busy
+             for name, tag in (("flash_attn_fwd", "flash_fwd"), ("flash_attn_bwd_kv", "bwd_kv_"),
+                               ("flash_attn_bwd_q", "bwd_q_"))}
+    top = "; ".join(f"{k[:50]} {t / busy:.1%}" for k, t in sorted(kernels, key=lambda kv: -kv[1])[:6])
+    return ("share of device time: " + ", ".join(f"{k} {v:.1%}" for k, v in share.items())
+            + f"; top kernels: {top}")
 
 
 def graphs_encoder_phase(texts, device="cuda", engine_kw=None, n_queries: int = 8) -> dict:
@@ -3740,6 +3766,453 @@ def spec_phase(rng, tmp, tinyllama, sizes=None, device="cuda", lm_kw=None) -> di
             "near_ties": ties}
 
 
+# ---------------------------------------------------------------- lmtrain
+
+# [lmtrain]'s sizes on the card: the B2/B3 rows and sequence lengths of
+# GPT-2's training batches; the trainer's default packing (seq_len x batch
+# rows) and learning rate (the runner's `ingest_train_lr`), the batches a pass takes (MAX_BATCHES_PER_PASS) and the passes over
+# the one repeated corpus; the long pass's seq_len; the greedy tokens read
+# before and after training; the runner's pages (each over the 512-char
+# threshold), its sentences a page, and the seconds any wait may take
+LMTRAIN = dict(kernel_rows=8, kernel_S=(64, 1024), seq_len=64, batch=8, lr=1e-4, batches=16,
+               passes=3, long_seq=1024, gen_new=32, pages=4, sentences=4, min_chars=512,
+               timeout_s=180.0)
+ADAMW_GAP_STEPS = 8  # steps the CPU's AdamW follows, as [train]
+
+
+def _sdpa_causal_backward_ms(q, k, v, g) -> float:
+    """SDPA's causal backward (`is_causal=True`, no mask) at the same
+    shapes, as (forward + backward) less forward by graph replay: the
+    yardstick of B2 + B3 on the LM's training path, never used by the
+    port."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    fwd = graph_ms(lambda: sdpa(qs, ks, vs, is_causal=True))
+    both = graph_ms(lambda: torch.autograd.grad(sdpa(qs, ks, vs, is_causal=True),
+                                                (qs, ks, vs), g))
+    return both - fwd
+
+
+def lm_backward_kernel_rows(sizes=None, timed: bool = True, device: str = "cuda") -> list:
+    """B1 forward and B2/B3 backward, causal, at GPT-2's training shapes,
+    q/k/v/g [8, 12, S, 64] with no bias (the zeros the path passes), bf16
+    and f32. B1's out and lse are held against its plain version first (out
+    at 2e-2 abs + rel in bf16, 1e-4 in f32; lse relative error at most
+    1e-4), since B2/B3 and their plain versions are both fed them; then B2
+    and B3 against their plain versions at the backward bars, timed by
+    graph replay beside the plain versions, SDPA's causal backward and the
+    bound (pairs S(S+1)/2)."""
+    from symbiont_tpu_torch.ops import flash_attention as fa
+
+    s = dict(LMTRAIN, **(sizes or {}))
+    gen = torch.Generator(device=device).manual_seed(SEED + 17)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for S in s["kernel_S"]:
+            q, k, v, g = (torch.randn((s["kernel_rows"], 12, S, 64), generator=gen,
+                                      device=device).to(dtype) for _ in range(4))
+            bias = torch.zeros((s["kernel_rows"], S), dtype=torch.float32, device=device)
+            scale = 1.0 / np.sqrt(64)
+            out, lse = fa.flash_attention_with_lse(q, k, v, None, causal=True)
+            label = f"{str(dtype)[6:]} S={S}"
+            ref_out, ref_lse = fa.flash_attention_reference(q, k, v, None, causal=True)
+            tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+            fwd_ok, fwd_err = real_rows_within(out, ref_out, torch.ones_like(out, dtype=torch.bool),
+                                               tol)
+            lse_err = float(((lse - ref_lse).abs() / (1 + ref_lse.abs())).max())
+            check(fwd_ok, f"lm fwd {label}: B1 |kernel - plain| {fwd_err:.4g} over {tol}")
+            check(lse_err <= 1e-4, f"lm fwd {label}: B1 lse relative error {lse_err:.3g} > 1e-4")
+            print(f"[lmtrain] flash_attn_fwd causal q/k/v{tuple(q.shape)} {str(dtype)[6:]}, "
+                  f"no bias: max_abs_err {fwd_err:.4g} (tol {tol} abs + {tol} rel), "
+                  f"lse rel err {lse_err:.3g}", flush=True)
+            del ref_out, ref_lse
+            args = (q, k, v, bias, g, lse, fa.bwd_delta(g, out), True, scale)
+            if device == "cuda":
+                dk, dv, dbh = fa.bwd_kv(*args)
+                dq = fa.bwd_q(*args)
+                torch.cuda.synchronize()
+            else:  # a CPU rehearsal: the raw launchers take CUDA tensors only
+                dk, dv, dbh = fa.bwd_kv_reference(*args)
+                dq = fa.bwd_q_reference(*args)
+            rdk, rdv, rdbh = fa.bwd_kv_reference(*args)
+            rdq = fa.bwd_q_reference(*args)
+            errs, worst = {}, {}
+            for name, got, ref in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv),
+                                   ("dbias", dbh, rdbh)):
+                check(bool(torch.isfinite(got.float()).all()), f"lm bwd {label}: non-finite {name}")
+                ok, errs[name], worst[name] = _within(got, ref, dtype)
+                check(ok, f"lm bwd {label}: {name} max |kernel - plain| {errs[name]:.4g}, "
+                          f"{worst[name]:.3g}x its bar")
+            bar = ("2e-2 x max|plain| per (batch, head)" if dtype == torch.bfloat16
+                   else "1e-4 abs + 1e-4 rel")
+            line = (f"[lmtrain] flash_attn_bwd causal q/k/v/g{tuple(q.shape)} {str(dtype)[6:]}, "
+                    f"no bias: max_abs_err "
+                    + ", ".join(f"{n} {e:.4g} ({worst[n]:.2f} of bar)" for n, e in errs.items())
+                    + f" (bar {bar})")
+            row = {"shape": f"q/k/v/g [{s['kernel_rows']}, 12, {S}, 64] {str(dtype)[6:]}, "
+                            "causal, no bias",
+                   "max_abs_err": {"kv": max(errs["dk"], errs["dv"], errs["dbias"]),
+                                   "q": errs["dq"]},
+                   "fwd": {"max_abs_err": fwd_err, "lse_rel_err": lse_err}}
+            if timed:
+                bounds = _bwd_bound_ms(q, k, True)
+                ms_kv = graph_ms(lambda: fa.bwd_kv(*args))
+                ms_q = graph_ms(lambda: fa.bwd_q(*args))
+                plain_kv = graph_ms(lambda: fa.bwd_kv_reference(*args), iters=5)
+                plain_q = graph_ms(lambda: fa.bwd_q_reference(*args), iters=5)
+                lib = _sdpa_causal_backward_ms(q, k, v, g)
+                row |= {"ms": {"kv": ms_kv, "q": ms_q}, "plain_ms": {"kv": plain_kv, "q": plain_q},
+                        "bound_ms": {"kv": bounds["kv"][0], "q": bounds["q"][0]},
+                        "bound_by": {"kv": bounds["kv"][1], "q": bounds["q"][1]},
+                        "library_ms": lib, "covered_ms": ms_kv + ms_q}
+                line += (f"; B2 ms {ms_kv:.4f} (bound {bounds['kv'][0]:.4f}, {bounds['kv'][1]}, "
+                         f"{bounds['kv'][0] / ms_kv:.1%}), plain {plain_kv:.4f}; B3 ms {ms_q:.4f} "
+                         f"(bound {bounds['q'][0]:.4f}, {bounds['q'][1]}, "
+                         f"{bounds['q'][0] / ms_q:.1%}), plain {plain_q:.4f}; B2+B3 "
+                         f"{ms_kv + ms_q:.4f} vs SDPA causal backward (library_ms) {lib:.4f}")
+            print(line, flush=True)
+            rows.append(row)
+            del q, k, v, g, bias, out, lse, args, dk, dv, dbh, dq, rdk, rdv, rdbh, rdq
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def recorded_lm_steps(sync):
+    """Every `lm_train_step` the online trainer takes while inside, recorded
+    as it runs: its batch, its (device) metrics, its host seconds between
+    two `sync()`s and the B1/B2/B3 launches it added."""
+    from symbiont_tpu_torch.ops import flash_attention as fa
+    from symbiont_tpu_torch.train import online
+
+    real = online.lm_train_step
+    steps = []
+
+    def step(state, batch, cfg, tx):
+        before = _launch_counts(fa)
+        sync()
+        t0 = time.perf_counter()
+        state, m = real(state, batch, cfg, tx)
+        sync()
+        steps.append({"batch": batch, "metrics": m, "s": time.perf_counter() - t0,
+                      "launches": tuple(a - b for a, b in zip(_launch_counts(fa), before))})
+        return state, m
+
+    online.lm_train_step = step
+    try:
+        yield steps
+    finally:
+        online.lm_train_step = real
+
+
+def lm_compiles() -> int:
+    """Executables of the LM engines compiled (on the card: captured) so
+    far, from the dispatch ledger."""
+    from symbiont_tpu_torch.obs.xprof import dispatch_ledger
+
+    return sum(r["compiles"] for r in dispatch_ledger.snapshot()
+               if r["executable"].startswith("lm."))
+
+
+def corpus_doc(rng, n_tokens: int) -> str:
+    """One ASCII document of exactly n_tokens ids under IdTokenizer (BOS +
+    its bytes), cut from synth_texts."""
+    text = ""
+    while len(text) < n_tokens - 1:
+        text += " ".join(synth_texts(rng, 8)) + ". "
+    return text[:n_tokens - 1]
+
+
+def lmtrain_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
+    """A14's LM half on the card: B2/B3 causal at GPT-2's training shapes
+    (`lm_backward_kernel_rows`), then `OnlineLmTrainer` on an f32 GPT-2
+    124M `LmEngine` (flash) from [generate]'s dir, text through IdTokenizer.
+    Main path: `passes` passes of `train_on_texts` over one repeated
+    document of `batches` x seq_len x batch tokens (each step one replayed
+    graph: B1, B2, B3 once per layer, twice at the capture), then one pass
+    at seq_len `long_seq`. Each check fails the run: the launches per step;
+    the graphed steps' loss and grad norm, and the masters after them,
+    bit-equal to the same capturable AdamW stepped eagerly on the same
+    batches from the same masters, whose masters after ADAMW_GAP_STEPS steps
+    are within rtol 1e-6 + atol 1e-9 of the CPU's AdamW fed the same
+    gradients; the mean loss of the last pass below the first's; no master
+    sharing storage with the engine; and the sync: the engine's parameter
+    tensors keep their data pointers, nothing compiles again, its greedy
+    tokens after training (graphed prefill and decode) equal a fresh
+    engine's on the masters and differ from those before. Printed: steps/s
+    eager against graphed, the busy share of one profiled graphed step, the
+    first pass's time with its capture and a later pass's. Then
+    `lmtrain_stack_phase` (the runner path)."""
+    import gc
+
+    from symbiont_tpu_torch.config import LmConfig
+    from symbiont_tpu_torch.engine.lm import LmEngine
+    from symbiont_tpu_torch.models import quant
+    from symbiont_tpu_torch.ops import flash_attention as fa
+    from symbiont_tpu_torch.train import trainer as trainer_mod
+    from symbiont_tpu_torch.train.online import OnlineLmTrainer
+
+    s = dict(LMTRAIN, **(sizes or {}))
+    tmp = Path(tmp)
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {"kernels": lm_backward_kernel_rows(sizes) if cuda else []}
+    if not (tmp / "gpt2" / "config.json").exists():
+        from symbiont_tpu_torch.models import gpt as gpt_mod
+
+        params = gpt_mod.init_params(torch.Generator(device=device).manual_seed(SEED + 8),
+                                     gpt_mod.GPTConfig.from_hf(GPT2_124M))
+        write_gpt_checkpoint(tmp / "gpt2", params, GPT2_124M, torch.float32)
+        del params
+    lm_cfg = dict({"dtype": "float32", "attn_impl": "flash", "temperature": 0.0}, **(lm_kw or {}))
+    lm = LmEngine(LmConfig(model_dir=str(tmp / "gpt2"), **lm_cfg), tokenizer=IdTokenizer())
+    cfg, L = lm.model_cfg, lm.model_cfg.num_layers
+    need = s["seq_len"] * s["batch"]
+    doc = corpus_doc(rng, s["batches"] * need)
+    prompt = doc[:40]
+    before = lm.generate(prompt, s["gen_new"])
+    ptrs = [t.data_ptr() for t in quant.leaves(lm.params)]
+    compiles0, captures0 = lm_compiles(), dict(lm.prefill_captures)
+
+    trainer = OnlineLmTrainer(lm, learning_rate=s["lr"], seq_len=s["seq_len"],
+                              batch_size=s["batch"])
+
+    def storages(tree):
+        return {t.untyped_storage().data_ptr() for t in quant.leaves(tree)}
+
+    check(not storages(lm.params) & storages(trainer.state.params),
+          "an engine tensor shares storage with a master")
+    # the same masters under their own capturable AdamW, stepped eagerly,
+    # and under the CPU's AdamW (not capturable, its step counts on the
+    # host) fed the capturable run's gradients
+    def make(params):
+        return trainer_mod.make_lm_train_state(params, s["lr"])
+
+    state_e, tx_e = make(trainer.state.params)
+    eager_step = trainer_mod._step_fn(state_e.params, tx_e, cfg, trainer_mod.lm_loss,
+                                      trainer_mod.LM_KEYS)
+    fed = _cpu_adamw(trainer_mod, trainer.state.params, make)
+
+    fa.launches = fa.bwd_kv_launches = fa.bwd_q_launches = 0  # ---------- main path
+    passes = []
+    with recorded_lm_steps(sync) as steps:
+        for _ in range(s["passes"]):
+            t0 = time.perf_counter()
+            res = trainer.train_on_texts([doc], steps=1)
+            passes.append({"s": time.perf_counter() - t0, **res})
+    counts = _launch_counts(fa)  # --------- main path, paused for the sync checks
+
+    cap = 1 if cuda else 0  # a capture's eager warm-up runs the step once more
+    want = [(L * (1 + cap),) * 3] + [(L,) * 3] * (len(steps) - 1)
+    check([st["launches"] for st in steps] == want,
+          f"launches per step (fwd, B2, B3) {[st['launches'] for st in steps]} != {want}")
+    check(all(p["steps"] == s["batches"] == p["batches"] for p in passes),
+          f"steps a pass {[p['steps'] for p in passes]}, want {s['batches']}")
+    losses = [float(st["metrics"]["loss"]) for st in steps]
+    pass_mean = [float(np.mean(losses[i * s["batches"]:(i + 1) * s["batches"]]))
+                 for i in range(s["passes"])]
+    check(bool(np.isfinite(losses).all()), f"non-finite loss {losses}")
+    check(pass_mean[-1] < pass_mean[0], f"mean loss by pass {pass_mean} did not fall")
+    check(not storages(lm.params) & storages(trainer.state.params),
+          "an engine tensor shares storage with a master after the syncs")
+
+    # the sync: the engine's tensors and executables kept, its tokens those
+    # of a fresh engine on the masters
+    after = lm.generate(prompt, s["gen_new"])
+    compiles1 = lm_compiles()
+    check([t.data_ptr() for t in quant.leaves(lm.params)] == ptrs,
+          "the engine's parameter tensors moved at a sync")
+    check(compiles1 == compiles0 and lm.prefill_captures == captures0,
+          f"a sync compiled again: {compiles0} -> {compiles1} executables, prefill "
+          f"captures {captures0} -> {lm.prefill_captures}")
+    fresh = LmEngine(LmConfig(**lm_cfg), params=quant.tree_map(
+        lambda t: t.detach().clone(), trainer.state.params), model_cfg=cfg,
+        tokenizer=IdTokenizer(), device=device)
+    fresh_text = fresh.generate(prompt, s["gen_new"])
+    del fresh
+    check(after == fresh_text, f"served after the syncs {after!r} != a fresh engine's on the "
+                               f"masters {fresh_text!r}")
+    check(after != before, "the served greedy tokens did not change after training")
+
+    # the eager reference on the recorded batches (untimed against the
+    # main path; its launches do not count)
+    e_metrics, e_s, gap = [], [], None
+    grads_e = [p.grad for p in trainer_mod.tree_leaves(state_e.params)]
+    grads_f = [p.grad for p in trainer_mod.tree_leaves(fed[0].params)]
+    for i, st in enumerate(steps):
+        sync()
+        t0 = time.perf_counter()
+        e_metrics.append(eager_step(st["batch"]["ids"], st["batch"]["mask"]))
+        float(e_metrics[-1][0])  # a host sync: the step has run
+        e_s.append(time.perf_counter() - t0)
+        if i < ADAMW_GAP_STEPS:
+            torch._foreach_copy_(grads_f, grads_e)
+            fed[1].step()
+            if i == min(ADAMW_GAP_STEPS, len(steps)) - 1:
+                gap = adamw_gaps(trainer_mod, state_e, fed[0])
+                check(gap["fed_close"], f"the capturable AdamW against the CPU's: {gap}")
+                del fed, grads_f
+    check(all(torch.equal(st["metrics"]["loss"], e[0])
+              and torch.equal(st["metrics"]["grad_norm"], e[1])
+              for st, e in zip(steps, e_metrics)),
+          "graphed steps' (loss, grad norm) differ from the eager capturable AdamW's: "
+          f"{[(float(st['metrics']['loss']), float(st['metrics']['grad_norm'])) for st in steps]}"
+          f" vs {[(float(a), float(b)) for a, b in e_metrics]}")
+    check(all(torch.equal(a, b) for a, b in zip(trainer_mod.tree_leaves(trainer.state.params),
+                                                trainer_mod.tree_leaves(state_e.params))),
+          f"the masters after {len(steps)} graphed steps differ from the eager steps'")
+    g_sps = (len(steps) - 2) / sum(st["s"] for st in steps[2:])
+    e_sps = (len(e_s) - 2) / sum(e_s[2:])
+    del state_e, tx_e, eager_step, grads_e
+
+    # one graphed step under the profiler (its launches not counted)
+    busy = None
+    if cuda:
+        batch0 = steps[0]["batch"]
+        g_wall, kernels = device_kernels(lambda: trainer_mod.lm_train_step(
+            trainer.state, batch0, cfg, trainer._tx))
+        g_busy = sum(t for _, t in kernels) / 1e3
+        busy = {"wall_ms": g_wall, "busy_ms": g_busy, "pct": 100 * g_busy / g_wall,
+                "kernels": kernel_shares(kernels)}
+    print(f"[lmtrain] OnlineLmTrainer on GPT-2 ({L} layers, {cfg.hidden_size} wide, "
+          f"{cfg.num_heads} heads, vocab {cfg.vocab_size}, tied head) served by an f32 LmEngine "
+          f"(flash): {s['passes']} passes of train_on_texts over one {s['batches'] * need}-token "
+          f"document, {s['batches']} steps a pass at [{s['batch']}, {s['seq_len']}]; launches per "
+          f"step fwd/B2/B3 {steps[-1]['launches']} replayed, {steps[0]['launches']} capturing; "
+          f"mean loss by pass {' '.join(f'{x:.4f}' for x in pass_mean)}; graphed loss, grad norm "
+          f"and masters bit-equal to the capturable AdamW stepped eagerly over all {len(steps)} "
+          f"steps; after {min(ADAMW_GAP_STEPS, len(steps))} steps against the CPU's AdamW on the "
+          f"same gradients: largest |gap| {gap['fed_masters_abs']:.3g}, "
+          f"{gap['fed_masters_unequal']:.3%} not bit-equal (rtol 1e-6 + atol 1e-9); "
+          f"{g_sps:.3f} steps/s graphed, {e_sps:.3f} eager ({g_sps / e_sps:.2f}x; steps 3-"
+          f"{len(steps)}, host clock, synchronised); pass wall s "
+          + " ".join(f"{p['s']:.3f}" for p in passes) + " (the first with its capture)"
+          + ("" if busy is None else
+             f"; one graphed step profiled: wall {busy['wall_ms']:.2f} ms, device busy "
+             f"{busy['busy_ms']:.2f} ms ({busy['pct']:.1f}%), {busy['kernels']}"),
+          flush=True)
+    print(f"[lmtrain] the sync: update_params kept the engine's {len(ptrs)} parameter tensors "
+          f"and its executables ({compiles0} compiled before, {compiles1} after); greedy "
+          f"{s['gen_new']} tokens of a fixed prompt changed by training and equal a fresh "
+          f"engine's on the masters; no master shares storage with the engine", flush=True)
+
+    # one pass at the long sequence (main path, counted)
+    _set_launch_counts(fa, counts)
+    long = OnlineLmTrainer(lm, learning_rate=s["lr"], seq_len=s["long_seq"],
+                           batch_size=s["batch"])
+    with recorded_lm_steps(sync) as long_steps:
+        t0 = time.perf_counter()
+        res = long.train_on_texts([corpus_doc(rng, 2 * s["long_seq"] * s["batch"])], steps=1)
+        long_s = time.perf_counter() - t0
+    counts = _launch_counts(fa)  # ------------------------------------ main path end
+    want = [(L * (1 + cap),) * 3, (L,) * 3]
+    check([st["launches"] for st in long_steps] == want,
+          f"long pass launches per step {[st['launches'] for st in long_steps]} != {want}")
+    long_losses = [float(st["metrics"]["loss"]) for st in long_steps]
+    check(res["steps"] == 2 and bool(np.isfinite(long_losses).all()),
+          f"long pass: {res}, losses {long_losses}")
+    print(f"[lmtrain] one pass at [{s['batch']}, {s['long_seq']}]: 2 steps, the first "
+          f"capturing: {long_steps[0]['s'] * 1e3:.1f} ms, the replay {long_steps[1]['s'] * 1e3:.1f}"
+          f" ms, the pass {long_s:.3f} s with its sync; loss "
+          + " ".join(f"{x:.4f}" for x in long_losses), flush=True)
+    del long, trainer, lm
+    stack = lmtrain_stack_phase(np.random.default_rng(SEED + 18), tmp, s, device, lm_cfg)
+    counts = tuple(a + b for a, b in zip(counts, stack["launches"]))
+    if cuda:  # a stopped stack keeps its engines and trainer until a cyclic collection
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out | {"launches": counts, "steps_per_s": {"graphed": g_sps, "eager": e_sps},
+                  "busy": busy, "pass_s": [p["s"] for p in passes], "long_pass_s": long_s,
+                  "long_step_ms": [st["s"] * 1e3 for st in long_steps],
+                  "mean_loss_by_pass": pass_mean, "adamw_gap": gap, "stack": stack}
+
+
+def lmtrain_stack_phase(rng, tmp, s: dict, device: str, lm_cfg: dict) -> dict:
+    """The runner path of [lmtrain]: a SymbiontStack with only the gateway,
+    perception and text_generator, GPT-2 from [generate]'s dir with
+    `lm.ingest_train=True`, on the in-process bus. `pages` pages go in
+    through /api/submit-url; the phase waits until every page has trained
+    and the service is idle. Checks: `text_generator.lm_train_passes` >= 1
+    and `lm_train_failures` 0 (a failed pass is logged and counted, nothing
+    else), B1/B2/B3 launched once per layer per step and once more at the
+    trainer's capture, the greedy text of a fixed prompt changed."""
+    from symbiont_tpu_torch.bus.inproc import InprocBus
+    from symbiont_tpu_torch.config import (ApiConfig, LmConfig, RunnerConfig, SymbiontConfig,
+                                           TextGeneratorConfig)
+    from symbiont_tpu_torch.ops import flash_attention as fa
+    from symbiont_tpu_torch.runner import SymbiontStack
+    from symbiont_tpu_torch.train import trainer as trainer_mod
+    from symbiont_tpu_torch.utils.telemetry import metrics
+
+    html, docs = stack_pages(rng, s["pages"], s["sentences"])
+    limit = s["timeout_s"]
+    cfg = SymbiontConfig(
+        runner=RunnerConfig(services="api,perception,text_generator"),
+        text_generator=TextGeneratorConfig(markov_state_path=str(tmp / "lmtrain_markov.json")),
+        api=ApiConfig(host="127.0.0.1", port=0),
+        lm=LmConfig(**{"enabled": True, "model_dir": str(tmp / "gpt2"), "ingest_train": True,
+                       "ingest_train_seq_len": s["seq_len"], "ingest_train_batch": s["batch"],
+                       "ingest_train_lr": s["lr"],
+                       "ingest_train_min_chars": s["min_chars"], **lm_cfg}))
+    counter = "text_generator.lm_train_{}"
+
+    def counted(name):
+        return metrics.snapshot()["counters"].get(counter.format(name), 0)
+
+    async def scenario() -> dict:
+        loop = asyncio.get_running_loop()
+        stack = SymbiontStack(cfg, bus=InprocBus(), fetcher=lambda url: html[url])
+        await stack.start()
+        try:
+            lm, port = stack.lm, stack.api.port
+            lm.tokenizer = IdTokenizer()  # every id out; the trainer packs bytes
+            svc = next(x for x in stack.services if x.name == "text_generator")
+            trainer, L = svc.lm_trainer, lm.model_cfg.num_layers
+            check(trainer is not None and trainer.lm is lm, "the stack built no trainer")
+            prompt = docs[0][1][0][:40]
+            before = await loop.run_in_executor(None, lm.generate, prompt, s["gen_new"])
+            passes0, failures0 = counted("passes"), counted("failures")
+            fa.launches = fa.bwd_kv_launches = fa.bwd_q_launches = 0  # ------ main path
+            t0 = time.perf_counter()
+            for url in html:
+                st, raw = await loop.run_in_executor(None, lambda u=url: _http(
+                    port, "POST", "/api/submit-url", {"url": u}, timeout=limit))
+                check(200 <= st < 300, f"POST /api/submit-url: HTTP {st} {raw[:200]!r}")
+            t_end = time.monotonic() + limit
+            while not (trainer.stats["train_docs"] >= s["pages"]
+                       and not svc._lm_train_lock.locked()):
+                check(counted("failures") == failures0,
+                      f"text_generator.lm_train_failures rose to {counted('failures')}")
+                check(time.monotonic() < t_end, f"ingest training stalled past {limit:.0f} s: "
+                                                f"{trainer.stats}")
+                await asyncio.sleep(0.01)
+            train_s = time.perf_counter() - t0
+            counts = _launch_counts(fa)  # ---------------------------- main path end
+            after = await loop.run_in_executor(None, lm.generate, prompt, s["gen_new"])
+            passes, failures = counted("passes") - passes0, counted("failures") - failures0
+            steps = trainer.stats["train_steps"]
+            captures = len(trainer_mod.step_executables(trainer._tx)) if device == "cuda" else 0
+            want = (L * (steps + captures),) * 3
+            check(passes >= 1 and failures == 0,
+                  f"text_generator.lm_train_passes {passes}, lm_train_failures {failures}")
+            check(counts == want, f"B1/B2/B3 launches {counts} != {L} x ({steps} steps + "
+                                  f"{captures} capture) each")
+            check(after != before, "the greedy text did not change after ingest training")
+            print(f"[lmtrain] through the runner (api, perception, text_generator; "
+                  f"lm.ingest_train on GPT-2, in-process bus): {s['pages']} pages posted, "
+                  f"{trainer.stats['train_docs']} docs trained in {passes} passes, {steps} steps, "
+                  f"last loss {trainer.stats['last_loss']:.4f}, {train_s:.2f} s from the first "
+                  f"POST to the trainer idle; lm_train_failures 0; B1/B2/B3 {counts} = {L} x "
+                  f"({steps} + {captures}); the greedy text of a fixed prompt changed", flush=True)
+            return {"launches": counts, "passes": passes, "steps": steps, "train_s": train_s,
+                    "docs": trainer.stats["train_docs"]}
+        finally:
+            await stack.stop()
+
+    return asyncio.run(scenario())
+
+
 # ------------------------------------------------------------------ stack
 
 # [stack]'s sizes on the card: pages x sentences a page (2,048 sentences,
@@ -5042,6 +5515,8 @@ def main(argv=()) -> int:
         spec = spec_phase(np.random.default_rng(SEED + 14), tmp, tinyllama)
         lap("spec")
         del tinyllama
+        lmtrain = lmtrain_phase(np.random.default_rng(SEED + 17), tmp)
+        lap("lmtrain")
         stack = stack_phase(np.random.default_rng(SEED + 15), tmp, serve=serve)
         lap("stack")
         fleet = fleet_phase(np.random.default_rng(SEED + 16), tmp)
@@ -5049,7 +5524,8 @@ def main(argv=()) -> int:
     fwd = {"serve": serve["launches"][0], "train": train["launches"][0],
            "checkpoint": ck_launches, "quant": qt["launches"], "generate": gen["launches"],
            "session": sess["launches"], "paged": paged["launches"], "spec": spec["launches"],
-           "stack": stack["launches"], "fleet": fleet["launches"]}
+           "lmtrain": lmtrain["launches"][0], "stack": stack["launches"],
+           "fleet": fleet["launches"]}
     fwd_launches = sum(fwd.values())
     print("[phases] host seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items())
           + f"; total {sum(wall.values()):.1f}. flash_attn_fwd launches on the main path: "
@@ -5063,9 +5539,11 @@ def main(argv=()) -> int:
             ("flash_attn_fwd", "flash_attn_fwd.cu", 81, kern["enc_S128"], fwd_launches,
              "q/k/v [32, 12, 128, 64] bf16, padding bias"),
             ("flash_attn_bwd_kv", "flash_attn_bwd.cu", 212, bwd["kv_enc_S256"],
-             train["launches"][1], "q/k/v/g [32, 12, 256, 64] bf16, padding bias, a length-0 row"),
+             train["launches"][1] + lmtrain["launches"][1],
+             "q/k/v/g [32, 12, 256, 64] bf16, padding bias, a length-0 row"),
             ("flash_attn_bwd_q", "flash_attn_bwd.cu", 281, bwd["q_enc_S256"],
-             train["launches"][2], "q/k/v/g [32, 12, 256, 64] bf16, padding bias, a length-0 row")):
+             train["launches"][2] + lmtrain["launches"][2],
+             "q/k/v/g [32, 12, 256, 64] bf16, padding bias, a length-0 row")):
         entries.append({"name": name, "route": "cuda",
                         "source": f"symbiont_tpu_torch/ops/csrc/{src}",
                         "replaces": f"symbiont_tpu/ops/flash_attention.py:{line}",
@@ -5087,6 +5565,19 @@ def main(argv=()) -> int:
                    "fleet": {k: v for k, v in fleet.items() if k != "launches"}}
     for e in entries:  # the train step's graph runs all three
         e["train_graph"] = {k: v for k, v in train.items() if k != "launches"}
+    entries[0]["lmtrain_launches"] = lmtrain["launches"][0]
+    entries[0]["lm_train"] = [{"shape": r["shape"].replace("/g", ""), **r["fwd"]}
+                              for r in lmtrain["kernels"]]
+    for e, part in zip(entries[1:], ("kv", "q")):  # the causal rows of the LM's training
+        e["train_launches"] = train["launches"][1 + (part == "q")]
+        e["lm_train_launches"] = lmtrain["launches"][1 + (part == "q")]
+        e["lm_train"] = [{"shape": r["shape"], "max_abs_err": r["max_abs_err"][part],
+                          **{k: (r[k][part] if isinstance(r[k], dict) else r[k])
+                             for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                       "covered_ms") if k in r}}
+                         for r in lmtrain["kernels"]]
+        e["lm_train_graph"] = {k: v for k, v in lmtrain.items()
+                               if k not in ("launches", "kernels")}
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,8 +7,8 @@ and `SYMBIONT_<SECTION>_<FIELD>` env names (reference-era aliases such as
 package's configs constructs these unchanged. `LmConfig` has one field of
 its own, `force_cpu`. Fields that steer parts of the JAX
 engines the port has not taken over yet (the mesh data-parallel split, the
-executable cache, the host prep pipeline; for the LM tensor-parallel decode
-and the online trainer) are kept for that reason and say so; `LmEngine`
+executable cache, the host prep pipeline; for the LM tensor-parallel
+decode) are kept for that reason and say so; `LmEngine`
 refuses the settings that would switch those parts on.
 """
 
@@ -159,7 +159,10 @@ class LmConfig:
     # disables speculation with a warning) proposing spec_k tokens a round
     spec_draft_model: Optional[str] = None
     spec_k: int = 8
-    # online fine-tune over ingested text: not ported (ROADMAP A14)
+    # online fine-tune over ingested text (train/online.OnlineLmTrainer):
+    # every ingest_train_min_chars of buffered text, ingest_train_steps
+    # AdamW steps per packed [ingest_train_batch, ingest_train_seq_len]
+    # batch, then the serving engine takes the weights in place
     ingest_train: bool = False
     ingest_train_steps: int = 2
     ingest_train_min_chars: int = 512

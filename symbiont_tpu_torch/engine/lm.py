@@ -99,7 +99,9 @@ beside a decoding `step()` without the engine lock. A model's executables
 are bounded by their caches' bytes, the cache of one session at the
 largest geometry the configuration admits, least recently used first out
 (`_trim_prefills`). The spec plane's rounds stay eager (ROADMAP A16 stage
-4). On the CPU the same executables run eagerly.
+4). On the CPU the same executables run eagerly. `update_params` (the
+online fine-tune's sync, `train/online.py`) copies the new weights into
+the tensors every executable reads, so a sync captures nothing again.
 
 Not ported yet: tensor-parallel decode over a mesh (ROADMAP A15). The
 settings that would switch it on raise `ValueError` naming the item.
@@ -136,6 +138,7 @@ from symbiont_tpu_torch.obs.hbm import guard_oom, hbm_ledger
 from symbiont_tpu_torch.obs.usage import usage
 from symbiont_tpu_torch.obs.xprof import dispatch_ledger
 from symbiont_tpu_torch.resilience.admission import DEFAULT_TENANT
+from symbiont_tpu_torch.train.trainer import tree_leaves
 from symbiont_tpu_torch.utils.telemetry import maybe_profile, metrics
 
 log = logging.getLogger(__name__)
@@ -1380,14 +1383,35 @@ class LmEngine:
         return per_row * n_rows + self._prefill_peak_growth
 
     def update_params(self, params) -> None:
-        """Swap in new parameters (an online fine-tune's sync), placed as
-        at load; serialised with decodes on the engine lock. A running
-        stream or session takes them at its next chunk; its cache from the
-        old parameters stays valid context. Committed prefix pages and
-        their logits are stale under the new weights: the radix cache is
-        cleared (live rows keep their own pages)."""
-        with self._lock:
-            self.params = self._place_params(params)
+        """Swap in new parameters (an online fine-tune's sync): placed as at
+        load, then copied leaf by leaf into the tensors the engine already
+        holds (a quantized leaf's codes and scales), so every decode carrier
+        and prefill executable replays on the new weights with no new
+        capture, as JAX's executables take the parameters as arguments. The
+        copy holds the engine lock and `_stage_lock`, so it is enqueued
+        after every decode and prefill replay enqueued before it and before
+        every one after it (one stream orders them). A running stream or
+        session takes the new weights at its next chunk; its cache from the
+        old parameters stays valid context. A tree whose structure, shapes
+        or dtypes differ from the engine's raises ValueError. The engine's
+        tensors are written: an engine built on a caller's tensors already
+        in its compute dtype on its device (`params=`) holds those, and a
+        sync writes them too. Committed prefix pages and their logits are
+        stale under the new weights: the radix cache is cleared (live rows
+        keep their own pages)."""
+        placed = self._place_params(params)
+        if quant.tree_map(lambda _: 0, placed) != quant.tree_map(lambda _: 0, self.params):
+            raise ValueError("update_params: the tree's keys or lengths differ from the engine's")
+        pairs = []  # leaves by sorted keys: a tree's dict order need not be the engine's
+        for a, b in zip(tree_leaves(self.params), tree_leaves(placed)):
+            for x, y in ((a.q, b.q), (a.scale, b.scale)) if quant.is_quantized(a) else ((a, b),):
+                if x.shape != y.shape or x.dtype != y.dtype:
+                    raise ValueError(f"update_params: {tuple(y.shape)} {y.dtype} does not fit "
+                                     f"the engine's {tuple(x.shape)} {x.dtype}")
+                pairs.append((x, y))
+        with self._lock, self._stage_lock, torch.no_grad():
+            for dst, src in pairs:
+                dst.copy_(src)
         if self.radix is not None:
             self.radix.clear()
 
@@ -1795,8 +1819,8 @@ class BatchSession:
         not stall the running chunk; with a drafter, its rows too. Paged,
         a radix probe (no refcounts taken) skips the target prefill when
         every newcomer is a full hit; `splice` matches again under the pool
-        lock. The parameters are read once; a concurrent `update_params`
-        leaves this prefill on the old ones, as it leaves a running stream.
+        lock. A concurrent `update_params` lands wholly before or after this
+        prefill's replay (it takes `_stage_lock` too).
         Returns the prepared state for `splice`; the session is not
         touched."""
         cfg, lm = self.lm.config, self.lm

@@ -8,7 +8,8 @@ numpy. A quantized leaf (the JAX package's `QuantTensor` after `np.asarray`
 on its `q` and `scale`, or anything else with those two fields) becomes the
 port's `quant.QuantTensor`, its int8 or float8_e4m3fn codes bit for bit. A
 JAX train state is carried across by
-`train.checkpoint.embedder_train_state_from_numpy`.
+`train.checkpoint.embedder_train_state_from_numpy` and
+`lm_train_state_from_numpy`.
 """
 
 from __future__ import annotations

@@ -215,7 +215,8 @@ def _flash_prefill(cfg: GPTConfig, S: int, cache) -> bool:
     fresh tokens only, so a forward over a filled cache (a verify or
     tracking window) reads the cache instead."""
     return (cfg.attn_impl == "flash" and S > 1
-            and not isinstance(cache.length, torch.Tensor) and cache.length == 0)
+            and (cache is None or (not isinstance(cache.length, torch.Tensor)
+                                   and cache.length == 0)))
 
 
 def _paged_write_read(cache: PagedKVCache, layer_idx: int, k, v, start, T: int, dtype):
@@ -255,9 +256,10 @@ def _paged_write_read(cache: PagedKVCache, layer_idx: int, k, v, start, T: int, 
 def _attn(layer: Params, x: torch.Tensor, layer_idx: int, cache, cfg: GPTConfig,
           rope, kv_valid: Optional[torch.Tensor], valid: Optional[torch.Tensor]):
     """x [B, S, H] → attention output incl. the o-projection. Writes the S
-    new K/V rows into the cache at [length, length + S). `valid` is the
-    [B|1, 1, 1, S, T] mask of visible cache slots (None on the flash
-    prefill, which builds its own)."""
+    new K/V rows into the cache at [length, length + S); with no cache (a
+    training forward) it writes nothing and attends over the S fresh
+    tokens. `valid` is the [B|1, 1, 1, S, T] mask of visible cache slots
+    (None on the flash prefill, which builds its own)."""
     B, S, H = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
     # three projections, not a fused one, as in the JAX package
@@ -267,7 +269,7 @@ def _attn(layer: Params, x: torch.Tensor, layer_idx: int, cache, cfg: GPTConfig,
     if rope is not None:
         q, k = _rope(q, *rope), _rope(k, *rope)
 
-    start = cache.length
+    start = 0 if cache is None else cache.length
     # a device slot index writes through index_copy_ (no host value); a
     # host int through a slice
     rows = (start + torch.arange(S, device=x.device) if isinstance(start, torch.Tensor)
@@ -279,7 +281,9 @@ def _attn(layer: Params, x: torch.Tensor, layer_idx: int, cache, cfg: GPTConfig,
         else:
             slab[layer_idx].index_copy_(1, rows, vals.to(slab.dtype))
 
-    if isinstance(cache, PagedKVCache):
+    if cache is None:
+        k_all, v_all = k, v
+    elif isinstance(cache, PagedKVCache):
         # a row's slot count is kv_valid's width (the pool has no T axis)
         k_all, v_all = _paged_write_read(cache, layer_idx, k, v, start, kv_valid.shape[1],
                                          x.dtype)
@@ -344,6 +348,9 @@ def forward(params: Params, input_ids: torch.Tensor, cache, positions: torch.Ten
     """Forward over S new tokens against the cache → (logits float32
     [B, S, V], or [B, 1, V] with `last_only`, and the cache, written in
     place at [length, length + S); its `length` is the caller's to move).
+    `cache=None` is the training forward (`train/trainer.lm_loss`): the S
+    tokens attend causally over each other, as over a fresh cache, and no
+    K/V is kept (JAX writes a cache there that XLA drops unread).
 
     `positions` [B, S] are the tokens' logical positions (RoPE / wpe);
     `kv_valid` [B, T] is False on padding slots, which attention never
@@ -368,9 +375,12 @@ def forward(params: Params, input_ids: torch.Tensor, cache, positions: torch.Ten
     if not _flash_prefill(cfg, S, cache):
         # causality over cache indices, where K/V live (they differ from
         # logical positions on padded rows); padding slots via kv_valid
-        T = kv_valid.shape[1] if isinstance(cache, PagedKVCache) else cache.k.shape[2]
+        if cache is None:
+            T = S
+        else:
+            T = kv_valid.shape[1] if isinstance(cache, PagedKVCache) else cache.k.shape[2]
         kv_pos = torch.arange(T, device=input_ids.device)
-        q_pos = cache.length + torch.arange(S, device=input_ids.device)
+        q_pos = (0 if cache is None else cache.length) + torch.arange(S, device=input_ids.device)
         valid = (kv_pos[None, :] <= q_pos[:, None])[None, None, None]
         if kv_valid is not None:
             valid = valid & kv_valid[:, None, None, None, :]

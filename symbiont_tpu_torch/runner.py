@@ -14,9 +14,11 @@ heartbeats and the drain protocol of a supervised role
 (resilience/procsup.py), `obs.slo_p99_ms` the SLO watchdog and
 `gen_journal.enabled` the generation journal. The settings of parts not
 ported yet raise a `ValueError` naming their ROADMAP item before anything
-starts (`_refuse_unported`): the online LM trainer (A14), a serving mesh
-over more than one device (A15), and the on-demand device trace and
-live-array census settings (A7's leftovers).
+starts (`_refuse_unported`): a serving mesh over more than one device
+(A15), and the on-demand device trace and live-array census settings
+(A7's leftovers). `lm.ingest_train` hands `text_generator` an
+`OnlineLmTrainer` (train/online.py) that fine-tunes the LM on ingested
+text and syncs it into the serving engine in place.
 
 The reference needs docker-compose with 10 containers to run at all
 (reference: docker-compose.yml:1-151); this runner hosts the full pipeline in
@@ -58,9 +60,6 @@ def _refuse_unported(cfg: SymbiontConfig, mesh) -> None:
     over raises here, naming its ROADMAP item, before any service starts.
     All of them are off in the default config, so `SymbiontStack()` runs
     whole."""
-    if cfg.lm.ingest_train:
-        raise ValueError("lm.ingest_train: the online LM trainer is not ported yet "
-                         "(ROADMAP A14)")
     # the on-demand device trace and the live-array census are A7's
     # leftovers: a value other than the default would be read by nothing
     for name in ("xprof_trace_dir", "xprof_trace_max_s", "hbm_census_groups"):
@@ -388,8 +387,15 @@ class SymbiontStack:
             lm_stream = (self.lm.generate_stream
                          if self.lm is not None and cfg.lm.stream_chunk > 0
                          else None)
-            # lm.ingest_train (the online trainer, A14) was refused above
             lm_trainer = None
+            if self.lm is not None and cfg.lm.ingest_train:
+                from symbiont_tpu_torch.train.online import OnlineLmTrainer
+
+                lm_trainer = OnlineLmTrainer(
+                    self.lm, learning_rate=cfg.lm.ingest_train_lr,
+                    seq_len=cfg.lm.ingest_train_seq_len,
+                    batch_size=cfg.lm.ingest_train_batch,
+                    state_path=cfg.lm.train_state_path)
             self.services.append(
                 TextGeneratorService(self.bus, lm_batcher=lm_batcher,
                                      lm_stream=lm_stream,

@@ -11,15 +11,17 @@ other:
   into tensors. numpy has no bfloat16, so a bf16 tensor leaf is stored as
   float32 (the trainer's masters are float32 already).
 - train state: `train_state.npz` (`leaf_0..`) and `train_meta.json`, the
-  leaves in the order `jax.tree.leaves` gives an embedder TrainState:
+  leaves in the order `jax.tree.leaves` gives a TrainState (the embedder's
+  or the LM's, whose optax AdamW states have one layout):
   params (dict keys sorted), AdamW's step count (int32), the first
   moments (optax `mu`), the second moments (`nu`), then the step (int32).
   Both files are written to a temporary name, fsynced and renamed, so a
   crash mid-save leaves the previous checkpoint whole.
 
-`embedder_train_state_from_numpy` takes a JAX embedder train state held in
-memory as numpy arrays instead of on disk, so the port can go on training
-from where the JAX trainer stopped.
+`embedder_train_state_from_numpy` and `lm_train_state_from_numpy` take a
+JAX embedder or LM train state held in memory as numpy arrays instead of
+on disk, so the port can go on training from where the JAX trainer
+stopped.
 """
 
 from __future__ import annotations
@@ -33,10 +35,11 @@ import numpy as np
 import torch
 
 from symbiont_tpu_torch.device import resolve_device
-from symbiont_tpu_torch.models.bridge import bert_params_from_numpy
+from symbiont_tpu_torch.models.bridge import bert_params_from_numpy, gpt_params_from_numpy
 from symbiont_tpu_torch.train.trainer import (
     TrainState,
     make_embedder_train_state,
+    make_lm_train_state,
     tree_leaves,
 )
 
@@ -149,8 +152,9 @@ def save_train_state(path: str | Path, state: TrainState,
 
 def load_train_state(path: str | Path, template: TrainState):
     """Restore a train state saved by either package's `save_train_state`
-    into `template` (build it with `make_embedder_train_state` on the same
-    geometry): its tensors are overwritten in place. Returns (state, meta).
+    into `template` (build it with `make_embedder_train_state` or
+    `make_lm_train_state` on the same geometry): its tensors are
+    overwritten in place, so the step executables bound to them survive. Returns (state, meta).
     Raises ValueError on a leaf-count or per-leaf shape mismatch."""
     path = Path(path)
     spec = json.loads((path / "train_meta.json").read_text())
@@ -187,6 +191,19 @@ def train_state_exists(path: str | Path) -> bool:
             and (path / "train_meta.json").exists())
 
 
+def _train_state_from_numpy(make, bridge, params, mu, nu, count, learning_rate, device):
+    dev = resolve_device(device)
+    state, tx = make(bridge(params, dev), learning_rate)
+    moments = zip(tree_leaves(state.params), tree_leaves(bridge(mu, dev)),
+                  tree_leaves(bridge(nu, dev)), strict=True)
+    with torch.no_grad():
+        for p, m, n in moments:
+            tx.state[p]["exp_avg"].copy_(m)
+            tx.state[p]["exp_avg_sq"].copy_(n)
+            tx.state[p]["step"].fill_(float(count))
+    return state._replace(step=int(count)), tx
+
+
 def embedder_train_state_from_numpy(params: Params, mu: Params, nu: Params, count: int,
                                     learning_rate: float = 1e-4, device=None):
     """A JAX embedder train state as numpy (params, optax Adam `mu`/`nu` —
@@ -194,14 +211,15 @@ def embedder_train_state_from_numpy(params: Params, mu: Params, nu: Params, coun
     AdamW) on CUDA unless `device="cpu"`, with the same masters, moments
     and count, so a step of either package from there takes the same
     update. The step is the count, as in the JAX embedder state."""
-    dev = resolve_device(device)
-    state, tx = make_embedder_train_state(bert_params_from_numpy(params, dev),
-                                          learning_rate)
-    moments = zip(tree_leaves(state.params), tree_leaves(bert_params_from_numpy(mu, dev)),
-                  tree_leaves(bert_params_from_numpy(nu, dev)), strict=True)
-    with torch.no_grad():
-        for p, m, n in moments:
-            tx.state[p]["exp_avg"].copy_(m)
-            tx.state[p]["exp_avg_sq"].copy_(n)
-            tx.state[p]["step"].fill_(float(count))
-    return state._replace(step=int(count)), tx
+    return _train_state_from_numpy(make_embedder_train_state, bert_params_from_numpy,
+                                   params, mu, nu, count, learning_rate, device)
+
+
+def lm_train_state_from_numpy(params: Params, mu: Params, nu: Params, count: int,
+                              learning_rate: float = 3e-4, device=None):
+    """A JAX LM train state as numpy (the GPT tree of `models/gpt.py`,
+    optax Adam `mu`/`nu` shaped like it, its `count`) → the port's
+    (TrainState, AdamW), as `embedder_train_state_from_numpy`, through
+    `models.bridge.gpt_params_from_numpy`."""
+    return _train_state_from_numpy(make_lm_train_state, gpt_params_from_numpy,
+                                   params, mu, nu, count, learning_rate, device)

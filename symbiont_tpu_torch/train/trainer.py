@@ -1,11 +1,12 @@
-"""The encoder fine-tune: a contrastive train step over (query, passage)
-pairs.
+"""The train steps: the encoder fine-tune (a contrastive step over
+(query, passage) pairs) and the LM fine-tune (next-token cross-entropy).
 
-The port of the embedder half of `symbiont_tpu/train/trainer.py`, with its
-names (`TrainState`, `make_embedder_train_state`, `contrastive_loss`,
-`contrastive_train_step`). The JAX package's pure-function step becomes
-PyTorch's idiom: float32 master leaves with `requires_grad`, one backward,
-and `torch.optim.AdamW` updating them in place. AdamW with betas (0.9,
+The port of `symbiont_tpu/train/trainer.py`, with its names (`TrainState`,
+`make_embedder_train_state`, `contrastive_loss`, `contrastive_train_step`,
+`make_lm_train_state`, `lm_loss`, `lm_train_step`). The JAX package's
+pure-function step becomes PyTorch's idiom: float32 master leaves with
+`requires_grad`, one backward, and `torch.optim.AdamW` updating them in
+place. AdamW with betas (0.9,
 0.999), eps 1e-8 and weight decay 0.01 on every leaf is the update of
 `optax.adamw(lr, weight_decay=0.01)`: decoupled decay from the old value
 plus the bias-corrected moment step, the same formula term by term.
@@ -15,32 +16,34 @@ plus the bias-corrected moment step, the same formula term by term.
 so a checkpoint can be restored into it before the first step; the
 gradients are allocated there too, and every step zeroes them in place.
 
-The step is an executable, as JAX jits `contrastive_train_step` with the
-state donated: one per (pairs, q bucket, p bucket) and config
-(`graphs.py`), kept for its optimizer (`step_executables`). On CUDA it is
-a graph that holds the forward (B1), the backward through
-`_FlashAttention` (B2 and B3) and the AdamW update, bound to the masters,
-moments, step counts and gradients in place, with the loss and the grad
-norm as its outputs; the AdamW there is `capturable=True` (its step
-counts on the device, bias corrections as device ops), eager or replayed
-alike. Its step counts are float64, so the bias corrections 1 - β^t are
+Each step is an executable, as JAX jits `contrastive_train_step` and
+`lm_train_step` with the state donated: one per batch shape (pairs, q
+bucket, p bucket; or rows, sequence length) and config (`graphs.py`),
+kept for its optimizer (`step_executables`). On CUDA it is a graph that
+holds the forward (B1), the backward through `_FlashAttention` (B2 and B3
+where NH == NKV; GQA takes the dense float32 recompute, B4, as in JAX)
+and the AdamW update, bound to the masters, moments, step counts and
+gradients in place, with the loss and the grad norm as its outputs; the
+AdamW there is `capturable=True` (its step counts on the device, bias
+corrections as device ops), eager or replayed alike. Its step counts are float64, so the bias corrections 1 - β^t are
 taken in float64 as the CPU's AdamW takes them on the host: in float32,
 1 - 0.999 is off by 1.3e-5 of itself. On the CPU the same executable
 runs the step eagerly, with the step counts on the host (a capturable
 AdamW refuses CPU tensors). A restore writes the state in place
 (`train/checkpoint.load_train_state`), so a graph survives it.
 
-With `cfg.attn_impl="flash"` the encoder's attention runs the CUDA
-flash-attention forward and the fused backward kernels (dK/dV/dbias, dQ)
-on CUDA tensors, their plain versions on CPU ones (`ops/flash_attention.py`).
-The step runs where the params and batch live: the card unless the caller
-hands it CPU tensors, as the tests do. The LM half of the JAX module
-(`lm_loss`, `lm_train_step`, `shard_lm_train_state`) waits for the port's
-GPT model (ROADMAP Queue A).
+With `cfg.attn_impl="flash"` the attention runs the CUDA flash-attention
+forward and the fused backward kernels (dK/dV/dbias, dQ) on CUDA tensors,
+their plain versions on CPU ones (`ops/flash_attention.py`): the encoder's
+with its padding bias, the LM's causal over the packed rows. The step
+runs where the params and batch live: the card unless the caller hands it
+CPU tensors, as the tests do. `shard_lm_train_state` (a mesh) waits for
+A15.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import weakref
 from typing import Any, NamedTuple, Tuple
 
@@ -49,6 +52,7 @@ import torch.nn.functional as F
 
 from symbiont_tpu_torch.graphs import Executable, GraphPool
 from symbiont_tpu_torch.models import bert as bert_mod
+from symbiont_tpu_torch.models import gpt as gpt_mod
 
 Params = Any
 
@@ -77,12 +81,13 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
-def make_embedder_train_state(params: Params, learning_rate: float = 1e-4
-                              ) -> Tuple[TrainState, torch.optim.AdamW]:
+def _make_train_state(params: Params, learning_rate: float
+                      ) -> Tuple[TrainState, torch.optim.AdamW]:
     """float32 master copies of `params` (on their device) and the AdamW
     over them, its moments zero, as `optax.adamw(...).init` gives them, and
     zero gradients. On CUDA the AdamW is capturable, its step counts
-    float64 on the device."""
+    float64 on the device. The masters are always copies: a float32 leaf
+    is cloned too, so they never share storage with `params`."""
     masters = bert_mod.tree_map(
         lambda t: t.detach().to(torch.float32).clone().requires_grad_(), params)
     leaves = tree_leaves(masters)
@@ -99,6 +104,19 @@ def make_embedder_train_state(params: Params, learning_rate: float = 1e-4
     return TrainState(masters, tx.state, 0), tx
 
 
+def make_embedder_train_state(params: Params, learning_rate: float = 1e-4
+                              ) -> Tuple[TrainState, torch.optim.AdamW]:
+    """The encoder's train state (`_make_train_state`), lr 1e-4."""
+    return _make_train_state(params, learning_rate)
+
+
+def make_lm_train_state(params: Params, learning_rate: float = 3e-4
+                        ) -> Tuple[TrainState, torch.optim.AdamW]:
+    """The LM's train state (`_make_train_state`), lr 3e-4, the same AdamW
+    as the encoder's."""
+    return _make_train_state(params, learning_rate)
+
+
 def contrastive_loss(params: Params, batch: dict, cfg: bert_mod.BertConfig,
                      temperature: float = 0.05) -> torch.Tensor:
     """InfoNCE with in-batch negatives over (query, positive) pairs —
@@ -112,25 +130,50 @@ def contrastive_loss(params: Params, batch: dict, cfg: bert_mod.BertConfig,
     return F.cross_entropy(logits, labels)
 
 
+def lm_loss(params: Params, batch: dict, cfg: gpt_mod.GPTConfig) -> torch.Tensor:
+    """Next-token cross-entropy over [B, S] token batches, weighted by the
+    mask: a target counts where it and the token before it are real. The
+    forward keeps no cache (`gpt.forward(cache=None)`), so K/V are never
+    quantized on it (quantize-on-append's round() has no gradient); the
+    config's `kv_quant` is set to "none" all the same, as JAX's `lm_loss`
+    sets it, so no part of the training forward reads an int8 setting."""
+    ids = batch["ids"]
+    mask = batch["mask"].float()
+    B, S = ids.shape
+    if cfg.kv_quant != "none":
+        cfg = dataclasses.replace(cfg, kv_quant="none")
+    positions = torch.arange(S, device=ids.device).expand(B, S)
+    logits, _ = gpt_mod.forward(params, ids, None, positions, cfg)
+    ce = F.cross_entropy(logits[:, :-1].flatten(0, 1), ids[:, 1:].flatten().long(),
+                         reduction="none").view(B, S - 1)
+    w = mask[:, 1:] * mask[:, :-1]
+    return (ce * w).sum() / w.sum().clamp_min(1.0)
+
+
+# the batch tensors each loss reads, in the order its executable takes them
+CONTRASTIVE_KEYS = ("q_ids", "q_mask", "p_ids", "p_mask")
+LM_KEYS = ("ids", "mask")
+
+
 def global_norm(tensors) -> torch.Tensor:
     """L2 norm over every element of every tensor (`optax.global_norm`)."""
     return torch.linalg.vector_norm(
         torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors]))
 
 
-def _step_fn(params: Params, tx, cfg):
-    """One AdamW step over `params` as a function of the batch's four
-    tensors → (loss, grad_norm): the gradients zeroed in place (a leaf that
-    gets none keeps zeros, as JAX gives an unused leaf), one backward into
-    them, the norm taken before the update."""
+def _step_fn(params: Params, tx, cfg, loss_fn=contrastive_loss, keys=CONTRASTIVE_KEYS):
+    """One AdamW step over `params` on `loss_fn` as a function of the
+    batch's tensors `keys`, in that order → (loss, grad_norm): the
+    gradients zeroed in place (a leaf that gets none keeps zeros, as JAX
+    gives an unused leaf), one backward into them, the norm taken before
+    the update."""
     leaves = tree_leaves(params)
     tx_ref = weakref.ref(tx)  # the executable must not keep the optimizer alive
 
-    def step(q_ids, q_mask, p_ids, p_mask):
+    def step(*tensors):
         grads = [p.grad for p in leaves]
         torch._foreach_zero_(grads)
-        loss = contrastive_loss(params, {"q_ids": q_ids, "q_mask": q_mask, "p_ids": p_ids,
-                                         "p_mask": p_mask}, cfg)
+        loss = loss_fn(params, dict(zip(keys, tensors, strict=True)), cfg)
         loss.backward()
         gnorm = global_norm(grads)
         tx_ref().step()
@@ -140,14 +183,15 @@ def _step_fn(params: Params, tx, cfg):
 
 
 def step_executables(tx) -> dict:
-    """The step executables built for the optimizer `tx`, by (q shape, p
-    shape, cfg)."""
+    """The step executables built for the optimizer `tx`, by the shapes of
+    the batch's ids (q and p, or the LM's one) and cfg."""
     return dict(_STEPS[tx]["exes"]) if tx in _STEPS else {}
 
 
-def _step_executable(state: TrainState, batch: dict, cfg, tx) -> Executable:
+def _step_executable(state: TrainState, batch: dict, cfg, tx, loss_fn=contrastive_loss,
+                     keys=CONTRASTIVE_KEYS) -> Executable:
     """The step's executable for this batch shape, kept for `tx`: one per
-    (pairs, q bucket, p bucket, cfg), built on the state's masters. On
+    (shapes of the batch's ids, cfg), built on the state's masters. On
     CUDA its capture's warm-up runs a whole step, and the masters, moments
     and step counts come back to what they held before it (`carry`)."""
     leaves = tree_leaves(state.params)
@@ -156,7 +200,7 @@ def _step_executable(state: TrainState, batch: dict, cfg, tx) -> Executable:
     if own is None:
         own = _STEPS[tx] = {"exes": {},
                             "pool": GraphPool() if device.type == "cuda" else None}
-    key = (tuple(batch["q_ids"].shape), tuple(batch["p_ids"].shape), cfg)
+    key = tuple(tuple(batch[k].shape) for k in keys if k.endswith("ids")) + (cfg,)
     exe = own["exes"].get(key)
     if exe is None or exe.params is not state.params:
         carry = None
@@ -164,8 +208,8 @@ def _step_executable(state: TrainState, batch: dict, cfg, tx) -> Executable:
             moments = [tx.state[p] for p in leaves]
             carry = [t.detach() for t in leaves] + [m[k] for m in moments
                                                     for k in ("step", "exp_avg", "exp_avg_sq")]
-        exe = own["exes"][key] = Executable(_step_fn(state.params, tx, cfg), device,
-                                            pool=own["pool"], carry=carry)
+        exe = own["exes"][key] = Executable(_step_fn(state.params, tx, cfg, loss_fn, keys),
+                                            device, pool=own["pool"], carry=carry)
         exe.params = state.params
     return exe
 
@@ -181,6 +225,19 @@ def contrastive_train_step(state: TrainState, batch: dict, cfg, tx
     gradient accumulators would tie the capture's backward to another
     stream, and the capture raises."""
     exe = _step_executable(state, batch, cfg, tx)
-    loss, gnorm = exe(batch["q_ids"], batch["q_mask"], batch["p_ids"], batch["p_mask"])
+    loss, gnorm = exe(*(batch[k] for k in CONTRASTIVE_KEYS))
+    return (TrainState(state.params, tx.state, state.step + 1),
+            {"loss": loss, "grad_norm": gnorm})
+
+
+def lm_train_step(state: TrainState, batch: dict, cfg: gpt_mod.GPTConfig, tx
+                  ) -> Tuple[TrainState, dict]:
+    """One AdamW step on `lm_loss` over `batch` ({"ids", "mask"}, [B, S])
+    → (state, {"loss", "grad_norm"}), as `contrastive_train_step`: one
+    executable per (B, S) and cfg, a replayed graph on CUDA, the masters
+    updated in place, device scalars out. The caller holds no autograd
+    graph over the masters when a shape's first step captures."""
+    exe = _step_executable(state, batch, cfg, tx, lm_loss, LM_KEYS)
+    loss, gnorm = exe(*(batch[k] for k in LM_KEYS))
     return (TrainState(state.params, tx.state, state.step + 1),
             {"loss": loss, "grad_norm": gnorm})

@@ -749,6 +749,80 @@ def test_a_failing_spec_check_fails_the_run(monkeypatch, capsys):
     assert '"ok": true' not in capsys.readouterr().out
 
 
+# ----------------------------------------------------------------- lmtrain
+
+TINY_LMTRAIN = dict(seq_len=8, batch=2, lr=5e-3, batches=3, passes=3, long_seq=32, gen_new=8, pages=2,
+                    sentences=4, min_chars=64, timeout_s=120.0)
+
+
+def test_lmtrain_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """[lmtrain] end to end on the CPU at the tiny GPT-2 (2 layers), with
+    every check it makes on the card but the kernel rows: the CPU path
+    launches no kernel, so B1's plain forwards and the plain backward are
+    counted as the launches, and nothing captures (every step counts once
+    per layer)."""
+    from symbiont_tpu_torch.models import gpt as gpt_mod
+    from symbiont_tpu_torch.ops import flash_attention as fa
+
+    params = gpt_mod.init_params(torch.Generator().manual_seed(4),
+                                 gpt_mod.GPTConfig.from_hf(TINY_GPT2))
+    chip_smoke.write_gpt_checkpoint(tmp_path / "gpt2", params, TINY_GPT2, torch.float32)
+    forward, backward = fa._forward, fa.flash_attention_backward
+
+    def counted_forward(*a, **kw):
+        with fa._count_lock:
+            fa.launches += 1
+        return forward(*a, **kw)
+
+    def counted_backward(*a, **kw):
+        with fa._count_lock:
+            fa.bwd_kv_launches += 1
+            fa.bwd_q_launches += 1
+        return backward(*a, **kw)
+
+    monkeypatch.setattr(fa, "_forward", counted_forward)
+    monkeypatch.setattr(fa, "flash_attention_backward", counted_backward)
+    for name in ("launches", "bwd_kv_launches", "bwd_q_launches"):  # restored after
+        monkeypatch.setattr(fa, name, 0)
+    out = chip_smoke.lmtrain_phase(np.random.default_rng(0), tmp_path, sizes=TINY_LMTRAIN,
+                                   device="cpu", lm_kw=TINY_LM_KW)
+    printed = capsys.readouterr().out
+    assert printed.count("[lmtrain]") == 4
+    assert out["kernels"] == [] and out["busy"] is None
+    assert out["mean_loss_by_pass"][-1] < out["mean_loss_by_pass"][0]
+    assert out["adamw_gap"]["fed_close"] and out["stack"]["passes"] >= 1
+    # 2 layers: 3 passes of 3 steps and the long pass's 2, then the runner's
+    steps = 3 * 3 + 2 + out["stack"]["steps"]
+    assert out["launches"] == (2 * steps,) * 3
+
+
+@pytest.mark.parametrize("wrong", [None, "out", "lse"])
+def test_lm_kernel_rows_hold_b1_before_the_backward(monkeypatch, capsys, wrong):
+    """`lm_backward_kernel_rows` untimed on the CPU at a tiny S: B1's out
+    and lse, which B2/B3 and their plain versions are both fed, are held
+    against B1's plain version first, so a wrong out or lse fails the rows
+    (the CPU wrappers run the plain versions: every check passes as is)."""
+    from symbiont_tpu_torch.ops import flash_attention as fa
+
+    sizes = dict(kernel_rows=2, kernel_S=(16,))
+    if wrong is None:
+        rows = chip_smoke.lm_backward_kernel_rows(sizes, timed=False, device="cpu")
+        assert [r["shape"] for r in rows] == [
+            f"q/k/v/g [2, 12, 16, 64] {d}, causal, no bias" for d in ("bfloat16", "float32")]
+        assert all(set(r["fwd"]) == {"max_abs_err", "lse_rel_err"} for r in rows)
+        assert capsys.readouterr().out.count("flash_attn_fwd causal") == 2
+        return
+    real = fa.flash_attention_with_lse
+
+    def off(*a, **kw):
+        out, lse = real(*a, **kw)
+        return (out + 0.1, lse) if wrong == "out" else (out, lse + 1e-2)
+
+    monkeypatch.setattr(fa, "flash_attention_with_lse", off)
+    with pytest.raises(RuntimeError, match="lm fwd bfloat16 S=16: B1"):
+        chip_smoke.lm_backward_kernel_rows(sizes, timed=False, device="cpu")
+
+
 # ------------------------------------------------------------------- stack
 
 TINY_STACK = dict(pages=4, sentences=4, queries=6, top_k=3, gen=2, gen_new=8,
@@ -819,6 +893,7 @@ def test_a_failing_stack_check_fails_the_run(monkeypatch, capsys):
                                                  "tinyllama": None},
                  paged_phase=lambda rng, tmp, tl, dense_batcher: {"launches": 0},
                  spec_phase=lambda rng, tmp, tl: {"launches": 0},
+                 lmtrain_phase=lambda rng, tmp: {"launches": (0, 0, 0), "kernels": []},
                  stack_phase=lambda rng, tmp, serve: chip_smoke.check(
                      False, "49 of 50 searches on the fused hop, 1 fell back"))
     for name, fn in stubs.items():

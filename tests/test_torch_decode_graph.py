@@ -13,6 +13,8 @@ and sessions, and adopt state that a caller replaced. The card holds
 graphed = eager in `chip_smoke.py`'s [graphs] lines, whose CPU rehearsal
 is the last test here."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +27,7 @@ from symbiont_tpu_torch.config import LmConfig
 from symbiont_tpu_torch.engine.lm import LmEngine, _CarryDecoder
 from symbiont_tpu_torch.models import gpt as tgpt
 from symbiont_tpu_torch.models.bridge import gpt_params_from_numpy
+from symbiont_tpu_torch.models.quant import leaves as tree_leaves
 
 F32 = dict(atol=2e-5, rtol=1e-4)
 B, P, NEW = 3, 16, 16
@@ -328,13 +331,23 @@ def test_dropped_engines_free_without_a_cyclic_collection():
 
 
 def test_update_params_rebuilds_the_executables():
+    """A sync rebuilds no executable: it copies the new weights into the
+    engine's tensors, so the carrier's decode executable is kept (on the
+    card: no new capture) and decodes on the new weights, as a fresh engine
+    on them does. (The name is the one this test had when a sync rebuilt
+    the executables.)"""
     lm = _engine(temperature=0.0)
-    lm.generate_batch(["abc"], [NEW])
+    before = lm.generate_batch(["abc"], [NEW])
     (dec,) = lm._free_carriers.values()
     (exe,) = dec.exes.values()
-    lm.update_params(tgpt.init_params(torch.Generator().manual_seed(9), lm.model_cfg))
-    lm.generate_batch(["abc"], [NEW])
-    assert next(iter(dec.exes.values())) is not exe
+    ptrs = [t.data_ptr() for t in tree_leaves(lm.params)]
+    new = tgpt.init_params(torch.Generator().manual_seed(9), lm.model_cfg)
+    lm.update_params(new)
+    after = lm.generate_batch(["abc"], [NEW])
+    assert list(dec.exes.values()) == [exe] and exe.params is lm.params
+    assert [t.data_ptr() for t in tree_leaves(lm.params)] == ptrs
+    fresh = LmEngine(dataclasses.replace(lm.config), params=new, model_cfg=_cfgs()[1])
+    assert after == fresh.generate_batch(["abc"], [NEW]) and after != before
 
 
 def test_graphs_lm_phase_rehearses_on_the_cpu(tmp_path, capsys):

@@ -148,18 +148,34 @@ def test_a_carrier_takes_the_prompt_slots(trees, kv_quant):
 
 
 def test_update_params_rebuilds_the_prefill_executable(trees):
-    lm = _engine(trees)
+    """A sync rebuilds no executable: it copies the new weights into the
+    engine's tensors, so the prefill executable is kept (on the card: no
+    new capture) and replays on them, its logits those of a fresh engine on
+    the new tree. (The name is the one this test had when a sync rebuilt
+    the executable.)"""
+    _sync_keeps_the_prefill_executable(trees, "none")
+
+
+def test_update_params_keeps_the_int8_prefill_executable(trees):
+    """The same, on an int8 KV cache."""
+    _sync_keeps_the_prefill_executable(trees, "int8")
+
+
+def _sync_keeps_the_prefill_executable(trees, kv_quant):
+    lm = _engine(trees, kv_quant)
     ids, mask = _prompts(1, 8, seed=1)
     with torch.inference_mode():
         first = lm._prefill(lm.params, ids, mask, NEW)[1]
-    exe = lm._prefills.get(("target", "none", 1, 8, NEW))
+    key = ("target", kv_quant, 1, 8, NEW)
+    exe = lm._prefills.get(key)
     lm.update_params(gpt_params_from_numpy(_tree(11), "cpu"))
     with torch.inference_mode():
         second = lm._prefill(lm.params, ids, mask, NEW)[1]
-    new_exe = lm._prefills.get(("target", "none", 1, 8, NEW))
-    assert new_exe is not exe and new_exe.params is lm.params
-    assert new_exe.cache is exe.cache  # the stale one's cache, taken over
+    assert lm._prefills.get(key) is exe and exe.params is lm.params
     assert not torch.equal(first, second)
+    fresh = _engine(dict(trees, target=_tree(11)), kv_quant)
+    with torch.inference_mode():
+        assert torch.equal(second, fresh._prefill(fresh.params, ids, mask, NEW)[1])
 
 
 def test_every_prefill_caller_goes_through_the_executables(trees, monkeypatch):

@@ -296,7 +296,6 @@ def _set(cfg, section, **fields):
 
 
 @pytest.mark.parametrize("section,fields,item", [
-    ("lm", dict(ingest_train=True), "A14"),
     ("parallel", dict(mesh_shape=[2, 1]), "A15"),
     ("obs", dict(xprof_trace_dir="/srv/traces"), "A7"),
     ("obs", dict(xprof_trace_max_s=5.0), "A7"),
