@@ -166,6 +166,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import dataclasses
+import faulthandler
 import functools
 import json
 import os
@@ -185,6 +186,7 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 SEED = 0
+CHIP_LIMIT_S = 1200  # the whole script's time limit on the card
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1648,12 +1650,18 @@ def checkpoint_phase(rng, tmp) -> dict:
 def obs_phase(ck: dict, tmp) -> None:
     """The engine's memory ledger, padding counters, dispatch ledger and
     OOM guard, read after the checkpoint phase's serving with its engine and
-    store alive."""
-    from symbiont_tpu_torch.obs.hbm import guard_oom, hbm_ledger, oom_forensics
-    from symbiont_tpu_torch.obs.xprof import dispatch_ledger
+    store alive; the live-tensor census (a row for the graph pools'
+    reserve, and what the ledger leaves unattributed named: live tensors
+    outside the claims, cuBLAS workspaces, blocks no Python tensor holds);
+    a 1 s device trace during a serve burst holding B1's kernel events."""
+    from symbiont_tpu_torch.graphs import graph_pool_bytes
+    from symbiont_tpu_torch.obs.hbm import census, guard_oom, hbm_ledger, oom_forensics
+    from symbiont_tpu_torch.obs.xprof import device_trace, dispatch_ledger
+    from symbiont_tpu_torch.ops import flash_attention as fa
     from symbiont_tpu_torch.utils.telemetry import metrics
 
     import gc
+    import threading
 
     eng, store = ck["engine"], ck["store"]
     gc.collect()  # engines of earlier phases retire their claims
@@ -1686,6 +1694,78 @@ def obs_phase(ck: dict, tmp) -> None:
     outside_bytes = sum(v[0] for v in outside)
     workspaces = clear_cublas_workspaces()
     unnamed = rec["unattributed_bytes"] - outside_bytes - workspaces
+
+    # the census: live tensors by (shape, dtype, placement), a row for the
+    # graph pools' reserve, and the allocator's blocks no Python tensor holds
+    cen = census(top=6)
+    pool_rows = [g for g in cen["groups"] if g["dtype"] == "(graph pools)"]
+    reserve = graph_pool_bytes()
+    in_pools = sum(v[0] for k, v in live_cuda_storages().items()
+                   if any(a <= k < b for a, b in pools))
+    check(len(pool_rows) == 1 and pool_rows[0]["bytes"] == reserve - in_pools > 0,
+          f"census graph-pool row {pool_rows}, pools reserve {reserve:,} less {in_pools:,} of "
+          "live tensors in them")
+    reachable = set(live_cuda_storages())
+    segments = torch.cuda.memory._snapshot()["segments"]
+    hidden = [g for g in group_blocks(segments, reachable, str(Path(__file__).resolve().parent))
+              if not g[3]]
+    hidden_bytes = sum(g[0] for g in hidden)
+    # the allocator's rounding outside the graph pools (whose claims count
+    # it): an active block's bytes over the bytes its tensor asked for (a
+    # large request takes a whole block of its segment)
+    rounding = sum(blk["size"] - blk.get("requested_size", blk["size"])
+                   for seg in segments
+                   if tuple(seg.get("segment_pool_id") or (0, 0)) == (0, 0)
+                   for blk in seg["blocks"] if blk["state"] == "active_allocated")
+    # allocated inside graph pools (graphs' outputs and what they keep)
+    # beyond the graph claims the ledger holds (pools whose owner claims none)
+    pool_alloc = sum(seg["allocated_size"] for seg in torch.cuda.memory_snapshot()
+                     if tuple(seg.get("segment_pool_id") or (0, 0)) != (0, 0))
+    graph_claims = sum(v for k, v in rows.items() if k.endswith("graphs"))
+    unclaimed_pools = pool_alloc - graph_claims
+    print(f"[obs] census (obs/hbm.census, top 6 of {cen['group_count']} groups, "
+          f"{cen['bytes_total']:,} bytes): " + "; ".join(
+              f"{g['dtype']} {g['shape']} x{g['count']} {g['bytes']:,}" for g in cen["groups"])
+          + f". The graph pools reserve {reserve:,} bytes, {in_pools:,} of them live tensors: "
+          f"their census row holds the other {pool_rows[0]['bytes']:,}. Of the "
+          f"{rec['unattributed_bytes']:,} unattributed: live tensors outside the claims "
+          f"{outside_bytes:,}, cuBLAS workspaces {workspaces:,}, and the allocator's blocks no "
+          f"Python tensor holds {hidden_bytes:,} in {sum(g[1] for g in hidden)} blocks (largest "
+          + ", ".join(f"{b:,} in {c} ({site})" for b, c, site, _ in hidden[:3])
+          + f"), allocated in graph pools beyond the graph claims ({graph_claims:,}) "
+          f"{unclaimed_pools:,}, the allocator's rounding (active blocks' bytes over their "
+          f"requests) {rounding:,}; the rest "
+          f"{unnamed - hidden_bytes - unclaimed_pools - rounding:,}", flush=True)
+    # a 1 s device trace (obs/xprof.DeviceTraceCapture) during a serve burst
+    # on another thread, as the gateway's executor captures beside serving
+    device_trace.configure(trace_dir=str(tmp / "xprof"), max_s=30.0)
+    texts = synth_texts(np.random.default_rng(SEED + 9), 64)
+    stop, batches = threading.Event(), [0]
+
+    def burst():
+        while not stop.is_set():
+            eng.embed_texts(texts)
+            batches[0] += 1
+
+    before = fa.launches
+    server = threading.Thread(target=burst, daemon=True)
+    server.start()
+    box = device_trace.capture(1.0)
+    stop.set()
+    server.join(60)
+    check(not server.is_alive(), "the serve burst beside the device trace did not end in 60 s")
+    batches = batches[0]
+    fa.launches = before  # a trace's burst, not the main path
+    check(box.get("status") == "captured", f"device trace: {box}")
+    events = json.loads((Path(box["artifact"]) / "trace.json").read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    b1 = [e for e in kernels if "flash_fwd" in e.get("name", "")]
+    check(len(b1) > 0, f"device trace of {box['window_s']} s over {batches} embed calls: "
+                       f"{len(kernels)} kernel events, none of B1's (flash_fwd_*_kernel)")
+    print(f"[obs] device trace (POST /api/profile/device's capture) of {box['window_s']} s "
+          f"during {batches} embed_texts calls of 64 texts: {len(kernels)} kernel events, "
+          f"{len(b1)} of B1 ({b1[0]['name'][:48]}), {sum(e.get('dur', 0) for e in b1):.0f} us; "
+          f"artifact {Path(box['artifact']).name}/trace.json", flush=True)
 
     oom_forensics.configure(postmortem_dir=str(tmp / "postmortem"))
     site = {"site": "smoke"}
@@ -1952,39 +2032,47 @@ def next_token_cosines(a: torch.Tensor, b: torch.Tensor) -> np.ndarray:
 
 def causal_gqa_kernel_phase(timed: bool = True) -> dict:
     """B1 at the generate path's prefill shapes: TinyLlama's causal GQA,
-    q [8, 32, S, 64] over k/v [8, 4, S, 64], bf16, left padding, against its
-    plain version on the real query rows; timed beside SDPA (enable_gqa, a
-    float mask with the causal and padding terms) and the bound."""
+    q [8, 32, S, 64] over k/v [8, 4, S, 64], bf16 at S 256 and 1024 and
+    float32 at [spec]'s prefill bucket, left padding, against its plain
+    version on the real query rows; timed beside SDPA (enable_gqa, a mask
+    with the causal and padding terms) and the bound. → rows by (S,
+    dtype)."""
     from symbiont_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     rng = np.random.default_rng(SEED + 7)
     rows = {}
-    for S in (256, 1024):
+    # bf16 at the generate path's buckets; float32 at [spec]'s prefill
+    # bucket, where its float32 TinyLlama target launches B1
+    for S, dtype in ((256, torch.bfloat16), (1024, torch.bfloat16),
+                     (PAGED["bucket"][1], torch.float32)):
+        dname = str(dtype)[6:]
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
         lens = list(rng.integers(S // 4, S + 1, GEN_ROWS - 1)) + [S]
-        q = torch.randn((GEN_ROWS, 32, S, 64), generator=gen, device="cuda").bfloat16()
-        k, v = (torch.randn((GEN_ROWS, 4, S, 64), generator=gen, device="cuda").bfloat16()
+        q = torch.randn((GEN_ROWS, 32, S, 64), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((GEN_ROWS, 4, S, 64), generator=gen, device="cuda").to(dtype)
                 for _ in range(2))
         bias = left_pad_bias(lens, S)
         out, lse = fa.flash_attention_with_lse(q, k, v, bias, causal=True)
         ref, ref_lse = fa.flash_attention_reference(q, k, v, bias, causal=True)
         real = real_query_rows(lens, S)
-        ok, err = real_rows_within(out, ref, real, 2e-2)
+        ok, err = real_rows_within(out, ref, real, tol)
         lse_err = float((((lse - ref_lse).abs() / (1 + ref_lse.abs())) * real).max())
-        check(bool(torch.isfinite(out.float()).all()), f"causal GQA S={S}: non-finite output")
-        check(ok, f"causal GQA S={S}: max |kernel - plain| {err:.4g} on real rows over 0.02")
-        check(lse_err <= 1e-4, f"causal GQA S={S}: lse relative error {lse_err:.3g} > 1e-4")
-        row = {"label": f"causal_gqa_S{S}", "max_abs_err": err}
-        line = (f"[kernels] flash_attn_fwd causal GQA q{tuple(q.shape)} k{tuple(k.shape)} bf16, "
-                f"left padding, real query rows: max_abs_err {err:.4g} (tol 0.02 abs + 0.02 "
-                f"rel), lse rel err {lse_err:.3g}")
+        label = f"causal GQA S={S} {dname}"
+        check(bool(torch.isfinite(out.float()).all()), f"{label}: non-finite output")
+        check(ok, f"{label}: max |kernel - plain| {err:.4g} on real rows over {tol}")
+        check(lse_err <= 1e-4, f"{label}: lse relative error {lse_err:.3g} > 1e-4")
+        row = {"label": f"causal_gqa_S{S}_{dname}", "dtype": dname, "max_abs_err": err}
+        line = (f"[kernels] flash_attn_fwd causal GQA q{tuple(q.shape)} k{tuple(k.shape)} "
+                f"{dname}, left padding, real query rows: max_abs_err {err:.4g} (tol {tol} abs "
+                f"+ {tol} rel), lse rel err {lse_err:.3g}")
         if timed:
             bound, bound_by = _bound_ms(q, k, v, bias, causal=True)
             ms = graph_ms(lambda: fa.flash_attention(q, k, v, bias, causal=True))
             plain = graph_ms(lambda: fa.flash_attention_reference(q, k, v, bias, causal=True),
                              iters=5)
             causal = torch.ones((S, S), dtype=torch.bool, device="cuda").tril()
-            mask = torch.where(causal[None, None], bias[:, None, None, :], -1e9).bfloat16()
+            mask = torch.where(causal[None, None], bias[:, None, None, :], -1e9).to(dtype)
             lib = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, enable_gqa=True))
             row |= {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
@@ -1993,7 +2081,7 @@ def causal_gqa_kernel_phase(timed: bool = True) -> dict:
                      f"enable_gqa) {lib:.4f}, bound_ms {bound:.4f} ({bound_by}), "
                      f"{bound / ms:.1%} of bound")
         print(line, flush=True)
-        rows[S] = row
+        rows[(S, dname)] = row
         del q, k, v, bias, out, lse, ref, ref_lse, real
     torch.cuda.empty_cache()
     return rows
@@ -2402,7 +2490,7 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
     from symbiont_tpu_torch.engine.lm import LmEngine
     from symbiont_tpu_torch.models import gpt as gpt_mod
     from symbiont_tpu_torch.obs.engine_timeline import engine_timeline
-    from symbiont_tpu_torch.obs.hbm import hbm_ledger
+    from symbiont_tpu_torch.obs.hbm import hbm_ledger, peak_temp_bytes
     from symbiont_tpu_torch.obs.xprof import dispatch_ledger
     from symbiont_tpu_torch.ops import flash_attention as fa
     from symbiont_tpu_torch.utils.telemetry import metrics
@@ -2561,8 +2649,8 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
     if cuda:
         check(forecast >= admit_bytes, f"the bytes forecast for one admission, {forecast:,}, is "
                                        f"under what its prefill took, {admit_bytes:,}")
-    print(f"[session] admission bytes: forecast for one row {forecast:,} (scratch term "
-          f"{eng._prefill_peak_growth:,}), headroom {headroom if headroom is None else f'{headroom:,}'}"
+    print(f"[session] admission bytes: forecast for one row {forecast:,} (scratch term, the "
+          f"largest lm.* temp_bytes {peak_temp_bytes('lm.'):,}), headroom {headroom if headroom is None else f'{headroom:,}'}"
           f", lm.can_admit(1) admits; the newcomer's prefill alone peaks "
           + (f"{admit_bytes:,} bytes above live" if cuda else "not measured (no card)"),
           flush=True)
@@ -3513,7 +3601,158 @@ def spec_rounds(events, k: int) -> dict:
             "tokens_per_round": float(np.mean(per)) if per else 0.0}
 
 
-def spec_phase(rng, tmp, tinyllama, sizes=None, device="cuda", lm_kw=None) -> dict:
+def spec_carry(sess) -> dict:
+    """A spec session's carried state of its live rows, each tensor by
+    name: the target's cache (its dense or int8 slabs, or the paged pool
+    and the page table), the drafter's cache, pending, pos, done, kv_valid
+    and logits; and the rows' tokens so far. A paged pool's scratch page
+    and the rows that are not live are left out: every unmapped slot
+    writes to the scratch page (rows of one call at once, so which write
+    lands is unordered), a padding or finished row of the paged layout
+    reads it back, and no live row ever reads it unmasked."""
+    from symbiont_tpu_torch.kv.paged import SCRATCH_PAGE
+    from symbiont_tpu_torch.models.gpt import PagedKVCache
+
+    live = torch.tensor([i for i, r in enumerate(sess.rows) if r is not None],
+                        dtype=torch.long, device=sess.lm.device)
+    out = {}
+    cache = sess._cache_in()
+    paged = isinstance(cache, PagedKVCache)
+    for name, t in zip(type(cache)._fields, cache):
+        if not isinstance(t, torch.Tensor):
+            continue
+        if name == "page_table":
+            t = t.index_select(0, live)
+        elif paged:  # [L, pages, page, ...]: every page but the scratch one
+            t = t.clone()
+            if t.shape[1]:
+                t[:, SCRATCH_PAGE] = 0
+        else:  # [L, rows, T, ...]
+            t = t.index_select(1, live)
+        out[f"cache.{name}"] = t
+    for name, t in zip(("k", "v"), sess._d_cache[:2] if sess._d_cache is not None else ()):
+        out[f"d_cache.{name}"] = t.index_select(1, live)
+    for name in ("_pending", "_pos", "_done", "_kv_valid", "_logits"):
+        if getattr(sess, name) is not None:
+            out[name[1:]] = getattr(sess, name).index_select(0, live)
+    out["tokens"] = [None if r is None else list(r.tokens) for r in sess.rows]
+    return out
+
+
+def last_round(events) -> tuple | None:
+    """(draft ms, verify ms) of the newest spec round in a timeline window,
+    or None when its newest step was a plain chunk."""
+    steps = [e for e in events if e["kind"] == "step"]
+    if not steps or "spec_proposed" not in steps[-1]:
+        return None
+    return steps[-1]["spec_draft_ms"], steps[-1]["spec_verify_ms"]
+
+
+def spec_twins(name: str, make, prompts, wants, admit=None, **sampling) -> dict:
+    """A spec session on a graphed engine beside its eager twin (an engine
+    built alike whose executables all run eagerly, `eager_executables`),
+    stepped in lockstep: after the start, every step() and an admission
+    (`admit` = (prompt, want) after the first step), every tensor of the
+    live rows' carried state (`spec_carry`) is bit-equal, as are the
+    rows' tokens and
+    the finished texts; so each round executable (spec_first, draft,
+    verify, ingest, track, chunk) gave its eager twin's outputs on the
+    same state. B1 launches 0 in the graphed engine's steps (rounds,
+    tracks and ingests replay, or capture at a device slot). → the eager
+    and graphed draft and verify ms of each round (CUDA events), the
+    capture ms of each executable the graphed session captured, by kind,
+    and the rounds."""
+    from symbiont_tpu_torch.obs.engine_timeline import engine_timeline
+    from symbiont_tpu_torch.ops import flash_attention as fa
+
+    graphed, twin = make(), make()
+
+    def same(g, e, when: str) -> None:
+        a, b = spec_carry(g), spec_carry(e)
+        check(set(a) == set(b), f"{name} {when}: carried state {sorted(a)} vs {sorted(b)}")
+        for key in a:
+            ok = a[key] == b[key] if key == "tokens" else torch.equal(a[key], b[key])
+            check(ok, f"{name} {when}: {key} graphed differs from its eager twin")
+
+    with eager_executables():
+        e = twin.start_session(prompts, wants, **sampling)
+    g = graphed.start_session(prompts, wants, **sampling)
+    carrier = g._carrier
+    same(g, e, "start")
+    rounds = {"graphed": [], "eager": []}
+    n = launches = 0
+    while not g.done():
+        before = fa.launches
+        fin_g = g.step()
+        launches += fa.launches - before
+        rounds["graphed"].append(last_round(engine_timeline.events()))
+        with eager_executables():
+            fin_e = e.step()
+        rounds["eager"].append(last_round(engine_timeline.events()))
+        n += 1
+        check(fin_g == fin_e, f"{name} step {n}: finished {fin_g} vs its eager twin's {fin_e}")
+        same(g, e, f"step {n}")
+        if n == 1 and admit is not None:
+            g.admit([admit[0]], [admit[1]], **sampling)
+            with eager_executables():
+                e.admit([admit[0]], [admit[1]], **sampling)
+            same(g, e, "admission")
+    check(e.done(), f"{name}: the eager twin is not done when the graphed session is")
+    check(launches == 0, f"{name}: B1 launches {launches} in step() (want 0: rounds, tracks, "
+                         "ingests and chunks read the cache)")
+    captures: dict = {}
+    for key, exe in carrier.exes.items():
+        captures.setdefault(key[0], []).append(exe.capture_s * 1e3)
+    g.close()
+    e.close()
+    pairs = [(a, b) for a, b in zip(rounds["eager"], rounds["graphed"]) if a and b]
+    return {"rounds": len(pairs), "proposed": graphed._spec_proposed,
+            "eager_draft_ms": [a[0] for a, _ in pairs], "eager_verify_ms": [a[1] for a, _ in pairs],
+            "draft_ms": [b[0] for _, b in pairs], "verify_ms": [b[1] for _, b in pairs],
+            "capture_ms": captures}
+
+
+# the executables whose rows `/api/engine/executables` must show analysed,
+# by signature prefix: the encoder's embed, the LM's prefill and decode
+# chunk, the spec plane's draft and verify
+ANALYSED = ("embed[", "lm.prefill[", "lm.decode_chunk[", "lm.draft_chunk[", "lm.verify_chunk[")
+
+
+def executables_rows(device="cuda", kinds=ANALYSED) -> dict:
+    """`GET /api/engine/executables`'s body (the gateway's handler, read
+    without a server): for each kind of `kinds`, its rows' largest
+    flops, bytes accessed and temp bytes (the capture's graph pool growth)
+    and the graded row of the largest flops, which must be nonzero (temp
+    bytes on the card only: the CPU measures no memory)."""
+    from symbiont_tpu_torch.services.api import ApiService
+
+    status, body = ApiService._engine_executables(ApiService.__new__(ApiService))
+    rows = json.loads(body)["executables"]
+    check(status == 200, f"/api/engine/executables answered {status}")
+    out = {}
+    for kind in kinds:
+        mine = [r for r in rows if r["executable"].startswith(kind)]
+        top = max(mine, key=lambda r: r["flops"] or 0, default=None)
+        check(top is not None and (top["flops"] or 0) > 0,
+              f"/api/engine/executables: no {kind}...] row with flops ({len(mine)} rows)")
+        temp = max((r["temp_bytes"] or 0 for r in mine), default=0)
+        check(device != "cuda" or temp > 0, f"/api/engine/executables: every {kind}...] row "
+                                            "has temp_bytes 0 or none")
+        out[kind.rstrip("[")] = {"rows": len(mine), "flops": top["flops"],
+                                 "bytes_accessed": top["bytes_accessed"], "temp_bytes": temp,
+                                 "signature": top["executable"],
+                                 "achieved_gflops_per_s": top["achieved_gflops_per_s"],
+                                 "dispatches": top["dispatches"]}
+    print("[obs] /api/engine/executables, analysed at capture: " + "; ".join(
+        f"{k} ({r['rows']} rows): {r['signature']} {r['flops']:.4g} flops, "
+        f"{r['bytes_accessed']:.4g} bytes, x{r['dispatches']}, achieved "
+        f"{r['achieved_gflops_per_s']} GFLOP/s over host wall; largest temp_bytes "
+        f"{r['temp_bytes']:,}" for k, r in out.items()), flush=True)
+    return out
+
+
+def spec_phase(rng, tmp, tinyllama, sizes=None, device="cuda", lm_kw=None,
+               analysed=None) -> dict:
     """ROADMAP A13 on the card, TinyLlama-1.1B the target (`tinyllama`,
     flash), spec_k 8, greedy. The identity checks run the target at
     float32: a bf16 forward of k + 1 tokens rounds differently from k + 1
@@ -3622,9 +3861,18 @@ def spec_phase(rng, tmp, tinyllama, sizes=None, device="cuda", lm_kw=None) -> di
             check(run["peak_pages"] > 0 and e_on.pool.pages_live == 0,
                   f"paged spec session: peak {run['peak_pages']} pages, "
                   f"{e_on.pool.pages_live} live after")
-        self_runs[layout] = {"acceptance": rate, **rounds,
-                             "tok_s": 8 * new * 1e3 / (run["start_ms"] + sum(run["step_ms"])),
-                             "plain_tok_s": 8 * new * 1e3 / (ref["start_ms"] + sum(ref["step_ms"]))}
+        # warm passes: each engine's executables captured by the runs above
+        warm_on = drive_session(e_on, prompts, [new] * 8)
+        warm_off = drive_session(e_off, prompts, [new] * 8)
+        check(warm_on["tokens"] == run["tokens"],
+              f"self-drafted {layout} session: a warm pass's tokens differ from the first's")
+
+        def tok_s(r):
+            return 8 * new * 1e3 / (r["start_ms"] + sum(r["step_ms"]))
+
+        self_runs[layout] = {"acceptance": rate, **rounds, "tok_s": tok_s(run),
+                             "plain_tok_s": tok_s(ref), "warm_tok_s": tok_s(warm_on),
+                             "warm_plain_tok_s": tok_s(warm_off)}
         if layout == "paged":
             del e_off, e_on
     print(f"[spec] self-drafted (the target's own params), spec_k {k}, TinyLlama at float32: a "
@@ -3634,7 +3882,9 @@ def spec_phase(rng, tmp, tinyllama, sizes=None, device="cuda", lm_kw=None) -> di
           f"target + {L} drafter prefill), 0 per round, track and ingest; " + "; ".join(
               f"{n}: {r['rounds']} rounds, draft {r['draft_ms']:.1f} ms, verify "
               f"{r['verify_ms']:.1f} ms a round, {r['tok_s']:.1f} tok/s against plain "
-              f"{r['plain_tok_s']:.1f}" for n, r in self_runs.items()), flush=True)
+              f"{r['plain_tok_s']:.1f} (both with their captures), warm {r['warm_tok_s']:.1f} "
+              f"against graphed plain {r['warm_plain_tok_s']:.1f}"
+              for n, r in self_runs.items()), flush=True)
 
     # -- drafts corrupted from slot 2: partial acceptance
     real = gpt_mod.draft_chunk
@@ -3647,7 +3897,11 @@ def spec_phase(rng, tmp, tinyllama, sizes=None, device="cuda", lm_kw=None) -> di
                                   drafts)
 
     ref = refs["dense"]
-    p0, a0 = on._spec_proposed, on._spec_accepted
+    del on
+    gc.collect()
+    # a fresh engine: its draft executable is captured from the corrupting
+    # draft_chunk (one captured before would replay the real one)
+    on = engine(draft=f32)
     gpt_mod.draft_chunk = corrupt
     try:
         fa.launches = 0  # ------------------------------------------------ main path
@@ -3655,11 +3909,11 @@ def spec_phase(rng, tmp, tinyllama, sizes=None, device="cuda", lm_kw=None) -> di
         counted += fa.launches  # ------------------------------------------ main path end
     finally:
         gpt_mod.draft_chunk = real
-    n_prop = proposed(on, p0, "corrupted session")
-    corrupt_rate = (on._spec_accepted - a0) / n_prop
+    n_prop = proposed(on, 0, "corrupted session")
+    corrupt_rate = on._spec_accepted / n_prop
     ties += same_or_near_tie("corrupted session", run["tokens"], ref["tokens"], off, by_tag)
     check(corrupt_rate == 2 / k, f"corrupted drafts: acceptance {corrupt_rate} != 2/{k}")
-    print(f"[spec] drafts corrupted from slot 2: acceptance {on._spec_accepted - a0}/{n_prop} = "
+    print(f"[spec] drafts corrupted from slot 2: acceptance {on._spec_accepted}/{n_prop} = "
           f"{corrupt_rate:.4f} (2/{k}), tokens spec-off's", flush=True)
     del on
     gc.collect()
@@ -3716,6 +3970,37 @@ def spec_phase(rng, tmp, tinyllama, sizes=None, device="cuda", lm_kw=None) -> di
                       f"{r['plain_tok_s']:.1f}, rows differing from spec-off "
                       f"{r['rows_differing']}/8" for dt, r in small.items()), flush=True)
 
+    # -- every round executable against its eager twin, in lockstep
+    twin_new = s.get("twin_new", 32)
+    small_dir = dataclasses.replace(base, spec_draft_model=str(tmp / "llama68m"))
+    twins = {}
+    for name, make, admit, sampling in (
+            ("self-drafted dense greedy", lambda: engine(draft=f32), (prompts[7], twin_new // 2),
+             dict(temperature=0.0)),
+            ("self-drafted paged sampled", lambda: engine(draft=f32, kv_layout="paged"), None,
+             dict(temperature=0.8, top_k=40)),
+            ("llama-68m int8 sampled", lambda: engine(small_dir, kv_quant="int8"),
+             (prompts[7], twin_new // 2), dict(temperature=0.8, top_k=40)),
+            ("llama-68m paged int8 greedy",
+             lambda: engine(small_dir, kv_layout="paged", kv_quant="int8"), None,
+             dict(temperature=0.0))):
+        tw = twins[name] = spec_twins(name, make, prompts[:7], [twin_new] * 7, admit, **sampling)
+        check(tw["rounds"] > 0 and tw["proposed"] > 0, f"{name}: no spec round ran ({tw})")
+        gc.collect()
+
+    def med(xs):
+        return float(np.median(xs)) if xs else 0.0
+
+    print(f"[spec] round executables against their eager twins (TinyLlama float32, 7 rows (and an admission) x "
+          f"{twin_new} new, spec_k {k}): after every start, step and admission the live rows' "
+          "caches, drafter cache, pending, pos, done, kv_valid, logits, tokens and finished texts "
+          "are bit-equal, B1 0 in every step; " + "; ".join(
+              f"{n}: {t['rounds']} rounds, draft ms eager {med(t['eager_draft_ms']):.2f} / "
+              f"graphed {med(t['draft_ms']):.2f}, verify ms eager {med(t['eager_verify_ms']):.2f}"
+              f" / graphed {med(t['verify_ms']):.2f} (medians), capture ms " + ", ".join(
+                  f"{kind} {max(ms):.1f}" for kind, ms in sorted(t["capture_ms"].items()))
+              for n, t in twins.items()), flush=True)
+
     # -- one verify_chunk at [rows, k + 1] over a long cache, bf16, flash
     eng = LmEngine(dataclasses.replace(base, dtype="bfloat16"), params=params, model_cfg=mcfg,
                    tokenizer=IdTokenizer())
@@ -3761,9 +4046,13 @@ def spec_phase(rng, tmp, tinyllama, sizes=None, device="cuda", lm_kw=None) -> di
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
-    return {"launches": counted, "self_drafted": self_runs, "corrupted_acceptance": corrupt_rate,
+    # a CPU rehearsal (or [spec] run alone) has no encoder rows: the LM's only
+    if analysed is None:
+        analysed = ANALYSED if device == "cuda" else ANALYSED[1:]
+    executables = executables_rows(device, analysed)
+    return {"launches": counted, "executables": executables, "self_drafted": self_runs, "corrupted_acceptance": corrupt_rate,
             "llama_68m": small, "verify": {"cosine_min": float(cos.min()), "max_abs_diff": max_diff},
-            "near_ties": ties}
+            "twins": twins, "near_ties": ties}
 
 
 # ---------------------------------------------------------------- lmtrain
@@ -3822,9 +4111,23 @@ def lm_backward_kernel_rows(sizes=None, timed: bool = True, device: str = "cuda"
             lse_err = float(((lse - ref_lse).abs() / (1 + ref_lse.abs())).max())
             check(fwd_ok, f"lm fwd {label}: B1 |kernel - plain| {fwd_err:.4g} over {tol}")
             check(lse_err <= 1e-4, f"lm fwd {label}: B1 lse relative error {lse_err:.3g} > 1e-4")
-            print(f"[lmtrain] flash_attn_fwd causal q/k/v{tuple(q.shape)} {str(dtype)[6:]}, "
-                  f"no bias: max_abs_err {fwd_err:.4g} (tol {tol} abs + {tol} rel), "
-                  f"lse rel err {lse_err:.3g}", flush=True)
+            fwd_row = {"max_abs_err": fwd_err, "lse_rel_err": lse_err}
+            fwd_line = (f"[lmtrain] flash_attn_fwd causal q/k/v{tuple(q.shape)} {str(dtype)[6:]}, "
+                        f"no bias: max_abs_err {fwd_err:.4g} (tol {tol} abs + {tol} rel), "
+                        f"lse rel err {lse_err:.3g}")
+            if timed:  # B1 beside its plain version, SDPA's causal forward and its bound
+                f_bound, f_by = _bound_ms(q, k, v, bias, causal=True)
+                f_ms = graph_ms(lambda: fa.flash_attention(q, k, v, None, causal=True))
+                f_plain = graph_ms(lambda: fa.flash_attention_reference(q, k, v, None,
+                                                                        causal=True), iters=5)
+                f_lib = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=True))
+                fwd_row |= {"ms": f_ms, "plain_ms": f_plain, "bound_ms": f_bound,
+                            "bound_by": f_by, "library_ms": f_lib}
+                fwd_line += (f"; ms {f_ms:.4f} (graph replay), plain_ms {f_plain:.4f}, "
+                             f"library_ms (SDPA, is_causal) {f_lib:.4f}, bound_ms {f_bound:.4f} "
+                             f"({f_by}), {f_bound / f_ms:.1%} of bound")
+            print(fwd_line, flush=True)
             del ref_out, ref_lse
             args = (q, k, v, bias, g, lse, fa.bwd_delta(g, out), True, scale)
             if device == "cuda":
@@ -3853,7 +4156,7 @@ def lm_backward_kernel_rows(sizes=None, timed: bool = True, device: str = "cuda"
                             "causal, no bias",
                    "max_abs_err": {"kv": max(errs["dk"], errs["dv"], errs["dbias"]),
                                    "q": errs["dq"]},
-                   "fwd": {"max_abs_err": fwd_err, "lse_rel_err": lse_err}}
+                   "fwd": fwd_row}
             if timed:
                 bounds = _bwd_bound_ms(q, k, True)
                 ms_kv = graph_ms(lambda: fa.bwd_kv(*args))
@@ -5004,7 +5307,8 @@ async def _fleet_search(rng, tmp, s, device, engine_kw, sup_log) -> dict:
             t1 = time.perf_counter()
             body = await ok_json("POST", "/api/search/semantic",
                                  {"query_text": q, "top_k": s["top_k"], "rerank": True},
-                                 headers=({"X-Trace-Id": "fleet-search"}
+                                 headers=({"X-Trace-Id": "fleet-first-search"} if i == 0
+                                          else {"X-Trace-Id": "fleet-search"}
                                           if i == len(queries) - 1 else None))
             lat.append((time.perf_counter() - t1) * 1e3)
             check(body["error_message"] is None and len(body["results"]) == s["top_k"],
@@ -5032,13 +5336,18 @@ async def _fleet_search(rng, tmp, s, device, engine_kw, sup_log) -> dict:
 
         hops = {"api.search", "preprocessing.handle", "vector_memory.search", "engine.rerank"}
 
-        async def stitched():
+        async def stitched(trace_id):
             # every hop's span federated (each role publishes every 0.3 s)
-            st, raw = await http("GET", "/api/traces/fleet-search")
+            st, raw = await http("GET", f"/api/traces/{trace_id}")
             tree = json.loads(raw) if st == 200 else {}
             return tree if (trace_processes(tree) >= 3 and len(tree.get("roots", [])) == 1
                             and hops <= span_names(tree)) else None
-        tree = await _until(stitched, "a search trace stitched over 3 processes", limit, 0.1)
+        tree = await _until(lambda: stitched("fleet-search"),
+                            "a search trace stitched over 3 processes", limit, 0.1)
+        # the first search's hops: where its first calls (the memory
+        # role's search, the engine's captures) spend their time
+        first_tree = await _until(lambda: stitched("fleet-first-search"),
+                                  "the first search's trace stitched", limit, 0.1)
 
         async def exposition():
             st, raw = await http("GET", "/metrics", accept="text/plain")
@@ -5062,10 +5371,11 @@ async def _fleet_search(rng, tmp, s, device, engine_kw, sup_log) -> dict:
             "ingest": {"sentences": n_sent, "seconds": ingest_s,
                        "sentences_per_s": n_sent / ingest_s, "embed_batches": embed_b},
             "search": {"queries": len(queries), "p50_ms": float(np.percentile(lat, 50)),
-                       "p95_ms": float(np.percentile(lat, 95)), "fallbacks": fallbacks},
+                       "p95_ms": float(np.percentile(lat, 95)), "first_ms": lat[0],
+                       "max_ms": max(lat), "fallbacks": fallbacks},
             "b1": {"launches": counted, "equation": equation},
             "trace_processes": trace_processes(tree), "roles": sorted(fleet["roles"]),
-            "search_hops": search_hops(tree),
+            "search_hops": search_hops(tree), "first_search_hops": search_hops(first_tree),
             "drain": {"replica": replica, "clean": clean, "seconds": drain_s},
             "memory": {"embed (this process, allocated)": torch.cuda.memory_allocated()
                        if device == "cuda" else None,
@@ -5412,14 +5722,15 @@ def fleet_phase(rng, tmp, sizes=None, device="cuda", engine_kw=None, lm_kw=None)
           f"process; {ing['sentences']} sentences in {ing['seconds']:.2f} s = "
           f"{ing['sentences_per_s']:.1f} sentences/s; {se['queries']} searches with rerank "
           f"(2-hop: the store is the memory role's), HTTP p50 {se['p50_ms']:.2f} ms, p95 "
-          f"{se['p95_ms']:.2f} ms, {se['fallbacks']} fallbacks, hits = search_fused on the "
+          f"{se['p95_ms']:.2f} ms, first {se['first_ms']:.2f} ms, max {se['max_ms']:.2f} ms, "
+          f"{se['fallbacks']} fallbacks, hits = search_fused on the "
           f"memory role's rows ({se['near_ties']} near-ties), rerank max |err| "
           f"{se['rerank_max_abs_err']:.3g}; graph {search['graph_documents']} documents",
           flush=True)
-    print(f"[fleet] ({card}) the last search's spans (role: ms, self ms), in start order: "
-          + ", ".join(f"{name} ({role}: {ms:.2f}, {own:.2f})"
-                      for name, role, ms, own in search["search_hops"])
-, flush=True)
+    for which, key in (("first", "first_search_hops"), ("last", "search_hops")):
+        print(f"[fleet] ({card}) the {which} search's spans (role: ms, self ms), in start "
+              f"order: " + ", ".join(f"{name} ({role}: {ms:.2f}, {own:.2f})"
+                                     for name, role, ms, own in search[key]), flush=True)
     print(f"[fleet] ({card}) a search's trace stitched over {search['trace_processes']} "
           f"processes; /metrics and /api/fleet name {', '.join(search['roles'])}; scale-in "
           f"drained {search['drain']['replica']} cleanly in {search['drain']['seconds']:.2f} "
@@ -5470,10 +5781,26 @@ def main(argv=()) -> int:
         return 2
     if args.memory_history:
         torch.cuda.memory._record_memory_history(max_entries=200_000, stacks="python")
+    # past the run's time limit, every thread's stack on stderr and exit 1,
+    # so a phase that hangs names where (and no result is printed)
+    faulthandler.dump_traceback_later(CHIP_LIMIT_S - 30, exit=True, file=sys.__stderr__)
+    try:
+        return _run_phases()
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+def _run_phases() -> int:
+    """Every phase in turn, then the kernels line and the result line."""
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)", flush=True)
     rng = np.random.default_rng(SEED)
+    # the dispatch ledger keeps every executable of the run (its rows are
+    # read after [spec]), where the runner bounds it by obs.xprof_executables
+    from symbiont_tpu_torch.obs.xprof import dispatch_ledger
+
+    dispatch_ledger.configure(max_executables=100_000)
     wall = {}  # phase -> host seconds
     t0 = time.perf_counter()
 
@@ -5532,9 +5859,9 @@ def main(argv=()) -> int:
           + ", ".join(f"{k} {v}" for k, v in fwd.items()) + f"; total {fwd_launches}",
           flush=True)
     entries = []
-    causal_gqa = [{"shape": f"q [8, 32, {S}, 64], k/v [8, 4, {S}, 64] bf16, causal, left "
+    causal_gqa = [{"shape": f"q [8, 32, {S}, 64], k/v [8, 4, {S}, 64] {dname}, causal, left "
                             f"padding", **{k: v for k, v in r.items() if k != "label"}}
-                  for S, r in gqa.items()]
+                  for (S, dname), r in gqa.items()]
     for name, src, line, ref, launches, shape in (
             ("flash_attn_fwd", "flash_attn_fwd.cu", 81, kern["enc_S128"], fwd_launches,
              "q/k/v [32, 12, 128, 64] bf16, padding bias"),

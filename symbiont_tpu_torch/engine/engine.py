@@ -364,17 +364,17 @@ class TorchEngine:
                 engine._note_compile(sig, seconds)
 
         exe, won = self._exec_cache.put(key, Executable(fn, self.device, pool=self._graph_pool,
-                                                        on_first=on_first))
+                                                        on_first=on_first, signature=sig))
         if won:
             self._bump(compiles=1)
         return exe
 
     def _note_compile(self, sig: str, seconds: float) -> None:
-        """An executable's first call: its seconds into `compile_s`, a
-        compile in the dispatch ledger (no cost analysis) and a span on the
-        `engine-compiles` trace, as the JAX engine's `_time_first_call`."""
+        """An executable's first call: its seconds into `compile_s` and a
+        span on the `engine-compiles` trace, as the JAX engine's
+        `_time_first_call` (the executable notes its capture, cost and
+        memory in the dispatch ledger itself)."""
         self._bump(compile_s=seconds)
-        dispatch_ledger.note_compile(sig, None)
         record_compile_event("engine.compile", seconds, start_s=time.time() - seconds,
                              signature=sig)
 

@@ -87,6 +87,17 @@ admits. The carry that `merge_rows` splices in place stays bound; a
 shorter last chunk runs eagerly. The generator is registered with the
 graph, so a replay draws what the eager chunk would.
 
+Spec round executables, as JAX's `_spec_first_jit`, `_draft_chunk_jit`,
+`_verify_chunk_jit`, `_ingest_pending_jit` and `_track_chunk_jit` (A16
+stage 4): the same carrier holds the drafter's dense cache (a spec
+borrower's drafter prefill lands in it) and `pending`, and each round
+function runs at a device slot index with its sampling triple built
+outside, so on CUDA the draft (spec_k drafter steps and the extra
+forward), the verify, `spec_first`, the ingest and a track per window
+width are graphs captured at their first call and replayed after, one per
+shape. Draft and verify stay two replays, timed by CUDA events around
+them; the round keeps its one device → host fetch.
+
 Prefill executables, as JAX's `prefill` jitted per (B, P, max_new): one
 executable per (model, kv_quant, rows, prompt bucket, new bucket)
 (`_prefill`), its static inputs the prompt ids and mask, its outputs the
@@ -98,8 +109,7 @@ replay lock of their own (`_stage_lock`), so an admission prefill replays
 beside a decoding `step()` without the engine lock. A model's executables
 are bounded by their caches' bytes, the cache of one session at the
 largest geometry the configuration admits, least recently used first out
-(`_trim_prefills`). The spec plane's rounds stay eager (ROADMAP A16 stage
-4). On the CPU the same executables run eagerly. `update_params` (the
+(`_trim_prefills`). On the CPU the same executables run eagerly. `update_params` (the
 online fine-tune's sync, `train/online.py`) copies the new weights into
 the tensors every executable reads, so a sync captures nothing again.
 
@@ -134,7 +144,7 @@ from symbiont_tpu_torch.models.convert import load_gpt_model
 from symbiont_tpu_torch.models.gpt import GPTConfig, PagedKVCache
 from symbiont_tpu_torch.obs.device import local_device_stats
 from symbiont_tpu_torch.obs.engine_timeline import engine_timeline
-from symbiont_tpu_torch.obs.hbm import guard_oom, hbm_ledger
+from symbiont_tpu_torch.obs.hbm import guard_oom, hbm_ledger, peak_temp_bytes
 from symbiont_tpu_torch.obs.usage import usage
 from symbiont_tpu_torch.obs.xprof import dispatch_ledger
 from symbiont_tpu_torch.resilience.admission import DEFAULT_TENANT
@@ -238,33 +248,52 @@ def _refuse_unported(cfg: LmConfig, mesh) -> None:
                          "ported (ROADMAP A15: multi-device)")
 
 
+def _slot(length) -> torch.Tensor:
+    """A cache's host length as the 0-d int64 input of an executable that
+    runs at a device slot index."""
+    return torch.tensor(length, dtype=torch.int64)
+
+
 class _CarryDecoder:
-    """Decode chunks as executables bound to one carry: the dense or int8
-    cache, logits, pos, done and kv_valid a chunk reads and writes in
-    place (the state the JAX `_decode_chunk_jit` donates). On CUDA each
-    (steps, top-k bucket, eos, generator) is a graph captured on the carry
-    at its first chunk and replayed after, the generator registered with
-    it; on the CPU the same chunk runs eagerly. The chunk decodes at the
-    device slot `gpt.decode_chunk` takes from a 0-d `length`, so one graph
-    serves every chunk of its shape.
+    """Decode chunks and speculative rounds as executables bound to one
+    carry: the dense or int8 cache (or the paged page table), logits, pos,
+    done and kv_valid a chunk reads and writes in place (the state the JAX
+    `_decode_chunk_jit` donates), and, for the spec plane, the drafter's
+    dense cache (`d_cache0`) and `pending`. On CUDA each shape is a graph
+    captured on the carry at its first call and replayed after, a
+    generator it draws from registered with it; on the CPU the same
+    functions run eagerly. Every executable runs at the device slot index
+    the `gpt` functions take from a 0-d `length`, so one graph serves
+    every slot:
+
+    - a chunk per (steps, top-k bucket, eos, generator);
+    - `spec_first` per (top-k bucket, eos, generator); the draft per
+      spec_k (spec_k drafter steps and the extra forward); the verify per
+      (spec_k, top-k bucket, eos, generator); one ingest; a track per
+      window width (JAX's `_spec_first_jit`, `_draft_chunk_jit`,
+      `_verify_chunk_jit`, `_ingest_pending_jit`, `_track_chunk_jit`, one
+      executable per shape). Draft and verify stay two replays, so a
+      round's draft and verify times keep their meaning.
 
     The engine lends carriers out of a pool by geometry (`_take_carrier`):
     a `generate_batch` call, a stream or a dense session takes its prefill
     in the carrier's cache (`cache0`), a paged session writes its page
     table into the carrier's (`page_table`, `[rows, n_blocks]`, which the
-    paged chunk's graph reads), and each draws from the carrier's generator
-    (`generator`, reseeded per use) and gives it back when it is retired,
-    so the next caller of that geometry replays the graphs already
-    captured, as JAX reuses its executable per shape. A carrier holds no
-    reference to the engine: a dropped engine frees its pool without a
-    cyclic collection.
+    paged executables read), a spec stream or session takes its drafter
+    prefill in `draft_cache(dcfg)`, and each draws from the carrier's
+    generator (`generator`, reseeded per use) and gives the carrier back
+    when it is retired, so the next caller of that geometry replays the
+    graphs already captured, as JAX reuses its executable per shape. A
+    carrier holds no reference to the engine: a dropped engine frees its
+    pool without a cyclic collection.
 
-    `chunk` adopts the state it is given: a tensor that is not the bound
-    one (a new prefill's, or what spec rounds, `ingest_pending` and an
-    eager last chunk hand back) is copied into the bound one, which the
-    caller keeps from then on. A cache whose slabs or page table are not
-    the bound ones rebinds the decoder (its graphs dropped). The caller
-    holds the engine lock."""
+    Each call adopts the state it is given: a tensor that is not the bound
+    one (a new prefill's, or what an eager last chunk hands back) is
+    copied into the bound one, which the caller keeps from then on. A
+    cache whose slabs or page table are not the bound ones rebinds the
+    decoder (its graphs dropped). A splice (`merge_rows`,
+    `merge_cache_rows`) writes the bound tensors in place, so a call after
+    an admission replays. The caller holds the engine lock."""
 
     def __init__(self, device, pool: Optional[GraphPool] = None, key=None, cache0=None,
                  page_table: Optional[torch.Tensor] = None):
@@ -273,15 +302,19 @@ class _CarryDecoder:
         self.key = key  # (KV layout, rows, prompt bucket, new bucket)
         self.cache0 = cache0  # dense: the cache a borrower's prefill lands in
         self.page_table = page_table  # paged: the device page table
+        self.d_cache0 = None  # the drafter's dense cache at this geometry
+        self.pending = None  # [rows] int64, the spec state's pending token
         self.gen: Optional[torch.Generator] = None
         self.carry = None
         self.exes: dict = {}
 
     def nbytes(self) -> int:
-        """Device bytes of the carrier's cache or page table."""
+        """Device bytes of the carrier's cache or page table and drafter
+        cache."""
+        n = 0 if self.d_cache0 is None else gpt_mod.cache_bytes(self.d_cache0)
         if self.page_table is not None:
-            return quant.tensor_bytes(self.page_table)
-        return 0 if self.cache0 is None else gpt_mod.cache_bytes(self.cache0)
+            return n + quant.tensor_bytes(self.page_table)
+        return n + (0 if self.cache0 is None else gpt_mod.cache_bytes(self.cache0))
 
     def generator(self, seed: int) -> torch.Generator:
         """The carrier's generator, seeded with `seed` (the graphs that
@@ -291,6 +324,15 @@ class _CarryDecoder:
         else:
             self.gen.manual_seed(seed)
         return self.gen
+
+    def draft_cache(self, dcfg: GPTConfig):
+        """The drafter's dense cache at this geometry (length 0), made at
+        its first use: a spec borrower's drafter prefill lands in it."""
+        _, rows, P, new = self.key
+        if self.d_cache0 is None:
+            self.d_cache0 = gpt_mod.init_cache(dcfg, rows, P + new, torch_dtype(dcfg.dtype),
+                                               self.device)
+        return self.d_cache0
 
     def _adopt(self, cache, logits, pos, done, kv_valid):
         if (self.carry is None or self.carry[0].k is not cache.k
@@ -305,6 +347,27 @@ class _CarryDecoder:
                 mine.copy_(cur)
         return (cache, *bound)
 
+    def _bound_pending(self, pending=None) -> torch.Tensor:
+        """The bound `pending` [rows] (made at its first use), `pending`
+        copied in when it is another tensor."""
+        if self.pending is None:
+            self.pending = torch.zeros_like(self.carry[3], dtype=torch.int64)
+        if pending is not None and pending is not self.pending:
+            self.pending.copy_(pending)
+        return self.pending
+
+    def _exe(self, key, params, fn, sig: str, carry=(), gen=None, warm=None,
+             warm_scale: int = 1) -> Executable:
+        exe = self.exes.get(key)
+        if exe is None or exe.params is not params:
+            cuda = self.device.type == "cuda"
+            exe = self.exes[key] = Executable(
+                fn, self.device, pool=self.pool,
+                generators=(gen,) if cuda and gen is not None else (), carry=carry,
+                warm=warm, warm_scale=warm_scale, signature=sig)
+            exe.params = params
+        return exe
+
     def chunk(self, params, cfg: GPTConfig, gen: torch.Generator, cache, logits, pos, done,
               kv_valid, steps: int, temps, ks, eos_id: int, sig: str):
         """`steps` decode steps of the model `params`/`cfg` → (cache,
@@ -314,30 +377,126 @@ class _CarryDecoder:
         `steps`."""
         cache, logits, pos, done, kv_valid = self._adopt(cache, logits, pos, done, kv_valid)
         t, k, bucket = gpt_mod._norm_sampling(temps, ks, logits.shape[0], cfg.vocab_size)
-        key = (steps, bucket, eos_id, gen)
-        exe = self.exes.get(key)
-        if exe is None or exe.params is not params:
-            base = cache
+        base = cache
 
-            def fn(slot, t, k, n=steps):
-                _, lg, ps, dn, toks, counted = gpt_mod.decode_chunk(
-                    params, base._replace(length=slot), logits, pos, done, kv_valid, gen,
-                    n, cfg, eos_id=eos_id, sampling=(t, k, bucket))
-                logits.copy_(lg)
-                pos.copy_(ps)
-                done.copy_(dn)
-                return toks, counted
+        def fn(slot, t, k, n=steps):
+            _, lg, ps, dn, toks, counted = gpt_mod.decode_chunk(
+                params, base._replace(length=slot), logits, pos, done, kv_valid, gen,
+                n, cfg, eos_id=eos_id, sampling=(t, k, bucket))
+            logits.copy_(lg)
+            pos.copy_(ps)
+            done.copy_(dn)
+            return toks, counted
 
-            cuda = self.device.type == "cuda"
-            exe = self.exes[key] = Executable(
-                fn, self.device, pool=self.pool, generators=(gen,) if cuda else (),
-                carry=(logits, pos, done),
-                on_first=lambda s: dispatch_ledger.note_compile(sig, None),
-                warm=lambda slot, t, k: fn(slot, t, k, n=1))  # one step's kernels
-            exe.params = params
-        toks, counted = exe(torch.tensor(cache.length, dtype=torch.int64), t, k)
+        exe = self._exe(("chunk", steps, bucket, eos_id, gen), params, fn, sig,
+                        carry=(logits, pos, done), gen=gen,
+                        warm=lambda slot, t, k: fn(slot, t, k, n=1),  # one step's kernels
+                        warm_scale=steps)
+        toks, counted = exe(_slot(cache.length), t, k)
         return (cache._replace(length=cache.length + steps), logits, pos, done, kv_valid, toks,
                 counted)
+
+    def spec_first(self, cfg: GPTConfig, gen: torch.Generator, state, temps, ks, eos_id: int,
+                   sig: str):
+        """plain → spec (`gpt.spec_first`) on the bound state → (state,
+        pending, tok, counted): `pending` the bound tensor holding the
+        sampled token, `tok` a copy of it, `done` updated in place."""
+        cache, logits, pos, done, kv_valid = state = self._adopt(*state)
+        pending = self._bound_pending()
+        t, k, bucket = gpt_mod._norm_sampling(temps, ks, logits.shape[0], cfg.vocab_size)
+
+        def fn(t, k):
+            tok, counted, dn = gpt_mod.spec_first(logits, done, gen, cfg, eos_id=eos_id,
+                                                  sampling=(t, k, bucket))
+            pending.copy_(tok)
+            done.copy_(dn)
+            return tok, counted
+
+        exe = self._exe(("spec_first", bucket, eos_id, gen), None, fn, sig,
+                        carry=(pending, done), gen=gen)
+        tok, counted = exe(t, k)
+        return state, pending, tok, counted
+
+    def draft(self, d_params, dcfg: GPTConfig, d_cache, state, pending, spec_k: int, sig: str):
+        """The drafter's round (`gpt.draft_chunk`) on the carrier's drafter
+        cache (`d_cache` is it, at its host length) → (d_cache, drafts
+        [rows, spec_k]), the cache's host length advanced by spec_k + 1."""
+        cache, logits, pos, done, kv_valid = self._adopt(*state)
+        pending = self._bound_pending(pending)
+        base = self.d_cache0
+
+        def fn(slot):
+            return gpt_mod.draft_chunk(d_params, base._replace(length=slot), pending, pos, done,
+                                       kv_valid, dcfg, spec_k)[1]
+
+        def warm(slot):  # one of the round's spec_k + 1 drafter forwards: its kernels
+            gpt_mod.forward(d_params, pending[:, None], base._replace(length=slot), pos[:, None],
+                            dcfg, kv_valid)
+
+        drafts = self._exe(("draft", spec_k), d_params, fn, sig, warm=warm,
+                           warm_scale=spec_k + 1)(_slot(d_cache.length))
+        return base._replace(length=d_cache.length + spec_k + 1), drafts
+
+    def verify(self, params, cfg: GPTConfig, gen: torch.Generator, state, pending, drafts,
+               temps, ks, eos_id: int, sig: str):
+        """The target's round (`gpt.verify_chunk`) on the bound state →
+        (state, pending, out, counted, emitted): pending, pos, done and
+        kv_valid written in place, the cache's host length advanced by
+        k + 1."""
+        cache, logits, pos, done, kv_valid = self._adopt(*state)
+        pending = self._bound_pending(pending)
+        t, k, bucket = gpt_mod._norm_sampling(temps, ks, logits.shape[0], cfg.vocab_size)
+        base = cache
+
+        def fn(slot, drafts, t, k):
+            _, pd, ps, dn, _, out, counted, emitted = gpt_mod.verify_chunk(
+                params, base._replace(length=slot), pending, drafts, pos, done, kv_valid, gen,
+                cfg, eos_id=eos_id, sampling=(t, k, bucket))
+            pending.copy_(pd)
+            pos.copy_(ps)
+            done.copy_(dn)
+            return out, counted, emitted
+
+        spec_k = drafts.shape[1]
+        exe = self._exe(("verify", spec_k, bucket, eos_id, gen), params, fn, sig,
+                        carry=(pending, pos, done, kv_valid), gen=gen)
+        out, counted, emitted = exe(_slot(cache.length), drafts, t, k)
+        return ((cache._replace(length=cache.length + spec_k + 1), logits, pos, done, kv_valid),
+                pending, out, counted, emitted)
+
+    def ingest(self, params, cfg: GPTConfig, state, pending, sig: str):
+        """spec → plain (`gpt.ingest_pending`) on the bound state → the
+        state, its logits and pos written in place, the cache's host
+        length advanced by 1."""
+        cache, logits, pos, done, kv_valid = self._adopt(*state)
+        pending = self._bound_pending(pending)
+        base = cache
+
+        def fn(slot):
+            _, lg, ps = gpt_mod.ingest_pending(params, base._replace(length=slot), pending, pos,
+                                               done, kv_valid, cfg)
+            logits.copy_(lg)
+            pos.copy_(ps)
+            return ()
+
+        self._exe(("ingest",), params, fn, sig, carry=(logits, pos))(_slot(cache.length))
+        return cache._replace(length=cache.length + 1), logits, pos, done, kv_valid
+
+    def track(self, d_params, dcfg: GPTConfig, d_cache, state, toks, start_pos, sig: str):
+        """The drafter's lockstep (`gpt.track_chunk`) of `toks` [rows, S]
+        at `start_pos` on the carrier's drafter cache (`d_cache`, at its
+        host length) → the drafter cache, its host length advanced by S."""
+        kv_valid = self._adopt(*state)[4]
+        base = self.d_cache0
+
+        def fn(slot, toks, start_pos):
+            gpt_mod.track_chunk(d_params, base._replace(length=slot), toks, start_pos, kv_valid,
+                                dcfg)
+            return ()
+
+        S = toks.shape[1]
+        self._exe(("track", S), d_params, fn, sig)(_slot(d_cache.length), toks, start_pos)
+        return base._replace(length=d_cache.length + S)
 
 
 class LmEngine:
@@ -415,10 +574,6 @@ class LmEngine:
         # session starts and admissions, so captured: the batcher's guess of
         # whether an admission prefill is cheap (GenBatcher._filter_candidates)
         self._prefill_shapes: set = set()
-        # the most bytes one target prefill executable took at its capture
-        # (its cache, the eager warm-up's peak, the graph's pool growth):
-        # the scratch term of the admission bytes forecast (`_prefill`)
-        self._prefill_peak_growth = 0
         self.stats = {"generate_calls": 0, "tokens_generated": 0, "decode_s": 0.0}
         # live sessions (BatchSession registers itself), weak so a finished
         # one drops out of the KV gauges; their own lock, since sessions
@@ -863,13 +1018,9 @@ class LmEngine:
         `torch.inference_mode()`.
 
         The first call of a key captures its graph on the card (there is no
-        eager fallback): its growth in device bytes, the executable's cache,
-        the eager warm-up's peak and the graph pool's growth, is the
-        scratch term of `_admit_bytes_forecast` when it is the target's (a
-        replay allocates only its outputs). The allocator keeps one peak for
-        the whole process, so the reading is exact only when the capture
-        raises it, and other threads' allocations meanwhile count too (an
-        overestimate)."""
+        eager fallback); its graph pool's growth is the executable's
+        `temp_bytes` in the dispatch ledger, which `_admit_bytes_forecast`
+        reads."""
         cfg = self.model_cfg if model == "target" else self._draft[1]
         bb, P = prompt_ids.shape
         key = (model, cfg.kv_quant, bb, P, new_bucket)
@@ -880,17 +1031,10 @@ class LmEngine:
             exe = self._prefills.get(key)
             fresh = exe is None or exe.params is not params
             if fresh:
-                if cuda:
-                    live0 = torch.cuda.memory_allocated(self.device)
-                    peak0 = torch.cuda.max_memory_allocated(self.device)
                 exe = self._prefill_exe(key, params, cfg, stale=exe)
             logits, kv_valid, prompt_len = exe(ids, mask)
             if fresh and cuda:
                 self.prefill_captures[model] += 1
-                if model == "target":
-                    peak = torch.cuda.max_memory_allocated(self.device)
-                    top = peak if peak > peak0 else torch.cuda.memory_allocated(self.device)
-                    self._prefill_peak_growth = max(self._prefill_peak_growth, top - live0)
             if fresh:
                 self._trim_prefills(key)
             staged = exe.cache._replace(length=P)
@@ -921,8 +1065,7 @@ class LmEngine:
 
         name = "lm.prefill" if key[0] == "target" else "lm.draft_prefill"
         sig = f"{name}[P={P},B={bb},new={new_bucket}]"
-        exe = Executable(fn, self.device, pool=self._stage_pool,
-                         on_first=lambda s: dispatch_ledger.note_compile(sig, None))
+        exe = Executable(fn, self.device, pool=self._stage_pool, signature=sig)
         exe.params, exe.cache = params, cache
         if stale is not None:
             self._prefills.drop(key)
@@ -972,12 +1115,13 @@ class LmEngine:
         return sum(st["cache_bytes"].values()) + st["pool_bytes"]
 
     def _draft_prefill(self, prompt_ids: np.ndarray, prompt_mask: np.ndarray,
-                       new_bucket: int):
+                       new_bucket: int, cache=None):
         """The drafter's dense cache at the target's (prompt, new) geometry,
         slot for slot the target's, so both share one kv_valid, pos and
-        done: a clone out of the drafter's prefill executable. Call under
-        `torch.inference_mode()`."""
-        return self._prefill(self._draft[0], prompt_ids, prompt_mask, new_bucket,
+        done, out of the drafter's prefill executable: its prompt slots
+        copied into `cache` (a carrier's `draft_cache`), or a clone. Call
+        under `torch.inference_mode()`."""
+        return self._prefill(self._draft[0], prompt_ids, prompt_mask, new_bucket, cache=cache,
                              model="draft")[0]
 
     def generate_stream(self, prompt: str, max_new_tokens: int,
@@ -1111,7 +1255,10 @@ class LmEngine:
                 done = torch.zeros((bb,), dtype=torch.bool, device=self.device)
                 dt = time.perf_counter() - t0
                 if spec_on:
-                    d_cache = self._draft_prefill(prompt_ids, prompt_mask, new_bucket)
+                    # the drafter's prompt slots into the carrier's drafter
+                    # cache, which the round executables are bound to
+                    d_cache = self._draft_prefill(prompt_ids, prompt_mask, new_bucket,
+                                                  cache=carrier.draft_cache(self._draft[1]))
             decode_s += time.perf_counter() - t0
         dispatch_ledger.note_dispatch(f"lm.prefill[P={P},B={bb},new={new_bucket}]", dt)
         if spec_on:
@@ -1171,9 +1318,10 @@ class LmEngine:
                         with self._lock:
                             t1 = time.perf_counter()
                             with torch.inference_mode():
-                                cache, logits, pos = gpt_mod.ingest_pending(
-                                    self.params, cache, pending, pos, done, kv_valid,
-                                    self.model_cfg)
+                                cache, logits, pos, done, kv_valid = carrier.ingest(
+                                    self.params, self.model_cfg,
+                                    (cache, logits, pos, done, kv_valid), pending,
+                                    "lm.ingest_pending[B=1]")
                             dt1 = time.perf_counter() - t1
                             decode_s += dt1
                         dispatch_ledger.note_dispatch("lm.ingest_pending[B=1]", dt1)
@@ -1182,6 +1330,7 @@ class LmEngine:
                     spec_on = False
                 if spec_on:
                     draft_params, dcfg = self._draft
+                    state = (cache, logits, pos, done, kv_valid)
                     with self._lock:
                         t1 = time.perf_counter()
                         with torch.inference_mode():
@@ -1189,18 +1338,20 @@ class LmEngine:
                             if first:
                                 # plain → spec: the first token off the carried
                                 # logits, what the next plain step would sample
-                                pending, c0, done = gpt_mod.spec_first(
-                                    logits, done, gen, self.model_cfg, **sampling)
-                                head = [pending, c0.long()]
+                                state, pending, tok0, c0 = carrier.spec_first(
+                                    self.model_cfg, gen, state, temperature, top_k, eos_id,
+                                    "lm.spec_first[B=1]")
+                                head = [tok0, c0.long()]
                             t_d = time.perf_counter()
-                            d_cache, drafts = gpt_mod.draft_chunk(
-                                draft_params, d_cache, pending, pos, done, kv_valid, dcfg,
-                                self.spec_k)
+                            d_cache, drafts = carrier.draft(
+                                draft_params, dcfg, d_cache, state, pending, self.spec_k,
+                                f"lm.draft_chunk[P={P},B=1,k={self.spec_k}]")
                             t_v = time.perf_counter()
-                            (cache, pending, pos, done, kv_valid, out, counted,
-                             emitted) = gpt_mod.verify_chunk(
-                                self.params, cache, pending, drafts, pos, done, kv_valid, gen,
-                                self.model_cfg, **sampling)
+                            state, pending, out, counted, emitted = carrier.verify(
+                                self.params, self.model_cfg, gen, state, pending, drafts,
+                                temperature, top_k, eos_id,
+                                f"lm.verify_chunk[P={P},B=1,k={self.spec_k}]")
+                            cache, logits, pos, done, kv_valid = state
                             # the round's one device -> host fetch
                             host = torch.cat(([h[:, None] for h in head] if first else [])
                                              + [out, counted.long(), emitted[:, None]],
@@ -1366,12 +1517,13 @@ class LmEngine:
         return self.kv_rows_allocated() + n <= max_kv_rows
 
     def _admit_bytes_forecast(self, n_rows: int) -> int:
-        """Fresh device bytes `n_rows` admissions may need: on the dense
-        layout each row's cache at the largest usable (prompt, new) bucket
-        pair (the int8 cache's scale planes included; paged rows take pages
-        of the resident pool, no fresh bytes), plus the most bytes one lm.*
-        prefill under the lock has needed so far (`_prefill`; 0 before the
-        first, and on the CPU)."""
+        """Fresh device bytes `n_rows` admissions may need, as JAX's: on the
+        dense layout each row's cache at the largest usable (prompt, new)
+        bucket pair (the int8 cache's scale planes included; paged rows
+        take pages of the resident pool, no fresh bytes), plus the largest
+        `temp_bytes` of an lm.* executable in the dispatch ledger
+        (`obs/hbm.peak_temp_bytes`: a capture's graph pool growth; 0 before
+        the first, and on the CPU)."""
         mc = self.model_cfg
         per_row = 0
         if self.pool is None:
@@ -1380,7 +1532,7 @@ class LmEngine:
                 per_row = 2 * slots * (mc.head_dim + 4)  # int8 codes, float32 scales
             else:
                 per_row = 2 * slots * mc.head_dim * torch_dtype(mc.dtype).itemsize
-        return per_row * n_rows + self._prefill_peak_growth
+        return per_row * n_rows + peak_temp_bytes("lm.")
 
     def update_params(self, params) -> None:
         """Swap in new parameters (an online fine-tune's sync): placed as at
@@ -1645,8 +1797,11 @@ class BatchSession:
                 with lm._lock:
                     t1 = time.perf_counter()
                     with torch.inference_mode():
-                        self._d_cache = lm._draft_prefill(prompt_ids, prompt_mask,
-                                                          self.new_bucket)
+                        # into the carrier's drafter cache, which the round
+                        # executables are bound to
+                        self._d_cache = lm._draft_prefill(
+                            prompt_ids, prompt_mask, self.new_bucket,
+                            cache=self._carrier.draft_cache(lm._draft[1]))
                     dp_s = time.perf_counter() - t1
                     self.decode_s += dp_s
                 dispatch_ledger.note_dispatch(
@@ -2111,6 +2266,18 @@ class BatchSession:
     def _cache_in(self):
         return self._build_cache() if self._paged else self._cache
 
+    def _state(self) -> tuple:
+        """The carried state the carrier's executables take."""
+        return self._cache_in(), self._logits, self._pos, self._done, self._kv_valid
+
+    def _track(self, toks, start_pos) -> None:
+        """The drafter's lockstep of `toks` [bb, S] through the carrier's
+        track executable. Call under the engine lock."""
+        draft_params, dcfg = self.lm._draft
+        self._d_cache = self._carrier.track(
+            draft_params, dcfg, self._d_cache, self._state(), toks, start_pos,
+            f"lm.track_chunk[P={self.P},B={self.bb},S={toks.shape[1]}]")
+
     def _to_plain(self) -> None:
         """spec → plain at a chunk boundary: forward `pending` into both
         caches (one slot each) and recover the carried logits, after which
@@ -2123,18 +2290,16 @@ class BatchSession:
         with lm._lock:
             t0 = time.perf_counter()
             with torch.inference_mode():
-                cache, self._logits, self._pos = gpt_mod.ingest_pending(
-                    lm.params, self._cache_in(), self._pending, self._pos, self._done,
-                    self._kv_valid, lm.model_cfg)
+                (cache, self._logits, self._pos, self._done,
+                 self._kv_valid) = self._carrier.ingest(
+                    lm.params, lm.model_cfg, self._state(), self._pending,
+                    f"lm.ingest_pending[B={self.bb}]")
                 if not self._paged:
                     self._cache = cache
                 if self._d_cache is not None:
                     # the same token into the drafter's slot, so speculation
                     # can re-enter later
-                    draft_params, dcfg = lm._draft
-                    self._d_cache = gpt_mod.track_chunk(draft_params, self._d_cache,
-                                                        self._pending[:, None], self._pos - 1,
-                                                        self._kv_valid, dcfg)
+                    self._track(self._pending[:, None], self._pos - 1)
             dt = time.perf_counter() - t0
             self.decode_s += dt
             self._last_step_end = time.perf_counter()
@@ -2167,37 +2332,51 @@ class BatchSession:
                 self._spec_on = False
                 return self.step()
         draft_params, dcfg = lm._draft
+        carrier, cuda = self._carrier, lm.device.type == "cuda"
         with lm._lock:
             t0 = time.perf_counter()
             host_gap_s = max(0.0, t0 - self._last_step_end)
             with torch.inference_mode():
                 first = self._pending is None
                 head = []
+                state = self._state()
                 if first:
                     # plain → spec: the first token off the carried logits
-                    self._pending, c0, self._done = gpt_mod.spec_first(
-                        self._logits, self._done, self._gen, lm.model_cfg,
-                        temperature=self._temps, top_k=self._ks, eos_id=self._eos)
-                    head = [self._pending[:, None], c0.long()[:, None]]
+                    state, self._pending, tok0, c0 = carrier.spec_first(
+                        lm.model_cfg, self._gen, state, self._temps, self._ks, self._eos,
+                        f"lm.spec_first[B={self.bb}]")
+                    head = [tok0[:, None], c0.long()[:, None]]
+                # the draft/verify split of the round: CUDA events around
+                # the two replays on the card, read after the round's fetch
+                events = [torch.cuda.Event(enable_timing=True) for _ in range(3)] if cuda else ()
+                if cuda:
+                    events[0].record()
                 t_d = time.perf_counter()
-                self._d_cache, drafts = gpt_mod.draft_chunk(
-                    draft_params, self._d_cache, self._pending, self._pos, self._done,
-                    self._kv_valid, dcfg, lm.spec_k)
-                if drafts.is_cuda:  # the draft/verify split of the round's wall
-                    torch.cuda.current_stream(drafts.device).synchronize()
+                self._d_cache, drafts = carrier.draft(
+                    draft_params, dcfg, self._d_cache, state, self._pending, lm.spec_k,
+                    f"lm.draft_chunk[P={self.P},B={self.bb},k={lm.spec_k}]")
+                if cuda:
+                    events[1].record()
                 t_v = time.perf_counter()
-                (cache, self._pending, self._pos, self._done, self._kv_valid, out, counted,
-                 emitted) = gpt_mod.verify_chunk(
-                    lm.params, self._cache_in(), self._pending, drafts, self._pos, self._done,
-                    self._kv_valid, self._gen, lm.model_cfg, temperature=self._temps,
-                    top_k=self._ks, eos_id=self._eos)
+                state, self._pending, out, counted, emitted = carrier.verify(
+                    lm.params, lm.model_cfg, self._gen, state, self._pending, drafts,
+                    self._temps, self._ks, self._eos,
+                    f"lm.verify_chunk[P={self.P},B={self.bb},k={lm.spec_k}]")
+                if cuda:
+                    events[2].record()
+                cache, self._logits, self._pos, self._done, self._kv_valid = state
                 if not self._paged:
                     self._cache = cache
                 # the round's one device -> host fetch
                 host = torch.cat(head + [out, counted.long(), emitted[:, None]],
                                  dim=1).cpu().numpy()
             t_end = time.perf_counter()
-            step_s, draft_s, verify_s = t_end - t0, t_v - t_d, t_end - t_v
+            step_s = t_end - t0
+            if cuda:  # the fetch waited for the verify: both events are done
+                draft_s = events[0].elapsed_time(events[1]) / 1000.0
+                verify_s = events[1].elapsed_time(events[2]) / 1000.0
+            else:
+                draft_s, verify_s = t_v - t_d, t_end - t_v
             self.decode_s += step_s
             self._last_step_end = time.perf_counter()
         dispatch_ledger.note_dispatch(f"lm.draft_chunk[P={self.P},B={self.bb},k={lm.spec_k}]",
@@ -2284,9 +2463,7 @@ class BatchSession:
                     if not self._paged:
                         self._cache = cache
                 if self._spec_on and self._d_cache is not None:
-                    draft_params, dcfg = lm._draft
-                    self._d_cache = gpt_mod.track_chunk(draft_params, self._d_cache, toks,
-                                                        self._pos - chunk, self._kv_valid, dcfg)
+                    self._track(toks, self._pos - chunk)
                 host = torch.stack((toks, counted.to(toks.dtype))).cpu().numpy()
             step_s = time.perf_counter() - t0
             self.decode_s += step_s

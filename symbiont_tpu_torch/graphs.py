@@ -45,6 +45,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from symbiont_tpu_torch.obs.xprof import dispatch_ledger, executable_cost, tensor_bytes
 from symbiont_tpu_torch.ops import flash_attention as fa
 
 # one capture at a time in the process (torch's own rule for its capture
@@ -99,6 +100,12 @@ class GraphPool:
                    if tuple(seg.get("segment_pool_id", (0, 0))) in ids)
 
 
+def _pool_bytes(pool_id) -> int:
+    """Device bytes the allocator holds in the segments of one graph pool."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) == tuple(pool_id))
+
+
 def graph_pool_bytes(device=None) -> int:
     """Device bytes the allocator holds in CUDA-graph pools (segments whose
     pool id is not the default one's), every owner's graphs together."""
@@ -127,14 +134,29 @@ class Executable:
     the warm-up run's writes to them are undone before the capture. (A
     decode's cache is written too, at slots the real run writes again
     before it reads them.) `warm`: what the warm-up runs instead of `fn`,
-    the same kernels at less cost (one decode step of a chunk's)."""
+    the same kernels at less cost (one decode step of a chunk's), and
+    `warm_scale` how many warm-ups the function's work is.
+
+    `cost` and `memory`: the analysis taken once, as JAX's
+    `compile_analysis_for` at its compile seam. The cost
+    (`obs/xprof.executable_cost`) counts the warm-up's ops on the card, the
+    first call's on the CPU. The memory, on the card only: `temp_bytes`
+    the graph pool's growth over the capture, `argument_bytes` and
+    `output_bytes` the static inputs' and outputs' bytes. With a
+    `signature`, the first call notes the capture and both analyses in the
+    dispatch ledger (`note_compile`) before `on_first` runs."""
 
     def __init__(self, fn: Callable, device, pool: Optional[GraphPool] = None,
                  generators: Sequence[torch.Generator] = (), carry=None,
                  on_first: Optional[Callable[[float], None]] = None,
-                 warm: Optional[Callable] = None):
+                 warm: Optional[Callable] = None, warm_scale: int = 1,
+                 signature: Optional[str] = None):
         self.fn = fn
         self.warm = warm or fn
+        self.warm_scale = warm_scale if warm is not None else 1
+        self.signature = signature
+        self.cost: Optional[dict] = None
+        self.memory: Optional[dict] = None
         self.device = torch.device(device)
         self.pool = pool
         self.generators = tuple(generators)
@@ -174,7 +196,8 @@ class Executable:
             with _side_lock:
                 side.wait_stream(torch.cuda.current_stream(self.device))
                 with torch.cuda.stream(side):
-                    self.warm(*self.static_in)
+                    _, self.cost = executable_cost(self.warm, *self.static_in,
+                                                   scale=self.warm_scale)
                     for t, was in zip(self.carry or (), saved):
                         t.copy_(was)
                 side.synchronize()
@@ -186,6 +209,7 @@ class Executable:
             for g in self.generators:
                 graph.register_generator_state(g)
             anchor = None if self.pool is None else self.pool.anchor()
+            pool0 = _pool_bytes(anchor.graph.pool()) if anchor is not None else 0
             with torch.cuda.stream(side):
                 graph.capture_begin(pool=None if anchor is None else anchor.graph.pool(),
                                     capture_error_mode="thread_local")
@@ -207,6 +231,9 @@ class Executable:
             self.graph, self.static_out = graph, out
             if self.pool is not None:
                 self.pool.add(self)
+            self.memory = {"temp_bytes": max(0, _pool_bytes(graph.pool()) - pool0),
+                           "argument_bytes": tensor_bytes(self.static_in),
+                           "output_bytes": tensor_bytes(out)}
         self.capture_s = time.perf_counter() - t0
         parts["record"] = self.capture_s - sum(parts.values())
         self.capture_parts = parts
@@ -224,6 +251,9 @@ class Executable:
 
     def _run(self, inputs, lock):
         if not self.cuda:
+            if self.cost is None:  # the first call: eager, counted
+                out, self.cost = executable_cost(self.fn, *inputs)
+                return out
             return self.fn(*inputs)
         if self.graph is None:  # the first call, under _first_lock
             self.capture(inputs)
@@ -240,6 +270,8 @@ class Executable:
                     t0 = time.perf_counter()
                     out = self._run(inputs, lock)
                     self._first_done = True
+                    if self.signature is not None:
+                        dispatch_ledger.note_compile(self.signature, self.cost, self.memory)
                     if self.on_first is not None:
                         self.on_first(time.perf_counter() - t0)
                     return out

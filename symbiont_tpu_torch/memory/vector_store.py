@@ -261,7 +261,9 @@ class VectorStore:
             def fn(query, n_valid):
                 return cosine_topk(corpus, query, n_valid, k)
 
-            exe = self._search_fns[key] = Executable(fn, self.device, pool=self._graph_pool)
+            exe = self._search_fns[key] = Executable(
+                fn, self.device, pool=self._graph_pool,
+                signature=f"memory.search[N={cap},k={k}]")
         return exe
 
     def _k_static(self, top_k: int, n: int, cap: int) -> int:

@@ -11,9 +11,10 @@ this one, `models/convert.py` a checkpoint):
   softmax stays bf16, the float32 one float32;
 - a static-shape KV cache `[L, B, T, kv_heads, head_dim]` written in place,
   S new tokens at cache indices `[length, length + S)`, `length` a host int
-  or, in `decode_chunk`, a 0-d device tensor (JAX's `length: jax.Array`),
-  so a chunk has no host value in it and can be a CUDA graph, on every
-  layout; `kv_quant="int8"`
+  or a 0-d device tensor (JAX's `length: jax.Array`); `decode_chunk` and
+  the spec rounds run at a device one (a host length becomes one and comes
+  back as the caller's kind), so they have no host value in them and can
+  be CUDA graphs, on every layout; `kv_quant="int8"`
   keeps int8 codes with one float32 scale per (position, kv head); the
   paged layout (`kv/paged.py`) keeps K/V in a shared page pool, scattered
   there through a page table and gathered back into the dense layout's
@@ -499,6 +500,22 @@ def _emit_one(tok, done, eos_id: int):
     return tok, ~done, done
 
 
+def _on_device_length(cache, device):
+    """(the cache with a 0-d int64 device `length`, the host length it had
+    or None): the spec rounds run at a device slot index, as `decode_chunk`
+    does, so one captured round serves every slot."""
+    if isinstance(cache.length, torch.Tensor):
+        return cache, None
+    return cache._replace(length=torch.full((), cache.length, dtype=torch.int64,
+                                            device=device)), cache.length
+
+
+def _caller_length(cache, host_length, advance: int):
+    """The cache with `length` back in the caller's kind: the host length
+    it came with plus `advance`, or the advanced device tensor."""
+    return cache if host_length is None else cache._replace(length=host_length + advance)
+
+
 def decode_chunk(params, cache, cur_logits, cur_pos, done, kv_valid,
                  generator: torch.Generator, steps: int, cfg: GPTConfig,
                  temperature=0.8, top_k=40, eos_id: int = -1, sampling=None):
@@ -519,10 +536,7 @@ def decode_chunk(params, cache, cur_logits, cur_pos, done, kv_valid,
         sampling = _norm_sampling(temperature, top_k, cur_logits.shape[0], cfg.vocab_size,
                                   cur_logits.device)
     t, k, bucket = sampling
-    host_length = None if isinstance(cache.length, torch.Tensor) else cache.length
-    if host_length is not None:
-        cache = cache._replace(length=torch.full((), host_length, dtype=torch.int64,
-                                                 device=cur_logits.device))
+    cache, host_length = _on_device_length(cache, cur_logits.device)
     tokens, counted = [], []
     for _ in range(steps):
         tok, c, done = _emit_one(_sample(cur_logits, generator, t, k, bucket), done, eos_id)
@@ -531,8 +545,7 @@ def decode_chunk(params, cache, cur_logits, cur_pos, done, kv_valid,
         logits, cache = forward(params, tok[:, None], cache, cur_pos[:, None], cfg, kv_valid)
         cache = cache._replace(length=cache.length + 1)
         cur_logits, cur_pos = logits[:, 0], cur_pos + 1
-    if host_length is not None:
-        cache = cache._replace(length=host_length + steps)
+    cache = _caller_length(cache, host_length, steps)
     return (cache, cur_logits, cur_pos, done, torch.stack(tokens, dim=1),
             torch.stack(counted, dim=1))
 
@@ -621,12 +634,16 @@ def merge_rows(cache_a, logits_a, pos_a, done_a, kv_valid_a,
 
 
 def spec_first(cur_logits, done, generator: torch.Generator, cfg: GPTConfig,
-               temperature=0.8, top_k=40, eos_id: int = -1):
+               temperature=0.8, top_k=40, eos_id: int = -1, sampling=None):
     """plain → spec: sample one token from the carried logits (exactly what
     the next plain step would emit) without forwarding it; it becomes
-    `pending`. Returns (tok, counted, done)."""
-    t, k, bucket = _norm_sampling(temperature, top_k, cur_logits.shape[0], cfg.vocab_size,
+    `pending`. Returns (tok, counted, done). `sampling`: the
+    `_norm_sampling` triple built outside, in place of temperature and
+    top_k (no host value inside, as `decode_chunk`)."""
+    if sampling is None:
+        sampling = _norm_sampling(temperature, top_k, cur_logits.shape[0], cfg.vocab_size,
                                   cur_logits.device)
+    t, k, bucket = sampling
     return _emit_one(_sample(cur_logits, generator, t, k, bucket), done, eos_id)
 
 
@@ -637,7 +654,9 @@ def draft_chunk(draft_params, d_cache, pending, cur_pos, done, kv_valid,
     drafter writes the same k+1 window slots the target's verify writes.
     Greedy drafts make the proposal a point mass, so a sampled row's
     acceptance in `verify_chunk` is one coin flip on p_target(draft).
-    Returns (cache, drafts [B, k])."""
+    Returns (cache, drafts [B, k]); the cache's `length` is advanced by
+    k + 1 in the caller's kind (the round itself runs at a device slot)."""
+    d_cache, host_length = _on_device_length(d_cache, pending.device)
     tok, pos, drafts = pending, cur_pos, []
     for _ in range(spec_k):
         tok = torch.where(done, 0, tok)
@@ -648,12 +667,13 @@ def draft_chunk(draft_params, d_cache, pending, cur_pos, done, kv_valid,
         drafts.append(tok)
     _, d_cache = forward(draft_params, torch.where(done, 0, tok)[:, None], d_cache,
                          pos[:, None], dcfg, kv_valid)
-    return d_cache._replace(length=d_cache.length + 1), torch.stack(drafts, dim=1)
+    d_cache = d_cache._replace(length=d_cache.length + 1)
+    return _caller_length(d_cache, host_length, spec_k + 1), torch.stack(drafts, dim=1)
 
 
 def verify_chunk(params, cache, pending, drafts, cur_pos, done, kv_valid,
                  generator: torch.Generator, cfg: GPTConfig, temperature=0.8, top_k=40,
-                 eos_id: int = -1):
+                 eos_id: int = -1, sampling=None):
     """Score k drafts and emit in ONE target forward → (cache, pending,
     cur_pos, done, kv_valid, out [B, k+1], counted [B, k+1], emitted [B]);
     a row's tokens are out[i, :emitted[i]] filtered through counted.
@@ -664,18 +684,27 @@ def verify_chunk(params, cache, pending, drafts, cur_pos, done, kv_valid,
     from, and draw their correction from it with the rejected token masked
     out (or, every draft accepted, the bonus position's). u and the
     correction's Gumbel noise come from `generator`, in that order.
-    Rejected window slots become kv_valid holes (a new kv_valid; the one
-    passed in is not written)."""
+
+    The round runs at a device slot index (a host `length` becomes one and
+    comes back as the caller's kind) and writes the window's validity into
+    the kv_valid it is given, in place, at slots `length + arange(k + 1)`
+    (JAX's `dynamic_update_slice`, on the array it donates): rejected
+    slots become holes. `sampling`: the `_norm_sampling` triple built
+    outside; with it the round makes no host value and no host sync."""
     B, k = drafts.shape
     S = k + 1
-    t, tk, bucket = _norm_sampling(temperature, top_k, B, cfg.vocab_size, drafts.device)
+    if sampling is None:
+        sampling = _norm_sampling(temperature, top_k, B, cfg.vocab_size, drafts.device)
+    t, tk, bucket = sampling
+    cache, host_length = _on_device_length(cache, drafts.device)
     seq = torch.where(done[:, None], 0, torch.cat([pending[:, None], drafts], dim=1))
-    positions = cur_pos[:, None] + torch.arange(S, device=drafts.device)[None, :]
+    jj = torch.arange(S, device=drafts.device)
+    positions = cur_pos[:, None] + jj[None, :]
     # logits[:, j] is the next-token distribution after seq[:, :j+1]: slot
     # j scores d_{j+1}, slot k is the bonus position
     logits, cache = forward(params, seq, cache, positions, cfg, kv_valid)
     start = cache.length
-    cache = cache._replace(length=start + S)
+    cache = _caller_length(cache._replace(length=start + S), host_length, S)
 
     greedy_row = t <= 0.0
     tgt = logits.argmax(dim=-1)  # [B, S]
@@ -691,7 +720,8 @@ def verify_chunk(params, cache, pending, drafts, cur_pos, done, kv_valid,
     drafts_pad = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
     scaled_m = scaled.gather(1, m[:, None, None].expand(B, 1, scaled.shape[-1]))[:, 0]
     d_rej = drafts_pad.gather(1, m[:, None])[:, 0]
-    rej = F.one_hot(d_rej, cfg.vocab_size).bool() & ((~greedy_row) & (m < k))[:, None]
+    vocab = torch.arange(scaled_m.shape[-1], device=drafts.device)
+    rej = (vocab[None, :] == d_rej[:, None]) & ((~greedy_row) & (m < k))[:, None]
     scaled_m = scaled_m.masked_fill(rej, -math.inf)
     g = torch.rand(scaled_m.shape, generator=generator, device=drafts.device)
     sampled_c = (scaled_m - torch.log(-torch.log(g))).argmax(dim=-1)
@@ -699,7 +729,7 @@ def verify_chunk(params, cache, pending, drafts, cur_pos, done, kv_valid,
 
     # slots 0..m-1 the accepted drafts, slot m the correction; an eos token
     # is emitted but not counted, nothing after it counts, the row goes done
-    jj = torch.arange(S, device=drafts.device)[None, :]
+    jj = jj[None, :]
     out = torch.where(jj < m[:, None], drafts_pad, torch.where(jj == m[:, None], corr[:, None], 0))
     emit = (jj <= m[:, None]) & ~done[:, None]
     out = torch.where(emit, out, 0)
@@ -714,21 +744,23 @@ def verify_chunk(params, cache, pending, drafts, cur_pos, done, kv_valid,
     # rejected slots j > m become holes; a done row's window is junk kept
     # valid, as plain decode writes forced zeros for done rows
     m_adv = torch.where(done, k, m)
-    new_kvv = kv_valid.clone()
-    new_kvv[:, start:start + S] = jj <= m_adv[:, None]
+    kv_valid.index_copy_(1, start + jj[0], jj <= m_adv[:, None])
     new_pos = cur_pos + torch.where(done, S, m + 1)
     new_pending = torch.where(new_done, 0, corr)
     emitted = torch.where(done, 0, m + 1)
-    return cache, new_pending, new_pos, new_done, new_kvv, out, counted, emitted
+    return cache, new_pending, new_pos, new_done, kv_valid, out, counted, emitted
 
 
 def ingest_pending(params, cache, pending, cur_pos, done, kv_valid, cfg: GPTConfig):
     """spec → plain: forward `pending` into the cache (one slot) → (cache,
     logits [B, V], cur_pos + 1), the logits a plain step at that position
-    carries, so greedy output stays token-identical across the switch."""
+    carries, so greedy output stays token-identical across the switch. At
+    a device slot index, the cache's `length` back in the caller's kind."""
+    cache, host_length = _on_device_length(cache, pending.device)
     logits, cache = forward(params, torch.where(done, 0, pending)[:, None], cache,
                             cur_pos[:, None], cfg, kv_valid)
-    return cache._replace(length=cache.length + 1), logits[:, 0], cur_pos + 1
+    cache = _caller_length(cache._replace(length=cache.length + 1), host_length, 1)
+    return cache, logits[:, 0], cur_pos + 1
 
 
 def track_chunk(draft_params, d_cache, toks, start_pos, kv_valid, dcfg: GPTConfig):
@@ -737,11 +769,12 @@ def track_chunk(draft_params, d_cache, toks, start_pos, kv_valid, dcfg: GPTConfi
     done rows' zeros included) into the drafter's cache at the same slots
     and positions, in one forward. Keeps the two caches slot-symmetric, so
     speculation can re-enter after the margin guard or a splice without a
-    drafter prefill."""
+    drafter prefill. At a device slot index, as the other rounds."""
     S = toks.shape[1]
+    d_cache, host_length = _on_device_length(d_cache, toks.device)
     positions = start_pos[:, None] + torch.arange(S, device=toks.device)[None, :]
     _, d_cache = forward(draft_params, toks, d_cache, positions, dcfg, kv_valid)
-    return d_cache._replace(length=d_cache.length + S)
+    return _caller_length(d_cache._replace(length=d_cache.length + S), host_length, S)
 
 
 def generate(params, prompt_ids: torch.Tensor, prompt_mask: torch.Tensor,

@@ -6,7 +6,10 @@ The port's counterpart of `symbiont_tpu/obs/device.py`'s
 - `bytes_in_use`: `torch.cuda.memory_stats()["allocated_bytes.all.current"]`,
   the bytes of live tensors;
 - `peak_bytes_in_use`: `allocated_bytes.all.peak`;
-- `bytes_limit`: the device's total memory, from `torch.cuda.mem_get_info()`.
+- `bytes_limit`: the device's total memory, from `torch.cuda.mem_get_info()`;
+
+read through `_DeviceStatsCache`, JAX's short-lived cache, so a scrape of
+many gauges reads the allocator once.
 
 The CPU keeps no such statistics: without CUDA both functions return
 nothing and register nothing. `register_process_gauges` is a copy of the
@@ -22,8 +25,9 @@ from __future__ import annotations
 
 import logging
 import os
+import threading
 import time
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -43,13 +47,41 @@ _DEVICE_SERIES = (
 )
 
 
+class _DeviceStatsCache:
+    """One allocator read per device per scrape pass, as JAX's: the three
+    `device.*` gauges of a device and the hbm ledger's reconcile are
+    separate readers, so the first one inside a `max_age_s` window reads
+    `torch.cuda.memory_stats` (and the device's total memory) and the rest
+    share its figures. A raise propagates uncached."""
+
+    def __init__(self, max_age_s: float = 0.25):
+        self.max_age_s = max_age_s
+        self._lock = threading.Lock()
+        self._by_dev: Dict[int, Tuple[float, dict]] = {}
+
+    def stats(self, index: int) -> dict:
+        now = time.monotonic()
+        with self._lock:
+            hit = self._by_dev.get(index)
+            if hit is not None and now - hit[0] <= self.max_age_s:
+                return hit[1]
+        s = torch.cuda.memory_stats(index)
+        _free, total = torch.cuda.mem_get_info(index)
+        out = {"bytes_in_use": int(s.get("allocated_bytes.all.current", 0)),
+               "peak_bytes_in_use": int(s.get("allocated_bytes.all.peak", 0)),
+               "bytes_limit": int(total)}
+        with self._lock:
+            self._by_dev[index] = (now, out)
+        return out
+
+
+_stats_cache = _DeviceStatsCache()
+
+
 def device_stats(index: int) -> dict:
-    """The three memory figures of CUDA device `index`."""
-    s = torch.cuda.memory_stats(index)
-    _free, total = torch.cuda.mem_get_info(index)
-    return {"bytes_in_use": int(s.get("allocated_bytes.all.current", 0)),
-            "peak_bytes_in_use": int(s.get("allocated_bytes.all.peak", 0)),
-            "bytes_limit": int(total)}
+    """The three memory figures of CUDA device `index`, read at most the
+    cache's 0.25 s ago."""
+    return dict(_stats_cache.stats(index))
 
 
 def local_device_stats() -> List[Tuple[int, str, dict]]:

@@ -1,29 +1,40 @@
 """Device-memory attribution: who holds the card's bytes, and OOM forensics.
 
-The port's copy of `symbiont_tpu/obs/hbm.py`'s claim ledger and OOM guard:
+The port's copy of `symbiont_tpu/obs/hbm.py`:
 
 - `HbmLedger`: each owner of device memory (the engine's parameters,
   `engine.params`; the store's padded corpus, `memory.corpus`) registers a
   claim bound to it by weakref; a dead owner's claim retires. `rows` lists
   the claims, `attributed_bytes` sums them (overlay claims excluded), and
   `reconcile` sets the sum against the allocator's bytes in use
-  (`obs/device.py`, basis `memory_stats`) and reports the rest as
-  unattributed. Without CUDA the basis is `none`.
+  (`obs/device.py`, basis `memory_stats`), or, without CUDA, against the
+  live-tensor census (basis `live_arrays`), and reports the rest as
+  unattributed; `reconcile(census_rows=n)` carries a census beside it.
+- `census(top)`: the live tensors grouped by (shape, dtype, placement),
+  the counterpart of JAX's `jax.live_arrays()` aggregate. It walks the
+  garbage collector's objects for tensors, counts each storage once (in
+  the group of the largest tensor over it) and reads metadata only, with
+  no device sync; on the card one more group holds the bytes the CUDA
+  graph pools reserve beyond the tensors that live in them
+  (`graphs.graph_pool_bytes`), bytes no tensor names. Tensors only C++
+  holds (autograd's saved tensors, library workspaces) are not seen: they
+  stay in the unattributed rest. `census_diff` is JAX's copy.
+- `peak_temp_bytes(prefix)`: the largest `temp_bytes` of the dispatch
+  ledger's executables, the scratch term of the LM's admission forecast.
 - `guard_oom(site)` wraps a dispatch: a device OOM escaping it counts
-  `engine.oom_total{site}`, leaves a postmortem (the reconcile and the
-  engine timeline's tail) in a bounded directory, and is re-raised.
+  `engine.oom_total{site}`, leaves a postmortem (the reconcile, a census
+  and the engine timeline's tail) in a bounded directory, and is
+  re-raised.
 
 `configure`, `claim_value`, `register_gauges` and `register_zero` are the
 JAX ledger's, for the runner's boot and `/metrics`
 (`hbm.attributed_bytes{subsystem}`, `hbm.unattributed_bytes{device}`,
-`engine.oom_total{site}`). The JAX ledger's live-array census and the
-per-executable `peak_temp_bytes` have no torch counterpart yet (A7's
-leftovers, ROADMAP): a `reconcile` without CUDA therefore has no softer
-basis to fall back to, and `GET /api/memory/census` answers 501.
+`engine.oom_total{site}`).
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import logging
 import os
@@ -40,6 +51,10 @@ from symbiont_tpu_torch.utils.telemetry import Metrics, metrics as _global_metri
 
 log = logging.getLogger(__name__)
 
+# census groups carried in API responses and postmortems past which the
+# tail is summed into one "(other)" row
+DEFAULT_CENSUS_GROUPS = 64
+
 
 class HbmLedger:
     """Process-wide subsystem → device-bytes claim table. A claim is
@@ -54,13 +69,18 @@ class HbmLedger:
         # (subsystem, id(owner)) -> (weakref or None, reader, overlay)
         self._claims: Dict[Tuple[str, int], tuple] = {}
         self._enabled = True
+        # the census row bound of API responses and postmortems
+        # (ObsConfig.hbm_census_groups, set by the runner at boot)
+        self.census_groups = DEFAULT_CENSUS_GROUPS
         # bounded read-side cache for the scrape gauges: one reader pass
         # per max_age window
         self._cache: Optional[Tuple[float, List[dict]]] = None
 
-    def configure(self, enabled: bool = True) -> None:
+    def configure(self, enabled: bool = True, census_groups: Optional[int] = None) -> None:
         with self._lock:
             self._enabled = bool(enabled)
+            if census_groups is not None:
+                self.census_groups = max(1, int(census_groups))
             self._cache = None
 
     def clear(self) -> None:
@@ -139,24 +159,35 @@ class HbmLedger:
             rows = self.rows()
         return sum(r["bytes"] for r in rows if not r["overlay"])
 
-    def reconcile(self) -> dict:
-        """Claims against the allocator's bytes in use, per device; basis
-        `memory_stats` with CUDA, `none` without."""
+    def reconcile(self, census_rows: int = 0) -> dict:
+        """Claims against the allocator's bytes in use, per device (basis
+        `memory_stats`); without CUDA against the live-tensor census's
+        total (basis `live_arrays`, a softer denominator: it misses what
+        only C++ holds). `census_rows` > 0 adds a census of that many
+        groups."""
         from symbiont_tpu_torch.obs.device import local_device_stats
 
         rows = self.rows()
         attributed = self.attributed_bytes(rows)
-        devices, total = [], 0
+        devices, stats_total = [], 0
         for idx, platform, stats in local_device_stats():
             devices.append({"device": idx, "platform": platform, **stats})
-            total += stats["bytes_in_use"]
-        basis = "memory_stats" if devices else "none"
+            stats_total += stats["bytes_in_use"]
+        cen = None
+        if not devices:
+            cen = census(top=max(0, int(census_rows)))
+        if devices:
+            basis, total = "memory_stats", stats_total
+        elif cen and cen.get("available"):
+            basis, total = "live_arrays", int(cen["bytes_total"])
+        else:
+            basis, total = "none", 0
         unattributed = max(0, total - attributed)
         for d in devices:
             # claims are process-wide: apportion them by each device's share
             share = d["bytes_in_use"] / total if total else 0.0
             d["unattributed_bytes"] = max(0, int(d["bytes_in_use"] - attributed * share))
-        return {
+        out = {
             "basis": basis,
             "bytes_in_use": total,
             "attributed_bytes": attributed,
@@ -165,6 +196,9 @@ class HbmLedger:
             "subsystems": rows,
             "devices": devices,
         }
+        if census_rows:
+            out["census"] = cen if cen is not None else census(top=int(census_rows))
+        return out
 
     def register_gauges(self, registry: Optional[Metrics] = None) -> None:
         """One `hbm.attributed_bytes{subsystem}` gauge per subsystem claimed
@@ -202,6 +236,131 @@ class HbmLedger:
                                               labels={"subsystem": "all"})
 
 
+# --------------------------------------------------------------------- census
+
+
+def _live_storages(device: Optional[torch.device]) -> Dict[tuple, tuple]:
+    """(device, storage address) → (storage bytes, the largest tensor over
+    it) for every tensor the garbage collector tracks on `device` (every
+    CUDA device with None), metadata only."""
+    out: Dict[tuple, tuple] = {}
+    for obj in gc.get_objects():
+        if not issubclass(type(obj), torch.Tensor):  # type(): no attribute lookup on obj
+            continue
+        try:
+            if obj.is_meta or obj.layout != torch.strided:
+                continue
+            dev = obj.device
+            if (dev.type != "cuda") if device is None else (dev != device):
+                continue
+            st = obj.untyped_storage()
+            key = (str(dev), st.data_ptr())
+            nbytes = int(st.nbytes())
+        except Exception:
+            continue  # a tensor subclass or a freed storage mid-walk
+        have = out.get(key)
+        if have is None or obj.numel() * obj.element_size() > (
+                have[1].numel() * have[1].element_size()):
+            out[key] = (nbytes, obj)
+    return out
+
+
+def census(top: int = DEFAULT_CENSUS_GROUPS, device=None) -> dict:
+    """The live tensors grouped by (shape, dtype, placement), as JAX
+    groups `jax.live_arrays()` by (shape, dtype, sharding): each storage
+    counted once, in the group of the largest tensor over it. `device`:
+    the tensors of that device; by default those of every CUDA device the
+    process has initialised, else the CPU's. On the card one more group,
+    dtype "(graph pools)", holds the bytes the CUDA graph pools reserve
+    beyond the tensors that live in them. Metadata only, on demand only.
+    `top` > 0 bounds the group rows; the tail folds into "(other)"."""
+    cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
+    dev = None if device is None and cuda else torch.device(device or "cpu")
+    try:
+        storages = _live_storages(dev)
+    except Exception as e:
+        return {"available": False, "detail": str(e)}
+    pool_segments = []
+    if cuda and (dev is None or dev.type == "cuda"):
+        pool_segments = [(seg["address"], seg["address"] + seg["total_size"])
+                         for seg in torch.cuda.memory_snapshot()
+                         if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)
+                         and (dev is None or dev.index in (None, seg["device"]))]
+    groups: Dict[Tuple, List[int]] = {}
+    total = n = in_pools = 0
+    for (_, ptr), (nbytes, t) in storages.items():
+        key = (tuple(int(d) for d in t.shape), str(t.dtype).replace("torch.", ""),
+               str(t.device))
+        g = groups.setdefault(key, [0, 0])
+        g[0] += 1
+        g[1] += nbytes
+        total += nbytes
+        n += 1
+        if any(lo <= ptr < hi for lo, hi in pool_segments):
+            in_pools += nbytes
+    if pool_segments:
+        from symbiont_tpu_torch.graphs import graph_pool_bytes
+
+        reserve = max(0, graph_pool_bytes(dev) - in_pools)
+        groups[((), "(graph pools)", "cuda" if dev is None else str(dev))] = [
+            len(pool_segments), reserve]
+        total += reserve
+    rows = [{"shape": list(k[0]), "dtype": k[1], "sharding": k[2], "count": c, "bytes": b}
+            for k, (c, b) in groups.items()]
+    rows.sort(key=lambda r: (-r["bytes"], r["dtype"], r["shape"]))
+    out = {"available": True, "arrays": n, "bytes_total": total, "group_count": len(rows)}
+    if top and len(rows) > int(top):
+        head, tail = rows[:int(top)], rows[int(top):]
+        head.append({"shape": [], "dtype": "(other)", "sharding": "",
+                     "count": sum(r["count"] for r in tail),
+                     "bytes": sum(r["bytes"] for r in tail)})
+        rows = head
+    out["groups"] = rows
+    return out
+
+
+def census_diff(before: dict, after: dict, top: int = DEFAULT_CENSUS_GROUPS) -> dict:
+    """Copy of JAX's `census_diff`: what changed between two censuses,
+    by (shape, dtype, placement) group, byte and count deltas, growth
+    first; unchanged groups omitted."""
+    def keyed(c: dict) -> Dict[Tuple, Tuple[int, int]]:
+        return {(tuple(r["shape"]), r["dtype"], r["sharding"]): (r["count"], r["bytes"])
+                for r in c.get("groups", []) if r["dtype"] != "(other)"}
+
+    if not (before.get("available") and after.get("available")):
+        return {"available": False}
+    b, a = keyed(before), keyed(after)
+    rows = []
+    for key in set(b) | set(a):
+        cb, bb = b.get(key, (0, 0))
+        ca, ba = a.get(key, (0, 0))
+        if ba == bb and ca == cb:
+            continue
+        rows.append({"shape": list(key[0]), "dtype": key[1], "sharding": key[2],
+                     "count_delta": ca - cb, "bytes_delta": ba - bb})
+    rows.sort(key=lambda r: -r["bytes_delta"])
+    return {"available": True,
+            "bytes_delta": after["bytes_total"] - before["bytes_total"],
+            "array_delta": after["arrays"] - before["arrays"],
+            "groups": rows[:int(top)] if top else rows}
+
+
+def peak_temp_bytes(prefix: str = "") -> int:
+    """The largest `temp_bytes` among the dispatch ledger's executables
+    whose signature starts with `prefix` ("lm." → the decode plane's):
+    the scratch half of `can_admit`'s bytes forecast."""
+    from symbiont_tpu_torch.obs.xprof import dispatch_ledger
+
+    best = 0
+    for row in dispatch_ledger.snapshot():
+        if prefix and not row["executable"].startswith(prefix):
+            continue
+        t = row.get("temp_bytes")
+        if t:
+            best = max(best, int(t))
+    return best
+
+
 # ------------------------------------------------------------- OOM forensics
 
 
@@ -220,8 +379,8 @@ def is_oom(exc: BaseException) -> bool:
 
 class OomForensics:
     """Bounded postmortem writer for device OOMs. `record(site, exc)` counts
-    `engine.oom_total{site}`, writes the reconcile and the engine timeline's
-    tail to one JSON file (at most `max_files` kept, newest win) and keeps
+    `engine.oom_total{site}`, writes the reconcile, a census and the engine
+    timeline's tail to one JSON file (at most `max_files` kept, newest win) and keeps
     the verdict in `last`. It never raises: the OOM is already on its way."""
 
     def __init__(self, registry: Optional[Metrics] = None):
@@ -281,6 +440,10 @@ class OomForensics:
             report["memory"] = hbm_ledger.reconcile()
         except Exception:
             log.debug("oom postmortem: reconcile failed", exc_info=True)
+        try:
+            report["census"] = census(top=32)
+        except Exception:
+            log.debug("oom postmortem: census failed", exc_info=True)
         try:
             from symbiont_tpu_torch.obs.engine_timeline import engine_timeline
 

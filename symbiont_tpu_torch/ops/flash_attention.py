@@ -31,6 +31,7 @@ shape with NH == NKV.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import threading
 from typing import Optional, Tuple
@@ -101,6 +102,75 @@ def note_replay(counts: Tuple[int, int, int], replays: int = 1) -> None:
         launches += counts[0] * replays
         bwd_kv_launches += counts[1] * replays
         bwd_q_launches += counts[2] * replays
+
+
+# The work of the kernels launched on a stream while a cost count is open
+# there (`count_work`): an executable's cost analysis counts its aten ops
+# under a dispatch mode, which the ctypes launches bypass, so each launch
+# adds its kernel's operations and bytes by the formulas of its bound.
+_work: dict = {}  # stream handle (thread id without CUDA) -> [flops, bytes]
+
+
+def _work_key():
+    # no kernel runs before CUDA is initialised; `is_available` would start
+    # the driver, a fraction of a second, in a process that never uses it
+    if torch.cuda.is_initialized():
+        return torch.cuda.current_stream().cuda_stream
+    return threading.get_ident()
+
+
+def kernel_work(i: int, q: torch.Tensor, k: torch.Tensor, causal: bool) -> Tuple[float, int]:
+    """(operations, bytes) of one launch of kernel i (0 B1, 1 B2, 2 B3) on
+    q `[B, NH, Sq, D]` and k `[B, NKV, Sk, D]`: B1 4, B2 8, B3 6 ·
+    B·NH·pairs·D operations (pairs Sq·Sk, the visible ones when causal);
+    each input read once and each output written once (B1: q, k, v, the
+    f32 bias in, o and the f32 lse out; B2 and B3: q, k, v, g, the bias,
+    lse and δ in, dk, dv and the per-head f32 dbias out of B2, dq out of
+    B3)."""
+    B, NH, Sq, D = q.shape
+    NKV, Sk = k.shape[1], k.shape[2]
+    es = q.element_size()
+    if causal:
+        n = min(Sq, Sk)
+        pairs = n * (n + 1) // 2 + (Sq - n) * Sk
+    else:
+        pairs = Sq * Sk
+    if i == 0:
+        return (4.0 * B * NH * pairs * D,
+                2 * B * NH * Sq * D * es + 2 * B * NKV * Sk * D * es + B * Sk * 4
+                + B * NH * Sq * 4)
+    ins = 2 * B * NH * (Sq + Sk) * D * es + B * Sk * 4 + 2 * B * NH * Sq * 4
+    if i == 1:
+        return 8.0 * B * NH * pairs * D, ins + 2 * B * NH * Sk * D * es + B * NH * Sk * 4
+    return 6.0 * B * NH * pairs * D, ins + B * NH * Sq * D * es
+
+
+def _note_work(i: int, q, k, causal: bool) -> None:
+    """One launch of kernel i into the cost count open on this stream."""
+    if not _work:
+        return
+    key = _work_key()
+    with _count_lock:
+        tally = _work.get(key)
+        if tally is not None:
+            flops, nbytes = kernel_work(i, q, k, causal)
+            tally[0] += flops
+            tally[1] += nbytes
+
+
+@contextlib.contextmanager
+def count_work():
+    """Count the kernels launched on the current stream inside the block:
+    yields the [flops, bytes] tally."""
+    key = _work_key()
+    tally = [0.0, 0]
+    with _count_lock:
+        _work[key] = tally
+    try:
+        yield tally
+    finally:
+        with _count_lock:
+            _work.pop(key, None)
 
 
 def _check(q, k, v, kv_bias) -> None:
@@ -283,6 +353,7 @@ def _forward(q, k, v, kv_bias, causal, scale):
     if rc != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: cudaError {rc} "
                            f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})")
+    _note_work(0, q, k, causal)
     _count(0)
     return out, lse
 
@@ -304,6 +375,7 @@ def bwd_kv(q, k, v, kv_bias, g, lse, delta, causal, scale):
     if rc != 0:
         raise RuntimeError(f"flash_attn_bwd_kv launch failed: cudaError {rc} "
                            f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})")
+    _note_work(1, q, k, causal)
     _count(1)
     return dk, dv, dbias_h
 
@@ -321,6 +393,7 @@ def bwd_q(q, k, v, kv_bias, g, lse, delta, causal, scale):
     if rc != 0:
         raise RuntimeError(f"flash_attn_bwd_q launch failed: cudaError {rc} "
                            f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})")
+    _note_work(2, q, k, causal)
     _count(2)
     return dq
 

@@ -12,11 +12,12 @@ JAX, `bus.url` picks the in-process bus or the TCP bus to a broker,
 breakers, `runner.role` / `runner.heartbeat_s` the fleet plane, the
 heartbeats and the drain protocol of a supervised role
 (resilience/procsup.py), `obs.slo_p99_ms` the SLO watchdog and
-`gen_journal.enabled` the generation journal. The settings of parts not
-ported yet raise a `ValueError` naming their ROADMAP item before anything
-starts (`_refuse_unported`): a serving mesh over more than one device
-(A15), and the on-demand device trace and live-array census settings
-(A7's leftovers). `lm.ingest_train` hands `text_generator` an
+`gen_journal.enabled` the generation journal, `obs.xprof_trace_dir` and
+`obs.xprof_trace_max_s` the on-demand device trace, `obs.hbm_census_groups`
+the census's row bound. The settings of parts not ported yet raise a
+`ValueError` naming their ROADMAP item before anything starts
+(`_refuse_unported`): a serving mesh over more than one device (A15).
+`lm.ingest_train` hands `text_generator` an
 `OnlineLmTrainer` (train/online.py) that fine-tunes the LM on ingested
 text and syncs it into the serving engine in place.
 
@@ -60,12 +61,6 @@ def _refuse_unported(cfg: SymbiontConfig, mesh) -> None:
     over raises here, naming its ROADMAP item, before any service starts.
     All of them are off in the default config, so `SymbiontStack()` runs
     whole."""
-    # the on-demand device trace and the live-array census are A7's
-    # leftovers: a value other than the default would be read by nothing
-    for name in ("xprof_trace_dir", "xprof_trace_max_s", "hbm_census_groups"):
-        if getattr(cfg.obs, name) != getattr(_OBS_DEFAULTS, name):
-            raise ValueError(f"obs.{name}: the on-demand device trace and the "
-                             "live-array census are not ported yet (ROADMAP A7)")
     shape = cfg.parallel.mesh_shape
     if mesh is not None or (cfg.parallel.enabled and shape is not None
                             and any(int(s) > 1 for s in shape)):
@@ -165,9 +160,15 @@ class SymbiontStack:
         # xla.dispatches_total / engine.host_syncs_total families so the
         # doc-drift sweep (and /metrics) sees them before any dispatch —
         # one series per allowlisted host-sync site, even if it never fires
-        from symbiont_tpu_torch.obs.xprof import dispatch_ledger
+        from symbiont_tpu_torch.obs.xprof import device_trace, dispatch_ledger
         dispatch_ledger.configure(enabled=cfg.obs.xprof_enabled,
                                   max_executables=cfg.obs.xprof_executables)
+        # the default trace dir (JAX's fixed /tmp path) resolves under this
+        # process's temp dir, which follows TMPDIR
+        trace_dir = cfg.obs.xprof_trace_dir
+        if trace_dir == _OBS_DEFAULTS.xprof_trace_dir:
+            trace_dir = os.path.join(tempfile.gettempdir(), "symbiont_xprof")
+        device_trace.configure(trace_dir=trace_dir, max_s=cfg.obs.xprof_trace_max_s)
         dispatch_ledger.register_zero()
         metrics.register_gauge("obs.xprof_executables",
                                dispatch_ledger.__len__)
@@ -177,7 +178,8 @@ class SymbiontStack:
         # services boot, when the engines have claimed) — see _start's
         # device-gauge block.
         from symbiont_tpu_torch.obs.hbm import hbm_ledger, oom_forensics
-        hbm_ledger.configure(enabled=cfg.obs.hbm_enabled)
+        hbm_ledger.configure(enabled=cfg.obs.hbm_enabled,
+                             census_groups=cfg.obs.hbm_census_groups)
         # the default postmortem dir (JAX's fixed /tmp path) resolves under
         # this process's temp dir, which follows TMPDIR
         pm_dir = cfg.obs.hbm_postmortem_dir

@@ -2,10 +2,10 @@
 
 Copy of the JAX package's `symbiont_tpu/services/api.py`, with its obs
 routes on the port's obs modules: `/api/engine/executables` serves the
-dispatch ledger's rows with no roofline grade (the JAX bench's roofline
-accountant is not ported), and `/api/memory/census` and
-`/api/profile/device` answer 501 naming A7's leftovers (the live-array
-census and `DeviceTraceCapture`, ROADMAP).
+dispatch ledger's rows, each graded on the roofline from its capture's
+cost (`obs/xprof.py`), `/api/memory/census` the live-tensor census
+(`obs/hbm.py`) and `POST /api/profile/device` a bounded `torch.profiler`
+trace (`obs/xprof.DeviceTraceCapture`).
 
 Parity with reference: services/api_service/src/main.rs (§1-L4 contract —
 the reference's Next.js frontend works against this unmodified):
@@ -742,23 +742,31 @@ class ApiService:
                         and t0 <= r.start_s <= t1):
                     spans.append(r)
         doc = chrome_trace.export_timeline("engine-timeline", spans, events)
+        # the newest on-demand device trace, cross-linked beside the host
+        # timeline (set here: chrome_trace's own output stays as it is)
+        from symbiont_tpu_torch.obs.xprof import device_trace
+
+        if device_trace.last_artifact:
+            doc.setdefault("otherData", {})["device_trace_artifact"] = device_trace.last_artifact
         return 200, json.dumps(doc)
 
     def _engine_executables(self) -> Tuple[int, str]:
         """``GET /api/engine/executables``: the dispatch ledger's
-        per-signature rows (dispatches, captures, host wall per dispatch).
-        The port's captured graphs carry no cost analysis, so no row
-        carries a roofline grade; the payload says so."""
-        from symbiont_tpu_torch.obs.xprof import dispatch_ledger
+        per-signature rows (dispatches, captures, host wall, each
+        executable's cost and memory from its capture) graded on the
+        roofline (`obs/xprof.grade_executable`). Achieved rates divide the
+        work of a dispatch by its measured host wall, so the gap to a
+        device-trace number is the host's overhead."""
+        from symbiont_tpu_torch.obs.xprof import device_trace, dispatch_ledger, grade_executable
 
         rows = dispatch_ledger.snapshot()
+        for r in rows:
+            r.update(grade_executable(r["flops"], r["bytes_accessed"],
+                                      r["host_wall_ms"] / 1000.0, r["dispatches"]))
         return 200, json.dumps({
             "executables": rows,
             "total_dispatches": sum(r["dispatches"] for r in rows),
-            "device_trace_artifact": None,
-            "roofline": ("not graded: the roofline accountant "
-                         "(symbiont_tpu/bench/roofline.py) and the XLA cost "
-                         "model have no counterpart in the port"),
+            "device_trace_artifact": device_trace.last_artifact,
         })
 
     def _memory(self) -> Tuple[int, str]:
@@ -803,21 +811,52 @@ class ApiService:
         })
 
     def _memory_census(self, query: str) -> Tuple[int, str]:
-        """``GET /api/memory/census``: the JAX gateway aggregates
-        ``jax.live_arrays()`` here. The port's live-tensor census is one of
-        A7's leftovers, so this answers 501 and names it."""
-        return 501, json.dumps(
-            {"message": "the live-array census is not ported yet (A7's "
-                        "leftovers, ROADMAP)", "task_id": None})
+        """``GET /api/memory/census``: the live tensors grouped by (shape,
+        dtype, placement) (`obs/hbm.census`), metadata only, on demand
+        only. ``?top=N`` bounds the group rows (default
+        obs.hbm_census_groups); ``?diff=1`` returns the delta against the
+        previous diff call's census (and arms that one as the next
+        baseline)."""
+        from urllib.parse import parse_qs
+
+        from symbiont_tpu_torch.obs import hbm
+
+        q = parse_qs(query)
+        try:
+            top = int((q.get("top") or [hbm.hbm_ledger.census_groups])[0])
+        except ValueError:
+            raise ValueError("top must be an integer")
+        if (q.get("diff") or ["0"])[0] not in ("0", "", "false"):
+            # a diff's censuses are unbounded (top=0): a leaked group must
+            # not hide inside the "(other)" fold; only the delta is bounded
+            now = hbm.census(top=0)
+            before, self._census_baseline = getattr(self, "_census_baseline", None), now
+            summary = {k: now.get(k) for k in ("available", "arrays", "bytes_total")}
+            if before is None:
+                return 200, json.dumps({
+                    "baseline_armed": True, "census": summary,
+                    "message": ("no prior baseline — this census is now the baseline; call "
+                                "?diff=1 again to see the delta")})
+            return 200, json.dumps({"diff": hbm.census_diff(before, now, top=max(1, top)),
+                                    "census": summary})
+        return 200, json.dumps({"census": hbm.census(top=max(1, top))})
 
     async def _profile_device(self, body: bytes) -> Tuple[int, str]:
-        """``POST /api/profile/device``: the JAX gateway captures a bounded
-        device trace window here. The port's `DeviceTraceCapture` is one of
-        A7's leftovers, so this answers 501 and names it."""
-        return 501, json.dumps(
-            {"message": "on-demand device trace capture (DeviceTraceCapture) "
-                        "is not ported yet (A7's leftovers, ROADMAP)",
-             "task_id": None})
+        """``POST /api/profile/device``: a bounded on-demand device trace
+        (``{"duration_s": 1.0}``, clamped to obs.xprof_trace_max_s) and
+        its artifact path (`obs/xprof.DeviceTraceCapture`). On an executor
+        thread: the capture sleeps through its window; the process-wide
+        profiler lock answers 409 to a second capture."""
+        from symbiont_tpu_torch.obs.xprof import device_trace
+
+        payload = json.loads(body.decode("utf-8")) if body.strip() else {}
+        if not isinstance(payload, dict):
+            raise ValueError("body must be a JSON object")
+        duration = payload.get("duration_s", 1.0)
+        loop = asyncio.get_running_loop()
+        res = await loop.run_in_executor(None, device_trace.capture, duration)
+        status = {"captured": 200, "busy": 409, "error": 500}[res["status"]]
+        return status, json.dumps(res)
 
     def _tenants_rollup(self) -> Tuple[int, str]:
         """``GET /api/tenants``: local per-tenant usage totals, plus the

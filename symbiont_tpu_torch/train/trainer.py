@@ -208,8 +208,10 @@ def _step_executable(state: TrainState, batch: dict, cfg, tx, loss_fn=contrastiv
             moments = [tx.state[p] for p in leaves]
             carry = [t.detach() for t in leaves] + [m[k] for m in moments
                                                     for k in ("step", "exp_avg", "exp_avg_sq")]
-        exe = own["exes"][key] = Executable(_step_fn(state.params, tx, cfg, loss_fn, keys),
-                                            device, pool=own["pool"], carry=carry)
+        shapes = ",".join("x".join(map(str, batch[k].shape)) for k in keys if k.endswith("ids"))
+        exe = own["exes"][key] = Executable(
+            _step_fn(state.params, tx, cfg, loss_fn, keys), device, pool=own["pool"],
+            carry=carry, signature=f"train.{getattr(loss_fn, '__name__', 'loss')}_step[{shapes}]")
         exe.params = state.params
     return exe
 

@@ -643,7 +643,7 @@ def test_a_failing_session_check_fails_the_run(monkeypatch, capsys):
 # ------------------------------------------------------------ paged, spec
 
 TINY_PAGED = dict(TINY_SESSION, bucket=(8, 16), new=16, prefix=8, page=4, spec_k=4,
-                  verify_rows=2, verify_cache=32,
+                  verify_rows=2, verify_cache=32, twin_new=8,
                   drafter=dict(chip_smoke.LLAMA_68M, vocab_size=300, hidden_size=16,
                                num_hidden_layers=1, num_attention_heads=2,
                                num_key_value_heads=2, intermediate_size=24,
@@ -700,13 +700,17 @@ def test_paged_phase_rehearses_on_the_cpu(tiny_dirs, capsys):
 
 def test_spec_phase_rehearses_on_the_cpu(tiny_dirs, capsys):
     """[spec] end to end on the CPU at tiny geometries: the self-drafted,
-    corrupted and small-drafter sessions and the verify check."""
+    corrupted and small-drafter sessions, the round executables stepped
+    beside their eager twins, and the verify check."""
     tmp, tinyllama = tiny_dirs
     out = chip_smoke.spec_phase(np.random.default_rng(0), tmp, tinyllama, sizes=TINY_PAGED,
                                 device="cpu", lm_kw=TINY_LM_KW)
     printed = capsys.readouterr().out
     assert printed.count("[spec] flash_attn_fwd causal") == 3  # B1 at its new shapes
-    assert printed.count("[spec]") == 7
+    assert printed.count("[spec]") == 8
+    twins = out["twins"]
+    assert len(twins) == 4 and all(t["rounds"] > 0 for t in twins.values())
+    assert all({"spec_first", "draft", "verify"} <= set(t["capture_ms"]) for t in twins.values())
     assert all(r["acceptance"] == 1.0 and r["tokens_per_round"] == 5.0
                for r in out["self_drafted"].values())
     assert out["corrupted_acceptance"] == 2 / 4

@@ -43,13 +43,18 @@ def test_fleet_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
     out = chip_smoke.fleet_phase(np.random.default_rng(0), tmp_path, sizes=TINY_FLEET,
                                  device="cpu", engine_kw=TINY_STACK_ENGINE, lm_kw=TINY_FLEET_LM)
     printed = capsys.readouterr().out
-    assert printed.count("[fleet] (cpu)") == 4
+    assert printed.count("[fleet] (cpu)") == 5  # the first and the last search's spans apart
     # B1 against plain at each GPT-2 bucket a stream or a resume prefills
     assert printed.count("[fleet] flash_attn_fwd causal q[1, 4, ") >= 2
     search, durable = out["search"], out["durable"]
     assert search["ingest"]["sentences"] == 16 and search["graph_documents"] == 4
     assert search["search"]["queries"] == 4 and search["search"]["fallbacks"] == 0
     assert search["trace_processes"] >= 3
+    for key in ("first_search_hops", "search_hops"):
+        assert {"api.search", "vector_memory.search", "engine.rerank"} <= {
+            name for name, *_ in search[key]}
+    se = search["search"]
+    assert se["first_ms"] <= se["max_ms"] and se["p50_ms"] <= se["max_ms"]
     assert {"gateway", "perception", "embed", "memory", "graphgen"} <= set(search["roles"])
     assert search["drain"]["clean"] and search["drain"]["replica"] == "perception-2"
     assert durable["streams"] == 4 and durable["resumed"] >= 1

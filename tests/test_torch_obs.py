@@ -1,7 +1,7 @@
 """The port's observability hooks (utils/telemetry.py, obs/) against the JAX
 package's: the metrics registry renders the same snapshot for the same
 operations, the device-memory ledger's claims retire with their owners and
-reconcile on the CPU with basis "none", `guard_oom` records and re-raises a
+reconcile on the CPU against the live-tensor census, `guard_oom` records and re-raises a
 device OOM, the dispatch ledger and the padding series read as the JAX
 engine's for the same batches, and `maybe_profile` writes a Chrome trace.
 
@@ -122,13 +122,20 @@ def test_hbm_claims_sum_retire_and_match_jax():
 def test_reconcile_without_cuda_has_basis_none():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    # the name is from before the census was ported: without CUDA the
+    # basis is now the live-tensor census, as JAX's falls back to
+    # `jax.live_arrays()` on the CPU
     ledger = thbm.HbmLedger()
     owner = _Owner(1 << 20)
     ledger.claim("engine.params", owner, lambda o: o.n)
-    rec = ledger.reconcile()
-    assert rec["basis"] == "none" and rec["devices"] == []
-    assert rec["bytes_in_use"] == 0 and rec["unattributed_bytes"] == 0
+    held = torch.zeros(1 << 22, dtype=torch.uint8)  # 4 MiB the census must see
+    rec = ledger.reconcile(census_rows=4)
+    assert rec["basis"] == "live_arrays" and rec["devices"] == []
+    assert jhbm.HbmLedger(jtelemetry.Metrics()).reconcile()["basis"] == "live_arrays"
+    assert rec["bytes_in_use"] >= held.numel()
+    assert rec["unattributed_bytes"] == max(0, rec["bytes_in_use"] - (1 << 20))
     assert rec["attributed_bytes"] == 1 << 20
+    assert rec["census"]["available"] and len(rec["census"]["groups"]) <= 5
     assert tdevice.local_device_stats() == []
     registry = ttelemetry.Metrics()
     assert tdevice.register_device_gauges(registry) == 0
@@ -150,7 +157,8 @@ def test_guard_oom_records_and_reraises(tmp_path, monkeypatch):
     assert last["site"] == "test.guard" and last["postmortem"].startswith(str(tmp_path))
     report = json.loads(open(last["postmortem"]).read())
     assert report["error_type"] == "OutOfMemoryError"
-    assert report["memory"]["basis"] in ("none", "memory_stats")
+    assert report["memory"]["basis"] in ("live_arrays", "memory_stats")
+    assert report["census"]["available"] and len(report["census"]["groups"]) <= 33
     assert isinstance(report["timeline_tail"], list)
     # other errors pass through uncounted; a message-only OOM is recognised
     with pytest.raises(ValueError):
@@ -319,3 +327,195 @@ def test_maybe_profile_writes_a_chrome_trace(tmp_path, monkeypatch, engines):
             torch.ones(2).sum()
     assert ttelemetry.metrics.get("profile.skipped", skipped) == before + 1
     assert len(list(tmp_path.glob("test.outer.*.json"))) == 1
+
+
+# ------------------------------------------------------------------ A7's rest
+
+# dtypes both packages name alike, for arrays and tensors of equal shapes
+_CENSUS_SET = [((64, 32), "float32"), ((64, 32), "float32"), ((8,), "int32"),
+               ((3, 5, 7), "bfloat16"), ((1000,), "bool"), ((2, 2), "int8"), ((16, 16), "float32")]
+
+
+def _strip(rows, key="sharding"):
+    return [{k: v for k, v in r.items() if k != key} for r in rows]
+
+
+def _censuses(monkeypatch, arrays_np, top):
+    """JAX's census of `arrays_np` as jax arrays (`jax.live_arrays`
+    patched to them) and the port's of the same as CPU tensors (the
+    collector's objects patched to them, a view beside one of them that
+    must not count twice)."""
+    jarrs = [jax.numpy.asarray(a) for a in arrays_np]
+    tens = [torch.from_numpy(np.asarray(a, np.float32)).to(
+        {"bfloat16": torch.bfloat16, "float32": torch.float32, "int32": torch.int32,
+         "bool": torch.bool, "int8": torch.int8}[str(a.dtype)]) for a in arrays_np]
+    monkeypatch.setattr(jax, "live_arrays", lambda: jarrs)
+    monkeypatch.setattr(thbm.gc, "get_objects", lambda: [*tens, tens[0][:3], object()])
+    return jhbm.census(top=top), thbm.census(top=top, device="cpu")
+
+
+def _arrays(spec, seed=0):
+    import ml_dtypes
+
+    rng = np.random.default_rng(seed)
+    dt = {"bfloat16": ml_dtypes.bfloat16, "float32": np.float32, "int32": np.int32,
+          "bool": np.bool_, "int8": np.int8}
+    return [rng.normal(size=shape).astype(dt[d]) for shape, d in spec]
+
+
+@pytest.mark.parametrize("top", [0, 3])
+def test_census_groups_fold_and_order_as_jax(monkeypatch, top):
+    """Equal arrays and tensors: the same groups (shape, dtype, count,
+    bytes), the same order, the same "(other)" fold past `top`; a view
+    counts its storage once."""
+    j, t = _censuses(monkeypatch, _arrays(_CENSUS_SET), top)
+    assert t["available"] and j["available"]
+    assert {k: t[k] for k in ("arrays", "bytes_total", "group_count")} == {
+        k: j[k] for k in ("arrays", "bytes_total", "group_count")}
+    assert _strip(t["groups"]) == _strip(j["groups"])
+    assert {g["sharding"] for g in t["groups"] if g["dtype"] != "(other)"} == {"cpu"}
+    if top:
+        assert t["groups"][-1]["dtype"] == "(other)" and len(t["groups"]) == top + 1
+
+
+def test_census_diff_matches_jax(monkeypatch):
+    """Two censuses a group apart, diffed by both packages: the same
+    deltas, growth first."""
+    before_np = _arrays(_CENSUS_SET)
+    after_np = before_np[1:] + _arrays([((128, 32), "float32"), ((8,), "int32")], seed=1)
+    jb, tb = _censuses(monkeypatch, before_np, 0)
+    ja, ta = _censuses(monkeypatch, after_np, 0)
+    jd, td = jhbm.census_diff(jb, ja, top=3), thbm.census_diff(tb, ta, top=3)
+    assert set(td) == set(jd) and td["available"]
+    assert (td["bytes_delta"], td["array_delta"]) == (jd["bytes_delta"], jd["array_delta"])
+    assert _strip(td["groups"]) == _strip(jd["groups"])
+    assert thbm.census_diff({"available": False}, ta) == {"available": False}
+
+
+def test_peak_temp_bytes_reads_the_ledger_as_jax(monkeypatch):
+    """The largest `temp_bytes` of the ledger's rows under a prefix; rows
+    without a memory analysis count as none, in both packages."""
+    mine, theirs = txprof.DispatchLedger(), jxprof.DispatchLedger(registry=jtelemetry.Metrics())
+    monkeypatch.setattr(txprof, "dispatch_ledger", mine)
+    monkeypatch.setattr(jxprof, "dispatch_ledger", theirs)
+    for ledger in (mine, theirs):
+        ledger.note_compile("lm.prefill[P=64,B=1,new=64]", {"flops": 1.0, "bytes_accessed": 2.0},
+                            {"temp_bytes": 4096, "argument_bytes": 512, "output_bytes": 64})
+        ledger.note_compile("lm.verify_chunk[P=64,B=8,k=8]", None, {"temp_bytes": 9000})
+        ledger.note_compile("embed[L=32,B=8]", None, {"temp_bytes": 1 << 20})
+        ledger.note_compile("lm.decode_chunk[P=64,B=8,chunk=16]", None)
+    for prefix in ("lm.", "embed", "", "none."):
+        assert thbm.peak_temp_bytes(prefix) == jhbm.peak_temp_bytes(prefix)
+    assert thbm.peak_temp_bytes("lm.") == 9000
+    rows = {r["executable"]: r for r in mine.snapshot()}
+    want = {r["executable"]: r for r in theirs.snapshot()}
+    assert rows == want
+
+
+def test_grade_executable_copy_matches_jax():
+    from symbiont_tpu.bench.roofline import grade_executable as jgrade
+
+    table = [(None, None, 0.1, 3, None), (2e9, 4e8, 0.5, 5, None), (0.0, 1e6, 0.02, 2, 100.0),
+             (5e12, None, 1.0, 10, 3350.0), (1e9, 1e9, 0.0, 4, None), (1e9, 1e9, 0.3, 0, None),
+             (7.5e10, 3e9, 0.125, 7, 2000.0)]
+    for args in table:
+        assert txprof.grade_executable(*args) == jgrade(*args), args
+
+
+def test_gemm_executable_cost_is_2mnk_and_attention_adds_b1():
+    """An executable's first call (its cost analysis on the CPU): a GEMM
+    of [M, K] x [K, N] counts 2·M·N·K operations and its operands' and
+    result's bytes; a launch of the flash kernel recorded inside adds the
+    B1 formula's operations and bytes (`ops/flash_attention.kernel_work`:
+    4·B·NH·pairs·D, causal pairs the lower triangle)."""
+    from symbiont_tpu_torch.graphs import Executable
+    from symbiont_tpu_torch.ops import flash_attention as fa
+
+    M, K, N = 16, 32, 8
+    a, b = torch.randn(M, K), torch.randn(K, N)
+    gemm = Executable(lambda x, y: x @ y, "cpu")
+    with torch.inference_mode():
+        assert torch.equal(gemm(a, b), a @ b)
+    assert gemm.cost == {"flops": 2.0 * M * N * K, "bytes_accessed": float(4 * (M * K + K * N
+                                                                                + M * N))}
+    assert gemm.memory is None  # the CPU measures no memory
+    q = torch.zeros(2, 4, 64, 32)
+    kv = torch.zeros(2, 2, 64, 32)
+
+    def attention(x, y):
+        fa._note_work(0, q, kv, True)  # what a launch of B1 records
+        return x @ y
+
+    exe = Executable(attention, "cpu", signature="test.attention[S=64]")
+    exe(a, b)
+    pairs = 64 * 65 // 2
+    b1_bytes = 2 * 2 * 4 * 64 * 32 * 4 + 2 * 2 * 2 * 64 * 32 * 4 + 2 * 64 * 4 + 2 * 4 * 64 * 4
+    assert fa.kernel_work(0, q, kv, True) == (4.0 * 2 * 4 * pairs * 32, b1_bytes)
+    assert exe.cost["flops"] == 2.0 * M * N * K + 4.0 * 2 * 4 * pairs * 32
+    assert exe.cost["bytes_accessed"] == gemm.cost["bytes_accessed"] + b1_bytes
+    row = next(r for r in txprof.dispatch_ledger.snapshot()
+               if r["executable"] == "test.attention[S=64]")
+    assert row["compiles"] >= 1 and row["flops"] == exe.cost["flops"]
+    # B2 and B3 by their own formulas, non-causal
+    f2, _ = fa.kernel_work(1, q, q, False)
+    f3, _ = fa.kernel_work(2, q, q, False)
+    assert (f2, f3) == (8.0 * 2 * 4 * 64 * 64 * 32, 6.0 * 2 * 4 * 64 * 64 * 32)
+
+
+def test_store_search_cost_counts_its_product_and_imports_no_compiler_stack():
+    """A store search's first call on the CPU, as a memory role serves it
+    (under inference mode, where `aten.matmul` reaches the cost's dispatch
+    mode whole): its ledger row holds the scoring product's 2·N·D
+    operations (an `aten.mv`, which the flop counter leaves out), and the
+    analysis imports neither `torch._dynamo` nor sympy (through torch's
+    Python decompositions), which cost a role's first request seconds. In
+    a process of its own, where no other test has imported them."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = ("import sys, tempfile, numpy as np\n"
+            "from symbiont_tpu_torch.config import VectorStoreConfig\n"
+            "from symbiont_tpu_torch.memory.vector_store import VectorStore\n"
+            "from symbiont_tpu_torch.obs.xprof import dispatch_ledger\n"
+            "store = VectorStore(VectorStoreConfig(dim=24, data_dir=tempfile.mkdtemp(), "
+            "shard_capacity=96), device='cpu')\n"
+            "v = np.random.default_rng(0).standard_normal((90, 24)).astype(np.float32)\n"
+            "store.upsert([(f'p{i}', v[i], {}) for i in range(90)])\n"
+            "hits = store.search(v[7], 5)\n"
+            "assert hits[0].id == 'p7', hits\n"
+            "row, = [r for r in dispatch_ledger.snapshot() "
+            "if r['executable'].startswith('memory.search')]\n"
+            "print(row['flops'], 'torch._dynamo' in sys.modules, 'sympy' in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         check=True, cwd=Path(__file__).resolve().parents[1]).stdout.split()
+    assert out == [str(2.0 * 96 * 24), "False", "False"]
+
+
+def test_device_trace_capture_busy_error_and_captured(tmp_path, monkeypatch):
+    """`DeviceTraceCapture`: "busy" while the profiler lock is held, a
+    ValueError for a duration that is not a positive number, and a
+    captured window (the CPU's activities here) clamped to `max_s`, its
+    Chrome trace in the artifact directory; the counters move as JAX's."""
+    cap = txprof.DeviceTraceCapture()
+    cap.configure(trace_dir=str(tmp_path), max_s=0.05)
+    reg = ttelemetry.metrics
+    busy0 = reg.get("profile.device_busy")
+    with ttelemetry._profile_lock:
+        assert cap.capture(0.01) == {"status": "busy",
+                                     "detail": "a profiler capture is already in flight"}
+    assert reg.get("profile.device_busy") == busy0 + 1
+    for bad in (0, -1.0, "soon"):
+        with pytest.raises(ValueError):
+            cap.capture(bad)
+    n0 = reg.get("profile.device_captures")
+    slept = []
+    monkeypatch.setattr(txprof.time, "sleep", slept.append)
+    res = cap.capture(10.0)
+    assert slept == [0.05]  # the window, clamped to max_s
+    assert res["status"] == "captured" and set(res) == {"status", "artifact", "window_s", "hint"}
+    assert cap.last_artifact == res["artifact"]
+    assert res["artifact"].startswith(str(tmp_path))
+    assert "traceEvents" in json.loads(open(f"{res['artifact']}/trace.json").read())
+    assert reg.get("profile.device_captures") == n0 + 1
+    assert not ttelemetry._profile_lock.locked()

@@ -153,7 +153,8 @@ def test_sampled_verify_repeats_and_keeps_to_the_top_k_set():
     outs = []
     for _ in range(2):
         cache = tgpt.KVCache(r["tcache"].k.clone(), r["tcache"].v.clone(), P)
-        outs.append(tgpt.verify_chunk(r["tp"], cache, pending, drafts, pos, done, kv,
+        # verify_chunk writes the window's validity into the kv_valid it takes
+        outs.append(tgpt.verify_chunk(r["tp"], cache, pending, drafts, pos, done, kv.clone(),
                                       torch.Generator().manual_seed(4), tcfg, temperature=0.8,
                                       top_k=3))
     for a, b in zip(outs[0][1:], outs[1][1:]):

@@ -73,7 +73,7 @@ GET_ROUTES = ["/healthz", "/readyz", "/api/metrics", "/api/health/engine",
 # keys one package's body has and the other's lacks, by route: the port's
 # executables payload says why no row carries a roofline grade, and the JAX
 # one names its device-trace artifact where the port has none
-PORT_ONLY_KEYS = {"/api/engine/executables": {"roofline"}}
+PORT_ONLY_KEYS: dict = {}  # route -> keys the port adds to JAX's body (none now)
 
 
 def _fetcher(url: str) -> str:

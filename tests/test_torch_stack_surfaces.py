@@ -2,8 +2,9 @@
 trace surfaces; generation over the SSE stream on the Markov backend and
 on the LM backend (a tiny synthetic llama, streamed and batched); durable
 at-least-once delivery (a malformed payload quarantined in `/api/dlq`, and
-its replay); a quota 429 with Retry-After; the routes that answer 501;
-every setting of A8 stage 2 starting its plane (the TCP bus to a broker,
+its replay); a quota 429 with Retry-After; the census, device-trace and
+executables routes answering with JAX's key sets, and the obs settings
+that start those planes; every setting of A8 stage 2 starting its plane (the TCP bus to a broker,
 the external stores behind their breakers, the fleet plane, heartbeats,
 the SLO watchdog, the generation journal), backends that fail loudly
 instead of falling back, and every setting of a part not ported yet
@@ -277,16 +278,105 @@ def test_quota_answers_429_with_retry_after(tmp_path):
     _scenario(cfg, body)
 
 
-def test_a7_leftovers_answer_501(tmp_path):
+# the key sets JAX's gateway answers these routes with
+# (symbiont_tpu/services/api.py `_memory_census`, `_profile_device`,
+# `_engine_executables`; symbiont_tpu/obs/hbm.py `census`, `census_diff`)
+CENSUS_KEYS = {"available", "arrays", "bytes_total", "group_count", "groups"}
+GROUP_KEYS = {"shape", "dtype", "sharding", "count", "bytes"}
+DIFF_KEYS = {"available", "bytes_delta", "array_delta", "groups"}
+EXECUTABLE_KEYS = {"executable", "dispatches", "compiles", "host_wall_ms", "mean_dispatch_us",
+                   "flops", "bytes_accessed", "temp_bytes", "argument_bytes", "output_bytes",
+                   "generated_code_bytes", "achieved_gflops_per_s", "achieved_gbps",
+                   "arithmetic_intensity", "hbm_util_vs_ref_pct"}
+
+
+def test_memory_census_answers_with_jax_key_sets(tmp_path):
+    """`GET /api/memory/census` with `top`, and `?diff=1` arming its
+    baseline then answering the delta."""
     async def body(stack, http):
-        for method, path in (("GET", "/api/memory/census"), ("POST", "/api/profile/device")):
-            st, _, raw = await http(method, path, {} if method == "POST" else None)
-            assert st == 501 and "A7" in json.loads(raw)["message"]
-        st, _, raw = await http("GET", "/api/engine/executables")
-        rows = json.loads(raw)
-        assert st == 200 and "roofline" in rows and "executables" in rows
+        st, _, raw = await http("GET", "/api/memory/census?top=2")
+        doc = json.loads(raw)
+        assert st == 200 and set(doc) == {"census"} and set(doc["census"]) == CENSUS_KEYS
+        groups = doc["census"]["groups"]
+        assert doc["census"]["available"] and len(groups) <= 3
+        assert all(set(g) == GROUP_KEYS for g in groups)
+        if doc["census"]["group_count"] > 2:
+            assert groups[-1]["dtype"] == "(other)"
+        st, _, raw = await http("GET", "/api/memory/census?diff=1")
+        armed = json.loads(raw)
+        assert st == 200 and set(armed) == {"baseline_armed", "census", "message"}
+        assert set(armed["census"]) == {"available", "arrays", "bytes_total"}
+        st, _, raw = await http("GET", "/api/memory/census?diff=1&top=4")
+        diff = json.loads(raw)
+        assert st == 200 and set(diff) == {"diff", "census"} and set(diff["diff"]) == DIFF_KEYS
+        assert len(diff["diff"]["groups"]) <= 4
+        st, _, _ = await http("GET", "/api/memory/census?top=x")
+        assert st == 400
 
     _scenario(_config(tmp_path), body)
+
+
+def test_profile_device_and_executables_answer_with_jax_key_sets(tmp_path):
+    """`POST /api/profile/device` captures a trace (the CPU's activities
+    here) whose artifact `/api/engine/executables` and the timeline's
+    Chrome export name; the executables' rows are graded, and an embed
+    row carries its first call's cost."""
+    cfg = _config(tmp_path, obs=ObsConfig(xprof_trace_dir=str(tmp_path / "traces")))
+
+    async def body(stack, http):
+        assert (await http("POST", "/api/submit-url", {"url": "http://x/doc"}))[0] == 200
+        await _until(lambda: stack.engine.stats["embed_calls"] > 0)
+        st, _, raw = await http("POST", "/api/profile/device", {"duration_s": 0.1})
+        res = json.loads(raw)
+        assert st == 200 and set(res) == {"status", "artifact", "window_s", "hint"}
+        assert res["status"] == "captured" and res["artifact"].startswith(str(tmp_path / "traces"))
+        assert json.loads(open(f"{res['artifact']}/trace.json").read())["traceEvents"]
+        st, _, raw = await http("POST", "/api/profile/device", {"duration_s": -1})
+        assert st == 400
+        st, _, raw = await http("GET", "/api/engine/executables")
+        doc = json.loads(raw)
+        assert st == 200 and set(doc) == {"executables", "total_dispatches",
+                                          "device_trace_artifact"}
+        assert doc["device_trace_artifact"] == res["artifact"]
+        assert all(set(r) == EXECUTABLE_KEYS for r in doc["executables"])
+        embed = [r for r in doc["executables"] if r["executable"].startswith("embed[")]
+        assert embed and embed[0]["flops"] > 0 and embed[0]["bytes_accessed"] > 0
+        assert embed[0]["temp_bytes"] is None  # the CPU measures no memory
+        if embed[0]["dispatches"]:
+            assert embed[0]["achieved_gflops_per_s"] > 0
+
+    _scenario(cfg, body)
+
+
+@pytest.mark.parametrize("fields", [dict(xprof_trace_dir="traces"), dict(xprof_trace_max_s=0.05),
+                                    dict(hbm_census_groups=3)])
+def test_a7_settings_start_their_plane(tmp_path, fields):
+    """Each of the three obs settings the runner once refused configures
+    its plane: the trace directory, the trace window's clamp, the
+    census's default row bound."""
+    from symbiont_tpu_torch.obs.hbm import hbm_ledger
+    from symbiont_tpu_torch.obs.xprof import device_trace
+
+    if "xprof_trace_dir" in fields:
+        fields = dict(xprof_trace_dir=str(tmp_path / fields["xprof_trace_dir"]))
+    cfg = _config(tmp_path, obs=ObsConfig(**fields))
+
+    async def body(stack, http):
+        if "hbm_census_groups" in fields:
+            assert hbm_ledger.census_groups == 3
+            st, _, raw = await http("GET", "/api/memory/census")
+            census = json.loads(raw)["census"]
+            assert st == 200 and len(census["groups"]) <= 4
+            return
+        st, _, raw = await http("POST", "/api/profile/device", {"duration_s": 0.5})
+        res = json.loads(raw)
+        assert st == 200 and res["status"] == "captured"
+        if "xprof_trace_max_s" in fields:
+            assert device_trace._max_s == 0.05  # the clamp itself: test_torch_obs.py
+        else:
+            assert res["artifact"].startswith(fields["xprof_trace_dir"])
+
+    _scenario(cfg, body)
 
 
 def _set(cfg, section, **fields):
@@ -297,9 +387,6 @@ def _set(cfg, section, **fields):
 
 @pytest.mark.parametrize("section,fields,item", [
     ("parallel", dict(mesh_shape=[2, 1]), "A15"),
-    ("obs", dict(xprof_trace_dir="/srv/traces"), "A7"),
-    ("obs", dict(xprof_trace_max_s=5.0), "A7"),
-    ("obs", dict(hbm_census_groups=8), "A7"),
 ])
 def test_unported_settings_raise_naming_their_item(tmp_path, section, fields, item):
     cfg = _set(_config(tmp_path), section, **fields)
