@@ -153,8 +153,23 @@ any failure exits non-zero:
              stream and resume prefill bucket; kill to the first replayed
              delta, the re-prefill's ms and each role's device memory.
 
+16. mesh   — (run after [lmtrain]) A15 stage 1 over virtual meshes that repeat cuda:0, each
+             path against itself without a mesh: DP embed of 512 texts by
+             the [serve] encoder on [2, 1] (row cosine >= 0.999, B1 =
+             layers x replicas per batch, the replica gauges), a 65,536 x
+             768 store row-split over the same mesh (20 searches and 20
+             fused queries return the meshless hits exactly), TP decode of
+             TinyLlama-1.1B float32 (none and int8) and GPT-2 124M on
+             [1, 2] (generate_batch and a session with an admission token-
+             identical, or parting only at a near-tie; B1 = layers x 2 a
+             prefill), and the dp x tp LM train step of GPT-2 on [2, 2]
+             (loss and grad norm within rtol 1e-4 of the unsharded step,
+             B1 = B2 = B3 = layers x 4 a step), with B1 at a TP shard's
+             prefill and B2/B3 at a train shard's heads against their
+             plain versions.
+
 Launch counts are set to 0 just before each main path (phases 3-4, 5, 6,
-8, 9, 10, 11, 12, 13, 14 and 15) and read just after. On the card every LM
+8, 9, 10, 11, 12, 13, 14, 15 and 16) and read just after. On the card every LM
 prefill, decode chunk and train step is a replayed CUDA graph: a graph's
 kernels count once per replay, and a capture's eager warm-up adds one
 more run of them (`capture_b1`). The last two lines are a JSON object with
@@ -5755,6 +5770,348 @@ def fleet_phase(rng, tmp, sizes=None, device="cuda", engine_kw=None, lm_kw=None)
             "search": search, "durable": durable, "before": before}
 
 
+# ------------------------------------------------------------------ [mesh]
+
+# A15 stage 1 on one card: virtual meshes that repeat cuda:0, at full width
+MESH = dict(dp=2, texts=512, store_rows=60_000, store_cap=65_536, queries=20, top_k=10,
+            tp=2, prompts=4, new=32, prompt_bucket=64, chunk=16, llama=TINYLLAMA_1B,
+            gpt2=GPT2_124M, train_mesh=(2, 2), train_rows=8, train_seq=64, train_steps=2,
+            lr=1e-4)
+
+
+def _ids_of(text: str) -> list:
+    """The ids an `IdTokenizer` decode printed."""
+    return [int(m) for m in re.findall(r"\[(\d+)\]", text)]
+
+
+def bwd_against_plain(B: int, NH: int, S: int, D: int, dtype, device="cuda",
+                      tag="mesh") -> dict:
+    """B2 and B3 at one causal training shape against their plain versions,
+    fed B1's own out and lse (`_within`'s bars); their launches are not
+    counted. → max |kernel - plain| for "kv" and "q"."""
+    from symbiont_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 23)
+    q, k, v, g = (torch.randn((B, NH, S, D), generator=gen, device=device).to(dtype)
+                  for _ in range(4))
+    saved = _launch_counts(fa)
+    out, lse = fa.flash_attention_with_lse(q, k, v, None, causal=True)
+    dq, dk, dv, _ = fa.flash_attention_backward(q, k, v, None, out, lse, g, causal=True)
+    _set_launch_counts(fa, saved)
+    rq, rk, rv, _ = fa.flash_attention_backward_reference(q, k, v, None, out, lse, g,
+                                                          causal=True)
+    errs = {"plain_max": float(max(t.abs().max() for t in (rk, rv, rq)))}
+    for part, pairs in (("kv", ((dk, rk), (dv, rv))), ("q", ((dq, rq),))):
+        res = [_within(a, b, dtype) for a, b in pairs]
+        errs[part] = max(r[1] for r in res)
+        check(all(r[0] for r in res), f"[{tag}] B{2 if part == 'kv' else 3} causal "
+                                      f"[{B}, {NH}, {S}, {D}] {dtype}: max |kernel - plain| "
+                                      f"{errs[part]:.4g} over its bar")
+    print(f"[{tag}] flash_attn_bwd causal q/k/v/g [{B}, {NH}, {S}, {D}] {str(dtype)[6:]} "
+          f"(a dp x tp shard's heads): B2 max_abs_err {errs['kv']:.4g}, B3 max_abs_err "
+          f"{errs['q']:.4g}, largest |plain| gradient {errs['plain_max']:.4g}", flush=True)
+    return errs
+
+
+def mesh_phase(rng, sizes=None, device="cuda", engine_kw=None) -> dict:
+    """A15 stage 1 on one card, over virtual meshes that repeat cuda:0 (the
+    counterpart of the JAX tests' virtual CPU devices), each path against
+    the same path without a mesh:
+
+    - DP embed: `EngineConfig()`'s encoder (768 wide, 12 layers, bf16,
+      flash) on a [dp, 1] mesh embeds `texts` texts over every length
+      bucket; row cosine >= 0.999 against the meshless engine, B1 = layers
+      x replicas per batch (and per replica capture), the replica gauges
+      for a pinned batch;
+    - sharded store: a `store_cap`-row, 768-wide store on the same mesh;
+      `queries` vectors and as many fused queries return the meshless
+      store's hits exactly (ids, scores, order);
+    - TP decode: TinyLlama-1.1B at float32 on [1, tp] (vocab-split wte and
+      lm_head), quantize none and int8, and GPT-2 124M (vocab 50,257 does
+      not divide: wte replicated): `generate_batch` of `prompts` x `new`
+      greedy tokens and a session with one mid-decode admission equal the
+      unsharded engine's tokens, or part only at a top-2 logit gap under
+      TIE_SHARE of the largest |logit|; B1 = layers x tp per prefill;
+    - dp x tp train: GPT-2 124M at float32 on `train_mesh`, `train_steps`
+      steps at [train_rows, train_seq]: loss and grad norm within rtol 1e-4
+      of the unsharded step, the params still TP-placed after the update,
+      B1 = B2 = B3 = layers x dp x tp a step.
+
+    Launch counts are set to 0 at the start; the meshless runs and the
+    kernels held against their plain versions put them back as they found
+    them, so what is read at the end is the mesh paths' alone. → the
+    launches (B1, B2, B3) and what each part measured."""
+    import gc
+    import math
+
+    from symbiont_tpu_torch.config import EngineConfig, LmConfig, VectorStoreConfig
+    from symbiont_tpu_torch.engine.engine import TorchEngine
+    from symbiont_tpu_torch.engine.lm import LmEngine
+    from symbiont_tpu_torch.memory.vector_store import VectorStore
+    from symbiont_tpu_torch.models import gpt as gpt_mod
+    from symbiont_tpu_torch.ops import flash_attention as fa
+    from symbiont_tpu_torch.parallel import Sharded, batch_sharding, build_mesh
+    from symbiont_tpu_torch.parallel.sharding import device_put
+    from symbiont_tpu_torch.train import trainer as trainer_mod
+    from symbiont_tpu_torch.utils.telemetry import metrics
+
+    s = dict(MESH, **(sizes or {}))
+    cuda = device == "cuda"
+    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    card = card_line() if cuda else "the CPU"
+
+    def mesh(shape):
+        return build_mesh(shape, devices=[dev] * math.prod(shape))
+
+    def reference(fn):
+        """A meshless run (or a check of one): its launches are not the phase's."""
+        saved = _launch_counts(fa)
+        try:
+            return fn()
+        finally:
+            _set_launch_counts(fa, saved)
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    out = {}
+    _set_launch_counts(fa, (0, 0, 0))  # ------------------------------- main path
+
+    # DP embed ------------------------------------------------------------
+    ekw = dict(dict(embedding_dim=768, dtype="bfloat16", attn_impl="flash",
+                    force_cpu=not cuda), **(engine_kw or {}))
+    nd = s["dp"]
+    dp = TorchEngine(EngineConfig(**ekw), mesh=mesh([nd, 1]))
+    single = TorchEngine(EngineConfig(**dict(ekw, data_parallel=False)))
+    L = dp.model_cfg.num_layers
+    texts = synth_texts(rng, s["texts"])
+    want, single_ms = reference(lambda: timed(lambda: single.embed_texts(texts)))
+    want2, single2_ms = reference(lambda: timed(lambda: single.embed_texts(texts)))
+    runs = []
+    for _ in range(2):  # cold (captures), then warm
+        b0, c0, l0 = dp.stats["embed_batches"], dp.stats["compiles"], fa.launches
+        got, ms = timed(lambda: dp.embed_texts(texts))
+        runs.append({"ms": ms, "batches": dp.stats["embed_batches"] - b0,
+                     "compiles": dp.stats["compiles"] - c0, "b1": fa.launches - l0,
+                     "cos": float(_cosines(got, want).min())})
+    cos = min(r["cos"] for r in runs)
+    check(cos >= 0.999, f"[mesh] DP embed row cosine {cos:.5f} < 0.999 against the meshless "
+                        "engine")
+    check(np.array_equal(want, want2), "[mesh] the meshless engine's two embeds differ")
+    for r in runs:
+        eq = L * nd * (r["batches"] + (r["compiles"] if cuda else 0))
+        check(r["b1"] == eq, f"[mesh] DP embed B1 {r['b1']} != {L} layers x {nd} replicas x "
+                             f"({r['batches']} batches + {r['compiles'] if cuda else 0} "
+                             "captures)")
+    # the replica gauges at a pinned batch: 3 real rows of 4 over 2 replicas
+    pin = build_mesh([2, 1], devices=[dev] * 2)
+    gauge_eng = dp if nd == 2 else TorchEngine(EngineConfig(**ekw), mesh=pin)
+    gauge_eng._note_padding([8] * 3, 8, 4, 3)
+    waste = [metrics.gauge_get("batcher.padding_waste", {"service": "engine", "replica": str(r)})
+             for r in range(2)]
+    balance = metrics.gauge_get("engine.dp_shard_balance", {"service": "engine"})
+    replicas = metrics.gauge_get("engine.dp_replicas", {"service": "engine"})
+    check(waste == [0.0, 0.5] and balance == 0.5 and replicas == 2,
+          f"[mesh] replica gauges {waste}, balance {balance}, replicas {replicas}")
+    n = len(texts)
+    out["dp"] = {"cosine_min": cos, "texts": n, "replicas": nd, "batches": runs[1]["batches"],
+                 "emb_s_cold": n / runs[0]["ms"] * 1e3, "emb_s": n / runs[1]["ms"] * 1e3,
+                 "meshless_emb_s": n / single2_ms * 1e3, "b1": [r["b1"] for r in runs]}
+    print(f"[mesh] DP embed [{nd}, 1] over {dp.mesh.device_list[0]} x {nd}: {n} texts, row "
+          f"cosine min {cos:.5f} vs meshless; B1 {runs[0]['b1']} cold, {runs[1]['b1']} warm = "
+          f"{L} layers x {nd} replicas x (batches + captures); {out['dp']['emb_s']:.0f} emb/s "
+          f"warm vs meshless {out['dp']['meshless_emb_s']:.0f} ({card}); gauges padding_waste "
+          f"{waste}, dp_shard_balance {balance}, dp_replicas {replicas:g}", flush=True)
+
+    # sharded store --------------------------------------------------------
+    D = dp.model_cfg.hidden_size
+    vecs = rng.standard_normal((s["store_rows"], D)).astype(np.float32)
+    ids = [f"m{i}" for i in range(len(vecs))]
+    vcfg = VectorStoreConfig(dim=D, data_dir="", shard_capacity=s["store_cap"])
+    plain = VectorStore(vcfg, device=dev)
+    sharded = VectorStore(vcfg, device=dev, mesh=dp.mesh)
+    for st in (plain, sharded):
+        st.upsert_rows(ids, vecs)
+    k = s["top_k"]
+    same, p_ms, s_ms = 0, [], []
+    for q in rng.standard_normal((s["queries"], D)).astype(np.float32):
+        a, ta = timed(lambda: plain.search(q, k))
+        b, tb = timed(lambda: sharded.search(q, k))
+        same += [(h.id, h.score) for h in a] == [(h.id, h.score) for h in b]
+        p_ms.append(ta)
+        s_ms.append(tb)
+    corpus = sharded._device_corpus
+    check(isinstance(corpus, Sharded) and corpus.shape[0] == s["store_cap"]
+          and corpus.shards[-1].shape[0] == s["store_cap"] // nd,
+          f"[mesh] the store's corpus is not split over data={nd}: {corpus!r}")
+    check(same == s["queries"], f"[mesh] sharded search: {s['queries'] - same} of "
+                                f"{s['queries']} queries differ from the meshless store's hits")
+    fused_same, f_ms = 0, []
+    qe0 = sum(1 for key, _ in dp._exec_cache.items() if key[0] == "qembed")
+    l0 = fa.launches
+    for t in synth_texts(rng, s["queries"]):
+        want_f = reference(lambda: plain.search_fused(single, t, k))
+        got_f, ms = timed(lambda: sharded.search_fused(dp, t, k))
+        fused_same += ([(h.id, h.score) for h in got_f] == [(h.id, h.score) for h in want_f])
+        f_ms.append(ms)
+    qe = sum(1 for key, _ in dp._exec_cache.items() if key[0] == "qembed") - qe0
+    fused_b1 = fa.launches - l0
+    check(fused_same == s["queries"], f"[mesh] sharded fused query: {s['queries'] - fused_same} "
+                                      "differ from the meshless fused query's hits")
+    eq = L * (s["queries"] + (qe if cuda else 0))
+    check(fused_b1 == eq, f"[mesh] sharded fused B1 {fused_b1} != {L} x ({s['queries']} queries"
+                          f" + {qe if cuda else 0} captures)")
+    out["store"] = {"rows": len(vecs), "capacity": corpus.shape[0], "shards": nd,
+                    "same": same, "fused_same": fused_same,
+                    "search_p50_ms": float(np.median(s_ms)),
+                    "meshless_search_p50_ms": float(np.median(p_ms)),
+                    "fused_p50_ms": float(np.median(f_ms))}
+    print(f"[mesh] sharded store {len(vecs)} rows in {corpus.shape[0]} x {D} over data={nd}: "
+          f"{same}/{s['queries']} searches and {fused_same}/{s['queries']} fused queries "
+          f"return the meshless hits exactly; search p50 {out['store']['search_p50_ms']:.3f} ms "
+          f"vs meshless {out['store']['meshless_search_p50_ms']:.3f}, fused p50 "
+          f"{out['store']['fused_p50_ms']:.3f} ms ({card}); fused B1 {fused_b1}", flush=True)
+    del dp, single, gauge_eng, plain, sharded, corpus, vecs
+    gc.collect()
+
+    # TP decode ------------------------------------------------------------
+    tp = s["tp"]
+    prompts = [t[:s["prompt_bucket"] - 8] for t in synth_texts(rng, s["prompts"] + 2)]
+    out["tp"], ties = {}, []
+    lkw = dict(dtype="float32", attn_impl="flash", temperature=0.0,
+               prompt_buckets=[s["prompt_bucket"]], new_token_buckets=[s["new"]],
+               stream_chunk=s["chunk"], force_cpu=not cuda)
+    tp_b1 = 0
+    for name, hf, modes in (("tinyllama", s["llama"], ("none", "int8")),
+                            ("gpt2", s["gpt2"], ("none",))):
+        mcfg = gpt_mod.GPTConfig.from_hf(hf)
+        params = gpt_mod.init_params(torch.Generator(device=dev).manual_seed(SEED + 21), mcfg)
+        for quantize in modes:
+            tag = f"{name}/{quantize}"
+            kw = dict(lkw, quantize=quantize)
+            ref_eng = LmEngine(LmConfig(**kw), params=params, model_cfg=mcfg,
+                               tokenizer=IdTokenizer())
+            eng = LmEngine(LmConfig(**kw), params=params, model_cfg=mcfg,
+                           tokenizer=IdTokenizer(), mesh=mesh([1, tp]))
+            check(eng.mesh is not None, f"[mesh] {tag}: the TP engine fell back to one device")
+            wte = eng.params["wte"]
+            vocab_split = getattr(wte, "q", wte).spec[:1] == ("tensor",)
+            check(vocab_split == (mcfg.vocab_size % tp == 0),
+                  f"[mesh] {tag}: wte spec {getattr(wte, 'q', wte).spec} for vocab "
+                  f"{mcfg.vocab_size} over tensor={tp}")
+            lm = eng.model_cfg.num_layers
+            rows = s["prompts"]
+            want_b, ref_ms = reference(lambda: timed(lambda: ref_eng.generate_batch(
+                prompts[:rows], [s["new"]] * rows)))
+            l0 = fa.launches
+            got_b, tp_ms = timed(lambda: eng.generate_batch(prompts[:rows], [s["new"]] * rows))
+            gen_b1 = fa.launches - l0
+            check(gen_b1 == lm * tp, f"[mesh] {tag} generate_batch B1 {gen_b1} != {lm} layers x"
+                                     f" {tp} shards x 1 prefill")
+            by_row = dict(enumerate(prompts[:rows]))
+            ties += reference(lambda: same_or_near_tie(
+                f"[mesh] {tag} generate_batch", {i: _ids_of(t) for i, t in enumerate(got_b)},
+                {i: _ids_of(t) for i, t in enumerate(want_b)}, ref_eng, by_row))
+            admit = (prompts[rows], s["new"] // 2)
+            want_s = reference(lambda: drive_session(ref_eng, prompts[rows + 1:rows + 2],
+                                                     [s["new"]], admit=admit))
+            l0 = fa.launches
+            got_s = drive_session(eng, prompts[rows + 1:rows + 2], [s["new"]], admit=admit)
+            sess_b1 = fa.launches - l0
+            check(sess_b1 == 2 * lm * tp, f"[mesh] {tag} session B1 {sess_b1} != {lm} layers x"
+                                          f" {tp} shards x (start + admission)")
+            sess_prompts = {0: prompts[rows + 1], 1: prompts[rows]}
+            ties += reference(lambda: same_or_near_tie(
+                f"[mesh] {tag} session", got_s["tokens"], want_s["tokens"], ref_eng,
+                sess_prompts))
+            tp_b1 += gen_b1 + sess_b1
+            near = f" (near-ties: {'; '.join(ties)})" if ties else ""
+            toks = rows * s["new"]
+            out["tp"][tag] = {"vocab_split": bool(vocab_split), "tok_s": toks / tp_ms * 1e3,
+                              "meshless_tok_s": toks / ref_ms * 1e3,
+                              "param_bytes": eng.param_bytes(), "b1": gen_b1 + sess_b1}
+            print(f"[mesh] TP decode {tag} [1, {tp}] float32 (wte/lm_head "
+                  f"{'vocab-split' if vocab_split else 'replicated'}): generate_batch {rows} x "
+                  f"{s['new']} greedy and a session with a mid-decode admission equal the "
+                  f"unsharded engine's tokens{near};"
+                  f" B1 {gen_b1 + sess_b1} = {lm} layers x {tp} shards x 3 prefills; "
+                  f"{out['tp'][tag]['tok_s']:.1f} tok/s eager TP vs "
+                  f"{out['tp'][tag]['meshless_tok_s']:.1f} meshless ({card})", flush=True)
+            if name == "tinyllama" and quantize == "none":
+                shard_cfg = gpt_mod._shard_cfg(eng.model_cfg, tp)
+                reference(lambda: b1_against_plain(rng, rows, shard_cfg, s["prompt_bucket"],
+                                                   device=device, tag="mesh"))
+            del ref_eng, eng
+            gc.collect()
+        del params
+        gc.collect()
+    out["tp_ties"] = ties
+
+    # dp x tp train ---------------------------------------------------------
+    tm = mesh(list(s["train_mesh"]))
+    tdp, ttp = s["train_mesh"]
+    gcfg = dataclasses.replace(gpt_mod.GPTConfig.from_hf(s["gpt2"]), dtype="float32",
+                               attn_impl="flash")
+    params = gpt_mod.init_params(torch.Generator(device=dev).manual_seed(SEED + 22), gcfg)
+    ref, tx_ref = trainer_mod.make_lm_train_state(params, s["lr"])
+    state, tx = trainer_mod.make_lm_train_state(params, s["lr"])
+    state, tx = trainer_mod.shard_lm_train_state(tm, state, tx, arch="gpt2")
+    del params
+    R, S = s["train_rows"], s["train_seq"]
+    batch = {"ids": torch.from_numpy(rng.integers(0, gcfg.vocab_size, (R, S))).to(dev),
+             "mask": torch.ones((R, S), dtype=torch.int32, device=dev)}
+    placed = {key: device_put(t, batch_sharding(tm)) for key, t in batch.items()}
+    steps, lt = [], gcfg.num_layers
+    for i in range(s["train_steps"]):
+        ref, m_ref = reference(lambda: trainer_mod.lm_train_step(ref, batch, gcfg, tx_ref))
+        before = _launch_counts(fa)
+        (state, m), ms = timed(lambda: trainer_mod.lm_train_step(state, placed if i == 0
+                                                                 else batch, gcfg, tx))
+        delta = tuple(a - b for a, b in zip(_launch_counts(fa), before))
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        loss_ref, gn_ref = float(m_ref["loss"]), float(m_ref["grad_norm"])
+        check(np.isfinite(loss) and abs(loss - loss_ref) <= 1e-4 * abs(loss_ref),
+              f"[mesh] dp x tp step {i}: loss {loss!r} vs unsharded {loss_ref!r} beyond rtol 1e-4")
+        check(abs(gn - gn_ref) <= 1e-4 * abs(gn_ref),
+              f"[mesh] dp x tp step {i}: grad norm {gn!r} vs unsharded {gn_ref!r} beyond rtol "
+              "1e-4")
+        eq = lt * tdp * ttp
+        check(delta == (eq, eq, eq), f"[mesh] dp x tp step {i}: B1/B2/B3 {delta} != {lt} layers x"
+                                     f" {tdp} x {ttp} shards each")
+        steps.append({"loss": loss, "loss_ref": loss_ref, "grad_norm": gn, "grad_norm_ref": gn_ref,
+                      "ms": ms, "launches": delta})
+    qk = state.params["layers"][0]["q"]["kernel"]
+    check(isinstance(qk, Sharded) and "tensor" in qk.spec,
+          f"[mesh] the params lost their TP layout after the update: {qk!r}")
+    errs = reference(lambda: bwd_against_plain(R // tdp, gcfg.num_heads // ttp, S, gcfg.head_dim,
+                                               torch.float32, device=device))
+    out["train"] = {"mesh": [tdp, ttp], "steps": steps, "bwd_err": errs}
+    print(f"[mesh] dp x tp train GPT-2 ({lt} layers x {gcfg.hidden_size}) float32 on "
+          f"[{tdp}, {ttp}], {len(steps)} steps at "
+          f"[{R}, {S}]: loss " + ", ".join(f"{x['loss']:.6f} (unsharded {x['loss_ref']:.6f})"
+                                           for x in steps)
+          + "; grad norm " + ", ".join(f"{x['grad_norm']:.6f} ({x['grad_norm_ref']:.6f})"
+                                       for x in steps)
+          + f"; B1/B2/B3 {steps[0]['launches']} a step = {lt} layers x {tdp * ttp} shards; "
+          + "step ms " + ", ".join(f"{x['ms']:.1f}" for x in steps) + f" eager ({card})",
+          flush=True)
+    del ref, tx_ref, state, tx, batch, placed, qk
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    out["launches"] = _launch_counts(fa)
+    b1_eq = (sum(r["b1"] for r in runs) + fused_b1 + tp_b1
+             + sum(x["launches"][0] for x in steps))
+    check(out["launches"][0] == b1_eq, f"[mesh] B1 launches {out['launches'][0]} != the parts' "
+                                       f"{b1_eq}")
+    return out
+
+
 def main(argv=()) -> int:
     import argparse
 
@@ -5844,6 +6201,8 @@ def _run_phases() -> int:
         del tinyllama
         lmtrain = lmtrain_phase(np.random.default_rng(SEED + 17), tmp)
         lap("lmtrain")
+        mesh = mesh_phase(np.random.default_rng(SEED + 18))
+        lap("mesh")
         stack = stack_phase(np.random.default_rng(SEED + 15), tmp, serve=serve)
         lap("stack")
         fleet = fleet_phase(np.random.default_rng(SEED + 16), tmp)
@@ -5851,8 +6210,8 @@ def _run_phases() -> int:
     fwd = {"serve": serve["launches"][0], "train": train["launches"][0],
            "checkpoint": ck_launches, "quant": qt["launches"], "generate": gen["launches"],
            "session": sess["launches"], "paged": paged["launches"], "spec": spec["launches"],
-           "lmtrain": lmtrain["launches"][0], "stack": stack["launches"],
-           "fleet": fleet["launches"]}
+           "lmtrain": lmtrain["launches"][0], "mesh": mesh["launches"][0],
+           "stack": stack["launches"], "fleet": fleet["launches"]}
     fwd_launches = sum(fwd.values())
     print("[phases] host seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items())
           + f"; total {sum(wall.values()):.1f}. flash_attn_fwd launches on the main path: "
@@ -5866,10 +6225,10 @@ def _run_phases() -> int:
             ("flash_attn_fwd", "flash_attn_fwd.cu", 81, kern["enc_S128"], fwd_launches,
              "q/k/v [32, 12, 128, 64] bf16, padding bias"),
             ("flash_attn_bwd_kv", "flash_attn_bwd.cu", 212, bwd["kv_enc_S256"],
-             train["launches"][1] + lmtrain["launches"][1],
+             train["launches"][1] + lmtrain["launches"][1] + mesh["launches"][1],
              "q/k/v/g [32, 12, 256, 64] bf16, padding bias, a length-0 row"),
             ("flash_attn_bwd_q", "flash_attn_bwd.cu", 281, bwd["q_enc_S256"],
-             train["launches"][2] + lmtrain["launches"][2],
+             train["launches"][2] + lmtrain["launches"][2] + mesh["launches"][2],
              "q/k/v/g [32, 12, 256, 64] bf16, padding bias, a length-0 row")):
         entries.append({"name": name, "route": "cuda",
                         "source": f"symbiont_tpu_torch/ops/csrc/{src}",
@@ -5892,6 +6251,12 @@ def _run_phases() -> int:
                    "fleet": {k: v for k, v in fleet.items() if k != "launches"}}
     for e in entries:  # the train step's graph runs all three
         e["train_graph"] = {k: v for k, v in train.items() if k != "launches"}
+    for e, i in zip(entries, range(3)):  # [mesh]: DP embed, TP decode, dp x tp train
+        e["mesh_launches"] = mesh["launches"][i]
+    entries[0]["mesh"] = {k: v for k, v in mesh.items() if k not in ("launches", "train")}
+    for e, part in zip(entries[1:], ("kv", "q")):
+        e["mesh"] = {"train": {k: v for k, v in mesh["train"].items() if k != "bwd_err"},
+                     "max_abs_err_shard": mesh["train"]["bwd_err"][part]}
     entries[0]["lmtrain_launches"] = lmtrain["launches"][0]
     entries[0]["lm_train"] = [{"shape": r["shape"].replace("/g", ""), **r["fwd"]}
                               for r in lmtrain["kernels"]]

@@ -61,7 +61,18 @@ result is fetched in groups of `CONCAT_FETCH_MAX`, each group's
 device-to-host copy (into pinned host memory on CUDA) started before any
 is read.
 
-Not ported yet (ROADMAP Queue A): the mesh data-parallel split.
+Data parallelism, as in JAX (A15 stage 1): with a `mesh` whose 'data'
+axis is > 1 (and `data_parallel`), the parameters are replicated on every
+mesh entry, the batch bucket is rounded to a multiple of the axis, and a
+batch is split into contiguous row shards, real rows first, each run by
+its replica's executable on its own device (a CUDA graph per replica,
+B1 once per layer per replica batch) and gathered onto the lead
+(`_DataParallel`); `_note_padding` keeps the per-replica
+`batcher.padding_waste`, `engine.dp_shard_balance` and
+`engine.dp_replicas`. A corpus row-split over the 'data' axis (the
+store's) is searched by the fused query as the query vector on the lead,
+handed to the store's own sharded search (each shard's top-k by an
+executable on its device, then the merge, `parallel/sharding.corpus_topk`).
 
 Concurrency, as in JAX: the entry points are safe to call from several
 threads. `_lock` guards the executable cache and the prep pool,
@@ -94,7 +105,7 @@ from symbiont_tpu_torch.engine.bucketing import (
     padding_stats,
     plan_batches,
 )
-from symbiont_tpu_torch.graphs import ExecCache, Executable, GraphPool
+from symbiont_tpu_torch.graphs import ExecCache, Executable, GraphPool, pool_for
 from symbiont_tpu_torch.engine.tokenizer import Tokenizer, load_tokenizer
 from symbiont_tpu_torch.memory.vector_store import cosine_topk
 from symbiont_tpu_torch.models import bert as bert_mod
@@ -106,6 +117,12 @@ from symbiont_tpu_torch.obs.device import record_compile_event
 from symbiont_tpu_torch.obs.engine_timeline import engine_timeline
 from symbiont_tpu_torch.obs.hbm import guard_oom, hbm_ledger
 from symbiont_tpu_torch.obs.xprof import dispatch_ledger
+from symbiont_tpu_torch.parallel.mesh import axis_size, mesh_device
+from symbiont_tpu_torch.parallel.sharding import (
+    Sharded,
+    local_tree,
+    replicate,
+)
 from symbiont_tpu_torch.utils.telemetry import maybe_profile, metrics
 
 log = logging.getLogger(__name__)
@@ -130,6 +147,22 @@ def _start_host_copies(results) -> tuple:
     return hosts, done
 
 
+class _DataParallel:
+    """One `(kind, L, B)` executable over the mesh's 'data' axis: an
+    `Executable` a replica (a CUDA graph on its device), each given its
+    contiguous share of the batch's rows, real rows first, the outputs
+    gathered onto the lead in replica order."""
+
+    def __init__(self, exes, lead):
+        self.exes, self.lead = exes, lead
+
+    def __call__(self, *inputs, lock: Optional[threading.Lock] = None):
+        p = inputs[0].shape[0] // len(self.exes)
+        outs = [exe(*(x[r * p:(r + 1) * p] for x in inputs), lock=lock)
+                for r, exe in enumerate(self.exes)]
+        return torch.cat([o.to(self.lead) for o in outs])
+
+
 class TorchEngine:
     # most batches fused into one device-to-host fetch (a torch.cat on the
     # device, then one copy), as in the JAX engine: it bounds the transient
@@ -147,9 +180,16 @@ class TorchEngine:
         cross_params=None,
         cross_cfg: Optional[BertConfig] = None,
         device=None,
+        mesh=None,
     ):
         self.config = config or EngineConfig()
-        self.device = resolve_device(device, self.config.force_cpu)
+        self.mesh = mesh
+        self._n_data = (axis_size(mesh, "data") if mesh is not None and self.config.data_parallel
+                        else 1)
+        # an engine over a real mesh answers on the mesh's lead entry
+        self.device = resolve_device(
+            mesh_device(mesh, device, self.config.force_cpu)
+            if mesh is not None and mesh.size > 1 else device, self.config.force_cpu)
         self.pooling = pooling
         self.normalize = normalize
 
@@ -200,6 +240,17 @@ class TorchEngine:
         params = self._place(params)
         cross_params = None if cross_params is None else self._place(cross_params)
         self.params, self.cross_params = params, cross_params
+        # data parallelism: the trees replicated on every mesh entry (a copy
+        # each), replica r reading the entry of data index r
+        self._replicas = None
+        if self._n_data > 1:
+            placed = replicate(mesh, {"params": params, "cross": cross_params or {}})
+            self._replicas = [local_tree(placed, mesh.flat_index(data=r))
+                              for r in range(self._n_data)]
+            self.params = self._replicas[0]["params"]
+            if cross_params is not None:
+                self.cross_params = self._replicas[0]["cross"]
+            self._placed = placed
         self.tokenizer = tokenizer or load_tokenizer(self.config.model_dir,
                                                      self.model_cfg.vocab_size)
         # uint16 ids when the vocab fits: half the host→device bytes
@@ -210,8 +261,10 @@ class TorchEngine:
         self._stats_lock = threading.Lock()  # guards the counters below
         self._replay_lock = threading.Lock()  # one batch's copy in, replay, copy out
         self._exec_cache = ExecCache(self.config.executable_cache_size)
-        # the engine's graphs share one memory pool (replays are serialised)
+        # the engine's graphs share one memory pool a device (replays are
+        # serialised)
         self._graph_pool = GraphPool() if self.device.type == "cuda" else None
+        self._graph_pools = {self.device: self._graph_pool}
         self._prep_pool = None  # lazy 1-thread pool for the ingest pipeline
         # compile_s: each executable's first call, host wall (on CUDA the
         # warm-up run, the capture and the first replay)
@@ -225,7 +278,8 @@ class TorchEngine:
                                   "dtype": quant.storage_label(self.params)})
         hbm_ledger.claim("engine.params", self, TorchEngine.param_bytes)
         if self._graph_pool is not None:  # the graphs' outputs and held buffers
-            hbm_ledger.claim("engine.graphs", self, lambda e: e._graph_pool.nbytes())
+            hbm_ledger.claim("engine.graphs", self,
+                             lambda e: sum(p.nbytes() for p in list(e._graph_pools.values())))
 
     def _register_gauges(self) -> None:
         """`engine.compiles`, `engine.compile_s` and
@@ -258,7 +312,10 @@ class TorchEngine:
 
     def param_bytes(self) -> int:
         """Device bytes of the embedder's and the cross-encoder's
-        parameters (the `engine.params` claim)."""
+        parameters (the `engine.params` claim), every replica's on its
+        device."""
+        if self._replicas is not None:
+            return quant.param_bytes(self._placed)
         b = quant.param_bytes(self.params)
         if self.cross_params is not None:
             b += quant.param_bytes(self.cross_params)
@@ -280,7 +337,12 @@ class TorchEngine:
         return min(self.config.max_batch, self.config.batch_buckets[-1])
 
     def _batch_bucket(self, n: int) -> int:
-        return choose_bucket(n, self.config.batch_buckets)
+        b = choose_bucket(n, self.config.batch_buckets)
+        if self._n_data > 1:
+            # the batch must divide over the data axis
+            b = max(b, self._n_data)
+            b = ((b + self._n_data - 1) // self._n_data) * self._n_data
+        return b
 
     def _buckets(self, cfg: BertConfig):
         max_len = min(self.config.length_buckets[-1], cfg.max_position_embeddings)
@@ -319,10 +381,41 @@ class TorchEngine:
         exe = self._exec_cache.get(key)
         if exe is not None:
             return exe
+        sig = f"{kind}[L={L},B={B}]"
+        ref = weakref.ref(self)
+
+        def on_first(seconds: float) -> None:
+            engine = ref()
+            if engine is not None:
+                engine._note_compile(sig, seconds)
+
+        if self._replicas is not None and kind in ("embed", "rerank"):
+            # one executable a replica, each on its own device (each capture
+            # a compile in the dispatch ledger; the key counts one)
+            exe = _DataParallel(
+                [Executable(self._fn(kind, L, r), dev, pool=pool_for(self._graph_pools, dev),
+                            on_first=on_first, signature=sig)
+                 for r, dev in enumerate(self._replica_devices())], self.device)
+        else:
+            exe = Executable(self._fn(kind, L, 0, B, corpus), self.device, pool=self._graph_pool,
+                             on_first=on_first, signature=sig)
+        exe, won = self._exec_cache.put(key, exe)
+        if won:
+            self._bump(compiles=1)
+        return exe
+
+    def _replica_devices(self) -> list:
+        return [self.mesh.device(data=r) for r in range(self._n_data)]
+
+    def _fn(self, kind: str, L: int, replica: int = 0, B=None, corpus=None):
+        """The function of a `(kind, L, B)` executable on replica
+        `replica`'s parameters."""
+        trees = (self._replicas[replica] if self._replicas is not None
+                 else {"params": self.params, "cross": self.cross_params})
         widen = functools.partial(TorchEngine._widen_ids, uint16=self._ids_dtype == np.uint16)
         d2h_bf16 = self._d2h_bf16
         if kind == "embed":
-            params, cfg = self.params, self.model_cfg
+            params, cfg = trees["params"], self.model_cfg
             pooling, normalize = self.pooling, self.normalize
 
             def fn(ids, lengths):
@@ -335,7 +428,7 @@ class TorchEngine:
         elif kind == "qsearch":
             # the fused interactive query: forward, pool, normalise, cosine
             # against the device corpus and top-k in one program
-            params, cfg, pooling = self.params, self.model_cfg, self.pooling
+            params, cfg, pooling = trees["params"], self.model_cfg, self.pooling
             k = B[1]
 
             def fn(ids, lengths, n_valid):
@@ -343,8 +436,17 @@ class TorchEngine:
                 emb = bert_mod.embed_sentences(params, widen(ids), mask, cfg,
                                                pooling=pooling, normalize=True)
                 return cosine_topk(corpus, emb[0], n_valid, k)
+        elif kind == "qembed":
+            # the fused query's half before a sharded corpus: the normalised
+            # query vector, which each shard's search then reads
+            params, cfg, pooling = trees["params"], self.model_cfg, self.pooling
+
+            def fn(ids, lengths):
+                mask = (torch.arange(L, device=ids.device) < lengths[:, None]).to(torch.int32)
+                return bert_mod.embed_sentences(params, widen(ids), mask, cfg,
+                                                pooling=pooling, normalize=True)[0]
         elif kind == "rerank":
-            params, cfg = self.cross_params, self.cross_cfg
+            params, cfg = trees["cross"], self.cross_cfg
 
             def fn(ids, lengths, len_a):
                 # mask and token-type ids rebuilt on the device from two [B]
@@ -355,19 +457,7 @@ class TorchEngine:
                 return bert_mod.cross_encoder_score(params, widen(ids), mask, cfg, types)
         else:
             raise ValueError(kind)
-        sig = f"{kind}[L={L},B={B}]"
-        ref = weakref.ref(self)
-
-        def on_first(seconds: float) -> None:
-            engine = ref()
-            if engine is not None:
-                engine._note_compile(sig, seconds)
-
-        exe, won = self._exec_cache.put(key, Executable(fn, self.device, pool=self._graph_pool,
-                                                        on_first=on_first, signature=sig))
-        if won:
-            self._bump(compiles=1)
-        return exe
+        return fn
 
     def _note_compile(self, sig: str, seconds: float) -> None:
         """An executable's first call: its seconds into `compile_s` and a
@@ -403,6 +493,22 @@ class TorchEngine:
         metrics.gauge_set("engine.bucket_pad_waste_ratio",
                           round(1.0 - real / total, 4) if total else 0.0,
                           labels=labels)
+        if self._n_data > 1 and batch_rows:
+            # DP accounting: rows shard contiguously over the 'data' axis,
+            # real rows first, so the trailing replicas carry the padding.
+            # Per-replica padding waste names which replicas burn cycles on
+            # pad rows, and the balance gauge (min real rows / max real
+            # rows) reads 1.0 when every replica does equal useful work.
+            per = batch_rows // self._n_data
+            real_rows = [min(max(n_real - r * per, 0), per) for r in range(self._n_data)]
+            for r, rr in enumerate(real_rows):
+                metrics.gauge_set("batcher.padding_waste",
+                                  round(1.0 - rr / per, 4) if per else 0.0,
+                                  labels={"service": "engine", "replica": str(r)})
+            mx = max(real_rows)
+            metrics.gauge_set("engine.dp_shard_balance",
+                              round(min(real_rows) / mx, 4) if mx else 0.0, labels=labels)
+            metrics.gauge_set("engine.dp_replicas", self._n_data, labels=labels)
 
     # ---------------------------------------------------------------- embed
 
@@ -493,12 +599,15 @@ class TorchEngine:
         return self.embed_texts([text])[0]
 
     def embed_and_search(self, text: str, corpus_dev: torch.Tensor,
-                         n_valid: int, top_k: int):
+                         n_valid: int, top_k: int, search=None):
         """Fused interactive query: tokenize on the host, then embed,
         normalise, score against the device corpus (rows L2-normalized,
         `[cap, D]` on this engine's device) and take the top-k in one
         executable; `n_valid` travels into it as a device scalar. Returns
-        (scores[k], idx[k]) as numpy."""
+        (scores[k], idx[k]) as numpy. A corpus row-split over a mesh's
+        'data' axis comes with its store's `search` (`(query, n_valid) →
+        (scores, idx)`, its per-shard executables and the merge): the
+        query vector is embedded on the lead and handed to it."""
         max_len, buckets = self._buckets(self.model_cfg)
         cap = corpus_dev.shape[0]
         with maybe_profile("engine.qsearch"), torch.inference_mode():
@@ -506,10 +615,24 @@ class TorchEngine:
             bucket = choose_bucket(len(encoded), buckets)
             ids, lens = pad_ids_rows([encoded], bucket, self.tokenizer.pad_id,
                                      dtype=self._ids_dtype)
-            exe = self._get_executable("qsearch", bucket, (cap, top_k), corpus=corpus_dev)
-            scores, idx = self._dispatch(f"qsearch[L={bucket},B={(cap, top_k)}]", exe,
-                                         self._host(ids), torch.from_numpy(lens),
-                                         torch.tensor(n_valid, dtype=torch.int64))
+            n_valid_t = torch.tensor(n_valid, dtype=torch.int64)
+            if isinstance(corpus_dev, Sharded):
+                # a corpus row-split over the mesh's 'data' axis: the query
+                # vector on the lead, then the store's sharded search
+                if search is None:
+                    raise ValueError("a corpus split over a mesh is searched through its "
+                                     "store's search (search=)")
+                exe = self._get_executable("qembed", bucket, 1)
+                query = self._dispatch(f"qembed[L={bucket},B=1]", exe, self._host(ids),
+                                       torch.from_numpy(lens))
+                t0 = time.perf_counter()
+                scores, idx = search(query, n_valid_t)
+                dispatch_ledger.note_dispatch(f"qsearch.shards[N={cap},k={top_k}]",
+                                              time.perf_counter() - t0)
+            else:
+                exe = self._get_executable("qsearch", bucket, (cap, top_k), corpus=corpus_dev)
+                scores, idx = self._dispatch(f"qsearch[L={bucket},B={(cap, top_k)}]", exe,
+                                             self._host(ids), torch.from_numpy(lens), n_valid_t)
             (scores, idx), done = _start_host_copies((scores, idx))
             if done is not None:
                 done.synchronize()

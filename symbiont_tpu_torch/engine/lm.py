@@ -113,8 +113,18 @@ largest geometry the configuration admits, least recently used first out
 online fine-tune's sync, `train/online.py`) copies the new weights into
 the tensors every executable reads, so a sync captures nothing again.
 
-Not ported yet: tensor-parallel decode over a mesh (ROADMAP A15). The
-settings that would switch it on raise `ValueError` naming the item.
+Tensor-parallel decode, as in JAX (A15 stage 1): a `mesh` whose 'tensor'
+axis is > 1 shards the parameters on the megatron rules
+(`parallel/sharding.py`, quantized leaves with their scales) and every
+prefill, chunk and splice runs `gpt.forward` over the tensor entries of
+the mesh's first data row, each shard's KV heads in its own cache
+(`gpt.TPCache`), tokens identical to one device's. `tensor_parallel="on"`
+without such an axis, or with heads or MLP width that do not divide it,
+raises; "auto" then serves on one device with a warning, as JAX does. A TP
+step crosses devices between layers, so its executables run eagerly
+(`graphs.Executable(eager=True)`): a CUDA graph is one device's work. The
+paged layout and speculative decoding under a TP mesh are not ported and
+raise, naming ROADMAP A15 stage 1b and 1c.
 """
 
 from __future__ import annotations
@@ -140,13 +150,15 @@ from symbiont_tpu_torch.kv.radix import RadixCache
 from symbiont_tpu_torch.models import gpt as gpt_mod
 from symbiont_tpu_torch.models import quant
 from symbiont_tpu_torch.models.bert import torch_dtype
-from symbiont_tpu_torch.models.convert import load_gpt_model
+from symbiont_tpu_torch.models.convert import load_gpt_model, load_hf_config
 from symbiont_tpu_torch.models.gpt import GPTConfig, PagedKVCache
 from symbiont_tpu_torch.obs.device import local_device_stats
 from symbiont_tpu_torch.obs.engine_timeline import engine_timeline
 from symbiont_tpu_torch.obs.hbm import guard_oom, hbm_ledger, peak_temp_bytes
 from symbiont_tpu_torch.obs.usage import usage
 from symbiont_tpu_torch.obs.xprof import dispatch_ledger
+from symbiont_tpu_torch.parallel.mesh import axis_size, mesh_device
+from symbiont_tpu_torch.parallel.sharding import gpt_param_sharding, leaf_tensors, shard_params
 from symbiont_tpu_torch.resilience.admission import DEFAULT_TENANT
 from symbiont_tpu_torch.train.trainer import tree_leaves
 from symbiont_tpu_torch.utils.telemetry import maybe_profile, metrics
@@ -240,12 +252,66 @@ class IncrementalDecoder:
         return text[i:]
 
 
-def _refuse_unported(cfg: LmConfig, mesh) -> None:
-    """The settings of the JAX engine whose parts are not ported raise
-    here, naming their ROADMAP item, instead of being ignored."""
-    if cfg.tensor_parallel == "on" or mesh is not None:
-        raise ValueError("tensor-parallel decode (tensor_parallel='on', a mesh) is not "
-                         "ported (ROADMAP A15: multi-device)")
+def lm_model_config(cfg: LmConfig) -> GPTConfig:
+    """The LM's geometry before its weights are read: the checkpoint dir's
+    config.json, else the synthetic byte-level model's."""
+    if cfg.model_dir:
+        return GPTConfig.from_hf(load_hf_config(cfg.model_dir))
+    return GPTConfig(vocab_size=ByteTokenizer.vocab_size, hidden_size=cfg.hidden_size,
+                     num_layers=cfg.num_layers, num_heads=cfg.num_heads,
+                     intermediate_size=cfg.intermediate_size,
+                     max_position_embeddings=cfg.max_positions, arch=cfg.arch, dtype=cfg.dtype)
+
+
+def tp_decode(cfg: LmConfig, model_cfg: Optional[GPTConfig], tp: int, draft: bool = False,
+              ingest_train: bool = False) -> bool:
+    """Whether the LM decodes tensor-parallel over a 'tensor' axis of `tp`
+    entries, on JAX's rules; `LmEngine` and the runner both ask here.
+
+    "off" or no such axis: no. "on" without one raises: booting unsharded
+    would be a silent memory and latency regression, which is what "on"
+    exists to catch. `model_cfg` None (the geometry not read yet): whether
+    the axis may shard the LM at all. Otherwise heads, KV heads or MLP
+    width that do not divide the axis raise under "on"; under "auto" they
+    log and the LM serves on one device (the axis may be there for the
+    encoder or training). An LM that shards refuses, by their ROADMAP
+    items, the branches not ported under TP (`_refuse_unported`)."""
+    if cfg.tensor_parallel == "on" and tp <= 1:
+        raise ValueError("tensor_parallel='on' requires a mesh with a 'tensor' axis "
+                         f"> 1 (got tensor={tp})")
+    if tp <= 1 or cfg.tensor_parallel == "off":
+        return False
+    if model_cfg is None:
+        return True
+    bad = [f"{name} ({val})" for name, val in (("num_heads", model_cfg.num_heads),
+                                              ("kv_heads", model_cfg.kv_heads),
+                                              ("intermediate_size", model_cfg.intermediate_size))
+           if val % tp]
+    if bad and cfg.tensor_parallel == "on":
+        raise ValueError(f"TP decode needs {', '.join(bad)} divisible by the tensor "
+                         f"axis ({tp})")
+    if bad:
+        log.warning("LM tensor_parallel=auto: %s not divisible by tensor axis (%d); "
+                    "falling back to single-device decode", ", ".join(bad), tp)
+        return False
+    _refuse_unported(cfg, draft, ingest_train)
+    return True
+
+
+def _refuse_unported(cfg: LmConfig, draft: bool, ingest_train: bool = False) -> None:
+    """The branches of the JAX engine under a TP mesh whose parts are not
+    ported raise here, naming their ROADMAP item, instead of serving on
+    one device (`ingest_train`: the runner's online fine-tune, which
+    `train/online.OnlineLmTrainer` refuses on a TP engine)."""
+    if ingest_train:
+        raise ValueError("the online LM fine-tune of a tensor-parallel LmEngine is not "
+                         "ported (ROADMAP A15 stage 1d)")
+    if cfg.kv_layout == "paged":
+        raise ValueError("kv_layout='paged' under a tensor-parallel mesh is not ported "
+                         "(ROADMAP A15 stage 1b)")
+    if draft or cfg.spec_draft_model:
+        raise ValueError("speculative decoding under a tensor-parallel mesh is not ported "
+                         "(ROADMAP A15 stage 1c)")
 
 
 def _slot(length) -> torch.Tensor:
@@ -296,8 +362,9 @@ class _CarryDecoder:
     an admission replays. The caller holds the engine lock."""
 
     def __init__(self, device, pool: Optional[GraphPool] = None, key=None, cache0=None,
-                 page_table: Optional[torch.Tensor] = None):
+                 page_table: Optional[torch.Tensor] = None, eager: bool = False):
         self.device = torch.device(device)
+        self.eager = eager  # a TP engine's executables run eagerly (graphs.Executable)
         self.pool = pool  # the engine's graph pool (None on the CPU)
         self.key = key  # (KV layout, rows, prompt bucket, new bucket)
         self.cache0 = cache0  # dense: the cache a borrower's prefill lands in
@@ -360,11 +427,11 @@ class _CarryDecoder:
              warm_scale: int = 1) -> Executable:
         exe = self.exes.get(key)
         if exe is None or exe.params is not params:
-            cuda = self.device.type == "cuda"
+            cuda = self.device.type == "cuda" and not self.eager
             exe = self.exes[key] = Executable(
                 fn, self.device, pool=self.pool,
                 generators=(gen,) if cuda and gen is not None else (), carry=carry,
-                warm=warm, warm_scale=warm_scale, signature=sig)
+                warm=warm, warm_scale=warm_scale, signature=sig, eager=self.eager)
             exe.params = params
         return exe
 
@@ -508,8 +575,11 @@ class LmEngine:
                  mesh=None, draft_params=None, draft_model_cfg=None, device=None):
         self.config = config or LmConfig()
         cfg = self.config
-        _refuse_unported(cfg, mesh)
-        self.device = resolve_device(device, cfg.force_cpu)
+        tp = axis_size(mesh, "tensor")
+        tp_candidate = tp_decode(cfg, None, tp)
+        # a TP engine answers on the mesh's lead entry
+        self.device = resolve_device(mesh_device(mesh, device, cfg.force_cpu) if tp_candidate
+                                     else device, cfg.force_cpu)
 
         if params is None or model_cfg is None:
             if cfg.model_dir:
@@ -517,12 +587,7 @@ class LmEngine:
                 log.info("loaded LM checkpoint from %s", cfg.model_dir)
             else:
                 # synthetic mode: byte-level vocab, random weights
-                model_cfg = GPTConfig(
-                    vocab_size=ByteTokenizer.vocab_size, hidden_size=cfg.hidden_size,
-                    num_layers=cfg.num_layers, num_heads=cfg.num_heads,
-                    intermediate_size=cfg.intermediate_size,
-                    max_position_embeddings=cfg.max_positions, arch=cfg.arch,
-                    dtype=cfg.dtype)
+                model_cfg = lm_model_config(cfg)
                 params = gpt_mod.init_params(self._new_generator(0), model_cfg)
                 log.warning("LM running with RANDOM weights (no lm model_dir)")
         attn_impl = cfg.attn_impl
@@ -532,6 +597,11 @@ class LmEngine:
             attn_impl = "xla"
         self.model_cfg = dataclasses.replace(model_cfg, dtype=cfg.dtype, attn_impl=attn_impl,
                                              kv_quant=cfg.kv_quant)
+        self.mesh = None
+        if tp_candidate and tp_decode(cfg, self.model_cfg, tp, draft=(
+                draft_params is not None or draft_model_cfg is not None)):
+            self.mesh = mesh
+            log.info("LM params sharded for TP decode over tensor=%d", tp)
         self.params = self._place_params(params)
         del params
 
@@ -787,7 +857,10 @@ class LmEngine:
         to the compute dtype FIRST, then quantized per `config.quantize`,
         as the JAX `_place_params` orders it, so a quantized leaf always
         ends narrow and no full float32 tree is ever held on the device.
-        Used by `__init__` and `update_params`."""
+        On a TP mesh the tree is then placed by `shard_params` on the
+        megatron rules (a `QuantTensor`'s codes on its kernel's spec, its
+        scales on the last entry), after `lm.param_bytes` has noted the
+        narrow storage. Used by `__init__` and `update_params`."""
         mode = self.config.quantize
         dtype = torch_dtype(self.model_cfg.dtype)
 
@@ -799,7 +872,10 @@ class LmEngine:
 
         params = quant.tree_map(place, params)
         self._note_param_bytes(params, mode if mode != "none" else self.model_cfg.dtype)
-        return params
+        if self.mesh is None:
+            return params
+        return shard_params(self.mesh, params,
+                            gpt_param_sharding(self.mesh, params, arch=self.model_cfg.arch))
 
     # ------------------------------------------------------------------ gen
 
@@ -916,8 +992,9 @@ class LmEngine:
             return _CarryDecoder(self.device, self._graph_pool, key, page_table=torch.full(
                 (bb, n_blocks), paged_mod.SCRATCH_PAGE, dtype=torch.int64, device=self.device))
         return _CarryDecoder(self.device, self._graph_pool, key,
-                             gpt_mod.init_cache(cfg, bb, P + new_bucket, torch_dtype(cfg.dtype),
-                                                self.device))
+                             gpt_mod.new_cache(self.params, cfg, bb, P + new_bucket,
+                                               torch_dtype(cfg.dtype), self.device),
+                             eager=self.mesh is not None)
 
     def _give_carrier(self, dec: _CarryDecoder) -> None:
         """Back into the pool: one free carrier a geometry (the one given
@@ -1024,7 +1101,7 @@ class LmEngine:
         cfg = self.model_cfg if model == "target" else self._draft[1]
         bb, P = prompt_ids.shape
         key = (model, cfg.kv_quant, bb, P, new_bucket)
-        cuda = self.device.type == "cuda"
+        cuda = self.device.type == "cuda" and self.mesh is None
         ids, mask = (torch.from_numpy(np.ascontiguousarray(a)).long()
                      for a in (prompt_ids, prompt_mask))
         with self._stage_lock:
@@ -1042,13 +1119,12 @@ class LmEngine:
                 adopt(staged)
                 out = None
             elif cache is not None:
-                for dst, src in zip(cache, staged):
-                    if isinstance(dst, torch.Tensor):
-                        dst[:, :, :P].copy_(src[:, :, :P])
+                for dst, src in zip(gpt_mod.cache_tensors(cache), gpt_mod.cache_tensors(staged),
+                                    strict=True):
+                    dst[:, :, :P].copy_(src[:, :, :P])
                 out = cache._replace(length=P)
             else:
-                out = type(staged)(*(t.clone() if isinstance(t, torch.Tensor) else t
-                                     for t in staged))
+                out = gpt_mod.clone_cache(staged)
         return out, logits, kv_valid, prompt_len
 
     def _prefill_exe(self, key, params, cfg: GPTConfig, stale=None) -> Executable:
@@ -1056,7 +1132,8 @@ class LmEngine:
         `stale`, one on older parameters, whose cache it takes over)."""
         _, _, bb, P, new_bucket = key
         cache = (stale.cache if stale is not None else
-                 gpt_mod.init_cache(cfg, bb, P + new_bucket, torch_dtype(cfg.dtype), self.device))
+                 gpt_mod.new_cache(params, cfg, bb, P + new_bucket, torch_dtype(cfg.dtype),
+                                   self.device))
 
         def fn(ids, mask):
             _, logits, kv_valid, prompt_len = gpt_mod.prefill(params, ids, mask, cfg, new_bucket,
@@ -1065,7 +1142,8 @@ class LmEngine:
 
         name = "lm.prefill" if key[0] == "target" else "lm.draft_prefill"
         sig = f"{name}[P={P},B={bb},new={new_bucket}]"
-        exe = Executable(fn, self.device, pool=self._stage_pool, signature=sig)
+        exe = Executable(fn, self.device, pool=self._stage_pool, signature=sig,
+                         eager=self.mesh is not None)
         exe.params, exe.cache = params, cache
         if stale is not None:
             self._prefills.drop(key)
@@ -1556,7 +1634,7 @@ class LmEngine:
             raise ValueError("update_params: the tree's keys or lengths differ from the engine's")
         pairs = []  # leaves by sorted keys: a tree's dict order need not be the engine's
         for a, b in zip(tree_leaves(self.params), tree_leaves(placed)):
-            for x, y in ((a.q, b.q), (a.scale, b.scale)) if quant.is_quantized(a) else ((a, b),):
+            for x, y in zip(leaf_tensors(a), leaf_tensors(b), strict=True):
                 if x.shape != y.shape or x.dtype != y.dtype:
                     raise ValueError(f"update_params: {tuple(y.shape)} {y.dtype} does not fit "
                                      f"the engine's {tuple(x.shape)} {x.dtype}")

@@ -15,7 +15,10 @@ program:
   the backward's B2 and B3 included, which autograd's device thread
   records), which every replay adds to the launch counts;
 - on the CPU, the eager function: the same cache, LRU and counts, so the
-  CPU tests hold them to the JAX engine's.
+  CPU tests hold them to the JAX engine's;
+- with `eager=True`, the eager function on CUDA too: a tensor-parallel
+  program crosses devices between layers, so it is not captured (a graph
+  is one device's work).
 
 A capture first runs the function once on a side stream, eagerly, so the
 first-use work a capture may not do (the kernels' build and load, cuBLAS
@@ -100,6 +103,20 @@ class GraphPool:
                    if tuple(seg.get("segment_pool_id", (0, 0))) in ids)
 
 
+_pools_lock = threading.Lock()
+
+
+def pool_for(pools: dict, device) -> Optional[GraphPool]:
+    """An owner's graph pool for `device` out of `pools` (device → pool),
+    made at its first use; None off CUDA. An owner whose graphs live on
+    several devices (a mesh's replicas or shards) keeps one a device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    with _pools_lock:
+        return pools.setdefault(device, GraphPool())
+
+
 def _pool_bytes(pool_id) -> int:
     """Device bytes the allocator holds in the segments of one graph pool."""
     return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
@@ -137,6 +154,9 @@ class Executable:
     the same kernels at less cost (one decode step of a chunk's), and
     `warm_scale` how many warm-ups the function's work is.
 
+    `eager`: run `fn` on every call, on CUDA too (its inputs moved to
+    `device` first), for a program that spans devices: a tensor-parallel
+    forward crosses them between layers, and one capture cannot hold it.
     `cost` and `memory`: the analysis taken once, as JAX's
     `compile_analysis_for` at its compile seam. The cost
     (`obs/xprof.executable_cost`) counts the warm-up's ops on the card, the
@@ -150,8 +170,9 @@ class Executable:
                  generators: Sequence[torch.Generator] = (), carry=None,
                  on_first: Optional[Callable[[float], None]] = None,
                  warm: Optional[Callable] = None, warm_scale: int = 1,
-                 signature: Optional[str] = None):
+                 signature: Optional[str] = None, eager: bool = False):
         self.fn = fn
+        self.eager = eager
         self.warm = warm or fn
         self.warm_scale = warm_scale if warm is not None else 1
         self.signature = signature
@@ -176,7 +197,8 @@ class Executable:
 
     @property
     def cuda(self) -> bool:
-        return self.device.type == "cuda"
+        """Whether the calls replay a captured graph."""
+        return self.device.type == "cuda" and not self.eager
 
     def capture(self, inputs) -> None:
         """Static inputs filled with `inputs`, a warm-up run on the side
@@ -251,6 +273,9 @@ class Executable:
 
     def _run(self, inputs, lock):
         if not self.cuda:
+            if self.eager:  # a mesh-placed input stays where it was placed
+                inputs = tuple(x.to(self.device) if isinstance(x, torch.Tensor) else x
+                               for x in inputs)
             if self.cost is None:  # the first call: eager, counted
                 out, self.cost = executable_cost(self.fn, *inputs)
                 return out

@@ -1,7 +1,8 @@
 """Optional external-Qdrant backend for the vector-memory surface.
 
 Copy of the JAX package's `symbiont_tpu/memory/qdrant_backend.py`;
-`make_vector_store` places the embedded store on a device, not a mesh.
+`make_vector_store` places the embedded store on a device and, where one
+is given, a mesh.
 
 The framework's default store is the embedded device-resident one
 (memory/vector_store.py — exact cosine on the engine's device).
@@ -152,7 +153,7 @@ class QdrantStore:
         return int(out.get("result", {}).get("count", 0))
 
 
-def make_vector_store(config: VectorStoreConfig, device=None, resilience=None):
+def make_vector_store(config: VectorStoreConfig, device=None, resilience=None, mesh=None):
     """Backend selection: uri set → external Qdrant; else the embedded
     store on `device` (the engine's; the default and the fast path).
 
@@ -180,4 +181,4 @@ def make_vector_store(config: VectorStoreConfig, device=None, resilience=None):
         return store
     from symbiont_tpu_torch.memory.vector_store import VectorStore
 
-    return VectorStore(config, device=device)
+    return VectorStore(config, device=device, mesh=mesh)

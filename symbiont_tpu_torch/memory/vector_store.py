@@ -8,8 +8,11 @@ search is `corpus @ query` on bf16 operands with float32 scores, invalid
 rows at -inf, then a top-k whose ties go to the lower row index — what `lax.top_k`
 does in the JAX store. `torch.topk` promises no order among equal scores,
 so the top-k here is a stable descending sort (`cosine_topk`), shared with
-the engine's fused query search. The mesh-sharded corpus of the JAX store
-is not ported (ROADMAP Queue A: multi-device).
+the engine's fused query search. With a `mesh` whose 'data' axis is > 1
+the capacity rounds to a multiple of the axis and the corpus is row-split
+over it (a `parallel.sharding.Sharded`, one block a data entry), searched
+per shard on each shard's device and merged (`corpus_topk`), with hits
+identical to one device's, as the JAX store's sharded corpus is.
 
 The device corpus is one buffer per capacity: a sync writes the rows into
 it in place, and a new buffer replaces it only when upserts cross a
@@ -35,6 +38,7 @@ now inside the framework).
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import os
@@ -48,9 +52,17 @@ import torch
 
 from symbiont_tpu_torch.config import VectorStoreConfig
 from symbiont_tpu_torch.device import resolve_device
-from symbiont_tpu_torch.graphs import Executable, GraphPool
+from symbiont_tpu_torch.graphs import Executable, GraphPool, pool_for
 from symbiont_tpu_torch.models.quant import tensor_bytes
 from symbiont_tpu_torch.obs.hbm import hbm_ledger
+from symbiont_tpu_torch.parallel.mesh import axis_size, mesh_device
+from symbiont_tpu_torch.parallel.sharding import (
+    Sharded,
+    batch_sharding,
+    corpus_topk,
+    device_put,
+    shard_topk,
+)
 
 log = logging.getLogger(__name__)
 
@@ -83,9 +95,12 @@ class VectorStore:
     supports_fused = True  # corpus is device-resident → fused embed+top-k
 
     def __init__(self, config: Optional[VectorStoreConfig] = None,
-                 device=None):
+                 device=None, mesh=None):
         self.config = config or VectorStoreConfig()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        # a store over a real mesh answers on the mesh's lead entry
+        self.device = resolve_device(mesh_device(mesh, device) if mesh is not None
+                                     and mesh.size > 1 else device)
         self.dim = self.config.dim
         self._lock = threading.RLock()
         self._ids: List[str] = []
@@ -98,6 +113,7 @@ class VectorStore:
         self._search_fns: Dict[tuple, Executable] = {}
         self._replay_lock = threading.Lock()  # the search graphs' replays
         self._graph_pool = GraphPool() if self.device.type == "cuda" else None
+        self._graph_pools = {self.device: self._graph_pool}  # one a device
         self._warmed_capacity: Optional[int] = None  # capacity warm_fused built for
         self._wal_file = None
         self.last_load_skipped_lines = 0  # corrupt WAL lines on last load()
@@ -107,7 +123,8 @@ class VectorStore:
                          lambda vs: (0 if vs._device_corpus is None
                                      else tensor_bytes(vs._device_corpus)))
         if self._graph_pool is not None:
-            hbm_ledger.claim("memory.search_graphs", self, lambda vs: vs._graph_pool.nbytes())
+            hbm_ledger.claim("memory.search_graphs", self,
+                             lambda vs: sum(p.nbytes() for p in list(vs._graph_pools.values())))
         if self.config.data_dir:
             Path(self.config.data_dir).mkdir(parents=True, exist_ok=True)
             self.load()
@@ -226,10 +243,19 @@ class VectorStore:
     # -------------------------------------------------------------- search
 
     def _capacity(self, n: int) -> int:
-        """Static capacity: next multiple of shard_capacity — keeps the
-        device corpus shape stable across growth."""
+        """Static capacity: next multiple of shard_capacity (and of the data
+        axis size under a mesh) — keeps the device corpus shape stable
+        across growth."""
         block = self.config.shard_capacity
-        return max(block, ((n + block - 1) // block) * block)
+        cap = max(block, ((n + block - 1) // block) * block)
+        if self.mesh is not None:
+            nd = axis_size(self.mesh, "data")
+            cap = ((cap + nd - 1) // nd) * nd
+        return cap
+
+    def _sharded(self) -> bool:
+        """Corpus rows live split over the mesh's 'data' axis."""
+        return axis_size(self.mesh, "data") > 1
 
     def _sync_device(self) -> None:
         """The rows into the device buffer of the current capacity, in
@@ -242,10 +268,20 @@ class VectorStore:
             return
         cap = self._capacity(n)
         if self._device_corpus is None or tuple(self._device_corpus.shape) != (cap, self.dim):
-            self._device_corpus = torch.zeros((cap, self.dim), dtype=torch.bfloat16,
-                                              device=self.device)
+            zeros = torch.zeros((cap, self.dim), dtype=torch.bfloat16, device=self.device)
+            self._device_corpus = (device_put(zeros, batch_sharding(self.mesh))
+                                   if self._sharded() else zeros)
             self._search_fns.clear()  # bound to the old buffer
-        if n:
+        if n and isinstance(self._device_corpus, Sharded):
+            # every entry's block of rows, written into its own shard
+            corpus = self._device_corpus
+            rows = cap // axis_size(self.mesh, "data")
+            for i, shard in enumerate(corpus.shards):
+                lo = self.mesh.coords(i)["data"] * rows
+                if lo < n:
+                    shard[:min(n, lo + rows) - lo] = torch.from_numpy(
+                        self._vectors[lo:lo + rows]).to(shard.device)
+        elif n:
             self._device_corpus[:n] = torch.from_numpy(self._vectors).to(self.device)
         self._device_rows = n
         self._dirty = False
@@ -255,7 +291,9 @@ class VectorStore:
         buffer: the query [D] and the row count in, (scores, rows) out."""
         key = (cap, k)
         exe = self._search_fns.get(key)
-        if exe is None:
+        if exe is None and isinstance(self._device_corpus, Sharded):
+            exe = self._search_fns[key] = self._sharded_search(cap, k)
+        elif exe is None:
             corpus = self._device_corpus
 
             def fn(query, n_valid):
@@ -265,6 +303,26 @@ class VectorStore:
                 fn, self.device, pool=self._graph_pool,
                 signature=f"memory.search[N={cap},k={k}]")
         return exe
+
+    def _sharded_search(self, cap: int, k: int):
+        """The search of a row-split corpus (`parallel/sharding.corpus_topk`):
+        each data entry's shard searched by an executable on its device
+        (its top-k with global row ids), the candidates merged on the
+        lead; called as a search executable is."""
+        corpus, mesh = self._device_corpus, self.mesh
+        rows = cap // axis_size(mesh, "data")
+        exes = [Executable(functools.partial(shard_topk, corpus.shards[mesh.flat_index(data=d)],
+                                             base=d * rows, k=min(k, rows)),
+                           mesh.device(data=d), pool=pool_for(self._graph_pools,
+                                                              mesh.device(data=d)),
+                           signature=f"memory.search.shard[N={rows},k={k},shard={d}]")
+                for d in range(axis_size(mesh, "data"))]
+
+        def search(query, n_valid, lock=None):
+            return corpus_topk(mesh, corpus, query, n_valid, k,
+                               local=lambda d: functools.partial(exes[d], lock=lock))
+
+        return search
 
     def _k_static(self, top_k: int, n: int, cap: int) -> int:
         """Static k bucket (next power of two ≥ k, ≤ cap) bounds the
@@ -325,11 +383,21 @@ class VectorStore:
             self._sync_device()
             corpus = self._device_corpus
             k = self._k_static(top_k, n, corpus.shape[0])
+            search = self._fused_search(k)
         # device call outside the lock — see search() for why the snapshot
         # stays valid
-        scores, idx = engine.embed_and_search(text, corpus, n, k)
+        scores, idx = engine.embed_and_search(text, corpus, n, k, search=search)
         with self._lock:
             return self._hits_from(scores, idx, top_k)
+
+    def _fused_search(self, k: int):
+        """What a fused query searches a row-split corpus with: this
+        store's per-shard search executables, under its replay lock (None
+        for a corpus on one device, which the engine's program scores)."""
+        if not isinstance(self._device_corpus, Sharded):
+            return None
+        return functools.partial(self._get_search_fn(self._device_corpus.shape[0], k),
+                                 lock=self._replay_lock)
 
     def warm_fused(self, engine, word_counts: Sequence[int] = (3, 40, 150),
                    top_ks: Optional[Sequence[int]] = None) -> None:
@@ -349,9 +417,10 @@ class VectorStore:
             corpus = self._device_corpus
             n = len(self._ids)
             ks = sorted({self._k_static(k, max(n, k), corpus.shape[0]) for k in top_ks})
+            searches = {k: self._fused_search(k) for k in ks}
         for k in ks:
             for wc in word_counts:
-                engine.embed_and_search("warm " * wc, corpus, n, k)
+                engine.embed_and_search("warm " * wc, corpus, n, k, search=searches[k])
         with self._lock:
             self._warmed_capacity = corpus.shape[0]
 

@@ -42,14 +42,22 @@ Speculative decoding (`spec_first`, `draft_chunk`, `verify_chunk`,
 `ingest_pending`, `track_chunk`) drafts k greedy tokens on a small model's
 own dense cache and scores all k+1 positions with one target forward.
 
-Not ported yet (ROADMAP Queue A): `qkv_proj` and `block_nocache` (A14,
-A15).
+Tensor parallelism (A15 stage 1): `forward` over a tree placed by
+`parallel/sharding.shard_params` runs each tensor shard's heads and MLP
+width on its own device and sums the row-split projections' partial
+products on the lead; a plain tree is the case of one shard. The KV cache
+of a placed tree is a `TPCache` of one cache per shard. `prefill`,
+`decode_chunk` and `merge_rows` take such a tree and cache as they take a
+plain one.
+
+Not ported yet (ROADMAP Queue A): `qkv_proj` and `block_nocache` (A15
+stage 2).
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
@@ -61,6 +69,7 @@ from symbiont_tpu_torch.kv.paged import PagedKVCache
 from symbiont_tpu_torch.models import quant
 from symbiont_tpu_torch.models.bert import torch_dtype
 from symbiont_tpu_torch.ops.flash_attention import MASK_NEG, flash_attention
+from symbiont_tpu_torch.parallel.sharding import mesh_of, sum_to
 
 Params = Any
 
@@ -162,9 +171,56 @@ def init_cache(cfg: GPTConfig, batch: int, max_len: int, dtype: torch.dtype,
                    torch.zeros(shape, dtype=dtype, device=device), 0)
 
 
+class TPCache(NamedTuple):
+    """The KV cache of a tensor-parallel forward: one dense or int8 cache
+    per tensor shard, on that shard's device, holding its own KV heads
+    (`cfg.kv_heads / tp`); `length` is the cache's, as a host int or a 0-d
+    device tensor on the lead device, and each shard reads it from here."""
+
+    shards: tuple
+    length: Any
+
+    @property
+    def k(self) -> torch.Tensor:
+        return self.shards[0].k
+
+
+def init_tp_cache(params: Params, cfg: GPTConfig, batch: int, max_len: int,
+                  dtype: torch.dtype) -> TPCache:
+    """A `TPCache` for the TP-placed `params`: each shard's on its device
+    (data row 0's tensor entries, where the LM serves)."""
+    mesh = mesh_of(params)
+    lcfg = _shard_cfg(cfg, mesh.shape["tensor"])
+    return TPCache(tuple(init_cache(lcfg, batch, max_len, dtype, mesh.device_list[i])
+                         for i in _tensor_entries(mesh, 0)), 0)
+
+
+def new_cache(params: Params, cfg: GPTConfig, batch: int, max_len: int, dtype: torch.dtype,
+              device=None):
+    """A fresh cache for `params`: a `TPCache` for a TP-placed tree, else
+    `init_cache` on `device`."""
+    if mesh_of(params) is not None:
+        return init_tp_cache(params, cfg, batch, max_len, dtype)
+    return init_cache(cfg, batch, max_len, dtype, device)
+
+
+def cache_tensors(cache) -> list:
+    """Every tensor field of a dense, int8 or TP cache, shard by shard."""
+    if isinstance(cache, TPCache):
+        return [t for c in cache.shards for t in cache_tensors(c)]
+    return [t for t in cache if isinstance(t, torch.Tensor)]
+
+
+def clone_cache(cache):
+    """A copy of a dense, int8 or TP cache (its `length` kept)."""
+    if isinstance(cache, TPCache):
+        return cache._replace(shards=tuple(clone_cache(c) for c in cache.shards))
+    return type(cache)(*(t.clone() if isinstance(t, torch.Tensor) else t for t in cache))
+
+
 def cache_bytes(cache) -> int:
     """At-rest bytes of one cache (slabs and scale planes)."""
-    return sum(quant.tensor_bytes(t) for t in cache if isinstance(t, torch.Tensor))
+    return sum(quant.tensor_bytes(t) for t in cache_tensors(cache))
 
 
 # ---------------------------------------------------------------------------
@@ -256,12 +312,15 @@ def _paged_write_read(cache: PagedKVCache, layer_idx: int, k, v, start, T: int, 
 
 def _attn(layer: Params, x: torch.Tensor, layer_idx: int, cache, cfg: GPTConfig,
           rope, kv_valid: Optional[torch.Tensor], valid: Optional[torch.Tensor]):
-    """x [B, S, H] → attention output incl. the o-projection. Writes the S
-    new K/V rows into the cache at [length, length + S); with no cache (a
-    training forward) it writes nothing and attends over the S fresh
-    tokens. `valid` is the [B|1, 1, 1, S, T] mask of visible cache slots
-    (None on the flash prefill, which builds its own)."""
-    B, S, H = x.shape
+    """x [B, S, H] → attention output through the o-projection's kernel
+    (its bias is `_block`'s to add, once a TP layer's partial products are
+    summed). Writes the S new K/V rows into the cache at [length,
+    length + S); with no cache (a training forward) it writes nothing and
+    attends over the S fresh tokens. `valid` is the [B|1, 1, 1, S, T] mask
+    of visible cache slots (None on the flash prefill, which builds its
+    own). Under TP, `layer` and `cfg` are one tensor shard's (`_shard_cfg`):
+    its heads."""
+    B, S, _ = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
     # three projections, not a fused one, as in the JAX package
     q = _proj(x, layer["q"]).view(B, S, nh, hd)
@@ -307,8 +366,8 @@ def _attn(layer: Params, x: torch.Tensor, layer_idx: int, cache, cfg: GPTConfig,
             bias = torch.where(kv_valid[:, :S], 0.0, MASK_NEG).float().contiguous()
         ctx = flash_attention(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
                               v.transpose(1, 2).contiguous(), kv_bias=bias, causal=True)
-        ctx = ctx.transpose(1, 2).reshape(B, S, H)
-        return _proj(ctx, layer["o"])
+        ctx = ctx.transpose(1, 2).reshape(B, S, nh * hd)
+        return quant.mm(ctx, layer["o"]["kernel"])
 
     if isinstance(cache, QuantKVCache):
         k_all = quant.kv_dequantize(cache.k[layer_idx], cache.k_scale[layer_idx], x.dtype)
@@ -324,28 +383,116 @@ def _attn(layer: Params, x: torch.Tensor, layer_idx: int, cache, cfg: GPTConfig,
     else:
         scores = torch.where(valid, scores.float(), MASK_NEG)
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    ctx = torch.einsum("bngst,btnd->bsngd", probs, v_all).reshape(B, S, H)
-    return _proj(ctx, layer["o"])
+    ctx = torch.einsum("bngst,btnd->bsngd", probs, v_all).reshape(B, S, nh * hd)
+    return quant.mm(ctx, layer["o"]["kernel"])
 
 
-def _block(layer, x, layer_idx, cache, cfg, rope, kv_valid, valid):
-    if cfg.arch == "gpt2":
-        x = x + _attn(layer, _ln(x, layer["ln1"], cfg.layer_norm_eps), layer_idx,
-                      cache, cfg, rope, kv_valid, valid)
-        h = _proj(_ln(x, layer["ln2"], cfg.layer_norm_eps), layer["mlp"]["in"])
-        h = F.gelu(h, approximate="tanh")  # GPT-2's gelu_new
-        return x + _proj(h, layer["mlp"]["out"])
-    x = x + _attn(layer, _rmsnorm(x, layer["ln1"], cfg.layer_norm_eps), layer_idx,
-                  cache, cfg, rope, kv_valid, valid)
-    h = _rmsnorm(x, layer["ln2"], cfg.layer_norm_eps)
-    gate = F.silu(quant.mm(h, layer["mlp"]["gate"]["kernel"]))
-    up = quant.mm(h, layer["mlp"]["up"]["kernel"])
-    return x + quant.mm(gate * up, layer["mlp"]["down"]["kernel"])
+def _block(layers, x, layer_idx, caches, cfg, devs, ropes, kv_valids, valids):
+    """One decoder layer on x [B, S, H]. `layers`, `devs` and the per-call
+    lists hold one entry a tensor shard (one for a plain tree): each shard
+    runs the attention of its heads and the MLP of its width on its device,
+    `cfg` being a shard's view (`_shard_cfg`), and the row-split
+    projections' partial products (o, MLP out/down) are summed on x's
+    device before their bias, added once, from the first shard's tree."""
+    lead = x.device
+    norm = _ln if cfg.arch == "gpt2" else _rmsnorm
+
+    def summed(parts, p):
+        out = sum_to(parts, lead)
+        return out + p["bias"] if "bias" in p else out
+
+    h = norm(x, layers[0]["ln1"], cfg.layer_norm_eps)
+    x = x + summed([_attn(layer, h.to(dev), layer_idx, cache, cfg, rope, kv_valid, valid)
+                    for layer, dev, cache, rope, kv_valid, valid
+                    in zip(layers, devs, caches, ropes, kv_valids, valids)], layers[0]["o"])
+    h = norm(x, layers[0]["ln2"], cfg.layer_norm_eps)
+    parts = []
+    for layer, dev in zip(layers, devs):
+        hs, mlp = h.to(dev), layer["mlp"]
+        if cfg.arch == "gpt2":
+            a = F.gelu(_proj(hs, mlp["in"]), approximate="tanh")  # GPT-2's gelu_new
+            parts.append(quant.mm(a, mlp["out"]["kernel"]))
+        else:
+            a = F.silu(quant.mm(hs, mlp["gate"]["kernel"])) * quant.mm(hs, mlp["up"]["kernel"])
+            parts.append(quant.mm(a, mlp["down"]["kernel"]))
+    return x + summed(parts, layers[0]["mlp"]["out" if cfg.arch == "gpt2" else "down"])
+
+
+def _valid_mask(cfg: GPTConfig, S: int, cache, kv_valid, device):
+    """The [B|1, 1, 1, S, T] mask of the cache slots each of S new tokens
+    sees, or None on the flash prefill (which builds its own): causality
+    over cache indices, where K/V live (they differ from logical positions
+    on padded rows), padding slots via kv_valid."""
+    if _flash_prefill(cfg, S, cache):
+        return None
+    if cache is None:
+        T = S
+    else:
+        T = kv_valid.shape[1] if isinstance(cache, PagedKVCache) else cache.k.shape[2]
+    kv_pos = torch.arange(T, device=device)
+    length = 0 if cache is None else cache.length
+    if isinstance(length, torch.Tensor):
+        length = length.to(device)
+    q_pos = length + torch.arange(S, device=device)
+    valid = (kv_pos[None, :] <= q_pos[:, None])[None, None, None]
+    if kv_valid is not None:
+        valid = valid & kv_valid.to(device)[:, None, None, None, :]
+    return valid
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism (megatron rules, `parallel/sharding.gpt_param_sharding`)
+# ---------------------------------------------------------------------------
+
+
+def _shard_cfg(cfg: GPTConfig, tp: int) -> GPTConfig:
+    """One tensor shard's view of the model: its share of the heads, the KV
+    heads and the MLP width (head_dim unchanged)."""
+    return replace(cfg, hidden_size=cfg.hidden_size // tp, num_heads=cfg.num_heads // tp,
+                   num_kv_heads=cfg.kv_heads // tp,
+                   intermediate_size=cfg.intermediate_size // tp)
+
+
+def _tensor_entries(mesh, row: int) -> list:
+    """The flat mesh entries of data row `row`'s tensor shards, in order."""
+    return [mesh.flat_index(data=row, tensor=t) for t in range(mesh.shape["tensor"])]
+
+
+def _split_on_tensor(leaf, dim: int) -> bool:
+    """Whether a placed leaf (a `QuantTensor`'s codes) splits dim `dim`
+    over 'tensor'."""
+    spec = (leaf.q if isinstance(leaf, quant.QuantTensor) else leaf).spec
+    return -len(spec) <= dim < len(spec) and spec[dim] == "tensor"
+
+
+def _shard_trees(params: Params, dtype: torch.dtype, device, row: int, home: bool):
+    """(trees, devices) a forward runs on: a plain tree itself on `device`;
+    a tree placed by `shard_params`, each tensor shard's plain tree of data
+    row `row` on its device, the lead first. Floating leaves in `dtype`, a
+    `QuantTensor`'s float32 scales as they are (`quant.cast_params`).
+
+    `home`: each block read from the entry that first holds it, moved to
+    where it is used (a train state's masters, `train/trainer.py`), so
+    autograd sums every use's gradient into that one master; otherwise each
+    entry reads its own shard."""
+    mesh = mesh_of(params)
+    if mesh is None:
+        return [quant.cast_params(params, dtype)], [device]
+    entries = _tensor_entries(mesh, row)
+    devs = [mesh.device_list[i] for i in entries]
+
+    def pick(x, t: int):
+        if isinstance(x, quant.QuantTensor):
+            return quant.QuantTensor(pick(x.q, t), pick(x.scale, t))
+        return x.home(entries[t]).to(devs[t]) if home else x.shards[entries[t]]
+
+    return ([quant.cast_params(quant.tree_map(lambda x: pick(x, t), params), dtype)
+             for t in range(len(entries))], devs)
 
 
 def forward(params: Params, input_ids: torch.Tensor, cache, positions: torch.Tensor,
             cfg: GPTConfig, kv_valid: Optional[torch.Tensor] = None,
-            last_only: bool = False):
+            last_only: bool = False, row: int = 0, home: bool = False):
     """Forward over S new tokens against the cache → (logits float32
     [B, S, V], or [B, 1, V] with `last_only`, and the cache, written in
     place at [length, length + S); its `length` is the caller's to move).
@@ -358,45 +505,67 @@ def forward(params: Params, input_ids: torch.Tensor, cache, positions: torch.Ten
     reads; the paged layout needs it (its width is a row's slot count).
     With `attn_impl == "flash"` a call of S > 1 tokens against an empty
     cache runs the kernel over the S fresh tokens; every other call reads
-    the cache."""
+    the cache.
+
+    Over params placed by `shard_params` (tensor parallelism) the forward
+    runs on data row `row`'s tensor entries and answers on the first (the
+    lead): each block's shards run their heads, KV heads (the cache is a
+    `TPCache`) and MLP width on their devices (`_block`), and the residual
+    stream, the norms and the replicated tables stay on the lead. A
+    vocab-split `wte` is looked up per shard over its id range and the
+    rows summed; a vocab-split head's logits are gathered. A flash prefill
+    runs B1 per shard on its `[B, NH/tp, S, D]`. `home`: `_shard_trees`."""
     if isinstance(cache, PagedKVCache) and kv_valid is None:
         raise ValueError("a forward over the paged KV layout needs kv_valid")
     dtype = torch_dtype(cfg.dtype)
-    # floating leaves → compute dtype (a no-op on leaves already in it);
-    # QuantTensor leaves keep their float32 scales
-    params = quant.cast_params(params, dtype)
+    trees, devs = _shard_trees(params, dtype, input_ids.device, row, home)
+    tp, lead = len(trees), devs[0]
+    vocab_split = tp > 1 and _split_on_tensor(params["wte"], 0)
+    if tp > 1:
+        if isinstance(cache, PagedKVCache):
+            raise ValueError("the paged KV layout under a tensor-parallel mesh is not ported "
+                             "(ROADMAP A15 stage 1b)")
+        caches = [None] * tp if cache is None else [
+            c._replace(length=cache.length.to(d) if isinstance(cache.length, torch.Tensor)
+                       else cache.length) for c, d in zip(cache.shards, devs)]
+        shard_cfg = _shard_cfg(cfg, tp)
+    else:
+        caches, shard_cfg = [cache], cfg
+    input_ids, positions = input_ids.to(lead), positions.to(lead)
     B, S = input_ids.shape
-    x = quant.take(params["wte"], input_ids)
+    if vocab_split:
+        ids, vt = input_ids.clamp(0, cfg.vocab_size - 1), cfg.vocab_size // tp
+        rows = []
+        for t, (tree, dev) in enumerate(zip(trees, devs)):
+            loc = ids.to(dev) - t * vt
+            rows.append(torch.where(((loc >= 0) & (loc < vt))[..., None],
+                                    quant.take(tree["wte"], loc), 0.0))
+        x = sum_to(rows, lead)
+    else:
+        x = quant.take(trees[0]["wte"], input_ids)
     if cfg.arch == "gpt2":
-        x = x + quant.take(params["wpe"], positions)
+        x = x + quant.take(trees[0]["wpe"], positions)
     x = x.to(dtype)  # quantized gathers dequantize to float32
     rope = (_rope_angles(positions, cfg.head_dim, cfg.rope_theta)
             if cfg.arch == "llama" else None)
-    valid = None
-    if not _flash_prefill(cfg, S, cache):
-        # causality over cache indices, where K/V live (they differ from
-        # logical positions on padded rows); padding slots via kv_valid
-        if cache is None:
-            T = S
-        else:
-            T = kv_valid.shape[1] if isinstance(cache, PagedKVCache) else cache.k.shape[2]
-        kv_pos = torch.arange(T, device=input_ids.device)
-        q_pos = (0 if cache is None else cache.length) + torch.arange(S, device=input_ids.device)
-        valid = (kv_pos[None, :] <= q_pos[:, None])[None, None, None]
-        if kv_valid is not None:
-            valid = valid & kv_valid[:, None, None, None, :]
-    for i, layer in enumerate(params["layers"]):
-        x = _block(layer, x, i, cache, cfg, rope, kv_valid, valid)
+    valid = _valid_mask(cfg, S, cache, kv_valid, lead)
+    ropes = [None if rope is None else tuple(r.to(d) for r in rope) for d in devs]
+    valids = [None if valid is None else valid.to(d) for d in devs]
+    kv_valids = [None if kv_valid is None else kv_valid.to(d) for d in devs]
+    for i in range(len(params["layers"])):
+        x = _block([tree["layers"][i] for tree in trees], x, i, caches, shard_cfg, devs, ropes,
+                   kv_valids, valids)
     if last_only:
         x = x[:, -1:]
-    if cfg.arch == "gpt2":
-        x = _ln(x, params["ln_f"], cfg.layer_norm_eps)
-    else:
-        x = _rmsnorm(x, params["ln_f"], cfg.layer_norm_eps)
+    x = (_ln if cfg.arch == "gpt2" else _rmsnorm)(x, trees[0]["ln_f"], cfg.layer_norm_eps)
     if cfg.tie_word_embeddings:
-        logits = quant.mm_tied(x, params["wte"])
+        parts = [quant.mm_tied(x.to(d), tree["wte"])
+                 for tree, d in zip(trees, devs if vocab_split else devs[:1])]
     else:
-        logits = quant.mm(x, params["lm_head"]["kernel"])
+        head_split = tp > 1 and _split_on_tensor(params["lm_head"]["kernel"], -1)
+        parts = [quant.mm(x.to(d), tree["lm_head"]["kernel"])
+                 for tree, d in zip(trees, devs if head_split else devs[:1])]
+    logits = parts[0] if len(parts) == 1 else torch.cat([p.to(lead) for p in parts], dim=-1)
     return logits.float(), cache
 
 
@@ -479,8 +648,8 @@ def prefill(params, prompt_ids: torch.Tensor, prompt_mask: torch.Tensor, cfg: GP
     what they held, which no step reads before it writes them)."""
     B, P = prompt_ids.shape
     if cache is None:
-        cache = init_cache(cfg, B, P + max_new_tokens, torch_dtype(cfg.dtype),
-                           prompt_ids.device)
+        cache = new_cache(params, cfg, B, P + max_new_tokens, torch_dtype(cfg.dtype),
+                          prompt_ids.device)
     elif cache.length != 0 or cache.k.shape[1:3] != (B, P + max_new_tokens):
         raise ValueError(f"prefill into a cache of {tuple(cache.k.shape)}, length "
                          f"{cache.length}: want [_, {B}, {P + max_new_tokens}, ...] at 0")
@@ -564,6 +733,10 @@ def merge_cache_rows(cache_a, cache_b, row_map):
     the shared kv_valid that `merge_rows` masks. In place on `cache_a`,
     which is returned. The JAX version donates cache_a to XLA to get the
     same effect; here the row copy is an `index_copy_`."""
+    if isinstance(cache_a, TPCache):  # shard by shard
+        for a, b in zip(cache_a.shards, cache_b.shards, strict=True):
+            merge_cache_rows(a, b, row_map)
+        return cache_a
     _refuse_layout(cache_a, "merge_cache_rows")
     dst, src = _paged.splice_rows(row_map, cache_b.k.shape[1], cache_a.k.device)
     if dst.numel():
@@ -602,7 +775,8 @@ def merge_rows(cache_a, logits_a, pos_a, done_a, kv_valid_a,
     is a host int at a splice, so nothing needs donating. The paged
     layout's `new_page_table` is the session's device table, written in
     place before the splice, so a captured chunk reads the splice."""
-    _refuse_layout(cache_a, "merge_rows", (KVCache, QuantKVCache, PagedKVCache))
+    if not isinstance(cache_a, TPCache):  # a TP cache splices shard by shard
+        _refuse_layout(cache_a, "merge_rows", (KVCache, QuantKVCache, PagedKVCache))
     if isinstance(cache_a, PagedKVCache):
         staging, scatter_table, new_page_table = cache_b
         if staging is not None:

@@ -78,7 +78,11 @@ def is_quantized(x) -> bool:
     return isinstance(x, QuantTensor)
 
 
-def tensor_bytes(t: torch.Tensor) -> int:
+def tensor_bytes(t) -> int:
+    """Bytes a tensor holds; a mesh-placed tensor (`parallel.sharding.
+    Sharded`) reports every entry's shard's bytes."""
+    if not isinstance(t, torch.Tensor):
+        return t.nbytes
     return t.numel() * t.element_size()
 
 
@@ -179,9 +183,7 @@ def param_bytes(params: Params) -> int:
     leaf): the `engine.param_bytes` gauge and the `engine.params` claim."""
     total = 0
     for leaf in leaves(params):
-        if isinstance(leaf, QuantTensor):
-            total += leaf.nbytes
-        elif isinstance(leaf, torch.Tensor):
+        if isinstance(leaf, QuantTensor) or hasattr(leaf, "nbytes"):
             total += tensor_bytes(leaf)
     return total
 

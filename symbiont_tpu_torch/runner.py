@@ -14,9 +14,9 @@ heartbeats and the drain protocol of a supervised role
 (resilience/procsup.py), `obs.slo_p99_ms` the SLO watchdog and
 `gen_journal.enabled` the generation journal, `obs.xprof_trace_dir` and
 `obs.xprof_trace_max_s` the on-demand device trace, `obs.hbm_census_groups`
-the census's row bound. The settings of parts not ported yet raise a
-`ValueError` naming their ROADMAP item before anything starts
-(`_refuse_unported`): a serving mesh over more than one device (A15).
+the census's row bound, and `parallel` the serving mesh (below). The LM
+branches not ported under a tensor-parallel mesh raise a `ValueError`
+naming their ROADMAP item before anything starts (`_refuse_unported`).
 `lm.ingest_train` hands `text_generator` an
 `OnlineLmTrainer` (train/online.py) that fine-tunes the LM on ingested
 text and syncs it into the serving engine in place.
@@ -56,16 +56,45 @@ log = logging.getLogger(__name__)
 _OBS_DEFAULTS = ObsConfig()
 
 
-def _refuse_unported(cfg: SymbiontConfig, mesh) -> None:
-    """Every setting that would switch on a plane the port has not taken
-    over raises here, naming its ROADMAP item, before any service starts.
-    All of them are off in the default config, so `SymbiontStack()` runs
-    whole."""
+def _refuse_unported(cfg: SymbiontConfig, mesh, builds_lm: bool) -> None:
+    """The LM's tensor-parallel decision (`engine.lm.tp_decode`, JAX's
+    rules) taken before any service starts, over the caller's mesh or the
+    one `cfg.parallel` will build, on the LM's geometry (a checkpoint's
+    config.json is read for it): a branch not ported under TP (the paged
+    layout, speculative decoding, the online fine-tune) or
+    `tensor_parallel="on"` where the LM cannot shard raises here, naming
+    its ROADMAP item, as `LmEngine` and `OnlineLmTrainer` would raise once
+    built."""
+    if not builds_lm:
+        return
+    from symbiont_tpu_torch.engine.lm import lm_model_config, tp_decode
+    from symbiont_tpu_torch.parallel.mesh import axis_size
+
+    if mesh is not None:
+        tp = axis_size(mesh, "tensor")
+    else:
+        names, shape = list(cfg.parallel.axis_names), cfg.parallel.mesh_shape
+        tp = (int(shape[names.index("tensor")]) if cfg.parallel.enabled and shape is not None
+              and "tensor" in names else 1)
+    if tp_decode(cfg.lm, None, tp):
+        tp_decode(cfg.lm, lm_model_config(cfg.lm), tp, ingest_train=cfg.lm.ingest_train)
+
+
+def _mesh_on_cpu(cfg: SymbiontConfig, engine: bool, lm: bool) -> bool:
+    """Whether the serving mesh is over the CPU: when every device owner
+    this process builds asks for the CPU. Without CUDA and without that
+    ask, the mesh is over the local devices, which cover no shape over
+    more than one entry, and an engine on it raises as it does without a
+    mesh: nothing serves on the CPU unasked. Owners that disagree cannot
+    share one mesh over more than one entry."""
+    import math
+
+    owners = ([cfg.engine.force_cpu] if engine else []) + ([cfg.lm.force_cpu] if lm else [])
     shape = cfg.parallel.mesh_shape
-    if mesh is not None or (cfg.parallel.enabled and shape is not None
-                            and any(int(s) > 1 for s in shape)):
-        raise ValueError("a serving mesh over more than one device is not ported "
-                         "yet (ROADMAP A15); the stack serves on one device")
+    if len(set(owners)) > 1 and shape is not None and math.prod(shape) > 1:
+        raise ValueError("engine.force_cpu and lm.force_cpu differ: one serving mesh "
+                         f"{shape} cannot hold both")
+    return bool(owners) and all(owners)
 
 
 class SymbiontStack:
@@ -118,7 +147,8 @@ class SymbiontStack:
         def on(name: str) -> bool:
             return "all" in want or name in want
 
-        _refuse_unported(cfg, self._mesh)
+        _refuse_unported(cfg, self._mesh,
+                         cfg.lm.enabled and (on("text_generator") or on("engine")))
 
         # observability plane (symbiont_tpu_torch/obs/): size the flight recorder,
         # apply histogram bucket bounds BEFORE any traffic observes into
@@ -248,9 +278,35 @@ class SymbiontStack:
                 defer_ready=True)
             await self.api.start()
 
-        # Serving mesh: the port serves on one device. The default
-        # cfg.parallel resolves to it and builds nothing; a mesh over more
-        # than one device was refused above (ROADMAP A15).
+        # Serving mesh, as in JAX: when this process is about to construct a
+        # real device engine (embed or LM) or an embedded store and no caller
+        # handed a mesh in, build one from cfg.parallel — mesh_shape unset
+        # means all local devices on the 'data' axis, so a multi-card host
+        # serves DP out of the box and a one-card host gets an inert (1, 1)
+        # mesh the engines treat as none. The same mesh reaches the vector
+        # store (corpus rows split over 'data') and LmEngine (TP decode
+        # when 'tensor' > 1). Stub-engine test stacks (engine override) skip
+        # it: no real device work, no mesh.
+        builds_real_engine = (self._engine_override is None
+                              and (on("preprocessing") or on("engine")))
+        builds_real_lm = cfg.lm.enabled and (on("text_generator") or on("engine"))
+        builds_embedded_store = (self._engine_override is None
+                                 and (on("vector_memory") or on("engine"))
+                                 and not cfg.vector_store.uri
+                                 and cfg.vector_store.device_resident)
+        if (cfg.parallel.enabled and self._mesh is None
+                and (builds_real_engine or builds_real_lm or builds_embedded_store)):
+            from symbiont_tpu_torch.parallel.mesh import mesh_from_config
+
+            self._mesh = mesh_from_config(cfg.parallel, cpu=_mesh_on_cpu(
+                cfg, builds_real_engine or builds_embedded_store, builds_real_lm))
+            log.info("serving mesh: %s", self._mesh.shape)
+        if self._mesh is not None:
+            # mesh.devices{axis}: the serving topology, readable off /metrics
+            from symbiont_tpu_torch.utils.telemetry import metrics
+
+            for axis, size in self._mesh.shape.items():
+                metrics.gauge_set("mesh.devices", size, labels={"axis": str(axis)})
 
         # at-least-once pipeline (SURVEY.md §5.3): one durable stream captures
         # the fire-and-forget subjects; each consumer acks after its side
@@ -276,7 +332,7 @@ class SymbiontStack:
         if hasattr(self.bus, "dlq"):
             self.bus.dlq.capacity = cfg.resilience.dlq_capacity
         if on("preprocessing") or on("engine"):
-            self.engine = self._engine_override or TorchEngine(cfg.engine)
+            self.engine = self._engine_override or TorchEngine(cfg.engine, mesh=self._mesh)
         if on("vector_memory") or on("engine"):
             # vector store dim follows the engine's actual hidden size; in a
             # standalone vector_memory worker (no engine in-process) the
@@ -299,7 +355,7 @@ class SymbiontStack:
             device = (self.engine.device if self.engine is not None
                       else ("cpu" if cfg.engine.force_cpu else None))
             self.vector_store = make_vector_store(vs_cfg, device=device,
-                                                  resilience=cfg.resilience)
+                                                  resilience=cfg.resilience, mesh=self._mesh)
             if not on("vector_memory"):
                 # engine-only deployment: VectorMemoryService isn't there to
                 # run the startup ensure, so do it here (idempotent);
@@ -321,7 +377,7 @@ class SymbiontStack:
             from symbiont_tpu_torch.engine.batcher import GenBatcher
             from symbiont_tpu_torch.engine.lm import LmEngine
 
-            self.lm = LmEngine(cfg.lm)
+            self.lm = LmEngine(cfg.lm, mesh=self._mesh)
             if cfg.gen_journal.enabled:
                 # durable generation sessions: the engine snapshots every
                 # stream at its chunk boundaries to <dir>/<role>.genlog;

@@ -51,6 +51,9 @@ class OnlineLmTrainer:
 
     def __init__(self, lm, learning_rate: float = 1e-4, seq_len: int = 64,
                  batch_size: int = 8, state_path: Optional[str] = None):
+        if getattr(lm, "mesh", None) is not None:
+            raise ValueError("the online LM fine-tune of a tensor-parallel LmEngine is not "
+                             "ported (ROADMAP A15 stage 1d)")
         self.lm = lm
         self.cfg = lm.model_cfg
         self.seq_len = int(min(seq_len, self.cfg.max_position_embeddings))

@@ -37,13 +37,22 @@ forward and the fused backward kernels (dK/dV/dbias, dQ) on CUDA tensors,
 their plain versions on CPU ones (`ops/flash_attention.py`): the encoder's
 with its padding bias, the LM's causal over the packed rows. The step
 runs where the params and batch live: the card unless the caller hands it
-CPU tensors, as the tests do. `shard_lm_train_state` (a mesh) waits for
-A15.
+CPU tensors, as the tests do.
+
+On a mesh (A15 stage 1, JAX's `shard_lm_train_state`): the masters are
+placed on the megatron TP rules and replicated over 'data'; `lm_loss`
+runs each data row's share of the batch through `gpt.forward` on that
+row's tensor entries (B1 forward, B2/B3 backward on each shard's heads),
+reading every block from its master, so one backward sums each use's
+gradient into it through the copies between devices, and the AdamW then
+updates the masters and copies them to the replicas. Such a step crosses
+devices, so its executable runs eagerly (`graphs.Executable(eager=True)`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import weakref
 from typing import Any, NamedTuple, Tuple
 
@@ -53,6 +62,13 @@ import torch.nn.functional as F
 from symbiont_tpu_torch.graphs import Executable, GraphPool
 from symbiont_tpu_torch.models import bert as bert_mod
 from symbiont_tpu_torch.models import gpt as gpt_mod
+from symbiont_tpu_torch.parallel.mesh import axis_size
+from symbiont_tpu_torch.parallel.sharding import (
+    Sharded,
+    gpt_param_sharding,
+    mesh_of,
+    shard_params,
+)
 
 Params = Any
 
@@ -138,16 +154,51 @@ def lm_loss(params: Params, batch: dict, cfg: gpt_mod.GPTConfig) -> torch.Tensor
     config's `kv_quant` is set to "none" all the same, as JAX's `lm_loss`
     sets it, so no part of the training forward reads an int8 setting."""
     ids = batch["ids"]
-    mask = batch["mask"].float()
-    B, S = ids.shape
+    mask = batch["mask"]
+    mask = mask if isinstance(mask, Sharded) else mask.float()
     if cfg.kv_quant != "none":
         cfg = dataclasses.replace(cfg, kv_quant="none")
+    mesh = mesh_of(params)
+    if mesh is None:
+        num, den = _lm_loss_terms(gpt_mod.forward, params, ids, mask, cfg)
+        return num / den.clamp_min(1.0)
+    # a mesh: data row d runs the TP forward on its share of the rows, from
+    # the masters (`home`), and the sums meet on the lead
+    lead = mesh.lead
+    num = den = None
+    for d in range(axis_size(mesh, "data")):
+        dev = mesh.device(data=d)
+        fwd = functools.partial(gpt_mod.forward, row=d, home=True)
+        n, w = _lm_loss_terms(fwd, params, _data_rows(batch["ids"], mesh, d).to(dev),
+                              _data_rows(batch["mask"], mesh, d).to(dev).float(), cfg)
+        num = n.to(lead) if num is None else num + n.to(lead)
+        den = w.to(lead) if den is None else den + w.to(lead)
+    return num / den.clamp_min(1.0)
+
+
+def _lm_loss_terms(forward, params, ids, mask, cfg):
+    """(Σ ce·w, Σ w) of `lm_loss` over one block of rows."""
+    B, S = ids.shape
     positions = torch.arange(S, device=ids.device).expand(B, S)
-    logits, _ = gpt_mod.forward(params, ids, None, positions, cfg)
+    logits, _ = forward(params, ids, None, positions, cfg)
+    logits = logits.to(ids.device)
     ce = F.cross_entropy(logits[:, :-1].flatten(0, 1), ids[:, 1:].flatten().long(),
                          reduction="none").view(B, S - 1)
     w = mask[:, 1:] * mask[:, :-1]
-    return (ce * w).sum() / w.sum().clamp_min(1.0)
+    return (ce * w).sum(), w.sum()
+
+
+def _data_rows(x, mesh, d: int) -> torch.Tensor:
+    """Data row d's share of a batch tensor: its shard when the batch was
+    placed on the mesh (`batch_sharding`), else its contiguous block of
+    rows."""
+    if isinstance(x, Sharded):
+        return x.shards[mesh.flat_index(data=d)]
+    nd = axis_size(mesh, "data")
+    if x.shape[0] % nd:
+        raise ValueError(f"a batch of {x.shape[0]} rows does not split over data={nd}")
+    per = x.shape[0] // nd
+    return x[d * per:(d + 1) * per]
 
 
 # the batch tensors each loss reads, in the order its executable takes them
@@ -156,9 +207,34 @@ LM_KEYS = ("ids", "mask")
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """L2 norm over every element of every tensor (`optax.global_norm`)."""
+    """L2 norm over every element of every tensor (`optax.global_norm`),
+    on the first tensor's device."""
+    tensors = list(tensors)
+    dev = tensors[0].device
     return torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors]))
+        torch.stack([torch.linalg.vector_norm(t.float()).to(dev) for t in tensors]))
+
+
+def masters(params: Params) -> list:
+    """The tensors an optimizer updates: the leaves, or for a tree placed
+    on a mesh each block's home shard (`Sharded.home`), leaf by leaf."""
+    out = []
+    for leaf in tree_leaves(params):
+        if isinstance(leaf, Sharded):
+            out += leaf.homes()
+        else:
+            out.append(leaf)
+    return out
+
+
+def _sync_replicas(params: Params) -> None:
+    """Every shard of a mesh-placed tree that is not its block's home
+    copied from it, after an update of the homes."""
+    for leaf in tree_leaves(params):
+        if isinstance(leaf, Sharded):
+            for i, t in enumerate(leaf.shards):
+                if leaf.home_index(i) != i:
+                    t.copy_(leaf.home(i))
 
 
 def _step_fn(params: Params, tx, cfg, loss_fn=contrastive_loss, keys=CONTRASTIVE_KEYS):
@@ -167,7 +243,8 @@ def _step_fn(params: Params, tx, cfg, loss_fn=contrastive_loss, keys=CONTRASTIVE
     gradients zeroed in place (a leaf that gets none keeps zeros, as JAX
     gives an unused leaf), one backward into them, the norm taken before
     the update."""
-    leaves = tree_leaves(params)
+    leaves = masters(params)
+    sharded = mesh_of(params) is not None
     tx_ref = weakref.ref(tx)  # the executable must not keep the optimizer alive
 
     def step(*tensors):
@@ -177,6 +254,9 @@ def _step_fn(params: Params, tx, cfg, loss_fn=contrastive_loss, keys=CONTRASTIVE
         loss.backward()
         gnorm = global_norm(grads)
         tx_ref().step()
+        if sharded:
+            with torch.no_grad():
+                _sync_replicas(params)
         return loss.detach(), gnorm
 
     return step
@@ -194,24 +274,28 @@ def _step_executable(state: TrainState, batch: dict, cfg, tx, loss_fn=contrastiv
     (shapes of the batch's ids, cfg), built on the state's masters. On
     CUDA its capture's warm-up runs a whole step, and the masters, moments
     and step counts come back to what they held before it (`carry`)."""
-    leaves = tree_leaves(state.params)
+    leaves = masters(state.params)
     device = leaves[0].device
+    # a mesh-placed state's step crosses devices: it runs eagerly
+    eager = mesh_of(state.params) is not None
     own = _STEPS.get(tx)
     if own is None:
         own = _STEPS[tx] = {"exes": {},
-                            "pool": GraphPool() if device.type == "cuda" else None}
+                            "pool": GraphPool() if device.type == "cuda" and not eager
+                            else None}
     key = tuple(tuple(batch[k].shape) for k in keys if k.endswith("ids")) + (cfg,)
     exe = own["exes"].get(key)
     if exe is None or exe.params is not state.params:
         carry = None
-        if device.type == "cuda":
+        if device.type == "cuda" and not eager:
             moments = [tx.state[p] for p in leaves]
             carry = [t.detach() for t in leaves] + [m[k] for m in moments
                                                     for k in ("step", "exp_avg", "exp_avg_sq")]
         shapes = ",".join("x".join(map(str, batch[k].shape)) for k in keys if k.endswith("ids"))
         exe = own["exes"][key] = Executable(
             _step_fn(state.params, tx, cfg, loss_fn, keys), device, pool=own["pool"],
-            carry=carry, signature=f"train.{getattr(loss_fn, '__name__', 'loss')}_step[{shapes}]")
+            carry=carry, signature=f"train.{getattr(loss_fn, '__name__', 'loss')}_step[{shapes}]",
+            eager=eager)
         exe.params = state.params
     return exe
 
@@ -243,3 +327,40 @@ def lm_train_step(state: TrainState, batch: dict, cfg: gpt_mod.GPTConfig, tx
     loss, gnorm = exe(*(batch[k] for k in LM_KEYS))
     return (TrainState(state.params, tx.state, state.step + 1),
             {"loss": loss, "grad_norm": gnorm})
+
+
+def shard_lm_train_state(mesh, state: TrainState, tx, arch: str = "gpt2"
+                         ) -> Tuple[TrainState, torch.optim.AdamW]:
+    """Place an LM train state on the mesh → (state, tx): the masters on
+    the megatron TP rules (`parallel/sharding.gpt_param_sharding`),
+    replicated over 'data'; the optimizer's moments mirror them block for
+    block and its step counts are copied. Each block's master is the shard
+    at the first entry that holds it (`Sharded.home`), and the returned
+    AdamW (the hyperparameters of `tx`) updates exactly those; every other
+    shard is a replica copied from its master after each step. The batch
+    goes on the 'data' axis (the caller's `batch_sharding`, or a whole
+    batch `lm_train_step` splits into contiguous rows). `state` and `tx`
+    are left as they are: the placed masters are copies."""
+    spec = gpt_param_sharding(mesh, state.params, arch=arch)
+
+    def placed(pick):
+        with torch.no_grad():
+            return shard_params(mesh, bert_mod.tree_map(
+                lambda p: pick(p).detach().clone(), state.params), spec)
+
+    params = placed(lambda p: p)
+    mu = placed(lambda p: tx.state[p]["exp_avg"])
+    nu = placed(lambda p: tx.state[p]["exp_avg_sq"])
+    step0 = tx.state[tree_leaves(state.params)[0]]["step"]
+    homes = masters(params)
+    on_card = homes[0].is_cuda
+    group = tx.param_groups[0]
+    tx2 = torch.optim.AdamW(homes, lr=group["lr"], betas=group["betas"], eps=group["eps"],
+                            weight_decay=group["weight_decay"], capturable=on_card)
+    for p, m, v in zip(homes, masters(mu), masters(nu), strict=True):
+        p.requires_grad_()
+        tx2.state[p] = {"step": (step0.detach().to(torch.float64).to(p.device).clone() if on_card
+                                 else step0.detach().float().cpu().clone()),
+                        "exp_avg": m, "exp_avg_sq": v}
+        p.grad = torch.zeros_like(p)
+    return TrainState(params, tx2.state, state.step), tx2

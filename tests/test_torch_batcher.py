@@ -170,17 +170,22 @@ def test_admission_prefill_overlaps_the_running_chunks(monkeypatch):
     port = _port(**dict(GEN, gen_flush_deadline_ms=5.0, new_token_buckets=[8, 64]))
     solo_a, solo_b = port.generate("aa", 64), port.generate("bb", 8)
     steps, window = [], {}
+    two_ran = threading.Event()
     step, prepare = lm_mod.BatchSession.step, lm_mod.BatchSession.prepare_admit
 
     def paced_step(self):
         time.sleep(0.05)  # the session outlasts the slowed prepare
         out = step(self)
         steps.append(time.perf_counter())
+        if "start" in window and sum(t > window["start"] for t in steps) >= 2:
+            two_ran.set()
         return out
 
     def slow_prepare(self, *a, **kw):
         window["start"] = time.perf_counter()
-        time.sleep(0.4)
+        # held until two chunks have ended inside the window: a prefill that
+        # held the engine lock would let none run, and this wait would time out
+        two_ran.wait(30)
         out = prepare(self, *a, **kw)
         window["end"] = time.perf_counter()
         return out
@@ -202,7 +207,7 @@ def test_admission_prefill_overlaps_the_running_chunks(monkeypatch):
     (ra, rb), stats = asyncio.run(scenario())
     assert (ra, rb) == (solo_a, solo_b) and stats["admitted_midflight"] == 1
     during = [t for t in steps if window["start"] < t < window["end"]]
-    assert len(during) >= 2, f"{len(during)} chunks ran during a 0.4 s admission prefill"
+    assert len(during) >= 2, f"{len(during)} chunks ran during the admission prefill"
 
 
 def test_cancelled_request_frees_its_row(monkeypatch):

@@ -898,6 +898,7 @@ def test_a_failing_stack_check_fails_the_run(monkeypatch, capsys):
                  paged_phase=lambda rng, tmp, tl, dense_batcher: {"launches": 0},
                  spec_phase=lambda rng, tmp, tl: {"launches": 0},
                  lmtrain_phase=lambda rng, tmp: {"launches": (0, 0, 0), "kernels": []},
+                 mesh_phase=lambda rng: {"launches": (0, 0, 0)},
                  stack_phase=lambda rng, tmp, serve: chip_smoke.check(
                      False, "49 of 50 searches on the fused hop, 1 fell back"))
     for name, fn in stubs.items():
@@ -922,3 +923,58 @@ def test_span_names_walks_a_trace_tree():
         {"name": "engine.query.search", "children": []},
         {"name": "engine.rerank", "children": []}]}]}
     assert chip_smoke.span_names(tree) == {"api.search", "engine.query.search", "engine.rerank"}
+
+
+# ------------------------------------------------------------------- mesh
+
+TINY_MESH = dict(texts=24, store_rows=100, store_cap=128, queries=4, top_k=3, prompts=2, new=8,
+                 prompt_bucket=16, chunk=4, llama=TINY_LLAMA,
+                 gpt2=dict(TINY_GPT2, vocab_size=301), train_rows=4, train_seq=16)
+TINY_MESH_ENGINE = dict(embedding_dim=32, length_buckets=[16, 32], batch_buckets=[2, 8],
+                        max_batch=8, dtype="float32")
+
+
+def test_mesh_phase_rehearses_on_the_cpu(monkeypatch, capsys):
+    """[mesh] end to end on the CPU over meshes that repeat the CPU device,
+    at tiny geometries (a 32-wide, 6-layer synthetic encoder, 2-layer llama
+    and GPT-2 with an odd vocab), with every check it makes on the card:
+    the CPU path launches no kernel, so B1's plain forwards and the plain
+    backward are counted as the launches, and nothing captures."""
+    from symbiont_tpu_torch.ops import flash_attention as fa
+
+    forward, backward = fa._forward, fa.flash_attention_backward
+
+    def counted_forward(*a, **kw):
+        with fa._count_lock:
+            fa.launches += 1
+        return forward(*a, **kw)
+
+    def counted_backward(*a, **kw):
+        with fa._count_lock:
+            fa.bwd_kv_launches += 1
+            fa.bwd_q_launches += 1
+        return backward(*a, **kw)
+
+    monkeypatch.setattr(fa, "_forward", counted_forward)
+    monkeypatch.setattr(fa, "flash_attention_backward", counted_backward)
+    for name in ("launches", "bwd_kv_launches", "bwd_q_launches"):  # restored after
+        monkeypatch.setattr(fa, name, 0)
+    out = chip_smoke.mesh_phase(np.random.default_rng(0), sizes=TINY_MESH, device="cpu",
+                                engine_kw=TINY_MESH_ENGINE)
+    printed = capsys.readouterr().out
+    assert printed.count("[mesh] TP decode") == 3 and printed.count("[mesh]") == 8
+    assert "causal q[2, 2, 16, 8] over 1 KV heads, float32" in printed  # a TP shard's prefill
+    assert "flash_attn_bwd causal q/k/v/g [2, 2, 16, 8] float32" in printed
+    assert out["dp"]["cosine_min"] >= 0.999 and out["dp"]["replicas"] == 2
+    assert out["store"]["same"] == out["store"]["fused_same"] == 4
+    assert out["store"]["capacity"] == 128 and out["store"]["shards"] == 2
+    assert [out["tp"][t]["vocab_split"] for t in ("tinyllama/none", "tinyllama/int8",
+                                                  "gpt2/none")] == [True, True, False]
+    # 2 layers x 2 shards x (1 generate_batch + session start + admission)
+    assert all(out["tp"][t]["b1"] == 12 for t in out["tp"])
+    steps = out["train"]["steps"]
+    assert len(steps) == 2 and all(x["launches"] == (8, 8, 8) for x in steps)
+    # 6 encoder layers x 2 replicas x batches, twice; 6 x 4 fused queries
+    embed_b1 = sum(out["dp"]["b1"])
+    assert embed_b1 == 6 * 2 * 2 * out["dp"]["batches"]
+    assert out["launches"] == (embed_b1 + 6 * 4 + 3 * 12 + 2 * 8, 16, 16)

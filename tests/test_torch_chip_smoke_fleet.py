@@ -97,6 +97,7 @@ def test_a_failing_fleet_check_fails_the_run(monkeypatch, capsys):
                  paged_phase=lambda rng, tmp, tl, dense_batcher: {"launches": 0},
                  spec_phase=lambda rng, tmp, tl: {"launches": 0},
                  lmtrain_phase=lambda rng, tmp: {"launches": (0, 0, 0), "kernels": []},
+                 mesh_phase=lambda rng: {"launches": (0, 0, 0)},
                  stack_phase=lambda rng, tmp, serve: {"launches": 0},
                  fleet_phase=lambda rng, tmp: chip_smoke.check(
                      False, "[fleet] fleet-gen-1: SSE seq [0, 2, 3] has a gap or a duplicate"))

@@ -317,10 +317,14 @@ class _StubGraph:
         self.replays += 1
 
 
-def test_replays_count_captured_launches():
+def test_replays_count_captured_launches(monkeypatch):
     """A replay makes no wrapper call: each one adds the launches its
     capture recorded (here 12 B1 and 1 B3 through a stub graph), and a
-    call made under capture goes to the capturing thread's tally."""
+    call made under capture goes to the capturing thread's tally. The
+    process-wide counts are put back afterwards, for the tests that read
+    them."""
+    for name in ("launches", "bwd_kv_launches", "bwd_q_launches"):
+        monkeypatch.setattr(fa, name, getattr(fa, name))
     exe = graphs.Executable(lambda x: x, "cpu")
     exe.graph, exe.static_in, exe.counts = _StubGraph(), (torch.zeros(2),), (12, 0, 1)
     l0, q0 = fa.launches, fa.bwd_q_launches

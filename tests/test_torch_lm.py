@@ -27,6 +27,7 @@ from symbiont_tpu_torch.models import gpt as tgpt
 from symbiont_tpu_torch.models import quant
 from symbiont_tpu_torch.models.bridge import gpt_params_from_numpy
 from symbiont_tpu_torch.obs.hbm import hbm_ledger
+from symbiont_tpu_torch.parallel import build_mesh
 from symbiont_tpu_torch.utils.telemetry import metrics
 
 TINY = dict(enabled=True, arch="llama", hidden_size=32, num_layers=2, num_heads=4,
@@ -116,11 +117,22 @@ def test_config_validation_matches_jax(kw):
         LmConfig(**kw)
 
 
+TP_MESH = build_mesh([1, 2], devices=[torch.device("cpu")] * 2)
+
+
 @pytest.mark.parametrize("config_kw,engine_kw,item", [
-    (dict(tensor_parallel="on"), {}, "A15"),
-    ({}, dict(mesh=object()), "A15"),
+    (dict(kv_layout="paged", kv_page_tokens=8), dict(mesh=TP_MESH), "A15 stage 1b"),
+    (dict(spec_draft_model="/no/such/drafter"), dict(mesh=TP_MESH), "A15 stage 1c"),
+    ({}, dict(mesh=TP_MESH, draft_params="same", draft_model_cfg="same"), "A15 stage 1c"),
 ])
 def test_unported_settings_raise_and_name_their_item(config_kw, engine_kw, item):
+    """Tensor-parallel decode is ported (tests/test_torch_multichip_serving.py
+    holds it to JAX); the paged layout and speculative decoding under a TP
+    mesh are not, and raise naming their item instead of serving on one
+    device."""
+    if "draft_params" in engine_kw:
+        donor = _port()
+        engine_kw = dict(engine_kw, draft_params=donor.params, draft_model_cfg=donor.model_cfg)
     with pytest.raises(ValueError, match=item):
         LmEngine(LmConfig(**{**TINY, **config_kw}), device="cpu", **engine_kw)
 

@@ -191,14 +191,20 @@ def test_service_ingest_triggers_lm_training(pkg):
         svc = pkg.TextGeneratorService(bus, lm_generate=lm.generate, train_on_ingest=False,
                                        lm_trainer=trainer, lm_train_min_chars=64,
                                        lm_train_steps=1)
+        # the counter is process-wide: an earlier test may have raised it
+        passes0 = pkg.metrics.snapshot()["counters"].get("text_generator.lm_train_passes", 0)
         await svc.start()
         try:
             await bus.publish(pkg.subjects.DATA_RAW_TEXT_DISCOVERED, raw("short"))
             await asyncio.sleep(0.2)
             assert trainer.stats["train_steps"] == 0  # below the threshold
             await bus.publish(pkg.subjects.DATA_RAW_TEXT_DISCOVERED, raw(CORPUS[0]))
+            # the service counts the pass after the trainer has synced the
+            # engine, so wait for the count, not for the trainer's steps
             for _ in range(1200):
-                if trainer.stats["train_steps"] > 0:
+                passes = pkg.metrics.snapshot()["counters"].get(
+                    "text_generator.lm_train_passes", 0)
+                if passes > passes0:
                     break
                 await asyncio.sleep(0.05)
             assert trainer.stats["train_steps"] >= 1

@@ -18,6 +18,7 @@ import urllib.error
 import urllib.request
 
 import pytest
+import torch
 
 from symbiont_tpu_torch import subjects
 from symbiont_tpu_torch.bus.connect import connect
@@ -27,6 +28,7 @@ from symbiont_tpu_torch.config import (AdmissionConfig, ApiConfig, BusConfig, En
                                        TextGeneratorConfig, VectorStoreConfig)
 from symbiont_tpu_torch.graph.neo4j_backend import make_graph_store
 from symbiont_tpu_torch.memory.qdrant_backend import make_vector_store
+from symbiont_tpu_torch.parallel import build_mesh
 from symbiont_tpu_torch.runner import SymbiontStack
 from symbiont_tpu_torch.services.api import ApiService
 
@@ -386,10 +388,16 @@ def _set(cfg, section, **fields):
 
 
 @pytest.mark.parametrize("section,fields,item", [
-    ("parallel", dict(mesh_shape=[2, 1]), "A15"),
+    ("lm", dict(kv_layout="paged", kv_page_tokens=8), "A15 stage 1b"),
+    ("lm", dict(spec_draft_model="/no/such/drafter"), "A15 stage 1c"),
+    ("lm", dict(ingest_train=True), "A15 stage 1d"),
 ])
 def test_unported_settings_raise_naming_their_item(tmp_path, section, fields, item):
-    cfg = _set(_config(tmp_path), section, **fields)
+    """A serving mesh is ported (tests/test_torch_multichip_serving.py); the
+    LM's paged layout and speculative decoding under its 'tensor' axis are
+    not, and the stack refuses them before it serves."""
+    cfg = _set(_config(tmp_path, lm=True), section, **fields)
+    cfg.parallel.mesh_shape = [1, 2]
     stack = SymbiontStack(cfg, bus=InprocBus())
     with pytest.raises(ValueError, match=item):
         asyncio.run(stack.start())
@@ -560,7 +568,12 @@ def test_postmortems_go_under_the_temp_dir_unless_a_dir_is_set(tmp_path, monkeyp
 
 
 def test_a_mesh_argument_raises_naming_a15(tmp_path):
-    stack = SymbiontStack(_config(tmp_path), bus=InprocBus(), mesh=object())
+    """A caller's mesh reaches the engines; with a 'tensor' axis the LM's
+    paged layout, not ported under TP, raises naming its item."""
+    cfg = _config(tmp_path, lm=True)
+    cfg.lm.kv_layout, cfg.lm.kv_page_tokens = "paged", 8
+    mesh = build_mesh([1, 2], devices=[torch.device("cpu")] * 2)
+    stack = SymbiontStack(cfg, bus=InprocBus(), mesh=mesh)
     with pytest.raises(ValueError, match="A15"):
         asyncio.run(stack.start())
 
