@@ -166,10 +166,24 @@ any failure exits non-zero:
              (loss and grad norm within rtol 1e-4 of the unsharded step,
              B1 = B2 = B3 = layers x 4 a step), with B1 at a TP shard's
              prefill and B2/B3 at a train shard's heads against their
-             plain versions.
+             plain versions;
+17. sp     — (run after [mesh]) A15 stage 2 over virtual meshes that repeat
+             cuda:0: GPT-2 124M float32 sequence-parallel train steps at
+             [8, 1024] over data=2 with the ring and with Ulysses, and
+             pipelined over pipe=4 with 4 microbatches, each step's loss
+             and grad norm within rtol 1e-4 of the meshless graphed step
+             (B1 = B2 = B3 = layers x 2 a Ulysses step, 0 a ring step,
+             layers x 4 a pipelined step); TinyLlama-1.1B float32
+             `gpt_forward_sp` at [1, 2048] (ring, Ulysses) against the
+             meshless forward (logit cosine >= 0.99999, max |diff| <=
+             1e-3 x max |logit|, argmax equal but at near-ties), and B1
+             at its Ulysses head shard [1, 16, 2048, 64] against plain;
+             step ms and peak bytes against meshless; B1/B2/B3 at GPT-2's
+             Ulysses head shard against their plain versions, SDPA and
+             the bound.
 
 Launch counts are set to 0 just before each main path (phases 3-4, 5, 6,
-8, 9, 10, 11, 12, 13, 14, 15 and 16) and read just after. On the card every LM
+8, 9, 10, 11, 12, 13, 14, 15, 16 and 17) and read just after. On the card every LM
 prefill, decode chunk and train step is a replayed CUDA graph: a graph's
 kernels count once per replay, and a capture's eager warm-up adds one
 more run of them (`capture_b1`). The last two lines are a JSON object with
@@ -4097,12 +4111,54 @@ def _sdpa_causal_backward_ms(q, k, v, g) -> float:
     return both - fwd
 
 
-def lm_backward_kernel_rows(sizes=None, timed: bool = True, device: str = "cuda") -> list:
+def causal_b1_row(q, k, v, tag: str, timed: bool) -> tuple:
+    """B1 causal, no bias, on q/k/v [B, heads, S, 64] against its plain
+    version: out at 2e-2 abs + rel in bf16, 1e-4 in f32, lse relative
+    error at most 1e-4; with `timed`, its graph replay beside the plain
+    version's, SDPA's causal forward and the bound. Prints its line →
+    (row, out, lse)."""
+    from symbiont_tpu_torch.ops import flash_attention as fa
+
+    dtype = q.dtype
+    out, lse = fa.flash_attention_with_lse(q, k, v, None, causal=True)
+    label = f"{str(dtype)[6:]} S={q.shape[2]}"
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, None, causal=True)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    ok, err = real_rows_within(out, ref_out, torch.ones_like(out, dtype=torch.bool), tol)
+    lse_err = float(((lse - ref_lse).abs() / (1 + ref_lse.abs())).max())
+    del ref_out, ref_lse
+    check(ok, f"lm fwd {label}: B1 |kernel - plain| {err:.4g} over {tol}")
+    check(lse_err <= 1e-4, f"lm fwd {label}: B1 lse relative error {lse_err:.3g} > 1e-4")
+    row = {"max_abs_err": err, "lse_rel_err": lse_err}
+    line = (f"[{tag}] flash_attn_fwd causal q/k/v{tuple(q.shape)} {str(dtype)[6:]}, "
+            f"no bias: max_abs_err {err:.4g} (tol {tol} abs + {tol} rel), "
+            f"lse rel err {lse_err:.3g}")
+    if timed:  # B1 beside its plain version, SDPA's causal forward and its bound
+        bias = torch.zeros((q.shape[0], q.shape[2]), dtype=torch.float32, device=q.device)
+        bound, by = _bound_ms(q, k, v, bias, causal=True)
+        ms = graph_ms(lambda: fa.flash_attention(q, k, v, None, causal=True))
+        plain = graph_ms(lambda: fa.flash_attention_reference(q, k, v, None, causal=True),
+                         iters=5)
+        lib = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True))
+        row |= {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                "library_ms": lib}
+        line += (f"; ms {ms:.4f} (graph replay), plain_ms {plain:.4f}, library_ms (SDPA, "
+                 f"is_causal) {lib:.4f}, bound_ms {bound:.4f} ({by}), {bound / ms:.1%} of bound")
+    print(line, flush=True)
+    return row, out, lse
+
+
+def lm_backward_kernel_rows(sizes=None, timed: bool = True, device: str = "cuda",
+                           heads: int = 12, dtypes=(torch.bfloat16, torch.float32),
+                           tag: str = "lmtrain") -> list:
     """B1 forward and B2/B3 backward, causal, at GPT-2's training shapes,
-    q/k/v/g [8, 12, S, 64] with no bias (the zeros the path passes), bf16
-    and f32. B1's out and lse are held against its plain version first (out
-    at 2e-2 abs + rel in bf16, 1e-4 in f32; lse relative error at most
-    1e-4), since B2/B3 and their plain versions are both fed them; then B2
+    q/k/v/g [8, heads, S, 64] with no bias (the zeros the path passes), in
+    each of `dtypes` (12 heads, bf16 and f32 for `[lmtrain]`; `[sp]` reads
+    Ulysses' head shard). B1's out and lse are held against its plain
+    version first (out at 2e-2 abs + rel in bf16, 1e-4 in f32; lse
+    relative error at most 1e-4), since B2/B3 and their plain versions
+    are both fed them; then B2
     and B3 against their plain versions at the backward bars, timed by
     graph replay beside the plain versions, SDPA's causal backward and the
     bound (pairs S(S+1)/2)."""
@@ -4111,39 +4167,14 @@ def lm_backward_kernel_rows(sizes=None, timed: bool = True, device: str = "cuda"
     s = dict(LMTRAIN, **(sizes or {}))
     gen = torch.Generator(device=device).manual_seed(SEED + 17)
     rows = []
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         for S in s["kernel_S"]:
-            q, k, v, g = (torch.randn((s["kernel_rows"], 12, S, 64), generator=gen,
+            q, k, v, g = (torch.randn((s["kernel_rows"], heads, S, 64), generator=gen,
                                       device=device).to(dtype) for _ in range(4))
             bias = torch.zeros((s["kernel_rows"], S), dtype=torch.float32, device=device)
             scale = 1.0 / np.sqrt(64)
-            out, lse = fa.flash_attention_with_lse(q, k, v, None, causal=True)
             label = f"{str(dtype)[6:]} S={S}"
-            ref_out, ref_lse = fa.flash_attention_reference(q, k, v, None, causal=True)
-            tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-            fwd_ok, fwd_err = real_rows_within(out, ref_out, torch.ones_like(out, dtype=torch.bool),
-                                               tol)
-            lse_err = float(((lse - ref_lse).abs() / (1 + ref_lse.abs())).max())
-            check(fwd_ok, f"lm fwd {label}: B1 |kernel - plain| {fwd_err:.4g} over {tol}")
-            check(lse_err <= 1e-4, f"lm fwd {label}: B1 lse relative error {lse_err:.3g} > 1e-4")
-            fwd_row = {"max_abs_err": fwd_err, "lse_rel_err": lse_err}
-            fwd_line = (f"[lmtrain] flash_attn_fwd causal q/k/v{tuple(q.shape)} {str(dtype)[6:]}, "
-                        f"no bias: max_abs_err {fwd_err:.4g} (tol {tol} abs + {tol} rel), "
-                        f"lse rel err {lse_err:.3g}")
-            if timed:  # B1 beside its plain version, SDPA's causal forward and its bound
-                f_bound, f_by = _bound_ms(q, k, v, bias, causal=True)
-                f_ms = graph_ms(lambda: fa.flash_attention(q, k, v, None, causal=True))
-                f_plain = graph_ms(lambda: fa.flash_attention_reference(q, k, v, None,
-                                                                        causal=True), iters=5)
-                f_lib = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, is_causal=True))
-                fwd_row |= {"ms": f_ms, "plain_ms": f_plain, "bound_ms": f_bound,
-                            "bound_by": f_by, "library_ms": f_lib}
-                fwd_line += (f"; ms {f_ms:.4f} (graph replay), plain_ms {f_plain:.4f}, "
-                             f"library_ms (SDPA, is_causal) {f_lib:.4f}, bound_ms {f_bound:.4f} "
-                             f"({f_by}), {f_bound / f_ms:.1%} of bound")
-            print(fwd_line, flush=True)
-            del ref_out, ref_lse
+            fwd_row, out, lse = causal_b1_row(q, k, v, tag, timed)
             args = (q, k, v, bias, g, lse, fa.bwd_delta(g, out), True, scale)
             if device == "cuda":
                 dk, dv, dbh = fa.bwd_kv(*args)
@@ -4163,11 +4194,11 @@ def lm_backward_kernel_rows(sizes=None, timed: bool = True, device: str = "cuda"
                           f"{worst[name]:.3g}x its bar")
             bar = ("2e-2 x max|plain| per (batch, head)" if dtype == torch.bfloat16
                    else "1e-4 abs + 1e-4 rel")
-            line = (f"[lmtrain] flash_attn_bwd causal q/k/v/g{tuple(q.shape)} {str(dtype)[6:]}, "
+            line = (f"[{tag}] flash_attn_bwd causal q/k/v/g{tuple(q.shape)} {str(dtype)[6:]}, "
                     f"no bias: max_abs_err "
                     + ", ".join(f"{n} {e:.4g} ({worst[n]:.2f} of bar)" for n, e in errs.items())
                     + f" (bar {bar})")
-            row = {"shape": f"q/k/v/g [{s['kernel_rows']}, 12, {S}, 64] {str(dtype)[6:]}, "
+            row = {"shape": f"q/k/v/g [{s['kernel_rows']}, {heads}, {S}, 64] {str(dtype)[6:]}, "
                             "causal, no bias",
                    "max_abs_err": {"kv": max(errs["dk"], errs["dv"], errs["dbias"]),
                                    "q": errs["dq"]},
@@ -6112,6 +6143,256 @@ def mesh_phase(rng, sizes=None, device="cuda", engine_kw=None) -> dict:
     return out
 
 
+SP = dict(gpt2=GPT2_124M, rows=8, seq=1024, dp=2, steps=2, lr=1e-4, pipe=4, microbatches=4,
+          llama=TINYLLAMA_1B, llama_seq=2048, kernel_rows=8, kernel_S=(1024,))
+NEAR_TIE = 2.0 ** -8  # a position's argmax may differ only where its top-2 gap is this share
+
+
+def near_tie_argmax(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(positions whose argmax differs, those of them that are not near-
+    ties): a near-tie where `want`'s logits of the two tokens differ by at
+    most NEAR_TIE of its largest |logit| at that position."""
+    a, b = got.argmax(-1), want.argmax(-1)
+    differ = a != b
+    gap = want.gather(-1, b[..., None]) - want.gather(-1, a[..., None])
+    tie = gap[..., 0] <= NEAR_TIE * want.abs().amax(-1)
+    return int(differ.sum()), int((differ & ~tie).sum())
+
+
+def sp_phase(rng, sizes=None, device="cuda") -> dict:
+    """A15 stage 2 on one card, over virtual meshes that repeat cuda:0,
+    each path against the same model without a mesh:
+
+    - SP train: GPT-2 124M float32 (flash) at [rows, seq] split over
+      data=dp, `steps` steps with the ring and `steps` with Ulysses (12
+      heads / dp), from the same params as the meshless graphed
+      `lm_train_step` on the same batch: loss and grad norm within rtol
+      1e-4 of its step for step; B1 = B2 = B3 = layers x dp a Ulysses
+      step, 0 a ring step (its blocks are plain torch);
+    - PP train: the same model's layers over pipe=`pipe`, `microbatches`
+      microbatches, `steps` steps: the same bars; B1 = B2 = B3 = layers x
+      microbatches a step (the ticks JAX masks are skipped);
+    - TinyLlama-1.1B float32 `gpt_forward_sp` at [1, llama_seq] over
+      data=dp, ring (the compact 4-head K/V rotate) and Ulysses, against
+      the meshless `gpt.forward` (B1's causal prefill): per-position logit
+      cosine >= 0.99999 and max |logit - meshless| <= 1e-3 x max |logit|,
+      argmax equal but at near-ties (NEAR_TIE); B1 = layers x dp for
+      Ulysses, and B1 held against its plain version at that path's head
+      shard (causal [1, 32/dp, llama_seq, 64] float32, 1e-4 abs + rel and
+      the lse bar);
+    - readings: step ms of each mode (eager) against the meshless graphed
+      step, a step's peak allocated bytes above what it started with
+      against the meshless graph pool's growth at its capture, and B1/B2/
+      B3 against their plain versions at Ulysses' head shard (causal
+      [rows, 12/dp, seq, 64] float32), timed beside SDPA and the bound.
+
+    Launch counts are set to 0 at the start; the meshless runs and the
+    kernel rows put them back as they found them. → the launches (B1, B2,
+    B3) of the SP parts (`sp_launches`), of the PP steps (`pp_launches`),
+    their sum (`launches`), and what each part read."""
+    import gc
+    import math
+
+    from symbiont_tpu_torch.models import gpt as gpt_mod
+    from symbiont_tpu_torch.ops import flash_attention as fa
+    from symbiont_tpu_torch.parallel import (Sharded, build_mesh, gpt_forward_sp,
+                                             make_lm_train_step_pp, make_lm_train_step_sp,
+                                             make_pp_train_state)
+    from symbiont_tpu_torch.train import trainer as trainer_mod
+
+    s = dict(SP, **(sizes or {}))
+    cuda = device == "cuda"
+    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    card = card_line() if cuda else "the CPU"
+
+    def mesh(n, axis):
+        return build_mesh([n], axis_names=(axis,), devices=[dev] * n)
+
+    def reference(fn):
+        saved = _launch_counts(fa)
+        try:
+            return fn()
+        finally:
+            _set_launch_counts(fa, saved)
+
+    def timed(fn):
+        """→ (fn(), host ms, the peak allocated bytes above those at the
+        start, None on the CPU)."""
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        return r, ms, (torch.cuda.max_memory_allocated() - base) if cuda else None
+
+    out = {}
+    _set_launch_counts(fa, (0, 0, 0))  # ------------------------------- main path
+
+    # the meshless graphed step, its metrics step by step ---------------------
+    gcfg = dataclasses.replace(gpt_mod.GPTConfig.from_hf(s["gpt2"]), dtype="float32",
+                               attn_impl="flash")
+    L, nh, nd = gcfg.num_layers, gcfg.num_heads, s["dp"]
+    params = gpt_mod.init_params(torch.Generator(device=dev).manual_seed(SEED + 24), gcfg)
+    R, S = s["rows"], s["seq"]
+    batch = {"ids": torch.from_numpy(rng.integers(0, gcfg.vocab_size, (R, S))).to(dev),
+             "mask": torch.ones((R, S), dtype=torch.int32, device=dev)}
+    batch["mask"][R - 1, S - S // 8:] = 0  # one row ends early
+    ref, tx_ref = trainer_mod.make_lm_train_state(params, s["lr"])
+    want = []
+    for _ in range(s["steps"]):
+        (ref, m), ms, _ = reference(lambda: timed(
+            lambda: trainer_mod.lm_train_step(ref, batch, gcfg, tx_ref)))
+        want.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "ms": ms})
+    exe = next(iter(trainer_mod.step_executables(tx_ref).values()))
+    ref_bytes = exe.memory["temp_bytes"] if exe.memory else None
+    del ref, tx_ref, exe
+    gc.collect()
+    if cuda:  # the meshless step's graph pool goes with its optimizer
+        torch.cuda.empty_cache()
+    out["meshless"] = {"steps": want, "pool_bytes": ref_bytes}
+
+    def train(tag, state, tx, step, per_step):
+        steps = []
+        for i in range(s["steps"]):
+            before = _launch_counts(fa)
+            (state, m), ms, peak = timed(lambda: step(state, batch))
+            delta = tuple(a - b for a, b in zip(_launch_counts(fa), before))
+            loss, gn = float(m["loss"]), float(m["grad_norm"])
+            w = want[i]
+            check(np.isfinite(loss) and abs(loss - w["loss"]) <= 1e-4 * abs(w["loss"]),
+                  f"[sp] {tag} step {i}: loss {loss!r} vs meshless {w['loss']!r} beyond rtol 1e-4")
+            check(abs(gn - w["grad_norm"]) <= 1e-4 * abs(w["grad_norm"]),
+                  f"[sp] {tag} step {i}: grad norm {gn!r} vs meshless {w['grad_norm']!r} beyond "
+                  "rtol 1e-4")
+            check(delta == (per_step,) * 3,
+                  f"[sp] {tag} step {i}: B1/B2/B3 {delta} != {per_step} each")
+            steps.append({"loss": loss, "grad_norm": gn, "ms": ms, "peak_bytes": peak,
+                          "launches": delta})
+        return state, steps
+
+    def line(tag, steps, equation):
+        gb = [x["peak_bytes"] for x in steps]
+        print(f"[sp] {tag}: loss " + ", ".join(f"{x['loss']:.6f} (meshless {w['loss']:.6f})"
+                                               for x, w in zip(steps, want))
+              + "; grad norm " + ", ".join(f"{x['grad_norm']:.6f} ({w['grad_norm']:.6f})"
+                                           for x, w in zip(steps, want))
+              + f"; B1/B2/B3 {steps[0]['launches']} a step = {equation}; step ms "
+              + ", ".join(f"{x['ms']:.1f}" for x in steps)
+              + f" eager vs meshless {'graphed' if cuda else 'eager'} "
+              + ", ".join(f"{w['ms']:.1f}" for w in want) + " (first with its capture); peak "
+              + ("not measured on the CPU" if gb[0] is None else
+                 ", ".join(f"{b / 1e9:.3f}" for b in gb) + " GB above the step's start vs the "
+                 f"meshless graph pool's {ref_bytes / 1e9:.3f} GB") + f" ({card})", flush=True)
+
+    # SP train, ring and Ulysses ----------------------------------------------
+    sp_mesh = mesh(nd, "data")
+    sp0 = _launch_counts(fa)
+    out["train"] = {}
+    for impl, per_step in (("ring", 0), ("ulysses", L * nd)):
+        state, tx = trainer_mod.make_lm_train_state(params, s["lr"])
+        state, steps = train(f"SP {impl}", state, tx,
+                             make_lm_train_step_sp(sp_mesh, gcfg, tx, attn_impl=impl), per_step)
+        out["train"][impl] = steps
+        eq = ("0 (the ring's blocks are plain torch)" if impl == "ring" else
+              f"{L} layers x {nd} entries")
+        line(f"SP train GPT-2 ({L} layers x {gcfg.hidden_size}) float32 {impl} over data={nd} "
+             f"at [{R}, {S}]", steps, eq)
+        del state, tx
+        gc.collect()
+
+    # PP train ----------------------------------------------------------------
+    sp_train = tuple(a - b for a, b in zip(_launch_counts(fa), sp0))
+    n_pipe, M = s["pipe"], s["microbatches"]
+    pp_mesh = mesh(n_pipe, "pipe")
+    state, tx = make_pp_train_state(pp_mesh, params, s["lr"])
+    per_step = L * M
+    pp0 = _launch_counts(fa)
+    state, steps = train("PP", state, tx,
+                         make_lm_train_step_pp(pp_mesh, gcfg, tx, num_microbatches=M), per_step)
+    pp = tuple(a - b for a, b in zip(_launch_counts(fa), pp0))
+    qk = state.params["layers"]["q"]["kernel"]
+    check(isinstance(qk, Sharded) and qk.spec == ("pipe",),
+          f"[sp] PP: the layer stack lost its pipe split after the update: {qk!r}")
+    out["pp"] = steps
+    line(f"PP train GPT-2 ({L} layers) float32, {L // n_pipe} layers a stage over "
+         f"pipe={n_pipe}, {M} microbatches of {R // M} rows at [{R}, {S}]", steps,
+         f"{L} layers x {M} microbatches (each stage's {n_pipe - 1} idle ticks launch nothing)")
+    del state, tx, params, batch, qk
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # TinyLlama SP forward ----------------------------------------------------
+    lcfg = dataclasses.replace(gpt_mod.GPTConfig.from_hf(s["llama"]), dtype="float32",
+                               attn_impl="flash")
+    lp = gpt_mod.init_params(torch.Generator(device=dev).manual_seed(SEED + 25), lcfg)
+    T = s["llama_seq"]
+    ids = torch.from_numpy(rng.integers(0, lcfg.vocab_size, (1, T))).to(dev)
+    fwd0 = _launch_counts(fa)
+    with torch.inference_mode():
+        want_l, ref_ms, _ = reference(lambda: timed(lambda: gpt_mod.forward(
+            lp, ids, None, torch.arange(T, device=dev)[None], lcfg)[0]))
+        out["llama"] = {"meshless_ms": ref_ms}
+        for impl, b1 in (("ring", 0), ("ulysses", lcfg.num_layers * nd)):
+            l0 = fa.launches
+            got, ms, peak = timed(lambda: gpt_forward_sp(lp, ids, sp_mesh, lcfg,
+                                                         attn_impl=impl))
+            launched = fa.launches - l0
+            cos = torch.nn.functional.cosine_similarity(got[0], want_l[0], dim=-1).cpu().numpy()
+            rel = float((got - want_l).abs().max() / want_l.abs().max())
+            differ, not_tie = near_tie_argmax(got[0], want_l[0])
+            check(bool(np.isfinite(cos).all()) and float(cos.min()) >= 0.99999,
+                  f"[sp] TinyLlama SP forward {impl}: logit cosine min {float(cos.min()):.8f} "
+                  "< 0.99999 against the meshless forward")
+            check(rel <= 1e-3, f"[sp] TinyLlama SP forward {impl}: max |logit - meshless| "
+                               f"{rel:.3g} x max |logit| > 1e-3")
+            check(not_tie == 0, f"[sp] TinyLlama SP forward {impl}: argmax differs at {not_tie} "
+                                f"of {T} positions that are not near-ties")
+            check(launched == b1, f"[sp] TinyLlama SP forward {impl}: B1 {launched} != {b1}")
+            out["llama"][impl] = {"cosine_min": float(cos.min()), "max_rel_err": rel,
+                                  "argmax_differ": differ, "ms": ms, "peak_bytes": peak,
+                                  "b1": launched}
+            print(f"[sp] TinyLlama-1.1B ({lcfg.num_layers} layers x {lcfg.hidden_size}, "
+                  f"{lcfg.num_heads} heads over {lcfg.kv_heads} KV heads) float32 gpt_forward_sp "
+                  f"{impl} over data={nd} at [1, {T}]: logit cosine min {float(cos.min()):.8f}, "
+                  f"max |diff| {rel:.3g} x max |logit| vs the meshless forward (B1's causal "
+                  f"prefill), argmax equal at "
+                  f"{T - differ} of {T} positions, the rest near-ties; B1 {launched}"
+                  + (f" = {lcfg.num_layers} layers x {nd} entries" if b1 else "")
+                  + f"; {ms:.1f} ms vs meshless {ref_ms:.1f} (eager, first calls; {card})",
+                  flush=True)
+            del got
+    sp_llama = tuple(a - b for a, b in zip(_launch_counts(fa), fwd0))
+    del lp, want_l, ids
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    # B1 at the TinyLlama Ulysses forward's head shard (K/V expanded to
+    # every head before the all-to-all), against plain, SDPA and the bound
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    qkv = [torch.randn((1, lcfg.num_heads // nd, T, lcfg.head_dim), generator=gen, device=dev)
+           for _ in range(3)]
+    row, _, _ = reference(lambda: causal_b1_row(*qkv, "sp", cuda))
+    out["llama_head_shard"] = dict(shape=f"q/k/v [1, {lcfg.num_heads // nd}, {T}, "
+                                         f"{lcfg.head_dim}] float32, causal, no bias", **row)
+    del qkv
+    # B1/B2/B3 at Ulysses' head shard, against plain, SDPA and the bound
+    h = nh // nd
+    out["kernels"] = reference(lambda: lm_backward_kernel_rows(
+        dict(kernel_rows=s["kernel_rows"], kernel_S=s["kernel_S"]), timed=cuda, device=device,
+        heads=h, dtypes=(torch.float32,), tag="sp"))
+    out["sp_launches"] = tuple(a + b for a, b in zip(sp_train, sp_llama))
+    out["pp_launches"] = pp
+    out["launches"] = _launch_counts(fa)
+    check(out["launches"] == tuple(a + b for a, b in zip(out["sp_launches"], pp)),
+          f"[sp] launches {out['launches']} != SP {out['sp_launches']} + PP {pp}")
+    return out
+
+
 def main(argv=()) -> int:
     import argparse
 
@@ -6203,6 +6484,8 @@ def _run_phases() -> int:
         lap("lmtrain")
         mesh = mesh_phase(np.random.default_rng(SEED + 18))
         lap("mesh")
+        sp = sp_phase(np.random.default_rng(SEED + 19))
+        lap("sp")
         stack = stack_phase(np.random.default_rng(SEED + 15), tmp, serve=serve)
         lap("stack")
         fleet = fleet_phase(np.random.default_rng(SEED + 16), tmp)
@@ -6211,7 +6494,7 @@ def _run_phases() -> int:
            "checkpoint": ck_launches, "quant": qt["launches"], "generate": gen["launches"],
            "session": sess["launches"], "paged": paged["launches"], "spec": spec["launches"],
            "lmtrain": lmtrain["launches"][0], "mesh": mesh["launches"][0],
-           "stack": stack["launches"], "fleet": fleet["launches"]}
+           "sp": sp["launches"][0], "stack": stack["launches"], "fleet": fleet["launches"]}
     fwd_launches = sum(fwd.values())
     print("[phases] host seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items())
           + f"; total {sum(wall.values()):.1f}. flash_attn_fwd launches on the main path: "
@@ -6225,10 +6508,12 @@ def _run_phases() -> int:
             ("flash_attn_fwd", "flash_attn_fwd.cu", 81, kern["enc_S128"], fwd_launches,
              "q/k/v [32, 12, 128, 64] bf16, padding bias"),
             ("flash_attn_bwd_kv", "flash_attn_bwd.cu", 212, bwd["kv_enc_S256"],
-             train["launches"][1] + lmtrain["launches"][1] + mesh["launches"][1],
+             train["launches"][1] + lmtrain["launches"][1] + mesh["launches"][1]
+             + sp["launches"][1],
              "q/k/v/g [32, 12, 256, 64] bf16, padding bias, a length-0 row"),
             ("flash_attn_bwd_q", "flash_attn_bwd.cu", 281, bwd["q_enc_S256"],
-             train["launches"][2] + lmtrain["launches"][2] + mesh["launches"][2],
+             train["launches"][2] + lmtrain["launches"][2] + mesh["launches"][2]
+             + sp["launches"][2],
              "q/k/v/g [32, 12, 256, 64] bf16, padding bias, a length-0 row")):
         entries.append({"name": name, "route": "cuda",
                         "source": f"symbiont_tpu_torch/ops/csrc/{src}",
@@ -6257,6 +6542,17 @@ def _run_phases() -> int:
     for e, part in zip(entries[1:], ("kv", "q")):
         e["mesh"] = {"train": {k: v for k, v in mesh["train"].items() if k != "bwd_err"},
                      "max_abs_err_shard": mesh["train"]["bwd_err"][part]}
+    for i, e in enumerate(entries):  # [sp]: SP train and forward, PP train
+        e["sp_launches"], e["pp_launches"] = sp["sp_launches"][i], sp["pp_launches"][i]
+    entries[0]["sp"] = {k: sp[k] for k in ("meshless", "train", "pp", "llama")}
+    entries[0]["sp_head_shard"] = [{"shape": r["shape"].replace("/g", ""), **r["fwd"]}
+                                   for r in sp["kernels"]] + [sp["llama_head_shard"]]
+    for e, part in zip(entries[1:], ("kv", "q")):  # Ulysses' head shard
+        e["sp_head_shard"] = [{"shape": r["shape"], "max_abs_err": r["max_abs_err"][part],
+                               **{k: (r[k][part] if isinstance(r[k], dict) else r[k])
+                                  for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms", "covered_ms") if k in r}}
+                              for r in sp["kernels"]]
     entries[0]["lmtrain_launches"] = lmtrain["launches"][0]
     entries[0]["lm_train"] = [{"shape": r["shape"].replace("/g", ""), **r["fwd"]}
                               for r in lmtrain["kernels"]]

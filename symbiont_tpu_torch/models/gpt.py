@@ -50,8 +50,11 @@ of a placed tree is a `TPCache` of one cache per shard. `prefill`,
 `decode_chunk` and `merge_rows` take such a tree and cache as they take a
 plain one.
 
-Not ported yet (ROADMAP Queue A): `qkv_proj` and `block_nocache` (A15
-stage 2).
+The cache-free training forwards of `parallel/context.py` (sequence
+parallel) and `parallel/pipeline.py` (pipeline parallel) are built from
+`qkv_proj` and `block_nocache`; `_block` is `block_nocache` with the
+cache-threading attention and the tensor shards' sums plugged in, so the
+per-arch block math has one home.
 """
 
 from __future__ import annotations
@@ -261,9 +264,84 @@ def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def _proj(x, p):
-    out = quant.mm(x, p["kernel"])
+def _norm(cfg: GPTConfig):
+    """The arch's norm: LayerNorm for GPT-2, RMSNorm for llama."""
+    return _ln if cfg.arch == "gpt2" else _rmsnorm
+
+
+def _biased(out, p):
+    """`out` plus the projection `p`'s bias, where it has one."""
     return out + p["bias"] if "bias" in p else out
+
+
+def _proj(x, p):
+    return _biased(quant.mm(x, p["kernel"]), p)
+
+
+def _qkv(layer: Params, x: torch.Tensor, cfg: GPTConfig, rope):
+    """q [B, S, nh, hd], k and v [B, S, nkv, hd] of x [B, S, H]: three
+    projections, not a fused one, as in the JAX package; RoPE at `rope`
+    (`_rope_angles`) where it is given."""
+    B, S, _ = x.shape
+    nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    q = _proj(x, layer["q"]).view(B, S, nh, hd)
+    k = _proj(x, layer["k"]).view(B, S, nkv, hd)
+    v = _proj(x, layer["v"]).view(B, S, nkv, hd)
+    if rope is not None:
+        q, k = _rope(q, *rope), _rope(k, *rope)
+    return q, k, v
+
+
+def qkv_proj(layer: Params, h: torch.Tensor, positions: torch.Tensor, cfg: GPTConfig):
+    """QKV projection + RoPE at `positions` [B, S], no cache: the shared
+    front half of attention for the training-side forwards
+    (`parallel/context.py`, `parallel/pipeline.py`) → (q [B, S, nh, hd],
+    k [B, S, nkv, hd], v [B, S, nkv, hd])."""
+    rope = (_rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+            if cfg.arch == "llama" else None)
+    return _qkv(layer, h, cfg, rope)
+
+
+def _mlp(mlp: Params, h: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
+    """The MLP of h through its output projection's kernel (the bias is
+    the caller's, once a TP layer's partial products are summed)."""
+    if cfg.arch == "gpt2":
+        a = F.gelu(_proj(h, mlp["in"]), approximate="tanh")  # GPT-2's gelu_new
+        return quant.mm(a, mlp["out"]["kernel"])
+    a = F.silu(quant.mm(h, mlp["gate"]["kernel"])) * quant.mm(h, mlp["up"]["kernel"])
+    return quant.mm(a, mlp["down"]["kernel"])
+
+
+def _mlp_out(mlp: Params, cfg: GPTConfig) -> Params:
+    """The MLP's output projection (its bias, for GPT-2)."""
+    return mlp["out" if cfg.arch == "gpt2" else "down"]
+
+
+def block_nocache(layer: Params, x, cfg: GPTConfig, attn, mlp=None):
+    """Decoder-block scaffolding (norms, residuals, MLP) with a pluggable
+    attention callable `attn(normed hidden) -> attention output incl. the
+    o-projection and its bias`; `mlp(normed hidden)` the MLP with its bias
+    (this layer's own by default). The one home of the per-arch block
+    math: `_block` plugs in its cache-threading attention and the tensor
+    shards' sums, the pipeline stages (`parallel/pipeline.py`) their
+    attention.
+
+    A sequence-parallel block (`parallel/context.py`) passes `x` as the
+    list of one sequence's blocks and `layer` as the list of the trees each
+    block reads: `attn` then maps the list of normed blocks to the list of
+    their outputs (the one step that mixes blocks), and the rest runs
+    block by block."""
+    if not isinstance(x, list):
+        return block_nocache([layer], [x], cfg, lambda hs: [attn(hs[0])], mlp)[0]
+    norm, eps = _norm(cfg), cfg.layer_norm_eps
+    outs = attn([norm(xi, li["ln1"], eps) for xi, li in zip(x, layer)])
+    out = []
+    for xi, li, a in zip(x, layer, outs, strict=True):
+        xi = xi + a
+        h = norm(xi, li["ln2"], eps)
+        out.append(xi + (mlp(h) if mlp is not None
+                         else _biased(_mlp(li["mlp"], h, cfg), _mlp_out(li["mlp"], cfg))))
+    return out
 
 
 def _flash_prefill(cfg: GPTConfig, S: int, cache) -> bool:
@@ -322,12 +400,7 @@ def _attn(layer: Params, x: torch.Tensor, layer_idx: int, cache, cfg: GPTConfig,
     its heads."""
     B, S, _ = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
-    # three projections, not a fused one, as in the JAX package
-    q = _proj(x, layer["q"]).view(B, S, nh, hd)
-    k = _proj(x, layer["k"]).view(B, S, nkv, hd)
-    v = _proj(x, layer["v"]).view(B, S, nkv, hd)
-    if rope is not None:
-        q, k = _rope(q, *rope), _rope(k, *rope)
+    q, k, v = _qkv(layer, x, cfg, rope)
 
     start = 0 if cache is None else cache.length
     # a device slot index writes through index_copy_ (no host value); a
@@ -387,35 +460,48 @@ def _attn(layer: Params, x: torch.Tensor, layer_idx: int, cache, cfg: GPTConfig,
     return quant.mm(ctx, layer["o"]["kernel"])
 
 
+def _embed(tree: Params, ids: torch.Tensor, positions: torch.Tensor, cfg: GPTConfig,
+           dtype: torch.dtype) -> torch.Tensor:
+    """The token (and, for GPT-2, position) embeddings of ids [B, S] in
+    `dtype` (quantized gathers dequantize to float32)."""
+    x = quant.take(tree["wte"], ids)
+    if cfg.arch == "gpt2":
+        x = x + quant.take(tree["wpe"], positions)
+    return x.to(dtype)
+
+
+def _logits(tree: Params, x: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
+    """The final norm and the LM head of x [B, S, H] → float32 logits
+    [B, S, V], for a tree that holds the whole vocab."""
+    x = _norm(cfg)(x, tree["ln_f"], cfg.layer_norm_eps)
+    if cfg.tie_word_embeddings:
+        return quant.mm_tied(x, tree["wte"]).float()
+    return quant.mm(x, tree["lm_head"]["kernel"]).float()
+
+
 def _block(layers, x, layer_idx, caches, cfg, devs, ropes, kv_valids, valids):
     """One decoder layer on x [B, S, H]. `layers`, `devs` and the per-call
     lists hold one entry a tensor shard (one for a plain tree): each shard
     runs the attention of its heads and the MLP of its width on its device,
     `cfg` being a shard's view (`_shard_cfg`), and the row-split
     projections' partial products (o, MLP out/down) are summed on x's
-    device before their bias, added once, from the first shard's tree."""
+    device before their bias, added once, from the first shard's tree.
+    The norms, residuals and the MLP's math are `block_nocache`'s."""
     lead = x.device
-    norm = _ln if cfg.arch == "gpt2" else _rmsnorm
 
-    def summed(parts, p):
-        out = sum_to(parts, lead)
-        return out + p["bias"] if "bias" in p else out
+    def attn(h):
+        return _biased(sum_to([_attn(layer, h.to(dev), layer_idx, cache, cfg, rope, kv_valid,
+                                     valid)
+                               for layer, dev, cache, rope, kv_valid, valid
+                               in zip(layers, devs, caches, ropes, kv_valids, valids)], lead),
+                       layers[0]["o"])
 
-    h = norm(x, layers[0]["ln1"], cfg.layer_norm_eps)
-    x = x + summed([_attn(layer, h.to(dev), layer_idx, cache, cfg, rope, kv_valid, valid)
-                    for layer, dev, cache, rope, kv_valid, valid
-                    in zip(layers, devs, caches, ropes, kv_valids, valids)], layers[0]["o"])
-    h = norm(x, layers[0]["ln2"], cfg.layer_norm_eps)
-    parts = []
-    for layer, dev in zip(layers, devs):
-        hs, mlp = h.to(dev), layer["mlp"]
-        if cfg.arch == "gpt2":
-            a = F.gelu(_proj(hs, mlp["in"]), approximate="tanh")  # GPT-2's gelu_new
-            parts.append(quant.mm(a, mlp["out"]["kernel"]))
-        else:
-            a = F.silu(quant.mm(hs, mlp["gate"]["kernel"])) * quant.mm(hs, mlp["up"]["kernel"])
-            parts.append(quant.mm(a, mlp["down"]["kernel"]))
-    return x + summed(parts, layers[0]["mlp"]["out" if cfg.arch == "gpt2" else "down"])
+    def mlp(h):
+        return _biased(sum_to([_mlp(layer["mlp"], h.to(dev), cfg)
+                               for layer, dev in zip(layers, devs)], lead),
+                       _mlp_out(layers[0]["mlp"], cfg))
+
+    return block_nocache(layers[0], x, cfg, attn, mlp)
 
 
 def _valid_mask(cfg: GPTConfig, S: int, cache, kv_valid, device):
@@ -541,11 +627,11 @@ def forward(params: Params, input_ids: torch.Tensor, cache, positions: torch.Ten
             rows.append(torch.where(((loc >= 0) & (loc < vt))[..., None],
                                     quant.take(tree["wte"], loc), 0.0))
         x = sum_to(rows, lead)
+        if cfg.arch == "gpt2":
+            x = x + quant.take(trees[0]["wpe"], positions)
+        x = x.to(dtype)  # quantized gathers dequantize to float32
     else:
-        x = quant.take(trees[0]["wte"], input_ids)
-    if cfg.arch == "gpt2":
-        x = x + quant.take(trees[0]["wpe"], positions)
-    x = x.to(dtype)  # quantized gathers dequantize to float32
+        x = _embed(trees[0], input_ids, positions, cfg, dtype)
     rope = (_rope_angles(positions, cfg.head_dim, cfg.rope_theta)
             if cfg.arch == "llama" else None)
     valid = _valid_mask(cfg, S, cache, kv_valid, lead)
@@ -557,16 +643,15 @@ def forward(params: Params, input_ids: torch.Tensor, cache, positions: torch.Ten
                    kv_valids, valids)
     if last_only:
         x = x[:, -1:]
-    x = (_ln if cfg.arch == "gpt2" else _rmsnorm)(x, trees[0]["ln_f"], cfg.layer_norm_eps)
-    if cfg.tie_word_embeddings:
-        parts = [quant.mm_tied(x.to(d), tree["wte"])
-                 for tree, d in zip(trees, devs if vocab_split else devs[:1])]
-    else:
-        head_split = tp > 1 and _split_on_tensor(params["lm_head"]["kernel"], -1)
-        parts = [quant.mm(x.to(d), tree["lm_head"]["kernel"])
-                 for tree, d in zip(trees, devs if head_split else devs[:1])]
-    logits = parts[0] if len(parts) == 1 else torch.cat([p.to(lead) for p in parts], dim=-1)
-    return logits.float(), cache
+    head_split = (vocab_split if cfg.tie_word_embeddings
+                  else tp > 1 and _split_on_tensor(params["lm_head"]["kernel"], -1))
+    if not head_split:
+        return _logits(trees[0], x, cfg), cache
+    # a split head: each shard's vocab slice of the logits, gathered on the lead
+    x = _norm(cfg)(x, trees[0]["ln_f"], cfg.layer_norm_eps)
+    parts = [quant.mm_tied(x.to(d), tree["wte"]) if cfg.tie_word_embeddings
+             else quant.mm(x.to(d), tree["lm_head"]["kernel"]) for tree, d in zip(trees, devs)]
+    return torch.cat([p.to(lead) for p in parts], dim=-1).float(), cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
-"""Device-plane parallelism: mesh and sharding specs.
+"""Device-plane parallelism: mesh, sharding specs, sequence and pipeline
+parallel training.
 
-The port of `symbiont_tpu/parallel/` for the names ported so far (A15
-stage 1); the JAX package's module map, for those names:
+The port of `symbiont_tpu/parallel/`; the JAX package's module map:
 
 mesh       : named device meshes (axes: data, tensor) over this process's
              CUDA devices, or an explicit device list that may repeat a
@@ -10,16 +10,31 @@ mesh       : named device meshes (axes: data, tensor) over this process's
 sharding   : placement rules — DP batch and corpus rows on 'data', TP rules
              for decoder LM params (heads / MLP hidden on 'tensor'),
              corpus-sharded top-k
+ring_attention : sequence-parallel blockwise attention: K/V blocks travel
+             round the entries of an axis while a streaming softmax
+             accumulates (long context)
+context    : sequence-parallel decoder LM *training* — the train-time
+             forward with activations split on the sequence dim and exact
+             causal attention over the ring or Ulysses (gpt_forward_sp /
+             lm_loss_sp / make_lm_train_step_sp)
+ulysses    : the all-to-all sequence-parallel scheme — trade sequence
+             blocks for head shards, run the flash kernels over the whole
+             sequence, trade back (exact, as the ring; pick per workload)
+pipeline   : GPipe pipeline parallelism — layer stages split over a 'pipe'
+             axis, microbatch activations handed from stage to stage
+             (stack_layers / shard_pp_params / lm_loss_pp /
+             make_lm_train_step_pp / make_pp_train_state; exact against the
+             plain step)
 
 One process owns the mesh over its local devices, as JAX's single-
 controller `Mesh` is owned. Where XLA inserts the collectives in the JAX
-package, the port's engines issue them as copies between devices and adds
-(`sharding.sum_to`), which autograd carries as they stand.
+package (psum, all-gather, all-to-all, ppermute), the port issues them as
+copies between devices and adds (`sharding.sum_to`), which autograd
+carries as they stand.
 
 `parallel/compat.py` (glue between JAX versions) has no counterpart.
 Still to port: `init_distributed` and meshes that span processes over
-`torch.distributed` (ROADMAP A15 multi-host), and `ring_attention`,
-`ulysses`, `context` and `pipeline` (ROADMAP A15 stage 2).
+`torch.distributed` (ROADMAP A15 multi-host).
 """
 
 from symbiont_tpu_torch.parallel.mesh import (
@@ -39,6 +54,26 @@ from symbiont_tpu_torch.parallel.sharding import (
     replicate,
     shard_params,
 )
+from symbiont_tpu_torch.parallel.context import (
+    gpt_forward_sp,
+    lm_loss_sp,
+    make_lm_train_step_sp,
+)
+from symbiont_tpu_torch.parallel.ring_attention import (
+    ring_attention,
+    ring_attention_sharded,
+)
+from symbiont_tpu_torch.parallel.ulysses import (
+    ulysses_attention,
+    ulysses_attention_sharded,
+)
+from symbiont_tpu_torch.parallel.pipeline import (
+    lm_loss_pp,
+    make_lm_train_step_pp,
+    make_pp_train_state,
+    shard_pp_params,
+    stack_layers,
+)
 
 __all__ = [
     "Mesh",
@@ -54,4 +89,16 @@ __all__ = [
     "replicate",
     "gpt_param_sharding",
     "shard_params",
+    "gpt_forward_sp",
+    "lm_loss_sp",
+    "make_lm_train_step_sp",
+    "ring_attention",
+    "ring_attention_sharded",
+    "ulysses_attention",
+    "ulysses_attention_sharded",
+    "lm_loss_pp",
+    "make_lm_train_step_pp",
+    "make_pp_train_state",
+    "stack_layers",
+    "shard_pp_params",
 ]

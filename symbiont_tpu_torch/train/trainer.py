@@ -47,6 +47,10 @@ reading every block from its master, so one backward sums each use's
 gradient into it through the copies between devices, and the AdamW then
 updates the masters and copies them to the replicas. Such a step crosses
 devices, so its executable runs eagerly (`graphs.Executable(eager=True)`).
+The sequence- and pipeline-parallel steps (A15 stage 2,
+`parallel/context.py`, `parallel/pipeline.py`) are `mesh_train_step`s
+over their losses, eager too; `placed_adamw` is the AdamW over a placed
+tree's masters that `shard_lm_train_state` and the pipeline's state share.
 """
 
 from __future__ import annotations
@@ -181,10 +185,16 @@ def _lm_loss_terms(forward, params, ids, mask, cfg):
     B, S = ids.shape
     positions = torch.arange(S, device=ids.device).expand(B, S)
     logits, _ = forward(params, ids, None, positions, cfg)
-    logits = logits.to(ids.device)
-    ce = F.cross_entropy(logits[:, :-1].flatten(0, 1), ids[:, 1:].flatten().long(),
-                         reduction="none").view(B, S - 1)
-    w = mask[:, 1:] * mask[:, :-1]
+    return ce_terms(logits.to(ids.device)[:, :-1], ids[:, 1:], mask[:, 1:] * mask[:, :-1])
+
+
+def ce_terms(logits: torch.Tensor, targets: torch.Tensor, w: torch.Tensor):
+    """(Σ ce·w, Σ w): the cross-entropy of float32 logits [B, T, V]
+    against the target ids [B, T], weighted by w [B, T]; `lm_loss` is the
+    first over the second, summed over every block of the batch."""
+    B, T = targets.shape
+    ce = F.cross_entropy(logits.flatten(0, 1), targets.flatten().long(),
+                         reduction="none").view(B, T)
     return (ce * w).sum(), w.sum()
 
 
@@ -269,16 +279,19 @@ def step_executables(tx) -> dict:
 
 
 def _step_executable(state: TrainState, batch: dict, cfg, tx, loss_fn=contrastive_loss,
-                     keys=CONTRASTIVE_KEYS) -> Executable:
-    """The step's executable for this batch shape, kept for `tx`: one per
-    (shapes of the batch's ids, cfg), built on the state's masters. On
-    CUDA its capture's warm-up runs a whole step, and the masters, moments
-    and step counts come back to what they held before it (`carry`)."""
+                     keys=CONTRASTIVE_KEYS, own=None, eager: bool = False) -> Executable:
+    """The step's executable for this batch shape, kept for `tx` (or in
+    `own`, a step's own {"exes", "pool"}): one per (shapes of the batch's
+    ids, cfg), built on the state's masters. On CUDA its capture's
+    warm-up runs a whole step, and the masters, moments and step counts
+    come back to what they held before it (`carry`). `eager`: the step
+    runs eagerly, as one over a mesh-placed state always does (it crosses
+    devices)."""
     leaves = masters(state.params)
     device = leaves[0].device
-    # a mesh-placed state's step crosses devices: it runs eagerly
-    eager = mesh_of(state.params) is not None
-    own = _STEPS.get(tx)
+    eager = eager or mesh_of(state.params) is not None
+    if own is None:
+        own = _STEPS.get(tx)
     if own is None:
         own = _STEPS[tx] = {"exes": {},
                             "pool": GraphPool() if device.type == "cuda" and not eager
@@ -329,6 +342,50 @@ def lm_train_step(state: TrainState, batch: dict, cfg: gpt_mod.GPTConfig, tx
             {"loss": loss, "grad_norm": gnorm})
 
 
+def mesh_train_step(cfg: gpt_mod.GPTConfig, tx, loss_fn, keys=LM_KEYS):
+    """A train step on `loss_fn(params, batch, cfg)`, a loss that runs over
+    mesh entries (the sequence- and pipeline-parallel LM losses of
+    `parallel/context.py` and `parallel/pipeline.py`) → `step(state,
+    batch)` with `lm_train_step`'s contract: (state, {"loss",
+    "grad_norm"}), the masters updated in place by `tx`. Such a step
+    crosses devices, so its executables (one per batch shape, held by the
+    step) run eagerly, as the dp×tp step's do."""
+    own = {"exes": {}, "pool": None}
+
+    def step(state: TrainState, batch: dict) -> Tuple[TrainState, dict]:
+        exe = _step_executable(state, batch, cfg, tx, loss_fn, keys, own=own, eager=True)
+        loss, gnorm = exe(*(batch[k] for k in keys))
+        return (TrainState(state.params, tx.state, state.step + 1),
+                {"loss": loss, "grad_norm": gnorm})
+
+    return step
+
+
+def placed_adamw(params: Params, lr: float, betas=ADAM_BETAS, eps: float = ADAM_EPS,
+                 weight_decay: float = WEIGHT_DECAY, moments=None) -> torch.optim.AdamW:
+    """An AdamW over the masters of a mesh-placed tree (`masters`: each
+    block's home shard), each made a leaf that takes gradients. `moments`,
+    where given, is one {"step", "exp_avg", "exp_avg_sq"} a master, in
+    `masters` order; else the moments start at zero at step 0, the layout
+    `_make_train_state` builds. Capturable on CUDA, step counts float64
+    there."""
+    homes = masters(params)
+    on_card = homes[0].is_cuda
+    tx = torch.optim.AdamW(homes, lr=lr, betas=betas, eps=eps, weight_decay=weight_decay,
+                           capturable=on_card)
+    if moments is None:
+        moments = [{"step": torch.tensor(0.0), "exp_avg": torch.zeros_like(p),
+                    "exp_avg_sq": torch.zeros_like(p)} for p in homes]
+    for p, st in zip(homes, moments, strict=True):
+        p.requires_grad_()
+        step = st["step"].detach()
+        tx.state[p] = {"step": (step.to(torch.float64).to(p.device).clone() if on_card
+                                else step.float().cpu().clone()),
+                       "exp_avg": st["exp_avg"], "exp_avg_sq": st["exp_avg_sq"]}
+        p.grad = torch.zeros_like(p)
+    return tx
+
+
 def shard_lm_train_state(mesh, state: TrainState, tx, arch: str = "gpt2"
                          ) -> Tuple[TrainState, torch.optim.AdamW]:
     """Place an LM train state on the mesh → (state, tx): the masters on
@@ -352,15 +409,8 @@ def shard_lm_train_state(mesh, state: TrainState, tx, arch: str = "gpt2"
     mu = placed(lambda p: tx.state[p]["exp_avg"])
     nu = placed(lambda p: tx.state[p]["exp_avg_sq"])
     step0 = tx.state[tree_leaves(state.params)[0]]["step"]
-    homes = masters(params)
-    on_card = homes[0].is_cuda
     group = tx.param_groups[0]
-    tx2 = torch.optim.AdamW(homes, lr=group["lr"], betas=group["betas"], eps=group["eps"],
-                            weight_decay=group["weight_decay"], capturable=on_card)
-    for p, m, v in zip(homes, masters(mu), masters(nu), strict=True):
-        p.requires_grad_()
-        tx2.state[p] = {"step": (step0.detach().to(torch.float64).to(p.device).clone() if on_card
-                                 else step0.detach().float().cpu().clone()),
-                        "exp_avg": m, "exp_avg_sq": v}
-        p.grad = torch.zeros_like(p)
+    tx2 = placed_adamw(params, group["lr"], group["betas"], group["eps"], group["weight_decay"],
+                       [{"step": step0, "exp_avg": m, "exp_avg_sq": v}
+                        for m, v in zip(masters(mu), masters(nu), strict=True)])
     return TrainState(params, tx2.state, state.step), tx2

@@ -899,6 +899,7 @@ def test_a_failing_stack_check_fails_the_run(monkeypatch, capsys):
                  spec_phase=lambda rng, tmp, tl: {"launches": 0},
                  lmtrain_phase=lambda rng, tmp: {"launches": (0, 0, 0), "kernels": []},
                  mesh_phase=lambda rng: {"launches": (0, 0, 0)},
+                 sp_phase=lambda rng: {"launches": (0, 0, 0)},
                  stack_phase=lambda rng, tmp, serve: chip_smoke.check(
                      False, "49 of 50 searches on the fused hop, 1 fell back"))
     for name, fn in stubs.items():
@@ -978,3 +979,84 @@ def test_mesh_phase_rehearses_on_the_cpu(monkeypatch, capsys):
     embed_b1 = sum(out["dp"]["b1"])
     assert embed_b1 == 6 * 2 * 2 * out["dp"]["batches"]
     assert out["launches"] == (embed_b1 + 6 * 4 + 3 * 12 + 2 * 8, 16, 16)
+
+
+# --------------------------------------------------------------------- sp
+
+TINY_SP = dict(gpt2=dict(TINY_GPT2, vocab_size=301), rows=4, seq=16, pipe=2, microbatches=2,
+               llama=TINY_LLAMA, llama_seq=32, kernel_rows=2, kernel_S=(16,))
+
+
+def _count_cpu_launches(monkeypatch):
+    """The CPU path launches no kernel: count B1's plain forwards and the
+    plain fused backward (B2 and B3) as launches, from 0."""
+    from symbiont_tpu_torch.ops import flash_attention as fa
+
+    forward, backward = fa._forward, fa.flash_attention_backward
+
+    def counted_forward(*a, **kw):
+        with fa._count_lock:
+            fa.launches += 1
+        return forward(*a, **kw)
+
+    def counted_backward(*a, **kw):
+        with fa._count_lock:
+            fa.bwd_kv_launches += 1
+            fa.bwd_q_launches += 1
+        return backward(*a, **kw)
+
+    monkeypatch.setattr(fa, "_forward", counted_forward)
+    monkeypatch.setattr(fa, "flash_attention_backward", counted_backward)
+    for name in ("launches", "bwd_kv_launches", "bwd_q_launches"):  # restored after
+        monkeypatch.setattr(fa, name, 0)
+
+
+def test_sp_phase_rehearses_on_the_cpu(monkeypatch, capsys):
+    """[sp] end to end on the CPU over meshes that repeat the CPU device,
+    at tiny geometries (2-layer GPT-2 and llama), with every check it
+    makes on the card: SP ring and Ulysses steps and PP steps against the
+    meshless step, the llama SP forward against the meshless forward, the
+    launch equations (B1/B2/B3 per Ulysses step = 2 layers x 2 entries,
+    per PP step = 2 layers x 2 microbatches; the ring launches nothing) and
+    the kernel rows at Ulysses' head shards, untimed."""
+    _count_cpu_launches(monkeypatch)
+    out = chip_smoke.sp_phase(np.random.default_rng(0), sizes=TINY_SP, device="cpu")
+    printed = capsys.readouterr().out
+    assert printed.count("[sp] SP train") == 2 and printed.count("[sp] PP train") == 1
+    assert printed.count("[sp] TinyLlama") == 2
+    assert "flash_attn_bwd causal q/k/v/g(2, 2, 16, 64) float32" in printed
+    ring, uly = out["train"]["ring"], out["train"]["ulysses"]
+    assert [x["launches"] for x in ring] == [(0, 0, 0)] * 2
+    assert [x["launches"] for x in uly] == [(4, 4, 4)] * 2
+    assert [x["launches"] for x in out["pp"]] == [(4, 4, 4)] * 2
+    for steps in (ring, uly, out["pp"]):
+        assert [x["loss"] for x in steps] == pytest.approx(
+            [w["loss"] for w in out["meshless"]["steps"]], rel=1e-4)
+    assert out["llama"]["ring"]["cosine_min"] >= 0.99999 and out["llama"]["ulysses"]["b1"] == 4
+    assert max(out["llama"][impl]["max_rel_err"] for impl in ("ring", "ulysses")) <= 1e-3
+    assert out["sp_launches"] == (2 * 4 + 4, 8, 8) and out["pp_launches"] == (8, 8, 8)
+    assert out["launches"] == (20, 16, 16)
+    assert "[sp] flash_attn_fwd causal q/k/v(1, 2, 32, 8) float32" in printed
+    assert out["llama_head_shard"]["shape"] == "q/k/v [1, 2, 32, 8] float32, causal, no bias"
+    assert [r["shape"] for r in out["kernels"]] == [
+        "q/k/v/g [2, 2, 16, 64] float32, causal, no bias"]
+
+
+def test_a_failing_sp_check_fails_the_phase(monkeypatch):
+    """A sequence-parallel loss 1% off fails [sp] at its first step's bar."""
+    from symbiont_tpu_torch.parallel import context
+
+    _count_cpu_launches(monkeypatch)
+    real = context.lm_loss_sp
+    monkeypatch.setattr(context, "lm_loss_sp", lambda *a, **kw: real(*a, **kw) * 1.01)
+    with pytest.raises(RuntimeError, match=r"\[sp\] SP ring step 0: loss .* beyond rtol 1e-4"):
+        chip_smoke.sp_phase(np.random.default_rng(0), sizes=TINY_SP, device="cpu")
+
+
+def test_near_tie_argmax_parts_a_flip_at_a_tie_from_a_real_one():
+    want = torch.tensor([[10.0, 9.99, 0.0], [10.0, 5.0, 0.0]])
+    same = chip_smoke.near_tie_argmax(want, want)
+    assert same == (0, 0)
+    # row 0 flips inside 2^-8 x 10 of its top logit; row 1 flips far from it
+    got = torch.tensor([[9.0, 9.5, 0.0], [1.0, 6.0, 0.0]])
+    assert chip_smoke.near_tie_argmax(got, want) == (2, 1)

@@ -98,6 +98,7 @@ def test_a_failing_fleet_check_fails_the_run(monkeypatch, capsys):
                  spec_phase=lambda rng, tmp, tl: {"launches": 0},
                  lmtrain_phase=lambda rng, tmp: {"launches": (0, 0, 0), "kernels": []},
                  mesh_phase=lambda rng: {"launches": (0, 0, 0)},
+                 sp_phase=lambda rng: {"launches": (0, 0, 0)},
                  stack_phase=lambda rng, tmp, serve: {"launches": 0},
                  fleet_phase=lambda rng, tmp: chip_smoke.check(
                      False, "[fleet] fleet-gen-1: SSE seq [0, 2, 3] has a gap or a duplicate"))
