@@ -15,7 +15,9 @@ any failure exits non-zero:
              forward (B1), and the backward's dK/dV/dbias (B2) and dQ (B3)
              kernels fed B1's own lse, length-0 rows and partial tiles
              included (each bf16 B1/B2/B3 instance must report no spills
-             from ptxas and contain HGMMA, i.e. wgmma, in its SASS); time each
+             from ptxas and contain HGMMA, i.e. wgmma, in its SASS, each
+             f32 B2/B3 instance no spills and HMMA, its 3xTF32 mma.sync;
+             two launches of the f32 B2/B3 must be bit-equal); time each
              kernel, its plain version and the PyTorch library call for
              the same function (SDPA forward, SDPA backward as forward +
              backward less forward; timed as yardsticks only, never used
@@ -213,7 +215,10 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
-F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+# float32 at the card's fastest float32-accurate rate: 3xTF32 on the tensor
+# cores (495 TFLOP/s dense TF32, three products each), above the 67 TFLOP/s
+# of float32 outside them
+F32_FLOPS_PER_S = 495e12 / 3
 SEED = 0
 CHIP_LIMIT_S = 1200  # the whole script's time limit on the card
 
@@ -288,7 +293,8 @@ def _bound_ms(q, k, v, bias, causal: bool) -> tuple[float, str]:
     """Least time the card could take: each input read once, each output
     (o in q's dtype, lse f32) written once, over HBM bandwidth; or the
     4·B·NH·Sq·Sk·D flops of QK^T and PV (half of it when causal and square)
-    over the peak rate of the inputs' type. Whichever is larger."""
+    over the peak rate of the inputs' type (float32: 3xTF32). Whichever is
+    larger."""
     B, NH, Sq, D = q.shape
     Sk = k.shape[2]
     nbytes = (2 * q.numel() * q.element_size() + k.numel() * k.element_size()
@@ -381,7 +387,7 @@ def kernel_phase(timed: bool = True) -> dict:
                 q, k, v, attn_mask=mask))
             line += (f"; ms {ms:.4f} (graph replay; eager loop {eager_ms:.4f}), plain_ms "
                      f"{plain_ms:.4f}, library_ms (SDPA) {lib_ms:.4f}, bound_ms {bound:.4f} "
-                     f"({bound_by}), {bound / ms:.1%} of bound")
+                     f"({_bound_name(bound_by, dtype)}), {bound / ms:.1%} of bound")
             rows.append({"label": label, "max_abs_err": max_err, "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
                          "library_ms": lib_ms})
@@ -399,7 +405,8 @@ def _bwd_bound_ms(q, k, causal: bool) -> dict:
     output written once (B2: q, k, v, g, bias, lse, δ in; dk, dv and the
     per-head dbias f32 out. B3: the same in; dq out), over HBM bandwidth;
     or 8·B·NH·pairs·D flops for B2 and 6·B·NH·pairs·D for B3 (pairs =
-    Sq·Sk, the visible half when causal) over the inputs' peak rate."""
+    Sq·Sk, the visible half when causal) over the inputs' peak rate
+    (float32: 3xTF32)."""
     B, NH, Sq, D = q.shape
     Sk = k.shape[2]
     es = q.element_size()
@@ -413,6 +420,14 @@ def _bwd_bound_ms(q, k, causal: bool) -> dict:
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
         out[name] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
     return out
+
+
+def _bound_name(bound_by: str, dtype) -> str:
+    """A bound as a printed line names it: float32 operations are counted at
+    the 3xTF32 rate (`F32_FLOPS_PER_S`)."""
+    if bound_by == "operations" and dtype == torch.float32:
+        return "operations (3xTF32)"
+    return bound_by
 
 
 def _within(got, ref, dtype) -> tuple[bool, float, float]:
@@ -469,21 +484,46 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
-def hgmma_counts(sass: str) -> dict:
-    """Per kernel of `cuobjdump -sass` text → {label: count of HGMMA (wgmma)
-    instructions}, labels as `kernel_label`."""
+def hgmma_counts(sass: str, op: str = "HGMMA") -> dict:
+    """Per kernel of `cuobjdump -sass` text → {label: count of `op`
+    instructions: HGMMA (wgmma) or HMMA (mma.sync)}, labels as
+    `kernel_label`."""
     out, cur = {}, None
     for ln in sass.splitlines():
         m = re.search(r"Function\s*:\s*(\S+)", ln)
         if m:
             cur = kernel_label(m.group(1))
             out.setdefault(cur, 0)
-        elif cur is not None and re.search(r"\bHGMMA\b", ln):
+        elif cur is not None and re.search(rf"\b{op}\b", ln):
             out[cur] += 1
     return out
 
 
 WGMMA_BF16 = re.compile(r"(flash_fwd|bwd_kv|bwd_q)_bf16_kernel<(\d+)>")
+F32_BWD = re.compile(r"(bwd_kv|bwd_q)_f32_kernel<(\d+)>")
+
+
+def _held_instances(ptxas: dict, counts: dict, pattern, order: tuple, what: str,
+                    op: str) -> dict:
+    """The instances `pattern` matches in `ptxas_report` (its first group
+    one of the kernels in `order`, its second the head dim), with their
+    count of the tensor-core instruction `op` (HGMMA or HMMA) → {label:
+    registers, spills, op}, by kernel and head dim. Fails if one spills,
+    has no `op`, or a kernel lacks a head dim of 32/64/128."""
+    key = op.lower()
+    names = sorted((n for n in ptxas if pattern.fullmatch(n)),
+                   key=lambda n: (order.index(pattern.fullmatch(n).group(1)),
+                                  int(pattern.fullmatch(n).group(2))))
+    have = {pattern.fullmatch(n).group(1, 2) for n in names}
+    want = {(k, str(d)) for k in order for d in (32, 64, 128)}
+    check(want <= have, f"{what} missing: {sorted(want - have)}")
+    rows = {}
+    for n in names:
+        rows[n] = dict(ptxas[n], **{key: counts.get(n, 0)})
+        check(rows[n].get("spill_stores", 0) == 0 and rows[n].get("spill_loads", 0) == 0,
+              f"{n} spills: {rows[n]}")
+        check(rows[n][key] > 0, f"{n} has no {op} in its SASS")
+    return rows
 
 
 def wgmma_instances(ptxas: dict, hgmma: dict) -> dict:
@@ -491,40 +531,42 @@ def wgmma_instances(ptxas: dict, hgmma: dict) -> dict:
     (`bwd_q`) from `ptxas_report` and `hgmma_counts` → {label: registers,
     spills, hgmma}, by kernel and head dim. Fails if one spills, has no
     HGMMA, or a kernel lacks a head dim of 32/64/128."""
-    order = ("flash_fwd", "bwd_kv", "bwd_q")
-    names = sorted((n for n in ptxas if WGMMA_BF16.fullmatch(n)),
-                   key=lambda n: (order.index(WGMMA_BF16.fullmatch(n).group(1)),
-                                  int(WGMMA_BF16.fullmatch(n).group(2))))
-    have = {WGMMA_BF16.fullmatch(n).group(1, 2) for n in names}
-    want = {(k, str(d)) for k in order for d in (32, 64, 128)}
-    check(want <= have, f"bf16 kernel instances missing: {sorted(want - have)}")
-    rows = {}
-    for n in names:
-        rows[n] = dict(ptxas[n], hgmma=hgmma.get(n, 0))
-        check(rows[n].get("spill_stores", 0) == 0 and rows[n].get("spill_loads", 0) == 0,
-              f"{n} spills: {rows[n]}")
-        check(rows[n]["hgmma"] > 0, f"{n} has no HGMMA in its SASS")
-    return rows
+    return _held_instances(ptxas, hgmma, WGMMA_BF16, ("flash_fwd", "bwd_kv", "bwd_q"),
+                           "bf16 kernel instances", "HGMMA")
+
+
+def f32_backward_instances(ptxas: dict, hmma: dict) -> dict:
+    """The float32 instances of B2 (`bwd_kv`) and B3 (`bwd_q`), 3xTF32 on
+    mma.sync, from `ptxas_report` and `hgmma_counts(sass, "HMMA")` →
+    {label: registers, spills, hmma}, by kernel and head dim. Fails as
+    `wgmma_instances` does, with HMMA for HGMMA: without it their products
+    would not be on the tensor cores."""
+    return _held_instances(ptxas, hmma, F32_BWD, ("bwd_kv", "bwd_q"), "f32 backward instances",
+                           "HMMA")
 
 
 @functools.cache
 def build_report() -> dict:
-    """The bf16 B1/B2/B3 instances as built (ptxas registers and spills
-    from the build log, HGMMA count from the library's SASS by
-    `cuobjdump -sass`), checked by `wgmma_instances` and printed once."""
+    """The bf16 B1/B2/B3 instances and the f32 B2/B3 instances as built
+    (ptxas registers and spills from the build log, HGMMA or HMMA count from
+    the library's SASS by `cuobjdump -sass`), checked by `wgmma_instances`
+    and `f32_backward_instances` and printed once."""
     from symbiont_tpu_torch.ops import _build
 
     lib = _build.build()
     sass = subprocess.run([_build.cuobjdump(), "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    rows = wgmma_instances(ptxas_report((_build.build_dir() / "build.log").read_text()),
-                           hgmma_counts(sass))
-    print("[kernels] bf16 instances (ptxas registers, spill bytes stores/loads; "
-          "HGMMA in SASS): " + "; ".join(
-              f"{n} {r['registers']} regs, spills {r.get('spill_stores', 0)}/"
-              f"{r.get('spill_loads', 0)}, {r['hgmma']} HGMMA" for n, r in rows.items()),
-          flush=True)
-    return rows
+    ptxas = ptxas_report((_build.build_dir() / "build.log").read_text())
+    rows = wgmma_instances(ptxas, hgmma_counts(sass))
+    f32 = f32_backward_instances(ptxas, hgmma_counts(sass, "HMMA"))
+    for label, got, op in (("bf16 instances", rows, "hgmma"),
+                           ("f32 backward instances (3xTF32 mma.sync)", f32, "hmma")):
+        print(f"[kernels] {label} (ptxas registers, spill bytes stores/loads; "
+              f"{op.upper()} in SASS): " + "; ".join(
+                  f"{n} {r['registers']} regs, spills {r.get('spill_stores', 0)}/"
+                  f"{r.get('spill_loads', 0)}, {r[op]} {op.upper()}" for n, r in got.items()),
+              flush=True)
+    return {**rows, **f32}
 
 
 def backward_kernel_phase(timed: bool = True) -> dict:
@@ -593,9 +635,10 @@ def backward_kernel_phase(timed: bool = True) -> dict:
             plain_kv = graph_ms(lambda: fa.bwd_kv_reference(*args), iters=5)
             plain_q = graph_ms(lambda: fa.bwd_q_reference(*args), iters=5)
             lib = _sdpa_backward_ms(q, k, v, bias, g)
-            line += (f"; B2 ms {ms_kv:.4f} (bound {bounds['kv'][0]:.4f}, {bounds['kv'][1]}, "
+            line += (f"; B2 ms {ms_kv:.4f} (bound {bounds['kv'][0]:.4f}, "
+                     f"{_bound_name(bounds['kv'][1], dtype)}, "
                      f"{bounds['kv'][0] / ms_kv:.1%}), plain {plain_kv:.4f}; B3 ms {ms_q:.4f} "
-                     f"(bound {bounds['q'][0]:.4f}, {bounds['q'][1]}, "
+                     f"(bound {bounds['q'][0]:.4f}, {_bound_name(bounds['q'][1], dtype)}, "
                      f"{bounds['q'][0] / ms_q:.1%}), plain {plain_q:.4f}; B2+B3 {ms_kv + ms_q:.4f} "
                      f"vs SDPA backward (library_ms) {lib:.4f}")
             # SDPA's backward computes dq, dk and dv in one call: it is the
@@ -610,6 +653,22 @@ def backward_kernel_phase(timed: bool = True) -> dict:
                     "covered_ms": ms_kv + ms_q}
         print(line, flush=True)
         del q, k, v, bias, g, out, lse, delta, args, dk, dv, dbh, dq, rdk, rdv, rdbh, rdq
+
+    # the f32 kernels at GPT-2's training shape, each launched twice on the
+    # same inputs: no atomics and sums in a fixed order, so bit-equal
+    q, k, v, g = (torch.randn((8, 12, 1024, 64), generator=gen, device="cuda")
+                  for _ in range(4))
+    bias = torch.zeros((8, 1024), device="cuda")
+    out, lse = fa.flash_attention_with_lse(q, k, v, bias, causal=True)
+    args = (q, k, v, bias, g, lse, fa.bwd_delta(g, out), True, 1.0 / 8.0)
+    first, again = ((*fa.bwd_kv(*args), fa.bwd_q(*args)) for _ in range(2))
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(a, b)) for a, b in zip(first, again)]
+    check(all(same), f"f32 B2/B3 q/k/v/g [8, 12, 1024, 64] causal: two launches differ "
+                     f"(dk, dv, dbias, dq equal: {same})")
+    print("[kernels] flash_attn_bwd f32 causal q/k/v/g [8, 12, 1024, 64]: two launches of B2 "
+          "and of B3 give bit-equal dk, dv, dbias and dq", flush=True)
+    del q, k, v, g, bias, out, lse, args, first, again
 
     # under autograd on CUDA tensors the forward goes through the Function
     # and its backward through both kernels
@@ -2107,7 +2166,8 @@ def causal_gqa_kernel_phase(timed: bool = True) -> dict:
             row |= {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
                     "library_ms": lib}
             line += (f"; ms {ms:.4f} (graph replay), plain_ms {plain:.4f}, library_ms (SDPA, "
-                     f"enable_gqa) {lib:.4f}, bound_ms {bound:.4f} ({bound_by}), "
+                     f"enable_gqa) {lib:.4f}, bound_ms {bound:.4f} "
+                     f"({_bound_name(bound_by, dtype)}), "
                      f"{bound / ms:.1%} of bound")
         print(line, flush=True)
         rows[(S, dname)] = row
@@ -2398,7 +2458,7 @@ def generate_phase(rng, tmp) -> dict:
 SESSION = dict(stream_bucket=(256, 1024), new=64, chunk=16, session_bucket=(64, 256),
                gpt2_bucket=(16, 64), batcher_bucket=(16, 64),
                first_wave=(24, 32, 40, 48, 56, 64, 64, 64),
-               later_waves=(16, 16, 16, 16, 64, 48, 32, 16), waves=3, wave_gap_s=0.05,
+               later_waves=(16, 16, 16, 16, 64, 48, 32, 16), waves=3,
                max_batch=8, prefill_buckets=(64, 256, 1024))
 # a token that differs from the standalone decode passes only at a near-tie:
 # the standalone's top-2 logit gap under this share of the logits' largest |x|
@@ -2486,8 +2546,10 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
       chunks of 16: its deltas join to `generate()`'s text, there is more
       than one, and B1 launches once per layer (the prefill) and never in a
       chunk;
-    - `GenBatcher`: 24 requests at max_batch 8 in three waves 50 ms apart on
-      one asyncio loop; every future resolves to text, some join a running
+    - `GenBatcher`: 24 requests at max_batch 8 in three waves on one
+      asyncio loop, each later wave sent once a decode chunk has ended
+      after the one before, with the admission prefill shapes warmed
+      first (`warm_admissions`); every future resolves to text, some join a running
       session (`admitted_midflight` > 0), and B1 launches once per layer
       per prefill (session starts and admissions);
     - a session of 3 ragged prompts (bb 4) steps one chunk; a newcomer
@@ -2581,11 +2643,12 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
         waves.append(list(zip(ragged_prompts(rng, *s["batcher_bucket"], len(budgets)),
                               budgets)))
 
+    warmed = warm_admissions(eng, s["batcher_bucket"], waves, s["max_batch"])
     engine_timeline.clear()
     tok0, prefills0, carriers0 = eng.stats["tokens_generated"], prefills(), eng.carrier_stats()
     caps0 = capture_b1(eng)
     fa.launches = 0  # ---------------------------------------------------- main path
-    texts, bstats, batch_s = serve_batcher(eng, waves, s["max_batch"], s["wave_gap_s"])
+    texts, bstats, batch_s = serve_batcher(eng, waves, s["max_batch"])
     batch_launches = fa.launches  # ------------------------------------------ main path end
     carriers = carrier_traffic(carriers0, eng.carrier_stats())
     batch_caps = capture_b1(eng) - caps0
@@ -2606,7 +2669,9 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
     summ = engine_timeline.summary()
     decode = {k: v for k, v in summ.items() if k.startswith("decode_")}
     print(f"[session] GenBatcher: {n_req} requests at max_batch {s['max_batch']} in "
-          f"{s['waves']} waves {s['wave_gap_s'] * 1e3:.0f} ms apart: {bstats['sessions']} "
+          f"{s['waves']} waves, each sent once a decode chunk ended after the one before, "
+          f"the {warmed} admission prefill shapes warmed before the pass (so the pass's "
+          f"captures and tok/s leave them out): {bstats['sessions']} "
           f"sessions, {bstats['admitted_midflight']} admitted mid-flight, {toks} tokens in "
           f"{batch_s:.2f} s = {toks / batch_s:.1f} tok/s (host clock); lm.ttft_ms p50 "
           f"{ttft['p50']:.1f} p95 {ttft['p95']:.1f} ({ttft['count']} rows), lm.tpot_ms p50 "
@@ -2785,8 +2850,7 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
         bucket=s["session_bucket"], rows=s["max_batch"], new=new, chunk=chunk,
         gpt2_bucket=s["gpt2_bucket"], batcher=dict(
             bucket=s["batcher_bucket"], first_wave=s["first_wave"],
-            later_waves=s["later_waves"], waves=s["waves"], wave_gap_s=s["wave_gap_s"],
-            max_batch=s["max_batch"])))
+            later_waves=s["later_waves"], waves=s["waves"], max_batch=s["max_batch"])))
     # the prefill executables on both dirs against eager prefills: their B1
     # launches are checked there, and counted on the main paths above
     graphs["prefill"] = graphs_prefill_phase(rng, tmp, device=device, lm_kw=lm_kw, sizes=dict(
@@ -2809,7 +2873,7 @@ def session_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
 GRAPHS_LM = dict(bucket=(128, 256), rows=8, new=64, chunk=16, gpt2_bucket=(16, 64),
                  batcher=dict(bucket=(16, 64), first_wave=(24, 32, 40, 48, 56, 64, 64, 64),
                               later_waves=(16, 16, 16, 16, 64, 48, 32, 16), waves=3,
-                              wave_gap_s=0.05, max_batch=8))
+                              max_batch=8))
 
 
 def graphs_lm_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
@@ -2916,8 +2980,7 @@ def graphs_lm_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
             # checkpoint whose chunks all run eagerly (as before A16)
             eng_e = LmEngine(eng.config, tokenizer=IdTokenizer())
             with eager_executables():
-                texts, bstats, secs = serve_batcher(eng_e, waves, b["max_batch"],
-                                                    b["wave_gap_s"])
+                texts, bstats, secs = serve_batcher(eng_e, waves, b["max_batch"])
             check(all(isinstance(t, str) for t in texts), "eager GenBatcher returned no text")
             runs["eager"] = {"tok_s": eng_e.stats["tokens_generated"] / secs,
                              "sessions": bstats["sessions"]}
@@ -2925,7 +2988,7 @@ def graphs_lm_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
             for label in ("cold", "warm"):
                 engine_timeline.clear()
                 tok0, c0 = eng.stats["tokens_generated"], eng.carrier_stats()
-                run_b = lambda: serve_batcher(eng, waves, b["max_batch"], b["wave_gap_s"])  # noqa: E731
+                run_b = lambda: serve_batcher(eng, waves, b["max_batch"])  # noqa: E731
                 if label == "warm" and cuda:
                     holder = {}
                     wall_ms, busy_ms = busy_share(lambda: holder.update(r=run_b()))
@@ -2950,7 +3013,7 @@ def graphs_lm_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
             # the warm batcher's texts: one wave of max_batch at once is one
             # session, whose rows are generate_batch's on the same prompts
             wave = waves[0]
-            texts, bstats, _ = serve_batcher(eng, [wave], b["max_batch"], 0.0)
+            texts, bstats, _ = serve_batcher(eng, [wave], b["max_batch"])
             check((bstats["sessions"], bstats["admitted_midflight"]) == (1, 0),
                   f"one wave of {len(wave)}: {bstats['sessions']} sessions, "
                   f"{bstats['admitted_midflight']} admissions (want 1, 0)")
@@ -2995,7 +3058,7 @@ def graphs_lm_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
     g2_batcher = {}
     for label in ("cold", "warm"):
         c0 = g2.carrier_stats()
-        texts, bstats, _ = serve_batcher(g2, waves, b["max_batch"], b["wave_gap_s"])
+        texts, bstats, _ = serve_batcher(g2, waves, b["max_batch"])
         ties += same_or_near_tie(f"graphs GPT-2 GenBatcher {label}",
                                  {i: ids_of(t) for i, t in enumerate(texts)}, alone, g2,
                                  dict(enumerate(p for p, _ in flat)))
@@ -3325,22 +3388,30 @@ def sampled_streams(eng, prompt: str, new: int) -> dict:
     return res
 
 
-def serve_batcher(eng, waves, max_batch: int, wave_gap_s: float):
+def serve_batcher(eng, waves, max_batch: int):
     """`GenBatcher` over `waves` of (prompt, budget) pairs, greedy, on one
-    asyncio loop, waves `wave_gap_s` apart → (texts, batcher stats, host
-    seconds)."""
+    asyncio loop → (texts, batcher stats, host seconds). The first wave
+    goes at once; each later one once a decode chunk has ended (a step
+    event in the engine timeline) since the wave before it went, so its
+    requests reach a running session however fast the host is. A wave also
+    goes once every request sent so far is done: then nothing would step."""
     import asyncio
 
     from symbiont_tpu_torch.engine.batcher import GenBatcher
+    from symbiont_tpu_torch.obs.engine_timeline import engine_timeline
+
+    def stepped_since(t: float) -> bool:
+        return any(e["kind"] == "step" and e["t"] >= t for e in engine_timeline.events())
 
     async def serve():
         b = GenBatcher(eng, max_batch=max_batch)
         await b.start()
         try:
-            tasks = []
+            tasks, sent = [], 0.0
             for w, wave in enumerate(waves):
-                if w:
-                    await asyncio.sleep(wave_gap_s)
+                while w and not stepped_since(sent) and not all(t.done() for t in tasks):
+                    await asyncio.sleep(0.001)
+                sent = time.time()
                 tasks += [asyncio.ensure_future(b.generate(p, int(n), temperature=0.0))
                           for p, n in wave]
             return await asyncio.gather(*tasks), dict(b.stats)
@@ -3350,6 +3421,37 @@ def serve_batcher(eng, waves, max_batch: int, wave_gap_s: float):
     t0 = time.perf_counter()
     texts, stats = asyncio.run(serve())
     return texts, stats, time.perf_counter() - t0
+
+
+def warm_admissions(eng, bucket, waves, max_batch: int) -> int:
+    """Run once every admission prefill shape `serve_batcher(eng, waves,
+    max_batch)` can ask for → the number of shapes run: k newcomers (k =
+    max_batch .. 4, 2, 1, the row counts `BatchSession.prepare_admit` pads
+    to) at the prompt bucket of `bucket` = (lo, hi], for each new-token
+    bucket of the waves' budgets that spans more than one chunk (a one-chunk
+    session has no boundary to admit at). A newcomer joins only if its
+    prefill ends while the session still has steps for its budget; a cold
+    shape pays its capture and cost analysis inside that window (seconds on
+    the card against a chunk's tens of ms), so without this the admissions
+    counted depended on the host's speed. Smallest last: where the engine's
+    bound on held prefills drops some, it drops the least recent, and most
+    admissions take one or two free rows. The prompts are fresh ones of the
+    bucket, so no wave prompt is cached (a paged engine's radix) before the
+    pass; the one-row session that carries the prefills is cancelled
+    unspliced."""
+    prompts = ragged_prompts(np.random.default_rng(SEED + 18), *bucket, max_batch)
+    nb, chunk = eng.config.new_token_buckets, eng.config.stream_chunk
+    news = sorted({next((b for b in nb if n <= b), nb[-1]) for w in waves for _, n in w})
+    shapes = 0
+    for new in (b for b in news if b > chunk):
+        with eng.start_session(prompts[-1:], [new], temperature=0.0) as sess:
+            k = 1 << (max_batch - 1).bit_length()
+            while k:
+                sess.prepare_admit(prompts[:k], [new] * k, temperature=0.0)
+                shapes, k = shapes + 1, k // 2
+            for row in [r for r in sess.rows if r is not None]:
+                sess.cancel_tag(row.tag)  # its row and, paged, its pages free now
+    return shapes
 
 
 def paged_phase(rng, tmp, tinyllama, dense_batcher=None, sizes=None, device="cuda",
@@ -3509,13 +3611,14 @@ def paged_phase(rng, tmp, tinyllama, dense_batcher=None, sizes=None, device="cud
     for w in range(s["waves"]):
         budgets = s["first_wave"] if w == 0 else s["later_waves"]
         waves.append(list(zip(ragged_prompts(rng, *s["batcher_bucket"], len(budgets)), budgets)))
+    warmed = warm_admissions(eng, s["batcher_bucket"], waves, s["max_batch"])
     engine_timeline.clear()
     tok0 = eng.stats["tokens_generated"]
     prefills0 = sum(r["dispatches"] for r in dispatch_ledger.snapshot()
                     if r["executable"].startswith("lm.prefill["))
     caps0 = capture_b1(eng)
     fa.launches = 0  # ---------------------------------------------------- main path
-    texts, bstats, batch_s = serve_batcher(eng, waves, s["max_batch"], s["wave_gap_s"])
+    texts, bstats, batch_s = serve_batcher(eng, waves, s["max_batch"])
     batch_launches = fa.launches  # ------------------------------------------ main path end
     batch_caps = capture_b1(eng) - caps0
     counted += batch_launches
@@ -3536,7 +3639,8 @@ def paged_phase(rng, tmp, tinyllama, dense_batcher=None, sizes=None, device="cud
                "sessions": bstats["sessions"]} | {
         k: summ.get(k) for k in ("decode_occupancy_pct", "decode_kv_stranded_pct",
                                  "decode_pages_live_pct", "decode_radix_hit_pct")}
-    print(f"[paged] GenBatcher, {n_req} requests in {s['waves']} waves: {bstats['sessions']} "
+    print(f"[paged] GenBatcher, {n_req} requests in {s['waves']} waves (each after a decode "
+          f"chunk, {warmed} admission prefill shapes warmed first): {bstats['sessions']} "
           f"sessions, {bstats['admitted_midflight']} admitted mid-flight, {toks} tokens in "
           f"{batch_s:.2f} s = {batcher['tok_s']:.1f} tok/s; TTFT p50 {lat['ttft_ms_p50']:.1f} "
           f"p95 {lat['ttft_ms_p95']:.1f} ms, TPOT p50 {lat['tpot_ms_p50']:.2f} ms; timeline "
@@ -4144,7 +4248,8 @@ def causal_b1_row(q, k, v, tag: str, timed: bool) -> tuple:
         row |= {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
                 "library_ms": lib}
         line += (f"; ms {ms:.4f} (graph replay), plain_ms {plain:.4f}, library_ms (SDPA, "
-                 f"is_causal) {lib:.4f}, bound_ms {bound:.4f} ({by}), {bound / ms:.1%} of bound")
+                 f"is_causal) {lib:.4f}, bound_ms {bound:.4f} ({_bound_name(by, dtype)}), "
+                 f"{bound / ms:.1%} of bound")
     print(line, flush=True)
     return row, out, lse
 
@@ -4214,9 +4319,10 @@ def lm_backward_kernel_rows(sizes=None, timed: bool = True, device: str = "cuda"
                         "bound_ms": {"kv": bounds["kv"][0], "q": bounds["q"][0]},
                         "bound_by": {"kv": bounds["kv"][1], "q": bounds["q"][1]},
                         "library_ms": lib, "covered_ms": ms_kv + ms_q}
-                line += (f"; B2 ms {ms_kv:.4f} (bound {bounds['kv'][0]:.4f}, {bounds['kv'][1]}, "
+                line += (f"; B2 ms {ms_kv:.4f} (bound {bounds['kv'][0]:.4f}, "
+                     f"{_bound_name(bounds['kv'][1], dtype)}, "
                          f"{bounds['kv'][0] / ms_kv:.1%}), plain {plain_kv:.4f}; B3 ms {ms_q:.4f} "
-                         f"(bound {bounds['q'][0]:.4f}, {bounds['q'][1]}, "
+                         f"(bound {bounds['q'][0]:.4f}, {_bound_name(bounds['q'][1], dtype)}, "
                          f"{bounds['q'][0] / ms_q:.1%}), plain {plain_q:.4f}; B2+B3 "
                          f"{ms_kv + ms_q:.4f} vs SDPA causal backward (library_ms) {lib:.4f}")
             print(line, flush=True)

@@ -12,11 +12,15 @@ order base, change, change, base. B1 runs at the serve path's shapes: q/k/v
 two length-0 rows, SDPA's forward timed beside it. B2/B3 run at the
 encoder fine-tune's: q/k/v/g [32, 12, S, 64] bf16 at S = 64, 128, 256,
 512, a padding bias with one length-0 row, the forward kernel's own lse,
-SDPA's backward beside the pair. Times are device time per call by
-CUDA-graph replay (`chip_smoke.graph_ms`, the same inputs for both sides).
-CHANGE_DIR defaults to this script's checkout. Prints the card, one JSON
-line per run, and per kernel and S each side's mean of its two runs and
-change / base.
+SDPA's backward beside the pair. B2/B3 also run in float32, causal with
+no bias, at the LM training path's shapes: q/k/v/g [8, 12, S, 64] at S =
+64 and 1024 (GPT-2) and [8, 6, 1024, 64] (Ulysses' head shard), the plain
+versions and SDPA's causal backward beside the pair, and the float32
+bound (3xTF32, `chip_smoke._bwd_bound_ms`). Times are device time per
+call by CUDA-graph replay (`chip_smoke.graph_ms`, the same inputs for both
+sides). CHANGE_DIR defaults to this script's checkout. Prints the card,
+one JSON line per run, and per kernel and shape each side's mean of its
+two runs and change / base.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[1]
 FWD_SEQS = (32, 64, 128, 256, 512)
 BWD_SEQS = (64, 128, 256, 512)
+F32_BWD = {"f32_8x12x64": (8, 12, 64), "f32_8x12x1024": (8, 12, 1024),
+           "f32_8x6x1024": (8, 6, 1024)}  # (batch, heads, S), D = 64, causal
 
 
 def _helpers():
@@ -51,7 +57,7 @@ def child(root: str) -> dict:
     assert Path(fa.__file__).resolve().is_relative_to(Path(root).resolve()), fa.__file__
     c = _helpers()
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    out = {"root": root, "fwd": {}, "bwd": {}}
+    out = {"root": root, "fwd": {}, "bwd": {}, "bwd_f32": {}}
     gen = torch.Generator(device="cuda").manual_seed(c.SEED)
     rng = np.random.default_rng(c.SEED)
     for S in FWD_SEQS:
@@ -74,6 +80,19 @@ def child(root: str) -> dict:
         out["bwd"][S] = {"kv": c.graph_ms(lambda: fa.bwd_kv(*args), iters=100),
                          "q": c.graph_ms(lambda: fa.bwd_q(*args), iters=100),
                          "sdpa_bwd": c._sdpa_backward_ms(q, k, v, bias, g)}
+        del q, k, v, bias, g, o, lse, args
+    gen = torch.Generator(device="cuda").manual_seed(c.SEED + 18)
+    for label, (B, NH, S) in F32_BWD.items():
+        q, k, v, g = (torch.randn((B, NH, S, 64), generator=gen, device="cuda") for _ in range(4))
+        bias = torch.zeros((B, S), device="cuda")
+        o, lse = fa.flash_attention_with_lse(q, k, v, bias, causal=True)
+        args = (q, k, v, bias, g, lse, fa.bwd_delta(g, o), True, 1.0 / 8.0)
+        out["bwd_f32"][label] = {
+            "kv": c.graph_ms(lambda: fa.bwd_kv(*args), iters=100),
+            "q": c.graph_ms(lambda: fa.bwd_q(*args), iters=100),
+            "plain_kv": c.graph_ms(lambda: fa.bwd_kv_reference(*args), iters=5),
+            "plain_q": c.graph_ms(lambda: fa.bwd_q_reference(*args), iters=5),
+            "sdpa_bwd": c._sdpa_causal_backward_ms(q, k, v, g)}
         del q, k, v, bias, g, o, lse, args
     return out
 
@@ -115,6 +134,25 @@ def main() -> int:
               f"({ch['kv'] / b['kv']:.3f}x); B3 base {b['q']:.4f} change {ch['q']:.4f} ms "
               f"({ch['q'] / b['q']:.3f}x); B2+B3 change {ch['kv'] + ch['q']:.4f} ms vs SDPA "
               f"backward {lib:.4f} ms ({(ch['kv'] + ch['q']) / lib:.3f}x)", flush=True)
+    import torch
+
+    helpers = _helpers()
+    keys = ("kv", "q", "plain_kv", "plain_q", "sdpa_bwd")
+    for label, (B, NH, S) in F32_BWD.items():
+        b, ch = ({key: _mean(runs, side, "bwd_f32", label, key) for key in keys}
+                 for side in ("base", "change"))
+        lib = (b["sdpa_bwd"] + ch["sdpa_bwd"]) / 2
+        meta = torch.empty((B, NH, S, 64), device="meta")
+        bound = helpers._bwd_bound_ms(meta, meta, True)
+        print(f"B2/B3 f32 causal [{B}, {NH}, {S}, 64]: B2 base {b['kv']:.4f} change "
+              f"{ch['kv']:.4f} ms ({ch['kv'] / b['kv']:.3f}x; bound {bound['kv'][0]:.4f} "
+              f"{bound['kv'][1]}, {bound['kv'][0] / ch['kv']:.1%} of it; plain "
+              f"{(b['plain_kv'] + ch['plain_kv']) / 2:.4f}); B3 base {b['q']:.4f} change "
+              f"{ch['q']:.4f} ms ({ch['q'] / b['q']:.3f}x; bound {bound['q'][0]:.4f} "
+              f"{bound['q'][1]}, {bound['q'][0] / ch['q']:.1%} of it; plain "
+              f"{(b['plain_q'] + ch['plain_q']) / 2:.4f}); B2+B3 base {b['kv'] + b['q']:.4f} "
+              f"change {ch['kv'] + ch['q']:.4f} ms vs SDPA causal backward {lib:.4f} ms "
+              f"({(ch['kv'] + ch['q']) / lib:.3f}x)", flush=True)
     return 0
 
 

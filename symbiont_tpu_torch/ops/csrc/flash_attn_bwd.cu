@@ -83,9 +83,64 @@
 //   Left for later: a producer warp with setmaxnreg, overlap of the
 //   elementwise step with the tensor cores inside a block (two consumer
 //   warpgroups in ping-pong), larger N tiles.
-//   * f32: scalar FMA kernels (4 threads per key in B2, per q row in B3) in
-//     full float32 with expf: the tensor cores would round f32 to TF32.
-//     Synchronous staging; the train step computes in bf16.
+//
+// Design of the f32 kernels (3xTF32 mma.sync on cp.async-staged tiles),
+// which every float32 training step runs (the LM trainer's masters are
+// float32). What bounds them on an H100: bytes below S ~ 300 (causal, D =
+// 64; S ~ 150 without causal), above it the tensor cores' float32-accurate
+// rate, 3xTF32 at 495 / 3 = 165 TFLOP/s. The scalar FFMA kernels they
+// replace were held to the 67 TFLOP/s of float32 outside the tensor cores.
+//   * Every product on the tensor cores in 3xTF32 (hopper.cuh): each f32
+//     operand as tf32 hi + lo, the product as lo·hi + hi·lo + hi·hi,
+//     accumulated in float32. One TF32 product keeps ~3 decimal digits,
+//     which would miss the f32 bars (1e-4 abs + rel) and change the
+//     trainer's numerics; 3xTF32 stays within them.
+//   * mma.sync m16n8k8 .tf32, not wgmma: for 32-bit types wgmma reads
+//     shared-memory operands K-major only and its tf32 register-A layout is
+//     not the accumulator's, so the dV/dK/dQ products (whose B operand is
+//     the staged tile read MN-major, and whose A is p / dS from the
+//     accumulators) would need transposed hi and lo copies of every tile,
+//     beyond what shared memory holds at D = 128. mma.sync loads fragments
+//     with plain 32-bit shared loads in any layout, which is also the route
+//     of PyTorch's memory-efficient SDPA for float32 (CUTLASS fast-f32).
+//     wgmma with transposed copies is the way past it.
+//   * The split happens in registers as each fragment is loaded from
+//     shared memory, on the integer view (4 integer and float ops an
+//     element); a split A fragment feeds the BQ/8 (BK/8) MMAs of its
+//     k-step. Shared memory holds the raw float32, so a fragment element
+//     costs one 32-bit load. hi and lo copies staged there once a tile
+//     would spare the split of the B fragments, which each of a block's 4
+//     warps repeats, for twice the shared-memory traffic and space and a
+//     split pass a tile: not measured yet.
+//   * A block is 4 warps; each warp owns 16 keys in B2, 16 q rows in B3
+//     (the M side of its m16 tiles). B2 computes S^T = K Q^T and dP^T =
+//     V G^T (A = the warp's K / V rows, B = the Q / G tile, both read as
+//     stored), forms p^T and dS^T in the accumulators, then dV += P^T G and
+//     dK += dS^T Q with A straight from those accumulators: a C tile's
+//     columns 2t, 2t + 1 become the A fragment's k slots t, t + 4, and the
+//     B operand is read in the same k order (rows 2t, 2t + 1), so no value
+//     moves between lanes. B3 does the same with S = Q K^T, dP = G V^T and
+//     dQ += dS K.
+//   * Tiles are row-major with rows padded to D + 4 floats: the stride is 4
+//     banks mod 32, so every fragment load, K-major or MN-major, hits 32
+//     distinct banks.
+//   * Staging by cp.async (16-byte copies; rows past S zero-filled) into a
+//     ring of kStages = 2 for the streamed tiles (q/g/lse/delta in B2,
+//     k/v/bias in B3): the next tile's copies are in flight while this
+//     one's MMAs run. The resident tile (K/V, Q/G) is copied once.
+//   * Tiles of 32 streamed rows (16 in B2 at D = 128): at 64 the
+//     accumulators took most of a thread's registers, and the fewer blocks
+//     an SM then holds hid less latency than the larger tiles saved.
+//   * The elementwise step (p by expf, dS, dbias), as in the bf16 kernels,
+//     takes a copy without bounds and mask tests on a tile whose rows and
+//     keys are all real and wholly on or below the causal diagonal.
+//   * Longest first: under causal, B2's key tile x walks the q tiles from
+//     x on and B3's q tile the key tiles up to it, so block work differs
+//     by up to S / 32 tiles. The tile index is the grid's slowest one (z;
+//     head and batch in x and y), ordered so the longest blocks are
+//     dispatched first and the last wave holds the shortest. With the
+//     tile fastest (the bf16 kernels' order), the longest blocks of the
+//     last heads run on alone at the end.
 //
 // The launches go on the caller's stream, do not synchronise and allocate
 // nothing; each entry returns cudaGetLastError() after launch (or
@@ -481,16 +536,90 @@ __global__ void __launch_bounds__(128) bwd_q_bf16_kernel(
   }
 }
 
+// ------------------------------------------------- f32 tiles and fragments
+
+// A float32 tile in shared memory: rows of D floats padded to LD = D + 4,
+// so the row stride is 4 banks mod 32 and every fragment load below (A
+// rows g / g + 8 at column t; B rows g at column t; B rows 2t / 2t + 1 at
+// column g) touches 32 distinct banks.
+template <int D>
+struct F32Rows {
+  static constexpr int LD = D + 4;
+  static_assert(D == 32 || D == 64 || D == 128, "head dim 32, 64 or 128");
+};
+
+// Stage rows [row0, row0 + R) of a [S, D] float32 matrix into dst (stride
+// LD) with 16-byte cp.async copies; rows at or past S are zero-filled.
+// All 128 threads take part; the caller commits the group.
+template <int D, int R>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int row0, int S) {
+  constexpr int C = D / 4, LD = F32Rows<D>::LD;
+  static_assert(R * C % 128 == 0, "whole passes of the block");
+#pragma unroll
+  for (int j = 0; j < R * C / 128; ++j) {
+    const int i = j * 128 + threadIdx.x, r = i / C, c = i % C;
+    const bool in = row0 + r < S;
+    cp_async16(dst + r * LD + 4 * c, in ? src + (size_t)(row0 + r) * D + 4 * c : src, in);
+  }
+}
+
+// The A fragment (row-major, m16k8) of a warp's 16 rows of `tile` at
+// columns c0..c0 + 7, split into tf32 hi and lo.
+template <int LD>
+__device__ __forceinline__ void a_frag(const float* tile, int c0, uint32_t hi[4],
+                                       uint32_t lo[4]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* p = tile + g * LD + c0 + t;
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[8 * LD], hi[1], lo[1]);
+  split_tf32(p[4], hi[2], lo[2]);
+  split_tf32(p[8 * LD + 4], hi[3], lo[3]);
+}
+
+// The B fragment (k8n8) whose n runs over 8 rows of `tile` and whose k
+// runs over columns c0..c0 + 7 (a K-major operand read as stored).
+template <int LD>
+__device__ __forceinline__ void b_frag_k(const float* tile, int c0, uint32_t hi[2],
+                                         uint32_t lo[2]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* p = tile + g * LD + c0 + t;
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[4], hi[1], lo[1]);
+}
+
+// The B fragment whose k runs over 8 rows of `tile` and whose n over
+// columns c0..c0 + 7 (an MN-major operand), in the k order of `c_frag`:
+// k slot t is row 2t, slot t + 4 is row 2t + 1.
+template <int LD>
+__device__ __forceinline__ void b_frag_mn(const float* tile, int c0, uint32_t hi[2],
+                                          uint32_t lo[2]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* p = tile + 2 * t * LD + c0 + g;
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[LD], hi[1], lo[1]);
+}
+
+// An m16n8 C tile (c0..c1 at columns 2t, 2t + 1) as the A fragment of one
+// k8 step over those 8 columns, split: A's k slot t holds column 2t and
+// slot t + 4 column 2t + 1, the order `b_frag_mn` reads the other operand
+// in. A sum over k does not depend on the order, so no shuffle is needed.
+__device__ __forceinline__ void c_frag(const float c[4], uint32_t hi[4], uint32_t lo[4]) {
+  split_tf32(c[0], hi[0], lo[0]);
+  split_tf32(c[2], hi[1], lo[1]);
+  split_tf32(c[1], hi[2], lo[2]);
+  split_tf32(c[3], hi[3], lo[3]);
+}
+
 // ------------------------------------------------------------- B2, f32
 
-constexpr int kFK2 = 32;  // keys per block (4 threads per key)
-constexpr int kFQ2 = 16;  // q rows per inner tile
-
 template <int D>
-constexpr size_t kv_f32_smem() {
-  return sizeof(float) * (2 * kFK2 * (D + 1) + 2 * kFQ2 * (D + 1) +
-                          2 * kFK2 * (kFQ2 + 1) + 2 * kFQ2);
-}
+struct KvF32 {
+  static constexpr int KEYS = 64;                // keys per block, 16 a warp
+  static constexpr int BQ = D == 128 ? 16 : 32;  // q rows per streamed tile
+  static constexpr int LD = F32Rows<D>::LD;
+  static constexpr int STAGE = 2 * BQ * LD + 2 * BQ;  // floats: Q, G, lse, delta
+  static constexpr size_t SMEM = sizeof(float) * (2 * KEYS * LD + kStages * STAGE);
+};
 
 template <int D>
 __global__ void __launch_bounds__(128) bwd_kv_f32_kernel(
@@ -500,117 +629,178 @@ __global__ void __launch_bounds__(128) bwd_kv_f32_kernel(
     const float* __restrict__ delta, float* __restrict__ dk,
     float* __restrict__ dv, float* __restrict__ dbias, int NH, int Sq, int Sk,
     float scale, int causal) {
-  constexpr int DP = D / 4;  // dims per thread
-  constexpr int P1 = D + 1;
-  constexpr int SP = kFQ2 + 1;
+  using L = KvF32<D>;
+  constexpr int KEYS = L::KEYS, BQ = L::BQ, LD = L::LD;
+  constexpr int NQ = BQ / 8;  // n8 tiles of S^T / dP^T = k8 steps of dV / dK
+  constexpr int ND = D / 8;   // k8 steps of S^T / dP^T = n8 tiles of dV / dK
   extern __shared__ __align__(16) unsigned char smem[];
-  float* Ks = reinterpret_cast<float*>(smem);  // [kFK2][P1]
-  float* Vs = Ks + kFK2 * P1;                  // [kFK2][P1]
-  float* Qs = Vs + kFK2 * P1;                  // [kFQ2][P1]
-  float* Gs = Qs + kFQ2 * P1;                  // [kFQ2][P1]
-  float* Ps = Gs + kFQ2 * P1;                  // [kFK2][SP]
-  float* Ss = Ps + kFK2 * SP;                  // [kFK2][SP]
-  float* Ls = Ss + kFK2 * SP;                  // [kFQ2]
-  float* Ds = Ls + kFQ2;                       // [kFQ2]
+  float* Ks = reinterpret_cast<float*>(smem);  // [KEYS][LD]
+  float* Vs = Ks + KEYS * LD;                  // [KEYS][LD]
+  float* ring = Vs + KEYS * LD;                // per stage: Q, G [BQ][LD], lse, delta [BQ]
 
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, row = tid >> 2, part = tid & 3;
-  const int k0 = blockIdx.x * kFK2;
-  const int key = k0 + row;
+  // the key tile is the grid's slowest index: tile 0, the longest walk
+  // under causal, is dispatched first
+  const int h = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int gr = (tid & 31) >> 2, t = tid & 3;
+  const int k0 = kt * KEYS;
   const size_t bh = (size_t)b * NH + h;
   const float* qb = q + bh * Sq * D;
   const float* gb = g + bh * Sq * D;
-  const float* kb = k + bh * Sk * D;
-  const float* vb = v + bh * Sk * D;
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  // causal: q tiles wholly above the diagonal (every q row < k0) are skipped
+  const int qt0 = causal ? min(k0 / BQ, n_qt) : 0;
+  const int n_it = n_qt - qt0;
 
-  for (int i = tid; i < kFK2 * D; i += 128) {
-    const int r = i / D, c = i % D;
-    const bool in = k0 + r < Sk;
-    Ks[r * P1 + c] = in ? kb[(size_t)(k0 + r) * D + c] : 0.f;
-    Vs[r * P1 + c] = in ? vb[(size_t)(k0 + r) * D + c] : 0.f;
+  auto stage_q = [&](int it) {  // q tile qt0 + it into its stage, all threads
+    float* st = ring + (it % kStages) * L::STAGE;
+    const int q0 = (qt0 + it) * BQ;
+    stage_rows<D, BQ>(st, qb, q0, Sq);
+    stage_rows<D, BQ>(st + BQ * LD, gb, q0, Sq);
+    if (tid < 2 * BQ) {  // lse then delta
+      const float* src = (tid < BQ ? lse : delta) + bh * Sq;
+      const int r = q0 + tid % BQ;
+      cp_async4(st + 2 * BQ * LD + tid, r < Sq ? src + r : src, r < Sq);
+    }
+  };
+
+  if (n_it > 0) {
+    stage_rows<D, KEYS>(Ks, k + bh * Sk * D, k0, Sk);
+    stage_rows<D, KEYS>(Vs, v + bh * Sk * D, k0, Sk);
+    stage_q(0);
   }
-  const float bias_k = key < Sk ? bias[(size_t)b * Sk + key] : 0.f;
+  cp_async_commit();
 
-  float dka[DP], dva[DP];
+  const int key0 = k0 + warp * 16 + gr, key1 = key0 + 8;
+  const float bias0 = key0 < Sk ? bias[(size_t)b * Sk + key0] : 0.f;
+  const float bias1 = key1 < Sk ? bias[(size_t)b * Sk + key1] : 0.f;
+  const float* Kw = Ks + warp * 16 * LD;  // this warp's 16 keys
+  const float* Vw = Vs + warp * 16 * LD;
+
+  float dka[ND][4], dva[ND][4];
 #pragma unroll
-  for (int i = 0; i < DP; ++i) dka[i] = dva[i] = 0.f;
-  float dbp = 0.f;
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  float dbp[2] = {0.f, 0.f};
 
-  const int n_qt = (Sq + kFQ2 - 1) / kFQ2;
-  const int qt0 = causal ? min(k0 / kFQ2, n_qt) : 0;
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * kFQ2;
+  for (int it = 0; it < n_it; ++it) {
+    if (it + 1 < n_it) stage_q(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // every group but the one just committed has landed
     __syncthreads();
-    for (int i = tid; i < kFQ2 * D; i += 128) {
-      const int r = i / D, c = i % D;
-      const bool in = q0 + r < Sq;
-      Qs[r * P1 + c] = in ? qb[(size_t)(q0 + r) * D + c] : 0.f;
-      Gs[r * P1 + c] = in ? gb[(size_t)(q0 + r) * D + c] : 0.f;
-    }
-    if (tid < kFQ2) {
-      const bool in = q0 + tid < Sq;
-      Ls[tid] = in ? lse[bh * Sq + q0 + tid] : 0.f;
-      Ds[tid] = in ? delta[bh * Sq + q0 + tid] : 0.f;
-    }
-    __syncthreads();
+    const float* Qs = ring + (it % kStages) * L::STAGE;
+    const float* Gs = Qs + BQ * LD;
+    const float* Lq = Gs + BQ * LD;
+    const float* Dq = Lq + BQ;
+    const int q0 = (qt0 + it) * BQ;
 
-    // each of the key's 4 threads scores 4 of the tile's 16 q rows
+    // S^T = K Q^T and dP^T = V G^T: the warp's 16 keys x BQ q rows
+    float st[NQ][4], dpt[NQ][4];
 #pragma unroll
-    for (int ii = 0; ii < kFQ2 / 4; ++ii) {
-      const int i = ii * 4 + part;
-      const int qi = q0 + i;
-      float qk = 0.f, gv = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        qk = fmaf(Ks[row * P1 + d], Qs[i * P1 + d], qk);
-        gv = fmaf(Vs[row * P1 + d], Gs[i * P1 + d], gv);
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {
+      uint32_t kh[4], kl[4], vh[4], vl[4];
+      a_frag<LD>(Kw, 8 * kk, kh, kl);
+      a_frag<LD>(Vw, 8 * kk, vh, vl);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        uint32_t bh2[2], bl2[2];
+        b_frag_k<LD>(Qs + 8 * n * LD, 8 * kk, bh2, bl2);
+        mma_3xtf32(st[n], kh, kl, bh2, bl2);
+        b_frag_k<LD>(Gs + 8 * n * LD, 8 * kk, bh2, bl2);
+        mma_3xtf32(dpt[n], vh, vl, bh2, bl2);
       }
-      float p = 0.f;
-      if (key < Sk && qi < Sq)
-        p = expf(s_minus_lse(qk, scale, bias_k, causal && key > qi, Ls[i]));
-      const float ds = p * (gv - Ds[i]);
-      dbp += ds;
-      Ps[row * SP + i] = p;
-      Ss[row * SP + i] = ds;
     }
-    __syncwarp();  // a key's 4 threads share one warp
 
-#pragma unroll 4
-    for (int i = 0; i < kFQ2; ++i) {
-      const float p = Ps[row * SP + i], ds = Ss[row * SP + i];
+    // p^T and dS^T in place; the per-key dbias takes dS. A tile whose keys
+    // and q rows are all real and wholly on or below the causal diagonal
+    // skips the per-element tests (`checked` false).
+    auto p_ds = [&](auto checked) {
+      constexpr bool kChecked = decltype(checked)::value;
 #pragma unroll
-      for (int jj = 0; jj < DP; ++jj) {
-        const int d = part + 4 * jj;
-        dva[jj] = fmaf(p, Gs[i * P1 + d], dva[jj]);
-        dka[jj] = fmaf(ds, Qs[i * P1 + d], dka[jj]);
+      for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = 8 * n + 2 * t + (e & 1);
+          const int qi = q0 + qc;
+          const int key = e < 2 ? key0 : key1;
+          float p = 0.f;
+          if (!kChecked || (key < Sk && qi < Sq))
+            p = expf(s_minus_lse(st[n][e], scale, e < 2 ? bias0 : bias1,
+                                 kChecked && causal && key > qi, Lq[qc]));
+          const float ds = p * (dpt[n][e] - Dq[qc]);
+          dbp[e >> 1] += ds;
+          st[n][e] = p;
+          dpt[n][e] = ds;
+        }
       }
+    };
+    if (k0 + KEYS <= Sk && q0 + BQ <= Sq && (!causal || k0 + KEYS - 1 <= q0))
+      p_ds(std::false_type());
+    else
+      p_ds(std::true_type());
+
+    // dV += P^T G, dK += dS^T Q: A from the registers just formed, B = G /
+    // Q read MN-major in the same k order
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+      c_frag(st[j], ph, pl);
+      c_frag(dpt[j], sh, sl);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        uint32_t bh2[2], bl2[2];
+        b_frag_mn<LD>(Gs + 8 * j * LD, 8 * n, bh2, bl2);
+        mma_3xtf32(dva[n], ph, pl, bh2, bl2);
+        b_frag_mn<LD>(Qs + 8 * j * LD, 8 * n, bh2, bl2);
+        mma_3xtf32(dka[n], sh, sl, bh2, bl2);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage: it may be refilled
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    dbp[i] += __shfl_xor_sync(0xffffffffu, dbp[i], 1);
+    dbp[i] += __shfl_xor_sync(0xffffffffu, dbp[i], 2);
+  }
+  float* dkb = dk + bh * Sk * D;
+  float* dvb = dv + bh * Sk * D;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int c = 8 * n + 2 * t;
+    if (key0 < Sk) {
+      *reinterpret_cast<float2*>(dkb + (size_t)key0 * D + c) =
+          make_float2(dka[n][0] * scale, dka[n][1] * scale);
+      *reinterpret_cast<float2*>(dvb + (size_t)key0 * D + c) = make_float2(dva[n][0], dva[n][1]);
+    }
+    if (key1 < Sk) {
+      *reinterpret_cast<float2*>(dkb + (size_t)key1 * D + c) =
+          make_float2(dka[n][2] * scale, dka[n][3] * scale);
+      *reinterpret_cast<float2*>(dvb + (size_t)key1 * D + c) = make_float2(dva[n][2], dva[n][3]);
     }
   }
-
-  dbp += __shfl_xor_sync(0xffffffffu, dbp, 1);
-  dbp += __shfl_xor_sync(0xffffffffu, dbp, 2);
-  if (key < Sk) {
-    float* dkrow = dk + (bh * Sk + key) * D;
-    float* dvrow = dv + (bh * Sk + key) * D;
-#pragma unroll
-    for (int jj = 0; jj < DP; ++jj) {
-      dkrow[part + 4 * jj] = dka[jj] * scale;
-      dvrow[part + 4 * jj] = dva[jj];
-    }
-    if (part == 0) dbias[bh * Sk + key] = dbp;
+  if (t == 0) {
+    if (key0 < Sk) dbias[bh * Sk + key0] = dbp[0];
+    if (key1 < Sk) dbias[bh * Sk + key1] = dbp[1];
   }
 }
 
 // ------------------------------------------------------------- B3, f32
 
-constexpr int kFQ3 = 32;  // q rows per block (4 threads per row)
-constexpr int kFK3 = 16;  // keys per inner tile
-
 template <int D>
-constexpr size_t q_f32_smem() {
-  return sizeof(float) * (2 * kFQ3 * (D + 1) + 2 * kFK3 * (D + 1) +
-                          kFQ3 * (kFK3 + 1) + kFK3);
-}
+struct QF32 {
+  static constexpr int ROWS = 64;                // q rows per block, 16 a warp
+  static constexpr int BK = 32;                  // keys per streamed tile
+  static constexpr int LD = F32Rows<D>::LD;
+  static constexpr int STAGE = 2 * BK * LD + BK;  // floats: K, V, bias
+  static constexpr size_t SMEM = sizeof(float) * (2 * ROWS * LD + kStages * STAGE);
+};
 
 template <int D>
 __global__ void __launch_bounds__(128) bwd_q_f32_kernel(
@@ -619,87 +809,140 @@ __global__ void __launch_bounds__(128) bwd_q_f32_kernel(
     const float* __restrict__ g, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dq, int NH, int Sq,
     int Sk, float scale, int causal) {
-  constexpr int DP = D / 4;
-  constexpr int P1 = D + 1;
-  constexpr int SP = kFK3 + 1;
+  using L = QF32<D>;
+  constexpr int ROWS = L::ROWS, BK = L::BK, LD = L::LD;
+  constexpr int NK = BK / 8;  // n8 tiles of S / dP = k8 steps of dQ
+  constexpr int ND = D / 8;   // k8 steps of S / dP = n8 tiles of dQ
   extern __shared__ __align__(16) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);  // [kFQ3][P1]
-  float* Gs = Qs + kFQ3 * P1;                  // [kFQ3][P1]
-  float* Ks = Gs + kFQ3 * P1;                  // [kFK3][P1]
-  float* Vs = Ks + kFK3 * P1;                  // [kFK3][P1]
-  float* Ss = Vs + kFK3 * P1;                  // [kFQ3][SP]
-  float* Bs = Ss + kFQ3 * SP;                  // [kFK3]
+  float* Qs = reinterpret_cast<float*>(smem);  // [ROWS][LD]
+  float* Gs = Qs + ROWS * LD;                  // [ROWS][LD]
+  float* ring = Gs + ROWS * LD;                // per stage: K, V [BK][LD], bias [BK]
 
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, row = tid >> 2, part = tid & 3;
-  const int q0 = blockIdx.x * kFQ3;
-  const int qi = q0 + row;
+  // the q tile is the grid's slowest index, last tile first: the longest
+  // walk under causal is dispatched first
+  const int h = blockIdx.x, b = blockIdx.y, qt = gridDim.z - 1 - blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int gr = (tid & 31) >> 2, t = tid & 3;
+  const int q0 = qt * ROWS;
   const size_t bh = (size_t)b * NH + h;
-  const float* qb = q + bh * Sq * D;
-  const float* gb = g + bh * Sq * D;
   const float* kb = k + bh * Sk * D;
   const float* vb = v + bh * Sk * D;
   const float* bb = bias + (size_t)b * Sk;
+  int n_kv = (Sk + BK - 1) / BK;
+  // causal: kv tiles wholly right of the diagonal (every key > the last row)
+  if (causal) n_kv = min(n_kv, (min(q0 + ROWS, Sq) - 1) / BK + 1);
 
-  for (int i = tid; i < kFQ3 * D; i += 128) {
-    const int r = i / D, c = i % D;
-    const bool in = q0 + r < Sq;
-    Qs[r * P1 + c] = in ? qb[(size_t)(q0 + r) * D + c] : 0.f;
-    Gs[r * P1 + c] = in ? gb[(size_t)(q0 + r) * D + c] : 0.f;
-  }
-  const float lse_r = qi < Sq ? lse[bh * Sq + qi] : 0.f;
-  const float del_r = qi < Sq ? delta[bh * Sq + qi] : 0.f;
-
-  float dqa[DP];
-#pragma unroll
-  for (int i = 0; i < DP; ++i) dqa[i] = 0.f;
-
-  int n_kv = (Sk + kFK3 - 1) / kFK3;
-  if (causal) n_kv = min(n_kv, (min(q0 + kFQ3, Sq) - 1) / kFK3 + 1);
-
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * kFK3;
-    __syncthreads();
-    for (int i = tid; i < kFK3 * D; i += 128) {
-      const int r = i / D, c = i % D;
-      const bool in = k0 + r < Sk;
-      Ks[r * P1 + c] = in ? kb[(size_t)(k0 + r) * D + c] : 0.f;
-      Vs[r * P1 + c] = in ? vb[(size_t)(k0 + r) * D + c] : 0.f;
+  auto stage_kv = [&](int it) {  // kv tile it into its stage, all threads
+    float* st = ring + (it % kStages) * L::STAGE;
+    const int kt0 = it * BK;
+    stage_rows<D, BK>(st, kb, kt0, Sk);
+    stage_rows<D, BK>(st + BK * LD, vb, kt0, Sk);
+    if (tid < BK) {
+      const int key = kt0 + tid;
+      cp_async4(st + 2 * BK * LD + tid, key < Sk ? bb + key : bb, key < Sk);
     }
-    if (tid < kFK3) Bs[tid] = k0 + tid < Sk ? bb[k0 + tid] : 0.f;
-    __syncthreads();
+  };
 
-    // each of the row's 4 threads scores 4 of the tile's 16 keys
+  stage_rows<D, ROWS>(Qs, q + bh * Sq * D, q0, Sq);
+  stage_rows<D, ROWS>(Gs, g + bh * Sq * D, q0, Sq);
+  stage_kv(0);
+  cp_async_commit();
+
+  const int r0 = q0 + warp * 16 + gr, r1 = r0 + 8;
+  const float lse0 = r0 < Sq ? lse[bh * Sq + r0] : 0.f;
+  const float lse1 = r1 < Sq ? lse[bh * Sq + r1] : 0.f;
+  const float del0 = r0 < Sq ? delta[bh * Sq + r0] : 0.f;
+  const float del1 = r1 < Sq ? delta[bh * Sq + r1] : 0.f;
+  const float* Qw = Qs + warp * 16 * LD;  // this warp's 16 rows
+  const float* Gw = Gs + warp * 16 * LD;
+
+  float dqa[ND][4];
 #pragma unroll
-    for (int jj = 0; jj < kFK3 / 4; ++jj) {
-      const int j = jj * 4 + part;
-      const int key = k0 + j;
-      float qk = 0.f, gv = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        qk = fmaf(Qs[row * P1 + d], Ks[j * P1 + d], qk);
-        gv = fmaf(Gs[row * P1 + d], Vs[j * P1 + d], gv);
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+
+  for (int it = 0; it < n_kv; ++it) {
+    if (it + 1 < n_kv) stage_kv(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* Ks = ring + (it % kStages) * L::STAGE;
+    const float* Vs = Ks + BK * LD;
+    const float* Bk = Vs + BK * LD;
+    const int kt0 = it * BK;
+
+    // S = Q K^T and dP = G V^T: the warp's 16 rows x BK keys
+    float sc[NK][4], dp[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {
+      uint32_t qh[4], ql[4], gh[4], gl[4];
+      a_frag<LD>(Qw, 8 * kk, qh, ql);
+      a_frag<LD>(Gw, 8 * kk, gh, gl);
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        uint32_t bh2[2], bl2[2];
+        b_frag_k<LD>(Ks + 8 * n * LD, 8 * kk, bh2, bl2);
+        mma_3xtf32(sc[n], qh, ql, bh2, bl2);
+        b_frag_k<LD>(Vs + 8 * n * LD, 8 * kk, bh2, bl2);
+        mma_3xtf32(dp[n], gh, gl, bh2, bl2);
       }
-      float p = 0.f;
-      if (key < Sk && qi < Sq)
-        p = expf(s_minus_lse(qk, scale, Bs[j], causal && key > qi, lse_r));
-      Ss[row * SP + j] = p * (gv - del_r);
     }
-    __syncwarp();
 
-#pragma unroll 4
-    for (int j = 0; j < kFK3; ++j) {
-      const float ds = Ss[row * SP + j];
+    // dS in place of s; a tile of real keys and rows wholly on or below the
+    // causal diagonal skips the per-element tests, as in B2
+    auto ds = [&](auto checked) {
+      constexpr bool kChecked = decltype(checked)::value;
 #pragma unroll
-      for (int ii = 0; ii < DP; ++ii)
-        dqa[ii] = fmaf(ds, Ks[j * P1 + part + 4 * ii], dqa[ii]);
+      for (int n = 0; n < NK; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 8 * n + 2 * t + (e & 1);
+          const int key = kt0 + j;
+          const int row = e < 2 ? r0 : r1;
+          float p = 0.f;
+          if (!kChecked || (key < Sk && row < Sq))
+            p = expf(s_minus_lse(sc[n][e], scale, Bk[j], kChecked && causal && key > row,
+                                 e < 2 ? lse0 : lse1));
+          sc[n][e] = p * (dp[n][e] - (e < 2 ? del0 : del1));
+        }
+      }
+    };
+    if (kt0 + BK <= Sk && q0 + ROWS <= Sq && (!causal || kt0 + BK - 1 <= q0))
+      ds(std::false_type());
+    else
+      ds(std::true_type());
+
+    // dQ += dS K: A from the registers just formed, B = K read MN-major
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      uint32_t sh[4], sl[4];
+      c_frag(sc[j], sh, sl);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        uint32_t bh2[2], bl2[2];
+        b_frag_mn<LD>(Ks + 8 * j * LD, 8 * n, bh2, bl2);
+        mma_3xtf32(dqa[n], sh, sl, bh2, bl2);
+      }
     }
+    __syncthreads();  // every warp is done with this stage: it may be refilled
   }
+  cp_async_wait<0>();
 
-  if (qi < Sq) {
-    float* dqrow = dq + (bh * Sq + qi) * D;
+  float* dqb = dq + bh * Sq * D;
 #pragma unroll
-    for (int ii = 0; ii < DP; ++ii) dqrow[part + 4 * ii] = dqa[ii] * scale;
+  for (int n = 0; n < ND; ++n) {
+    const int c = 8 * n + 2 * t;
+    if (r0 < Sq)
+      *reinterpret_cast<float2*>(dqb + (size_t)r0 * D + c) =
+          make_float2(dqa[n][0] * scale, dqa[n][1] * scale);
+    if (r1 < Sq)
+      *reinterpret_cast<float2*>(dqb + (size_t)r1 * D + c) =
+          make_float2(dqa[n][2] * scale, dqa[n][3] * scale);
   }
 }
 
@@ -752,9 +995,12 @@ int bwd_kv(const void* q, const void* k, const void* v, const void* bias,
   auto dbp = static_cast<float*>(dbias);
   if (is_bf16)
     return kv_bf16<D>(q, k, v, bp, g, lp, dp, dk, dv, dbp, B, NH, Sq, Sk, causal, scale, st);
-  static const cudaError_t attr = allow_smem(bwd_kv_f32_kernel<D>, kv_f32_smem<D>());
-  return launch(bwd_kv_f32_kernel<D>, attr, dim3((Sk + kFK2 - 1) / kFK2, NH, B),
-                kv_f32_smem<D>(), st, static_cast<const float*>(q),
+  using L = KvF32<D>;
+  static const cudaError_t attr = allow_smem(bwd_kv_f32_kernel<D>, L::SMEM);
+  const int tiles = (Sk + L::KEYS - 1) / L::KEYS;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;  // the grid's z limit
+  return launch(bwd_kv_f32_kernel<D>, attr, dim3(NH, B, tiles),
+                L::SMEM, st, static_cast<const float*>(q),
                 static_cast<const float*>(k), static_cast<const float*>(v), bp,
                 static_cast<const float*>(g), lp, dp, static_cast<float*>(dk),
                 static_cast<float*>(dv), dbp, NH, Sq, Sk, scale, causal);
@@ -770,9 +1016,12 @@ int bwd_q(const void* q, const void* k, const void* v, const void* bias,
   auto dp = static_cast<const float*>(delta);
   if (is_bf16)
     return q_bf16<D>(q, k, v, bp, g, lp, dp, dq, B, NH, Sq, Sk, causal, scale, st);
-  static const cudaError_t attr = allow_smem(bwd_q_f32_kernel<D>, q_f32_smem<D>());
-  return launch(bwd_q_f32_kernel<D>, attr, dim3((Sq + kFQ3 - 1) / kFQ3, NH, B),
-                q_f32_smem<D>(), st, static_cast<const float*>(q),
+  using L = QF32<D>;
+  static const cudaError_t attr = allow_smem(bwd_q_f32_kernel<D>, L::SMEM);
+  const int tiles = (Sq + L::ROWS - 1) / L::ROWS;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;  // the grid's z limit
+  return launch(bwd_q_f32_kernel<D>, attr, dim3(NH, B, tiles),
+                L::SMEM, st, static_cast<const float*>(q),
                 static_cast<const float*>(k), static_cast<const float*>(v), bp,
                 static_cast<const float*>(g), lp, dp, static_cast<float*>(dq),
                 NH, Sq, Sk, scale, causal);

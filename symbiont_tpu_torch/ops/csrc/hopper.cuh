@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
 // (flash_attn_fwd.cu: B1; flash_attn_bwd.cu: B2, B3): mbarriers, TMA
 // copies, warpgroup MMA (wgmma) and its shared-memory descriptors for the
-// swizzled tiles TMA writes, and the host side that encodes the tensor maps
-// and opts a kernel into large dynamic shared memory.
+// swizzled tiles TMA writes; float32 products on the tensor cores as
+// 3xTF32 mma.sync, with cp.async staging; and the host side that encodes
+// the tensor maps and opts a kernel into large dynamic shared memory.
 //
 // Each .cu file includes this header into its own translation unit; every
 // name here has internal linkage, so the two objects link without clashes.
@@ -193,6 +194,70 @@ struct Wgmma<64> {
 };
 
 #undef SYM_D8
+
+// ------------------------------------------- float32 on the tensor cores
+
+// 3xTF32: a float32 operand x is split into hi = tf32(x) and lo =
+// tf32(x - hi), both rounded to nearest with ties away (cvt.rna), and a
+// product is taken as lo·hi + hi·lo + hi·hi on the TF32 tensor cores,
+// accumulated in float32. Only the lo·lo term (under 2^-22 of |a|·|b|) is
+// dropped, so the result stays near float32, where one TF32 product keeps
+// 11 bits.
+//
+// The split is done on the integer view: adding half a tf32 ulp (bit 12)
+// and clearing the 13 bits below the tf32 mantissa rounds the magnitude
+// half away from zero, cvt.rna.tf32.f32 for every finite x below the
+// largest tf32. lo is left unmasked: an MMA reads only the top 19 bits of
+// a tf32 operand, so lo's bits plus half an ulp read as lo rounded the same
+// way (CUTLASS's round_half_ulp_truncate). cvt.rna.tf32.f32 itself lowers
+// on sm_90 to a longer compare-and-select sequence around NaN, and the
+// split runs for every fragment element these kernels load.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi))) + 0x1000u;
+}
+
+// mma.sync m16n8k8, tf32 x tf32 -> f32, accumulating into c. Fragments
+// (g = lane / 4, t = lane % 4): A a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4); B b0 (k t, n g), b1 (k t + 4, n g); C c0..c1 (g,
+// 2t..2t + 1), c2..c3 (g + 8, 2t..2t + 1).
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a·b in 3xTF32, the small terms first (as CUTLASS's fast-f32 MMA).
+__device__ __forceinline__ void mma_3xtf32(float c[4], const uint32_t ah[4],
+                                           const uint32_t al[4], const uint32_t bh[2],
+                                           const uint32_t bl[2]) {
+  mma_tf32(c, al, bh);
+  mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+}
+
+// cp.async of 16 (4) bytes into shared memory; `valid` false zero-fills
+// the destination and reads nothing (src must still be a mapped address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // A bf16 tile of `rows` x D in shared memory, as TMA writes it: D / PW
 // panels of PW columns, each panel row-major (PW * 2 bytes a row) with the

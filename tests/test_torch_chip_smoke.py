@@ -29,6 +29,21 @@ def test_backward_bounds_count_flops_and_bytes():
     out_kv = 2 * 32 * 12 * 64 * 64 * 2 + 32 * 12 * 64 * 4
     assert small["kv"] == (pytest.approx((ins + out_kv) / 3.35e12 * 1e3), "bytes")
     assert small["q"][1] == "bytes"
+    # float32 at the 3xTF32 rate, 495 / 3 TFLOP/s: GPT-2's causal training
+    # shape is bound by operations there, and lines name that rate
+    f = _meta(8, 12, 1024, 64, torch.float32)
+    b = chip_smoke._bwd_bound_ms(f, f, causal=True)
+    pairs = 1024 * 1025 // 2
+    assert b["kv"] == (pytest.approx(8 * 8 * 12 * pairs * 64 / 165e12 * 1e3), "operations")
+    assert b["q"] == (pytest.approx(6 * 8 * 12 * pairs * 64 / 165e12 * 1e3), "operations")
+    assert (round(b["kv"][0], 4), round(b["q"][0], 4)) == (0.1563, 0.1172)
+    assert chip_smoke._bound_name(b["kv"][1], torch.float32) == "operations (3xTF32)"
+    assert chip_smoke._bound_name("operations", torch.bfloat16) == "operations"
+    assert chip_smoke._bound_name("bytes", torch.float32) == "bytes"
+    f = _meta(8, 12, 64, 64, torch.float32)
+    ins = 4 * 8 * 12 * 64 * 64 * 4 + 8 * 64 * 4 + 2 * 8 * 12 * 64 * 4
+    assert chip_smoke._bwd_bound_ms(f, f, causal=True)["q"] == (
+        pytest.approx((ins + 8 * 12 * 64 * 64 * 4) / 3.35e12 * 1e3), "bytes")
 
 
 def test_causal_backward_bound_counts_the_visible_half():
@@ -145,6 +160,12 @@ def test_hgmma_counts_per_function():
                                              "bwd_kv_bf16_kernel<64>": 1,
                                              "bwd_q_f32_kernel<64>": 0,
                                              "flash_fwd_bf16_kernel<64>": 4}
+    # HMMA (mma.sync) is counted apart from HGMMA
+    sass = SASS.replace("FFMA R3, R4, R5, R3", "HMMA.1684.F32.TF32 R8, R12, R16, R8")
+    assert chip_smoke.hgmma_counts(sass, "HMMA") == {"bwd_q_bf16_kernel<64>": 0,
+                                                     "bwd_kv_bf16_kernel<64>": 0,
+                                                     "bwd_q_f32_kernel<64>": 1,
+                                                     "flash_fwd_bf16_kernel<64>": 0}
 
 
 KERNELS = ("flash_fwd", "bwd_kv", "bwd_q")
@@ -181,6 +202,37 @@ def test_backward_instances_pass_and_fail():
     with pytest.raises(RuntimeError, match="bwd_q_bf16_kernel<64> spills"):
         ptxas = dict(_instances()[0], **chip_smoke.ptxas_report(PTXAS))
         chip_smoke.wgmma_instances(ptxas, dict(_instances()[1], **chip_smoke.hgmma_counts(SASS)))
+    # the f32 instances are held by their own check: HMMA, no spills
+    rows = chip_smoke.f32_backward_instances(*_f32_instances())
+    assert list(rows) == [f"{k}_f32_kernel<{d}>" for k in bwd for d in (32, 64, 128)]
+    assert rows["bwd_kv_f32_kernel<64>"] == {"registers": 192, "spill_stores": 0,
+                                             "spill_loads": 0, "hmma": 96}
+    with pytest.raises(RuntimeError, match=r"bwd_kv_f32_kernel<32> spills"):
+        chip_smoke.f32_backward_instances(*_f32_instances(spill=4))
+    with pytest.raises(RuntimeError, match=r"bwd_kv_f32_kernel<32> has no HMMA"):
+        chip_smoke.f32_backward_instances(*_f32_instances(hmma=0))
+    with pytest.raises(RuntimeError, match=r"missing: \[\('bwd_kv', '128'\)"):
+        chip_smoke.f32_backward_instances(*_f32_instances(dims=(32, 64)))
+    # the captured sample's scalar f32 instance: FFMA only, no HMMA
+    ptxas, counts = _f32_instances()
+    ptxas["bwd_q_f32_kernel<64>"] = dict(chip_smoke.ptxas_report(PTXAS)["bwd_q_f32_kernel<64>"],
+                                         spill_stores=0, spill_loads=0)
+    counts["bwd_q_f32_kernel<64>"] = chip_smoke.hgmma_counts(SASS, "HMMA")["bwd_q_f32_kernel<64>"]
+    with pytest.raises(RuntimeError, match=r"bwd_q_f32_kernel<64> has no HMMA"):
+        chip_smoke.f32_backward_instances(ptxas, counts)
+
+
+def _f32_instances(spill=0, hmma=96, dims=(32, 64, 128)):
+    """Reports of the f32 B2 instances with `spill`, `hmma` and `dims`, and
+    clean B3 instances at every dim."""
+    ptxas, counts = {}, {}
+    for k in ("bwd_kv", "bwd_q"):
+        for d in dims if k == "bwd_kv" else (32, 64, 128):
+            name = f"{k}_f32_kernel<{d}>"
+            ptxas[name] = {"registers": 192, "spill_stores": spill if k == "bwd_kv" else 0,
+                           "spill_loads": 0}
+            counts[name] = hmma if k == "bwd_kv" else 96
+    return ptxas, counts
 
 
 def test_forward_instance_read_from_the_captured_samples():
@@ -499,6 +551,10 @@ def test_causal_gqa_bound_counts_the_visible_half_and_kv_heads():
     # q and o at 32 heads, k and v at 4, bias and lse in float32
     nbytes = 2 * 8 * 32 * 256 * 64 * 2 + 2 * 8 * 4 * 256 * 64 * 2 + 8 * 256 * 4 + 8 * 32 * 256 * 4
     assert (ms, by) == (pytest.approx(nbytes / 3.35e12 * 1e3), "bytes")
+    # float32 counts its flops at the 3xTF32 rate (495 / 3 TFLOP/s)
+    f32 = [torch.empty((8, nh, 1024, 64), device="meta") for nh in (32, 4, 4)]
+    ms, by = chip_smoke._bound_ms(*f32, bias, causal=True)
+    assert (ms, by) == (pytest.approx(2 * 8 * 32 * 1024 * 1025 * 64 / 165e12 * 1e3), "operations")
 
 
 def test_real_rows_comparison_skips_padding_queries():
@@ -572,13 +628,13 @@ def test_a_failing_generate_check_fails_the_run(monkeypatch, capsys):
 TINY_SESSION = dict(stream_bucket=(16, 32), new=16, chunk=4, session_bucket=(8, 16),
                     gpt2_bucket=(8, 16), batcher_bucket=(8, 16),
                     first_wave=(6, 8, 10, 12, 14, 16, 16, 16),
-                    later_waves=(4, 4, 4, 4, 16, 12, 8, 4), wave_gap_s=0.0)
+                    later_waves=(4, 4, 4, 4, 16, 12, 8, 4))
 
 
-def test_session_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
-    """[session] end to end on the CPU at tiny geometries, with every check
-    it makes on the card. The CPU path launches no kernel, so the plain
-    forwards of B1 are counted as its launches."""
+def _rehearse_session(tmp_path, monkeypatch) -> dict:
+    """`session_phase` on the CPU at tiny geometries from checkpoints
+    written here; the CPU path launches no kernel, so the plain forwards of
+    B1 are counted as its launches."""
     from symbiont_tpu_torch.models import gpt as gpt_mod
     from symbiont_tpu_torch.ops import flash_attention as fa
 
@@ -594,9 +650,15 @@ def test_session_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
         return forward(*a, **kw)
 
     monkeypatch.setattr(fa, "_forward", counted)
-    out = chip_smoke.session_phase(
+    return chip_smoke.session_phase(
         np.random.default_rng(0), tmp_path, sizes=TINY_SESSION, device="cpu",
         lm_kw=dict(force_cpu=True, prompt_buckets=[8, 16, 32], new_token_buckets=[4, 16]))
+
+
+def test_session_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """[session] end to end on the CPU at tiny geometries, with every check
+    it makes on the card."""
+    out = _rehearse_session(tmp_path, monkeypatch)
     printed = capsys.readouterr().out
     # B1 against plain at 3 TinyLlama shapes, 4 batcher row counts and 2
     # GPT-2 shapes; the stream, batcher, session, bytes, profiler and GPT-2
@@ -610,6 +672,29 @@ def test_session_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
     # start and its admission, the profiled session; GPT-2's start and
     # admission
     assert out["launches"] % 2 == 0 and out["launches"] >= 2 * (1 + 2 + 2 + 1) + 2 * 2
+
+
+def test_session_batcher_admits_with_a_slow_cold_admission_prefill(tmp_path, monkeypatch):
+    """The `GenBatcher` check of [session] with every cold admission
+    prefill slowed by 0.2 s, tens of CPU decode chunks, as a capture and
+    its cost analysis are slow on the card against a chunk: newcomers still
+    join a running session, since each later wave is sent after a decode
+    chunk and the admission shapes are warmed before the pass. With waves
+    on a fixed clock and no warm-up, this slowing leaves none admitted."""
+    import time
+
+    from symbiont_tpu_torch.engine.lm import BatchSession
+
+    prepare = BatchSession.prepare_admit
+
+    def slowed(self, prompts, *a, **kw):
+        if not self.prefill_warm(len(prompts)):
+            time.sleep(0.2)
+        return prepare(self, prompts, *a, **kw)
+
+    monkeypatch.setattr(BatchSession, "prepare_admit", slowed)
+    out = _rehearse_session(tmp_path, monkeypatch)
+    assert out["batcher"]["admitted_midflight"] > 0 and out["batcher"]["sessions"] >= 2
 
 
 def test_a_failing_session_check_fails_the_run(monkeypatch, capsys):

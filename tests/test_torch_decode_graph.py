@@ -267,7 +267,7 @@ def test_gen_batcher_gives_its_sessions_carriers_back():
     lm = _engine(temperature=0.0, stream_chunk=4)
     wave = [("abc", 8), ("hello there", 12), ("x", 16)]
     for _ in range(2):
-        texts, stats, _ = chip_smoke.serve_batcher(lm, [wave], 4, 0.0)
+        texts, stats, _ = chip_smoke.serve_batcher(lm, [wave], 4)
         assert texts == [lm.generate(p, n, temperature=0.0) for p, n in wave]
     geometry = ("none", 4, P, NEW)
     assert lm.carrier_stats()["by_geometry"][geometry] == 2 and geometry in lm._free_carriers
@@ -365,7 +365,7 @@ def test_graphs_lm_phase_rehearses_on_the_cpu(tmp_path, capsys):
         np.random.default_rng(0), tmp_path, device="cpu", lm_kw=TINY_LM_KW,
         sizes=dict(bucket=(8, 16), rows=4, new=16, chunk=4, gpt2_bucket=(8, 16),
                    batcher=dict(bucket=(8, 16), first_wave=(6, 8, 10, 12), later_waves=(4, 16),
-                                waves=2, wave_gap_s=0.0, max_batch=4)))
+                                waves=2, max_batch=4)))
     printed = capsys.readouterr().out
     assert printed.count("[graphs]") == 3
     assert set(out) == {"none greedy", "none sampled", "int8 greedy", "gpt2", "batcher",
