@@ -16,8 +16,10 @@ any failure exits non-zero:
              kernels fed B1's own lse, length-0 rows and partial tiles
              included (each bf16 B1/B2/B3 instance must report no spills
              from ptxas and contain HGMMA, i.e. wgmma, in its SASS, each
-             f32 B2/B3 instance no spills and HMMA, its 3xTF32 mma.sync;
-             two launches of the f32 B2/B3 must be bit-equal); time each
+             f32 B1/B2/B3 instance no spills and HMMA, its 3xTF32
+             mma.sync; two launches of an f32 kernel must be bit-equal,
+             and f32 B1's lse on a length-0 row equal to the plain
+             version's); time each
              kernel, its plain version and the PyTorch library call for
              the same function (SDPA forward, SDPA backward as forward +
              backward less forward; timed as yardsticks only, never used
@@ -311,7 +313,9 @@ def _bound_ms(q, k, v, bias, causal: bool) -> tuple[float, str]:
 def kernel_phase(timed: bool = True) -> dict:
     """B1 against its plain version at the serve path's shapes and at
     partial, causal, GQA, float32 and D = 32/128 cases; timed at the
-    encoder's shapes beside SDPA's forward and the bound."""
+    encoder's shapes beside SDPA's forward and the bound. Every float32
+    case also holds the length-0 rows' lse equal to the plain version's
+    (B2/B3 rebuild p = 1 there from it) and two launches bit-equal."""
     from symbiont_tpu_torch.ops import _build
     from symbiont_tpu_torch.ops import flash_attention as fa
 
@@ -333,6 +337,14 @@ def kernel_phase(timed: bool = True) -> dict:
     cases += [
         ("f32_odd", 2, 4, 4, 100, 100, 64, f32, False, [100, 0], False),
         ("f32_gqa_causal_d32", 2, 8, 2, 64, 64, 32, f32, True, [64, 20], False),
+        # f32 at D = 128 (smaller key tiles, Q split into shared memory),
+        # Sq != Sk, partial q and key tiles, padding and a length-0 row
+        ("f32_d128_sq_ne_sk", 3, 4, 4, 100, 130, 128, f32, False, [130, 97, 0], False),
+        # f32 causal GQA at ragged S: partial tiles on both axes, a padded
+        # row (key 0 real in both rows, so every causal row sees a real key)
+        ("f32_gqa_causal_d64_ragged", 2, 8, 2, 200, 200, 64, f32, True, [200, 150], False),
+        # f32 at D = 32 over several key tiles, a length-0 row
+        ("f32_d32_multitile", 2, 4, 4, 130, 300, 32, f32, False, [300, 0], False),
         ("bf16_causal", 2, 8, 8, 256, 256, 64, bf16, True, [256, 200], False),
         ("bf16_gqa_sq_ne_sk_d32", 2, 8, 2, 96, 160, 32, bf16, False, [160, 0], False),
         ("bf16_d128_odd", 3, 4, 4, 77, 77, 128, bf16, False, [77, 5, 0], False),
@@ -357,7 +369,8 @@ def kernel_phase(timed: bool = True) -> dict:
         torch.cuda.synchronize()
         ref, ref_lse = fa.flash_attention_reference(q, k, v, bias, causal=causal)
         # bf16: p is rounded to bf16 before PV and o to bf16 at the end, on
-        # both sides at different points; f32: summation order and expf ulps
+        # both sides at different points; f32: summation order, 3xTF32's
+        # dropped lo·lo term and ex2 ulps
         tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
         err = (out.float() - ref.float()).abs()
         max_err = float(err.max())
@@ -366,6 +379,13 @@ def kernel_phase(timed: bool = True) -> dict:
         check(bool(torch.isfinite(out.float()).all()), f"{label}: non-finite output")
         check(within, f"{label}: max |kernel - plain| {max_err:.3g} over tolerance {tol}")
         check(lse_err <= 1e-4, f"{label}: lse relative error {lse_err:.3g} > 1e-4")
+        if dtype == torch.float32:
+            empty = [i for i, n in enumerate(lens) if n == 0]
+            check(torch.equal(lse[empty], ref_lse[empty]),
+                  f"{label}: a length-0 row's lse differs from the plain version's")
+            again, again_lse = fa.flash_attention_with_lse(q, k, v, bias, causal=causal)
+            check(torch.equal(out, again) and torch.equal(lse, again_lse),
+                  f"{label}: two launches differ")
         if label.startswith("grid_"):
             grid_err = max(grid_err, max_err)
             del q, k, v, bias, out, lse, ref, ref_lse
@@ -373,6 +393,9 @@ def kernel_phase(timed: bool = True) -> dict:
         line = (f"[kernels] flash_attn_fwd {label} q{tuple(q.shape)} k{tuple(k.shape)} "
                 f"{str(dtype)[6:]} causal={causal}: max_abs_err {max_err:.4g} "
                 f"(tol {tol} abs + {tol} rel), lse rel err {lse_err:.3g}")
+        if dtype == torch.float32:
+            line += (f", length-0 rows' lse = plain ({len(empty)} of {B}), two launches "
+                     f"bit-equal")
         if is_timed:
             bound, bound_by = _bound_ms(q, k, v, bias, causal)
             def kernel():
@@ -500,7 +523,7 @@ def hgmma_counts(sass: str, op: str = "HGMMA") -> dict:
 
 
 WGMMA_BF16 = re.compile(r"(flash_fwd|bwd_kv|bwd_q)_bf16_kernel<(\d+)>")
-F32_BWD = re.compile(r"(bwd_kv|bwd_q)_f32_kernel<(\d+)>")
+F32_MMA = re.compile(r"(flash_fwd|bwd_kv|bwd_q)_f32_kernel<(\d+)>")
 
 
 def _held_instances(ptxas: dict, counts: dict, pattern, order: tuple, what: str,
@@ -535,36 +558,41 @@ def wgmma_instances(ptxas: dict, hgmma: dict) -> dict:
                            "bf16 kernel instances", "HGMMA")
 
 
-def f32_backward_instances(ptxas: dict, hmma: dict) -> dict:
-    """The float32 instances of B2 (`bwd_kv`) and B3 (`bwd_q`), 3xTF32 on
-    mma.sync, from `ptxas_report` and `hgmma_counts(sass, "HMMA")` →
-    {label: registers, spills, hmma}, by kernel and head dim. Fails as
-    `wgmma_instances` does, with HMMA for HGMMA: without it their products
-    would not be on the tensor cores."""
-    return _held_instances(ptxas, hmma, F32_BWD, ("bwd_kv", "bwd_q"), "f32 backward instances",
-                           "HMMA")
+def f32_instances(ptxas: dict, hmma: dict) -> dict:
+    """The float32 instances of B1 (`flash_fwd`), B2 (`bwd_kv`) and B3
+    (`bwd_q`), 3xTF32 with mma.sync in each (B1's QK^T on wgmma at D <=
+    64), from `ptxas_report` and
+    `hgmma_counts(sass, "HMMA")` → {label: registers, spills, hmma}, by
+    kernel and head dim. Fails as `wgmma_instances` does, with HMMA for
+    HGMMA: without it their products would not be on the tensor cores."""
+    return _held_instances(ptxas, hmma, F32_MMA, ("flash_fwd", "bwd_kv", "bwd_q"),
+                           "f32 kernel instances", "HMMA")
 
 
 @functools.cache
 def build_report() -> dict:
-    """The bf16 B1/B2/B3 instances and the f32 B2/B3 instances as built
-    (ptxas registers and spills from the build log, HGMMA or HMMA count from
-    the library's SASS by `cuobjdump -sass`), checked by `wgmma_instances`
-    and `f32_backward_instances` and printed once."""
+    """The bf16 and the f32 B1/B2/B3 instances as built (ptxas registers
+    and spills from the build log, HGMMA or HMMA count from the library's
+    SASS by `cuobjdump -sass`), checked by `wgmma_instances` and
+    `f32_instances` and printed once."""
     from symbiont_tpu_torch.ops import _build
 
     lib = _build.build()
     sass = subprocess.run([_build.cuobjdump(), "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     ptxas = ptxas_report((_build.build_dir() / "build.log").read_text())
-    rows = wgmma_instances(ptxas, hgmma_counts(sass))
-    f32 = f32_backward_instances(ptxas, hgmma_counts(sass, "HMMA"))
-    for label, got, op in (("bf16 instances", rows, "hgmma"),
-                           ("f32 backward instances (3xTF32 mma.sync)", f32, "hmma")):
+    hgmma = hgmma_counts(sass)
+    rows = wgmma_instances(ptxas, hgmma)
+    f32 = f32_instances(ptxas, hgmma_counts(sass, "HMMA"))
+    for n, r in f32.items():  # B1's QK^T takes wgmma at D <= 64
+        r["hgmma"] = hgmma.get(n, 0)
+    for label, got, ops in (("bf16 instances", rows, ("hgmma",)),
+                            ("f32 instances (3xTF32)", f32, ("hmma", "hgmma"))):
         print(f"[kernels] {label} (ptxas registers, spill bytes stores/loads; "
-              f"{op.upper()} in SASS): " + "; ".join(
+              f"{' and '.join(op.upper() for op in ops)} in SASS): " + "; ".join(
                   f"{n} {r['registers']} regs, spills {r.get('spill_stores', 0)}/"
-                  f"{r.get('spill_loads', 0)}, {r[op]} {op.upper()}" for n, r in got.items()),
+                  f"{r.get('spill_loads', 0)}, "
+                  + ", ".join(f"{r[op]} {op.upper()}" for op in ops) for n, r in got.items()),
               flush=True)
     return {**rows, **f32}
 

@@ -536,80 +536,6 @@ __global__ void __launch_bounds__(128) bwd_q_bf16_kernel(
   }
 }
 
-// ------------------------------------------------- f32 tiles and fragments
-
-// A float32 tile in shared memory: rows of D floats padded to LD = D + 4,
-// so the row stride is 4 banks mod 32 and every fragment load below (A
-// rows g / g + 8 at column t; B rows g at column t; B rows 2t / 2t + 1 at
-// column g) touches 32 distinct banks.
-template <int D>
-struct F32Rows {
-  static constexpr int LD = D + 4;
-  static_assert(D == 32 || D == 64 || D == 128, "head dim 32, 64 or 128");
-};
-
-// Stage rows [row0, row0 + R) of a [S, D] float32 matrix into dst (stride
-// LD) with 16-byte cp.async copies; rows at or past S are zero-filled.
-// All 128 threads take part; the caller commits the group.
-template <int D, int R>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src, int row0, int S) {
-  constexpr int C = D / 4, LD = F32Rows<D>::LD;
-  static_assert(R * C % 128 == 0, "whole passes of the block");
-#pragma unroll
-  for (int j = 0; j < R * C / 128; ++j) {
-    const int i = j * 128 + threadIdx.x, r = i / C, c = i % C;
-    const bool in = row0 + r < S;
-    cp_async16(dst + r * LD + 4 * c, in ? src + (size_t)(row0 + r) * D + 4 * c : src, in);
-  }
-}
-
-// The A fragment (row-major, m16k8) of a warp's 16 rows of `tile` at
-// columns c0..c0 + 7, split into tf32 hi and lo.
-template <int LD>
-__device__ __forceinline__ void a_frag(const float* tile, int c0, uint32_t hi[4],
-                                       uint32_t lo[4]) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const float* p = tile + g * LD + c0 + t;
-  split_tf32(p[0], hi[0], lo[0]);
-  split_tf32(p[8 * LD], hi[1], lo[1]);
-  split_tf32(p[4], hi[2], lo[2]);
-  split_tf32(p[8 * LD + 4], hi[3], lo[3]);
-}
-
-// The B fragment (k8n8) whose n runs over 8 rows of `tile` and whose k
-// runs over columns c0..c0 + 7 (a K-major operand read as stored).
-template <int LD>
-__device__ __forceinline__ void b_frag_k(const float* tile, int c0, uint32_t hi[2],
-                                         uint32_t lo[2]) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const float* p = tile + g * LD + c0 + t;
-  split_tf32(p[0], hi[0], lo[0]);
-  split_tf32(p[4], hi[1], lo[1]);
-}
-
-// The B fragment whose k runs over 8 rows of `tile` and whose n over
-// columns c0..c0 + 7 (an MN-major operand), in the k order of `c_frag`:
-// k slot t is row 2t, slot t + 4 is row 2t + 1.
-template <int LD>
-__device__ __forceinline__ void b_frag_mn(const float* tile, int c0, uint32_t hi[2],
-                                          uint32_t lo[2]) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const float* p = tile + 2 * t * LD + c0 + g;
-  split_tf32(p[0], hi[0], lo[0]);
-  split_tf32(p[LD], hi[1], lo[1]);
-}
-
-// An m16n8 C tile (c0..c1 at columns 2t, 2t + 1) as the A fragment of one
-// k8 step over those 8 columns, split: A's k slot t holds column 2t and
-// slot t + 4 column 2t + 1, the order `b_frag_mn` reads the other operand
-// in. A sum over k does not depend on the order, so no shuffle is needed.
-__device__ __forceinline__ void c_frag(const float c[4], uint32_t hi[4], uint32_t lo[4]) {
-  split_tf32(c[0], hi[0], lo[0]);
-  split_tf32(c[2], hi[1], lo[1]);
-  split_tf32(c[1], hi[2], lo[2]);
-  split_tf32(c[3], hi[3], lo[3]);
-}
-
 // ------------------------------------------------------------- B2, f32
 
 template <int D>

@@ -9,7 +9,8 @@
 //     lse_i = log sum_j exp(s_j)              float32
 // with GQA (q head h reads kv head h / (NH / NKV), K/V never repeated),
 // float32 scores, running max/sum and accumulator, p rounded down to v's
-// dtype before the PV product (the running sum takes p unrounded), and only
+// dtype before the PV product in bf16 (the running sum takes p unrounded;
+// in f32 it is split, as every operand, for 3xTF32), and only
 // finite masking constants (-1e30 for the running max and for keys past
 // Sk, -1e9 for causal-masked keys), so a row whose keys are all masked
 // comes out finite (uniform over its keys), as on the TPU.
@@ -51,18 +52,60 @@
 //       tile's two products, after the previous PV wgmma has retired.
 //     - The epilogue writes o (times 1 / the row sum) and lse once, from
 //       registers.
-//   * f32: a scalar kernel (4 threads per q row, 32 rows, 16-key tiles) in
-//     full float32 with expf, for exactness where the caller asked for f32;
-//     the tensor cores would round f32 operands to TF32.
+//   * f32, which every float32 LM training step and float32 prefill runs:
+//     every product on the tensor cores in 3xTF32 (hopper.cuh): each
+//     float32 operand x as tf32 hi + lo, a product as lo·hi + hi·lo +
+//     hi·hi accumulated in float32. One TF32 product keeps ~3 decimal
+//     digits and would miss the float32 bars (1e-4 abs + rel); 3xTF32
+//     keeps them. Bound: bytes at short S, above that (S ~ 300 causal at
+//     D = 64) the 3xTF32 rate, 495 / 3 = 165 TFLOP/s. One warpgroup per
+//     (64 q rows, q head, batch); each warp owns 16 rows.
+//     - S = Q K^T by wgmma m64n64k8 .tf32, three a k-step, at D <= 64: Q
+//       split once into registers (the RS form's A fragment, the mma.sync
+//       m16n8k8 A layout); K staged by cp.async straight into the
+//       128-byte-swizzled panels wgmma reads K-major, then split once a
+//       tile by the block (hi in place, lo beside it, fence.proxy.async),
+//       so no warp splits K's fragments again. At D = 128, where O alone
+//       is 64 floats a thread, Q's hi and lo live in shared memory and S
+//       takes mma.sync as O does.
+//     - O += P V by mma.sync m16n8k8 .tf32. P goes straight from the S
+//       accumulators into A: C tile columns 2t, 2t + 1 become A's k slots
+//       t, t + 4, and V's rows are read in that key order, so no value
+//       moves between lanes and V is not transposed. Its rows are padded
+//       to D + 4 floats (32 distinct banks a fragment load), and each
+//       fragment element is split as it is loaded. wgmma does not take
+//       this product: for 32-bit types it reads B K-major only, so V
+//       would need a transposed copy with its keys permuted within each 8
+//       to match the accumulator's pairs.
+//     - K, V and the bias keys stream through a ring of kStages = 2 by
+//       16-byte cp.async, rows past Sk zero-filled (their keys -1e30);
+//       Q is copied once.
+//     - The online softmax in natural-log units, each exponent one
+//       MUFU.EX2 of (x - m)·log2(e), and lse = m + log(l): a row whose
+//       keys are all masked gets lse -1e9 exactly, the plain version's,
+//       from which B2/B3 rebuild p = 1. A tile whose keys are all real
+//       and wholly on or below the causal diagonal takes a copy of the
+//       score step without the bounds and mask tests.
+//     - The q tile is the grid's slowest index, last tile first, so the
+//       longest causal blocks start first.
+//     Measured on an H100 (700 W) with scripts/port_kernels_ab.py, causal
+//     [8, 12, 1024, 64], S by mma.sync: the split in registers at each
+//     fragment load 0.266 ms against 0.364 for a split pass a tile into
+//     shared hi and lo copies (twice the fragment loads' shared-memory
+//     bytes, and one block an SM); 64-row blocks 0.265 ms against 0.462
+//     for 32-row ones, and 0.0088 against 0.0095 at S 64, where 32 rows
+//     would fill 192 blocks for 132 SMs instead of 96 (a warp does the
+//     same work either way, and each K/V tile is read twice as often).
+//     Then S by wgmma: 0.240 ms against 0.266.
 // Causal blocks skip every kv tile that lies wholly above the diagonal.
-// What this does about the four costs of the earlier mma.sync design:
-// synchronous 16-byte loads with __syncthreads staging became TMA copies
-// in a 2-stage ring; the transposed copy of V (one scalar shared store per
-// element) gave way to the wgmma transpose flag; scalar 32-bit fragment
-// loads from shared memory gave way to descriptors the tensor cores read
-// (P comes straight from the accumulators); mma.sync m16n8k16 per warp
-// became warpgroup wgmma on 64-row tiles. The Hopper building blocks are
-// in hopper.cuh, shared with the backward kernels.
+// What the bf16 kernel does about the four costs of the earlier mma.sync
+// design: synchronous 16-byte loads with __syncthreads staging became TMA
+// copies in a 2-stage ring; the transposed copy of V (one scalar shared
+// store per element) gave way to the wgmma transpose flag; scalar 32-bit
+// fragment loads from shared memory gave way to descriptors the tensor
+// cores read (P comes straight from the accumulators); mma.sync m16n8k16
+// per warp became warpgroup wgmma on 64-row tiles. The Hopper building
+// blocks are in hopper.cuh, shared with the backward kernels.
 //
 // The launch goes on the caller's stream, does not synchronise and
 // allocates nothing; the return value is cudaGetLastError() after launch
@@ -293,8 +336,24 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16_kernel(
 
 // ------------------------------------------------------------------ f32
 
-constexpr int kFQ = 32;  // q rows per block (4 threads per row)
-constexpr int kFK = 16;  // keys per kv tile
+template <int D>
+struct FwdF32 {
+  static constexpr int ROWS = 64;                // q rows per block, 16 a warp
+  static constexpr int BK = D == 128 ? 32 : 64;  // keys per streamed tile
+  // D <= 64: Q split into registers, S = Q K^T by wgmma (its RS form);
+  // D = 128: Q split into shared memory, S by mma.sync
+  static constexpr bool QK_WGMMA = D <= 64;
+  static constexpr int LD = F32Rows<D>::LD;
+  // floats: a K tile (swizzled panels for wgmma, else padded rows) and its
+  // lo copy, Q (or its hi and lo), a V tile, a tile's bias keys
+  static constexpr int K_FLOATS = QK_WGMMA ? BK * D : BK * LD;
+  static constexpr int KLO_FLOATS = QK_WGMMA ? BK * D : 0;
+  static constexpr int Q_FLOATS = (QK_WGMMA ? 1 : 2) * ROWS * LD;
+  static constexpr int V_FLOATS = BK * LD;
+  static constexpr size_t SMEM =
+      sizeof(float) * (kStages * (K_FLOATS + V_FLOATS + BK) + KLO_FLOATS + Q_FLOATS) + 1024;
+  static_assert(!QK_WGMMA || BK == 64, "wgmma m64n64 tiles");
+};
 
 template <int D>
 __global__ void __launch_bounds__(128) flash_fwd_f32_kernel(
@@ -302,86 +361,219 @@ __global__ void __launch_bounds__(128) flash_fwd_f32_kernel(
     const float* __restrict__ v, const float* __restrict__ bias,
     float* __restrict__ o, float* __restrict__ lse, int NH, int NKV, int Sq,
     int Sk, float scale, int causal) {
-  constexpr int DP = D / 4;  // output dims per thread
-  __shared__ float Qs[kFQ][D + 1];
-  __shared__ float Ks[kFK][D + 1];
-  __shared__ float Vs[kFK][D];
-  __shared__ float Ss[kFQ][kFK + 1];
-  __shared__ float Bs[kFK];
+  using L = FwdF32<D>;
+  constexpr int ROWS = L::ROWS, BK = L::BK, LD = L::LD;
+  constexpr int NK = BK / 8;  // n8 tiles of S = k8 steps of O += P V
+  constexpr int ND = D / 8;   // k8 steps of S = n8 tiles of O
+  extern __shared__ unsigned char smem_raw[];
+  float* base = reinterpret_cast<float*>(smem_1k(smem_raw));
+  float* k_lo = base + kStages * L::K_FLOATS;  // QK_WGMMA: this tile's K lo
+  float* Qs = k_lo + L::KLO_FLOATS;           // [ROWS][LD]; at D = 128 then its lo
+  float* v_ring = Qs + L::Q_FLOATS;           // V [BK][LD] per stage
+  float* b_ring = v_ring + kStages * L::V_FLOATS;  // bias keys [BK] per stage
 
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (NH / NKV);
-  const int tid = threadIdx.x, row = tid >> 2, part = tid & 3;
-  const int qblk = blockIdx.x * kFQ;
-  const int qpos = qblk + row;
-
-  const float* qb = q + (size_t)(b * NH + h) * Sq * D;
-  const float* kb = k + (size_t)(b * NKV + kvh) * Sk * D;
-  const float* vb = v + (size_t)(b * NKV + kvh) * Sk * D;
+  // the q tile is the grid's slowest index, last tile first: the longest
+  // walk under causal is dispatched first
+  const int h = blockIdx.x, b = blockIdx.y, qt = gridDim.z - 1 - blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int gr = (tid & 31) >> 2, t = tid & 3;
+  const int q0 = qt * ROWS;
+  const size_t bh = (size_t)b * NH + h;
+  const size_t bkv = (size_t)b * NKV + h / (NH / NKV);
+  const float* kb = k + bkv * Sk * D;
+  const float* vb = v + bkv * Sk * D;
   const float* bb = bias + (size_t)b * Sk;
+  int n_kv = (Sk + BK - 1) / BK;
+  // causal: kv tiles wholly right of the diagonal (every key > the last row)
+  if (causal) n_kv = min(n_kv, (min(q0 + ROWS, Sq) - 1) / BK + 1);
 
-  for (int i = tid; i < kFQ * D; i += 128) {
-    const int r = i / D, c = i % D;
-    Qs[r][c] = qblk + r < Sq ? qb[(size_t)(qblk + r) * D + c] : 0.f;
+  auto stage_kv = [&](int it) {  // kv tile it into its stage, all threads
+    const int st = it % kStages, kt0 = it * BK;
+    if constexpr (L::QK_WGMMA)
+      stage_rows_sw<D, BK>(base + st * L::K_FLOATS, kb, kt0, Sk);
+    else
+      stage_rows<D, BK>(base + st * L::K_FLOATS, kb, kt0, Sk);
+    stage_rows<D, BK>(v_ring + st * L::V_FLOATS, vb, kt0, Sk);
+    if (tid < BK) {
+      const int key = kt0 + tid;
+      cp_async4(b_ring + st * BK + tid, key < Sk ? bb + key : bb, key < Sk);
+    }
+  };
+
+  stage_rows<D, ROWS>(Qs, q + bh * Sq * D, q0, Sq);
+  cp_async_commit();
+  stage_kv(0);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q has landed; kv tile 0 may be in flight
+  __syncthreads();
+
+  // Q, split once: into registers at D <= 64; at D = 128 (where O alone is
+  // 64 floats a thread) into hi (in place) and lo copies in shared memory
+  const float* Qw = Qs + warp * 16 * LD;  // this warp's 16 rows
+  uint32_t qh[L::QK_WGMMA ? ND : 1][4], ql[L::QK_WGMMA ? ND : 1][4];
+  if constexpr (L::QK_WGMMA) {
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) a_frag<LD>(Qw, 8 * kk, qh[kk], ql[kk]);
+  } else {
+    split_flat(Qs, Qs + ROWS * LD, ROWS * LD);
+    __syncthreads();
   }
 
-  float acc[DP];
+  const int r0 = q0 + warp * 16 + gr, r1 = r0 + 8;
+  float oacc[ND][4];
 #pragma unroll
-  for (int i = 0; i < DP; ++i) acc[i] = 0.f;
-  float m = kAccNeg, l = 0.f;
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+  float sc[NK][4];  // S, then P, of the current tile
+#pragma unroll
+  for (int n = 0; n < NK; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+  float m[2] = {kAccNeg, kAccNeg};
+  float l[2] = {0.f, 0.f};  // this thread's partial row sums
 
-  int n_kv = (Sk + kFK - 1) / kFK;
-  if (causal) n_kv = min(n_kv, (min(qblk + kFQ, Sq) - 1) / kFK + 1);
-
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * kFK;
+  for (int it = 0; it < n_kv; ++it) {
+    if (it + 1 < n_kv) stage_kv(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // every group but the one just committed has landed
     __syncthreads();
-    for (int i = tid; i < kFK * D; i += 128) {
-      const int r = i / D, c = i % D;
-      const bool in = k0 + r < Sk;
-      Ks[r][c] = in ? kb[(size_t)(k0 + r) * D + c] : 0.f;
-      Vs[r][c] = in ? vb[(size_t)(k0 + r) * D + c] : 0.f;
-    }
-    if (tid < kFK) Bs[tid] = k0 + tid < Sk ? bb[k0 + tid] : kAccNeg;
-    __syncthreads();
+    const int st = it % kStages, kt0 = it * BK;
+    float* Ks = base + st * L::K_FLOATS;
+    const float* Vs = v_ring + st * L::V_FLOATS;
+    const float* Bk = b_ring + st * BK;
 
-    // each of the row's 4 threads scores 4 of the tile's 16 keys
+    // S = Q K^T: the warp's 16 rows x BK keys, K K-major as stored
+    if constexpr (L::QK_WGMMA) {
+      // the tile split once (hi in place, lo beside it) for the warpgroup's
+      // wgmmas, which read both from shared memory; Q from registers
+      split_flat(Ks, k_lo, BK * D);
+      fence_proxy_async();
+      __syncthreads();
+      float* sf = &sc[0][0];
+      fence_regs<NK * 4>(sf);
+      wg_fence();
 #pragma unroll
-    for (int jj = 0; jj < kFK / 4; ++jj) {
-      const int j = jj * 4 + part;
-      float x = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) x = fmaf(Qs[row][d], Ks[j][d], x);
-      x = x * scale + Bs[j];
-      const int kpos = k0 + j;
-      if (causal && kpos > qpos) x = kpos < Sk ? kMaskNeg : kAccNeg;
-      Ss[row][j] = x;
+      for (int kk = 0; kk < ND; ++kk) {
+        WgmmaTf32::rs(sf, ql[kk], desc_k_tf32<BK>(Ks, kk), kk > 0);
+        WgmmaTf32::rs(sf, qh[kk], desc_k_tf32<BK>(k_lo, kk), 1);
+        WgmmaTf32::rs(sf, qh[kk], desc_k_tf32<BK>(Ks, kk), 1);
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs<NK * 4>(sf);
+    } else {
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < ND; ++kk) {
+        uint32_t ah[4], al[4];
+        a_frag_split<LD>(reinterpret_cast<const uint32_t*>(Qw),
+                         reinterpret_cast<const uint32_t*>(Qw + ROWS * LD), 8 * kk, ah, al);
+#pragma unroll
+        for (int n = 0; n < NK; ++n) {
+          uint32_t bh2[2], bl2[2];
+          b_frag_k<LD>(Ks + 8 * n * LD, 8 * kk, bh2, bl2);
+          mma_3xtf32(sc[n], ah, al, bh2, bl2);
+        }
+      }
     }
-    __syncwarp();  // a row's 4 threads share one warp
 
-    float mx = m;
+    // s = qk * scale + bias in the plain version's order, masks, and the
+    // running max over the quad that shares a row; a tile whose keys are
+    // all real and wholly on or below the causal diagonal skips the tests
+    float mx[2] = {m[0], m[1]};
+    auto scores = [&](auto checked) {
+      constexpr bool kChecked = decltype(checked)::value;
 #pragma unroll
-    for (int j = 0; j < kFK; ++j) mx = fmaxf(mx, Ss[row][j]);
-    const float alpha = expf(m - mx);
-    m = mx;
-    l *= alpha;
+      for (int n = 0; n < NK; ++n) {
 #pragma unroll
-    for (int i = 0; i < DP; ++i) acc[i] *= alpha;
+        for (int e = 0; e < 4; ++e) {
+          const int j = 8 * n + 2 * t + (e & 1);
+          float x = __fadd_rn(__fmul_rn(sc[n][e], scale), Bk[j]);
+          if (kChecked) {
+            const int key = kt0 + j;
+            if (key >= Sk)
+              x = kAccNeg;
+            else if (causal && key > (e < 2 ? r0 : r1))
+              x = kMaskNeg;
+          }
+          sc[n][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+    };
+    if (kt0 + BK <= Sk && (!causal || kt0 + BK - 1 <= q0))
+      scores(std::false_type());
+    else
+      scores(std::true_type());
+
+    // the online softmax in natural-log units; each exponent as one
+    // MUFU.EX2 of (x - m) * log2(e)
+    float alpha[2];
 #pragma unroll
-    for (int j = 0; j < kFK; ++j) {
-      const float p = expf(Ss[row][j] - m);
-      l += p;
-#pragma unroll
-      for (int i = 0; i < DP; ++i) acc[i] = fmaf(p, Vs[j][part + 4 * i], acc[i]);
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      alpha[i] = ex2((m[i] - mx[i]) * kLog2e);
+      m[i] = mx[i];
+      l[i] *= alpha[i];
     }
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oacc[n][e] *= alpha[e >> 1];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2((sc[n][e] - m[e >> 1]) * kLog2e);
+        l[e >> 1] += p;
+        sc[n][e] = p;
+      }
+
+    // O += P V: A straight from the accumulators just formed (C tile j's
+    // columns 2t, 2t + 1 as its k slots t, t + 4), V read MN-major in the
+    // same key order
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      uint32_t ph[4], pl[4];
+      c_frag(sc[j], ph, pl);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        uint32_t bh2[2], bl2[2];
+        b_frag_mn<LD>(Vs + 8 * j * LD, 8 * n, bh2, bl2);
+        mma_3xtf32(oacc[n], ph, pl, bh2, bl2);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage: it may be refilled
   }
+  cp_async_wait<0>();
 
-  if (qpos < Sq) {
-    l = fmaxf(l, 1e-30f);
-    float* orow = o + ((size_t)(b * NH + h) * Sq + qpos) * D;
 #pragma unroll
-    for (int i = 0; i < DP; ++i) orow[part + 4 * i] = acc[i] / l;
-    if (part == 0) lse[(size_t)(b * NH + h) * Sq + qpos] = m + logf(l);
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = fmaxf(l[i], 1e-30f);
+  }
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+  float* ob = o + bh * Sq * D;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int c = 8 * n + 2 * t;
+    if (r0 < Sq)
+      *reinterpret_cast<float2*>(ob + (size_t)r0 * D + c) =
+          make_float2(oacc[n][0] * inv[0], oacc[n][1] * inv[0]);
+    if (r1 < Sq)
+      *reinterpret_cast<float2*>(ob + (size_t)r1 * D + c) =
+          make_float2(oacc[n][2] * inv[1], oacc[n][3] * inv[1]);
+  }
+  if (t == 0) {  // lse = m + log(l), natural log, as the plain version
+    float* lb = lse + bh * Sq;
+    if (r0 < Sq) lb[r0] = __fadd_rn(m[0], logf(l[0]));
+    if (r1 < Sq) lb[r1] = __fadd_rn(m[1], logf(l[1]));
   }
 }
 
@@ -404,15 +596,24 @@ int fwd_bf16(const void* q, const void* k, const void* v, const void* bias, void
 }
 
 template <int D>
+int fwd_f32(const void* q, const void* k, const void* v, const void* bias, void* o, void* lse,
+            int B, int NH, int NKV, int Sq, int Sk, int causal, float scale, cudaStream_t st) {
+  using L = FwdF32<D>;
+  static const cudaError_t attr = allow_smem(flash_fwd_f32_kernel<D>, L::SMEM);
+  const int tiles = (Sq + L::ROWS - 1) / L::ROWS;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;  // the grid's z limit
+  return launch(flash_fwd_f32_kernel<D>, attr, dim3(NH, B, tiles), L::SMEM, st,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<const float*>(bias),
+                static_cast<float*>(o), static_cast<float*>(lse), NH, NKV, Sq, Sk, scale, causal);
+}
+
+template <int D>
 int fwd(const void* q, const void* k, const void* v, const void* bias, void* o, void* lse,
         int B, int NH, int NKV, int Sq, int Sk, int is_bf16, int causal, float scale,
         cudaStream_t st) {
   if (is_bf16) return fwd_bf16<D>(q, k, v, bias, o, lse, B, NH, NKV, Sq, Sk, causal, scale, st);
-  return launch(flash_fwd_f32_kernel<D>, cudaSuccess, dim3((Sq + kFQ - 1) / kFQ, NH, B), 0, st,
-                static_cast<const float*>(q), static_cast<const float*>(k),
-                static_cast<const float*>(v), static_cast<const float*>(bias),
-                static_cast<float*>(o), static_cast<float*>(lse), NH, NKV, Sq, Sk, scale,
-                causal);
+  return fwd_f32<D>(q, k, v, bias, o, lse, B, NH, NKV, Sq, Sk, causal, scale, st);
 }
 
 }  // namespace

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
 // (flash_attn_fwd.cu: B1; flash_attn_bwd.cu: B2, B3): mbarriers, TMA
-// copies, warpgroup MMA (wgmma) and its shared-memory descriptors for the
-// swizzled tiles TMA writes; float32 products on the tensor cores as
-// 3xTF32 mma.sync, with cp.async staging; and the host side that encodes
-// the tensor maps and opts a kernel into large dynamic shared memory.
+// copies, warpgroup MMA (wgmma, bf16 and tf32) and its shared-memory
+// descriptors for swizzled tiles; float32 products on the tensor cores as
+// 3xTF32, with cp.async staging and the fragment loads from padded float32
+// tiles (B1, B2 and B3 in f32); and the host side that encodes the tensor
+// maps and opts a kernel into large dynamic shared memory.
 //
 // Each .cu file includes this header into its own translation unit; every
 // name here has internal linkage, so the two objects link without clashes.
@@ -126,7 +127,7 @@ __device__ __forceinline__ void fence_regs(float* d) {
 
 // Shared-memory matrix descriptor: start address, leading and stride byte
 // offsets (16-byte units), swizzle (1 = 128-byte, 2 = 64-byte).
-__device__ __forceinline__ uint64_t smem_desc(const bf16* p, uint32_t lbo,
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
                                               uint32_t sbo, uint32_t swizzle) {
   return (uint64_t)((smem_u32(p) & 0x3FFFFu) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
@@ -193,7 +194,28 @@ struct Wgmma<64> {
   }
 };
 
+// wgmma m64n64k8, tf32 x tf32 -> f32: A from registers (the mma.sync
+// m16n8k8 A layout for each warp's 16 rows), B K-major in shared memory.
+struct WgmmaTf32 {
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        " %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : SYM_D8(0), SYM_D8(8), SYM_D8(16), SYM_D8(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
 #undef SYM_D8
+
+// Make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma's operand reads).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 // ------------------------------------------- float32 on the tensor cores
 
@@ -257,6 +279,137 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A float32 tile in shared memory: rows of D floats padded to LD = D + 4,
+// so the row stride is 4 banks mod 32 and every fragment load below (A
+// rows g / g + 8 at column t; B rows g at column t; B rows 2t / 2t + 1 at
+// column g) touches 32 distinct banks.
+template <int D>
+struct F32Rows {
+  static constexpr int LD = D + 4;
+  static_assert(D == 32 || D == 64 || D == 128, "head dim 32, 64 or 128");
+};
+
+// Stage rows [row0, row0 + R) of a [S, D] float32 matrix into dst (stride
+// LD) with 16-byte cp.async copies; rows at or past S are zero-filled.
+// All 128 threads take part; the caller commits the group.
+template <int D, int R>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int row0, int S) {
+  constexpr int C = D / 4, LD = F32Rows<D>::LD;
+  static_assert(R * C % 128 == 0, "whole passes of the block");
+#pragma unroll
+  for (int j = 0; j < R * C / 128; ++j) {
+    const int i = j * 128 + threadIdx.x, r = i / C, c = i % C;
+    const bool in = row0 + r < S;
+    cp_async16(dst + r * LD + 4 * c, in ? src + (size_t)(row0 + r) * D + 4 * c : src, in);
+  }
+}
+
+// The A fragment (row-major, m16k8) of a warp's 16 rows of `tile` at
+// columns c0..c0 + 7, split into tf32 hi and lo.
+template <int LD>
+__device__ __forceinline__ void a_frag(const float* tile, int c0, uint32_t hi[4],
+                                       uint32_t lo[4]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* p = tile + g * LD + c0 + t;
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[8 * LD], hi[1], lo[1]);
+  split_tf32(p[4], hi[2], lo[2]);
+  split_tf32(p[8 * LD + 4], hi[3], lo[3]);
+}
+
+// The same fragment from tiles already split: hi and lo as `split_flat`
+// leaves them.
+template <int LD>
+__device__ __forceinline__ void a_frag_split(const uint32_t* hi_tile, const uint32_t* lo_tile,
+                                             int c0, uint32_t hi[4], uint32_t lo[4]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int at = g * LD + c0 + t;
+  hi[0] = hi_tile[at];
+  hi[1] = hi_tile[at + 8 * LD];
+  hi[2] = hi_tile[at + 4];
+  hi[3] = hi_tile[at + 8 * LD + 4];
+  lo[0] = lo_tile[at];
+  lo[1] = lo_tile[at + 8 * LD];
+  lo[2] = lo_tile[at + 4];
+  lo[3] = lo_tile[at + 8 * LD + 4];
+}
+
+// A float32 tile of R rows x D as wgmma reads a K-major tf32 operand: D /
+// 32 panels of 32 columns, each row-major (128 bytes a row) with the
+// 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8)), panels
+// one after another from a 1024-byte boundary. Rows [row0, row0 + R) of a
+// [S, D] matrix are staged there by 16-byte cp.async copies, rows at or
+// past S zero-filled; all 128 threads take part.
+template <int D, int R>
+__device__ __forceinline__ void stage_rows_sw(float* dst, const float* src, int row0, int S) {
+  constexpr int C = D / 4;
+  static_assert(D % 32 == 0 && R * C % 128 == 0, "whole panels and passes");
+#pragma unroll
+  for (int j = 0; j < R * C / 128; ++j) {
+    const int i = j * 128 + threadIdx.x, r = i / C, c = i % C;
+    const bool in = row0 + r < S;
+    cp_async16(dst + (c / 8) * R * 32 + r * 32 + ((c % 8) ^ (r & 7)) * 4,
+               in ? src + (size_t)(row0 + r) * D + 4 * c : src, in);
+  }
+}
+
+// K-major descriptor of k-step kk (8 tf32 columns, 32 bytes) of such a
+// tile: the step moves the start 32 bytes into its panel's rows.
+template <int R>
+__device__ __forceinline__ uint64_t desc_k_tf32(const float* tile, int kk) {
+  return smem_desc(tile + (kk / 4) * R * 32 + (kk % 4) * 8, 16, 1024, 1);
+}
+
+// Split n floats (n a multiple of 4, 16-byte aligned) into tf32 hi, in
+// place, and lo, at the same offsets in lo_tile: elementwise, so in any
+// layout. All 128 threads take part.
+__device__ __forceinline__ void split_flat(float* tile, float* lo_tile, int n) {
+  for (int at = 4 * threadIdx.x; at < n; at += 4 * 128) {
+    float4 x = *reinterpret_cast<float4*>(tile + at);
+    uint4 hi, lo;
+    split_tf32(x.x, hi.x, lo.x);
+    split_tf32(x.y, hi.y, lo.y);
+    split_tf32(x.z, hi.z, lo.z);
+    split_tf32(x.w, hi.w, lo.w);
+    *reinterpret_cast<uint4*>(tile + at) = hi;
+    *reinterpret_cast<uint4*>(lo_tile + at) = lo;
+  }
+}
+
+// The B fragment (k8n8) whose n runs over 8 rows of `tile` and whose k
+// runs over columns c0..c0 + 7 (a K-major operand read as stored).
+template <int LD>
+__device__ __forceinline__ void b_frag_k(const float* tile, int c0, uint32_t hi[2],
+                                         uint32_t lo[2]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* p = tile + g * LD + c0 + t;
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[4], hi[1], lo[1]);
+}
+
+// The B fragment whose k runs over 8 rows of `tile` and whose n over
+// columns c0..c0 + 7 (an MN-major operand), in the k order of `c_frag`:
+// k slot t is row 2t, slot t + 4 is row 2t + 1.
+template <int LD>
+__device__ __forceinline__ void b_frag_mn(const float* tile, int c0, uint32_t hi[2],
+                                          uint32_t lo[2]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* p = tile + 2 * t * LD + c0 + g;
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[LD], hi[1], lo[1]);
+}
+
+// An m16n8 C tile (c0..c1 at columns 2t, 2t + 1) as the A fragment of one
+// k8 step over those 8 columns, split: A's k slot t holds column 2t and
+// slot t + 4 column 2t + 1, the order `b_frag_mn` reads the other operand
+// in. A sum over k does not depend on the order, so no shuffle is needed.
+__device__ __forceinline__ void c_frag(const float c[4], uint32_t hi[4], uint32_t lo[4]) {
+  split_tf32(c[0], hi[0], lo[0]);
+  split_tf32(c[2], hi[1], lo[1]);
+  split_tf32(c[1], hi[2], lo[2]);
+  split_tf32(c[3], hi[3], lo[3]);
 }
 
 // A bf16 tile of `rows` x D in shared memory, as TMA writes it: D / PW

@@ -203,36 +203,67 @@ def test_backward_instances_pass_and_fail():
         ptxas = dict(_instances()[0], **chip_smoke.ptxas_report(PTXAS))
         chip_smoke.wgmma_instances(ptxas, dict(_instances()[1], **chip_smoke.hgmma_counts(SASS)))
     # the f32 instances are held by their own check: HMMA, no spills
-    rows = chip_smoke.f32_backward_instances(*_f32_instances())
-    assert list(rows) == [f"{k}_f32_kernel<{d}>" for k in bwd for d in (32, 64, 128)]
+    rows = chip_smoke.f32_instances(*_f32_instances())
+    assert list(rows) == [f"{k}_f32_kernel<{d}>" for k in F32_KERNELS for d in (32, 64, 128)]
     assert rows["bwd_kv_f32_kernel<64>"] == {"registers": 192, "spill_stores": 0,
                                              "spill_loads": 0, "hmma": 96}
     with pytest.raises(RuntimeError, match=r"bwd_kv_f32_kernel<32> spills"):
-        chip_smoke.f32_backward_instances(*_f32_instances(spill=4))
+        chip_smoke.f32_instances(*_f32_instances(spill=4))
     with pytest.raises(RuntimeError, match=r"bwd_kv_f32_kernel<32> has no HMMA"):
-        chip_smoke.f32_backward_instances(*_f32_instances(hmma=0))
+        chip_smoke.f32_instances(*_f32_instances(hmma=0))
     with pytest.raises(RuntimeError, match=r"missing: \[\('bwd_kv', '128'\)"):
-        chip_smoke.f32_backward_instances(*_f32_instances(dims=(32, 64)))
+        chip_smoke.f32_instances(*_f32_instances(dims=(32, 64)))
+    # the spilling f32 B1 instance that `_instances` injects is held here
+    ptxas, counts = _f32_instances()
+    ptxas["flash_fwd_f32_kernel<64>"] = _instances()[0]["flash_fwd_f32_kernel<64>"]
+    with pytest.raises(RuntimeError, match=r"flash_fwd_f32_kernel<64> spills"):
+        chip_smoke.f32_instances(ptxas, counts)
     # the captured sample's scalar f32 instance: FFMA only, no HMMA
     ptxas, counts = _f32_instances()
     ptxas["bwd_q_f32_kernel<64>"] = dict(chip_smoke.ptxas_report(PTXAS)["bwd_q_f32_kernel<64>"],
                                          spill_stores=0, spill_loads=0)
     counts["bwd_q_f32_kernel<64>"] = chip_smoke.hgmma_counts(SASS, "HMMA")["bwd_q_f32_kernel<64>"]
     with pytest.raises(RuntimeError, match=r"bwd_q_f32_kernel<64> has no HMMA"):
-        chip_smoke.f32_backward_instances(ptxas, counts)
+        chip_smoke.f32_instances(ptxas, counts)
 
 
-def _f32_instances(spill=0, hmma=96, dims=(32, 64, 128)):
-    """Reports of the f32 B2 instances with `spill`, `hmma` and `dims`, and
-    clean B3 instances at every dim."""
+F32_KERNELS = ("flash_fwd", "bwd_kv", "bwd_q")
+
+
+def _f32_instances(spill=0, hmma=96, dims=(32, 64, 128), only=("bwd_kv",)):
+    """Reports of every f32 instance; those of the kernels in `only` get
+    `spill`, `hmma` and `dims`, the others a clean report at all dims."""
     ptxas, counts = {}, {}
-    for k in ("bwd_kv", "bwd_q"):
-        for d in dims if k == "bwd_kv" else (32, 64, 128):
+    for k in F32_KERNELS:
+        bad = k in only
+        for d in dims if bad else (32, 64, 128):
             name = f"{k}_f32_kernel<{d}>"
-            ptxas[name] = {"registers": 192, "spill_stores": spill if k == "bwd_kv" else 0,
+            ptxas[name] = {"registers": 192, "spill_stores": spill if bad else 0,
                            "spill_loads": 0}
-            counts[name] = hmma if k == "bwd_kv" else 96
+            counts[name] = hmma if bad else 96
     return ptxas, counts
+
+
+@pytest.mark.parametrize("fault, match", [
+    (dict(spill=4), r"flash_fwd_f32_kernel<32> spills"),
+    (dict(hmma=0), r"flash_fwd_f32_kernel<32> has no HMMA"),
+    (dict(dims=(32, 64)), r"missing: \[\('flash_fwd', '128'\)\]"),
+    # the captured sample's scalar f32 instance (FFMA only, no HMMA) standing
+    # in for B1's: the scalar kernel the 3xTF32 one replaced fails as it did
+    ("scalar", r"flash_fwd_f32_kernel<64> has no HMMA"),
+])
+def test_f32_forward_instances_fail(fault, match):
+    if fault == "scalar":
+        ptxas, counts = _f32_instances()
+        ptxas["flash_fwd_f32_kernel<64>"] = dict(
+            chip_smoke.ptxas_report(PTXAS)["bwd_q_f32_kernel<64>"], spill_stores=0,
+            spill_loads=0)
+        counts["flash_fwd_f32_kernel<64>"] = chip_smoke.hgmma_counts(SASS, "HMMA")[
+            "bwd_q_f32_kernel<64>"]
+    else:
+        ptxas, counts = _f32_instances(only=("flash_fwd",), **fault)
+    with pytest.raises(RuntimeError, match=match):
+        chip_smoke.f32_instances(ptxas, counts)
 
 
 def test_forward_instance_read_from_the_captured_samples():
