@@ -184,10 +184,28 @@ any failure exits non-zero:
              at its Ulysses head shard [1, 16, 2048, 64] against plain;
              step ms and peak bytes against meshless; B1/B2/B3 at GPT-2's
              Ulysses head shard against their plain versions, SDPA and
-             the bound.
+             the bound;
+18. multihost — (run after [fleet]) A15 multi-host: two processes
+             (`--multihost-worker`) join one gloo world on a localhost
+             coordinator, two entries each on cuda:0, and run the
+             production `shard_lm_train_state` + `lm_train_step` of GPT-2
+             124M float32 at [8, 64] over a mesh that spans them, 3 steps
+             over [2, 1] (dp: the gradient summed across processes) and 3
+             over [2, 2] (tp: 'tensor' pairs the processes); each step's
+             loss and grad norm within rtol 1e-4 of the meshless graphed
+             step, both processes bit-equal in losses, grad norms and the
+             checksum of their updated trees, B1 = B2 = B3 = layers x
+             local entries a step in each; B1, B2 and B3 against their
+             plain versions at each mode's local shard ([4, 12, 64, 64]
+             and [4, 6, 64, 64] float32 causal); the backend rule's
+             choice, warm step ms against meshless and the bytes a step
+             passes to collectives (through host memory: one card has no
+             NCCL and no link; on a host with two cards or more each
+             process takes its own, and the rule picks NCCL).
 
 Launch counts are set to 0 just before each main path (phases 3-4, 5, 6,
-8, 9, 10, 11, 12, 13, 14, 15, 16 and 17) and read just after. On the card every LM
+8, 9, 10, 11, 12, 13, 14, 15, 16, 17 and 18; [multihost]'s in each
+worker, which reports them) and read just after. On the card every LM
 prefill, decode chunk and train step is a replayed CUDA graph: a graph's
 kernels count once per replay, and a capture's eager warm-up adds one
 more run of them (`capture_b1`). The last two lines are a JSON object with
@@ -5950,7 +5968,7 @@ def _ids_of(text: str) -> list:
 
 
 def bwd_against_plain(B: int, NH: int, S: int, D: int, dtype, device="cuda",
-                      tag="mesh") -> dict:
+                      tag="mesh", what="a dp x tp shard's heads") -> dict:
     """B2 and B3 at one causal training shape against their plain versions,
     fed B1's own out and lse (`_within`'s bars); their launches are not
     counted. → max |kernel - plain| for "kv" and "q"."""
@@ -5973,7 +5991,7 @@ def bwd_against_plain(B: int, NH: int, S: int, D: int, dtype, device="cuda",
                                       f"[{B}, {NH}, {S}, {D}] {dtype}: max |kernel - plain| "
                                       f"{errs[part]:.4g} over its bar")
     print(f"[{tag}] flash_attn_bwd causal q/k/v/g [{B}, {NH}, {S}, {D}] {str(dtype)[6:]} "
-          f"(a dp x tp shard's heads): B2 max_abs_err {errs['kv']:.4g}, B3 max_abs_err "
+          f"({what}): B2 max_abs_err {errs['kv']:.4g}, B3 max_abs_err "
           f"{errs['q']:.4g}, largest |plain| gradient {errs['plain_max']:.4g}", flush=True)
     return errs
 
@@ -6527,6 +6545,322 @@ def sp_phase(rng, sizes=None, device="cuda") -> dict:
     return out
 
 
+MULTIHOST = dict(gpt2=GPT2_124M, rows=8, seq=64, steps=3, lr=1e-4, entries=2,
+                 modes=(("dp", (2, 1)), ("tp", (2, 2))), timeout_s=300)
+MULTIHOST_SPEC_ENV = "CHIP_SMOKE_MULTIHOST"  # the phase's spec, as JSON, to its workers
+
+
+def count_plain_launches(fa, set_attr=setattr) -> None:
+    """For a CPU rehearsal only, where nothing is launched: count B1's
+    plain forwards and the plain fused backward (B2 and B3) as launches,
+    so the rehearsal reads the launch equations the card's run holds.
+    `set_attr` may be a test's `monkeypatch.setattr`, which puts the
+    module back afterwards."""
+    forward, backward = fa._forward, fa.flash_attention_backward
+
+    def counted_forward(*a, **kw):
+        with fa._count_lock:
+            fa.launches += 1
+        return forward(*a, **kw)
+
+    def counted_backward(*a, **kw):
+        with fa._count_lock:
+            fa.bwd_kv_launches += 1
+            fa.bwd_q_launches += 1
+        return backward(*a, **kw)
+
+    set_attr(fa, "_forward", counted_forward)
+    set_attr(fa, "flash_attention_backward", counted_backward)
+
+
+def _multihost_inputs(s: dict, dev):
+    """The model config, params and batch of [multihost]: GPT-2 float32
+    with flash, the params of [mesh]'s dp x tp step from the seed, the
+    batch from `batch_seed`; the phase and both its workers make the same."""
+    from symbiont_tpu_torch.models import gpt as gpt_mod
+
+    gcfg = dataclasses.replace(gpt_mod.GPTConfig.from_hf(s["gpt2"]), dtype="float32",
+                               attn_impl="flash")
+    params = gpt_mod.init_params(torch.Generator(device=dev).manual_seed(SEED + 22), gcfg)
+    ids = np.random.default_rng(s["batch_seed"]).integers(0, gcfg.vocab_size,
+                                                          (s["rows"], s["seq"]))
+    batch = {"ids": torch.from_numpy(ids).to(dev),
+             "mask": torch.ones((s["rows"], s["seq"]), dtype=torch.int32, device=dev)}
+    return gcfg, params, batch
+
+
+def multihost_worker() -> int:
+    """One of [multihost]'s two processes (`--multihost-worker`): join the
+    world from SYMBIONT_COORDINATOR / SYMBIONT_NUM_PROCESSES /
+    SYMBIONT_PROCESS_ID with `entries` entries on this process's device,
+    then for each mode build the mesh over the world (dp: the first entry
+    of each process on 'data'; tp: `world.reshape(procs, entries).T`, so
+    'tensor' pairs the processes), place the train state
+    (`shard_lm_train_state`) and take `steps` steps (`lm_train_step`),
+    each timed (host clock, synchronised) with its launches and the bytes
+    it passed to collectives. Prints one `MULTIHOST {json}` line: the
+    steps, the gradient bytes all-reduced a step, a sha256 of the whole
+    updated tree, each block from this process's own copy where it holds
+    one, and the parts of one all-reduce of dp's gradient bytes alone
+    (device to host, the collective, host to device). On a host with two
+    cards or more, process p takes cuda:p, so the backend rule picks NCCL;
+    on one card both take cuda:0 and the rule picks gloo."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from symbiont_tpu_torch.ops import flash_attention as fa
+    from symbiont_tpu_torch.parallel import mesh as mesh_mod
+    from symbiont_tpu_torch.parallel.sharding import gather_tree
+    from symbiont_tpu_torch.train import trainer as trainer_mod
+
+    s = json.loads(os.environ[MULTIHOST_SPEC_ENV])
+    cuda = s["device"] == "cuda"
+    rank = int(os.environ["SYMBIONT_PROCESS_ID"])
+    dev = torch.device("cuda", rank if _own_cards(cuda) else 0) if cuda else torch.device("cpu")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.set_device(dev)
+    else:
+        count_plain_launches(fa)
+    n_global = mesh_mod.init_distributed(devices=[dev] * s["entries"])
+    procs = mesh_mod.process_count()
+    world = np.empty(n_global, dtype=object)
+    world[:] = mesh_mod.world_devices()
+    grid = world.reshape(procs, s["entries"])
+    gcfg, params, batch = _multihost_inputs(s, dev)
+    backend, why = mesh_mod.distributed_backend()
+    report = {"rank": mesh_mod.process_index(), "global": n_global, "backend": backend,
+              "why": why, "modes": {}}
+    meshes = {}
+    for mode, shape in s["modes"]:
+        mesh = meshes[mode] = mesh_mod.Mesh(grid[:, :1] if mode == "dp" else grid.T,
+                                            ("data", "tensor"))
+        check(list(mesh.devices.shape) == list(shape) and mesh.spans_processes,
+              f"[multihost] {mode}: mesh {mesh} is not {shape} over both processes")
+        state, tx = trainer_mod.make_lm_train_state(params, s["lr"])
+        state, tx = trainer_mod.shard_lm_train_state(mesh, state, tx, arch="gpt2")
+        grad_bytes = sum(leaf.shards[i].numel() * 4 for leaf, i in
+                         trainer_mod._home_entries(state.params) if leaf.holders(i) is not None)
+        steps = []
+        for _ in range(s["steps"]):
+            before, b0 = _launch_counts(fa), mesh_mod.collective_bytes
+            sync()
+            t0 = time.perf_counter()
+            state, m = trainer_mod.lm_train_step(state, batch, gcfg, tx)
+            loss, gn = float(m["loss"]), float(m["grad_norm"])
+            sync()
+            steps.append({"loss": loss, "grad_norm": gn,
+                          "ms": (time.perf_counter() - t0) * 1e3,
+                          "launches": [a - b for a, b in zip(_launch_counts(fa), before)],
+                          "bytes": mesh_mod.collective_bytes - b0})
+        with torch.no_grad():
+            whole = gather_tree(state.params)
+        digest = hashlib.sha256()
+        for t in trainer_mod.tree_leaves(whole):
+            digest.update(t.cpu().numpy().tobytes())
+        report["modes"][mode] = {"mesh": list(shape), "local_entries": len(mesh.local_entries),
+                                 "steps": steps, "grad_bytes": grad_bytes,
+                                 "checksum": digest.hexdigest()}
+        del state, tx, whole
+    dp = meshes["dp"]  # its one group holds entry 0 of each process
+    group = dp.group(dp.axis_names, 0)
+    probe = torch.ones(report["modes"]["dp"]["grad_bytes"] // 4, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    buf = probe.cpu() if group.host and cuda else probe
+    t1 = time.perf_counter()
+    dist.all_reduce(buf, group=group.pg)
+    sync()  # NCCL's all-reduce returns before the device has run it
+    t2 = time.perf_counter()
+    probe.copy_(buf)
+    sync()
+    t3 = time.perf_counter()
+    check(bool((probe == 2).all()), "[multihost] the probe's all-reduce is not the sum")
+    report["probe"] = {"bytes": probe.numel() * 4, "to_host_ms": (t1 - t0) * 1e3,
+                       "all_reduce_ms": (t2 - t1) * 1e3, "to_device_ms": (t3 - t2) * 1e3}
+    print("MULTIHOST " + json.dumps(report), flush=True)
+    mesh_mod.shutdown_distributed()
+    return 0
+
+
+def _own_cards(cuda: bool) -> bool:
+    """[multihost]'s processes each take a card of their own where the host
+    has two or more (NCCL), and share cuda:0 where it has one (gloo)."""
+    return cuda and torch.cuda.device_count() >= 2
+
+
+def _run_workers(argv: list, envs: list, tmp: Path, timeout_s: float, tag: str) -> list:
+    """Start one process a env of `envs` on `argv`, their output into
+    `tmp`, and wait for all: one that exits non-zero, or the deadline,
+    kills the rest and fails the phase with each one's exit code and the
+    tail of its stderr. → each process's stdout."""
+    procs, logs = [], []
+    for i, env in enumerate(envs):
+        out, err = tmp / f"worker{i}.out", tmp / f"worker{i}.err"
+        with open(out, "w") as fo, open(err, "w") as fe:
+            procs.append(subprocess.Popen(argv, env=env, stdout=fo, stderr=fe,
+                                          stdin=subprocess.DEVNULL))
+        logs.append((out, err))
+    deadline = time.monotonic() + timeout_s
+    try:
+        while time.monotonic() < deadline:
+            rcs = [p.poll() for p in procs]
+            if all(rc == 0 for rc in rcs) or any(rc not in (None, 0) for rc in rcs):
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    rcs = [p.returncode for p in procs]
+    if any(rc != 0 for rc in rcs):
+        tails = "\n".join(f"--- worker {i} (rc {rc}) stderr:\n" + err.read_text()[-3000:]
+                          for i, (rc, (_, err)) in enumerate(zip(rcs, logs)))
+        check(False, f"[{tag}] a worker failed or passed its {timeout_s:.0f} s deadline: "
+                     f"exit codes {rcs}\n{tails}")
+    return [out.read_text() for out, _ in logs]
+
+
+def multihost_phase(rng, sizes=None, device="cuda") -> dict:
+    """A15 multi-host on one card: two processes (`--multihost-worker`)
+    join one gloo world on a localhost coordinator, each with `entries`
+    entries on cuda:0 (processes that share a card cannot use NCCL; on a
+    host with two cards or more, process p takes cuda:p and NCCL), and
+    run the production `shard_lm_train_state` + `lm_train_step` of GPT-2
+    124M float32 (flash) at [rows, seq] over a mesh that spans them, in two
+    modes: dp over [2, 1] (one entry a process, the gradient summed across
+    processes) and tp over [2, 2] ('tensor' pairs the processes: every
+    tensor-parallel sum crosses them). Bars: each step's loss and grad
+    norm within rtol 1e-4 of the meshless graphed step on the same params
+    and batch, both processes bit-equal in losses, grad norms and the
+    checksum of their updated trees, B1 = B2 = B3 = layers x local entries
+    a step in each process, and B1, B2 and B3 at each mode's local shard
+    [rows / data, heads / tensor, seq, head_dim] float32 causal against
+    their plain versions here (their launches not counted). A worker that exits non-zero, hangs past
+    `timeout_s` or breaks a bar fails the phase. One card has no NCCL and
+    no link: under gloo the collectives pass through host memory. → the
+    launches (B1, B2, B3) of both workers and what each mode measured."""
+    from symbiont_tpu_torch.ops import flash_attention as fa
+    from symbiont_tpu_torch.train import trainer as trainer_mod
+
+    s = dict(MULTIHOST, **(sizes or {}), device=device, batch_seed=int(rng.integers(2**31)))
+    cuda = device == "cuda"
+    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    card = card_line() if cuda else "the CPU"
+    gcfg, params, batch = _multihost_inputs(s, dev)
+    saved = _launch_counts(fa)  # the meshless reference's launches are not the phase's
+    ref, tx_ref = trainer_mod.make_lm_train_state(params, s["lr"])
+    meshless = []
+    for _ in range(s["steps"]):
+        sync()
+        t0 = time.perf_counter()
+        ref, m = trainer_mod.lm_train_step(ref, batch, gcfg, tx_ref)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        sync()
+        meshless.append({"loss": loss, "grad_norm": gn, "ms": (time.perf_counter() - t0) * 1e3})
+    # B1, B2 and B3 at each mode's local shard, [rows / data, heads / tensor,
+    # seq, head_dim] float32 causal, against their plain versions
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    shard_errs = {}
+    for mode, (nd, nt) in s["modes"]:
+        shape = (s["rows"] // nd, gcfg.num_heads // nt, s["seq"], gcfg.head_dim)
+        qkv = [torch.randn(shape, generator=gen, device=dev) for _ in range(3)]
+        b1, _, _ = causal_b1_row(*qkv, "multihost", False)
+        bwd = bwd_against_plain(*shape, torch.float32, device=device, tag="multihost",
+                                what=f"{mode}'s local shard")
+        shard_errs[mode] = {"shape": list(shape), "b1": b1["max_abs_err"],
+                            "b1_lse_rel": b1["lse_rel_err"], "b2": bwd["kv"], "b3": bwd["q"]}
+        del qkv
+    _set_launch_counts(fa, saved)
+    del ref, tx_ref, params, batch
+    if cuda:
+        torch.cuda.empty_cache()
+
+    port = _free_port()
+    envs = [dict(os.environ, SYMBIONT_COORDINATOR=f"127.0.0.1:{port}",
+                 SYMBIONT_NUM_PROCESSES="2", SYMBIONT_PROCESS_ID=str(pid),
+                 **{MULTIHOST_SPEC_ENV: json.dumps(s)}) for pid in range(2)]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = _run_workers([sys.executable, str(Path(__file__).resolve()), "--multihost-worker"],
+                            envs, Path(tmp), s["timeout_s"], "multihost")
+    wall = time.perf_counter() - t0
+    reports = []
+    for i, text in enumerate(outs):
+        lines = [ln for ln in text.splitlines() if ln.startswith("MULTIHOST ")]
+        check(len(lines) == 1, f"[multihost] worker {i} printed no report:\n{text[-2000:]}")
+        reports.append(json.loads(lines[0][len("MULTIHOST "):]))
+    check(sorted(r["rank"] for r in reports) == [0, 1] and all(r["global"] == 2 * s["entries"]
+                                                                for r in reports),
+          f"[multihost] the workers' worlds: {[(r['rank'], r['global']) for r in reports]}")
+    L = gcfg.num_layers
+    out = {"backend": reports[0]["backend"], "why": reports[0]["why"], "meshless": meshless,
+           "wall_s": wall, "modes": {}, "probe": [r["probe"] for r in reports],
+           "shard_errs": shard_errs}
+    launches = [0, 0, 0]
+    for mode, shape in s["modes"]:
+        a, b = (r["modes"][mode] for r in reports)
+        check([(x["loss"], x["grad_norm"]) for x in a["steps"]]
+              == [(x["loss"], x["grad_norm"]) for x in b["steps"]],
+              f"[multihost] {mode}: the two processes' losses or grad norms differ")
+        check(a["checksum"] == b["checksum"],
+              f"[multihost] {mode}: the two processes' updated trees differ")
+        for i, (x, w) in enumerate(zip(a["steps"], meshless, strict=True)):
+            check(np.isfinite(x["loss"]) and abs(x["loss"] - w["loss"]) <= 1e-4 * abs(w["loss"]),
+                  f"[multihost] {mode} step {i}: loss {x['loss']!r} vs meshless "
+                  f"{w['loss']!r} beyond rtol 1e-4")
+            check(abs(x["grad_norm"] - w["grad_norm"]) <= 1e-4 * abs(w["grad_norm"]),
+                  f"[multihost] {mode} step {i}: grad norm {x['grad_norm']!r} vs meshless "
+                  f"{w['grad_norm']!r} beyond rtol 1e-4")
+        for r in (a, b):
+            eq = L * r["local_entries"]
+            for i, x in enumerate(r["steps"]):
+                check(x["launches"] == [eq] * 3,
+                      f"[multihost] {mode} step {i}: B1/B2/B3 {x['launches']} != {L} layers x "
+                      f"{r['local_entries']} local entries")
+                launches = [n + k for n, k in zip(launches, x["launches"])]
+        warm = [x["ms"] for r in (a, b) for x in r["steps"][1:]]
+        out["modes"][mode] = {"mesh": list(shape), "steps": a["steps"],
+                              "steps_other": b["steps"], "grad_bytes": a["grad_bytes"],
+                              "bytes_per_step": a["steps"][-1]["bytes"],
+                              "warm_ms": warm, "local_entries": a["local_entries"]}
+    out["launches"] = tuple(launches)
+    warm_ref = [x["ms"] for x in meshless[1:]]
+    dp, tp = out["modes"]["dp"], out["modes"]["tp"]
+
+    def ms(xs):
+        return f"{min(xs):.1f}-{max(xs):.1f}"
+
+    probe = out["probe"][0]
+    where = "cuda:0 and cuda:1" if _own_cards(cuda) else str(dev)
+    link = ("under gloo every collective passes through host memory; one card reads no NCCL "
+            "and no link" if out["backend"] == "gloo" else "NCCL between the cards")
+    print(f"[multihost] 2 processes, {s['entries']} entries each on {where} ({card}); device "
+          f"collectives over {out['backend']} ({out['why']}): {link}. GPT-2 "
+          f"({L} layers x {gcfg.hidden_size}) float32 flash at [{s['rows']}, {s['seq']}], "
+          f"{s['steps']} steps a mode: dp {dp['mesh']} warm step {ms(dp['warm_ms'])} ms, "
+          f"{dp['bytes_per_step']:,} bytes to collectives a step ({dp['grad_bytes']:,} of them "
+          f"gradients); tp {tp['mesh']} warm step {ms(tp['warm_ms'])} ms, "
+          f"{tp['bytes_per_step']:,} bytes a step ({tp['grad_bytes']:,} gradients); meshless "
+          f"graphed {ms(warm_ref)} ms (host clock, synchronised). Losses "
+          + ", ".join(f"{x['loss']:.6f}" for x in dp["steps"]) + " (dp), "
+          + ", ".join(f"{x['loss']:.6f}" for x in tp["steps"]) + " (tp) vs meshless "
+          + ", ".join(f"{x['loss']:.6f}" for x in meshless)
+          + f"; both processes bit-equal; B1/B2/B3 {list(out['launches'])} = {L} layers x "
+          f"local entries a step; against plain at the local shards (float32 causal): "
+          + ", ".join(f"{m} {e['shape']} B1 {e['b1']:.4g} (lse rel {e['b1_lse_rel']:.3g}), "
+                      f"B2 {e['b2']:.4g}, B3 {e['b3']:.4g}" for m, e in shard_errs.items())
+          + f" max_abs_err; one all-reduce of dp's {probe['bytes']:,} gradient bytes "
+          f"alone (process 0): to host {probe['to_host_ms']:.1f} ms, the collective "
+          f"{probe['all_reduce_ms']:.1f} ms ({probe['bytes'] / probe['all_reduce_ms'] / 1e6:.2f} "
+          f"GB/s), to device {probe['to_device_ms']:.1f} ms; workers' wall {wall:.1f} s",
+          flush=True)
+    return out
+
+
 def main(argv=()) -> int:
     import argparse
 
@@ -6535,6 +6869,10 @@ def main(argv=()) -> int:
                     help="run one generation role of [fleet]: the runner's main, its config "
                          "from SYMBIONT_* as the supervisor sets it, with the id tokenizer "
                          "[fleet] reads GPT-2 through")
+    ap.add_argument("--multihost-worker", action="store_true",
+                    help="run one process of [multihost]: its world from SYMBIONT_COORDINATOR, "
+                         "SYMBIONT_NUM_PROCESSES and SYMBIONT_PROCESS_ID, its spec from "
+                         f"{MULTIHOST_SPEC_ENV}")
     ap.add_argument("--memory-history", action="store_true",
                     help="record the allocator's history from the start, so the [memory] "
                          "line names where each block still held was allocated (slows "
@@ -6547,6 +6885,8 @@ def main(argv=()) -> int:
         lm.ByteTokenizer = IdTokenizer  # what LmEngine takes without a tokenizer.json
         asyncio.run(runner.main())
         return 0
+    if args.multihost_worker:
+        return multihost_worker()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
               file=sys.stderr)
@@ -6624,11 +6964,14 @@ def _run_phases() -> int:
         lap("stack")
         fleet = fleet_phase(np.random.default_rng(SEED + 16), tmp)
         lap("fleet")
+    multihost = multihost_phase(np.random.default_rng(SEED + 20))
+    lap("multihost")
     fwd = {"serve": serve["launches"][0], "train": train["launches"][0],
            "checkpoint": ck_launches, "quant": qt["launches"], "generate": gen["launches"],
            "session": sess["launches"], "paged": paged["launches"], "spec": spec["launches"],
            "lmtrain": lmtrain["launches"][0], "mesh": mesh["launches"][0],
-           "sp": sp["launches"][0], "stack": stack["launches"], "fleet": fleet["launches"]}
+           "sp": sp["launches"][0], "stack": stack["launches"], "fleet": fleet["launches"],
+           "multihost": multihost["launches"][0]}
     fwd_launches = sum(fwd.values())
     print("[phases] host seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items())
           + f"; total {sum(wall.values()):.1f}. flash_attn_fwd launches on the main path: "
@@ -6643,11 +6986,11 @@ def _run_phases() -> int:
              "q/k/v [32, 12, 128, 64] bf16, padding bias"),
             ("flash_attn_bwd_kv", "flash_attn_bwd.cu", 212, bwd["kv_enc_S256"],
              train["launches"][1] + lmtrain["launches"][1] + mesh["launches"][1]
-             + sp["launches"][1],
+             + sp["launches"][1] + multihost["launches"][1],
              "q/k/v/g [32, 12, 256, 64] bf16, padding bias, a length-0 row"),
             ("flash_attn_bwd_q", "flash_attn_bwd.cu", 281, bwd["q_enc_S256"],
              train["launches"][2] + lmtrain["launches"][2] + mesh["launches"][2]
-             + sp["launches"][2],
+             + sp["launches"][2] + multihost["launches"][2],
              "q/k/v/g [32, 12, 256, 64] bf16, padding bias, a length-0 row")):
         entries.append({"name": name, "route": "cuda",
                         "source": f"symbiont_tpu_torch/ops/csrc/{src}",
@@ -6687,6 +7030,9 @@ def _run_phases() -> int:
                                   for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "library_ms", "covered_ms") if k in r}}
                               for r in sp["kernels"]]
+    for e, n in zip(entries, multihost["launches"]):  # both workers, both modes
+        e["multihost_launches"] = n
+    entries[0]["multihost"] = {k: v for k, v in multihost.items() if k != "launches"}
     entries[0]["lmtrain_launches"] = lmtrain["launches"][0]
     entries[0]["lm_train"] = [{"shape": r["shape"].replace("/g", ""), **r["fwd"]}
                               for r in lmtrain["kernels"]]

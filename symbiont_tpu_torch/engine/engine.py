@@ -117,7 +117,7 @@ from symbiont_tpu_torch.obs.device import record_compile_event
 from symbiont_tpu_torch.obs.engine_timeline import engine_timeline
 from symbiont_tpu_torch.obs.hbm import guard_oom, hbm_ledger
 from symbiont_tpu_torch.obs.xprof import dispatch_ledger
-from symbiont_tpu_torch.parallel.mesh import axis_size, mesh_device
+from symbiont_tpu_torch.parallel.mesh import axis_size, mesh_device, refuse_spanning
 from symbiont_tpu_torch.parallel.sharding import (
     Sharded,
     local_tree,
@@ -183,6 +183,7 @@ class TorchEngine:
         mesh=None,
     ):
         self.config = config or EngineConfig()
+        refuse_spanning(mesh, "TorchEngine's data-parallel replicas")
         self.mesh = mesh
         self._n_data = (axis_size(mesh, "data") if mesh is not None and self.config.data_parallel
                         else 1)

@@ -157,7 +157,7 @@ from symbiont_tpu_torch.obs.engine_timeline import engine_timeline
 from symbiont_tpu_torch.obs.hbm import guard_oom, hbm_ledger, peak_temp_bytes
 from symbiont_tpu_torch.obs.usage import usage
 from symbiont_tpu_torch.obs.xprof import dispatch_ledger
-from symbiont_tpu_torch.parallel.mesh import axis_size, mesh_device
+from symbiont_tpu_torch.parallel.mesh import axis_size, mesh_device, refuse_spanning
 from symbiont_tpu_torch.parallel.sharding import gpt_param_sharding, leaf_tensors, shard_params
 from symbiont_tpu_torch.resilience.admission import DEFAULT_TENANT
 from symbiont_tpu_torch.train.trainer import tree_leaves
@@ -575,6 +575,7 @@ class LmEngine:
                  mesh=None, draft_params=None, draft_model_cfg=None, device=None):
         self.config = config or LmConfig()
         cfg = self.config
+        refuse_spanning(mesh, "LmEngine's tensor-parallel decode")
         tp = axis_size(mesh, "tensor")
         tp_candidate = tp_decode(cfg, None, tp)
         # a TP engine answers on the mesh's lead entry

@@ -55,7 +55,7 @@ from symbiont_tpu_torch.device import resolve_device
 from symbiont_tpu_torch.graphs import Executable, GraphPool, pool_for
 from symbiont_tpu_torch.models.quant import tensor_bytes
 from symbiont_tpu_torch.obs.hbm import hbm_ledger
-from symbiont_tpu_torch.parallel.mesh import axis_size, mesh_device
+from symbiont_tpu_torch.parallel.mesh import axis_size, mesh_device, refuse_spanning
 from symbiont_tpu_torch.parallel.sharding import (
     Sharded,
     batch_sharding,
@@ -97,6 +97,7 @@ class VectorStore:
     def __init__(self, config: Optional[VectorStoreConfig] = None,
                  device=None, mesh=None):
         self.config = config or VectorStoreConfig()
+        refuse_spanning(mesh, "VectorStore's row-split corpus")
         self.mesh = mesh
         # a store over a real mesh answers on the mesh's lead entry
         self.device = resolve_device(mesh_device(mesh, device) if mesh is not None

@@ -48,7 +48,10 @@ width on its own device and sums the row-split projections' partial
 products on the lead; a plain tree is the case of one shard. The KV cache
 of a placed tree is a `TPCache` of one cache per shard. `prefill`,
 `decode_chunk` and `merge_rows` take such a tree and cache as they take a
-plain one.
+plain one. Over a mesh that spans processes (A15 multi-host) a process
+runs the tensor shards it holds, and the sums reach the row's other
+processes through its tensor line's group; only the cache-free training
+forward is ported there.
 
 The cache-free training forwards of `parallel/context.py` (sequence
 parallel) and `parallel/pipeline.py` (pipeline parallel) are built from
@@ -72,6 +75,7 @@ from symbiont_tpu_torch.kv.paged import PagedKVCache
 from symbiont_tpu_torch.models import quant
 from symbiont_tpu_torch.models.bert import torch_dtype
 from symbiont_tpu_torch.ops.flash_attention import MASK_NEG, flash_attention
+from symbiont_tpu_torch.parallel.mesh import axis_size
 from symbiont_tpu_torch.parallel.sharding import mesh_of, sum_to
 
 Params = Any
@@ -479,13 +483,14 @@ def _logits(tree: Params, x: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
     return quant.mm(x, tree["lm_head"]["kernel"]).float()
 
 
-def _block(layers, x, layer_idx, caches, cfg, devs, ropes, kv_valids, valids):
+def _block(layers, x, layer_idx, caches, cfg, devs, ropes, kv_valids, valids, group=None):
     """One decoder layer on x [B, S, H]. `layers`, `devs` and the per-call
-    lists hold one entry a tensor shard (one for a plain tree): each shard
-    runs the attention of its heads and the MLP of its width on its device,
-    `cfg` being a shard's view (`_shard_cfg`), and the row-split
-    projections' partial products (o, MLP out/down) are summed on x's
-    device before their bias, added once, from the first shard's tree.
+    lists hold one entry a tensor shard of this process (one for a plain
+    tree): each shard runs the attention of its heads and the MLP of its
+    width on its device, `cfg` being a shard's view (`_shard_cfg`), and the
+    row-split projections' partial products (o, MLP out/down) are summed on
+    x's device, and over `group` where the row's tensor shards span
+    processes, before their bias, added once, from the first shard's tree.
     The norms, residuals and the MLP's math are `block_nocache`'s."""
     lead = x.device
 
@@ -493,12 +498,13 @@ def _block(layers, x, layer_idx, caches, cfg, devs, ropes, kv_valids, valids):
         return _biased(sum_to([_attn(layer, h.to(dev), layer_idx, cache, cfg, rope, kv_valid,
                                      valid)
                                for layer, dev, cache, rope, kv_valid, valid
-                               in zip(layers, devs, caches, ropes, kv_valids, valids)], lead),
+                               in zip(layers, devs, caches, ropes, kv_valids, valids)], lead,
+                              group),
                        layers[0]["o"])
 
     def mlp(h):
         return _biased(sum_to([_mlp(layer["mlp"], h.to(dev), cfg)
-                               for layer, dev in zip(layers, devs)], lead),
+                               for layer, dev in zip(layers, devs)], lead, group),
                        _mlp_out(layers[0]["mlp"], cfg))
 
     return block_nocache(layers[0], x, cfg, attn, mlp)
@@ -540,8 +546,10 @@ def _shard_cfg(cfg: GPTConfig, tp: int) -> GPTConfig:
 
 
 def _tensor_entries(mesh, row: int) -> list:
-    """The flat mesh entries of data row `row`'s tensor shards, in order."""
-    return [mesh.flat_index(data=row, tensor=t) for t in range(mesh.shape["tensor"])]
+    """The flat mesh entries of data row `row`'s tensor shards that this
+    process holds, in order (all of them on a mesh of one process)."""
+    return [i for i in (mesh.flat_index(data=row, tensor=t) for t in range(mesh.shape["tensor"]))
+            if mesh.is_local(i)]
 
 
 def _split_on_tensor(leaf, dim: int) -> bool:
@@ -552,18 +560,21 @@ def _split_on_tensor(leaf, dim: int) -> bool:
 
 
 def _shard_trees(params: Params, dtype: torch.dtype, device, row: int, home: bool):
-    """(trees, devices) a forward runs on: a plain tree itself on `device`;
-    a tree placed by `shard_params`, each tensor shard's plain tree of data
-    row `row` on its device, the lead first. Floating leaves in `dtype`, a
-    `QuantTensor`'s float32 scales as they are (`quant.cast_params`).
+    """(trees, devices, tensor indices, group) a forward runs on: a plain
+    tree itself on `device`; a tree placed by `shard_params`, each tensor
+    shard's plain tree of data row `row` that this process holds, on its
+    device, the lead first, with its index on 'tensor' and the group of
+    the row's tensor line where it spans processes (else None). Floating
+    leaves in `dtype`, a `QuantTensor`'s float32 scales as they are
+    (`quant.cast_params`).
 
-    `home`: each block read from the entry that first holds it, moved to
-    where it is used (a train state's masters, `train/trainer.py`), so
-    autograd sums every use's gradient into that one master; otherwise each
-    entry reads its own shard."""
+    `home`: each block read from the local entry that first holds it,
+    moved to where it is used (a train state's masters,
+    `train/trainer.py`), so autograd sums every use's gradient into that
+    one master; otherwise each entry reads its own shard."""
     mesh = mesh_of(params)
     if mesh is None:
-        return [quant.cast_params(params, dtype)], [device]
+        return [quant.cast_params(params, dtype)], [device], [0], None
     entries = _tensor_entries(mesh, row)
     devs = [mesh.device_list[i] for i in entries]
 
@@ -573,7 +584,8 @@ def _shard_trees(params: Params, dtype: torch.dtype, device, row: int, home: boo
         return x.home(entries[t]).to(devs[t]) if home else x.shards[entries[t]]
 
     return ([quant.cast_params(quant.tree_map(lambda x: pick(x, t), params), dtype)
-             for t in range(len(entries))], devs)
+             for t in range(len(entries))], devs, [mesh.coords(i)["tensor"] for i in entries],
+            mesh.group(("tensor",), entries[0]))
 
 
 def forward(params: Params, input_ids: torch.Tensor, cache, positions: torch.Tensor,
@@ -600,17 +612,28 @@ def forward(params: Params, input_ids: torch.Tensor, cache, positions: torch.Ten
     stream, the norms and the replicated tables stay on the lead. A
     vocab-split `wte` is looked up per shard over its id range and the
     rows summed; a vocab-split head's logits are gathered. A flash prefill
-    runs B1 per shard on its `[B, NH/tp, S, D]`. `home`: `_shard_trees`."""
+    runs B1 per shard on its `[B, NH/tp, S, D]`. `home`: `_shard_trees`.
+
+    Over a mesh that spans processes, each process runs the row's tensor
+    entries it holds, answering on the first of them; the row-split sums,
+    the vocab-split embedding's sum and the split head's gather (a sum of
+    each shard's logits padded to the whole vocab) reach the row's other
+    processes through its tensor line's group (`sharding.sum_to`). Only the
+    cache-free training forward is ported there: a cache raises (ROADMAP
+    A15 multi-host serving)."""
     if isinstance(cache, PagedKVCache) and kv_valid is None:
         raise ValueError("a forward over the paged KV layout needs kv_valid")
     dtype = torch_dtype(cfg.dtype)
-    trees, devs = _shard_trees(params, dtype, input_ids.device, row, home)
-    tp, lead = len(trees), devs[0]
+    trees, devs, tcoords, group = _shard_trees(params, dtype, input_ids.device, row, home)
+    tp, lead = axis_size(mesh_of(params), "tensor"), devs[0]
     vocab_split = tp > 1 and _split_on_tensor(params["wte"], 0)
     if tp > 1:
         if isinstance(cache, PagedKVCache):
             raise ValueError("the paged KV layout under a tensor-parallel mesh is not ported "
                              "(ROADMAP A15 stage 1b)")
+        if cache is not None and group is not None:
+            raise ValueError("a decode over a mesh that spans processes is not ported "
+                             "(ROADMAP A15 multi-host serving)")
         caches = [None] * tp if cache is None else [
             c._replace(length=cache.length.to(d) if isinstance(cache.length, torch.Tensor)
                        else cache.length) for c, d in zip(cache.shards, devs)]
@@ -622,11 +645,11 @@ def forward(params: Params, input_ids: torch.Tensor, cache, positions: torch.Ten
     if vocab_split:
         ids, vt = input_ids.clamp(0, cfg.vocab_size - 1), cfg.vocab_size // tp
         rows = []
-        for t, (tree, dev) in enumerate(zip(trees, devs)):
+        for t, tree, dev in zip(tcoords, trees, devs):
             loc = ids.to(dev) - t * vt
             rows.append(torch.where(((loc >= 0) & (loc < vt))[..., None],
                                     quant.take(tree["wte"], loc), 0.0))
-        x = sum_to(rows, lead)
+        x = sum_to(rows, lead, group)
         if cfg.arch == "gpt2":
             x = x + quant.take(trees[0]["wpe"], positions)
         x = x.to(dtype)  # quantized gathers dequantize to float32
@@ -640,7 +663,7 @@ def forward(params: Params, input_ids: torch.Tensor, cache, positions: torch.Ten
     kv_valids = [None if kv_valid is None else kv_valid.to(d) for d in devs]
     for i in range(len(params["layers"])):
         x = _block([tree["layers"][i] for tree in trees], x, i, caches, shard_cfg, devs, ropes,
-                   kv_valids, valids)
+                   kv_valids, valids, group)
     if last_only:
         x = x[:, -1:]
     head_split = (vocab_split if cfg.tie_word_embeddings
@@ -651,7 +674,11 @@ def forward(params: Params, input_ids: torch.Tensor, cache, positions: torch.Ten
     x = _norm(cfg)(x, trees[0]["ln_f"], cfg.layer_norm_eps)
     parts = [quant.mm_tied(x.to(d), tree["wte"]) if cfg.tie_word_embeddings
              else quant.mm(x.to(d), tree["lm_head"]["kernel"]) for tree, d in zip(trees, devs)]
-    return torch.cat([p.to(lead) for p in parts], dim=-1).float(), cache
+    if group is None:
+        return torch.cat([p.to(lead) for p in parts], dim=-1).float(), cache
+    V, vt = cfg.vocab_size, cfg.vocab_size // tp
+    return sum_to([F.pad(p.to(lead), (t * vt, V - (t + 1) * vt)) for p, t in zip(parts, tcoords)],
+                  lead, group).float(), cache
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,9 @@ The port of `symbiont_tpu/parallel/`; the JAX package's module map:
 mesh       : named device meshes (axes: data, tensor) over this process's
              CUDA devices, or an explicit device list that may repeat a
              device (the counterpart of the JAX tests' 8 virtual CPU
-             devices)
+             devices); `init_distributed` joins processes into one world
+             over `torch.distributed`, and a mesh over the world's devices
+             spans processes
 sharding   : placement rules — DP batch and corpus rows on 'data', TP rules
              for decoder LM params (heads / MLP hidden on 'tensor'),
              corpus-sharded top-k
@@ -32,17 +34,27 @@ package (psum, all-gather, all-to-all, ppermute), the port issues them as
 copies between devices and adds (`sharding.sum_to`), which autograd
 carries as they stand.
 
+Across processes (A15 multi-host, after `init_distributed`) each process
+holds and computes only its own entries of a mesh, and a sum over a line
+of the mesh that crosses processes is an all-reduce over that line's
+process group, with autograd (`sharding.all_reduce`). The data- and
+tensor-parallel LM train step (`train/trainer.shard_lm_train_state`,
+`lm_train_step`) runs there; serving and the SP/PP steps over such a mesh
+raise, naming ROADMAP's "A15 multi-host serving" and "SP/PP across
+processes".
+
 `parallel/compat.py` (glue between JAX versions) has no counterpart.
-Still to port: `init_distributed` and meshes that span processes over
-`torch.distributed` (ROADMAP A15 multi-host).
 """
 
 from symbiont_tpu_torch.parallel.mesh import (
     Mesh,
     build_mesh,
+    init_distributed,
     local_device_count,
     mesh_from_config,
     parse_mesh_spec,
+    shutdown_distributed,
+    world_devices,
 )
 from symbiont_tpu_torch.parallel.sharding import (
     NamedSharding,
@@ -81,6 +93,9 @@ __all__ = [
     "P",
     "Sharded",
     "build_mesh",
+    "init_distributed",
+    "shutdown_distributed",
+    "world_devices",
     "local_device_count",
     "mesh_from_config",
     "parse_mesh_spec",

@@ -31,7 +31,7 @@ import torch
 from symbiont_tpu_torch.models import gpt as gpt_mod
 from symbiont_tpu_torch.models import quant
 from symbiont_tpu_torch.models.bert import torch_dtype
-from symbiont_tpu_torch.parallel.mesh import Mesh
+from symbiont_tpu_torch.parallel.mesh import Mesh, refuse_spanning
 from symbiont_tpu_torch.parallel.ring_attention import ring_attention
 from symbiont_tpu_torch.parallel.sharding import mesh_of
 from symbiont_tpu_torch.parallel.ulysses import ulysses_attention
@@ -71,6 +71,7 @@ def _block_sp(layers, xs, positions, cfg, attn_impl: str) -> list:
 def _forward_blocks(params: Params, input_ids: torch.Tensor, mesh: Mesh, cfg, axis: str,
                     attn_impl: str) -> list:
     """Each entry's float32 logits [B, S/n, V], on its device."""
+    refuse_spanning(mesh, "the sequence-parallel forward", "SP/PP across processes")
     n = mesh.shape[axis]
     B, S = input_ids.shape
     if S % n != 0:
@@ -134,6 +135,8 @@ def make_lm_train_step_sp(mesh: Mesh, cfg, tx, axis: str = "data", attn_impl: st
     AdamW `tx`. Activations are split over the sequence, so contexts far
     beyond one device's memory train exactly."""
     from symbiont_tpu_torch.train import trainer
+
+    refuse_spanning(mesh, "the sequence-parallel train step", "SP/PP across processes")
 
     def lm_loss_sp_step(params, batch, cfg):
         return lm_loss_sp(params, batch, cfg, mesh, axis, attn_impl)

@@ -25,7 +25,7 @@ from typing import Sequence
 
 import torch
 
-from symbiont_tpu_torch.parallel.mesh import Mesh
+from symbiont_tpu_torch.parallel.mesh import Mesh, refuse_spanning
 from symbiont_tpu_torch.parallel.sharding import NamedSharding, P, device_put
 
 
@@ -48,6 +48,7 @@ def ring_attention(q: Sequence[torch.Tensor], k: Sequence[torch.Tensor],
     n = len(q)
     if not (len(k) == len(v) == n):
         raise ValueError(f"{n} query blocks but {len(k)} key and {len(v)} value blocks")
+    refuse_remote_blocks(q, k, v)
     B, S, NH, D = q[0].shape
     KVH = k[0].shape[2]
     if NH % KVH != 0:
@@ -88,10 +89,20 @@ def ring_attention(q: Sequence[torch.Tensor], k: Sequence[torch.Tensor],
             for a, li, qi in zip(acc, l, q)]
 
 
+def refuse_remote_blocks(*blocks) -> None:
+    """Raise where a block belongs to another process (a `Sharded`'s None
+    on a mesh that spans processes): the hop between processes is not
+    ported."""
+    if any(t is None for b in blocks for t in b):
+        raise ValueError("sequence parallelism over blocks of another process is not ported "
+                         "(ROADMAP SP/PP across processes)")
+
+
 def split_sequence(x: torch.Tensor, mesh: Mesh, axis: str) -> list:
     """`x` [B, S, ...] split on its sequence dim over `axis` (a `Sharded`
     with spec P(None, axis)) → the blocks of the axis' entries in order,
     each on its device."""
+    refuse_spanning(mesh, "sequence parallelism", "SP/PP across processes")
     placed = device_put(x, NamedSharding(mesh, P(None, axis)))
     return [placed.shards[mesh.flat_index(**{axis: i})] for i in range(mesh.shape[axis])]
 

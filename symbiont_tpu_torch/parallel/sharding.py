@@ -15,6 +15,20 @@ Nothing here launches a kernel: the collectives
 the engines need are copies between devices (`.to`) and adds, which
 autograd differentiates as they stand (a `.to` is a broadcast whose
 gradient is a sum), so TP and DP gradients need no backward of their own.
+
+Over a mesh that spans processes (`parallel/mesh.init_distributed`) a
+`Sharded` holds only this process's shards, as a `jax.Array` holds its
+addressable ones: another process's entries are None, and `_place`
+copies only local blocks. A block's master (`home`) is its first local
+holder, so every process that holds a block keeps a master of its own.
+`gather` fetches the blocks no local entry holds from their first holder
+(a collective: every process of the mesh calls it). `sum_to` over a line
+that crosses processes adds the local partials and then all-reduces over
+the line's group (`all_reduce`, an autograd Function of the port's own:
+its backward is the all-reduce of the gradient, so each process's
+gradient of a value every process holds is a partial whose sum over the
+processes is the whole; `train/trainer.py` seeds each loss once and sums
+the replicated masters' gradients over their holders to match).
 """
 
 from __future__ import annotations
@@ -25,7 +39,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from symbiont_tpu_torch.models.quant import QuantTensor
-from symbiont_tpu_torch.parallel.mesh import Mesh
+from symbiont_tpu_torch.parallel.mesh import Group, Mesh
 
 Params = Any
 
@@ -42,7 +56,8 @@ class NamedSharding(NamedTuple):
 
 class Sharded:
     """A tensor laid out on a mesh: `shards[i]` is the block of the mesh's
-    flat entry i, on that entry's device; `shape` the whole tensor's."""
+    flat entry i, on that entry's device (None where the entry belongs to
+    another process); `shape` the whole tensor's."""
 
     __slots__ = ("mesh", "spec", "shards", "shape")
 
@@ -50,8 +65,13 @@ class Sharded:
         self.mesh, self.spec, self.shards, self.shape = mesh, tuple(spec), tuple(shards), shape
 
     @property
+    def local(self) -> list:
+        """This process's shards, in entry order."""
+        return [t for t in self.shards if t is not None]
+
+    @property
     def dtype(self) -> torch.dtype:
-        return self.shards[0].dtype
+        return self.local[0].dtype
 
     @property
     def ndim(self) -> int:
@@ -59,12 +79,12 @@ class Sharded:
 
     @property
     def device(self) -> torch.device:
-        return self.shards[0].device
+        return self.local[0].device
 
     @property
     def nbytes(self) -> int:
-        """Device bytes of every entry's shard."""
-        return sum(t.numel() * t.element_size() for t in self.shards)
+        """Device bytes of this process's shards."""
+        return sum(t.numel() * t.element_size() for t in self.local)
 
     def block(self, i: int) -> tuple:
         """Which block of the whole the flat entry i holds: per dimension,
@@ -72,29 +92,58 @@ class Sharded:
         coords = self.mesh.coords(i)
         return tuple(0 if a is None else coords[a] for a in self.spec)
 
-    def home_index(self, i: int) -> int:
-        """The first entry that holds entry i's block."""
+    def home_index(self, i: int) -> Optional[int]:
+        """The first local entry that holds entry i's block (None where no
+        local entry does)."""
         want = self.block(i)
-        return next(j for j in range(len(self.shards)) if self.block(j) == want)
+        return next((j for j in self.mesh.local_entries if self.block(j) == want), None)
 
     def home(self, i: int) -> torch.Tensor:
-        """Entry i's block at the first entry that holds it: a train
+        """Entry i's block at the first local entry that holds it: a train
         state's master for that block."""
         return self.shards[self.home_index(i)]
 
     def homes(self) -> list:
-        """Each block's home shard once, in entry order."""
-        return [t for i, t in enumerate(self.shards) if self.home_index(i) == i]
+        """Each local block's home shard once, in entry order."""
+        return [self.shards[i] for i in self.mesh.local_entries if self.home_index(i) == i]
+
+    def holders(self, i: int) -> Optional[Group]:
+        """The group of the processes that hold entry i's block (its
+        replicas over the axes the spec does not split), or None where
+        one process holds every copy."""
+        split = {a for a in self.spec if a is not None}
+        return self.mesh.group([a for a in self.mesh.axis_names if a not in split], i)
 
     def gather(self, device=None) -> torch.Tensor:
         """The whole tensor on `device` (the mesh's lead entry by
-        default), each block copied once."""
-        device = torch.device(device) if device is not None else self.mesh.lead
+        default), each block copied once: from its local home where this
+        process holds it, else broadcast over the mesh's group from the
+        first process that holds it. Over a mesh that spans processes this
+        is a collective: every process of the mesh calls it."""
+        mesh = self.mesh
+        device = torch.device(device) if device is not None else mesh.lead
         out = torch.empty(self.shape, dtype=self.dtype, device=device)
-        for i, t in enumerate(self.shards):
-            if self.home_index(i) == i:
-                sl = tuple(slice(j * n, (j + 1) * n) for j, n in zip(self.block(i), t.shape))
-                out[sl] = t.to(device)
+        whole = mesh.group(mesh.axis_names, 0)
+        size = [n // mesh.shape[a] if a is not None else n
+                for n, a in zip(self.shape, self.spec + (None,) * (self.ndim - len(self.spec)))]
+        seen = set()
+        for i in range(mesh.size):
+            b = self.block(i)
+            if b in seen:
+                continue
+            seen.add(b)
+            sl = tuple(slice(j * n, (j + 1) * n) for j, n in zip(b, size))
+            j = self.home_index(i)
+            held = {mesh.process_index(k) for k in range(mesh.size) if self.block(k) == b}
+            if whole is not None and len(held) < len(whole.ranks):
+                src = min(held)
+                buf = (self.shards[j].detach().clone() if mesh.process == src
+                       else torch.empty(size, dtype=self.dtype, device=mesh.lead))
+                whole.broadcast_(buf, src)
+                if j is None:
+                    out[sl] = buf.to(device)
+            if j is not None:
+                out[sl] = self.shards[j].to(device)
         return out
 
     def __repr__(self) -> str:
@@ -102,7 +151,8 @@ class Sharded:
 
 
 def _place(t: torch.Tensor, mesh: Mesh, spec: tuple) -> Sharded:
-    """`t` on `mesh` per `spec`: each entry a copy of its block on its device."""
+    """`t` on `mesh` per `spec`: each local entry a copy of its block on
+    its device (another process's entries None)."""
     spec = tuple(spec)
     if len(spec) > t.ndim:
         raise ValueError(f"spec {spec} has more entries than a {t.ndim}-d tensor")
@@ -112,6 +162,9 @@ def _place(t: torch.Tensor, mesh: Mesh, spec: tuple) -> Sharded:
                              f"{a}={mesh.shape[a]}")
     shards = []
     for i, dev in enumerate(mesh.device_list):
+        if not mesh.is_local(i):
+            shards.append(None)
+            continue
         coords = mesh.coords(i)
         sl = tuple(slice(None) if a is None else
                    slice(coords[a] * (t.shape[d] // mesh.shape[a]),
@@ -256,11 +309,11 @@ def gather_tree(tree: Params, device=None) -> Params:
 
 def leaf_tensors(x) -> list:
     """The device tensors one leaf holds (a `QuantTensor`'s codes and
-    scales, every entry's shard of a `Sharded` leaf)."""
+    scales, every local entry's shard of a `Sharded` leaf)."""
     if isinstance(x, QuantTensor):
         return leaf_tensors(x.q) + leaf_tensors(x.scale)
     if isinstance(x, Sharded):
-        return list(x.shards)
+        return x.local
     return [x]
 
 
@@ -311,7 +364,32 @@ def corpus_topk(mesh: Mesh, corpus: Sharded, query: torch.Tensor, n_valid, k: in
     return top[:k], i[pos[:k]]
 
 
-def sum_to(parts, device) -> torch.Tensor:
+class _AllReduce(torch.autograd.Function):
+    """The sum of `x` over a group's processes; its backward is the sum of
+    the gradient over them. The port's own Function, not
+    `torch.distributed.nn.functional.all_reduce`: its collective is the
+    `Group`'s, which stages CUDA tensors through host memory under gloo,
+    and its backward is fixed here whatever the torch version."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.all_reduce_(x.detach().clone(memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce_(g.clone(memory_format=torch.contiguous_format)), None
+
+
+def all_reduce(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """`x` summed over `group`'s processes, under autograd (`_AllReduce`)."""
+    return _AllReduce.apply(x, group)
+
+
+def sum_to(parts, device, group: Optional[Group] = None) -> torch.Tensor:
     """The sum of partial results over the mesh, on `device`, in entry
-    order (the psum the JAX package's XLA inserts)."""
-    return reduce(torch.add, (p.to(device) for p in parts))
+    order (the psum the JAX package's XLA inserts); with `group` (a line
+    that crosses processes) this process's partials summed, then
+    all-reduced over the group."""
+    total = reduce(torch.add, (p.to(device) for p in parts))
+    return total if group is None else all_reduce(total, group)

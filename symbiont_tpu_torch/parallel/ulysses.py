@@ -32,7 +32,7 @@ import torch
 
 from symbiont_tpu_torch.ops.flash_attention import flash_attention
 from symbiont_tpu_torch.parallel.mesh import Mesh
-from symbiont_tpu_torch.parallel.ring_attention import split_sequence
+from symbiont_tpu_torch.parallel.ring_attention import refuse_remote_blocks, split_sequence
 
 
 def _full_attention(q, k, v, causal: bool) -> torch.Tensor:
@@ -54,6 +54,7 @@ def ulysses_attention(q: Sequence[torch.Tensor], k: Sequence[torch.Tensor],
     sequence order) → each entry's output block [B, S_loc, NH, D] on its
     device. Requires NH % n == 0 (n = the number of entries)."""
     n = len(q)
+    refuse_remote_blocks(q, k, v)
     NH = q[0].shape[2]
     if NH % n != 0:
         raise ValueError(f"num_heads {NH} not divisible by axis size {n}")

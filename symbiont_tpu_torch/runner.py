@@ -64,11 +64,14 @@ def _refuse_unported(cfg: SymbiontConfig, mesh, builds_lm: bool) -> None:
     layout, speculative decoding, the online fine-tune) or
     `tensor_parallel="on"` where the LM cannot shard raises here, naming
     its ROADMAP item, as `LmEngine` and `OnlineLmTrainer` would raise once
-    built."""
+    built. A caller's mesh that spans processes raises for every stack
+    (serving across processes is ROADMAP's A15 multi-host serving)."""
+    from symbiont_tpu_torch.parallel.mesh import axis_size, refuse_spanning
+
+    refuse_spanning(mesh, "the runner's services")
     if not builds_lm:
         return
     from symbiont_tpu_torch.engine.lm import lm_model_config, tp_decode
-    from symbiont_tpu_torch.parallel.mesh import axis_size
 
     if mesh is not None:
         tp = axis_size(mesh, "tensor")

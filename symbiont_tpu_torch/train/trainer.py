@@ -47,6 +47,18 @@ reading every block from its master, so one backward sums each use's
 gradient into it through the copies between devices, and the AdamW then
 updates the masters and copies them to the replicas. Such a step crosses
 devices, so its executable runs eagerly (`graphs.Executable(eager=True)`).
+Over a mesh that spans processes (A15 multi-host,
+`parallel/mesh.init_distributed`) each process runs the same two calls
+(`shard_lm_train_state`, then `lm_train_step`) on the entries it holds:
+`lm_loss` takes its local data rows; each row's Σce·w and Σw count once,
+at the first process of the row's tensor line (the others seed a zero
+that carries their part of the backward's collectives), and the sums over
+the mesh's processes make every process's loss the global one, its
+gradient this process's share. After the backward each replicated
+master's gradient is summed over the processes that hold its block (one
+flat all-reduce a group, `_reduce_grads`), the grad norm counts each block
+once across processes, and each process's AdamW updates its own masters
+identically, as DDP keeps replicas.
 The sequence- and pipeline-parallel steps (A15 stage 2,
 `parallel/context.py`, `parallel/pipeline.py`) are `mesh_train_step`s
 over their losses, eager too; `placed_adamw` is the AdamW over a placed
@@ -170,14 +182,45 @@ def lm_loss(params: Params, batch: dict, cfg: gpt_mod.GPTConfig) -> torch.Tensor
     # the masters (`home`), and the sums meet on the lead
     lead = mesh.lead
     num = den = None
-    for d in range(axis_size(mesh, "data")):
-        dev = mesh.device(data=d)
+    for d in _local_rows(mesh):
+        dev = mesh.device_list[gpt_mod._tensor_entries(mesh, d)[0]]
         fwd = functools.partial(gpt_mod.forward, row=d, home=True)
         n, w = _lm_loss_terms(fwd, params, _data_rows(batch["ids"], mesh, d).to(dev),
                               _data_rows(batch["mask"], mesh, d).to(dev).float(), cfg)
+        if not _leads_row(mesh, d):  # counted at the row's first process
+            n, w = n * 0.0, w * 0.0
         num = n.to(lead) if num is None else num + n.to(lead)
         den = w.to(lead) if den is None else den + w.to(lead)
-    return num / den.clamp_min(1.0)
+    if not mesh.spans_processes:
+        return num / den.clamp_min(1.0)
+    totals = torch.stack([num.detach(), den])
+    mesh.group(mesh.axis_names, 0).all_reduce_(totals)
+    whole = totals[1].clamp_min(1.0)
+    return _GlobalLoss.apply(num / whole, totals[0] / whole)
+
+
+class _GlobalLoss(torch.autograd.Function):
+    """The value of the whole mesh's loss (`total`, the same on every
+    process) with the gradient of this process's share (`share`)."""
+
+    @staticmethod
+    def forward(ctx, share, total):
+        return total.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _local_rows(mesh) -> list:
+    """The data rows of the mesh with an entry in this process."""
+    return sorted({mesh.coords(i)["data"] for i in mesh.local_entries})
+
+
+def _leads_row(mesh, d: int) -> bool:
+    """Whether this process is the first of data row d's tensor line."""
+    return mesh.process == min(mesh.process_index(mesh.flat_index(data=d, tensor=t))
+                               for t in range(axis_size(mesh, "tensor")))
 
 
 def _lm_loss_terms(forward, params, ids, mask, cfg):
@@ -199,11 +242,11 @@ def ce_terms(logits: torch.Tensor, targets: torch.Tensor, w: torch.Tensor):
 
 
 def _data_rows(x, mesh, d: int) -> torch.Tensor:
-    """Data row d's share of a batch tensor: its shard when the batch was
-    placed on the mesh (`batch_sharding`), else its contiguous block of
-    rows."""
+    """Data row d's share of a batch tensor: its shard at the row's first
+    local entry when the batch was placed on the mesh (`batch_sharding`),
+    else its contiguous block of rows."""
     if isinstance(x, Sharded):
-        return x.shards[mesh.flat_index(data=d)]
+        return x.shards[next(i for i in mesh.local_entries if mesh.coords(i)["data"] == d)]
     nd = axis_size(mesh, "data")
     if x.shape[0] % nd:
         raise ValueError(f"a batch of {x.shape[0]} rows does not split over data={nd}")
@@ -227,7 +270,8 @@ def global_norm(tensors) -> torch.Tensor:
 
 def masters(params: Params) -> list:
     """The tensors an optimizer updates: the leaves, or for a tree placed
-    on a mesh each block's home shard (`Sharded.home`), leaf by leaf."""
+    on a mesh each local block's home shard (`Sharded.home`), leaf by
+    leaf."""
     out = []
     for leaf in tree_leaves(params):
         if isinstance(leaf, Sharded):
@@ -238,13 +282,51 @@ def masters(params: Params) -> list:
 
 
 def _sync_replicas(params: Params) -> None:
-    """Every shard of a mesh-placed tree that is not its block's home
-    copied from it, after an update of the homes."""
+    """Every local shard of a mesh-placed tree that is not its block's
+    home copied from it, after an update of the homes."""
     for leaf in tree_leaves(params):
         if isinstance(leaf, Sharded):
-            for i, t in enumerate(leaf.shards):
+            for i in leaf.mesh.local_entries:
                 if leaf.home_index(i) != i:
-                    t.copy_(leaf.home(i))
+                    leaf.shards[i].copy_(leaf.home(i))
+
+
+def _home_entries(params: Params):
+    """(leaf, flat entry) of every local master of a mesh-placed tree,
+    leaf by leaf, each leaf's blocks in block order (the same order on
+    every process that holds them)."""
+    for leaf in tree_leaves(params):
+        yield from ((leaf, i) for i in sorted(
+            (i for i in leaf.mesh.local_entries if leaf.home_index(i) == i), key=leaf.block))
+
+
+def _reduce_grads(params: Params) -> None:
+    """On a mesh that spans processes: each master's gradient summed over
+    the processes that hold its block (`Sharded.holders`), one flat
+    all-reduce a group, the groups in one order on every process."""
+    buckets: dict = {}
+    for leaf, i in _home_entries(params):
+        group = leaf.holders(i)
+        if group is not None:
+            buckets.setdefault(group.ranks, (group, []))[1].append(leaf.shards[i].grad)
+    for ranks in sorted(buckets):
+        group, grads = buckets[ranks]
+        flat = group.all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
+        for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(v.view_as(g))
+
+
+def _spanning_norm(params: Params) -> torch.Tensor:
+    """`global_norm` of a mesh-placed tree's gradients across processes:
+    each block counted once, at the first process that holds it, the
+    squares summed over the mesh's processes."""
+    mesh = mesh_of(params)
+    sq = torch.zeros((), device=mesh.lead)
+    for leaf, i in _home_entries(params):
+        group = leaf.holders(i)
+        if group is None or group.ranks[0] == mesh.process:
+            sq = sq + torch.linalg.vector_norm(leaf.shards[i].grad.float()).to(mesh.lead) ** 2
+    return mesh.group(mesh.axis_names, 0).all_reduce_(sq).sqrt()
 
 
 def _step_fn(params: Params, tx, cfg, loss_fn=contrastive_loss, keys=CONTRASTIVE_KEYS):
@@ -254,7 +336,9 @@ def _step_fn(params: Params, tx, cfg, loss_fn=contrastive_loss, keys=CONTRASTIVE
     gives an unused leaf), one backward into them, the norm taken before
     the update."""
     leaves = masters(params)
-    sharded = mesh_of(params) is not None
+    mesh = mesh_of(params)
+    sharded = mesh is not None
+    spanning = sharded and mesh.spans_processes
     tx_ref = weakref.ref(tx)  # the executable must not keep the optimizer alive
 
     def step(*tensors):
@@ -262,7 +346,11 @@ def _step_fn(params: Params, tx, cfg, loss_fn=contrastive_loss, keys=CONTRASTIVE
         torch._foreach_zero_(grads)
         loss = loss_fn(params, dict(zip(keys, tensors, strict=True)), cfg)
         loss.backward()
-        gnorm = global_norm(grads)
+        if spanning:
+            _reduce_grads(params)
+            gnorm = _spanning_norm(params)
+        else:
+            gnorm = global_norm(grads)
         tx_ref().step()
         if sharded:
             with torch.no_grad():

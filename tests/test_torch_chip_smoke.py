@@ -875,6 +875,16 @@ TINY_LMTRAIN = dict(seq_len=8, batch=2, lr=5e-3, batches=3, passes=3, long_seq=3
                     sentences=4, min_chars=64, timeout_s=120.0)
 
 
+def _count_cpu_launches(monkeypatch):
+    """The CPU path launches no kernel: count B1's plain forwards and the
+    plain fused backward (B2 and B3) as launches, from 0."""
+    from symbiont_tpu_torch.ops import flash_attention as fa
+
+    chip_smoke.count_plain_launches(fa, monkeypatch.setattr)
+    for name in ("launches", "bwd_kv_launches", "bwd_q_launches"):  # restored after
+        monkeypatch.setattr(fa, name, 0)
+
+
 def test_lmtrain_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
     """[lmtrain] end to end on the CPU at the tiny GPT-2 (2 layers), with
     every check it makes on the card but the kernel rows: the CPU path
@@ -882,28 +892,11 @@ def test_lmtrain_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
     counted as the launches, and nothing captures (every step counts once
     per layer)."""
     from symbiont_tpu_torch.models import gpt as gpt_mod
-    from symbiont_tpu_torch.ops import flash_attention as fa
 
     params = gpt_mod.init_params(torch.Generator().manual_seed(4),
                                  gpt_mod.GPTConfig.from_hf(TINY_GPT2))
     chip_smoke.write_gpt_checkpoint(tmp_path / "gpt2", params, TINY_GPT2, torch.float32)
-    forward, backward = fa._forward, fa.flash_attention_backward
-
-    def counted_forward(*a, **kw):
-        with fa._count_lock:
-            fa.launches += 1
-        return forward(*a, **kw)
-
-    def counted_backward(*a, **kw):
-        with fa._count_lock:
-            fa.bwd_kv_launches += 1
-            fa.bwd_q_launches += 1
-        return backward(*a, **kw)
-
-    monkeypatch.setattr(fa, "_forward", counted_forward)
-    monkeypatch.setattr(fa, "flash_attention_backward", counted_backward)
-    for name in ("launches", "bwd_kv_launches", "bwd_q_launches"):  # restored after
-        monkeypatch.setattr(fa, name, 0)
+    _count_cpu_launches(monkeypatch)
     out = chip_smoke.lmtrain_phase(np.random.default_rng(0), tmp_path, sizes=TINY_LMTRAIN,
                                    device="cpu", lm_kw=TINY_LM_KW)
     printed = capsys.readouterr().out
@@ -1057,25 +1050,7 @@ def test_mesh_phase_rehearses_on_the_cpu(monkeypatch, capsys):
     and GPT-2 with an odd vocab), with every check it makes on the card:
     the CPU path launches no kernel, so B1's plain forwards and the plain
     backward are counted as the launches, and nothing captures."""
-    from symbiont_tpu_torch.ops import flash_attention as fa
-
-    forward, backward = fa._forward, fa.flash_attention_backward
-
-    def counted_forward(*a, **kw):
-        with fa._count_lock:
-            fa.launches += 1
-        return forward(*a, **kw)
-
-    def counted_backward(*a, **kw):
-        with fa._count_lock:
-            fa.bwd_kv_launches += 1
-            fa.bwd_q_launches += 1
-        return backward(*a, **kw)
-
-    monkeypatch.setattr(fa, "_forward", counted_forward)
-    monkeypatch.setattr(fa, "flash_attention_backward", counted_backward)
-    for name in ("launches", "bwd_kv_launches", "bwd_q_launches"):  # restored after
-        monkeypatch.setattr(fa, name, 0)
+    _count_cpu_launches(monkeypatch)
     out = chip_smoke.mesh_phase(np.random.default_rng(0), sizes=TINY_MESH, device="cpu",
                                 engine_kw=TINY_MESH_ENGINE)
     printed = capsys.readouterr().out
@@ -1101,30 +1076,6 @@ def test_mesh_phase_rehearses_on_the_cpu(monkeypatch, capsys):
 
 TINY_SP = dict(gpt2=dict(TINY_GPT2, vocab_size=301), rows=4, seq=16, pipe=2, microbatches=2,
                llama=TINY_LLAMA, llama_seq=32, kernel_rows=2, kernel_S=(16,))
-
-
-def _count_cpu_launches(monkeypatch):
-    """The CPU path launches no kernel: count B1's plain forwards and the
-    plain fused backward (B2 and B3) as launches, from 0."""
-    from symbiont_tpu_torch.ops import flash_attention as fa
-
-    forward, backward = fa._forward, fa.flash_attention_backward
-
-    def counted_forward(*a, **kw):
-        with fa._count_lock:
-            fa.launches += 1
-        return forward(*a, **kw)
-
-    def counted_backward(*a, **kw):
-        with fa._count_lock:
-            fa.bwd_kv_launches += 1
-            fa.bwd_q_launches += 1
-        return backward(*a, **kw)
-
-    monkeypatch.setattr(fa, "_forward", counted_forward)
-    monkeypatch.setattr(fa, "flash_attention_backward", counted_backward)
-    for name in ("launches", "bwd_kv_launches", "bwd_q_launches"):  # restored after
-        monkeypatch.setattr(fa, name, 0)
 
 
 def test_sp_phase_rehearses_on_the_cpu(monkeypatch, capsys):
@@ -1176,3 +1127,92 @@ def test_near_tie_argmax_parts_a_flip_at_a_tie_from_a_real_one():
     # row 0 flips inside 2^-8 x 10 of its top logit; row 1 flips far from it
     got = torch.tensor([[9.0, 9.5, 0.0], [1.0, 6.0, 0.0]])
     assert chip_smoke.near_tie_argmax(got, want) == (2, 1)
+
+
+# --------------------------------------------------------------- multihost
+
+TINY_MULTIHOST = dict(gpt2=TINY_GPT2, rows=4, seq=16, steps=2, timeout_s=120)
+
+
+def test_multihost_phase_rehearses_on_the_cpu(monkeypatch, capsys):
+    """[multihost] end to end on the CPU: two worker processes in one gloo
+    world, 2 entries each, the tiny GPT-2 (2 layers, a vocab of 300 that
+    splits over 'tensor') over [2, 1] and [2, 2] spanning them, every bar
+    it holds on the card; each worker counts its plain attention calls as
+    launches (2 layers x local entries a step)."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")  # the workers' torch threads
+    out = chip_smoke.multihost_phase(np.random.default_rng(0), sizes=TINY_MULTIHOST,
+                                     device="cpu")
+    printed = capsys.readouterr().out
+    assert printed.count("[multihost] 2 processes") == 1 and printed.count("[multihost]") == 5
+    assert "over gloo (entries on the CPU)" in printed
+    # B1 and B2/B3 against plain at each mode's local shard [rows / data, heads / tensor, ...]
+    assert "flash_attn_fwd causal q/k/v(2, 4, 16, 8) float32" in printed
+    assert "flash_attn_bwd causal q/k/v/g [2, 2, 16, 8] float32 (tp's local shard)" in printed
+    assert [out["shard_errs"][m]["shape"] for m in ("dp", "tp")] == [[2, 4, 16, 8], [2, 2, 16, 8]]
+    dp, tp = out["modes"]["dp"], out["modes"]["tp"]
+    assert (dp["mesh"], dp["local_entries"], tp["mesh"], tp["local_entries"]) == \
+        ([2, 1], 1, [2, 2], 2)
+    for mode in (dp, tp):
+        assert [{k: x[k] for k in ("loss", "grad_norm", "launches", "bytes")}
+                for x in mode["steps"]] == \
+            [{k: x[k] for k in ("loss", "grad_norm", "launches", "bytes")}
+             for x in mode["steps_other"]]
+        assert [x["loss"] for x in mode["steps"]] == pytest.approx(
+            [x["loss"] for x in out["meshless"]], rel=1e-4)
+    # dp sums every gradient across the processes; tp only the replicated leaves'
+    geom = chip_smoke.gpt_param_count(TINY_GPT2)
+    assert dp["grad_bytes"] == 4 * geom and 0 < tp["grad_bytes"] < dp["grad_bytes"]
+    assert dp["bytes_per_step"] >= dp["grad_bytes"]
+    # per worker and step: 2 layers x 1 entry (dp), x 2 entries (tp); 2 steps, 2 workers
+    assert out["launches"] == (2 * 2 * (2 * 1 + 2 * 2),) * 3
+
+
+def test_a_multihost_worker_that_breaks_a_bar_fails_the_phase(monkeypatch):
+    """A learning rate of 1e30 sends step 1's loss to nan in both workers:
+    the bar against the meshless step fails the phase."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    with pytest.raises(RuntimeError, match=r"\[multihost\] dp"):
+        chip_smoke.multihost_phase(np.random.default_rng(0),
+                                   sizes=dict(TINY_MULTIHOST, lr=1e30), device="cpu")
+
+
+def test_a_failing_multihost_worker_fails_the_run(monkeypatch, capsys):
+    """Every phase before [multihost] stubbed to pass; workers asked for a
+    mesh their world cannot hold exit non-zero, which fails [multihost]
+    with their exit codes and leaves main() by its exception, printing no
+    result."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(chip_smoke, "card_line", lambda: "card, 700.00 W")
+    launches = {"launches": (0, 0, 0)}
+
+    def checkpoint(rng, tmp):
+        (Path(tmp) / "mpnet").mkdir()
+        return {"launches": 0, "mpnet_dir": Path(tmp) / "mpnet", "host_leaves": {}}
+
+    real = chip_smoke.multihost_phase
+    stubs = dict(kernel_phase=lambda: {}, backward_kernel_phase=lambda: {},
+                 main_path=lambda rng: launches, train_path=lambda rng: launches,
+                 profile_embed=lambda texts: None, synth_texts=lambda rng, n: [],
+                 checkpoint_phase=checkpoint, obs_phase=lambda ck, tmp: None,
+                 quant_phase=lambda rng, d, h: {"launches": 0},
+                 causal_gqa_kernel_phase=lambda: {},
+                 generate_phase=lambda rng, tmp: {"launches": 0},
+                 session_phase=lambda rng, tmp: {"launches": 0, "batcher": {},
+                                                 "tinyllama": None},
+                 paged_phase=lambda rng, tmp, tl, dense_batcher: {"launches": 0},
+                 spec_phase=lambda rng, tmp, tl: {"launches": 0},
+                 lmtrain_phase=lambda rng, tmp: {"launches": (0, 0, 0), "kernels": []},
+                 mesh_phase=lambda rng: {"launches": (0, 0, 0)},
+                 sp_phase=lambda rng: {"launches": (0, 0, 0)},
+                 stack_phase=lambda rng, tmp, serve: {"launches": 0},
+                 fleet_phase=lambda rng, tmp: {"launches": 0},
+                 multihost_phase=lambda rng: real(
+                     rng, sizes=dict(TINY_MULTIHOST, modes=(("dp", (3, 1)),)), device="cpu"))
+    for name, fn in stubs.items():
+        monkeypatch.setattr(chip_smoke, name, fn)
+    with pytest.raises(RuntimeError, match=r"(?s)\[multihost\] a worker failed .* exit codes "
+                                           r"\[.*is not \[3, 1\] over both processes"):
+        chip_smoke.main()
+    assert '"ok": true' not in capsys.readouterr().out
