@@ -140,7 +140,11 @@ any failure exits non-zero:
              per layer per embed batch, fused query, rerank batch and LM
              prefill; /readyz, /metrics, /api/traces, /api/health/engine;
              sentences/s, search p50/p95 and TTFT beside [serve]'s,
-             [search]'s and [generate]'s;
+             [search]'s and [generate]'s; then the runtime direction of
+             the host-sync audit: the `engine.host_syncs_total{site}`
+             series are exactly `known_sync_sites()` (the lint allowlist's
+             inventory, registered at zero by the runner) and none outside
+             it ever fired, each site's count printed;
 15. fleet  — the stack as supervised OS processes over the port's TCP bus
              and broker (`ProcessSupervisor`, heartbeats), in the JAX
              package's multi-process layouts, with the embed role and the
@@ -202,6 +206,9 @@ any failure exits non-zero:
              passes to collectives (through host memory: one card has no
              NCCL and no link; on a host with two cards or more each
              process takes its own, and the rule picks NCCL).
+19. lint   — host only: the port's contract linter run in this process
+             over the checkout (every rule, the port's allowlist): its
+             rules, the files it read, its seconds, and 0 findings.
 
 Launch counts are set to 0 just before each main path (phases 3-4, 5, 6,
 8, 9, 10, 11, 12, 13, 14, 15, 16, 17 and 18; [multihost]'s in each
@@ -216,6 +223,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import copy
 import dataclasses
 import faulthandler
 import functools
@@ -3403,12 +3411,10 @@ def sampled_streams(eng, prompt: str, new: int) -> dict:
     chunk, cfg = eng.config.stream_chunk, eng.model_cfg
     res = {}
     for label in ("first", "second"):
-        state, c0 = eng._generator.get_state(), eng.carrier_stats()
+        seeds, c0 = copy.deepcopy(eng._seeds), eng.carrier_stats()
         text = "".join(eng.generate_stream(prompt, new, temperature=0.8, top_k=40))
         c1 = eng.carrier_stats()
-        g = torch.Generator(device=eng.device)
-        g.set_state(state)
-        base = int(torch.randint(0, 2 ** 62, (1,), generator=g, device=eng.device).item())
+        base = int(seeds.integers(0, 2 ** 62))
         ids, mask, nb = eng._prepare_prompts([prompt], new)
         want = []
         with torch.inference_mode():
@@ -4858,6 +4864,7 @@ def stack_phase(rng, tmp, sizes=None, device="cuda", engine_kw=None, lm_kw=None,
     prompts = ragged_prompts(rng, *s["gen_bucket"], s["gen"])
     batch_prompts = ragged_prompts(rng, *s["gen_bucket"], s["batch"])
     cpu = device == "cpu"
+    syncs0 = host_sync_counts(metrics)
     cfg = SymbiontConfig(
         engine=EngineConfig(**{"attn_impl": "flash", "rerank_enabled": True,
                                "force_cpu": cpu, **(engine_kw or {})}),
@@ -5185,6 +5192,7 @@ def stack_phase(rng, tmp, sizes=None, device="cuda", engine_kw=None, lm_kw=None,
         return out
 
     out = asyncio.run(scenario())
+    out["host_syncs"] = sync_audit(metrics, syncs0)
     ing, se, ge = out["ingest"], out["search"], out["generate"]
     print(f"[stack] SymbiontStack up in {out['start_s']:.1f} s (TorchEngine flash + "
           f"cross-encoder, LmEngine GPT-2, in-process bus, gateway on 127.0.0.1); /readyz "
@@ -5228,6 +5236,10 @@ def stack_phase(rng, tmp, sizes=None, device="cuda", engine_kw=None, lm_kw=None,
           f"span_* families; /api/traces/recent lists {out['recent_traces']} traces, no error, and a search's "
           f"trace holds {', '.join(out['search_trace_spans'])}; "
           f"/api/health/engine stats; no task left after stop()", flush=True)
+    total = host_sync_counts(metrics)
+    print(f"[stack] host-sync audit: {len(total)} engine.host_syncs_total series = "
+          f"known_sync_sites(), none outside it fired; count in this phase (in the run): " + ", ".join(
+              f"{s} {n} ({total[s]})" for s, n in out["host_syncs"].items()), flush=True)
     return {"launches": out["b1"]["launches"], **{k: v for k, v in out.items() if k != "b1"},
             "b1_equation": out["b1"]["equation"]}
 
@@ -6861,6 +6873,48 @@ def multihost_phase(rng, sizes=None, device="cuda") -> dict:
     return out
 
 
+def host_sync_counts(registry) -> dict:
+    """site -> count of every `engine.host_syncs_total` series."""
+    return {dict(labels).get("site"): value
+            for name, labels, value in registry.export()["counters"]
+            if name == "engine.host_syncs_total"}
+
+
+def sync_audit(registry, before=None) -> dict:
+    """The runtime direction of the host-sync inventory: every series that
+    fired names a site of `known_sync_sites()` (the lint allowlist's), and
+    the series are exactly those sites (`register_zero` exports each). →
+    site -> count since `before` (a `host_sync_counts` reading)."""
+    from symbiont_tpu_torch.obs.xprof import known_sync_sites
+
+    counts, known = host_sync_counts(registry), set(known_sync_sites())
+    fired = {s for s, n in counts.items() if n > 0}
+    check(fired <= known, f"host syncs counted at sites the inventory does not name: "
+                          f"{sorted(fired - known)}")
+    check(set(counts) == known, f"engine.host_syncs_total series {sorted(counts)} are not "
+                                f"known_sync_sites() {sorted(known)}")
+    before = before or {}
+    return {s: counts[s] - before.get(s, 0) for s in sorted(counts)}
+
+
+def lint_phase(root=None) -> dict:
+    """[lint]: the port's contract linter over the checkout (`root`, by
+    default this script's directory), in this process, every rule with the
+    port's allowlist. Fails the run on any finding."""
+    from symbiont_tpu_torch.lint import run
+    from symbiont_tpu_torch.lint.rules import RULES
+
+    t0 = time.perf_counter()
+    findings, ctx = run(root=root or Path(__file__).resolve().parent)
+    out = {"rules": len(RULES), "files": ctx.files_scanned(),
+           "findings": len(findings), "seconds": time.perf_counter() - t0}
+    print(f"[lint] {out['rules']} rules over {out['files']} files (the port's tree, native/ and "
+          f"the docs) with the port's allowlist in {out['seconds']:.2f} s: "
+          f"{out['findings']} findings", flush=True)
+    check(not findings, "the port's linter found:\n" + "\n".join(f.render() for f in findings))
+    return out
+
+
 def main(argv=()) -> int:
     import argparse
 
@@ -6966,6 +7020,8 @@ def _run_phases() -> int:
         lap("fleet")
     multihost = multihost_phase(np.random.default_rng(SEED + 20))
     lap("multihost")
+    lint_phase()
+    lap("lint")
     fwd = {"serve": serve["launches"][0], "train": train["launches"][0],
            "checkpoint": ck_launches, "quant": qt["launches"], "generate": gen["launches"],
            "session": sess["launches"], "paged": paged["launches"], "spec": spec["launches"],

@@ -48,6 +48,10 @@ obs       : device memory, dispatch ledger, engine timeline, usage, the
             watchdog
 runner    : SymbiontStack, the whole stack in one process or one role of
             a supervised deployment
+lint      : the contract linter over the port's tree, with the port's own
+            allowlist (the host-sync inventory `obs/xprof` reads)
+deploy    : the offline compose-topology validator and the live-store
+            compat check
 """
 
 __version__ = "0.1.0"

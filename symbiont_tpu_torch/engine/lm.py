@@ -30,10 +30,12 @@ engine lock, `splice` merges under it), with `can_admit` gating on a row
 cap and a forecast of the fresh device bytes; `engine/batcher.py`'s
 `GenBatcher` drives sessions for concurrent requests. Each stream and each
 session samples from a `torch.Generator` of its own, seeded by one draw
-from the engine's under the lock, so its tokens do not depend on what other
-callers interleave. A stream draws each chunk (or speculative round) from
-a generator seeded by its base seed and the chunk's index, so a journal
-that records the two restores the draws at any chunk boundary.
+from the engine's seed sequence under the lock, so its tokens do not depend
+on what other callers interleave. The sequence is a numpy generator on the
+host, so a draw waits on no device work. A stream draws each chunk (or
+speculative round) from a generator seeded by its base seed and the chunk's
+index, so a journal that records the two restores the draws at any chunk
+boundary.
 
 Paged KV and speculative decoding, as in JAX: with `kv_layout="paged"`
 sessions keep their K/V in one engine-wide page pool (`kv/pool.py`), pages
@@ -611,7 +613,7 @@ class LmEngine:
             if cfg.model_dir and (Path(cfg.model_dir) / "tokenizer.json").exists():
                 tokenizer = LmHFTokenizer(Path(cfg.model_dir) / "tokenizer.json")
         self.tokenizer = tokenizer
-        self._generator = self._new_generator(cfg.seed)
+        self._seeds = np.random.default_rng(cfg.seed)
         self._lock = threading.Lock()
         # decode executables (CUDA graphs on the card) share one pool; their
         # replays are serialised by _lock. Free carriers wait in a pool, one
@@ -739,10 +741,9 @@ class LmEngine:
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def _draw_seed(self) -> int:
-        """One draw from the engine's generator. The caller holds the
-        engine lock."""
-        seed = torch.randint(0, 2 ** 62, (1,), generator=self._generator, device=self.device)
-        return int(seed.item())
+        """One draw from the engine's seed sequence, on the host. The
+        caller holds the engine lock."""
+        return int(self._seeds.integers(0, 2 ** 62))
 
     def _chunk_generator(self, base: int, n: int,
                          carrier: Optional["_CarryDecoder"] = None) -> torch.Generator:
@@ -961,8 +962,10 @@ class LmEngine:
             with maybe_profile("engine.generate"), torch.inference_mode():
                 tokens, lengths = self._decode_batch(prompt_ids, prompt_mask, new_bucket,
                                                      temps, ks, int(eos_id))
-                tokens = tokens.cpu().numpy()  # the fetch waits for the whole decode
-                lengths = lengths.cpu().numpy()
+                # the call's one fetch: it waits for the whole decode
+                host = torch.cat((tokens, lengths[:, None].to(tokens.dtype)), dim=1).cpu().numpy()
+                tokens, lengths = host[:, :-1], host[:, -1]
+            dispatch_ledger.note_host_sync("LmEngine.generate_batch")
             self.stats["generate_calls"] += 1
             self.stats["decode_s"] += time.perf_counter() - t0
             out = []
@@ -1864,6 +1867,7 @@ class BatchSession:
             # commit the new prompt blocks and their logits for the next
             # admission with this prefix (one [bb, V] fetch per start)
             self._commit(range(n), ids_r, pads, self._logits.cpu().numpy(), range(n))
+            dispatch_ledger.note_host_sync("BatchSession.__init__")
         # the drafter: a dense prefill at the same geometry, also after a
         # full radix hit (it has no radix); a failure decodes plain
         self._d_cache = None
@@ -2245,6 +2249,7 @@ class BatchSession:
             pg = prep["paged"]
             self._commit(list(taken), pg["ids_r"], pg["pads"], prep["logits"].cpu().numpy(),
                          [j for j, _, _ in taken.values()])
+            dispatch_ledger.note_host_sync("BatchSession.splice")
         engine_timeline.note_admit(
             rows=len(taken), prefill_ms=prep["prefill_s"] * 1000.0,
             prefix_share=prep["prefix_share"], kind="splice",
@@ -2462,6 +2467,7 @@ class BatchSession:
                                       draft_s)
         dispatch_ledger.note_dispatch(f"lm.verify_chunk[P={self.P},B={self.bb},k={lm.spec_k}]",
                                       verify_s)
+        dispatch_ledger.note_host_sync("BatchSession._step_spec")
         if first:
             dispatch_ledger.note_dispatch(f"lm.spec_first[B={self.bb}]", t_d - t0)
         self.steps_done += S
@@ -2549,6 +2555,7 @@ class BatchSession:
             self._last_step_end = time.perf_counter()
         dispatch_ledger.note_dispatch(f"lm.decode_chunk[P={self.P},B={self.bb},chunk={chunk}]",
                                       step_s)
+        dispatch_ledger.note_host_sync("BatchSession._step_plain")
         self.steps_done += chunk
         # occupancy and row-seconds over the rows live DURING the chunk
         kv_live, kv_alloc = lm.kv_row_counts()

@@ -26,9 +26,9 @@ The port's copy of `symbiont_tpu/obs/xprof.py`:
   under telemetry's `_profile_lock`, with JAX's `busy`/`error`/`captured`
   statuses and `profile.device_*` counters. Served at
   `POST /api/profile/device`.
-
-`KNOWN_SYNC_SITES` stands where JAX's `known_sync_sites()` reads the lint
-allowlist, which the port does not have yet (ROADMAP A17).
+- `known_sync_sites`: as in JAX, the host-sync sites read from the lint
+  allowlist (`lint/allowlist.py` `TORCH_HOST_SYNC_ALLOWED`), so the
+  runtime counters and the static inventory are one list.
 """
 
 from __future__ import annotations
@@ -49,16 +49,15 @@ from torch.utils._pytree import tree_leaves
 from symbiont_tpu_torch.utils.telemetry import metrics
 
 
-# the host-sync sites the port's engines count at, each exported at zero
-# by `register_zero` so a site that never fires still shows (the JAX
-# package reads its list from the lint allowlist)
-KNOWN_SYNC_SITES = (
-    "LmEngine._generate_stream_impl",
-    "TorchEngine.embed_and_search",
-    "TorchEngine.embed_texts",
-    "TorchEngine.rerank",
-    "TorchEngine.warmup",
-)
+def known_sync_sites() -> tuple:
+    """The static host-sync inventory, as runtime counter site names.
+
+    Single source of truth is the lint allowlist — the runtime audit can
+    never drift from the static one because it IS the static one.
+    """
+    from symbiont_tpu_torch.lint.allowlist import TORCH_HOST_SYNC_ALLOWED
+
+    return tuple(sorted(scope for (_file, scope) in TORCH_HOST_SYNC_ALLOWED))
 
 
 _COMPOSITE = torch._C.DispatchKey.CompositeImplicitAutograd
@@ -269,7 +268,7 @@ class DispatchLedger:
         """The ledger's counter families at zero, one host-sync series per
         known site, so `/metrics` shows them before any traffic."""
         self.registry.inc("xla.dispatches_total", 0, labels={"executable": "all"})
-        for site in KNOWN_SYNC_SITES:
+        for site in known_sync_sites():
             self.registry.inc("engine.host_syncs_total", 0, labels={"site": site})
 
     def __len__(self) -> int:

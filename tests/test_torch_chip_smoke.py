@@ -969,7 +969,16 @@ def test_stack_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
     # B1 at the LM's prefill shapes: 1, 2 and 4 rows in the 16 bucket
     assert printed.count("[stack] flash_attn_fwd causal") == 3
     assert "causal q[4, 4, 16, 8] over 4 KV heads, bfloat16" in printed
-    assert printed.count("[stack]") == 10
+    assert printed.count("[stack]") == 11
+    # the host-sync audit: one series per inventoried site, the streams'
+    # chunks and the batched session's chunks counted at their sites
+    from symbiont_tpu_torch.obs.xprof import known_sync_sites
+
+    assert "[stack] host-sync audit:" in printed
+    assert sorted(out["host_syncs"]) == list(known_sync_sites())
+    assert out["host_syncs"]["LmEngine._generate_stream_impl"] >= 2 * 2
+    assert out["host_syncs"]["BatchSession._step_plain"] >= 1
+    assert out["host_syncs"]["TorchEngine.embed_and_search"] >= 6
     assert out["ingest"]["sentences"] == 16 and out["ingest"]["flushes"] >= 1
     assert "perception.handle" in out["ingest"]["spans"]
     assert out["search"]["fused"] == 6 and out["search"]["fallbacks"] == 0
@@ -1216,3 +1225,102 @@ def test_a_failing_multihost_worker_fails_the_run(monkeypatch, capsys):
                                            r"\[.*is not \[3, 1\] over both processes"):
         chip_smoke.main()
     assert '"ok": true' not in capsys.readouterr().out
+
+
+# ------------------------------------------------------------------- lint
+
+
+def test_lint_phase_is_clean_on_the_checkout(capsys):
+    """[lint] over this checkout: every rule, the port's allowlist, 0
+    findings, one line."""
+    from symbiont_tpu_torch.lint.rules import RULES
+
+    out = chip_smoke.lint_phase()
+    assert out["findings"] == 0 and out["rules"] == len(RULES) and out["files"] > 100
+    printed = capsys.readouterr().out
+    assert printed.count("[lint]") == 1 and ": 0 findings" in printed
+
+
+def test_a_lint_finding_fails_the_run(tmp_path, monkeypatch, capsys):
+    """Every phase before [lint] stubbed to pass; a checkout whose engine
+    takes a per-scalar sync fails [lint], which leaves main() by its
+    exception and prints no result."""
+    from tests.test_torch_lint import _wiring_tree
+
+    _wiring_tree(tmp_path)
+    (tmp_path / "symbiont_tpu_torch" / "engine").mkdir()
+    (tmp_path / "symbiont_tpu_torch" / "engine" / "lm.py").write_text(
+        "def f(x):\n    return x.item()\n")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(chip_smoke, "card_line", lambda: "card, 700.00 W")
+    launches = {"launches": (0, 0, 0)}
+
+    def checkpoint(rng, tmp):
+        (Path(tmp) / "mpnet").mkdir()
+        return {"launches": 0, "mpnet_dir": Path(tmp) / "mpnet", "host_leaves": {}}
+
+    real = chip_smoke.lint_phase
+    stubs = dict(kernel_phase=lambda: {}, backward_kernel_phase=lambda: {},
+                 main_path=lambda rng: launches, train_path=lambda rng: launches,
+                 profile_embed=lambda texts: None, synth_texts=lambda rng, n: [],
+                 checkpoint_phase=checkpoint, obs_phase=lambda ck, tmp: None,
+                 quant_phase=lambda rng, d, h: {"launches": 0},
+                 causal_gqa_kernel_phase=lambda: {},
+                 generate_phase=lambda rng, tmp: {"launches": 0},
+                 session_phase=lambda rng, tmp: {"launches": 0, "batcher": {},
+                                                 "tinyllama": None},
+                 paged_phase=lambda rng, tmp, tl, dense_batcher: {"launches": 0},
+                 spec_phase=lambda rng, tmp, tl: {"launches": 0},
+                 lmtrain_phase=lambda rng, tmp: {"launches": (0, 0, 0), "kernels": []},
+                 mesh_phase=lambda rng: {"launches": (0, 0, 0)},
+                 sp_phase=lambda rng: {"launches": (0, 0, 0)},
+                 stack_phase=lambda rng, tmp, serve: {"launches": 0},
+                 fleet_phase=lambda rng, tmp: {"launches": 0},
+                 multihost_phase=lambda rng: {"launches": (0, 0, 0)},
+                 lint_phase=lambda: real(tmp_path))
+    for name, fn in stubs.items():
+        monkeypatch.setattr(chip_smoke, name, fn)
+    with pytest.raises(RuntimeError, match=r"(?s)the port's linter found:.*"
+                                           r"torch-host-sync-in-loop.*subject-dead-limb"):
+        chip_smoke.main()
+    printed = capsys.readouterr().out
+    assert "[lint]" in printed and '"ok": true' not in printed
+
+
+def _sync_registry(*sites):
+    from symbiont_tpu_torch.obs.xprof import DispatchLedger
+    from symbiont_tpu_torch.utils.telemetry import Metrics
+
+    ledger = DispatchLedger(registry=Metrics())
+    ledger.register_zero()
+    for site in sites:
+        ledger.note_host_sync(site)
+    return ledger.registry
+
+
+def test_sync_audit_counts_each_inventoried_site():
+    registry = _sync_registry("TorchEngine.rerank", "TorchEngine.rerank")
+    before = chip_smoke.host_sync_counts(registry)
+    registry.inc("engine.host_syncs_total", 3, labels={"site": "TorchEngine.rerank"})
+    got = chip_smoke.sync_audit(registry, before)
+    assert got["TorchEngine.rerank"] == 3 and sum(got.values()) == 3
+    assert chip_smoke.host_sync_counts(registry)["TorchEngine.rerank"] == 5
+
+
+@pytest.mark.parametrize("fault, match", [
+    ("outside", r"counted at sites the inventory does not name: \['Nowhere.sync'\]"),
+    ("missing", r"series .* are not known_sync_sites\(\)"),
+])
+def test_sync_audit_fails(fault, match):
+    """A series outside the inventory that fired, or an inventoried site
+    with no series (register_zero not run), fails the audit."""
+    from symbiont_tpu_torch.utils.telemetry import Metrics
+
+    if fault == "outside":
+        registry = _sync_registry("TorchEngine.warmup", "Nowhere.sync")
+    else:
+        registry = Metrics()
+        registry.inc("engine.host_syncs_total", 1, labels={"site": "TorchEngine.warmup"})
+    with pytest.raises(RuntimeError, match=match):
+        chip_smoke.sync_audit(registry)
