@@ -175,7 +175,26 @@ any failure exits non-zero:
              B1 = B2 = B3 = layers x 4 a step), with B1 at a TP shard's
              prefill and B2/B3 at a train shard's heads against their
              plain versions;
-17. sp     — (run after [mesh]) A15 stage 2 over virtual meshes that repeat
+16b. tp    — (run after [mesh]) A15 stages 1b-1d on [1, 2] over cuda:0
+             repeated, each part against itself without a mesh:
+             TinyLlama-1.1B float32 paged (radix on) generate_batch of 4 x
+             32 greedy, a session whose admission shares whole prompt
+             pages with the committed start and a full radix hit start
+             (tokens = meshless paged = TP dense, or a near-tie; radix
+             stats, pool bytes and pages after = meshless; B1 = 22 x 2 a
+             cold prefill, 0 a full hit; paged vs dense chunk ms), GPT-2
+             124M float32 paged with int8 KV (tokens = meshless), spec
+             self-drafted on dense and paged (tokens = plain greedy,
+             acceptance = meshless spec) and a llama-68m-geometry drafter's
+             round ms, and OnlineLmTrainer on a TP GPT-2 f32 flash engine
+             (2 passes' losses within rtol 1e-4 of meshless, the synced
+             shards within 2 x lr x steps of the meshless engine's blocks,
+             tokens after = meshless, save/load/one more pass = unbroken,
+             B1 = B2 = B3 = 12 x 2 a step), with B1 f32 at a TinyLlama TP
+             shard's paged prefill and B1/B2/B3 f32 at GPT-2's shard
+             [8, 6, 64, 64] against their plain versions, SDPA and the
+             bound;
+17. sp     — (run after [tp]) A15 stage 2 over virtual meshes that repeat
              cuda:0: GPT-2 124M float32 sequence-parallel train steps at
              [8, 1024] over data=2 with the ring and with Ulysses, and
              pipelined over pipe=4 with 4 microbatches, each step's loss
@@ -2172,15 +2191,61 @@ def next_token_cosines(a: torch.Tensor, b: torch.Tensor) -> np.ndarray:
     return ((pa * pb).sum(-1) / (pa.norm(dim=-1) * pb.norm(dim=-1))).cpu().numpy()
 
 
+def causal_gqa_row(gen, lens, NH: int, NKV: int, S: int, dtype, timed: bool,
+                   tag: str = "kernels", device: str = "cuda") -> dict:
+    """B1 causal GQA, q [len(lens), NH, S, 64] over k/v [., NKV, S, 64],
+    left padding to `lens`, against its plain version on the real query
+    rows (out and lse); with `timed`, its graph replay beside the plain
+    version's, SDPA's (enable_gqa, a mask with the causal and padding
+    terms) and the bound. Prints its line under `tag` → the row."""
+    from symbiont_tpu_torch.ops import flash_attention as fa
+
+    B, dname = len(lens), str(dtype)[6:]
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    q = torch.randn((B, NH, S, 64), generator=gen, device=device).to(dtype)
+    k, v = (torch.randn((B, NKV, S, 64), generator=gen, device=device).to(dtype)
+            for _ in range(2))
+    bias = left_pad_bias(lens, S, device)
+    out, lse = fa.flash_attention_with_lse(q, k, v, bias, causal=True)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, bias, causal=True)
+    real = real_query_rows(lens, S, device)
+    ok, err = real_rows_within(out, ref, real, tol)
+    lse_err = float((((lse - ref_lse).abs() / (1 + ref_lse.abs())) * real).max())
+    label = f"causal GQA S={S} {dname}"
+    check(bool(torch.isfinite(out.float()).all()), f"{label}: non-finite output")
+    check(ok, f"{label}: max |kernel - plain| {err:.4g} on real rows over {tol}")
+    check(lse_err <= 1e-4, f"{label}: lse relative error {lse_err:.3g} > 1e-4")
+    row = {"label": f"causal_gqa_S{S}_{dname}", "dtype": dname, "max_abs_err": err,
+           "lse_rel_err": lse_err}
+    line = (f"[{tag}] flash_attn_fwd causal GQA q{tuple(q.shape)} k{tuple(k.shape)} "
+            f"{dname}, left padding, real query rows: max_abs_err {err:.4g} (tol {tol} abs "
+            f"+ {tol} rel), lse rel err {lse_err:.3g}")
+    if timed:
+        bound, bound_by = _bound_ms(q, k, v, bias, causal=True)
+        ms = graph_ms(lambda: fa.flash_attention(q, k, v, bias, causal=True))
+        plain = graph_ms(lambda: fa.flash_attention_reference(q, k, v, bias, causal=True),
+                         iters=5)
+        causal = torch.ones((S, S), dtype=torch.bool, device=device).tril()
+        mask = torch.where(causal[None, None], bias[:, None, None, :], -1e9).to(dtype)
+        lib = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True))
+        row |= {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
+                "library_ms": lib}
+        line += (f"; ms {ms:.4f} (graph replay), plain_ms {plain:.4f}, library_ms (SDPA, "
+                 f"enable_gqa) {lib:.4f}, bound_ms {bound:.4f} "
+                 f"({_bound_name(bound_by, dtype)}), "
+                 f"{bound / ms:.1%} of bound")
+    print(line, flush=True)
+    return row
+
+
 def causal_gqa_kernel_phase(timed: bool = True) -> dict:
     """B1 at the generate path's prefill shapes: TinyLlama's causal GQA,
     q [8, 32, S, 64] over k/v [8, 4, S, 64], bf16 at S 256 and 1024 and
     float32 at [spec]'s prefill bucket, left padding, against its plain
     version on the real query rows; timed beside SDPA (enable_gqa, a mask
-    with the causal and padding terms) and the bound. → rows by (S,
-    dtype)."""
-    from symbiont_tpu_torch.ops import flash_attention as fa
-
+    with the causal and padding terms) and the bound (`causal_gqa_row`).
+    → rows by (S, dtype)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     rng = np.random.default_rng(SEED + 7)
     rows = {}
@@ -2188,44 +2253,8 @@ def causal_gqa_kernel_phase(timed: bool = True) -> dict:
     # bucket, where its float32 TinyLlama target launches B1
     for S, dtype in ((256, torch.bfloat16), (1024, torch.bfloat16),
                      (PAGED["bucket"][1], torch.float32)):
-        dname = str(dtype)[6:]
-        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
         lens = list(rng.integers(S // 4, S + 1, GEN_ROWS - 1)) + [S]
-        q = torch.randn((GEN_ROWS, 32, S, 64), generator=gen, device="cuda").to(dtype)
-        k, v = (torch.randn((GEN_ROWS, 4, S, 64), generator=gen, device="cuda").to(dtype)
-                for _ in range(2))
-        bias = left_pad_bias(lens, S)
-        out, lse = fa.flash_attention_with_lse(q, k, v, bias, causal=True)
-        ref, ref_lse = fa.flash_attention_reference(q, k, v, bias, causal=True)
-        real = real_query_rows(lens, S)
-        ok, err = real_rows_within(out, ref, real, tol)
-        lse_err = float((((lse - ref_lse).abs() / (1 + ref_lse.abs())) * real).max())
-        label = f"causal GQA S={S} {dname}"
-        check(bool(torch.isfinite(out.float()).all()), f"{label}: non-finite output")
-        check(ok, f"{label}: max |kernel - plain| {err:.4g} on real rows over {tol}")
-        check(lse_err <= 1e-4, f"{label}: lse relative error {lse_err:.3g} > 1e-4")
-        row = {"label": f"causal_gqa_S{S}_{dname}", "dtype": dname, "max_abs_err": err}
-        line = (f"[kernels] flash_attn_fwd causal GQA q{tuple(q.shape)} k{tuple(k.shape)} "
-                f"{dname}, left padding, real query rows: max_abs_err {err:.4g} (tol {tol} abs "
-                f"+ {tol} rel), lse rel err {lse_err:.3g}")
-        if timed:
-            bound, bound_by = _bound_ms(q, k, v, bias, causal=True)
-            ms = graph_ms(lambda: fa.flash_attention(q, k, v, bias, causal=True))
-            plain = graph_ms(lambda: fa.flash_attention_reference(q, k, v, bias, causal=True),
-                             iters=5)
-            causal = torch.ones((S, S), dtype=torch.bool, device="cuda").tril()
-            mask = torch.where(causal[None, None], bias[:, None, None, :], -1e9).to(dtype)
-            lib = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, enable_gqa=True))
-            row |= {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
-                    "library_ms": lib}
-            line += (f"; ms {ms:.4f} (graph replay), plain_ms {plain:.4f}, library_ms (SDPA, "
-                     f"enable_gqa) {lib:.4f}, bound_ms {bound:.4f} "
-                     f"({_bound_name(bound_by, dtype)}), "
-                     f"{bound / ms:.1%} of bound")
-        print(line, flush=True)
-        rows[(S, dname)] = row
-        del q, k, v, bias, out, lse, ref, ref_lse, real
+        rows[(S, str(dtype)[6:])] = causal_gqa_row(gen, lens, 32, 4, S, dtype, timed)
     torch.cuda.empty_cache()
     return rows
 
@@ -6307,6 +6336,384 @@ def mesh_phase(rng, sizes=None, device="cuda", engine_kw=None) -> dict:
     return out
 
 
+TP = dict(tp=2, llama=TINYLLAMA_1B, gpt2=GPT2_124M, drafter=LLAMA_68M, rows=4, new=32,
+          bucket=64, chunk=16, page=16, spec_k=8, shared=24, tail=16, lr=1e-4, passes=2,
+          batch=8, seq_len=64)  # OnlineLmTrainer's defaults
+
+
+def _shard_blocks_close(placed, whole, atol: float) -> float:
+    """The largest |shard - its block of `whole`| over a placed leaf's
+    entries; fails the run past `atol`."""
+    worst = 0.0
+    for i, shard in enumerate(placed.shards):
+        sl = tuple(slice(b * n, (b + 1) * n) for b, n in zip(placed.block(i), shard.shape))
+        worst = max(worst, float((shard.float() - whole[sl].to(shard.device).float()).abs().max()))
+    return worst
+
+
+def tp_phase(rng, tmp, sizes=None, device="cuda", lm_kw=None) -> dict:
+    """A15 stages 1b-1d on one card, over [1, tp] meshes that repeat
+    cuda:0 as `[mesh]`'s do, each part held against the same path without
+    a mesh (and against the TP dense engine where it has one). Every check
+    fails the run:
+
+    - paged TP: TinyLlama-1.1B at float32, `kv_layout="paged"`, radix on:
+      `generate_batch` of `rows` x `new` greedy tokens, then a session
+      whose mid-decode admission shares `shared` prompt tokens (whole
+      pages) with the start's committed prompt, then a start that is a
+      full radix hit; tokens equal the meshless paged engine's and the TP
+      dense engine's, or part only at a top-2 logit gap under TIE_SHARE;
+      radix stats, pool bytes and pages live after equal the meshless
+      pool's; B1 = layers x tp a cold prefill, 0 for the full hit; the
+      paged chunk's ms a step beside the TP dense chunk's;
+    - paged TP, int8 KV: GPT-2 124M at float32, the same batch and session
+      against the meshless int8 paged engine;
+    - spec TP: TinyLlama self-drafted (the drafter whole on the lead
+      device), dense and paged: a session's tokens equal plain TP greedy,
+      acceptance equal to the meshless spec engine's, B1 = layers x tp +
+      layers at the start; a drafter at llama-68m's geometry (random
+      weights): its draft and verify ms a round;
+    - online TP: GPT-2 124M at float32, flash, `OnlineLmTrainer` at its
+      default [8, 64], `passes` passes over one seeded document: each
+      pass's loss within rtol 1e-4 of the meshless trainer's on the same
+      weights; after each sync the engine's params still placed and each
+      shard within 2 x lr x steps of its block of the meshless engine's
+      (an AdamW step moves a master by at most about lr); greedy tokens
+      after the syncs equal the meshless engine's (or a near-tie); a save,
+      a load into a new trainer and one more pass give the unbroken run's
+      loss; B1 = B2 = B3 = layers x tp a step; the step's ms beside the
+      meshless graphed step's;
+    - the kernels at the phase's new shapes against their plain versions
+      (`_within`'s bars): B1 f32 at a TinyLlama TP shard's paged prefill
+      (left padding) and B1, B2, B3 f32 at GPT-2's shard, timed on the card
+      beside SDPA and their bounds; their launches are not counted.
+
+    Launch counts are set to 0 at the start; the meshless runs and the
+    kernel rows put them back as they found them. → the launches (B1, B2,
+    B3), the kernel rows and what each part measured."""
+    import gc
+    import math
+
+    from symbiont_tpu_torch.config import LmConfig
+    from symbiont_tpu_torch.engine.lm import LmEngine
+    from symbiont_tpu_torch.models import gpt as gpt_mod
+    from symbiont_tpu_torch.obs.engine_timeline import engine_timeline
+    from symbiont_tpu_torch.ops import flash_attention as fa
+    from symbiont_tpu_torch.parallel import Sharded, build_mesh
+    from symbiont_tpu_torch.train import checkpoint as ckpt
+    from symbiont_tpu_torch.train import trainer as trainer_mod
+    from symbiont_tpu_torch.train.online import OnlineLmTrainer
+
+    s = dict(TP, **(sizes or {}))
+    tmp = Path(tmp)
+    cuda = device == "cuda"
+    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    card = card_line() if cuda else "the CPU"
+    tp, rows, new, k = s["tp"], s["rows"], s["new"], s["spec_k"]
+
+    def mesh():
+        return build_mesh([1, tp], devices=[dev] * tp)
+
+    def reference(fn):
+        """A meshless run (or a check of one): its launches are not the phase's."""
+        saved = _launch_counts(fa)
+        try:
+            return fn()
+        finally:
+            _set_launch_counts(fa, saved)
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    lkw = dict(dict(dtype="float32", attn_impl="flash", temperature=0.0,
+                    prompt_buckets=[s["bucket"]], new_token_buckets=[new],
+                    stream_chunk=s["chunk"], kv_page_tokens=s["page"], spec_k=k,
+                    force_cpu=not cuda), **(lm_kw or {}))
+
+    def engine(params, mcfg, meshed: bool, draft=None, **kw):
+        extra = {} if draft is None else dict(draft_params=params, draft_model_cfg=mcfg)
+        return LmEngine(LmConfig(**dict(lkw, **kw)), params=params, model_cfg=mcfg,
+                        tokenizer=IdTokenizer(), mesh=mesh() if meshed else None, **extra)
+
+    # prompts of the bucket's ASCII bytes: `head` shares its first `shared`
+    # bytes with `fork` (the same length), whole pages of the right-aligned
+    # prompt once `shared` + BOS covers them
+    texts = synth_texts(rng, rows + 4)
+    plen = s["shared"] + s["tail"]
+    prompts = [t[:s["bucket"] - 8] for t in texts[:rows]]
+    head = (texts[rows] * 4)[:plen]
+    fork = head[:s["shared"]] + (texts[rows + 1] * 4)[:s["tail"]]
+    check(head[:s["shared"]] == fork[:s["shared"]] and head != fork and len(fork) == plen,
+          "[tp] the prefix-sharing prompts")
+    out, ties = {}, []
+    _set_launch_counts(fa, (0, 0, 0))  # ------------------------------- main path
+    b1_parts = 0
+
+    # paged TP: TinyLlama f32 (and TP dense beside it) -----------------------
+    mcfg = gpt_mod.GPTConfig.from_hf(s["llama"])
+    params = gpt_mod.init_params(torch.Generator(device=dev).manual_seed(SEED + 24), mcfg)
+    L = mcfg.num_layers
+
+    def paged_part(tag, params, mcfg, kv_quant, dense_too: bool):
+        nonlocal b1_parts
+        L = mcfg.num_layers
+        ref = engine(params, mcfg, False, kv_layout="paged", kv_quant=kv_quant)
+        eng = engine(params, mcfg, True, kv_layout="paged", kv_quant=kv_quant)
+        check(eng.mesh is not None and len(eng.pool.shards) == tp,
+              f"[tp] {tag}: the paged TP engine holds {len(eng.pool.shards)} pool shards")
+        check(eng.pool.device_bytes == ref.pool.device_bytes,
+              f"[tp] {tag}: pool bytes {eng.pool.device_bytes} != meshless "
+              f"{ref.pool.device_bytes}")
+        by_row = dict(enumerate(prompts))
+        want_b = reference(lambda: ref.generate_batch(prompts, [new] * rows))
+        l0 = fa.launches
+        got_b = eng.generate_batch(prompts, [new] * rows)
+        gen_b1 = fa.launches - l0
+        check(gen_b1 == L * tp, f"[tp] {tag} generate_batch B1 {gen_b1} != {L} layers x {tp} "
+                                "shards")
+        ids_b = {i: _ids_of(t) for i, t in enumerate(got_b)}
+        ties.extend(reference(lambda: same_or_near_tie(
+            f"[tp] {tag} generate_batch", ids_b,
+            {i: _ids_of(t) for i, t in enumerate(want_b)}, ref, by_row)))
+        admit = (fork, new // 2)
+        sess_prompts = {0: head, 1: fork}
+        want_s = reference(lambda: drive_session(ref, [head], [new], admit=admit))
+        want_hit = reference(lambda: drive_session(ref, [head], [new]))
+        got_s = drive_session(eng, [head], [new], admit=admit)
+        got_hit = drive_session(eng, [head], [new])
+        b1 = got_s["launches"]
+        check(b1 == {"start": L * tp, "steps": 0, "admit": L * tp},
+              f"[tp] {tag} session B1 {b1} != {L} x {tp} at the start and the admission")
+        check(got_hit["launches"]["start"] == 0,
+              f"[tp] {tag} full radix hit start: B1 {got_hit['launches']}")
+        for name, got, want in (("session", got_s, want_s), ("full-hit session", got_hit,
+                                                              want_hit)):
+            ties.extend(reference(lambda: same_or_near_tie(
+                f"[tp] {tag} {name}", got["tokens"], want["tokens"], ref, sess_prompts)))
+        check(got_hit["tokens"][0] == got_s["tokens"][0],
+              f"[tp] {tag}: the full radix hit's tokens differ from the cold start's")
+        check(eng.radix.stats == ref.radix.stats,
+              f"[tp] {tag} radix stats {eng.radix.stats} != meshless {ref.radix.stats}")
+        check(eng.radix.stats["hits"] >= 1 and eng.radix.stats["full_hits"] >= 1,
+              f"[tp] {tag}: no radix hit in {eng.radix.stats}")
+        pools = [(e.pool.pages_live, e.pool.pages_retained, e.pool.pages_free)
+                 for e in (eng, ref)]
+        check(pools[0] == pools[1], f"[tp] {tag} pages live/retained/free after {pools[0]} != "
+                                    f"meshless {pools[1]}")
+        b1_parts += gen_b1 + sum(b1.values())
+        # chunk ms from the full-hit session, whose carrier the cold session
+        # warmed (a carrier's first call analyses its executables' cost)
+        res = {"pool_bytes": eng.pool.device_bytes, "radix": dict(eng.radix.stats),
+               "pages_after": pools[0], "b1": gen_b1 + sum(b1.values()),
+               "peak_pages": got_s["peak_pages"],
+               "chunk_ms_step": float(np.median(got_hit["step_ms"])) / s["chunk"]}
+        line = (f"[tp] paged TP {tag} [1, {tp}] float32: generate_batch {rows} x {new} greedy, "
+                f"a session whose admission shares {s['shared']} prompt bytes with the "
+                f"committed start, and a full radix hit start equal the meshless paged "
+                f"engine's tokens")
+        if dense_too:
+            dense = engine(params, mcfg, True, kv_quant=kv_quant)
+            want_d = reference(lambda: dense.generate_batch(prompts, [new] * rows))
+            ties.extend(reference(lambda: same_or_near_tie(
+                f"[tp] {tag} paged vs TP dense", ids_b,
+                {i: _ids_of(t) for i, t in enumerate(want_d)}, ref, by_row)))
+            dense_s = reference(lambda: drive_session(dense, [head], [new], admit=admit))
+            ties.extend(reference(lambda: same_or_near_tie(
+                f"[tp] {tag} paged vs TP dense session", got_s["tokens"], dense_s["tokens"],
+                ref, sess_prompts)))
+            warm = reference(lambda: drive_session(dense, [head], [new]))
+            res["dense_chunk_ms_step"] = float(np.median(warm["step_ms"])) / s["chunk"]
+            line += " and the TP dense engine's"
+            del dense
+        near = f" (near-ties: {'; '.join(ties)})" if ties else ""
+        print(line + f"{near}; radix {res['radix']} = meshless; pool {res['pool_bytes']} bytes "
+              f"in {tp} shards = meshless; pages live/retained/free after {pools[0]} = "
+              f"meshless; B1 {gen_b1} a generate_batch, {b1} a session, 0 a full hit "
+              f"({L} layers x {tp} shards a cold prefill); paged chunk "
+              f"{res['chunk_ms_step']:.2f} ms a step"
+              + (f" vs TP dense {res['dense_chunk_ms_step']:.2f}" if dense_too else "")
+              + f" (host clock, eager; {card})", flush=True)
+        del ref, eng
+        return res
+
+    out["paged"] = paged_part("tinyllama", params, mcfg, "none", True)
+    free()
+    gcfg = dataclasses.replace(gpt_mod.GPTConfig.from_hf(s["gpt2"]), dtype="float32")
+    gparams = gpt_mod.init_params(torch.Generator(device=dev).manual_seed(SEED + 25), gcfg)
+    out["paged_int8"] = paged_part("gpt2/int8", gparams, gcfg, "int8", False)
+    free()
+
+    # spec TP: TinyLlama self-drafted, dense and paged ----------------------
+    out["spec"] = {}
+    want_n = new - k  # the bucket keeps spec_k slots of headroom
+    spec_prompts = prompts[:2]
+    by_row = dict(enumerate(spec_prompts))
+    base = engine(params, mcfg, False)  # plain greedy, meshless
+    want = reference(lambda: drive_session(base, spec_prompts, [want_n] * 2))
+    for layout in ("dense", "paged"):
+        tag = f"tinyllama/{layout}"
+        ref = engine(params, mcfg, False, draft=True, kv_layout=layout)
+        reference(lambda: drive_session(ref, spec_prompts, [want_n] * 2))
+        ref_acc = (ref._spec_proposed, ref._spec_accepted)
+        del ref
+        free()
+        spec = engine(params, mcfg, True, draft=True, kv_layout=layout)
+        check(spec.mesh is not None and not any(
+            isinstance(x, Sharded) for x in trainer_mod.tree_leaves(spec._draft[0])),
+            f"[tp] spec {tag}: the drafter is not whole on the lead device")
+        got = drive_session(spec, spec_prompts, [want_n] * 2)
+        acc = (spec._spec_proposed, spec._spec_accepted)
+        # again on the warm carrier, for the round costs (paged: a full
+        # radix hit, so only the drafter prefills)
+        engine_timeline.clear()
+        again = drive_session(spec, spec_prompts, [want_n] * 2)
+        rounds = spec_rounds(engine_timeline.events(), k)
+        b1 = got["launches"]
+        check(b1 == {"start": L * tp + L, "steps": 0, "admit": 0},
+              f"[tp] spec {tag} B1 {b1} != {L} x {tp} + {L} (the drafter) at the start")
+        want_again = L if layout == "paged" else L * tp + L
+        check(again["launches"] == {"start": want_again, "steps": 0, "admit": 0},
+              f"[tp] spec {tag} warm session B1 {again['launches']} != {want_again}")
+        for name, run in (("", got), (" warm", again)):
+            ties.extend(reference(lambda: same_or_near_tie(
+                f"[tp] spec {tag}{name}", run["tokens"], want["tokens"], base, by_row)))
+        check(acc[0] > 0 and acc == ref_acc,
+              f"[tp] spec {tag}: drafts proposed/accepted {acc} != meshless {ref_acc}")
+        b1_parts += sum(b1.values()) + sum(again["launches"].values())
+        out["spec"][tag] = {"proposed": acc[0], "accepted": acc[1], "rounds": rounds,
+                            "b1": sum(b1.values()), "warm_b1": sum(again["launches"].values())}
+        print(f"[tp] spec TP {tag} [1, {tp}] float32, self-drafted (the drafter whole on "
+              f"{spec.device}): a session of {len(spec_prompts)} x {want_n} greedy, and the "
+              f"same session again, equal plain greedy; drafts proposed/accepted {acc} = "
+              f"meshless {ref_acc}; B1 {b1}, {again['launches']['start']} the second start; "
+              f"warm: {rounds.get('rounds', 0)} rounds, draft / verify "
+              f"{rounds.get('draft_ms', 0):.2f} / {rounds.get('verify_ms', 0):.2f} ms a round "
+              f"(eager; {card})", flush=True)
+        del spec
+        free()
+    # a drafter at llama-68m's geometry (random weights): its round costs
+    dcfg = dataclasses.replace(gpt_mod.GPTConfig.from_hf(s["drafter"]), dtype="float32")
+    dparams = gpt_mod.init_params(torch.Generator(device=dev).manual_seed(SEED + 26), dcfg)
+    small = LmEngine(LmConfig(**dict(lkw, kv_layout="paged")), params=params, model_cfg=mcfg,
+                     tokenizer=IdTokenizer(), draft_params=dparams, draft_model_cfg=dcfg,
+                     mesh=mesh())
+    got = drive_session(small, spec_prompts, [want_n] * 2)
+    engine_timeline.clear()
+    again = drive_session(small, spec_prompts, [want_n] * 2)  # warm, a full radix hit
+    rounds = spec_rounds(engine_timeline.events(), k)
+    check(rounds.get("rounds", 0) >= 1 and got["launches"]["start"] == L * tp
+          + dcfg.num_layers and again["launches"]["start"] == dcfg.num_layers,
+          f"[tp] spec llama-68m drafter: {rounds}, B1 {got['launches']}, {again['launches']}")
+    b1_parts += sum(got["launches"].values()) + sum(again["launches"].values())
+    out["spec"]["llama68m"] = {"rounds": rounds, "proposed": small._spec_proposed,
+                               "accepted": small._spec_accepted}
+    print(f"[tp] spec TP with a llama-68m-geometry drafter (random weights, float32) on the "
+          f"paged TinyLlama target, a warm session: {rounds['rounds']} rounds, draft {rounds['draft_ms']:.2f} ms"
+          f" / verify {rounds['verify_ms']:.2f} ms a round, accepted {small._spec_accepted} of "
+          f"{small._spec_proposed} (eager; {card})", flush=True)
+    del small, dparams, params, base
+    free()
+
+    # online TP: GPT-2 f32 flash ---------------------------------------------
+    fcfg = dataclasses.replace(gcfg, attn_impl="flash")
+    glm = engine(gparams, fcfg, True)
+    gref = engine(gparams, fcfg, False)
+    del gparams
+    Lg = fcfg.num_layers
+    tkw = dict(learning_rate=s["lr"], batch_size=s["batch"], seq_len=s["seq_len"])
+    tt, tr = OnlineLmTrainer(glm, **tkw), OnlineLmTrainer(gref, **tkw)
+    check(tt.state.params["layers"][0]["q"]["kernel"].spec == (None, "tensor"),
+          "[tp] online: the masters are not on the engine's TP layout")
+    doc = corpus_doc(rng, tt.batch_size * tt.seq_len)
+    passes, steps_ms, ref_ms, worst, n_steps = [], [], [], 0.0, 0
+    for i in range(s["passes"]):
+        with recorded_lm_steps(sync) as st:
+            loss = tt.train_on_texts([doc])["loss"]
+        with recorded_lm_steps(sync) as st_ref:
+            loss_ref = reference(lambda: tr.train_on_texts([doc])["loss"])
+        n_steps += len(st)
+        check(all(x["launches"] == (Lg * tp,) * 3 for x in st),
+              f"[tp] online pass {i}: B1/B2/B3 {[x['launches'] for x in st]} != {Lg} x {tp}")
+        check(abs(loss - loss_ref) <= 1e-4 * abs(loss_ref),
+              f"[tp] online pass {i}: loss {loss!r} vs meshless {loss_ref!r} beyond rtol 1e-4")
+        bar = 2 * s["lr"] * n_steps
+        for a, b in zip(trainer_mod.tree_leaves(glm.params),
+                        trainer_mod.tree_leaves(gref.params)):
+            check(isinstance(a, Sharded), f"[tp] online pass {i}: an engine leaf lost its "
+                                          "placement at the sync")
+            worst = max(worst, _shard_blocks_close(a, b, bar))
+        check(worst <= bar, f"[tp] online pass {i}: an engine shard is {worst:.3g} off its "
+                            f"block of the meshless engine's (bar {bar:.3g})")
+        passes.append({"loss": loss, "loss_ref": loss_ref})
+        steps_ms += [x["s"] * 1e3 for x in st]
+        ref_ms += [x["s"] * 1e3 for x in st_ref]
+        b1_parts += sum(x["launches"][0] for x in st)
+    gen_prompts = prompts[:2]
+    want_g = reference(lambda: gref.generate_batch(gen_prompts, [new] * 2))
+    l0 = fa.launches
+    got_g = glm.generate_batch(gen_prompts, [new] * 2)
+    b1_parts += fa.launches - l0
+    ties.extend(reference(lambda: same_or_near_tie(
+        "[tp] online generate_batch after the syncs", {i: _ids_of(t) for i, t in enumerate(got_g)},
+        {i: _ids_of(t) for i, t in enumerate(want_g)}, gref, dict(enumerate(gen_prompts)))))
+    # save, load into a new trainer, one more pass: the unbroken run's loss
+    ckpt.save_train_state(tmp / "tp_train_state", tt.state, meta={"steps": n_steps})
+    resumed = OnlineLmTrainer(glm, state_path=str(tmp / "tp_train_state"), **tkw)
+    check(resumed.stats["train_steps"] == n_steps and isinstance(
+        resumed.state.params["wte"], Sharded), "[tp] online: the resumed trainer's state")
+    resumed._stream = list(tt._stream)
+    more = corpus_doc(rng, tt.batch_size * tt.seq_len)
+    with recorded_lm_steps(sync) as st:
+        unbroken = tt.train_on_texts([more])["loss"]
+        again = resumed.train_on_texts([more])["loss"]
+    b1_parts += sum(x["launches"][0] for x in st)
+    check(abs(again - unbroken) <= 1e-4 * abs(unbroken),
+          f"[tp] online: the resumed pass's loss {again!r} vs the unbroken run's {unbroken!r}")
+    near = f" (near-ties: {'; '.join(ties)})" if ties else ""
+    out["online"] = {"passes": passes, "step_ms": steps_ms, "meshless_step_ms": ref_ms,
+                     "shard_gap": worst, "resumed_loss": again, "unbroken_loss": unbroken}
+    print(f"[tp] online TP GPT-2 ({Lg} layers) float32 flash on [1, {tp}], OnlineLmTrainer "
+          f"[{tt.batch_size}, {tt.seq_len}]: loss by pass "
+          + ", ".join(f"{p['loss']:.6f} (meshless {p['loss_ref']:.6f})" for p in passes)
+          + f"; engine shards within {worst:.3g} of the meshless engine's blocks after each "
+          f"sync; greedy tokens after the syncs equal the meshless engine's{near}; save, load "
+          f"and one more pass: {again:.6f} = unbroken {unbroken:.6f}; B1/B2/B3 "
+          f"{(Lg * tp,) * 3} a step; step ms " + ", ".join(f"{x:.1f}" for x in steps_ms)
+          + " eager TP vs meshless graphed " + ", ".join(f"{x:.1f}" for x in ref_ms)
+          + f" (the first with its capture; {card})", flush=True)
+    del tt, tr, resumed, glm, gref
+    free()
+    out["ties"] = ties
+
+    # the kernels at the phase's shapes, against their plain versions ---------
+    def kernel_rows():
+        gen = torch.Generator(device=device).manual_seed(SEED + 27)
+        lens = [s["bucket"]] + [int(x) for x in rng.integers(1, s["bucket"] + 1, rows - 1)]
+        shard = gpt_mod._shard_cfg(mcfg, tp)
+        gqa = causal_gqa_row(gen, lens, shard.num_heads, shard.kv_heads, s["bucket"],
+                             torch.float32, cuda, tag="tp", device=device)
+        gshard = gpt_mod._shard_cfg(fcfg, tp)
+        lm_rows = lm_backward_kernel_rows({"kernel_rows": s["batch"], "kernel_S": (s["seq_len"],)},
+                                          timed=cuda,
+                                          device=device, heads=gshard.num_heads,
+                                          dtypes=(torch.float32,), tag="tp")
+        return gqa, lm_rows[0]
+
+    gqa, train_row = reference(kernel_rows)
+    out["kernels"] = {"llama_prefill_shard": {
+        "shape": f"q [{rows}, {mcfg.num_heads // tp}, {s['bucket']}, 64], k/v "
+                 f"[{rows}, {mcfg.kv_heads // tp}, {s['bucket']}, 64] float32, causal, left "
+                 "padding", **{k: v for k, v in gqa.items() if k != "label"}},
+        "gpt2_train_shard": train_row}
+    out["launches"] = _launch_counts(fa)
+    check(out["launches"][0] == b1_parts, f"[tp] B1 launches {out['launches'][0]} != the parts' "
+                                          f"{b1_parts}")
+    return out
+
+
 SP = dict(gpt2=GPT2_124M, rows=8, seq=1024, dp=2, steps=2, lr=1e-4, pipe=4, microbatches=4,
           llama=TINYLLAMA_1B, llama_seq=2048, kernel_rows=8, kernel_S=(1024,))
 NEAR_TIE = 2.0 ** -8  # a position's argmax may differ only where its top-2 gap is this share
@@ -7012,6 +7419,8 @@ def _run_phases() -> int:
         lap("lmtrain")
         mesh = mesh_phase(np.random.default_rng(SEED + 18))
         lap("mesh")
+        tpp = tp_phase(np.random.default_rng(SEED + 21), tmp)
+        lap("tp")
         sp = sp_phase(np.random.default_rng(SEED + 19))
         lap("sp")
         stack = stack_phase(np.random.default_rng(SEED + 15), tmp, serve=serve)
@@ -7026,7 +7435,7 @@ def _run_phases() -> int:
            "checkpoint": ck_launches, "quant": qt["launches"], "generate": gen["launches"],
            "session": sess["launches"], "paged": paged["launches"], "spec": spec["launches"],
            "lmtrain": lmtrain["launches"][0], "mesh": mesh["launches"][0],
-           "sp": sp["launches"][0], "stack": stack["launches"], "fleet": fleet["launches"],
+           "tp": tpp["launches"][0], "sp": sp["launches"][0], "stack": stack["launches"], "fleet": fleet["launches"],
            "multihost": multihost["launches"][0]}
     fwd_launches = sum(fwd.values())
     print("[phases] host seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items())
@@ -7042,11 +7451,11 @@ def _run_phases() -> int:
              "q/k/v [32, 12, 128, 64] bf16, padding bias"),
             ("flash_attn_bwd_kv", "flash_attn_bwd.cu", 212, bwd["kv_enc_S256"],
              train["launches"][1] + lmtrain["launches"][1] + mesh["launches"][1]
-             + sp["launches"][1] + multihost["launches"][1],
+             + tpp["launches"][1] + sp["launches"][1] + multihost["launches"][1],
              "q/k/v/g [32, 12, 256, 64] bf16, padding bias, a length-0 row"),
             ("flash_attn_bwd_q", "flash_attn_bwd.cu", 281, bwd["q_enc_S256"],
              train["launches"][2] + lmtrain["launches"][2] + mesh["launches"][2]
-             + sp["launches"][2] + multihost["launches"][2],
+             + tpp["launches"][2] + sp["launches"][2] + multihost["launches"][2],
              "q/k/v/g [32, 12, 256, 64] bf16, padding bias, a length-0 row")):
         entries.append({"name": name, "route": "cuda",
                         "source": f"symbiont_tpu_torch/ops/csrc/{src}",
@@ -7075,6 +7484,19 @@ def _run_phases() -> int:
     for e, part in zip(entries[1:], ("kv", "q")):
         e["mesh"] = {"train": {k: v for k, v in mesh["train"].items() if k != "bwd_err"},
                      "max_abs_err_shard": mesh["train"]["bwd_err"][part]}
+    for e, n in zip(entries, tpp["launches"]):  # [tp]: paged, spec and online TP
+        e["tp_launches"] = n
+    entries[0]["tp"] = {k: v for k, v in tpp.items() if k not in ("launches", "kernels")}
+    tk = tpp["kernels"]
+    entries[0]["tp_shard"] = [tk["llama_prefill_shard"],
+                              {"shape": tk["gpt2_train_shard"]["shape"].replace("/g", ""),
+                               **tk["gpt2_train_shard"]["fwd"]}]
+    for e, part in zip(entries[1:], ("kv", "q")):  # GPT-2's TP shard in the online step
+        r = tk["gpt2_train_shard"]
+        e["tp_shard"] = [{"shape": r["shape"], "max_abs_err": r["max_abs_err"][part],
+                          **{k: (r[k][part] if isinstance(r[k], dict) else r[k])
+                             for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                       "covered_ms") if k in r}}]
     for i, e in enumerate(entries):  # [sp]: SP train and forward, PP train
         e["sp_launches"], e["pp_launches"] = sp["sp_launches"][i], sp["pp_launches"][i]
     entries[0]["sp"] = {k: sp[k] for k in ("meshless", "train", "pp", "llama")}

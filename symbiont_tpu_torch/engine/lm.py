@@ -124,9 +124,16 @@ the mesh's first data row, each shard's KV heads in its own cache
 without such an axis, or with heads or MLP width that do not divide it,
 raises; "auto" then serves on one device with a warning, as JAX does. A TP
 step crosses devices between layers, so its executables run eagerly
-(`graphs.Executable(eager=True)`): a CUDA graph is one device's work. The
-paged layout and speculative decoding under a TP mesh are not ported and
-raise, naming ROADMAP A15 stage 1b and 1c.
+(`graphs.Executable(eager=True)`): a CUDA graph is one device's work.
+The paged layout serves under TP too: the `PagePool` holds one set of
+pool arrays per tensor shard under one host allocator (a page id means
+the same page in every shard, so the radix cache is unchanged), each
+carrier holds a copy of its page table on every shard's device, and a
+session's cache is a `gpt.TPCache` of paged shards. Speculative decoding
+serves under TP with the drafter whole on the lead device, as JAX places
+it, the target's verify, ingest and splice over the TP cache (dense or
+paged). An `OnlineLmTrainer` fine-tunes a TP engine on placed masters,
+and `update_params` takes such a placed tree shard for shard.
 """
 
 from __future__ import annotations
@@ -160,7 +167,13 @@ from symbiont_tpu_torch.obs.hbm import guard_oom, hbm_ledger, peak_temp_bytes
 from symbiont_tpu_torch.obs.usage import usage
 from symbiont_tpu_torch.obs.xprof import dispatch_ledger
 from symbiont_tpu_torch.parallel.mesh import axis_size, mesh_device, refuse_spanning
-from symbiont_tpu_torch.parallel.sharding import gpt_param_sharding, leaf_tensors, shard_params
+from symbiont_tpu_torch.parallel.sharding import (
+    gather_tree,
+    gpt_param_sharding,
+    leaf_tensors,
+    mesh_of,
+    shard_params,
+)
 from symbiont_tpu_torch.resilience.admission import DEFAULT_TENANT
 from symbiont_tpu_torch.train.trainer import tree_leaves
 from symbiont_tpu_torch.utils.telemetry import maybe_profile, metrics
@@ -265,8 +278,7 @@ def lm_model_config(cfg: LmConfig) -> GPTConfig:
                      max_position_embeddings=cfg.max_positions, arch=cfg.arch, dtype=cfg.dtype)
 
 
-def tp_decode(cfg: LmConfig, model_cfg: Optional[GPTConfig], tp: int, draft: bool = False,
-              ingest_train: bool = False) -> bool:
+def tp_decode(cfg: LmConfig, model_cfg: Optional[GPTConfig], tp: int) -> bool:
     """Whether the LM decodes tensor-parallel over a 'tensor' axis of `tp`
     entries, on JAX's rules; `LmEngine` and the runner both ask here.
 
@@ -276,8 +288,7 @@ def tp_decode(cfg: LmConfig, model_cfg: Optional[GPTConfig], tp: int, draft: boo
     the axis may shard the LM at all. Otherwise heads, KV heads or MLP
     width that do not divide the axis raise under "on"; under "auto" they
     log and the LM serves on one device (the axis may be there for the
-    encoder or training). An LM that shards refuses, by their ROADMAP
-    items, the branches not ported under TP (`_refuse_unported`)."""
+    encoder or training)."""
     if cfg.tensor_parallel == "on" and tp <= 1:
         raise ValueError("tensor_parallel='on' requires a mesh with a 'tensor' axis "
                          f"> 1 (got tensor={tp})")
@@ -296,24 +307,7 @@ def tp_decode(cfg: LmConfig, model_cfg: Optional[GPTConfig], tp: int, draft: boo
         log.warning("LM tensor_parallel=auto: %s not divisible by tensor axis (%d); "
                     "falling back to single-device decode", ", ".join(bad), tp)
         return False
-    _refuse_unported(cfg, draft, ingest_train)
     return True
-
-
-def _refuse_unported(cfg: LmConfig, draft: bool, ingest_train: bool = False) -> None:
-    """The branches of the JAX engine under a TP mesh whose parts are not
-    ported raise here, naming their ROADMAP item, instead of serving on
-    one device (`ingest_train`: the runner's online fine-tune, which
-    `train/online.OnlineLmTrainer` refuses on a TP engine)."""
-    if ingest_train:
-        raise ValueError("the online LM fine-tune of a tensor-parallel LmEngine is not "
-                         "ported (ROADMAP A15 stage 1d)")
-    if cfg.kv_layout == "paged":
-        raise ValueError("kv_layout='paged' under a tensor-parallel mesh is not ported "
-                         "(ROADMAP A15 stage 1b)")
-    if draft or cfg.spec_draft_model:
-        raise ValueError("speculative decoding under a tensor-parallel mesh is not ported "
-                         "(ROADMAP A15 stage 1c)")
 
 
 def _slot(length) -> torch.Tensor:
@@ -347,7 +341,8 @@ class _CarryDecoder:
     a `generate_batch` call, a stream or a dense session takes its prefill
     in the carrier's cache (`cache0`), a paged session writes its page
     table into the carrier's (`page_table`, `[rows, n_blocks]`, which the
-    paged executables read), a spec stream or session takes its drafter
+    paged executables read; under TP a tuple of one copy a tensor shard,
+    each on its shard's device), a spec stream or session takes its drafter
     prefill in `draft_cache(dcfg)`, and each draws from the carrier's
     generator (`generator`, reseeded per use) and gives the carrier back
     when it is retired, so the next caller of that geometry replays the
@@ -370,7 +365,7 @@ class _CarryDecoder:
         self.pool = pool  # the engine's graph pool (None on the CPU)
         self.key = key  # (KV layout, rows, prompt bucket, new bucket)
         self.cache0 = cache0  # dense: the cache a borrower's prefill lands in
-        self.page_table = page_table  # paged: the device page table
+        self.page_table = page_table  # paged: the device page table (a tuple under TP)
         self.d_cache0 = None  # the drafter's dense cache at this geometry
         self.pending = None  # [rows] int64, the spec state's pending token
         self.gen: Optional[torch.Generator] = None
@@ -382,7 +377,7 @@ class _CarryDecoder:
         cache."""
         n = 0 if self.d_cache0 is None else gpt_mod.cache_bytes(self.d_cache0)
         if self.page_table is not None:
-            return n + quant.tensor_bytes(self.page_table)
+            return n + sum(quant.tensor_bytes(t) for t in _tables(self.page_table))
         return n + (0 if self.cache0 is None else gpt_mod.cache_bytes(self.cache0))
 
     def generator(self, seed: int) -> torch.Generator:
@@ -601,8 +596,7 @@ class LmEngine:
         self.model_cfg = dataclasses.replace(model_cfg, dtype=cfg.dtype, attn_impl=attn_impl,
                                              kv_quant=cfg.kv_quant)
         self.mesh = None
-        if tp_candidate and tp_decode(cfg, self.model_cfg, tp, draft=(
-                draft_params is not None or draft_model_cfg is not None)):
+        if tp_candidate and tp_decode(cfg, self.model_cfg, tp):
             self.mesh = mesh
             log.info("LM params sharded for TP decode over tensor=%d", tp)
         self.params = self._place_params(params)
@@ -653,9 +647,10 @@ class LmEngine:
         # register from executor threads while scrapes iterate
         self._sessions: "weakref.WeakSet" = weakref.WeakSet()
         self._sessions_lock = threading.Lock()
-        # paged KV: one engine-wide page pool and, optionally, the radix
-        # prefix cache over committed prompt pages; the dense layout leaves
-        # both None
+        # paged KV: one engine-wide page pool (one set of arrays a tensor
+        # shard under TP, one allocator) and, optionally, the radix prefix
+        # cache over committed prompt pages; the dense layout leaves both
+        # None
         self.pool: Optional[PagePool] = None
         self.radix: Optional[RadixCache] = None
         if cfg.kv_layout == "paged":
@@ -665,7 +660,7 @@ class LmEngine:
                                  mc.head_dim, torch_dtype(mc.dtype),
                                  quantized=mc.kv_quant == "int8",
                                  dtype_label=kv_dtype_label(mc.dtype, mc.kv_quant),
-                                 device=self.device)
+                                 devices=gpt_mod.cache_devices(self.params, self.device))
             if cfg.kv_radix:
                 self.radix = RadixCache(self.pool, cfg.kv_page_tokens)
             log.info("paged KV pool: %d pages x %d tokens (%.1f MiB%s)", n_pages,
@@ -993,8 +988,12 @@ class LmEngine:
             return dec
         if paged:
             n_blocks = -(-(P + new_bucket) // self.pool.page_tokens)
-            return _CarryDecoder(self.device, self._graph_pool, key, page_table=torch.full(
-                (bb, n_blocks), paged_mod.SCRATCH_PAGE, dtype=torch.int64, device=self.device))
+            tables = tuple(torch.full((bb, n_blocks), paged_mod.SCRATCH_PAGE, dtype=torch.int64,
+                                      device=d)
+                           for d in gpt_mod.cache_devices(self.params, self.device))
+            return _CarryDecoder(self.device, self._graph_pool, key,
+                                 page_table=tables if self.mesh is not None else tables[0],
+                                 eager=self.mesh is not None)
         return _CarryDecoder(self.device, self._graph_pool, key,
                              gpt_mod.new_cache(self.params, cfg, bb, P + new_bucket,
                                                torch_dtype(cfg.dtype), self.device),
@@ -1632,14 +1631,32 @@ class LmEngine:
         in its compute dtype on its device (`params=`) holds those, and a
         sync writes them too. Committed prefix pages and their logits are
         stale under the new weights: the radix cache is cleared (live rows
-        keep their own pages)."""
-        placed = self._place_params(params)
+        keep their own pages).
+
+        A tree already placed on the engine's mesh (a TP fine-tune's
+        masters, `train/online.py`) is copied shard for shard into the
+        engine's shards, each cast to the compute dtype on the copy: no
+        gather and no new placement. A quantized TP engine gathers it and
+        places it as at load (a row-split kernel's scales span its
+        shards)."""
+        shard_for_shard = (self.mesh is not None and mesh_of(params) is self.mesh
+                           and self.config.quantize == "none")
+        if shard_for_shard:
+            placed = params
+        else:
+            if mesh_of(params) is not None:
+                params = gather_tree(params, self.device)
+            placed = self._place_params(params)
         if quant.tree_map(lambda _: 0, placed) != quant.tree_map(lambda _: 0, self.params):
             raise ValueError("update_params: the tree's keys or lengths differ from the engine's")
         pairs = []  # leaves by sorted keys: a tree's dict order need not be the engine's
         for a, b in zip(tree_leaves(self.params), tree_leaves(placed)):
+            if shard_for_shard and getattr(a, "spec", None) != getattr(b, "spec", None):
+                raise ValueError(f"update_params: a leaf placed on {getattr(b, 'spec', None)}, "
+                                 f"the engine's on {getattr(a, 'spec', None)}")
             for x, y in zip(leaf_tensors(a), leaf_tensors(b), strict=True):
-                if x.shape != y.shape or x.dtype != y.dtype:
+                cast_ok = shard_for_shard and x.is_floating_point() and y.is_floating_point()
+                if x.shape != y.shape or (x.dtype != y.dtype and not cast_ok):
                     raise ValueError(f"update_params: {tuple(y.shape)} {y.dtype} does not fit "
                                      f"the engine's {tuple(x.shape)} {x.dtype}")
                 pairs.append((x, y))
@@ -1649,11 +1666,33 @@ class LmEngine:
         if self.radix is not None:
             self.radix.clear()
 
+    def _paged_cache(self, table, length):
+        """The paged cache over the pool at a carrier's device page table
+        (`table`, a tuple of one a shard under TP): a `PagedKVCache`, or a
+        `gpt.TPCache` of one a tensor shard, each on its shard's arrays
+        and copy of the table."""
+        shards = tuple(PagedKVCache(*arrays, t, length)
+                       for arrays, t in zip(self.pool.shards, _tables(table), strict=True))
+        return shards[0] if self.mesh is None else gpt_mod.TPCache(shards, length)
+
+    def _scatter_staged(self, staged, scatter: torch.Tensor, prompt_width: int) -> None:
+        """A staged prefill's rows into the pool through the scatter table
+        (`kv/paged.scatter_prompt`), each tensor shard's staged cache into
+        its own arrays under TP."""
+        stageds = staged.shards if isinstance(staged, gpt_mod.TPCache) else (staged,)
+        for arrays, st in zip(self.pool.shards, stageds, strict=True):
+            paged_mod.scatter_prompt(*arrays, st, scatter, prompt_width)
+
     def warmup(self, new_bucket: Optional[int] = None) -> None:
         """Run the hot (prompt, new) shape once, so the first request does
         not pay the decode graph's capture, the kernel build, library
         loading and allocator growth."""
         self.generate("warmup", new_bucket or self.config.new_token_buckets[0])
+
+
+def _tables(table) -> tuple:
+    """A carrier's device page table as a tuple of one a pool shard."""
+    return table if isinstance(table, tuple) else (table,)
 
 
 def _norm_tenants(tenants, n: int) -> list:
@@ -1847,11 +1886,9 @@ class BatchSession:
                             nsh = matches[i].blocks if matches[i] else 0
                             scatter[i, nsh:] = self._pt[i, nsh:self._prompt_blocks]
                         scatter = torch.from_numpy(scatter).to(dev)
-                        pool = lm.pool
 
                         def adopt(staged):
-                            paged_mod.scatter_prompt(pool.k, pool.v, pool.k_scale, pool.v_scale,
-                                                     staged, scatter, self.P)
+                            lm._scatter_staged(staged, scatter, self.P)
                     self._cache, self._logits, self._kv_valid, self._pos = lm._prefill(
                         lm.params, prompt_ids, prompt_mask, self.new_bucket,
                         cache=self._carrier.cache0, adopt=adopt)
@@ -1950,18 +1987,19 @@ class BatchSession:
                 slots += self._row_blocks[i] * page
         return toks, slots
 
-    def _build_cache(self) -> PagedKVCache:
-        """The paged cache view for the next device call: the pool's
-        tensors, the carrier's device page table (the host one's bytes
-        copied in, enqueued after every call that read it before, when the
-        host one changed) and its length, P + steps_done."""
-        pool = self.lm.pool
+    def _build_cache(self):
+        """The paged cache view for the next device call (`LmEngine.
+        _paged_cache`): the pool's tensors, the carrier's device page table
+        (the host one's bytes copied in, enqueued after every call that
+        read it before, when the host one changed; into every shard's copy
+        under TP) and its length, P + steps_done."""
         table = self._carrier.page_table
         if self._pt_dirty:
-            table.copy_(torch.from_numpy(self._pt.copy()), non_blocking=True)
+            host = torch.from_numpy(self._pt.copy())
+            for t in _tables(table):
+                t.copy_(host, non_blocking=True)
             self._pt_dirty = False
-        return PagedKVCache(pool.k, pool.v, pool.k_scale, pool.v_scale, table,
-                            self.P + self.steps_done)
+        return self.lm._paged_cache(table, self.P + self.steps_done)
 
     def _ensure_decode_blocks(self, slots: int) -> None:
         """Lazy page growth: before a chunk every live row maps enough
@@ -2222,7 +2260,8 @@ class BatchSession:
                         logits_b, pos_b, kv_valid_b = (torch.from_numpy(a).to(dev)
                                                        for a in (ln, pn, kn))
                     cache_a = self._build_cache()
-                    cache_b = (prep["cache"], torch.from_numpy(scatter).to(dev), cache_a.page_table)
+                    cache_b = (prep["cache"], torch.from_numpy(scatter).to(dev),
+                               self._carrier.page_table)
                 else:
                     cache_a, cache_b = self._cache, prep["cache"]
                 (cache, self._logits, self._pos, self._done,

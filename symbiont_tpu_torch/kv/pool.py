@@ -13,6 +13,12 @@ all host bookkeeping:
 - LRU eviction of committed refcount-0 pages back to the free list when an
   allocation would otherwise fail (`kv.radix_evictions` counts them).
 
+Under tensor parallelism the pool holds one set of device arrays per
+tensor shard (`devices`), each over that shard's KV heads, and the one
+host allocator above covers them all: a page id names the same page in
+every shard, so an allocation, a radix commit or an eviction acts on every
+shard's page at once.
+
 It exports the `kv.*` gauges, labelled by KV dtype as the `lm.kv_*` ones
 are, and claims its bytes in the device-memory ledger (`kv.page_pool`,
 with the retained share as the `kv.radix_retained` overlay).
@@ -59,9 +65,15 @@ class PoolExhausted(RuntimeError):
 
 
 class PagePool:
+    """`devices`: one set of pool arrays per device, each over `kv_heads /
+    len(devices)` heads (a tensor-parallel engine's shards); `shards`
+    holds them in that order, and `k`, `v`, `k_scale`, `v_scale` are the
+    first set's (the only one on one device). `device_bytes` counts every
+    set."""
+
     def __init__(self, num_layers: int, n_pages: int, page_tokens: int, kv_heads: int,
                  head_dim: int, dtype: torch.dtype, quantized: bool, dtype_label: str,
-                 registry: Optional[Metrics] = None, device=None):
+                 registry: Optional[Metrics] = None, device=None, devices=None):
         from symbiont_tpu_torch.kv import paged
 
         if n_pages < 2:
@@ -70,8 +82,13 @@ class PagePool:
         self.labels = {"service": "lm", "kv_dtype": dtype_label}
         self.n_pages = int(n_pages)
         self.page_tokens = int(page_tokens)
-        self.k, self.v, self.k_scale, self.v_scale = paged.init_pool_arrays(
-            num_layers, n_pages, page_tokens, kv_heads, head_dim, dtype, quantized, device)
+        devices = list(devices) if devices is not None else [device]
+        if kv_heads % len(devices):
+            raise ValueError(f"{kv_heads} KV heads do not split over {len(devices)} shards")
+        self.shards = [paged.init_pool_arrays(num_layers, n_pages, page_tokens,
+                                              kv_heads // len(devices), head_dim, dtype,
+                                              quantized, d) for d in devices]
+        self.k, self.v, self.k_scale, self.v_scale = self.shards[0]
         self.lock = threading.RLock()
         # page 0 is scratch: never on the free list, never refcounted
         self._free: List[int] = list(range(n_pages - 1, 0, -1))
@@ -124,8 +141,7 @@ class PagePool:
 
     @property
     def device_bytes(self) -> int:
-        return sum(t.numel() * t.element_size()
-                   for t in (self.k, self.v, self.k_scale, self.v_scale))
+        return sum(t.numel() * t.element_size() for arrays in self.shards for t in arrays)
 
     # ------------------------------------------------------------ host side
 

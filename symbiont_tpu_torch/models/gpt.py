@@ -46,9 +46,10 @@ Tensor parallelism (A15 stage 1): `forward` over a tree placed by
 `parallel/sharding.shard_params` runs each tensor shard's heads and MLP
 width on its own device and sums the row-split projections' partial
 products on the lead; a plain tree is the case of one shard. The KV cache
-of a placed tree is a `TPCache` of one cache per shard. `prefill`,
-`decode_chunk` and `merge_rows` take such a tree and cache as they take a
-plain one. Over a mesh that spans processes (A15 multi-host) a process
+of a placed tree is a `TPCache` of one cache per shard, dense, int8 or
+paged (each shard its own pool and its copy of the page table).
+`prefill`, `decode_chunk`, `merge_rows` and the speculative rounds take
+such a tree and cache as they take a plain one. Over a mesh that spans processes (A15 multi-host) a process
 runs the tensor shards it holds, and the sums reach the row's other
 processes through its tensor line's group; only the cache-free training
 forward is ported there.
@@ -179,10 +180,13 @@ def init_cache(cfg: GPTConfig, batch: int, max_len: int, dtype: torch.dtype,
 
 
 class TPCache(NamedTuple):
-    """The KV cache of a tensor-parallel forward: one dense or int8 cache
-    per tensor shard, on that shard's device, holding its own KV heads
-    (`cfg.kv_heads / tp`); `length` is the cache's, as a host int or a 0-d
-    device tensor on the lead device, and each shard reads it from here."""
+    """The KV cache of a tensor-parallel forward: one dense, int8 or paged
+    cache per tensor shard, on that shard's device, holding its own KV
+    heads (`cfg.kv_heads / tp`); `length` is the cache's, as a host int or
+    a 0-d device tensor on the lead device, and each shard reads it from
+    here. Paged shards each hold their own pool arrays and a copy of one
+    page table on their device: a page id means the same page in every
+    shard (`LmEngine`'s `PagePool` keeps one allocator over them)."""
 
     shards: tuple
     length: Any
@@ -191,15 +195,35 @@ class TPCache(NamedTuple):
     def k(self) -> torch.Tensor:
         return self.shards[0].k
 
+    @property
+    def page_table(self) -> Optional[torch.Tensor]:
+        """The first shard's page table (None for dense shards)."""
+        return getattr(self.shards[0], "page_table", None)
+
+
+def is_paged(cache) -> bool:
+    """Whether `cache` is the paged layout, on one device or per shard."""
+    if isinstance(cache, TPCache):
+        return isinstance(cache.shards[0], PagedKVCache)
+    return isinstance(cache, PagedKVCache)
+
+
+def cache_devices(params: Params, device=None) -> list:
+    """The devices a cache of `params` lives on: each tensor shard's (data
+    row 0's, where the LM serves) for a TP-placed tree, else `device`."""
+    mesh = mesh_of(params)
+    if mesh is None:
+        return [torch.device(device) if device is not None else None]
+    return [mesh.device_list[i] for i in _tensor_entries(mesh, 0)]
+
 
 def init_tp_cache(params: Params, cfg: GPTConfig, batch: int, max_len: int,
                   dtype: torch.dtype) -> TPCache:
     """A `TPCache` for the TP-placed `params`: each shard's on its device
     (data row 0's tensor entries, where the LM serves)."""
-    mesh = mesh_of(params)
-    lcfg = _shard_cfg(cfg, mesh.shape["tensor"])
-    return TPCache(tuple(init_cache(lcfg, batch, max_len, dtype, mesh.device_list[i])
-                         for i in _tensor_entries(mesh, 0)), 0)
+    lcfg = _shard_cfg(cfg, mesh_of(params).shape["tensor"])
+    return TPCache(tuple(init_cache(lcfg, batch, max_len, dtype, d)
+                         for d in cache_devices(params)), 0)
 
 
 def new_cache(params: Params, cfg: GPTConfig, batch: int, max_len: int, dtype: torch.dtype,
@@ -212,7 +236,8 @@ def new_cache(params: Params, cfg: GPTConfig, batch: int, max_len: int, dtype: t
 
 
 def cache_tensors(cache) -> list:
-    """Every tensor field of a dense, int8 or TP cache, shard by shard."""
+    """Every tensor field of a dense, int8, paged or TP cache, shard by
+    shard."""
     if isinstance(cache, TPCache):
         return [t for c in cache.shards for t in cache_tensors(c)]
     return [t for t in cache if isinstance(t, torch.Tensor)]
@@ -520,7 +545,7 @@ def _valid_mask(cfg: GPTConfig, S: int, cache, kv_valid, device):
     if cache is None:
         T = S
     else:
-        T = kv_valid.shape[1] if isinstance(cache, PagedKVCache) else cache.k.shape[2]
+        T = kv_valid.shape[1] if is_paged(cache) else cache.k.shape[2]
     kv_pos = torch.arange(T, device=device)
     length = 0 if cache is None else cache.length
     if isinstance(length, torch.Tensor):
@@ -621,16 +646,13 @@ def forward(params: Params, input_ids: torch.Tensor, cache, positions: torch.Ten
     processes through its tensor line's group (`sharding.sum_to`). Only the
     cache-free training forward is ported there: a cache raises (ROADMAP
     A15 multi-host serving)."""
-    if isinstance(cache, PagedKVCache) and kv_valid is None:
+    if is_paged(cache) and kv_valid is None:
         raise ValueError("a forward over the paged KV layout needs kv_valid")
     dtype = torch_dtype(cfg.dtype)
     trees, devs, tcoords, group = _shard_trees(params, dtype, input_ids.device, row, home)
     tp, lead = axis_size(mesh_of(params), "tensor"), devs[0]
     vocab_split = tp > 1 and _split_on_tensor(params["wte"], 0)
     if tp > 1:
-        if isinstance(cache, PagedKVCache):
-            raise ValueError("the paged KV layout under a tensor-parallel mesh is not ported "
-                             "(ROADMAP A15 stage 1b)")
         if cache is not None and group is not None:
             raise ValueError("a decode over a mesh that spans processes is not ported "
                              "(ROADMAP A15 multi-host serving)")
@@ -858,6 +880,16 @@ def merge_cache_rows(cache_a, cache_b, row_map):
     return cache_a
 
 
+def _splice_pages(cache: PagedKVCache, staging, scatter_table, page_table, prompt_width: int):
+    """One paged cache's half of a splice: the staged rows' fresh prompt
+    blocks scattered into its pool, in place, and the cache on the new
+    page table."""
+    if staging is not None:
+        _paged.scatter_prompt(cache.k, cache.v, cache.k_scale, cache.v_scale, staging,
+                              scatter_table, prompt_width)
+    return cache._replace(page_table=page_table)
+
+
 def merge_rows(cache_a, logits_a, pos_a, done_a, kv_valid_a,
                cache_b, logits_b, pos_b, done_b, kv_valid_b,
                row_map, prompt_width: int):
@@ -880,7 +912,10 @@ def merge_rows(cache_a, logits_a, pos_a, done_a, kv_valid_a,
     [bb, prompt_width / page] table of each staging row's fresh prompt
     blocks (scratch elsewhere), and the session's rebuilt page table; the
     cache half then happens in the pool (`kv/paged.scatter_prompt`) and the
-    row-state half is `kv/paged.merge_row_state`.
+    row-state half is `kv/paged.merge_row_state`. A TP cache of paged
+    shards takes a `TPCache` staging and one new page table a shard: each
+    shard's staged rows scatter into its own pool through the one scatter
+    table (page ids mean the same page in every shard).
 
     The JAX package builds new arrays and donates cache_a (its pools, for
     the paged layout); here the caches are written in place and `length`
@@ -889,14 +924,18 @@ def merge_rows(cache_a, logits_a, pos_a, done_a, kv_valid_a,
     place before the splice, so a captured chunk reads the splice."""
     if not isinstance(cache_a, TPCache):  # a TP cache splices shard by shard
         _refuse_layout(cache_a, "merge_rows", (KVCache, QuantKVCache, PagedKVCache))
-    if isinstance(cache_a, PagedKVCache):
+    if is_paged(cache_a):
         staging, scatter_table, new_page_table = cache_b
-        if staging is not None:
-            _paged.scatter_prompt(cache_a.k, cache_a.v, cache_a.k_scale, cache_a.v_scale,
-                                  staging, scatter_table, prompt_width)
+        if isinstance(cache_a, TPCache):
+            stagings = staging.shards if staging is not None else [None] * len(cache_a.shards)
+            cache = cache_a._replace(shards=tuple(
+                _splice_pages(a, st, scatter_table, table, prompt_width)
+                for a, st, table in zip(cache_a.shards, stagings, new_page_table, strict=True)))
+        else:
+            cache = _splice_pages(cache_a, staging, scatter_table, new_page_table, prompt_width)
         state = _paged.merge_row_state(logits_a, pos_a, done_a, kv_valid_a, logits_b, pos_b,
                                        done_b, kv_valid_b, row_map, cache_a.length, prompt_width)
-        return (cache_a._replace(page_table=new_page_table), *state)
+        return (cache, *state)
     merge_cache_rows(cache_a, cache_b, row_map)
     state = _paged.merge_row_state(logits_a, pos_a, done_a, kv_valid_a, logits_b, pos_b, done_b,
                                    kv_valid_b, row_map, cache_a.length, prompt_width)

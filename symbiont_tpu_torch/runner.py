@@ -14,12 +14,13 @@ heartbeats and the drain protocol of a supervised role
 (resilience/procsup.py), `obs.slo_p99_ms` the SLO watchdog and
 `gen_journal.enabled` the generation journal, `obs.xprof_trace_dir` and
 `obs.xprof_trace_max_s` the on-demand device trace, `obs.hbm_census_groups`
-the census's row bound, and `parallel` the serving mesh (below). The LM
-branches not ported under a tensor-parallel mesh raise a `ValueError`
-naming their ROADMAP item before anything starts (`_refuse_unported`).
-`lm.ingest_train` hands `text_generator` an
-`OnlineLmTrainer` (train/online.py) that fine-tunes the LM on ingested
-text and syncs it into the serving engine in place.
+the census's row bound, and `parallel` the serving mesh (below). A mesh
+that spans processes, and `lm.tensor_parallel="on"` where the LM cannot
+shard, raise a `ValueError` before anything starts (`_refuse_unported`);
+the paged layout, a drafter and `lm.ingest_train` serve under a
+tensor-parallel mesh as on one device. `lm.ingest_train` hands
+`text_generator` an `OnlineLmTrainer` (train/online.py) that fine-tunes
+the LM on ingested text and syncs it into the serving engine in place.
 
 The reference needs docker-compose with 10 containers to run at all
 (reference: docker-compose.yml:1-151); this runner hosts the full pipeline in
@@ -57,15 +58,14 @@ _OBS_DEFAULTS = ObsConfig()
 
 
 def _refuse_unported(cfg: SymbiontConfig, mesh, builds_lm: bool) -> None:
-    """The LM's tensor-parallel decision (`engine.lm.tp_decode`, JAX's
-    rules) taken before any service starts, over the caller's mesh or the
-    one `cfg.parallel` will build, on the LM's geometry (a checkpoint's
-    config.json is read for it): a branch not ported under TP (the paged
-    layout, speculative decoding, the online fine-tune) or
-    `tensor_parallel="on"` where the LM cannot shard raises here, naming
-    its ROADMAP item, as `LmEngine` and `OnlineLmTrainer` would raise once
-    built. A caller's mesh that spans processes raises for every stack
-    (serving across processes is ROADMAP's A15 multi-host serving)."""
+    """What the stack cannot serve, refused before any service starts: a
+    caller's mesh that spans processes, for every stack (serving across
+    processes is ROADMAP's A15 multi-host serving, `refuse_spanning`
+    names it); and the LM's tensor-parallel decision (`engine.lm.
+    tp_decode`, JAX's rules) over the caller's mesh or the one
+    `cfg.parallel` will build, on the LM's geometry (a checkpoint's
+    config.json is read for it): `tensor_parallel="on"` where the LM
+    cannot shard raises here, as `LmEngine` would once built."""
     from symbiont_tpu_torch.parallel.mesh import axis_size, refuse_spanning
 
     refuse_spanning(mesh, "the runner's services")
@@ -80,7 +80,7 @@ def _refuse_unported(cfg: SymbiontConfig, mesh, builds_lm: bool) -> None:
         tp = (int(shape[names.index("tensor")]) if cfg.parallel.enabled and shape is not None
               and "tensor" in names else 1)
     if tp_decode(cfg.lm, None, tp):
-        tp_decode(cfg.lm, lm_model_config(cfg.lm), tp, ingest_train=cfg.lm.ingest_train)
+        tp_decode(cfg.lm, lm_model_config(cfg.lm), tp)
 
 
 def _mesh_on_cpu(cfg: SymbiontConfig, engine: bool, lm: bool) -> bool:

@@ -18,6 +18,13 @@ other:
   Both files are written to a temporary name, fsynced and renamed, so a
   crash mid-save leaves the previous checkpoint whole.
 
+A train state placed on a mesh (`trainer.shard_lm_train_state`, the
+online fine-tune of a tensor-parallel engine) saves in the same format:
+each `Sharded` param and its two moments, read from the blocks' masters,
+gathered whole (a collective where the mesh spans processes). A load into
+such a template writes every local block of each param and each master's
+moments in place, so the step executables bound to them survive.
+
 `embedder_train_state_from_numpy` and `lm_train_state_from_numpy` take a
 JAX embedder or LM train state held in memory as numpy arrays instead of
 on disk, so the port can go on training from where the JAX trainer
@@ -36,10 +43,12 @@ import torch
 
 from symbiont_tpu_torch.device import resolve_device
 from symbiont_tpu_torch.models.bridge import bert_params_from_numpy, gpt_params_from_numpy
+from symbiont_tpu_torch.parallel.sharding import Sharded
 from symbiont_tpu_torch.train.trainer import (
     TrainState,
     make_embedder_train_state,
     make_lm_train_state,
+    masters,
     tree_leaves,
 )
 
@@ -109,18 +118,43 @@ def exists(path: str | Path) -> bool:
     return (path / "params.npz").exists() and (path / "tree.json").exists()
 
 
-def _state_tensors(state: TrainState) -> list:
-    """The state's leaves in the JAX order: params, count, mu, nu, step
+def _state_leaves(state: TrainState) -> list:
+    """The state's leaves in the JAX order as (param leaf, moment key):
+    params (key None), count, mu ("exp_avg"), nu ("exp_avg_sq"), step
     (count and step as None: they are scalars kept apart)."""
     params = tree_leaves(state.params)
-    moments = [state.opt_state[p] for p in params]
-    return (params + [None] + [m["exp_avg"] for m in moments]
-            + [m["exp_avg_sq"] for m in moments] + [None])
+    return ([(p, None) for p in params] + [None] + [(p, "exp_avg") for p in params]
+            + [(p, "exp_avg_sq") for p in params] + [None])
 
 
 def _adam_count(state: TrainState) -> int:
-    params = tree_leaves(state.params)
-    return int(state.opt_state[params[0]]["step"]) if params else 0
+    homes = masters(state.params)
+    return int(state.opt_state[homes[0]]["step"]) if homes else 0
+
+
+def _whole(state: TrainState, leaf, key: Optional[str]) -> torch.Tensor:
+    """A param leaf (`key` None) or its AdamW moment `key`, whole: a
+    mesh-placed leaf's blocks gathered from its masters."""
+    if not isinstance(leaf, Sharded):
+        return leaf if key is None else state.opt_state[leaf][key]
+    if key is not None:
+        leaf = Sharded(leaf.mesh, leaf.spec,
+                       tuple(None if s is None else state.opt_state[leaf.home(i)][key]
+                             for i, s in enumerate(leaf.shards)), leaf.shape)
+    return leaf.gather()
+
+
+def _write(state: TrainState, leaf, key: Optional[str], whole: torch.Tensor) -> None:
+    """`whole` into a param leaf (`key` None: every local shard of a placed
+    one) or its moment `key` (each master's block of a placed one)."""
+    if not isinstance(leaf, Sharded):
+        (leaf if key is None else state.opt_state[leaf][key]).copy_(whole)
+        return
+    for i, shard in enumerate(leaf.shards):
+        if shard is None or (key is not None and leaf.home_index(i) != i):
+            continue
+        sl = tuple(slice(b * n, (b + 1) * n) for b, n in zip(leaf.block(i), shard.shape))
+        (shard if key is None else state.opt_state[shard][key]).copy_(whole[sl])
 
 
 def _write_atomic(final: Path, write) -> None:
@@ -137,8 +171,8 @@ def save_train_state(path: str | Path, state: TrainState,
     """Params, both AdamW moments, the Adam count and the step, for resume."""
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
-    leaves = [np.asarray(_adam_count(state), np.int32) if t is None else _numpy(t)
-              for t in _state_tensors(state)]
+    leaves = [np.asarray(_adam_count(state), np.int32) if t is None else _numpy(_whole(state, *t))
+              for t in _state_leaves(state)]
     leaves[-1] = np.asarray(int(state.step), np.int32)
     # meta last — its presence implies a whole npz
     _write_atomic(path / "train_state.npz", lambda f: np.savez(
@@ -160,7 +194,7 @@ def load_train_state(path: str | Path, template: TrainState):
     spec = json.loads((path / "train_meta.json").read_text())
     with np.load(path / "train_state.npz") as npz:
         leaves = [npz[f"leaf_{i}"] for i in range(spec["n_leaves"])]
-    targets = _state_tensors(template)
+    targets = _state_leaves(template)
     if len(targets) != len(leaves):
         raise ValueError(
             f"checkpoint has {len(leaves)} leaves, template has "
@@ -168,18 +202,17 @@ def load_train_state(path: str | Path, template: TrainState):
     # per-leaf shape check: equal leaf counts with different geometry must
     # fail HERE with a clear error, not later as a broadcast error
     for i, (leaf, tmpl) in enumerate(zip(leaves, targets)):
-        t_shape = () if tmpl is None else tuple(tmpl.shape)
+        t_shape = () if tmpl is None else tuple(tmpl[0].shape)
         if tuple(leaf.shape) != t_shape:
             raise ValueError(
                 f"leaf {i}: checkpoint shape {tuple(leaf.shape)} != template "
                 f"shape {t_shape} — model/optimizer config mismatch")
-    params = tree_leaves(template.params)
-    count = float(leaves[len(params)])
+    count = float(leaves[len(tree_leaves(template.params))])
     with torch.no_grad():
         for leaf, tmpl in zip(leaves, targets):
             if tmpl is not None:
-                tmpl.copy_(torch.from_numpy(np.array(leaf)))
-        for p in params:
+                _write(template, *tmpl, torch.from_numpy(np.array(leaf)))
+        for p in masters(template.params):
             template.opt_state[p]["step"].fill_(count)
     return (TrainState(template.params, template.opt_state, int(leaves[-1])),
             spec.get("meta", {}))

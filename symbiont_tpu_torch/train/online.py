@@ -25,6 +25,13 @@ Design constraints, as in JAX:
 - The step's metrics are detached device scalars: no autograd graph over
   the masters outlives a step, which a graph's capture would otherwise
   depend on.
+
+A tensor-parallel engine (`lm.mesh`) trains on masters placed on its mesh
+(`trainer.shard_lm_train_state`, the megatron rules the engine's params
+follow): each step is the dp×tp `lm_train_step`, eager, and a sync hands
+the placed tree to `update_params`, which copies it shard for shard. The
+checkpoint stays the shared on-disk format (`train/checkpoint.py` gathers
+a placed state to save it and places it back on load).
 """
 
 from __future__ import annotations
@@ -38,7 +45,12 @@ import torch
 
 from symbiont_tpu_torch.models import quant
 from symbiont_tpu_torch.train import checkpoint as ckpt
-from symbiont_tpu_torch.train.trainer import lm_train_step, make_lm_train_state
+from symbiont_tpu_torch.parallel.sharding import gather_tree
+from symbiont_tpu_torch.train.trainer import (
+    lm_train_step,
+    make_lm_train_state,
+    shard_lm_train_state,
+)
 
 log = logging.getLogger(__name__)
 
@@ -51,9 +63,6 @@ class OnlineLmTrainer:
 
     def __init__(self, lm, learning_rate: float = 1e-4, seq_len: int = 64,
                  batch_size: int = 8, state_path: Optional[str] = None):
-        if getattr(lm, "mesh", None) is not None:
-            raise ValueError("the online LM fine-tune of a tensor-parallel LmEngine is not "
-                             "ported (ROADMAP A15 stage 1d)")
         self.lm = lm
         self.cfg = lm.model_cfg
         self.seq_len = int(min(seq_len, self.cfg.max_position_embeddings))
@@ -101,11 +110,15 @@ class OnlineLmTrainer:
                     return a.dequantize(torch.float32)
                 return a.detach().float() if a.is_floating_point() else a.detach()
 
-            params = quant.tree_map(widen, lm.params)
+            params = quant.tree_map(widen, gather_tree(lm.params, lm.device))
         # make_lm_train_state clones every leaf: no master shares storage
         # with the engine's tensors
         self.state, self._tx = make_lm_train_state(params, learning_rate)
         del params
+        mesh = getattr(lm, "mesh", None)
+        if mesh is not None:  # the masters on the engine's TP layout
+            self.state, self._tx = shard_lm_train_state(mesh, self.state, self._tx,
+                                                        arch=self.cfg.arch)
         if resuming:  # one consistent answer with the masters-init decision
             try:
                 self.state, meta = ckpt.load_train_state(state_path, self.state)
@@ -204,9 +217,11 @@ class OnlineLmTrainer:
 
     def _sync_engine(self) -> None:
         """Push the trained params to the serving engine, which copies them
-        into its own tensors (`LmEngine.update_params`): the masters stay
-        the trainer's alone."""
-        self.lm.update_params(quant.tree_map(lambda t: t.detach(), self.state.params))
+        into its own tensors (`LmEngine.update_params`; shard for shard,
+        placed masters of a TP engine as they are): the masters stay the
+        trainer's alone."""
+        self.lm.update_params(quant.tree_map(
+            lambda t: t.detach() if isinstance(t, torch.Tensor) else t, self.state.params))
         self.stats["param_syncs"] += 1
 
     def _save(self) -> None:

@@ -1017,6 +1017,7 @@ def test_a_failing_stack_check_fails_the_run(monkeypatch, capsys):
                  spec_phase=lambda rng, tmp, tl: {"launches": 0},
                  lmtrain_phase=lambda rng, tmp: {"launches": (0, 0, 0), "kernels": []},
                  mesh_phase=lambda rng: {"launches": (0, 0, 0)},
+                 tp_phase=lambda rng, tmp: {"launches": (0, 0, 0)},
                  sp_phase=lambda rng: {"launches": (0, 0, 0)},
                  stack_phase=lambda rng, tmp, serve: chip_smoke.check(
                      False, "49 of 50 searches on the fused hop, 1 fell back"))
@@ -1079,6 +1080,49 @@ def test_mesh_phase_rehearses_on_the_cpu(monkeypatch, capsys):
     embed_b1 = sum(out["dp"]["b1"])
     assert embed_b1 == 6 * 2 * 2 * out["dp"]["batches"]
     assert out["launches"] == (embed_b1 + 6 * 4 + 3 * 12 + 2 * 8, 16, 16)
+
+
+# --------------------------------------------------------------------- tp
+
+TINY_TP = dict(llama=TINY_LLAMA, gpt2=TINY_GPT2, rows=2, new=8, bucket=16, chunk=4, page=4,
+               spec_k=2, shared=8, tail=4, batch=2, seq_len=16,
+               drafter=dict(chip_smoke.LLAMA_68M, vocab_size=300, hidden_size=32,
+                            num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=4,
+                            intermediate_size=48, max_position_embeddings=64))
+
+
+def test_tp_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """[tp] end to end on the CPU over [1, 2] meshes that repeat the CPU
+    device, at tiny geometries (2-layer llama and GPT-2, a 2-layer
+    drafter), with every check it makes on the card: 9 lines (paged TP
+    f32 and int8, spec dense and paged, the small drafter, the online
+    trainer, the three kernel rows, untimed); B1 4 a cold prefill (2
+    layers x 2 shards), 0 a full radix hit, 6 a cold spec start (4 + the
+    drafter's 2), 2 a paged one that is a full radix hit; B1 = B2 = B3 = 4
+    a train step, 4 passes of one step."""
+    _count_cpu_launches(monkeypatch)
+    out = chip_smoke.tp_phase(np.random.default_rng(0), tmp_path, sizes=TINY_TP, device="cpu")
+    printed = capsys.readouterr().out
+    assert printed.count("[tp]") == 9 and printed.count("[tp] paged TP") == 2
+    assert printed.count("[tp] spec TP") == 3 and printed.count("[tp] online TP") == 1
+    assert "flash_attn_fwd causal GQA q(2, 2, 16, 64) k(2, 1, 16, 64) float32" in printed
+    assert "flash_attn_bwd causal q/k/v/g(2, 2, 16, 64) float32" in printed
+    for part in ("paged", "paged_int8"):
+        assert out[part]["b1"] == 12 and out[part]["radix"]["full_hits"] == 1
+        assert out[part]["pages_after"][0] == 0
+    for layout in ("dense", "paged"):
+        spec = out["spec"][f"tinyllama/{layout}"]
+        assert spec["b1"] == 6 and spec["proposed"] > 0 and spec["accepted"] == spec["proposed"]
+        assert spec["warm_b1"] == (2 if layout == "paged" else 6)  # paged: a full radix hit
+    online = out["online"]
+    assert len(online["passes"]) == 2 and online["shard_gap"] <= 2 * 1e-4 * 2
+    for p in online["passes"]:
+        assert p["loss"] == pytest.approx(p["loss_ref"], rel=1e-4)
+    assert online["resumed_loss"] == pytest.approx(online["unbroken_loss"], rel=1e-4)
+    # 12 + 12 paged; spec 6 + 6 dense, 6 + 2 paged, 6 + 2 the small drafter
+    # (a warm second session each, paged ones full radix hits); 4 x 4 train
+    # steps and one generate_batch
+    assert out["launches"] == (12 + 12 + 12 + 8 + 8 + 16 + 4, 16, 16)
 
 
 # --------------------------------------------------------------------- sp
@@ -1214,6 +1258,7 @@ def test_a_failing_multihost_worker_fails_the_run(monkeypatch, capsys):
                  spec_phase=lambda rng, tmp, tl: {"launches": 0},
                  lmtrain_phase=lambda rng, tmp: {"launches": (0, 0, 0), "kernels": []},
                  mesh_phase=lambda rng: {"launches": (0, 0, 0)},
+                 tp_phase=lambda rng, tmp: {"launches": (0, 0, 0)},
                  sp_phase=lambda rng: {"launches": (0, 0, 0)},
                  stack_phase=lambda rng, tmp, serve: {"launches": 0},
                  fleet_phase=lambda rng, tmp: {"launches": 0},
@@ -1274,6 +1319,7 @@ def test_a_lint_finding_fails_the_run(tmp_path, monkeypatch, capsys):
                  spec_phase=lambda rng, tmp, tl: {"launches": 0},
                  lmtrain_phase=lambda rng, tmp: {"launches": (0, 0, 0), "kernels": []},
                  mesh_phase=lambda rng: {"launches": (0, 0, 0)},
+                 tp_phase=lambda rng, tmp: {"launches": (0, 0, 0)},
                  sp_phase=lambda rng: {"launches": (0, 0, 0)},
                  stack_phase=lambda rng, tmp, serve: {"launches": 0},
                  fleet_phase=lambda rng, tmp: {"launches": 0},

@@ -3,7 +3,8 @@ LmEngine on the CPU, at tiny geometries: the same prompt buckets, trims and
 batch padding, greedy text token-identical on the same weights (dense and
 int8 KV, quantized weights), int8/fp8 codes bit-equal, the same parameter
 bytes; plus the host-side pieces (byte tokenizer, incremental decoder,
-config) and the settings of unported items, which must raise."""
+config) and the paged layout and drafters under a TP mesh, against
+JAX's TP engine."""
 
 import dataclasses
 
@@ -16,6 +17,7 @@ from symbiont_tpu.config import LmConfig as JaxLmConfig
 from symbiont_tpu.engine.lm import LmEngine as JaxLmEngine
 from symbiont_tpu.models import gpt as jgpt
 from symbiont_tpu.models import quant as jquant
+from symbiont_tpu.parallel import build_mesh as jax_build_mesh
 from symbiont_tpu_torch.config import LmConfig
 from symbiont_tpu_torch.engine.lm import (
     ByteTokenizer,
@@ -121,20 +123,32 @@ TP_MESH = build_mesh([1, 2], devices=[torch.device("cpu")] * 2)
 
 
 @pytest.mark.parametrize("config_kw,engine_kw,item", [
-    (dict(kv_layout="paged", kv_page_tokens=8), dict(mesh=TP_MESH), "A15 stage 1b"),
-    (dict(spec_draft_model="/no/such/drafter"), dict(mesh=TP_MESH), "A15 stage 1c"),
-    ({}, dict(mesh=TP_MESH, draft_params="same", draft_model_cfg="same"), "A15 stage 1c"),
+    (dict(kv_layout="paged", kv_page_tokens=8), dict(mesh=TP_MESH), "paged"),
+    (dict(spec_draft_model="/no/such/drafter"), dict(mesh=TP_MESH), "missing drafter"),
+    ({}, dict(mesh=TP_MESH, draft_params="same", draft_model_cfg="same"), "drafter"),
 ])
-def test_unported_settings_raise_and_name_their_item(config_kw, engine_kw, item):
-    """Tensor-parallel decode is ported (tests/test_torch_multichip_serving.py
-    holds it to JAX); the paged layout and speculative decoding under a TP
-    mesh are not, and raise naming their item instead of serving on one
-    device."""
-    if "draft_params" in engine_kw:
-        donor = _port()
-        engine_kw = dict(engine_kw, draft_params=donor.params, draft_model_cfg=donor.model_cfg)
-    with pytest.raises(ValueError, match=item):
-        LmEngine(LmConfig(**{**TINY, **config_kw}), device="cpu", **engine_kw)
+def test_unported_settings_raise_and_name_their_item(config_kw, engine_kw, item, caplog):
+    """Under a TP mesh the paged layout and a drafter (the target itself)
+    serve JAX's TP engine's greedy tokens on one tree; a drafter dir that
+    is missing decodes plain with a warning, as without a mesh. (Each was
+    once refused under TP; tests/test_torch_tp_serving.py holds the
+    three to JAX at length.)"""
+    kw = dict(kv_layout="paged", kv_page_tokens=8) if item == "paged" else {}
+    jax_eng, port = _pair(**kw)
+    jd = {}
+    if item == "drafter":
+        engine_kw = dict(engine_kw, draft_params=port.params, draft_model_cfg=port.model_cfg)
+        jd = dict(draft_params=jax_eng.params, draft_model_cfg=jax_eng.model_cfg)
+    jax_eng = JaxLmEngine(jax_eng.config, params=jax_eng.params, model_cfg=jax_eng.model_cfg,
+                          mesh=jax_build_mesh([1, 2], devices=jax.devices()[:2]), **jd)
+    tp = LmEngine(LmConfig(**{**TINY, **config_kw}), params=port.params,
+                  model_cfg=port.model_cfg, device="cpu", **engine_kw)
+    assert tp.mesh is not None and jax_eng.mesh is not None
+    assert (tp.pool is not None) == (item == "paged")
+    assert (tp._draft is not None) == (item == "drafter")
+    if item == "missing drafter":
+        assert any("spec_draft_model" in r.getMessage() for r in caplog.records)
+    assert tp.generate_batch(PROMPTS, [12] * 4) == jax_eng.generate_batch(PROMPTS, [12] * 4)
 
 
 @pytest.mark.parametrize("config_kw,engine_kw", [

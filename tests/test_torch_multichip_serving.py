@@ -16,7 +16,10 @@ JAX package on the same params: DP embed against JAX's `TpuEngine` on its
   `generate_batch` and a session with a mid-decode admission, with int8
   weights too (codes and scales shard together);
 - the dp×tp LM train step matches the unsharded one (loss rtol 1e-4) and
-  the params keep their TP layout.
+  the params keep their TP layout;
+- under a TP mesh the paged layout, a drafter and the online fine-tune
+  serve one device's tokens (tests/test_torch_tp_serving.py holds them to
+  JAX's TP engine).
 """
 
 import asyncio
@@ -196,9 +199,9 @@ def _llama_dir(tmp_path, heads: int, kv_heads: int) -> str:
 def test_runner_judges_a_checkpoint_lm_by_its_kv_heads(tmp_path, tensor_parallel):
     """The runner's TP decision is `engine.lm.tp_decode` on the checkpoint's
     own geometry: 4 query heads divide a tensor axis of 2 and 1 KV head
-    does not, so under "auto" the LM serves on one device, the paged layout
-    (not ported under TP) included, as JAX's engine would, and under "on"
-    the stack raises before it starts."""
+    does not, so under "auto" the LM serves on one device, its paged
+    layout included, as JAX's engine would, and under "on" the stack
+    raises before it starts."""
     cfg = _stack_config(tmp_path, [1, 2], services="text_generator")
     cfg.lm = dataclasses.replace(cfg.lm, model_dir=_llama_dir(tmp_path, 4, 1),
                                  kv_layout="paged", kv_page_tokens=8,
@@ -427,19 +430,48 @@ def test_tensor_parallel_on_raises_where_jax_raises(shape, kw):
 
 def test_tp_engine_refuses_the_unported_branches_by_name():
     """Under a TP mesh the paged layout, speculative decoding and the online
-    fine-tune are not ported: each raises naming its ROADMAP item instead of
-    serving on one device."""
+    fine-tune serve (each was once refused there): paged and self-drafted
+    TP engines give one device's greedy tokens, and an `OnlineLmTrainer`
+    over a TP engine trains placed masters and syncs them into the
+    engine's shards, whose tokens then equal a one-device engine's on the
+    same weights. (tests/test_torch_tp_serving.py holds all three to JAX.)"""
     from symbiont_tpu_torch.train.online import OnlineLmTrainer
 
-    with pytest.raises(ValueError, match="A15 stage 1b"):
-        LmEngine(LmConfig(**{**LM_KW, "kv_layout": "paged", "kv_page_tokens": 8}),
-                 mesh=_mesh([1, 2], 2))
+    prompts = ["the quick brown fox", "mesh native decode"]
+    paged = {**LM_KW, "kv_layout": "paged", "kv_page_tokens": 8}
+    single = LmEngine(LmConfig(**paged))
+    base = single.generate_batch(prompts, [12, 12], temperature=0.0)
+    tp_paged = LmEngine(LmConfig(**paged), mesh=_mesh([1, 2], 2), params=single.params,
+                        model_cfg=single.model_cfg)
+    assert tp_paged.mesh is not None and len(tp_paged.pool.shards) == 2
+    assert tp_paged.generate_batch(prompts, [12, 12], temperature=0.0) == base
+    assert _session_outputs(tp_paged) == _session_outputs(single)
+    assert tp_paged.pool.pages_live == 0
+
     donor = LmEngine(LmConfig(**LM_KW))
-    with pytest.raises(ValueError, match="A15 stage 1c"):
-        LmEngine(LmConfig(**LM_KW), mesh=_mesh([1, 2], 2), draft_params=donor.params,
-                 draft_model_cfg=donor.model_cfg)
-    with pytest.raises(ValueError, match="A15 stage 1d"):
-        OnlineLmTrainer(LmEngine(LmConfig(**LM_KW), mesh=_mesh([1, 2], 2)))
+    spec = LmEngine(LmConfig(**LM_KW), mesh=_mesh([1, 2], 2), params=donor.params,
+                    model_cfg=donor.model_cfg, draft_params=donor.params,
+                    draft_model_cfg=donor.model_cfg)
+    assert spec.mesh is not None and spec._draft is not None
+    assert (spec.generate_batch(prompts, [12, 12], temperature=0.0)
+            == donor.generate_batch(prompts, [12, 12], temperature=0.0))
+    assert _session_outputs(spec) == _session_outputs(donor)
+
+    tp = LmEngine(LmConfig(**LM_KW), mesh=_mesh([1, 2], 2))
+    trainer = OnlineLmTrainer(tp, seq_len=16, batch_size=2)
+    assert trainer.train_on_texts(["the mesh shards batches across devices " * 4])["steps"] > 0
+    assert isinstance(tp.params["layers"][0]["q"]["kernel"], Sharded)
+    fresh = LmEngine(LmConfig(**LM_KW), params=quant.tree_map(
+        lambda t: t.detach(), _trainer_tree(trainer)), model_cfg=tp.model_cfg)
+    assert (tp.generate_batch(prompts, [12, 12], temperature=0.0)
+            == fresh.generate_batch(prompts, [12, 12], temperature=0.0))
+
+
+def _trainer_tree(trainer):
+    """A trainer's placed masters gathered whole on the CPU."""
+    from symbiont_tpu_torch.parallel.sharding import gather_tree
+
+    return gather_tree(trainer.state.params, CPU)
 
 
 def test_tp_auto_indivisible_serves_on_one_device_as_jax(caplog):

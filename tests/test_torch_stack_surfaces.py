@@ -7,9 +7,8 @@ executables routes answering with JAX's key sets, and the obs settings
 that start those planes; every setting of A8 stage 2 starting its plane (the TCP bus to a broker,
 the external stores behind their breakers, the fleet plane, heartbeats,
 the SLO watchdog, the generation journal), backends that fail loudly
-instead of falling back, and every setting of a part not ported yet
-raising a `ValueError` that names its ROADMAP item before anything
-starts."""
+instead of falling back, and the LM's paged layout, drafter and online
+fine-tune serving under a tensor-parallel mesh."""
 
 import asyncio
 import json
@@ -388,20 +387,47 @@ def _set(cfg, section, **fields):
 
 
 @pytest.mark.parametrize("section,fields,item", [
-    ("lm", dict(kv_layout="paged", kv_page_tokens=8), "A15 stage 1b"),
-    ("lm", dict(spec_draft_model="/no/such/drafter"), "A15 stage 1c"),
-    ("lm", dict(ingest_train=True), "A15 stage 1d"),
+    ("lm", dict(kv_layout="paged", kv_page_tokens=8), "paged"),
+    ("lm", dict(spec_draft_model="/no/such/drafter"), "missing drafter"),
+    ("lm", dict(ingest_train=True, ingest_train_seq_len=16, ingest_train_batch=2), "trainer"),
 ])
 def test_unported_settings_raise_naming_their_item(tmp_path, section, fields, item):
-    """A serving mesh is ported (tests/test_torch_multichip_serving.py); the
-    LM's paged layout and speculative decoding under its 'tensor' axis are
-    not, and the stack refuses them before it serves."""
+    """The LM's paged layout, a drafter dir (missing here: plain decode,
+    as on one device) and the online fine-tune serve under the serving
+    mesh's 'tensor' axis: the stack on [1, 2] starts with a TP LM and
+    answers a generate request with the engine's own greedy text; with
+    `ingest_train` its trainer also takes one pass and syncs the engine,
+    which stays TP-placed. (Each setting was once refused under TP.)"""
+    from symbiont_tpu_torch.parallel import Sharded
+
     cfg = _set(_config(tmp_path, lm=True), section, **fields)
     cfg.parallel.mesh_shape = [1, 2]
-    stack = SymbiontStack(cfg, bus=InprocBus())
-    with pytest.raises(ValueError, match=item):
-        asyncio.run(stack.start())
-    assert stack.api is None and not stack.services  # nothing started
+
+    async def body(stack, http):
+        assert stack.lm is not None and stack.lm.mesh is not None
+        assert (stack.lm.pool is not None) == (item == "paged")
+        assert stack.lm._draft is None
+        events = []
+        reader = asyncio.create_task(_sse_events(stack.api.port, 1, events))
+        await asyncio.sleep(0.2)
+        st, _, _ = await http("POST", "/api/generate-text",
+                              {"task_id": "tp-1", "prompt": "hello there", "max_length": 8,
+                               "temperature": 0.0})
+        assert st == 200
+        await asyncio.wait_for(reader, 30)
+        assert events[0]["original_task_id"] == "tp-1"
+        assert events[0]["generated_text"] == stack.lm.generate("hello there", 8,
+                                                                temperature=0.0)
+        textgen = next(s for s in stack.services if s.name == "text_generator")
+        assert (textgen.lm_trainer is not None) == (item == "trainer")
+        if textgen.lm_trainer is not None:
+            out = await asyncio.get_running_loop().run_in_executor(
+                None, lambda: textgen.lm_trainer.train_on_texts(["a document to learn " * 4]))
+            assert out["steps"] >= 1 and out["loss"] > 0
+            assert textgen.lm_trainer.stats["param_syncs"] == 1
+            assert isinstance(stack.lm.params["layers"][0]["q"]["kernel"], Sharded)
+
+    _scenario(cfg, body)
 
 
 def _plane_broker(stack_cfg, scheme):
@@ -568,14 +594,27 @@ def test_postmortems_go_under_the_temp_dir_unless_a_dir_is_set(tmp_path, monkeyp
 
 
 def test_a_mesh_argument_raises_naming_a15(tmp_path):
-    """A caller's mesh reaches the engines; with a 'tensor' axis the LM's
-    paged layout, not ported under TP, raises naming its item."""
+    """A caller's mesh reaches the engines: with a 'tensor' axis the LM's
+    paged layout (once refused there, naming A15) serves on it, its page
+    pool one set of arrays a tensor shard, and the LM answers a request
+    with its own greedy text."""
     cfg = _config(tmp_path, lm=True)
     cfg.lm.kv_layout, cfg.lm.kv_page_tokens = "paged", 8
     mesh = build_mesh([1, 2], devices=[torch.device("cpu")] * 2)
-    stack = SymbiontStack(cfg, bus=InprocBus(), mesh=mesh)
-    with pytest.raises(ValueError, match="A15"):
-        asyncio.run(stack.start())
+
+    async def main():
+        stack = SymbiontStack(cfg, bus=InprocBus(), mesh=mesh, fetcher=lambda url: PAGE)
+        await stack.start()
+        try:
+            assert stack.lm.mesh is mesh and len(stack.lm.pool.shards) == 2
+            assert stack._lm_batcher is not None
+            return await asyncio.get_running_loop().run_in_executor(
+                None, lambda: stack.lm.generate_batch(["hello"], [8]))
+        finally:
+            await stack.stop()
+
+    got = asyncio.run(main())
+    assert isinstance(got, list) and len(got) == 1 and got[0]
 
 
 @pytest.mark.parametrize("call,error,match", [
