@@ -4351,6 +4351,7 @@ def lm_backward_kernel_rows(sizes=None, timed: bool = True, device: str = "cuda"
     from symbiont_tpu_torch.ops import flash_attention as fa
 
     s = dict(LMTRAIN, **(sizes or {}))
+    on_card = torch.device(device).type == "cuda"
     gen = torch.Generator(device=device).manual_seed(SEED + 17)
     rows = []
     for dtype in dtypes:
@@ -4362,7 +4363,7 @@ def lm_backward_kernel_rows(sizes=None, timed: bool = True, device: str = "cuda"
             label = f"{str(dtype)[6:]} S={S}"
             fwd_row, out, lse = causal_b1_row(q, k, v, tag, timed)
             args = (q, k, v, bias, g, lse, fa.bwd_delta(g, out), True, scale)
-            if device == "cuda":
+            if on_card:
                 dk, dv, dbh = fa.bwd_kv(*args)
                 dq = fa.bwd_q(*args)
                 torch.cuda.synchronize()
@@ -4409,7 +4410,7 @@ def lm_backward_kernel_rows(sizes=None, timed: bool = True, device: str = "cuda"
             print(line, flush=True)
             rows.append(row)
             del q, k, v, g, bias, out, lse, args, dk, dv, dbh, dq, rdk, rdv, rdbh, rdq
-    if device == "cuda":
+    if on_card:
         torch.cuda.empty_cache()
     return rows
 
@@ -6964,8 +6965,15 @@ def sp_phase(rng, sizes=None, device="cuda") -> dict:
     return out
 
 
+# new and chunk cut from [tp]'s 32 and 16 to keep the serve mode near a minute: a decode
+# step across two processes sharing one card under gloo reads about 0.2 s
+MULTIHOST_SERVE = dict(llama=TINYLLAMA_1B, gpt2=GPT2_124M, rows=4, new=16, bucket=64, chunk=8,
+                       page=16, spec_k=8, lr=1e-4, batch=8, seq_len=64, corpus=65_536, dim=384,
+                       queries=32, top_k=10, fused=8,
+                       engine=dict(embedding_dim=384, dtype="bfloat16", attn_impl="flash",
+                                   length_buckets=[16, 32], batch_buckets=[1, 8], max_batch=8))
 MULTIHOST = dict(gpt2=GPT2_124M, rows=8, seq=64, steps=3, lr=1e-4, entries=2,
-                 modes=(("dp", (2, 1)), ("tp", (2, 2))), timeout_s=300)
+                 modes=(("dp", (2, 1)), ("tp", (2, 2))), timeout_s=300, serve=MULTIHOST_SERVE)
 MULTIHOST_SPEC_ENV = "CHIP_SMOKE_MULTIHOST"  # the phase's spec, as JSON, to its workers
 
 
@@ -7008,6 +7016,144 @@ def _multihost_inputs(s: dict, dev):
     return gcfg, params, batch
 
 
+def multihost_serve(sv: dict, dev, lm_mesh, store_mesh, cuda: bool) -> dict:
+    """[multihost]'s serve mode: the serving calls of A15 multi-host, made
+    in one order by each worker over meshes that span the two processes
+    (`lm_mesh` [1, 2], 'tensor' pairing them; `store_mesh` [2, 1]), and by
+    the parent over the one-process TP mesh and no store mesh, the
+    reference. Every call's inputs come from `sv` and the seed:
+
+    - TinyLlama-1.1B float32 (flash), the params as [tp] makes them: a
+      dense `generate_batch` of rows x new greedy tokens, then a session of
+      the same prompts timed chunk by chunk (decode ms a step, tok/s, bytes
+      passed to collectives a step); a paged engine's `generate_batch` and
+      a start that is a full radix hit on its committed prompt; a
+      self-drafted spec session (the drafter whole on the lead);
+    - GPT-2 124M float32 (flash): one `OnlineLmTrainer` pass over a seeded
+      document, its sync, then `generate_batch` on the synced engine;
+    - a `corpus` x `dim` store (bf16 on the device) searched by `queries`
+      seeded vectors (p50 host ms) and by fused queries through a
+      MiniLM-geometry `TorchEngine` (random weights from its seed).
+
+    → tokens, hits, losses, pool and radix stats, B1/B2/B3 launches by
+    call and the timings, all plain data."""
+    from symbiont_tpu_torch.config import EngineConfig, LmConfig, VectorStoreConfig
+    from symbiont_tpu_torch.engine.engine import TorchEngine
+    from symbiont_tpu_torch.engine.lm import LmEngine
+    from symbiont_tpu_torch.memory.vector_store import VectorStore
+    from symbiont_tpu_torch.models import gpt as gpt_mod
+    from symbiont_tpu_torch.ops import flash_attention as fa
+    from symbiont_tpu_torch.parallel import mesh as mesh_mod
+    from symbiont_tpu_torch.train.online import OnlineLmTrainer
+
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    rows, new, k = sv["rows"], sv["new"], sv["spec_k"]
+    prompts = sv["prompts"]
+    lkw = dict(dtype="float32", attn_impl="flash", temperature=0.0,
+               prompt_buckets=[sv["bucket"]], new_token_buckets=[new],
+               stream_chunk=sv["chunk"], kv_page_tokens=sv["page"], spec_k=k,
+               force_cpu=not cuda)
+
+    def engine(params, mcfg, draft=False, **kw):
+        extra = {} if not draft else dict(draft_params=params, draft_model_cfg=mcfg)
+        return LmEngine(LmConfig(**dict(lkw, **kw)), params=params, model_cfg=mcfg,
+                        tokenizer=IdTokenizer(), mesh=lm_mesh, **extra)
+
+    def counted(fn):
+        before = fa.launches
+        r = fn()
+        return r, fa.launches - before
+
+    def ids(texts):
+        return {str(i): _ids_of(t) for i, t in enumerate(texts)}
+
+    out = {}
+    mcfg = dataclasses.replace(gpt_mod.GPTConfig.from_hf(sv["llama"]), dtype="float32")
+    params = gpt_mod.init_params(torch.Generator(device=dev).manual_seed(SEED + 24), mcfg)
+    dense = engine(params, mcfg)
+    got, b1 = counted(lambda: dense.generate_batch(prompts, [new] * rows))
+    sess = dense.start_session(prompts, [new] * rows, temperature=0.0)
+    steps = []
+    while not sess.done():
+        b0, l0 = mesh_mod.collective_bytes, fa.launches
+        sync()
+        t0 = time.perf_counter()
+        sess.step()
+        sync()
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "bytes": mesh_mod.collective_bytes - b0, "b1": fa.launches - l0})
+    sess_tokens = {str(r.tag): list(r.tokens) for r in sess.rows if r is not None}
+    sess.close()
+    out["dense"] = {"tokens": ids(got), "b1": b1, "session_tokens": sess_tokens,
+                    "chunks": steps, "local_shards": len(gpt_mod.cache_devices(dense.params))}
+    del dense, sess
+    paged = engine(params, mcfg, kv_layout="paged")
+    got, b1 = counted(lambda: paged.generate_batch(prompts, [new] * rows))
+    cold = drive_session(paged, prompts[:1], [new])  # commits the prompt's pages
+    hit = drive_session(paged, prompts[:1], [new])
+    out["paged"] = {"tokens": ids(got), "b1": b1,
+                    "cold_tokens": {str(t): v for t, v in cold["tokens"].items()},
+                    "cold_b1": cold["launches"],
+                    "hit_tokens": {str(t): v for t, v in hit["tokens"].items()},
+                    "hit_b1": hit["launches"], "radix": dict(paged.radix.stats),
+                    "pool": [paged.pool.pages_live, paged.pool.pages_retained,
+                             paged.pool.pages_free, list(paged.pool._free),
+                             list(paged.pool._refcount)]}
+    del paged
+    spec = engine(params, mcfg, draft=True)
+    got = drive_session(spec, prompts[:2], [new - k] * 2)
+    out["spec"] = {"tokens": {str(t): v for t, v in got["tokens"].items()},
+                   "b1": got["launches"], "counts": [spec._spec_proposed, spec._spec_accepted]}
+    del spec, params
+
+    gcfg = dataclasses.replace(gpt_mod.GPTConfig.from_hf(sv["gpt2"]), dtype="float32")
+    gparams = gpt_mod.init_params(torch.Generator(device=dev).manual_seed(SEED + 25), gcfg)
+    glm = engine(gparams, gcfg)
+    del gparams
+    trainer = OnlineLmTrainer(glm, learning_rate=sv["lr"], batch_size=sv["batch"],
+                              seq_len=sv["seq_len"])
+    with recorded_lm_steps(sync) as st:
+        loss = trainer.train_on_texts([sv["doc"]])["loss"]
+    got, b1 = counted(lambda: glm.generate_batch(prompts[:2], [new] * 2))
+    out["online"] = {"loss": loss, "launches": [list(x["launches"]) for x in st],
+                     "step_ms": [x["s"] * 1e3 for x in st], "tokens_after": ids(got),
+                     "b1_after": b1}
+    del trainer, glm
+
+    vrng = np.random.default_rng(sv["store_seed"])
+    vecs = vrng.standard_normal((sv["corpus"], sv["dim"]), dtype=np.float32)
+    queries = vrng.standard_normal((sv["queries"], sv["dim"]), dtype=np.float32)
+    store = VectorStore(VectorStoreConfig(dim=sv["dim"], data_dir="",
+                                          shard_capacity=sv["corpus"]),
+                        device=None if cuda else "cpu", mesh=store_mesh)
+    store.upsert_rows([f"v{i}" for i in range(len(vecs))], vecs)
+    del vecs
+    hits, s_ms = [], []
+    for q in queries:
+        sync()
+        t0 = time.perf_counter()
+        hs = store.search(q, sv["top_k"])
+        s_ms.append((time.perf_counter() - t0) * 1e3)
+        hits.append([[h.id, h.score] for h in hs])
+    enc = TorchEngine(EngineConfig(**sv["engine"], force_cpu=not cuda), mesh=store_mesh)
+    fused, f_ms = [], []
+    l0 = fa.launches
+    for t in sv["fused_texts"]:
+        sync()
+        t0 = time.perf_counter()
+        hs = store.search_fused(enc, t, sv["top_k"])
+        f_ms.append((time.perf_counter() - t0) * 1e3)
+        fused.append([[h.id, h.score] for h in hs])
+    captures = sum(1 for key, _ in enc._exec_cache.items() if key[0] in ("qembed", "qsearch"))
+    corpus = store._device_corpus
+    out["store"] = {"hits": hits, "search_ms": s_ms, "fused": fused, "fused_ms": f_ms,
+                    "fused_b1": fa.launches - l0, "encoder_layers": enc.model_cfg.num_layers,
+                    "captures": captures if cuda else 0,
+                    "local_rows": sum(t.shape[0] for t in corpus.local)
+                    if hasattr(corpus, "local") else corpus.shape[0]}
+    return out
+
+
 def multihost_worker() -> int:
     """One of [multihost]'s two processes (`--multihost-worker`): join the
     world from SYMBIONT_COORDINATOR / SYMBIONT_NUM_PROCESSES /
@@ -7021,7 +7167,9 @@ def multihost_worker() -> int:
     steps, the gradient bytes all-reduced a step, a sha256 of the whole
     updated tree, each block from this process's own copy where it holds
     one, and the parts of one all-reduce of dp's gradient bytes alone
-    (device to host, the collective, host to device). On a host with two
+    (device to host, the collective, host to device); then, where the spec
+    has `serve`, the serving calls (`multihost_serve`) over a [1, 2] and a
+    [2, 1] mesh of each process's first entry. On a host with two
     cards or more, process p takes cuda:p, so the backend rule picks NCCL;
     on one card both take cuda:0 and the rule picks gloo."""
     import hashlib
@@ -7098,6 +7246,10 @@ def multihost_worker() -> int:
     check(bool((probe == 2).all()), "[multihost] the probe's all-reduce is not the sum")
     report["probe"] = {"bytes": probe.numel() * 4, "to_host_ms": (t1 - t0) * 1e3,
                        "all_reduce_ms": (t2 - t1) * 1e3, "to_device_ms": (t3 - t2) * 1e3}
+    if s.get("serve"):  # the serving calls, over meshes of one entry a process
+        one = grid[:, :1]
+        report["serve"] = multihost_serve(s["serve"], dev, mesh_mod.Mesh(one.T, ("data", "tensor")),
+                                          mesh_mod.Mesh(one, ("data", "tensor")), cuda)
     print("MULTIHOST " + json.dumps(report), flush=True)
     mesh_mod.shutdown_distributed()
     return 0
@@ -7142,6 +7294,149 @@ def _run_workers(argv: list, envs: list, tmp: Path, timeout_s: float, tag: str) 
     return [out.read_text() for out, _ in logs]
 
 
+def _multihost_serve_reference(sv: dict, dev, cuda: bool, rng) -> tuple:
+    """The parent's half of the serve mode, before the workers start: the
+    same calls over the one-process TP mesh [1, 2] on this device (and no
+    store mesh), and B1 at the TinyLlama shard's prefill, B1/B2/B3 at the
+    online pass's GPT-2 shard, against their plain versions (timed on the
+    card); none of their launches counted. → (reference, kernel rows)."""
+    from symbiont_tpu_torch.models import gpt as gpt_mod
+    from symbiont_tpu_torch.ops import flash_attention as fa
+    from symbiont_tpu_torch.parallel import build_mesh
+
+    saved = _launch_counts(fa)
+    try:
+        ref = multihost_serve(sv, dev, build_mesh([1, 2], devices=[dev] * 2), None, cuda)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+        lens = [sv["bucket"]] + [int(x) for x in rng.integers(1, sv["bucket"] + 1,
+                                                                sv["rows"] - 1)]
+        shard = gpt_mod._shard_cfg(gpt_mod.GPTConfig.from_hf(sv["llama"]), 2)
+        gqa = causal_gqa_row(gen, lens, shard.num_heads, shard.kv_heads, sv["bucket"],
+                             torch.float32, cuda, tag="multihost", device=str(dev))
+        gshard = gpt_mod._shard_cfg(gpt_mod.GPTConfig.from_hf(sv["gpt2"]), 2)
+        train = lm_backward_kernel_rows({"kernel_rows": sv["batch"], "kernel_S": (sv["seq_len"],)},
+                                        timed=cuda, device=str(dev), heads=gshard.num_heads,
+                                        dtypes=(torch.float32,), tag="multihost")[0]
+    finally:
+        _set_launch_counts(fa, saved)
+    kernels = {"llama_prefill_shard": {
+        "shape": f"q [{len(lens)}, {shard.num_heads}, {sv['bucket']}, 64], k/v [{len(lens)}, "
+                 f"{shard.kv_heads}, {sv['bucket']}, 64] float32, causal, left padding",
+        **{k: v for k, v in gqa.items() if k != "label"}}, "gpt2_train_shard": train}
+    import gc
+
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return ref, kernels
+
+
+def _multihost_serve_checks(sv: dict, served: list, ref: dict, kernels: dict,
+                            card: str) -> dict:
+    """The serve mode's bars, each failing the run: every call's tokens,
+    pool and radix state, loss, launches by call and hits bit-equal
+    between the two workers; tokens, pool and radix state and hits equal
+    to the one-process reference's, the online loss within rtol 1e-4 of
+    it; B1 = layers x local tensor shards a cold prefill (and + the
+    drafter's layers at a spec start), 0 at a full radix hit and in a
+    decode chunk, B1 = B2 = B3 = layers x local shards an online step, and
+    the encoder's layers x (queries + captures) over the fused queries.
+    Prints the readings. → what the workers measured, with both workers'
+    B1/B2/B3 launches (`b123`)."""
+    a, b = served
+    launches = [0, 0, 0]
+
+    def same(key):  # the fields of a call that must not differ between processes
+        return {k: v for k, v in key.items()
+                if k not in ("chunks", "step_ms", "search_ms", "fused_ms")}
+
+    for call in ("dense", "paged", "spec", "online", "store"):
+        check(same(a[call]) == same(b[call]), f"[multihost] serve {call}: the two processes "
+                                              "differ")
+    check([x["bytes"] for x in a["dense"]["chunks"]] == [x["bytes"] for x in b["dense"]["chunks"]],
+          "[multihost] serve: the processes passed different bytes to collectives")
+    for call, keys in (("dense", ("tokens", "session_tokens")),
+                       ("paged", ("tokens", "cold_tokens", "hit_tokens", "radix", "pool")),
+                       ("spec", ("tokens", "counts")), ("online", ("tokens_after",)),
+                       ("store", ("hits", "fused"))):
+        for key in keys:
+            check(a[call][key] == ref[call][key], f"[multihost] serve {call} {key}: the "
+                                                  "processes differ from the one-process "
+                                                  f"reference ({'TP engine' if call != 'store' else 'meshless store'})")
+    check(abs(a["online"]["loss"] - ref["online"]["loss"]) <= 1e-4 * abs(ref["online"]["loss"]),
+          f"[multihost] serve online loss {a['online']['loss']!r} vs the one-process TP "
+          f"trainer's {ref['online']['loss']!r} beyond rtol 1e-4")
+    L, Lg = sv["llama"]["num_hidden_layers"], sv["gpt2"]["n_layer"]
+    for r in served:
+        n = r["dense"]["local_shards"]
+        Le, caps = r["store"]["encoder_layers"], r["store"]["captures"]
+        for what, got, want in (
+                ("dense generate_batch", r["dense"]["b1"], L * n),
+                ("decode chunks", sum(x["b1"] for x in r["dense"]["chunks"]), 0),
+                ("paged generate_batch", r["paged"]["b1"], L * n),
+                ("paged cold start", r["paged"]["cold_b1"], {"start": L * n, "steps": 0,
+                                                             "admit": 0}),
+                ("full radix hit", r["paged"]["hit_b1"], {"start": 0, "steps": 0, "admit": 0}),
+                ("spec session", r["spec"]["b1"], {"start": L * n + L, "steps": 0, "admit": 0}),
+                ("online steps", r["online"]["launches"],
+                 [[Lg * n] * 3] * len(r["online"]["launches"])),
+                ("generate_batch after the sync", r["online"]["b1_after"], Lg * n),
+                ("fused queries", r["store"]["fused_b1"], Le * (sv["fused"] + caps))):
+            check(got == want, f"[multihost] serve {what}: B1 {got} != {want}")
+        launches[0] += (r["dense"]["b1"] + r["paged"]["b1"] + r["paged"]["cold_b1"]["start"]
+                        + r["spec"]["b1"]["start"]
+                        + sum(x[0] for x in r["online"]["launches"]) + r["online"]["b1_after"]
+                        + r["store"]["fused_b1"])
+        launches[1] += sum(x[1] for x in r["online"]["launches"])
+        launches[2] += sum(x[2] for x in r["online"]["launches"])
+    chunk = sv["chunk"]
+    dec = {"ms_step": [x["ms"] / chunk for x in a["dense"]["chunks"]],
+           "ref_ms_step": [x["ms"] / chunk for x in ref["dense"]["chunks"]],
+           "bytes_step": [x["bytes"] // chunk for x in a["dense"]["chunks"]]}
+    dec["tok_s"] = [sv["rows"] * 1e3 / ms for ms in dec["ms_step"]]
+    store = {"search_p50_ms": float(np.median(a["store"]["search_ms"])),
+             "ref_search_p50_ms": float(np.median(ref["store"]["search_ms"])),
+             "fused_p50_ms": float(np.median(a["store"]["fused_ms"])),
+             "ref_fused_p50_ms": float(np.median(ref["store"]["fused_ms"])),
+             "local_rows": a["store"]["local_rows"]}
+    spec = a["spec"]["counts"]
+    hidden = sv["llama"]["hidden_size"]
+    print(f"[multihost] serve: TinyLlama ({L} layers x {hidden}) float32 flash on [1, 2] "
+          f"('tensor' pairs the two "
+          f"processes, {a['dense']['local_shards']} shard each): dense and paged "
+          f"generate_batch {sv['rows']} x {sv['new']} greedy, a paged cold start and a full "
+          f"radix hit of its prompt (radix {a['paged']['radix']}) and a "
+          f"self-drafted spec session (drafts proposed/accepted {spec}) bit-equal between the "
+          f"processes and to the one-process TP engine on the same params; pool and radix "
+          f"state equal; decode " + ", ".join(f"{x:.2f}" for x in dec["ms_step"])
+          + " ms a step by chunk (" + ", ".join(f"{x:.0f}" for x in dec["tok_s"])
+          + f" tok/s at {sv['rows']} rows), {dec['bytes_step'][-1]:,} bytes to collectives a "
+          f"step; the one-process TP engine " + ", ".join(f"{x:.2f}" for x in dec["ref_ms_step"])
+          + f" ms a step (host clock, synchronised; {card})", flush=True)
+    on = a["online"]
+    print(f"[multihost] serve: online GPT-2 ({Lg} layers x {sv['gpt2']['n_embd']}) float32 "
+          f"flash on [1, 2], one pass of "
+          f"{len(on['launches'])} steps [{sv['batch']}, {sv['seq_len']}]: loss {on['loss']:.6f} "
+          f"(one-process TP {ref['online']['loss']:.6f}), bit-equal between the processes; "
+          f"B1/B2/B3 {on['launches'][0]} a step; step ms "
+          + ", ".join(f"{x:.1f}" for x in on["step_ms"]) + f"; greedy tokens after the sync "
+          f"equal the one-process TP engine's ({card})", flush=True)
+    print(f"[multihost] serve: store {sv['corpus']:,} x {sv['dim']} bf16 on [2, 1] "
+          f"({store['local_rows']:,} rows a process): {sv['queries']} searches and "
+          f"{sv['fused']} fused queries (a {sv['engine']['embedding_dim']}-wide encoder of "
+          f"{a['store']['encoder_layers']} layers) return the meshless store's hits in "
+          f"both processes; search p50 {store['search_p50_ms']:.3f} ms (meshless "
+          f"{store['ref_search_p50_ms']:.3f}), fused p50 {store['fused_p50_ms']:.3f} ms "
+          f"(meshless {store['ref_fused_p50_ms']:.3f}) (host clock; {card})", flush=True)
+    return {"decode": dec, "store": store, "online": {"loss": on["loss"], "ref_loss":
+                                                      ref["online"]["loss"],
+                                                      "step_ms": on["step_ms"]},
+            "spec_counts": spec, "kernels": kernels, "b123": launches,
+            "launches": {"dense": a["dense"]["b1"], "paged": a["paged"]["b1"],
+                         "spec_start": a["spec"]["b1"]["start"], "online": on["launches"],
+                         "fused": a["store"]["fused_b1"]}}
+
+
 def multihost_phase(rng, sizes=None, device="cuda") -> dict:
     """A15 multi-host on one card: two processes (`--multihost-worker`)
     join one gloo world on a localhost coordinator, each with `entries`
@@ -7159,8 +7454,15 @@ def multihost_phase(rng, sizes=None, device="cuda") -> dict:
     [rows / data, heads / tensor, seq, head_dim] float32 causal against
     their plain versions here (their launches not counted). A worker that exits non-zero, hangs past
     `timeout_s` or breaks a bar fails the phase. One card has no NCCL and
-    no link: under gloo the collectives pass through host memory. → the
-    launches (B1, B2, B3) of both workers and what each mode measured."""
+    no link: under gloo the collectives pass through host memory.
+
+    Then the serve mode (`serve`, A15 multi-host serving; `serve=None`
+    skips it): the same two workers make the serving calls of
+    `multihost_serve` over [1, 2] and [2, 1] meshes of one entry a process,
+    after the parent ran them over the one-process TP mesh and a meshless
+    store (`_multihost_serve_reference`); `_multihost_serve_checks` holds
+    them. → the launches (B1, B2, B3) of both workers, train and serve,
+    and what each mode measured."""
     from symbiont_tpu_torch.ops import flash_attention as fa
     from symbiont_tpu_torch.train import trainer as trainer_mod
 
@@ -7169,6 +7471,14 @@ def multihost_phase(rng, sizes=None, device="cuda") -> dict:
     dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     card = card_line() if cuda else "the CPU"
+    serve_ref = None
+    if s.get("serve"):
+        sv = s["serve"] = dict(MULTIHOST_SERVE, **s["serve"])
+        texts = synth_texts(rng, sv["rows"] + sv["fused"])
+        sv.update(prompts=[t[:sv["bucket"] - 8] for t in texts[:sv["rows"]]],
+                  fused_texts=texts[sv["rows"]:], store_seed=int(rng.integers(2**31)),
+                  doc=corpus_doc(rng, sv["batch"] * sv["seq_len"]))
+        serve_ref, serve_kernels = _multihost_serve_reference(sv, dev, cuda, rng)
     gcfg, params, batch = _multihost_inputs(s, dev)
     saved = _launch_counts(fa)  # the meshless reference's launches are not the phase's
     ref, tx_ref = trainer_mod.make_lm_train_state(params, s["lr"])
@@ -7277,6 +7587,10 @@ def multihost_phase(rng, sizes=None, device="cuda") -> dict:
           f"{probe['all_reduce_ms']:.1f} ms ({probe['bytes'] / probe['all_reduce_ms'] / 1e6:.2f} "
           f"GB/s), to device {probe['to_device_ms']:.1f} ms; workers' wall {wall:.1f} s",
           flush=True)
+    if serve_ref is not None:  # the serve mode's bars; its launches join the phase's
+        out["serve"] = _multihost_serve_checks(s["serve"], [r["serve"] for r in reports],
+                                               serve_ref, serve_kernels, card)
+        out["launches"] = tuple(a + b for a, b in zip(out["launches"], out["serve"]["b123"]))
     return out
 
 
@@ -7508,9 +7822,19 @@ def _run_phases() -> int:
                                   for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "library_ms", "covered_ms") if k in r}}
                               for r in sp["kernels"]]
-    for e, n in zip(entries, multihost["launches"]):  # both workers, both modes
+    for e, n in zip(entries, multihost["launches"]):  # both workers, train and serve
         e["multihost_launches"] = n
     entries[0]["multihost"] = {k: v for k, v in multihost.items() if k != "launches"}
+    mk = multihost["serve"]["kernels"]  # the serve mode's local shards
+    entries[0]["multihost_shard"] = [mk["llama_prefill_shard"],
+                                     {"shape": mk["gpt2_train_shard"]["shape"].replace("/g", ""),
+                                      **mk["gpt2_train_shard"]["fwd"]}]
+    for e, part in zip(entries[1:], ("kv", "q")):
+        r = mk["gpt2_train_shard"]
+        e["multihost_shard"] = [{"shape": r["shape"], "max_abs_err": r["max_abs_err"][part],
+                                 **{k: (r[k][part] if isinstance(r[k], dict) else r[k])
+                                    for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                              "library_ms", "covered_ms") if k in r}}]
     entries[0]["lmtrain_launches"] = lmtrain["launches"][0]
     entries[0]["lm_train"] = [{"shape": r["shape"].replace("/g", ""), **r["fwd"]}
                               for r in lmtrain["kernels"]]

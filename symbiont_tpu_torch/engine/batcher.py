@@ -513,14 +513,19 @@ class GenBatcher(_BatcherBase):
     for the next session. Per-request temperature and top_k ride as per-row
     values; requests group by new-token bucket. One flush is served at a
     time: sessions take newcomers at chunk boundaries instead, and two
-    sessions would only contend on the LM lock."""
+    sessions would only contend on the LM lock. An engine over a mesh
+    that spans processes raises (`mesh.NO_LOCKSTEP`): which requests start
+    or join a session follows their arrival times, which differ between
+    processes that must make the same calls."""
 
     kind = "generate"
 
     def __init__(self, lm, max_batch: Optional[int] = None,
                  flush_deadline_ms: Optional[float] = None, lane_depth: Optional[int] = None):
         from symbiont_tpu_torch.config import LmConfig
+        from symbiont_tpu_torch.parallel.mesh import NO_LOCKSTEP, refuse_spanning
 
+        refuse_spanning(getattr(lm, "mesh", None), "GenBatcher", NO_LOCKSTEP)
         cfg = lm.config
         deadline = (flush_deadline_ms if flush_deadline_ms is not None
                     else cfg.gen_flush_deadline_ms) / 1000.0

@@ -74,6 +74,15 @@ store's) is searched by the fused query as the query vector on the lead,
 handed to the store's own sharded search (each shard's top-k by an
 executable on its device, then the merge, `parallel/sharding.corpus_topk`).
 
+Over a mesh that spans processes (A15 multi-host) every process builds the
+engine on the same mesh and makes the same calls in the same order; the
+replicas are placed on its own entries only. The fused query runs the
+query's encoder forward on the process's lead entry and hands the vector
+to the store's search, whose merge reaches every process (`corpus_topk`),
+so each returns the same hits. DP embed and rerank raise there
+(`mesh.JAX_FETCH`): their outputs are split over 'data', and the JAX
+engine cannot fetch them across processes either.
+
 Concurrency, as in JAX: the entry points are safe to call from several
 threads. `_lock` guards the executable cache and the prep pool,
 `_stats_lock` the counters, and `_replay_lock` one batch's replay: the copy
@@ -117,7 +126,7 @@ from symbiont_tpu_torch.obs.device import record_compile_event
 from symbiont_tpu_torch.obs.engine_timeline import engine_timeline
 from symbiont_tpu_torch.obs.hbm import guard_oom, hbm_ledger
 from symbiont_tpu_torch.obs.xprof import dispatch_ledger
-from symbiont_tpu_torch.parallel.mesh import axis_size, mesh_device, refuse_spanning
+from symbiont_tpu_torch.parallel.mesh import JAX_FETCH, axis_size, mesh_device, refuse_spanning
 from symbiont_tpu_torch.parallel.sharding import (
     Sharded,
     local_tree,
@@ -183,7 +192,6 @@ class TorchEngine:
         mesh=None,
     ):
         self.config = config or EngineConfig()
-        refuse_spanning(mesh, "TorchEngine's data-parallel replicas")
         self.mesh = mesh
         self._n_data = (axis_size(mesh, "data") if mesh is not None and self.config.data_parallel
                         else 1)
@@ -242,15 +250,17 @@ class TorchEngine:
         cross_params = None if cross_params is None else self._place(cross_params)
         self.params, self.cross_params = params, cross_params
         # data parallelism: the trees replicated on every mesh entry (a copy
-        # each), replica r reading the entry of data index r
+        # each), replica r reading the entry of data index r (None where
+        # another process holds it); the lead's copy answers fused queries
         self._replicas = None
         if self._n_data > 1:
             placed = replicate(mesh, {"params": params, "cross": cross_params or {}})
-            self._replicas = [local_tree(placed, mesh.flat_index(data=r))
-                              for r in range(self._n_data)]
-            self.params = self._replicas[0]["params"]
+            self._replicas = [local_tree(placed, i) if mesh.is_local(i) else None
+                              for i in (mesh.flat_index(data=r) for r in range(self._n_data))]
+            lead = local_tree(placed, mesh.local_entries[0])
+            self.params = lead["params"]
             if cross_params is not None:
-                self.cross_params = self._replicas[0]["cross"]
+                self.cross_params = lead["cross"]
             self._placed = placed
         self.tokenizer = tokenizer or load_tokenizer(self.config.model_dir,
                                                      self.model_cfg.vocab_size)
@@ -408,10 +418,17 @@ class TorchEngine:
     def _replica_devices(self) -> list:
         return [self.mesh.device(data=r) for r in range(self._n_data)]
 
+    def _refuse_sharded_fetch(self, what: str) -> None:
+        """`what`'s output is split over the 'data' axis: over a mesh that
+        spans processes it cannot be fetched whole, in JAX either."""
+        if self._replicas is not None:
+            refuse_spanning(self.mesh, f"TorchEngine's data-parallel {what}", JAX_FETCH)
+
     def _fn(self, kind: str, L: int, replica: int = 0, B=None, corpus=None):
         """The function of a `(kind, L, B)` executable on replica
-        `replica`'s parameters."""
+        `replica`'s parameters (the lead's for a fused query)."""
         trees = (self._replicas[replica] if self._replicas is not None
+                 and kind in ("embed", "rerank")
                  else {"params": self.params, "cross": self.cross_params})
         widen = functools.partial(TorchEngine._widen_ids, uint16=self._ids_dtype == np.uint16)
         d2h_bf16 = self._d2h_bf16
@@ -566,6 +583,7 @@ class TorchEngine:
         Pipelined as in JAX: a prep thread tokenizes chunk N+1 while this
         thread pads and dispatches chunk N (`host_prep_chunk` texts a
         chunk); every batch's result is fetched at the end."""
+        self._refuse_sharded_fetch("embed")
         H = self.model_cfg.hidden_size
         if len(texts) == 0:
             return np.zeros((0, H), np.float32)
@@ -648,6 +666,7 @@ class TorchEngine:
         tokenized with the embedder's tokenizer, as in the JAX engine."""
         if self.cross_params is None or self.cross_cfg is None:
             raise RuntimeError("no cross-encoder model loaded")
+        self._refuse_sharded_fetch("rerank")
         if len(passages) == 0:
             return np.zeros((0,), np.float32)
         max_len, buckets = self._buckets(self.cross_cfg)
@@ -681,6 +700,7 @@ class TorchEngine:
         """Capture the hot (bucket, batch) executables, rerank's too when a
         cross-encoder is loaded, so the first request does not pay the
         capture, the kernel build, library loading or allocator growth."""
+        self._refuse_sharded_fetch("embed")
         with torch.inference_mode():
             for L in buckets or self.config.length_buckets[:2]:
                 for B in batches or self.config.batch_buckets[:2]:

@@ -134,6 +134,21 @@ serves under TP with the drafter whole on the lead device, as JAX places
 it, the target's verify, ingest and splice over the TP cache (dense or
 paged). An `OnlineLmTrainer` fine-tunes a TP engine on placed masters,
 and `update_params` takes such a placed tree shard for shard.
+
+Over a mesh that spans processes (A15 multi-host), as a multi-controller
+JAX program serves: every process builds the engine on the same mesh and
+makes the same calls with the same arguments in the same order. Each
+holds and runs only its own tensor shards (parameters, caches, the paged
+pool's arrays, the carriers' page tables), answers on its first entry of
+data row 0, and the row-split sums, the vocab-split embedding and the
+split head reach every process through the tensor line's group, so every
+process has the same logits and samples the same tokens (its seeds come
+from the host generator `_seeds`, drawn in the same order). The host
+allocator of the paged pool and the radix cache run in every process and
+stay identical because the same calls arrive in the same order; no
+allocator state crosses processes. The drafter sits whole on each
+process's lead. `GenBatcher` refuses such an engine (`mesh.NO_LOCKSTEP`):
+its admissions follow timing, which differs between processes.
 """
 
 from __future__ import annotations
@@ -166,7 +181,7 @@ from symbiont_tpu_torch.obs.engine_timeline import engine_timeline
 from symbiont_tpu_torch.obs.hbm import guard_oom, hbm_ledger, peak_temp_bytes
 from symbiont_tpu_torch.obs.usage import usage
 from symbiont_tpu_torch.obs.xprof import dispatch_ledger
-from symbiont_tpu_torch.parallel.mesh import axis_size, mesh_device, refuse_spanning
+from symbiont_tpu_torch.parallel.mesh import axis_size, mesh_device
 from symbiont_tpu_torch.parallel.sharding import (
     gather_tree,
     gpt_param_sharding,
@@ -572,7 +587,6 @@ class LmEngine:
                  mesh=None, draft_params=None, draft_model_cfg=None, device=None):
         self.config = config or LmConfig()
         cfg = self.config
-        refuse_spanning(mesh, "LmEngine's tensor-parallel decode")
         tp = axis_size(mesh, "tensor")
         tp_candidate = tp_decode(cfg, None, tp)
         # a TP engine answers on the mesh's lead entry
@@ -656,7 +670,8 @@ class LmEngine:
         if cfg.kv_layout == "paged":
             mc = self.model_cfg
             n_pages = cfg.kv_pool_pages or self._auto_pool_pages()
-            self.pool = PagePool(mc.num_layers, n_pages, cfg.kv_page_tokens, mc.kv_heads,
+            self.pool = PagePool(mc.num_layers, n_pages, cfg.kv_page_tokens,
+                                 mc.kv_heads // axis_size(self.mesh, "tensor"),
                                  mc.head_dim, torch_dtype(mc.dtype),
                                  quantized=mc.kv_quant == "int8",
                                  dtype_label=kv_dtype_label(mc.dtype, mc.kv_quant),

@@ -65,11 +65,12 @@ class PoolExhausted(RuntimeError):
 
 
 class PagePool:
-    """`devices`: one set of pool arrays per device, each over `kv_heads /
-    len(devices)` heads (a tensor-parallel engine's shards); `shards`
-    holds them in that order, and `k`, `v`, `k_scale`, `v_scale` are the
-    first set's (the only one on one device). `device_bytes` counts every
-    set."""
+    """`devices`: one set of pool arrays per device, each over `kv_heads`
+    heads (a tensor-parallel engine's shards, each over its share of the
+    heads; on a mesh that spans processes, the shards this process holds);
+    `shards` holds them in that order, and `k`, `v`, `k_scale`, `v_scale`
+    are the first set's (the only one on one device). `device_bytes`
+    counts every set this process holds."""
 
     def __init__(self, num_layers: int, n_pages: int, page_tokens: int, kv_heads: int,
                  head_dim: int, dtype: torch.dtype, quantized: bool, dtype_label: str,
@@ -83,10 +84,8 @@ class PagePool:
         self.n_pages = int(n_pages)
         self.page_tokens = int(page_tokens)
         devices = list(devices) if devices is not None else [device]
-        if kv_heads % len(devices):
-            raise ValueError(f"{kv_heads} KV heads do not split over {len(devices)} shards")
         self.shards = [paged.init_pool_arrays(num_layers, n_pages, page_tokens,
-                                              kv_heads // len(devices), head_dim, dtype,
+                                              kv_heads, head_dim, dtype,
                                               quantized, d) for d in devices]
         self.k, self.v, self.k_scale, self.v_scale = self.shards[0]
         self.lock = threading.RLock()

@@ -14,6 +14,13 @@ over it (a `parallel.sharding.Sharded`, one block a data entry), searched
 per shard on each shard's device and merged (`corpus_topk`), with hits
 identical to one device's, as the JAX store's sharded corpus is.
 
+Over a mesh that spans processes (A15 multi-host) every process holds the
+same host rows, because every process makes the same upserts in the same
+order (JAX's `device_put` of the host corpus assumes the same), and places
+only its own row blocks. A search runs each local shard's executable, and
+`corpus_topk` all-gathers the candidates over the data line's group, so
+`search` and `search_fused` return the same hits in every process.
+
 The device corpus is one buffer per capacity: a sync writes the rows into
 it in place, and a new buffer replaces it only when upserts cross a
 capacity block (or the collection's dim changes). So the store's search
@@ -55,12 +62,13 @@ from symbiont_tpu_torch.device import resolve_device
 from symbiont_tpu_torch.graphs import Executable, GraphPool, pool_for
 from symbiont_tpu_torch.models.quant import tensor_bytes
 from symbiont_tpu_torch.obs.hbm import hbm_ledger
-from symbiont_tpu_torch.parallel.mesh import axis_size, mesh_device, refuse_spanning
+from symbiont_tpu_torch.parallel.mesh import axis_size, mesh_device
 from symbiont_tpu_torch.parallel.sharding import (
     Sharded,
     batch_sharding,
     corpus_topk,
     device_put,
+    search_line,
     shard_topk,
 )
 
@@ -97,7 +105,6 @@ class VectorStore:
     def __init__(self, config: Optional[VectorStoreConfig] = None,
                  device=None, mesh=None):
         self.config = config or VectorStoreConfig()
-        refuse_spanning(mesh, "VectorStore's row-split corpus")
         self.mesh = mesh
         # a store over a real mesh answers on the mesh's lead entry
         self.device = resolve_device(mesh_device(mesh, device) if mesh is not None
@@ -278,6 +285,8 @@ class VectorStore:
             corpus = self._device_corpus
             rows = cap // axis_size(self.mesh, "data")
             for i, shard in enumerate(corpus.shards):
+                if shard is None:  # another process's entry
+                    continue
                 lo = self.mesh.coords(i)["data"] * rows
                 if lo < n:
                     shard[:min(n, lo + rows) - lo] = torch.from_numpy(
@@ -307,20 +316,23 @@ class VectorStore:
 
     def _sharded_search(self, cap: int, k: int):
         """The search of a row-split corpus (`parallel/sharding.corpus_topk`):
-        each data entry's shard searched by an executable on its device
-        (its top-k with global row ids), the candidates merged on the
-        lead; called as a search executable is."""
+        each data entry's shard this process holds searched by an
+        executable on its device (its top-k with global row ids), the
+        candidates merged on the lead (all-gathered first where the data
+        line crosses processes); called as a search executable is."""
         corpus, mesh = self._device_corpus, self.mesh
         rows = cap // axis_size(mesh, "data")
-        exes = [Executable(functools.partial(shard_topk, corpus.shards[mesh.flat_index(data=d)],
-                                             base=d * rows, k=min(k, rows)),
-                           mesh.device(data=d), pool=pool_for(self._graph_pools,
-                                                              mesh.device(data=d)),
-                           signature=f"memory.search.shard[N={rows},k={k},shard={d}]")
-                for d in range(axis_size(mesh, "data"))]
+        layout = search_line(mesh)
+        line = layout[0]
+        exes = {d: Executable(functools.partial(shard_topk, corpus.shards[e], base=d * rows,
+                                                k=min(k, rows)),
+                              mesh.device_list[e], pool=pool_for(self._graph_pools,
+                                                                 mesh.device_list[e]),
+                              signature=f"memory.search.shard[N={rows},k={k},shard={d}]")
+                for d, e in enumerate(line) if mesh.is_local(e)}
 
         def search(query, n_valid, lock=None):
-            return corpus_topk(mesh, corpus, query, n_valid, k,
+            return corpus_topk(mesh, corpus, query, n_valid, k, layout=layout,
                                local=lambda d: functools.partial(exes[d], lock=lock))
 
         return search

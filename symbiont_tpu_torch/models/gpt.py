@@ -49,10 +49,12 @@ products on the lead; a plain tree is the case of one shard. The KV cache
 of a placed tree is a `TPCache` of one cache per shard, dense, int8 or
 paged (each shard its own pool and its copy of the page table).
 `prefill`, `decode_chunk`, `merge_rows` and the speculative rounds take
-such a tree and cache as they take a plain one. Over a mesh that spans processes (A15 multi-host) a process
-runs the tensor shards it holds, and the sums reach the row's other
-processes through its tensor line's group; only the cache-free training
-forward is ported there.
+such a tree and cache as they take a plain one. Over a mesh that spans
+processes (A15 multi-host) a process runs the tensor shards it holds, its
+`TPCache` holds only their caches, and the sums reach the row's other
+processes through its tensor line's group, so every process ends a
+forward with the same logits on its lead: training, prefill, decode and
+the speculative rounds alike.
 
 The cache-free training forwards of `parallel/context.py` (sequence
 parallel) and `parallel/pipeline.py` (pipeline parallel) are built from
@@ -643,9 +645,9 @@ def forward(params: Params, input_ids: torch.Tensor, cache, positions: torch.Ten
     entries it holds, answering on the first of them; the row-split sums,
     the vocab-split embedding's sum and the split head's gather (a sum of
     each shard's logits padded to the whole vocab) reach the row's other
-    processes through its tensor line's group (`sharding.sum_to`). Only the
-    cache-free training forward is ported there: a cache raises (ROADMAP
-    A15 multi-host serving)."""
+    processes through its tensor line's group (`sharding.sum_to`), so
+    every process answers with the same logits. A cache there is a
+    `TPCache` of this process's shards only."""
     if is_paged(cache) and kv_valid is None:
         raise ValueError("a forward over the paged KV layout needs kv_valid")
     dtype = torch_dtype(cfg.dtype)
@@ -653,12 +655,9 @@ def forward(params: Params, input_ids: torch.Tensor, cache, positions: torch.Ten
     tp, lead = axis_size(mesh_of(params), "tensor"), devs[0]
     vocab_split = tp > 1 and _split_on_tensor(params["wte"], 0)
     if tp > 1:
-        if cache is not None and group is not None:
-            raise ValueError("a decode over a mesh that spans processes is not ported "
-                             "(ROADMAP A15 multi-host serving)")
         caches = [None] * tp if cache is None else [
             c._replace(length=cache.length.to(d) if isinstance(cache.length, torch.Tensor)
-                       else cache.length) for c, d in zip(cache.shards, devs)]
+                       else cache.length) for c, d in zip(cache.shards, devs, strict=True)]
         shard_cfg = _shard_cfg(cfg, tp)
     else:
         caches, shard_cfg = [cache], cfg

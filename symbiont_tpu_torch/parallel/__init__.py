@@ -39,9 +39,13 @@ holds and computes only its own entries of a mesh, and a sum over a line
 of the mesh that crosses processes is an all-reduce over that line's
 process group, with autograd (`sharding.all_reduce`). The data- and
 tensor-parallel LM train step (`train/trainer.shard_lm_train_state`,
-`lm_train_step`) runs there; serving and the SP/PP steps over such a mesh
-raise, naming ROADMAP's "A15 multi-host serving" and "SP/PP across
-processes".
+`lm_train_step`) runs there, and so do the serving paths whose outputs
+JAX replicates, driven in lockstep (every process makes the same calls in
+the same order): TP decode in `LmEngine` and the row-split store's search
+(`sharding.corpus_topk`, its candidates all-gathered over the data line).
+What JAX cannot serve across processes raises with its reason
+(`mesh.JAX_FETCH`, `mesh.NO_LOCKSTEP`), and the SP/PP steps raise naming
+ROADMAP's "SP/PP across processes".
 
 `parallel/compat.py` (glue between JAX versions) has no counterpart.
 """

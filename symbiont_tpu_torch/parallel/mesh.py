@@ -30,6 +30,13 @@ ranks on one device) or compute on the CPU; under gloo a CUDA tensor
 passes through host memory (`Group`). Host-side metadata (each process's
 entries and which card each is) always goes over a gloo world group, as
 JAX's coordinator service carries it.
+
+Serving over such a mesh runs as a multi-controller JAX program serves:
+every process makes the same calls with the same arguments in the same
+order, and each returns the whole answer (TP decode's logits reach every
+process through the tensor line's sums, a row-split store's candidates
+through `Group.all_gather`). What JAX cannot serve across processes
+raises with its reason (`refuse_spanning`, `JAX_FETCH`, `NO_LOCKSTEP`).
 """
 
 from __future__ import annotations
@@ -49,9 +56,22 @@ log = logging.getLogger(__name__)
 
 DIST_TIMEOUT_S = 60  # a peer missing from init or from a collective fails within this
 
-# bytes this process passed to device collectives (all-reduce, broadcast)
-# over a mesh that spans processes: the multi-process train step's traffic
+# bytes this process passed to device collectives (all-reduce, broadcast,
+# all-gather) over a mesh that spans processes: the multi-process train
+# step's and serving calls' traffic
 collective_bytes = 0
+
+# why a path does not run over a mesh that spans processes
+# (`refuse_spanning`'s `reason`): the first two hold in the JAX package
+# too; SP/PP is still to be ported
+_JAX_TOO = "does not run over a mesh that spans processes, in the JAX package either: "
+JAX_FETCH = (_JAX_TOO + "JAX's fetch of a value that is neither replicated nor local raises: "
+             "np.asarray on a jax.Array whose shards lie in other processes "
+             "(jax/_src/array.py, ArrayImpl._value)")
+NO_LOCKSTEP = (_JAX_TOO + "no lockstep request feed: every process must make the same calls "
+               "in the same order, and requests that arrive by timing or from a bus reach "
+               "each process on their own")
+SP_PP = "over a mesh that spans processes is not ported (ROADMAP SP/PP across processes)"
 
 
 class WorldDevice:
@@ -72,18 +92,23 @@ class WorldDevice:
 
 class Group:
     """The processes `ranks` of one line (or sub-grid) of a mesh and their
-    process group. Device collectives sum or broadcast in place; under
-    gloo (`host`) a CUDA tensor goes through a host copy."""
+    process group. Device collectives sum, broadcast or gather; under gloo
+    (`host`) a CUDA tensor goes through a host copy."""
 
     __slots__ = ("ranks", "pg", "host")
 
     def __init__(self, ranks: tuple, pg, host: bool):
         self.ranks, self.pg, self.host = ranks, pg, host
 
-    def _run(self, op, t: torch.Tensor, **kw) -> torch.Tensor:
+    def _stage(self, t: torch.Tensor) -> torch.Tensor:
+        """`t`'s bytes counted, and `t` as the collective takes it: a host
+        copy of a CUDA tensor under gloo."""
         global collective_bytes
         collective_bytes += t.numel() * t.element_size()
-        buf = t.cpu() if self.host and t.is_cuda else t
+        return t.cpu() if self.host and t.is_cuda else t
+
+    def _run(self, op, t: torch.Tensor, **kw) -> torch.Tensor:
+        buf = self._stage(t)
         op(buf, group=self.pg, **kw)
         if buf is not t:
             t.copy_(buf)
@@ -100,6 +125,17 @@ class Group:
         import torch.distributed as dist
 
         return self._run(dist.broadcast, t, src=src)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every process's `t` (contiguous, one shape everywhere) stacked
+        in the group's rank order, `[len(ranks), *t.shape]` on `t`'s
+        device; host staging under gloo as `_run`'s."""
+        import torch.distributed as dist
+
+        buf = self._stage(t)
+        outs = [torch.empty_like(buf) for _ in self.ranks]
+        dist.all_gather(outs, buf, group=self.pg)
+        return torch.stack(outs).to(t.device)
 
     def __repr__(self) -> str:
         return f"Group({list(self.ranks)}, {'gloo' if self.host else 'nccl'})"
@@ -357,13 +393,11 @@ class Mesh:
         return f"Mesh({self.shape}, {where})"
 
 
-def refuse_spanning(mesh: Optional[Mesh], what: str,
-                    item: str = "A15 multi-host serving") -> None:
-    """Raise, naming the ROADMAP item, where `what` is asked to run over a
-    mesh that spans processes and is not ported there."""
+def refuse_spanning(mesh: Optional[Mesh], what: str, reason: str) -> None:
+    """Raise where `what` is asked to run over a mesh that spans
+    processes, naming `reason` (`JAX_FETCH`, `NO_LOCKSTEP`, `SP_PP`)."""
     if mesh is not None and mesh.spans_processes:
-        raise ValueError(f"{what} over a mesh that spans processes is not ported "
-                         f"(ROADMAP {item}): {mesh}")
+        raise ValueError(f"{what} {reason}: {mesh}")
 
 
 def build_mesh(shape: Optional[Sequence[int]] = None,
@@ -410,8 +444,8 @@ def mesh_from_config(parallel_cfg, cpu: bool = False) -> Mesh:
     of the process asked for the CPU) the mesh repeats the CPU device to
     cover `mesh_shape`, the counterpart of JAX's virtual CPU devices.
     After `init_distributed` the mesh is over the world's entries, as
-    JAX's is; one that spans processes raises (serving across processes
-    is ROADMAP's "A15 multi-host serving"). The runner calls this once at
+    JAX's is; one that spans processes raises (`NO_LOCKSTEP`: the stack's
+    services take their requests from the bus). The runner calls this once at
     stack start and threads the result through TorchEngine, LmEngine and
     the vector store."""
     shape = parallel_cfg.mesh_shape
@@ -419,7 +453,7 @@ def mesh_from_config(parallel_cfg, cpu: bool = False) -> Mesh:
     if cpu and _WORLD is None:
         devices = [torch.device("cpu")] * (math.prod(shape) if shape else 1)
     mesh = build_mesh(shape, tuple(parallel_cfg.axis_names), devices)
-    refuse_spanning(mesh, "the serving mesh")
+    refuse_spanning(mesh, "the serving mesh", NO_LOCKSTEP)
     return mesh
 
 

@@ -37,7 +37,7 @@ import torch
 from symbiont_tpu_torch.models import gpt as gpt_mod
 from symbiont_tpu_torch.models import quant
 from symbiont_tpu_torch.models.bert import torch_dtype
-from symbiont_tpu_torch.parallel.mesh import Mesh, refuse_spanning
+from symbiont_tpu_torch.parallel.mesh import SP_PP, Mesh, refuse_spanning
 from symbiont_tpu_torch.parallel.sharding import NamedSharding, P, Sharded, device_put, replicate
 
 Params = Any
@@ -99,7 +99,7 @@ def shard_pp_params(mesh: Mesh, stacked: Params, axis: str = "pipe") -> Params:
     """Place stacked params on the mesh: the layer stack split over the
     pipe axis (each entry holds its stage's depth), everything else
     replicated."""
-    refuse_spanning(mesh, "the pipeline's placement", "SP/PP across processes")
+    refuse_spanning(mesh, "the pipeline's placement", SP_PP)
     n = mesh.shape[axis]
     L = next(quant.leaves(stacked["layers"])).shape[0]
     if L % n != 0:
@@ -123,7 +123,7 @@ def lm_loss_pp(params: Params, batch: dict, cfg, mesh: Mesh, axis: str = "pipe",
     one backward sums every use's gradient into the masters."""
     from symbiont_tpu_torch.train.trainer import ce_terms
 
-    refuse_spanning(mesh, "the pipelined loss", "SP/PP across processes")
+    refuse_spanning(mesh, "the pipelined loss", SP_PP)
     n = mesh.shape[axis]
     ids, mask = batch["ids"], batch["mask"].float()
     B, S = ids.shape
@@ -186,7 +186,7 @@ def make_lm_train_step_pp(mesh: Mesh, cfg, tx, axis: str = "pipe", num_microbatc
     the replicas are copied from their masters after each update."""
     from symbiont_tpu_torch.train import trainer
 
-    refuse_spanning(mesh, "the pipelined train step", "SP/PP across processes")
+    refuse_spanning(mesh, "the pipelined train step", SP_PP)
 
     def lm_loss_pp_step(params, batch, cfg):
         return lm_loss_pp(params, batch, cfg, mesh, axis, num_microbatches)

@@ -25,7 +25,7 @@ from typing import Sequence
 
 import torch
 
-from symbiont_tpu_torch.parallel.mesh import Mesh, refuse_spanning
+from symbiont_tpu_torch.parallel.mesh import SP_PP, Mesh, refuse_spanning
 from symbiont_tpu_torch.parallel.sharding import NamedSharding, P, device_put
 
 
@@ -102,7 +102,7 @@ def split_sequence(x: torch.Tensor, mesh: Mesh, axis: str) -> list:
     """`x` [B, S, ...] split on its sequence dim over `axis` (a `Sharded`
     with spec P(None, axis)) → the blocks of the axis' entries in order,
     each on its device."""
-    refuse_spanning(mesh, "sequence parallelism", "SP/PP across processes")
+    refuse_spanning(mesh, "sequence parallelism", SP_PP)
     placed = device_put(x, NamedSharding(mesh, P(None, axis)))
     return [placed.shards[mesh.flat_index(**{axis: i})] for i in range(mesh.shape[axis])]
 

@@ -329,20 +329,48 @@ def shard_topk(shard: torch.Tensor, query: torch.Tensor, n_valid, base: int, k: 
     return top, idx + base
 
 
+def search_line(mesh: Mesh, axis: str = "data") -> tuple:
+    """The line of `axis` a row-split corpus is searched on: the one
+    through this process's lead entry (entry 0's on a mesh of one
+    process). Over a mesh that spans processes every process of that line
+    must lead on it, so that all of them search the same line and meet in
+    its group's all-gather; a layout where one does not raises. → (the
+    line's flat entries in shard order, process → the shards it holds)."""
+    coords = mesh.coords(mesh.local_entries[0] if mesh.local_entries else 0)
+    line = [mesh.flat_index(**dict(coords, **{axis: d})) for d in range(mesh.shape[axis])]
+    held: dict = {}
+    for d, e in enumerate(line):
+        held.setdefault(mesh.process_index(e), []).append(d)
+    for p in held:
+        first = next(i for i, q in enumerate(mesh.processes.flat) if q == p)
+        if first not in line:
+            raise ValueError(f"process {p} leads on entry {first}, off the {axis} line "
+                             f"{line} a corpus is searched on: {mesh}")
+    return line, held
+
+
 def corpus_topk(mesh: Mesh, corpus: Sharded, query: torch.Tensor, n_valid, k: int,
-                axis: str = "data", local=None):
+                axis: str = "data", local=None, layout=None):
     """Corpus-sharded exact top-k: per-shard top-k + a merge on the lead.
 
     `corpus` is [cap, D] row-split over `axis` (cap divisible by the axis
     size, which `VectorStore._capacity` guarantees), `query` a [D] vector,
-    `n_valid` the count of real rows. Each shard scores its own rows on its
-    own device and keeps its local top-k with global row ids; the merge
-    sorts the [n_shards × k] candidates. Only k candidates a shard cross
-    devices. Order is the single-device one exactly: each shard breaks ties
-    by row, shards concatenate in global row order, and the merge's sort is
-    stable. `local(d)`: the callable that runs shard d's search
-    (`(query, n_valid) → (scores, ids)`, an executable on its device), by
-    default `shard_topk` on it."""
+    `n_valid` the count of real rows. Each shard of the line
+    (`search_line`) scores its own rows on its own device and keeps its
+    local top-k with global row ids; the merge sorts the [n_shards × k]
+    candidates. Only k candidates a shard cross devices. Order is the
+    single-device one exactly: each shard breaks ties by row, shards
+    concatenate in global row order, and the merge's sort is stable.
+    `local(d)`: the callable that runs shard d's search (`(query,
+    n_valid) → (scores, ids)`, an executable on its device), by default
+    `shard_topk` on it. `layout`: `search_line`'s, where the caller holds
+    it (computed here otherwise).
+
+    Over a line that crosses processes each process searches the shards
+    it holds, and the candidates reach every process by one all-gather on
+    the line's group (scores and ids as float64, both exact there); every
+    process then merges all of them in global row order, so each returns
+    the same hits."""
     nd = mesh.shape[axis]
     cap = corpus.shape[0]
     if cap % nd:
@@ -350,16 +378,30 @@ def corpus_topk(mesh: Mesh, corpus: Sharded, query: torch.Tensor, n_valid, k: in
     rows = cap // nd
     k_local = min(k, rows)
     lead = mesh.lead
-    cand_s, cand_i = [], []
-    for d in range(nd):
+    line, held = layout if layout is not None else search_line(mesh, axis)
+    cand_s, cand_i = {}, {}
+    for d, entry in enumerate(line):
+        if not mesh.is_local(entry):
+            continue
         if local is not None:
             s, i = local(d)(query, n_valid)
         else:
-            shard = corpus.shards[mesh.flat_index(**{axis: d})]
-            s, i = shard_topk(shard, query, n_valid, d * rows, k_local)
-        cand_s.append(s.to(lead))
-        cand_i.append(i.to(lead))
-    s, i = torch.cat(cand_s), torch.cat(cand_i)
+            s, i = shard_topk(corpus.shards[entry], query, n_valid, d * rows, k_local)
+        cand_s[d], cand_i[d] = s.to(lead), i.to(lead)
+    group = mesh.group((axis,), line[0])
+    if group is not None:
+        # one all-gather of every process's [n_held, 2, k_local] candidates,
+        # padded to the most shards a process of the line holds
+        most = max(len(ds) for ds in held.values())
+        mine = torch.full((most, 2, k_local), float("-inf"), dtype=torch.float64, device=lead)
+        for j, d in enumerate(held[mesh.process]):
+            mine[j, 0], mine[j, 1] = cand_s[d].double(), cand_i[d].double()
+        every = group.all_gather(mine)
+        for p, got in zip(group.ranks, every):
+            for j, d in enumerate(held[p]):
+                cand_s[d], cand_i[d] = got[j, 0].float(), got[j, 1].long()
+    s = torch.cat([cand_s[d] for d in range(nd)])
+    i = torch.cat([cand_i[d] for d in range(nd)])
     top, pos = torch.sort(s, descending=True, stable=True)
     return top[:k], i[pos[:k]]
 

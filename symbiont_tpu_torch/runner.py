@@ -59,16 +59,16 @@ _OBS_DEFAULTS = ObsConfig()
 
 def _refuse_unported(cfg: SymbiontConfig, mesh, builds_lm: bool) -> None:
     """What the stack cannot serve, refused before any service starts: a
-    caller's mesh that spans processes, for every stack (serving across
-    processes is ROADMAP's A15 multi-host serving, `refuse_spanning`
-    names it); and the LM's tensor-parallel decision (`engine.lm.
+    caller's mesh that spans processes, for every stack (`mesh.NO_LOCKSTEP`:
+    the services take their requests from the bus, so the processes cannot
+    make the same calls in the same order); and the LM's tensor-parallel decision (`engine.lm.
     tp_decode`, JAX's rules) over the caller's mesh or the one
     `cfg.parallel` will build, on the LM's geometry (a checkpoint's
     config.json is read for it): `tensor_parallel="on"` where the LM
     cannot shard raises here, as `LmEngine` would once built."""
-    from symbiont_tpu_torch.parallel.mesh import axis_size, refuse_spanning
+    from symbiont_tpu_torch.parallel.mesh import NO_LOCKSTEP, axis_size, refuse_spanning
 
-    refuse_spanning(mesh, "the runner's services")
+    refuse_spanning(mesh, "the runner's services", NO_LOCKSTEP)
     if not builds_lm:
         return
     from symbiont_tpu_torch.engine.lm import lm_model_config, tp_decode

@@ -21,9 +21,12 @@ other:
 A train state placed on a mesh (`trainer.shard_lm_train_state`, the
 online fine-tune of a tensor-parallel engine) saves in the same format:
 each `Sharded` param and its two moments, read from the blocks' masters,
-gathered whole (a collective where the mesh spans processes). A load into
-such a template writes every local block of each param and each master's
-moments in place, so the step executables bound to them survive.
+gathered whole. A save of a state or params placed on a mesh that spans
+processes raises (`mesh.JAX_FETCH`: the JAX package's save fetches every
+leaf with `np.asarray`, which raises on an array whose shards lie in other
+processes). A load into such a template writes every local block of each
+param and each master's moments in place, so the step executables bound
+to them survive.
 
 `embedder_train_state_from_numpy` and `lm_train_state_from_numpy` take a
 JAX embedder or LM train state held in memory as numpy arrays instead of
@@ -43,7 +46,8 @@ import torch
 
 from symbiont_tpu_torch.device import resolve_device
 from symbiont_tpu_torch.models.bridge import bert_params_from_numpy, gpt_params_from_numpy
-from symbiont_tpu_torch.parallel.sharding import Sharded
+from symbiont_tpu_torch.parallel.mesh import JAX_FETCH, refuse_spanning
+from symbiont_tpu_torch.parallel.sharding import Sharded, mesh_of
 from symbiont_tpu_torch.train.trainer import (
     TrainState,
     make_embedder_train_state,
@@ -97,6 +101,7 @@ def _unflatten(shape: Any, flat: dict, prefix: str = "") -> Params:
 
 
 def save_params(path: str | Path, params: Params, meta: Optional[dict] = None) -> None:
+    refuse_spanning(mesh_of(params), "save_params of a placed tree", JAX_FETCH)
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     np.savez(path / "params.npz", **_flatten(params))
@@ -169,6 +174,7 @@ def _write_atomic(final: Path, write) -> None:
 def save_train_state(path: str | Path, state: TrainState,
                      meta: Optional[dict] = None) -> None:
     """Params, both AdamW moments, the Adam count and the step, for resume."""
+    refuse_spanning(mesh_of(state.params), "save_train_state of a placed state", JAX_FETCH)
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     leaves = [np.asarray(_adam_count(state), np.int32) if t is None else _numpy(_whole(state, *t))

@@ -31,7 +31,12 @@ A tensor-parallel engine (`lm.mesh`) trains on masters placed on its mesh
 follow): each step is the dp×tp `lm_train_step`, eager, and a sync hands
 the placed tree to `update_params`, which copies it shard for shard. The
 checkpoint stays the shared on-disk format (`train/checkpoint.py` gathers
-a placed state to save it and places it back on load).
+a placed state to save it and places it back on load). Over a mesh that
+spans processes every process makes the same passes in the same order: the
+step sums across the processes (`lm_train_step`), the sync copies each process's own
+shards, and a `state_path` raises (`mesh.JAX_FETCH`: such a state cannot
+be saved whole, in JAX either), so the trainer runs there with
+checkpoints off.
 """
 
 from __future__ import annotations
@@ -44,8 +49,9 @@ import numpy as np
 import torch
 
 from symbiont_tpu_torch.models import quant
-from symbiont_tpu_torch.train import checkpoint as ckpt
+from symbiont_tpu_torch.parallel.mesh import JAX_FETCH, refuse_spanning
 from symbiont_tpu_torch.parallel.sharding import gather_tree
+from symbiont_tpu_torch.train import checkpoint as ckpt
 from symbiont_tpu_torch.train.trainer import (
     lm_train_step,
     make_lm_train_state,
@@ -63,6 +69,8 @@ class OnlineLmTrainer:
 
     def __init__(self, lm, learning_rate: float = 1e-4, seq_len: int = 64,
                  batch_size: int = 8, state_path: Optional[str] = None):
+        if state_path:
+            refuse_spanning(getattr(lm, "mesh", None), "OnlineLmTrainer's checkpoints", JAX_FETCH)
         self.lm = lm
         self.cfg = lm.model_cfg
         self.seq_len = int(min(seq_len, self.cfg.max_position_embeddings))

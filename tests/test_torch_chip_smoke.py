@@ -1184,20 +1184,28 @@ def test_near_tie_argmax_parts_a_flip_at_a_tie_from_a_real_one():
 
 # --------------------------------------------------------------- multihost
 
-TINY_MULTIHOST = dict(gpt2=TINY_GPT2, rows=4, seq=16, steps=2, timeout_s=120)
+TINY_SERVE = dict(llama=TINY_LLAMA, gpt2=TINY_GPT2, rows=2, new=8, bucket=16, chunk=4, page=4,
+                  spec_k=2, batch=2, seq_len=16, corpus=256, dim=32, queries=4, top_k=3, fused=2,
+                  engine=dict(embedding_dim=32, dtype="float32", attn_impl="flash",
+                              length_buckets=[16], batch_buckets=[1, 8], max_batch=8))
+TINY_MULTIHOST = dict(gpt2=TINY_GPT2, rows=4, seq=16, steps=2, timeout_s=120, serve=TINY_SERVE)
 
 
 def test_multihost_phase_rehearses_on_the_cpu(monkeypatch, capsys):
     """[multihost] end to end on the CPU: two worker processes in one gloo
     world, 2 entries each, the tiny GPT-2 (2 layers, a vocab of 300 that
-    splits over 'tensor') over [2, 1] and [2, 2] spanning them, every bar
-    it holds on the card; each worker counts its plain attention calls as
-    launches (2 layers x local entries a step)."""
+    splits over 'tensor') over [2, 1] and [2, 2] spanning them, then the
+    serve mode over [1, 2] and [2, 1] of one entry a process (the tiny
+    llama and GPT-2, a 256-row store and a 6-layer encoder's fused
+    queries), every bar it holds on the card; each worker counts its
+    plain attention calls as launches (2 layers x local entries a step,
+    2 layers x 1 shard a cold prefill)."""
     monkeypatch.setenv("OMP_NUM_THREADS", "2")  # the workers' torch threads
     out = chip_smoke.multihost_phase(np.random.default_rng(0), sizes=TINY_MULTIHOST,
                                      device="cpu")
     printed = capsys.readouterr().out
-    assert printed.count("[multihost] 2 processes") == 1 and printed.count("[multihost]") == 5
+    assert printed.count("[multihost] 2 processes") == 1 and printed.count("[multihost]") == 11
+    assert printed.count("[multihost] serve:") == 3
     assert "over gloo (entries on the CPU)" in printed
     # B1 and B2/B3 against plain at each mode's local shard [rows / data, heads / tensor, ...]
     assert "flash_attn_fwd causal q/k/v(2, 4, 16, 8) float32" in printed
@@ -1217,24 +1225,36 @@ def test_multihost_phase_rehearses_on_the_cpu(monkeypatch, capsys):
     geom = chip_smoke.gpt_param_count(TINY_GPT2)
     assert dp["grad_bytes"] == 4 * geom and 0 < tp["grad_bytes"] < dp["grad_bytes"]
     assert dp["bytes_per_step"] >= dp["grad_bytes"]
-    # per worker and step: 2 layers x 1 entry (dp), x 2 entries (tp); 2 steps, 2 workers
-    assert out["launches"] == (2 * 2 * (2 * 1 + 2 * 2),) * 3
+    # train, per worker and step: 2 layers x 1 entry (dp), x 2 entries (tp); 2 steps, 2
+    # workers. Serve, per worker: B1 2 layers x 1 shard at the dense and paged batches and
+    # the paged cold start, 2 + 2 (the drafter) at the spec start, 2 an online step and 2 at
+    # the batch after it, 6 encoder layers x 2 fused queries; B2/B3 2 an online step
+    sv = out["serve"]
+    assert sv["launches"] == {"dense": 2, "paged": 2, "spec_start": 4, "online": [[2, 2, 2]],
+                              "fused": 12}
+    assert sv["b123"] == [2 * (2 + 2 + 2 + 4 + 2 + 2 + 12), 2 * 2, 2 * 2]
+    assert out["launches"] == tuple(2 * 2 * (2 * 1 + 2 * 2) + n for n in sv["b123"])
+    assert sv["online"]["loss"] == pytest.approx(sv["online"]["ref_loss"], rel=1e-4)
+    assert len(sv["decode"]["bytes_step"]) == 2 and sv["decode"]["bytes_step"][0] > 0
+    assert sv["store"]["local_rows"] == 128
 
 
 def test_a_multihost_worker_that_breaks_a_bar_fails_the_phase(monkeypatch):
     """A learning rate of 1e30 sends step 1's loss to nan in both workers:
-    the bar against the meshless step fails the phase."""
+    the bar against the meshless step fails the phase (the serve mode
+    off)."""
     monkeypatch.setenv("OMP_NUM_THREADS", "2")
     with pytest.raises(RuntimeError, match=r"\[multihost\] dp"):
         chip_smoke.multihost_phase(np.random.default_rng(0),
-                                   sizes=dict(TINY_MULTIHOST, lr=1e30), device="cpu")
+                                   sizes=dict(TINY_MULTIHOST, lr=1e30, serve=None), device="cpu")
 
 
 def test_a_failing_multihost_worker_fails_the_run(monkeypatch, capsys):
     """Every phase before [multihost] stubbed to pass; workers asked for a
     mesh their world cannot hold exit non-zero, which fails [multihost]
     with their exit codes and leaves main() by its exception, printing no
-    result."""
+    result (the serve mode off: the stubbed `synth_texts` gives it no
+    prompts)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     monkeypatch.setattr(chip_smoke, "card_line", lambda: "card, 700.00 W")
@@ -1263,7 +1283,8 @@ def test_a_failing_multihost_worker_fails_the_run(monkeypatch, capsys):
                  stack_phase=lambda rng, tmp, serve: {"launches": 0},
                  fleet_phase=lambda rng, tmp: {"launches": 0},
                  multihost_phase=lambda rng: real(
-                     rng, sizes=dict(TINY_MULTIHOST, modes=(("dp", (3, 1)),)), device="cpu"))
+                     rng, sizes=dict(TINY_MULTIHOST, modes=(("dp", (3, 1)),), serve=None),
+                     device="cpu"))
     for name, fn in stubs.items():
         monkeypatch.setattr(chip_smoke, name, fn)
     with pytest.raises(RuntimeError, match=r"(?s)\[multihost\] a worker failed .* exit codes "

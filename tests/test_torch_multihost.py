@@ -17,7 +17,10 @@ Both processes must report bit-equal losses, grad norms and checksums of
 their updated masters, and these must agree with JAX's one-device
 `lm_train_step` on the same param tree and batch (the JAX tree written
 by the parent, the JAX run in the parent). The workers import no JAX. A
-mesh that spans processes refuses serving and SP/PP by name.
+mesh that spans processes refuses SP/PP by their ROADMAP item, and the
+runner and the serving mesh from a config with the reason the JAX package
+cannot run them across processes either (the serving paths that do run
+there: `tests/test_torch_multihost_serving.py`).
 """
 
 import hashlib
@@ -42,17 +45,13 @@ MODEL = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4, intermed
              tie_word_embeddings=True)
 N_PROCS, N_LOCAL, STEPS = 2, 4, 2
 WORKER_TIMEOUT_S = 120
-REFUSALS = {  # what a worker tries over a mesh that spans processes → the ROADMAP item
-    "TorchEngine": "A15 multi-host serving", "VectorStore": "A15 multi-host serving",
-    "LmEngine": "A15 multi-host serving", "gpt.forward with a cache": "A15 multi-host serving",
-    "mesh_from_config": "A15 multi-host serving", "runner": "A15 multi-host serving",
-    "ring_attention": "SP/PP across processes", "ring_attention_sharded": "SP/PP across processes",
-    "ulysses_attention": "SP/PP across processes",
-    "ulysses_attention_sharded": "SP/PP across processes",
-    "make_lm_train_step_sp": "SP/PP across processes",
-    "gpt_forward_sp": "SP/PP across processes",
-    "make_lm_train_step_pp": "SP/PP across processes",
-    "make_pp_train_state": "SP/PP across processes",
+NO_LOCKSTEP = "in the JAX package either: no lockstep request feed"
+SP_PP = "ROADMAP SP/PP across processes"
+REFUSALS = {  # what a worker tries over a mesh that spans processes → what its message names
+    "mesh_from_config": NO_LOCKSTEP, "runner": NO_LOCKSTEP,
+    "ring_attention": SP_PP, "ring_attention_sharded": SP_PP, "ulysses_attention": SP_PP,
+    "ulysses_attention_sharded": SP_PP, "make_lm_train_step_sp": SP_PP,
+    "gpt_forward_sp": SP_PP, "make_lm_train_step_pp": SP_PP, "make_pp_train_state": SP_PP,
 }
 
 
@@ -106,31 +105,17 @@ def _checksum(tree) -> str:
 # ------------------------------------------------------------------ worker
 
 
-def _refusals(dp_mesh, tp_mesh, params, cfg) -> dict:
+def _refusals(dp_mesh, params, cfg) -> dict:
     """Each entry point a mesh across processes refuses → its message."""
     from symbiont_tpu_torch import runner
-    from symbiont_tpu_torch.config import (EngineConfig, LmConfig, ParallelConfig,
-                                           SymbiontConfig, VectorStoreConfig)
-    from symbiont_tpu_torch.engine.engine import TorchEngine
-    from symbiont_tpu_torch.engine.lm import LmEngine
-    from symbiont_tpu_torch.memory.vector_store import VectorStore
-    from symbiont_tpu_torch.models import gpt as tgpt
+    from symbiont_tpu_torch.config import ParallelConfig, SymbiontConfig
     from symbiont_tpu_torch.parallel import (context, pipeline, ring_attention,
-                                             ring_attention_sharded, shard_params,
-                                             gpt_param_sharding, ulysses_attention,
+                                             ring_attention_sharded, ulysses_attention,
                                              ulysses_attention_sharded)
 
     q = torch.zeros((1, 8, 4, 16))
     blocks = [q if i in dp_mesh.local_entries else None for i in range(dp_mesh.size)]
-    placed = shard_params(tp_mesh, params, gpt_param_sharding(tp_mesh, params, arch="llama"))
     tries = {
-        "TorchEngine": lambda: TorchEngine(EngineConfig(force_cpu=True), mesh=dp_mesh),
-        "VectorStore": lambda: VectorStore(VectorStoreConfig(dim=8, data_dir=""), mesh=dp_mesh),
-        "LmEngine": lambda: LmEngine(LmConfig(force_cpu=True), mesh=tp_mesh),
-        "gpt.forward with a cache": lambda: tgpt.forward(
-            placed, torch.ones((1, 4), dtype=torch.long),
-            tgpt.init_cache(cfg, 1, 8, torch.float32, "cpu"),
-            torch.arange(4)[None], cfg),
         "mesh_from_config": lambda: mesh_mod.mesh_from_config(
             ParallelConfig(mesh_shape=[8, 1]), cpu=True),
         "runner": lambda: runner._refuse_unported(SymbiontConfig(), dp_mesh, False),
@@ -199,7 +184,7 @@ def _worker(params_path: str, out_dir: str) -> int:
                             len({mesh.process_index(mesh.flat_index(data=d, tensor=t))
                                  for t in range(mesh.shape["tensor"])}) == procs
                             for d in range(mesh.shape["data"]))}
-    report["refusals"] = _refusals(meshes["dp"], meshes["tp"], params, cfg)
+    report["refusals"] = _refusals(meshes["dp"], params, cfg)
     (Path(out_dir) / f"report_{rank}.json").write_text(json.dumps(report))
     mesh_mod.shutdown_distributed()
     return 0
@@ -291,13 +276,15 @@ def test_two_process_train_step(run, mode):
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_a_mesh_across_processes_refuses_by_name(run, name):
-    """Serving and SP/PP over a mesh that spans processes raise a
-    ValueError naming their ROADMAP item, in both processes: nothing runs
-    one process's part alone."""
+    """SP/PP over a mesh that spans processes raise a ValueError naming
+    their ROADMAP item, and the runner and the serving mesh from a config
+    one naming why the JAX package cannot run them there either (their
+    requests come from the bus, not in lockstep), in both processes:
+    nothing runs one process's part alone."""
     for r in run[0]:
         msg = r["refusals"][name]
         assert msg is not None, f"{name} ran over a mesh that spans processes"
-        assert f"ROADMAP {REFUSALS[name]}" in msg, msg
+        assert REFUSALS[name] in msg, msg
 
 
 # ------------------------------------------------------- a world of one
