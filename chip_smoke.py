@@ -6972,8 +6972,13 @@ MULTIHOST_SERVE = dict(llama=TINYLLAMA_1B, gpt2=GPT2_124M, rows=4, new=16, bucke
                        queries=32, top_k=10, fused=8,
                        engine=dict(embedding_dim=384, dtype="bfloat16", attn_impl="flash",
                                    length_buckets=[16, 32], batch_buckets=[1, 8], max_batch=8))
+# the SP/PP modes: [sp]'s GPT-2 batch and microbatches over a line of 4 entries, 2 in each
+# process (`gpt2` None: [multihost]'s)
+MULTIHOST_SP = dict(gpt2=None, rows=SP["rows"], seq=SP["seq"], steps=SP["steps"],
+                    microbatches=SP["microbatches"], modes=("ring", "ulysses", "pp"))
 MULTIHOST = dict(gpt2=GPT2_124M, rows=8, seq=64, steps=3, lr=1e-4, entries=2,
-                 modes=(("dp", (2, 1)), ("tp", (2, 2))), timeout_s=300, serve=MULTIHOST_SERVE)
+                 modes=(("dp", (2, 1)), ("tp", (2, 2))), timeout_s=420, serve=MULTIHOST_SERVE,
+                 sp=MULTIHOST_SP)
 MULTIHOST_SPEC_ENV = "CHIP_SMOKE_MULTIHOST"  # the phase's spec, as JSON, to its workers
 
 
@@ -7154,6 +7159,83 @@ def multihost_serve(sv: dict, dev, lm_mesh, store_mesh, cuda: bool) -> dict:
     return out
 
 
+def _multihost_sp_inputs(s: dict, dev):
+    """The SP/PP modes' model config, params and batch: [multihost]'s
+    (`_multihost_inputs`) at the SP sizes' rows and sequence (and their
+    `gpt2` where given)."""
+    sp = s["sp"]
+    return _multihost_inputs(dict(s, gpt2=sp.get("gpt2") or s["gpt2"], rows=sp["rows"],
+                                  seq=sp["seq"]), dev)
+
+
+def multihost_sp(s: dict, grid: np.ndarray, dev, cuda: bool) -> dict:
+    """[multihost]'s SP/PP modes in one worker: GPT-2 float32 (flash) over a
+    line of every entry of the world in process order (`grid`, entries a
+    process), `steps` steps of each mode from the same params and batch:
+    the ring and Ulysses over 'data' (`make_lm_train_step_sp`: the ring's
+    hops from one process's last entry to the next's first cross
+    processes, Ulysses' trades cross in all-to-alls), and the GPipe
+    pipeline over 'pipe' (`make_pp_train_state` + `make_lm_train_step_pp`:
+    each process its own stages, the hand-off between the processes'
+    stages an exchange a tick). Each step timed (host clock,
+    synchronised) with its launches, the bytes it passed to collectives
+    and its peak allocated bytes above its start; a sha256 of the whole
+    updated tree (gathered: a collective). No exchange is caught: one
+    that fails, fails the worker. → {mode: {"steps", "checksum",
+    "local_entries", "line"}}."""
+    import gc
+    import hashlib
+
+    from symbiont_tpu_torch.ops import flash_attention as fa
+    from symbiont_tpu_torch.parallel import (make_lm_train_step_pp, make_lm_train_step_sp,
+                                             make_pp_train_state)
+    from symbiont_tpu_torch.parallel import mesh as mesh_mod
+    from symbiont_tpu_torch.parallel.sharding import gather_tree
+    from symbiont_tpu_torch.train import trainer as trainer_mod
+
+    sp = s["sp"]
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    gcfg, params, batch = _multihost_sp_inputs(s, dev)
+    out = {}
+    for mode in sp["modes"]:
+        mesh = mesh_mod.Mesh(grid.reshape(-1), ("pipe" if mode == "pp" else "data",))
+        check(mesh.spans_processes, f"[multihost] {mode}: mesh {mesh} is within one process")
+        if mode == "pp":
+            state, tx = make_pp_train_state(mesh, params, s["lr"])
+            step = make_lm_train_step_pp(mesh, gcfg, tx, num_microbatches=sp["microbatches"])
+        else:
+            state, tx = trainer_mod.make_lm_train_state(params, s["lr"])
+            step = make_lm_train_step_sp(mesh, gcfg, tx, attn_impl=mode)
+        steps = []
+        for _ in range(sp["steps"]):
+            before, b0 = _launch_counts(fa), mesh_mod.collective_bytes
+            sync()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            loss, gn = float(m["loss"]), float(m["grad_norm"])
+            sync()
+            steps.append({"loss": loss, "grad_norm": gn, "ms": (time.perf_counter() - t0) * 1e3,
+                          "launches": [a - b for a, b in zip(_launch_counts(fa), before)],
+                          "bytes": mesh_mod.collective_bytes - b0,
+                          "peak_bytes": (torch.cuda.max_memory_allocated() - base
+                                         if cuda else None)})
+        with torch.no_grad():
+            whole = gather_tree(state.params)  # SP's masters: a plain replica of the tree
+        digest = hashlib.sha256()
+        for t in trainer_mod.tree_leaves(whole):
+            digest.update(t.detach().cpu().numpy().tobytes())
+        out[mode] = {"steps": steps, "checksum": digest.hexdigest(),
+                     "local_entries": len(mesh.local_entries), "line": mesh.size}
+        del state, tx, step, whole
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
 def multihost_worker() -> int:
     """One of [multihost]'s two processes (`--multihost-worker`): join the
     world from SYMBIONT_COORDINATOR / SYMBIONT_NUM_PROCESSES /
@@ -7163,7 +7245,8 @@ def multihost_worker() -> int:
     'tensor' pairs the processes), place the train state
     (`shard_lm_train_state`) and take `steps` steps (`lm_train_step`),
     each timed (host clock, synchronised) with its launches and the bytes
-    it passed to collectives. Prints one `MULTIHOST {json}` line: the
+    it passed to collectives, after the SP/PP modes where the spec has
+    `sp` (`multihost_sp`). Prints one `MULTIHOST {json}` line: the
     steps, the gradient bytes all-reduced a step, a sha256 of the whole
     updated tree, each block from this process's own copy where it holds
     one, and the parts of one all-reduce of dp's gradient bytes alone
@@ -7199,6 +7282,8 @@ def multihost_worker() -> int:
     backend, why = mesh_mod.distributed_backend()
     report = {"rank": mesh_mod.process_index(), "global": n_global, "backend": backend,
               "why": why, "modes": {}}
+    if s.get("sp"):  # SP/PP first, while the card holds nothing else of this process
+        report["sp"] = multihost_sp(s, grid, dev, cuda)
     meshes = {}
     for mode, shape in s["modes"]:
         mesh = meshes[mode] = mesh_mod.Mesh(grid[:, :1] if mode == "dp" else grid.T,
@@ -7292,6 +7377,102 @@ def _run_workers(argv: list, envs: list, tmp: Path, timeout_s: float, tag: str) 
         check(False, f"[{tag}] a worker failed or passed its {timeout_s:.0f} s deadline: "
                      f"exit codes {rcs}\n{tails}")
     return [out.read_text() for out, _ in logs]
+
+
+def _multihost_sp_reference(s: dict, dev, cuda: bool) -> dict:
+    """The parent's half of the SP/PP modes, before the workers start: the
+    meshless graphed `lm_train_step` from the same params and batch, step
+    by step (host clock, synchronised), and B1, B2 and B3 against their
+    plain versions at the two shard shapes the modes give them, causal
+    float32, timed beside SDPA and the bound: Ulysses' head shard [rows,
+    heads / line, seq, 64] and a pipeline stage's microbatch [rows / M,
+    heads, seq, 64] (their launches are the caller's to discount). →
+    {"steps": the meshless steps, "kernels": {"ulysses": row, "pp": row},
+    "layers": the model's}."""
+    import gc
+
+    from symbiont_tpu_torch.train import trainer as trainer_mod
+
+    sp = s["sp"]
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    gcfg, params, batch = _multihost_sp_inputs(s, dev)
+    ref, tx_ref = trainer_mod.make_lm_train_state(params, s["lr"])
+    meshless = []
+    for _ in range(sp["steps"]):
+        sync()
+        t0 = time.perf_counter()
+        ref, m = trainer_mod.lm_train_step(ref, batch, gcfg, tx_ref)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        sync()
+        meshless.append({"loss": loss, "grad_norm": gn, "ms": (time.perf_counter() - t0) * 1e3})
+    del ref, tx_ref, params, batch
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    line = s["entries"] * 2
+    rows = {}
+    for mode, (b, h) in (("ulysses", (sp["rows"], gcfg.num_heads // line)),
+                         ("pp", (sp["rows"] // sp["microbatches"], gcfg.num_heads))):
+        rows[mode] = lm_backward_kernel_rows(dict(kernel_rows=b, kernel_S=(sp["seq"],)),
+                                             timed=cuda, device=str(dev), heads=h,
+                                             dtypes=(torch.float32,), tag="multihost")[0]
+    return {"steps": meshless, "kernels": rows, "layers": gcfg.num_layers}
+
+
+def _multihost_sp_checks(s: dict, reports: list, ref: dict, card: str) -> dict:
+    """The SP/PP modes' bars, a line a mode: both processes bit-equal in
+    losses, grad norms and the updated tree's sha256; loss and grad norm
+    within rtol 1e-4 of the meshless step, step by step; B1 = B2 = B3 a
+    step in each process = 0 for the ring (its blocks are plain torch),
+    layers x local entries for Ulysses, layers / stages x local stages x
+    microbatches for the pipeline. → {mode: readings}, with the modes'
+    launches of both workers summed (`b123`)."""
+    sp, meshless, L = s["sp"], ref["steps"], ref["layers"]
+    out, b123 = {}, [0, 0, 0]
+    for mode in sp["modes"]:
+        a, b = (r["sp"][mode] for r in reports)
+        n, local = a["line"], a["local_entries"]
+        eq = {"ring": 0, "ulysses": L * local,
+              "pp": L // n * local * sp["microbatches"]}[mode]
+        check([(x["loss"], x["grad_norm"]) for x in a["steps"]]
+              == [(x["loss"], x["grad_norm"]) for x in b["steps"]],
+              f"[multihost] {mode}: the two processes' losses or grad norms differ")
+        check(a["checksum"] == b["checksum"],
+              f"[multihost] {mode}: the two processes' updated trees differ")
+        for i, (x, w) in enumerate(zip(a["steps"], meshless, strict=True)):
+            check(np.isfinite(x["loss"]) and abs(x["loss"] - w["loss"]) <= 1e-4 * abs(w["loss"]),
+                  f"[multihost] {mode} step {i}: loss {x['loss']!r} vs meshless "
+                  f"{w['loss']!r} beyond rtol 1e-4")
+            check(abs(x["grad_norm"] - w["grad_norm"]) <= 1e-4 * abs(w["grad_norm"]),
+                  f"[multihost] {mode} step {i}: grad norm {x['grad_norm']!r} vs meshless "
+                  f"{w['grad_norm']!r} beyond rtol 1e-4")
+        for r in (a, b):
+            for i, x in enumerate(r["steps"]):
+                check(x["launches"] == [eq] * 3,
+                      f"[multihost] {mode} step {i}: B1/B2/B3 {x['launches']} != {eq}")
+                b123 = [m + k for m, k in zip(b123, x["launches"])]
+        warm = [x["ms"] for r in (a, b) for x in r["steps"][1:]] or [x["ms"] for x in a["steps"]]
+        peaks = [x["peak_bytes"] for r in (a, b) for x in r["steps"]]
+        out[mode] = {"steps": a["steps"], "steps_other": b["steps"], "warm_ms": warm,
+                     "bytes_per_step": a["steps"][-1]["bytes"], "local_entries": local,
+                     "peak_bytes": None if None in peaks else max(peaks)}
+        what = {"ring": f"ring over data={n}", "ulysses": f"Ulysses over data={n}",
+                "pp": f"GPipe over pipe={n}, {L // n} layers a stage, {sp['microbatches']} "
+                      "microbatches"}[mode]
+        print(f"[multihost] SP/PP {what} ({local} entries a process) at [{sp['rows']}, "
+              f"{sp['seq']}]: loss " + ", ".join(f"{x['loss']:.6f}" for x in a["steps"])
+              + " vs meshless " + ", ".join(f"{w['loss']:.6f}" for w in meshless)
+              + f", both processes bit-equal; B1/B2/B3 {eq} a step a process; step ms "
+              + ", ".join(f"{x['ms']:.1f}" for x in a["steps"]) + " / "
+              + ", ".join(f"{x['ms']:.1f}" for x in b["steps"])
+              + " (processes 0 / 1) vs meshless graphed "
+              + ", ".join(f"{w['ms']:.1f}" for w in meshless) + f" (first with its capture); "
+              f"{out[mode]['bytes_per_step']:,} bytes to collectives a step a process; peak "
+              + ("not measured on the CPU" if out[mode]["peak_bytes"] is None else
+                 f"{out[mode]['peak_bytes'] / 1e9:.3f} GB above a step's start")
+              + f" ({card})", flush=True)
+    out["b123"], out["kernels"], out["meshless"] = b123, ref["kernels"], meshless
+    return out
 
 
 def _multihost_serve_reference(sv: dict, dev, cuda: bool, rng) -> tuple:
@@ -7461,8 +7642,16 @@ def multihost_phase(rng, sizes=None, device="cuda") -> dict:
     `multihost_serve` over [1, 2] and [2, 1] meshes of one entry a process,
     after the parent ran them over the one-process TP mesh and a meshless
     store (`_multihost_serve_reference`); `_multihost_serve_checks` holds
-    them. → the launches (B1, B2, B3) of both workers, train and serve,
-    and what each mode measured."""
+    them.
+
+    The SP/PP modes (`sp`, `sp=None` skips them) run first in the same
+    workers (`multihost_sp`): GPT-2 at [sp rows, sp seq] over a line of
+    all 2 x `entries` entries, the ring and Ulysses on 'data' and the
+    GPipe pipeline on 'pipe', against the meshless graphed step the parent
+    took first, with B1, B2 and B3 at their two shard shapes held to plain
+    here (`_multihost_sp_reference`, `_multihost_sp_checks`). → the
+    launches (B1, B2, B3) of both workers, train, SP/PP and serve, and
+    what each mode measured."""
     from symbiont_tpu_torch.ops import flash_attention as fa
     from symbiont_tpu_torch.train import trainer as trainer_mod
 
@@ -7479,8 +7668,11 @@ def multihost_phase(rng, sizes=None, device="cuda") -> dict:
                   fused_texts=texts[sv["rows"]:], store_seed=int(rng.integers(2**31)),
                   doc=corpus_doc(rng, sv["batch"] * sv["seq_len"]))
         serve_ref, serve_kernels = _multihost_serve_reference(sv, dev, cuda, rng)
+    saved = _launch_counts(fa)  # the references' launches are not the phase's
+    if s.get("sp"):
+        s["sp"] = dict(MULTIHOST_SP, **s["sp"])
+        sp_ref = _multihost_sp_reference(s, dev, cuda)
     gcfg, params, batch = _multihost_inputs(s, dev)
-    saved = _launch_counts(fa)  # the meshless reference's launches are not the phase's
     ref, tx_ref = trainer_mod.make_lm_train_state(params, s["lr"])
     meshless = []
     for _ in range(s["steps"]):
@@ -7587,6 +7779,9 @@ def multihost_phase(rng, sizes=None, device="cuda") -> dict:
           f"{probe['all_reduce_ms']:.1f} ms ({probe['bytes'] / probe['all_reduce_ms'] / 1e6:.2f} "
           f"GB/s), to device {probe['to_device_ms']:.1f} ms; workers' wall {wall:.1f} s",
           flush=True)
+    if s.get("sp"):  # the SP/PP modes' bars; their launches join the phase's
+        out["sp"] = _multihost_sp_checks(s, reports, sp_ref, card)
+        out["launches"] = tuple(a + b for a, b in zip(out["launches"], out["sp"]["b123"]))
     if serve_ref is not None:  # the serve mode's bars; its launches join the phase's
         out["serve"] = _multihost_serve_checks(s["serve"], [r["serve"] for r in reports],
                                                serve_ref, serve_kernels, card)
@@ -7822,8 +8017,8 @@ def _run_phases() -> int:
                                   for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "library_ms", "covered_ms") if k in r}}
                               for r in sp["kernels"]]
-    for e, n in zip(entries, multihost["launches"]):  # both workers, train and serve
-        e["multihost_launches"] = n
+    for e, n, m in zip(entries, multihost["launches"], multihost["sp"]["b123"]):
+        e["multihost_launches"], e["multihost_sp_launches"] = n, m  # both workers; SP/PP
     entries[0]["multihost"] = {k: v for k, v in multihost.items() if k != "launches"}
     mk = multihost["serve"]["kernels"]  # the serve mode's local shards
     entries[0]["multihost_shard"] = [mk["llama_prefill_shard"],
@@ -7835,6 +8030,15 @@ def _run_phases() -> int:
                                  **{k: (r[k][part] if isinstance(r[k], dict) else r[k])
                                     for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                               "library_ms", "covered_ms") if k in r}}]
+    sk = multihost["sp"]["kernels"]  # the SP/PP modes' shards: Ulysses' heads, a stage's rows
+    entries[0]["multihost_sp_shard"] = [{"shape": sk[m]["shape"].replace("/g", ""),
+                                         **sk[m]["fwd"]} for m in ("ulysses", "pp")]
+    for e, part in zip(entries[1:], ("kv", "q")):
+        e["multihost_sp_shard"] = [
+            {"shape": r["shape"], "max_abs_err": r["max_abs_err"][part],
+             **{k: (r[k][part] if isinstance(r[k], dict) else r[k])
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                          "covered_ms") if k in r}} for r in (sk["ulysses"], sk["pp"])]
     entries[0]["lmtrain_launches"] = lmtrain["launches"][0]
     entries[0]["lm_train"] = [{"shape": r["shape"].replace("/g", ""), **r["fwd"]}
                               for r in lmtrain["kernels"]]

@@ -43,9 +43,16 @@ tensor-parallel LM train step (`train/trainer.shard_lm_train_state`,
 JAX replicates, driven in lockstep (every process makes the same calls in
 the same order): TP decode in `LmEngine` and the row-split store's search
 (`sharding.corpus_topk`, its candidates all-gathered over the data line).
-What JAX cannot serve across processes raises with its reason
-(`mesh.JAX_FETCH`, `mesh.NO_LOCKSTEP`), and the SP/PP steps raise naming
-ROADMAP's "SP/PP across processes".
+The sequence- and pipeline-parallel steps run there too: each process
+computes its own entries of the line, the ring's hop and the pipeline's
+hand-off to an entry of another process are point-to-point exchanges
+(`mesh.Group.exchange`) and Ulysses' trades all-to-alls
+(`mesh.Group.all_to_all`), each an autograd Function whose backward makes
+the reverse trade, tied in one chain a call so every process runs the
+backward's trades in one order (`sharding.Chain`); the loss' sums are
+all-reduced, and a result split over the sequence comes back as a
+`Sharded` of the process's blocks. What JAX cannot serve across
+processes raises with its reason (`mesh.JAX_FETCH`, `mesh.NO_LOCKSTEP`).
 
 `parallel/compat.py` (glue between JAX versions) has no counterpart.
 """

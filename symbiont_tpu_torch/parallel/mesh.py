@@ -37,6 +37,12 @@ order, and each returns the whole answer (TP decode's logits reach every
 process through the tensor line's sums, a row-split store's candidates
 through `Group.all_gather`). What JAX cannot serve across processes
 raises with its reason (`refuse_spanning`, `JAX_FETCH`, `NO_LOCKSTEP`).
+
+Training runs over such a mesh in the same lockstep: the dp×tp step's
+sums, and the sequence- and pipeline-parallel steps' point-to-point
+traffic (`Group.exchange`: the ring's hop, the pipeline's hand-off) and
+all-to-alls (`Group.all_to_all`: Ulysses' trades) between the processes
+of one line.
 """
 
 from __future__ import annotations
@@ -57,13 +63,12 @@ log = logging.getLogger(__name__)
 DIST_TIMEOUT_S = 60  # a peer missing from init or from a collective fails within this
 
 # bytes this process passed to device collectives (all-reduce, broadcast,
-# all-gather) over a mesh that spans processes: the multi-process train
-# step's and serving calls' traffic
+# all-gather, all-to-all, point-to-point sends) over a mesh that spans
+# processes: the multi-process train steps' and serving calls' traffic
 collective_bytes = 0
 
 # why a path does not run over a mesh that spans processes
-# (`refuse_spanning`'s `reason`): the first two hold in the JAX package
-# too; SP/PP is still to be ported
+# (`refuse_spanning`'s `reason`): both hold in the JAX package too
 _JAX_TOO = "does not run over a mesh that spans processes, in the JAX package either: "
 JAX_FETCH = (_JAX_TOO + "JAX's fetch of a value that is neither replicated nor local raises: "
              "np.asarray on a jax.Array whose shards lie in other processes "
@@ -71,7 +76,6 @@ JAX_FETCH = (_JAX_TOO + "JAX's fetch of a value that is neither replicated nor l
 NO_LOCKSTEP = (_JAX_TOO + "no lockstep request feed: every process must make the same calls "
                "in the same order, and requests that arrive by timing or from a bus reach "
                "each process on their own")
-SP_PP = "over a mesh that spans processes is not ported (ROADMAP SP/PP across processes)"
 
 
 class WorldDevice:
@@ -92,8 +96,10 @@ class WorldDevice:
 
 class Group:
     """The processes `ranks` of one line (or sub-grid) of a mesh and their
-    process group. Device collectives sum, broadcast or gather; under gloo
-    (`host`) a CUDA tensor goes through a host copy."""
+    process group. Device collectives sum, broadcast, gather, trade
+    (`all_to_all`) or pass tensors between two processes (`exchange`);
+    under gloo (`host`) a CUDA tensor goes through a host copy. Peers are
+    named by global rank, as `ranks` names them."""
 
     __slots__ = ("ranks", "pg", "host")
 
@@ -136,6 +142,59 @@ class Group:
         outs = [torch.empty_like(buf) for _ in self.ranks]
         dist.all_gather(outs, buf, group=self.pg)
         return torch.stack(outs).to(t.device)
+
+    def _landing(self, out: torch.Tensor) -> torch.Tensor:
+        """Where a collective writes what `out` receives: a host buffer
+        for a CUDA tensor under gloo, else `out` itself."""
+        return torch.empty(out.shape, dtype=out.dtype) if self.host and out.is_cuda else out
+
+    def exchange(self, sends, recvs) -> list:
+        """Point to point: each (tensor, dst) of `sends` to the process of
+        global rank dst, and each (src, out) of `recvs` filled from the
+        process of global rank src, all posted in one
+        `batch_isend_irecv`, so two processes that send to each other
+        never wait on each other's send. The k-th tensor between a pair
+        takes tag k on both sides (gloo matches by tag; NCCL by order).
+        → the filled outs, in `recvs` order."""
+        import torch.distributed as dist
+
+        ops, fills, count = [], [], {}
+
+        def tag(key) -> int:
+            count[key] = count.get(key, -1) + 1
+            return count[key]
+
+        for t, dst in sends:
+            ops.append(dist.P2POp(dist.isend, self._stage(t.contiguous()), dst, self.pg,
+                                  tag(("to", dst))))
+        for src, out in recvs:
+            buf = self._landing(out)
+            ops.append(dist.P2POp(dist.irecv, buf, src, self.pg, tag(("from", src))))
+            fills.append((out, buf))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        for out, buf in fills:
+            if buf is not out:
+                out.copy_(buf)
+        return [out for out, _ in fills]
+
+    def all_to_all(self, flat: torch.Tensor, send_sizes: Sequence[int],
+                   recv_sizes: Sequence[int]) -> torch.Tensor:
+        """`flat` (1-d) cut into `send_sizes` pieces, piece r to the
+        group's r-th process (`ranks` order; this process's own piece
+        empty), and what each sends here, `recv_sizes[r]` elements from the
+        r-th, joined in that order on `flat`'s device
+        (`all_to_all_single`)."""
+        import torch.distributed as dist
+
+        buf = self._stage(flat.contiguous())
+        out = torch.empty(sum(recv_sizes), dtype=flat.dtype, device=flat.device)
+        land = self._landing(out)
+        dist.all_to_all_single(land, buf, list(recv_sizes), list(send_sizes), group=self.pg)
+        if land is not out:
+            out.copy_(land)
+        return out
 
     def __repr__(self) -> str:
         return f"Group({list(self.ranks)}, {'gloo' if self.host else 'nccl'})"
@@ -366,7 +425,7 @@ class Mesh:
         """The `Group` of the sub-grid through the flat entry `i` over
         `axes` (the line of one axis, or all of them: the whole mesh), or
         None where one process holds all of it."""
-        if not self._groups:
+        if not self._groups or not axes:
             return None
         idx = tuple(sorted(self.axis_names.index(a) for a in axes))
         coords = np.unravel_index(i, self.devices.shape)
@@ -395,7 +454,7 @@ class Mesh:
 
 def refuse_spanning(mesh: Optional[Mesh], what: str, reason: str) -> None:
     """Raise where `what` is asked to run over a mesh that spans
-    processes, naming `reason` (`JAX_FETCH`, `NO_LOCKSTEP`, `SP_PP`)."""
+    processes, naming `reason` (`JAX_FETCH`, `NO_LOCKSTEP`)."""
     if mesh is not None and mesh.spans_processes:
         raise ValueError(f"{what} {reason}: {mesh}")
 

@@ -25,6 +25,19 @@ no cache): on CUDA the B1 forward, and under autograd B2/B3 where NH ==
 NKV and B4's dense recompute for GQA; on the CPU their plain versions.
 Otherwise JAX's dense causal math. The step crosses devices, so it runs
 eagerly (`trainer.mesh_train_step`).
+
+Over a mesh that spans processes each process places and runs only its
+own stages, tick by tick as in one process, so the processes compute
+their stages at once: every process makes the same calls with the whole
+batch, and at the end of a tick the hand-offs to a stage of another
+process cross in one `torch.distributed` exchange (`sharding.Chain`),
+whose backward sends the gradients back. Each microbatch crosses once, so
+the M backward chains are independent; the chain's token ties every
+tick's exchange to the one before, which fixes their backward order (the
+reverse of the ticks) in every process, so no process pairs one
+microbatch's gradient with another's activations. Only stage 0's process
+embeds and only the last stage's scores; the loss' sums are all-reduced
+over the pipe axis' processes.
 """
 
 from __future__ import annotations
@@ -37,8 +50,9 @@ import torch
 from symbiont_tpu_torch.models import gpt as gpt_mod
 from symbiont_tpu_torch.models import quant
 from symbiont_tpu_torch.models.bert import torch_dtype
-from symbiont_tpu_torch.parallel.mesh import SP_PP, Mesh, refuse_spanning
-from symbiont_tpu_torch.parallel.sharding import NamedSharding, P, Sharded, device_put, replicate
+from symbiont_tpu_torch.parallel.mesh import Mesh
+from symbiont_tpu_torch.parallel.sharding import (Chain, Line, NamedSharding, P, Sharded,
+                                                  device_put, leaf_tensors, replicate)
 
 Params = Any
 
@@ -98,8 +112,8 @@ def layer_of(stacked_layers: Params, j: int) -> Params:
 def shard_pp_params(mesh: Mesh, stacked: Params, axis: str = "pipe") -> Params:
     """Place stacked params on the mesh: the layer stack split over the
     pipe axis (each entry holds its stage's depth), everything else
-    replicated."""
-    refuse_spanning(mesh, "the pipeline's placement", SP_PP)
+    replicated; over a mesh that spans processes, on this process's
+    entries only."""
     n = mesh.shape[axis]
     L = next(quant.leaves(stacked["layers"])).shape[0]
     if L % n != 0:
@@ -120,11 +134,15 @@ def lm_loss_pp(params: Params, batch: dict, cfg, mesh: Mesh, axis: str = "pipe",
     batch["ids"/"mask"] [B, S] with B divisible by num_microbatches. Every
     stage reads its layers, and stage 0 and the last stage the shared
     leaves, from their masters (`Sharded.home`), copied to its device, so
-    one backward sums every use's gradient into the masters."""
-    from symbiont_tpu_torch.train.trainer import ce_terms
+    one backward sums every use's gradient into the masters. The stages
+    are those of `axis`' line through entry 0 (`sharding.Line`); over a
+    mesh that spans processes this process runs its own, and the loss is
+    the whole (the same in every process) with the gradient of this
+    process's share."""
+    from symbiont_tpu_torch.train.trainer import _GlobalLoss, ce_terms
 
-    refuse_spanning(mesh, "the pipelined loss", SP_PP)
-    n = mesh.shape[axis]
+    line = Line(mesh, axis)
+    n = len(line)
     ids, mask = batch["ids"], batch["mask"].float()
     B, S = ids.shape
     M = num_microbatches
@@ -136,8 +154,8 @@ def lm_loss_pp(params: Params, batch: dict, cfg, mesh: Mesh, axis: str = "pipe",
         raise ValueError(f"a placed layer stack must be split over {axis!r} "
                          "(shard_pp_params)")
     depth = stack[0].shape[0] // n  # a placed leaf's shape is the whole stack's
-    entries = [mesh.flat_index(**{axis: p}) for p in range(n)]
-    devs = [mesh.device_list[e] for e in entries]
+    entries = line.entries
+    devs = {p: mesh.device_list[entries[p]] for p in line.local}
 
     def read(x, p: int, stage: bool):
         """Leaf x where stage p uses it: from its master, on p's device;
@@ -150,32 +168,68 @@ def lm_loss_pp(params: Params, batch: dict, cfg, mesh: Mesh, axis: str = "pipe",
         return quant.cast_params(quant.tree_map(lambda x: read(x, p, stage), t), dtype)
 
     shared = {k: v for k, v in params.items() if k != "layers"}
-    first, last = tree(shared, 0), tree(shared, n - 1)
-    stages = [tree(params["layers"], p, stage=True) for p in range(n)]
+    first = tree(shared, 0) if line.is_local(0) else None
+    last = tree(shared, n - 1) if line.is_local(n - 1) else None
+    stages = {p: tree(params["layers"], p, stage=True) for p in line.local}
     mB = B // M
     ids_m, mask_m = ids.reshape(M, mB, S), mask.reshape(M, mB, S)
-    positions = [torch.arange(S, device=d).expand(mB, S) for d in devs]
+    positions = {p: torch.arange(S, device=d).expand(mB, S) for p, d in devs.items()}
     lead = mesh.lead
-    inbox = [None] * n  # what stage p - 1 handed stage p at the last tick
+    chain = (Chain(line.group, lead, torch.is_grad_enabled() and any(
+                 t.requires_grad for x in quant.leaves(params) for t in leaf_tensors(x)))
+             if line.group is not None else None)
+    inbox = {}  # what stage p - 1 handed stage p at the last tick
     num = den = None
     for t in range(M + n - 1):
-        for p in reversed(range(n)):  # each stage reads its inbox before it is refilled
+        done = {}  # stage → its output this tick, for stage p + 1
+        for p in line.local:
             m = t - p
             if not 0 <= m < M:
                 continue  # a tick JAX computes on stale data and masks: it adds zero
             x = (gpt_mod._embed(first, ids_m[m].to(devs[0]), positions[0], cfg, dtype)
-                 if p == 0 else inbox[p])
+                 if p == 0 else inbox.pop(p))
             for j in range(depth):
                 x = _block_dense(layer_of(stages[p], j), x, positions[p], cfg)
             if p < n - 1:
-                inbox[p + 1] = x.to(devs[p + 1])
+                done[p] = x
                 continue
             mb_ids, mb_mask = ids_m[m].to(devs[p]), mask_m[m].to(devs[p])
             ce, w = ce_terms(gpt_mod._logits(last, x, cfg)[:, :-1], mb_ids[:, 1:],
                              mb_mask[:, 1:] * mb_mask[:, :-1])
             num = ce.to(lead) if num is None else num + ce.to(lead)
             den = w.to(lead) if den is None else den + w.to(lead)
-    return num / den.clamp_min(1.0)
+        inbox.update(_hand_off(done, t, M, line, chain, devs, (mB, S, cfg.hidden_size), dtype))
+    if chain is None:
+        return num / den.clamp_min(1.0)
+    if num is None:  # no stage of this process scores: its share is the chain's
+        num = den = torch.zeros((), device=lead)
+    totals = line.group.all_reduce_(torch.stack([num.detach(), den]))
+    whole = totals[1].clamp_min(1.0)
+    return _GlobalLoss.apply(chain.close(num / whole), totals[0] / whole)
+
+
+def _hand_off(done: dict, t: int, M: int, line: Line, chain, devs: dict, shape: tuple,
+              dtype) -> dict:
+    """The end of tick t: each stage p that ran a microbatch hands its
+    output to stage p + 1 → {p + 1: its input at tick t + 1} for this
+    process's stages. A copy where both stages are this process's; the
+    rest cross in the tick's one exchange of the chain, made by every
+    process with a stage on either side of such a hand-off."""
+    out, sends, recvs, into = {}, [], [], []
+    for p in range(len(line) - 1):
+        if not 0 <= t - p < M:
+            continue
+        here, there = line.is_local(p), line.is_local(p + 1)
+        if here and there:
+            out[p + 1] = done[p].to(devs[p + 1])
+        elif here:
+            sends.append((done[p], line.owners[p + 1]))
+        elif there:
+            recvs.append((line.owners[p], (shape, dtype, devs[p + 1])))
+            into.append(p + 1)
+    if sends or recvs:
+        out.update(zip(into, chain.exchange(sends, recvs)))
+    return out
 
 
 def make_lm_train_step_pp(mesh: Mesh, cfg, tx, axis: str = "pipe", num_microbatches: int = 4):
@@ -186,12 +240,10 @@ def make_lm_train_step_pp(mesh: Mesh, cfg, tx, axis: str = "pipe", num_microbatc
     the replicas are copied from their masters after each update."""
     from symbiont_tpu_torch.train import trainer
 
-    refuse_spanning(mesh, "the pipelined train step", SP_PP)
-
     def lm_loss_pp_step(params, batch, cfg):
         return lm_loss_pp(params, batch, cfg, mesh, axis, num_microbatches)
 
-    return trainer.mesh_train_step(cfg, tx, lm_loss_pp_step)
+    return trainer.mesh_train_step(cfg, tx, lm_loss_pp_step, mesh=mesh)
 
 
 def make_pp_train_state(mesh: Mesh, params: Params, learning_rate: float = 3e-4,

@@ -29,12 +29,20 @@ its backward is the all-reduce of the gradient, so each process's
 gradient of a value every process holds is a partial whose sum over the
 processes is the whole; `train/trainer.py` seeds each loss once and sums
 the replicated masters' gradients over their holders to match).
+
+The sequence- and pipeline-parallel paths move blocks between the
+processes of one line of an axis (`Line`) through a `Chain`: each hop
+(`Group.exchange`) or all-to-all (`Group.all_to_all`) is an autograd
+Function whose backward makes the reverse trade of the gradients, and
+every trade of one call takes the token its previous trade returned, so
+the backward makes them in the reverse of the forward's order in every
+process, whatever order autograd would take independent branches in.
 """
 
 from __future__ import annotations
 
 from functools import reduce
-from typing import Any, NamedTuple, Optional
+from typing import Any, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -137,7 +145,8 @@ class Sharded:
             held = {mesh.process_index(k) for k in range(mesh.size) if self.block(k) == b}
             if whole is not None and len(held) < len(whole.ranks):
                 src = min(held)
-                buf = (self.shards[j].detach().clone() if mesh.process == src
+                buf = (self.shards[j].detach().clone(memory_format=torch.contiguous_format)
+                       if mesh.process == src
                        else torch.empty(size, dtype=self.dtype, device=mesh.lead))
                 whole.broadcast_(buf, src)
                 if j is None:
@@ -435,3 +444,173 @@ def sum_to(parts, device, group: Optional[Group] = None) -> torch.Tensor:
     all-reduced over the group."""
     total = reduce(torch.add, (p.to(device) for p in parts))
     return total if group is None else all_reduce(total, group)
+
+
+class Line:
+    """The entries of `axis` through the mesh's entry 0 (every other axis
+    at index 0), in axis order: the line a sequence or a pipeline is split
+    over. `owners[i]` is the process of position i, `local` this process's
+    positions, `group` the processes' `Group` (None where one process
+    holds the whole line). Without a mesh, `n` positions all of this
+    process. Over a mesh that spans processes every process of the mesh
+    must hold a position of the line, and each local entry off the line
+    must share its axis index with a local one on it (so a result split
+    over the axis is whole in each process that holds a block of it)."""
+
+    def __init__(self, mesh: Optional[Mesh], axis: str, n: Optional[int] = None):
+        self.mesh, self.axis = mesh, axis
+        if mesh is None:
+            self.entries, self.owners, self.me, self.group = list(range(n)), [0] * n, 0, None
+            self.local = list(range(n))
+            return
+        self.entries = [mesh.flat_index(**{axis: i}) for i in range(mesh.shape[axis])]
+        self.owners = [mesh.process_index(e) for e in self.entries]
+        self.me = mesh.process
+        self.local = [i for i, p in enumerate(self.owners) if p == self.me]
+        self.group = mesh.group((axis,), self.entries[0])
+        if mesh.spans_processes:
+            off = [i for i in mesh.local_entries
+                   if not mesh.is_local(self.entries[mesh.coords(i)[axis]])]
+            if not self.local or off:
+                raise ValueError(f"process {self.me} holds no entry of the {axis} line "
+                                 f"{self.entries} through entry 0, or an entry off it whose "
+                                 f"block lies in another process: {mesh}")
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def is_local(self, i: int) -> bool:
+        return self.owners[i] == self.me
+
+    def chain(self, like: Sequence[Optional[torch.Tensor]]) -> Optional["Chain"]:
+        """A `Chain` over the line's group for one call on the blocks
+        `like` (None where another process holds one), its token on this
+        process's first block's device and taking gradients where
+        autograd records and a local block takes them; None where one
+        process holds the whole line."""
+        if self.group is None:
+            return None
+        mine = [t for t in like if t is not None]
+        return Chain(self.group, mine[0].device,
+                     torch.is_grad_enabled() and any(t.requires_grad for t in mine))
+
+    def join(self, blocks: Sequence[Optional[torch.Tensor]], dim: int,
+             shape: torch.Size):
+        """The per-position results `blocks` [.., S/n, ..] split on `dim`:
+        joined on the mesh's lead entry where one process holds the line
+        (a tensor of `shape`), else a `Sharded` over the mesh with spec
+        P(None x dim, axis) holding this process's blocks (each local
+        entry off the line a copy of its axis index's block), as JAX
+        returns a global array; its `gather()` is the whole."""
+        mesh = self.mesh
+        if mesh is None or not mesh.spans_processes:
+            lead = mesh.lead if mesh is not None else blocks[0].device
+            return torch.cat([b.to(lead) for b in blocks], dim=dim)
+        shards = []
+        for e, dev in enumerate(mesh.device_list):
+            if not mesh.is_local(e):
+                shards.append(None)
+                continue
+            i = mesh.coords(e)[self.axis]
+            b = blocks[i]
+            shards.append(b if self.entries[i] == e else b.to(dev, copy=True))
+        return Sharded(mesh, (None,) * dim + (self.axis,), shards, shape)
+
+
+class Chain:
+    """The cross-process trades of one call over a `Group`, in the order
+    it makes them. Each trade takes the token the previous one returned
+    and returns the next: the backward's trades then run in the reverse
+    of the forward's order in every process (each waits for the gradient
+    of its token from the trade after it), so two processes that make
+    the same calls pair the same trades, whatever order autograd would
+    take independent branches in. `close(x)` adds the last token (a
+    zero) to a value the caller's loss depends on, which puts every
+    trade of the call on the backward's path, also in a process whose
+    own loss does not read what it received."""
+
+    def __init__(self, group: Group, device, grad: bool):
+        self.group = group
+        self.token = torch.zeros((), device=device, requires_grad=grad)
+
+    def exchange(self, sends, recvs) -> list:
+        """`Group.exchange` under autograd: sends (tensor, dst rank),
+        recvs (src rank, (shape, dtype, device)) → the received tensors."""
+        out = _Exchange.apply(self.group, tuple(d for _, d in sends), tuple(recvs),
+                              self.token, *(t for t, _ in sends))
+        self.token = out[0]
+        return list(out[1:])
+
+    def all_to_all(self, flat: torch.Tensor, send_sizes, recv_sizes) -> torch.Tensor:
+        """`Group.all_to_all` under autograd."""
+        self.token, out = _AllToAll.apply(self.group, tuple(send_sizes), tuple(recv_sizes),
+                                          self.token, flat)
+        return out
+
+    def close(self, x: torch.Tensor) -> torch.Tensor:
+        """x plus the last token (0) where the chain takes gradients."""
+        return x + self.token.to(x.device) if self.token.requires_grad else x
+
+
+class _Exchange(torch.autograd.Function):
+    """One `Group.exchange` of a `Chain`: its backward sends each received
+    tensor's gradient back to its sender and receives each sent tensor's
+    gradient from its receiver, in one exchange."""
+
+    @staticmethod
+    def forward(ctx, group, dsts, recvs, token, *sends):
+        ctx.group, ctx.dsts, ctx.srcs = group, dsts, tuple(src for src, _ in recvs)
+        ctx.sent = tuple((t.shape, t.dtype, t.device) for t in sends)
+        got = group.exchange(list(zip(sends, dsts)),
+                             [(src, torch.empty(shape, dtype=dtype, device=dev))
+                              for src, (shape, dtype, dev) in recvs])
+        return (torch.zeros_like(token), *got)
+
+    @staticmethod
+    def backward(ctx, g_token, *g_got):
+        grads = ctx.group.exchange(
+            list(zip(g_got, ctx.srcs)),
+            [(dst, torch.empty(shape, dtype=dtype, device=dev))
+             for dst, (shape, dtype, dev) in zip(ctx.dsts, ctx.sent)])
+        return (None, None, None, torch.zeros_like(g_token), *grads)
+
+
+class _AllToAll(torch.autograd.Function):
+    """One `Group.all_to_all` of a `Chain`: its backward is the inverse
+    all-to-all of the gradient (each piece's gradient back to its
+    sender)."""
+
+    @staticmethod
+    def forward(ctx, group, send_sizes, recv_sizes, token, flat):
+        ctx.group, ctx.send_sizes, ctx.recv_sizes = group, send_sizes, recv_sizes
+        return torch.zeros_like(token), group.all_to_all(flat, send_sizes, recv_sizes)
+
+    @staticmethod
+    def backward(ctx, g_token, g):
+        return (None, None, None, torch.zeros_like(g_token),
+                ctx.group.all_to_all(g, ctx.recv_sizes, ctx.send_sizes))
+
+
+def trade(line: Line, chain: Optional[Chain], blocks: dict, cut, devices: dict) -> dict:
+    """An all-to-all over the line: position i's piece for position j is
+    `cut(blocks[i], j)` (one shape for every pair) → {(i, j): that piece}
+    for each local j and every i, on j's device (`devices[j]`). Pieces
+    between two local positions are copies; the rest cross in one
+    all-to-all of the chain, each process's pieces for another packed in
+    (i, j) order."""
+    n, local = len(line), line.local
+    got = {(i, j): cut(blocks[i], j).to(devices[j]) for i in local for j in local}
+    if chain is None:
+        return got
+    like = cut(blocks[local[0]], local[0])
+    lead = like.device
+    ranks = [r if r != line.me else None for r in line.group.ranks]  # no piece to itself
+    send = [[cut(blocks[i], j).reshape(-1).to(lead) for i in local for j in range(n)
+             if line.owners[j] == r] for r in ranks]
+    take = [[(i, j) for i in range(n) if line.owners[i] == r for j in local] for r in ranks]
+    flat = torch.cat([t for ts in send for t in ts]) if any(send) else like.new_zeros(0)
+    out = chain.all_to_all(flat, [sum(t.numel() for t in ts) for ts in send],
+                           [len(ps) * like.numel() for ps in take])
+    for (i, j), piece in zip([p for ps in take for p in ps], out.split(like.numel())):
+        got[(i, j)] = piece.view(like.shape).to(devices[j])
+    return got

@@ -310,10 +310,15 @@ def _reduce_grads(params: Params) -> None:
         if group is not None:
             buckets.setdefault(group.ranks, (group, []))[1].append(leaf.shards[i].grad)
     for ranks in sorted(buckets):
-        group, grads = buckets[ranks]
-        flat = group.all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
-        for g, v in zip(grads, flat.split([g.numel() for g in grads])):
-            g.copy_(v.view_as(g))
+        _sum_grads(*buckets[ranks])
+
+
+def _sum_grads(group, grads: list) -> None:
+    """`grads` summed over `group`'s processes in place, in one flat
+    all-reduce."""
+    flat = group.all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
+    for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(v.view_as(g))
 
 
 def _spanning_norm(params: Params) -> torch.Tensor:
@@ -329,16 +334,22 @@ def _spanning_norm(params: Params) -> torch.Tensor:
     return mesh.group(mesh.axis_names, 0).all_reduce_(sq).sqrt()
 
 
-def _step_fn(params: Params, tx, cfg, loss_fn=contrastive_loss, keys=CONTRASTIVE_KEYS):
+def _step_fn(params: Params, tx, cfg, loss_fn=contrastive_loss, keys=CONTRASTIVE_KEYS,
+             over=None):
     """One AdamW step over `params` on `loss_fn` as a function of the
     batch's tensors `keys`, in that order → (loss, grad_norm): the
     gradients zeroed in place (a leaf that gets none keeps zeros, as JAX
     gives an unused leaf), one backward into them, the norm taken before
-    the update."""
+    the update. `over`: the mesh a loss over a plain tree runs on (the
+    sequence-parallel step's); where it spans processes, each process's
+    replica of the tree takes its share of the gradient, and the shares
+    are summed over the mesh's processes before the norm."""
     leaves = masters(params)
     mesh = mesh_of(params)
     sharded = mesh is not None
     spanning = sharded and mesh.spans_processes
+    replicas = (over.group(over.axis_names, 0)
+                if not sharded and over is not None and over.spans_processes else None)
     tx_ref = weakref.ref(tx)  # the executable must not keep the optimizer alive
 
     def step(*tensors):
@@ -350,6 +361,8 @@ def _step_fn(params: Params, tx, cfg, loss_fn=contrastive_loss, keys=CONTRASTIVE
             _reduce_grads(params)
             gnorm = _spanning_norm(params)
         else:
+            if replicas is not None:
+                _sum_grads(replicas, grads)
             gnorm = global_norm(grads)
         tx_ref().step()
         if sharded:
@@ -367,14 +380,15 @@ def step_executables(tx) -> dict:
 
 
 def _step_executable(state: TrainState, batch: dict, cfg, tx, loss_fn=contrastive_loss,
-                     keys=CONTRASTIVE_KEYS, own=None, eager: bool = False) -> Executable:
+                     keys=CONTRASTIVE_KEYS, own=None, eager: bool = False,
+                     over=None) -> Executable:
     """The step's executable for this batch shape, kept for `tx` (or in
     `own`, a step's own {"exes", "pool"}): one per (shapes of the batch's
     ids, cfg), built on the state's masters. On CUDA its capture's
     warm-up runs a whole step, and the masters, moments and step counts
     come back to what they held before it (`carry`). `eager`: the step
     runs eagerly, as one over a mesh-placed state always does (it crosses
-    devices)."""
+    devices). `over`: `_step_fn`'s."""
     leaves = masters(state.params)
     device = leaves[0].device
     eager = eager or mesh_of(state.params) is not None
@@ -394,7 +408,7 @@ def _step_executable(state: TrainState, batch: dict, cfg, tx, loss_fn=contrastiv
                                                     for k in ("step", "exp_avg", "exp_avg_sq")]
         shapes = ",".join("x".join(map(str, batch[k].shape)) for k in keys if k.endswith("ids"))
         exe = own["exes"][key] = Executable(
-            _step_fn(state.params, tx, cfg, loss_fn, keys), device, pool=own["pool"],
+            _step_fn(state.params, tx, cfg, loss_fn, keys, over), device, pool=own["pool"],
             carry=carry, signature=f"train.{getattr(loss_fn, '__name__', 'loss')}_step[{shapes}]",
             eager=eager)
         exe.params = state.params
@@ -430,18 +444,22 @@ def lm_train_step(state: TrainState, batch: dict, cfg: gpt_mod.GPTConfig, tx
             {"loss": loss, "grad_norm": gnorm})
 
 
-def mesh_train_step(cfg: gpt_mod.GPTConfig, tx, loss_fn, keys=LM_KEYS):
+def mesh_train_step(cfg: gpt_mod.GPTConfig, tx, loss_fn, keys=LM_KEYS, mesh=None):
     """A train step on `loss_fn(params, batch, cfg)`, a loss that runs over
-    mesh entries (the sequence- and pipeline-parallel LM losses of
-    `parallel/context.py` and `parallel/pipeline.py`) → `step(state,
+    the entries of `mesh` (the sequence- and pipeline-parallel LM losses
+    of `parallel/context.py` and `parallel/pipeline.py`) → `step(state,
     batch)` with `lm_train_step`'s contract: (state, {"loss",
     "grad_norm"}), the masters updated in place by `tx`. Such a step
     crosses devices, so its executables (one per batch shape, held by the
-    step) run eagerly, as the dp×tp step's do."""
+    step) run eagerly, as the dp×tp step's do. Over a mesh that spans
+    processes, a plain tree's gradients (a replica in each process) are
+    summed over the mesh's processes, and a placed tree's over each
+    block's holders, before the norm and the update."""
     own = {"exes": {}, "pool": None}
 
     def step(state: TrainState, batch: dict) -> Tuple[TrainState, dict]:
-        exe = _step_executable(state, batch, cfg, tx, loss_fn, keys, own=own, eager=True)
+        exe = _step_executable(state, batch, cfg, tx, loss_fn, keys, own=own, eager=True,
+                               over=mesh)
         loss, gnorm = exe(*(batch[k] for k in keys))
         return (TrainState(state.params, tx.state, state.step + 1),
                 {"loss": loss, "grad_norm": gnorm})

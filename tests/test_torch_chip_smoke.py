@@ -6,6 +6,7 @@ refusal to run without a CUDA card (it must print no result there) or to
 finish when a check fails."""
 
 import dataclasses
+import os
 from pathlib import Path
 
 import chip_smoke
@@ -1188,7 +1189,11 @@ TINY_SERVE = dict(llama=TINY_LLAMA, gpt2=TINY_GPT2, rows=2, new=8, bucket=16, ch
                   spec_k=2, batch=2, seq_len=16, corpus=256, dim=32, queries=4, top_k=3, fused=2,
                   engine=dict(embedding_dim=32, dtype="float32", attn_impl="flash",
                               length_buckets=[16], batch_buckets=[1, 8], max_batch=8))
-TINY_MULTIHOST = dict(gpt2=TINY_GPT2, rows=4, seq=16, steps=2, timeout_s=120, serve=TINY_SERVE)
+# the SP/PP modes at a 4-layer tiny GPT-2: 4 heads over the 4 entries' line, 1 layer a stage
+TINY_MULTIHOST_SP = dict(gpt2=dict(TINY_GPT2, n_layer=4), rows=4, seq=16, steps=2,
+                         microbatches=2)
+TINY_MULTIHOST = dict(gpt2=TINY_GPT2, rows=4, seq=16, steps=2, timeout_s=120, serve=TINY_SERVE,
+                      sp=TINY_MULTIHOST_SP)
 
 
 def test_multihost_phase_rehearses_on_the_cpu(monkeypatch, capsys):
@@ -1197,14 +1202,17 @@ def test_multihost_phase_rehearses_on_the_cpu(monkeypatch, capsys):
     splits over 'tensor') over [2, 1] and [2, 2] spanning them, then the
     serve mode over [1, 2] and [2, 1] of one entry a process (the tiny
     llama and GPT-2, a 256-row store and a 6-layer encoder's fused
-    queries), every bar it holds on the card; each worker counts its
-    plain attention calls as launches (2 layers x local entries a step,
-    2 layers x 1 shard a cold prefill)."""
+    queries), and the SP/PP modes over a line of all 4 entries (a 4-layer
+    tiny GPT-2: ring, Ulysses, GPipe), every bar it holds on the card;
+    each worker counts its plain attention calls as launches (2 layers x
+    local entries a step, 2 layers x 1 shard a cold prefill; the SP/PP
+    launch equations scaled to the tiny model)."""
     monkeypatch.setenv("OMP_NUM_THREADS", "2")  # the workers' torch threads
     out = chip_smoke.multihost_phase(np.random.default_rng(0), sizes=TINY_MULTIHOST,
                                      device="cpu")
     printed = capsys.readouterr().out
-    assert printed.count("[multihost] 2 processes") == 1 and printed.count("[multihost]") == 11
+    # 11 lines of train and serve; the SP/PP modes' 3, and B1 and B2/B3 at their 2 shards
+    assert printed.count("[multihost] 2 processes") == 1 and printed.count("[multihost]") == 18
     assert printed.count("[multihost] serve:") == 3
     assert "over gloo (entries on the CPU)" in printed
     # B1 and B2/B3 against plain at each mode's local shard [rows / data, heads / tensor, ...]
@@ -1233,7 +1241,24 @@ def test_multihost_phase_rehearses_on_the_cpu(monkeypatch, capsys):
     assert sv["launches"] == {"dense": 2, "paged": 2, "spec_start": 4, "online": [[2, 2, 2]],
                               "fused": 12}
     assert sv["b123"] == [2 * (2 + 2 + 2 + 4 + 2 + 2 + 12), 2 * 2, 2 * 2]
-    assert out["launches"] == tuple(2 * 2 * (2 * 1 + 2 * 2) + n for n in sv["b123"])
+    # SP/PP, per worker and step (24 / 24 / 0 on the card): the ring 0; Ulysses 4 layers x 2
+    # local entries; the pipeline 1 layer a stage x 2 local stages x 2 microbatches
+    spo = out["sp"]
+    for mode, eq in (("ring", 0), ("ulysses", 8), ("pp", 4)):
+        steps = spo[mode]["steps"]
+        assert [x["launches"] for x in steps + spo[mode]["steps_other"]] == [[eq] * 3] * 4
+        assert [(x["loss"], x["grad_norm"]) for x in steps] == \
+            [(x["loss"], x["grad_norm"]) for x in spo[mode]["steps_other"]]
+        assert [x["loss"] for x in steps] == pytest.approx(
+            [x["loss"] for x in spo["meshless"]], rel=1e-4)
+        assert spo[mode]["local_entries"] == 2 and steps[0]["bytes"] > 0
+    assert spo["b123"] == [2 * 2 * (0 + 8 + 4)] * 3
+    assert [spo["kernels"][m]["shape"] for m in ("ulysses", "pp")] == [
+        "q/k/v/g [4, 1, 16, 64] float32, causal, no bias",
+        "q/k/v/g [2, 4, 16, 64] float32, causal, no bias"]
+    assert printed.count("[multihost] SP/PP") == 3
+    assert out["launches"] == tuple(2 * 2 * (2 * 1 + 2 * 2) + n + m
+                                    for n, m in zip(sv["b123"], spo["b123"]))
     assert sv["online"]["loss"] == pytest.approx(sv["online"]["ref_loss"], rel=1e-4)
     assert len(sv["decode"]["bytes_step"]) == 2 and sv["decode"]["bytes_step"][0] > 0
     assert sv["store"]["local_rows"] == 128
@@ -1246,7 +1271,8 @@ def test_a_multihost_worker_that_breaks_a_bar_fails_the_phase(monkeypatch):
     monkeypatch.setenv("OMP_NUM_THREADS", "2")
     with pytest.raises(RuntimeError, match=r"\[multihost\] dp"):
         chip_smoke.multihost_phase(np.random.default_rng(0),
-                                   sizes=dict(TINY_MULTIHOST, lr=1e30, serve=None), device="cpu")
+                                   sizes=dict(TINY_MULTIHOST, lr=1e30, serve=None, sp=None),
+                                   device="cpu")
 
 
 def test_a_failing_multihost_worker_fails_the_run(monkeypatch, capsys):
@@ -1283,7 +1309,8 @@ def test_a_failing_multihost_worker_fails_the_run(monkeypatch, capsys):
                  stack_phase=lambda rng, tmp, serve: {"launches": 0},
                  fleet_phase=lambda rng, tmp: {"launches": 0},
                  multihost_phase=lambda rng: real(
-                     rng, sizes=dict(TINY_MULTIHOST, modes=(("dp", (3, 1)),), serve=None),
+                     rng, sizes=dict(TINY_MULTIHOST, modes=(("dp", (3, 1)),), serve=None,
+                                     sp=None),
                      device="cpu"))
     for name, fn in stubs.items():
         monkeypatch.setattr(chip_smoke, name, fn)
@@ -1291,6 +1318,28 @@ def test_a_failing_multihost_worker_fails_the_run(monkeypatch, capsys):
                                            r"\[.*is not \[3, 1\] over both processes"):
         chip_smoke.main()
     assert '"ok": true' not in capsys.readouterr().out
+
+
+def test_a_failing_exchange_fails_the_multihost_phase(tmp_path, monkeypatch):
+    """Process 1's point-to-point exchange raises at the ring's first hop
+    (a `sitecustomize` on the workers' path replaces `Group.exchange`):
+    the worker exits non-zero, its peer is stopped, and the phase fails
+    naming the error; no fallback runs the hop another way."""
+    (tmp_path / "sitecustomize.py").write_text(
+        "import os, sys\n"
+        f"sys.path.insert(0, {str(Path(chip_smoke.__file__).parent)!r})\n"
+        "if os.environ.get('SYMBIONT_PROCESS_ID') == '1':\n"
+        "    from symbiont_tpu_torch.parallel import mesh\n"
+        "    def broken(self, sends, recvs):\n"
+        "        raise RuntimeError('the exchange is broken')\n"
+        "    mesh.Group.exchange = broken\n")
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        [str(tmp_path)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    with pytest.raises(RuntimeError, match=r"(?s)\[multihost\] a worker failed .* exit codes "
+                                           r".*the exchange is broken"):
+        chip_smoke.multihost_phase(np.random.default_rng(0), device="cpu", sizes=dict(
+            TINY_MULTIHOST, serve=None, sp=dict(TINY_MULTIHOST_SP, modes=("ring",))))
 
 
 # ------------------------------------------------------------------- lint

@@ -17,10 +17,11 @@ Both processes must report bit-equal losses, grad norms and checksums of
 their updated masters, and these must agree with JAX's one-device
 `lm_train_step` on the same param tree and batch (the JAX tree written
 by the parent, the JAX run in the parent). The workers import no JAX. A
-mesh that spans processes refuses SP/PP by their ROADMAP item, and the
-runner and the serving mesh from a config with the reason the JAX package
-cannot run them across processes either (the serving paths that do run
-there: `tests/test_torch_multihost_serving.py`).
+mesh that spans processes refuses the runner and the serving mesh from a
+config with the reason the JAX package cannot run them across processes
+either (the serving paths that do run there:
+`tests/test_torch_multihost_serving.py`; SP and PP there:
+`tests/test_torch_multihost_sp.py`).
 """
 
 import hashlib
@@ -46,12 +47,8 @@ MODEL = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4, intermed
 N_PROCS, N_LOCAL, STEPS = 2, 4, 2
 WORKER_TIMEOUT_S = 120
 NO_LOCKSTEP = "in the JAX package either: no lockstep request feed"
-SP_PP = "ROADMAP SP/PP across processes"
 REFUSALS = {  # what a worker tries over a mesh that spans processes → what its message names
     "mesh_from_config": NO_LOCKSTEP, "runner": NO_LOCKSTEP,
-    "ring_attention": SP_PP, "ring_attention_sharded": SP_PP, "ulysses_attention": SP_PP,
-    "ulysses_attention_sharded": SP_PP, "make_lm_train_step_sp": SP_PP,
-    "gpt_forward_sp": SP_PP, "make_lm_train_step_pp": SP_PP, "make_pp_train_state": SP_PP,
 }
 
 
@@ -105,30 +102,15 @@ def _checksum(tree) -> str:
 # ------------------------------------------------------------------ worker
 
 
-def _refusals(dp_mesh, params, cfg) -> dict:
+def _refusals(dp_mesh) -> dict:
     """Each entry point a mesh across processes refuses → its message."""
     from symbiont_tpu_torch import runner
     from symbiont_tpu_torch.config import ParallelConfig, SymbiontConfig
-    from symbiont_tpu_torch.parallel import (context, pipeline, ring_attention,
-                                             ring_attention_sharded, ulysses_attention,
-                                             ulysses_attention_sharded)
 
-    q = torch.zeros((1, 8, 4, 16))
-    blocks = [q if i in dp_mesh.local_entries else None for i in range(dp_mesh.size)]
     tries = {
         "mesh_from_config": lambda: mesh_mod.mesh_from_config(
             ParallelConfig(mesh_shape=[8, 1]), cpu=True),
         "runner": lambda: runner._refuse_unported(SymbiontConfig(), dp_mesh, False),
-        "ring_attention": lambda: ring_attention(blocks, blocks, blocks),
-        "ring_attention_sharded": lambda: ring_attention_sharded(q, q, q, dp_mesh),
-        "ulysses_attention": lambda: ulysses_attention(blocks, blocks, blocks),
-        "ulysses_attention_sharded": lambda: ulysses_attention_sharded(q, q, q, dp_mesh),
-        "make_lm_train_step_sp": lambda: context.make_lm_train_step_sp(dp_mesh, cfg, None),
-        "gpt_forward_sp": lambda: context.gpt_forward_sp(
-            params, torch.ones((1, 8), dtype=torch.long), dp_mesh, cfg),
-        "make_lm_train_step_pp": lambda: pipeline.make_lm_train_step_pp(dp_mesh, cfg, None),
-        "make_pp_train_state": lambda: pipeline.make_pp_train_state(
-            mesh_mod.build_mesh([8], ("pipe",)), params),
     }
     out = {}
     for name, fn in tries.items():
@@ -184,7 +166,7 @@ def _worker(params_path: str, out_dir: str) -> int:
                             len({mesh.process_index(mesh.flat_index(data=d, tensor=t))
                                  for t in range(mesh.shape["tensor"])}) == procs
                             for d in range(mesh.shape["data"]))}
-    report["refusals"] = _refusals(meshes["dp"], params, cfg)
+    report["refusals"] = _refusals(meshes["dp"])
     (Path(out_dir) / f"report_{rank}.json").write_text(json.dumps(report))
     mesh_mod.shutdown_distributed()
     return 0
@@ -276,11 +258,10 @@ def test_two_process_train_step(run, mode):
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_a_mesh_across_processes_refuses_by_name(run, name):
-    """SP/PP over a mesh that spans processes raise a ValueError naming
-    their ROADMAP item, and the runner and the serving mesh from a config
-    one naming why the JAX package cannot run them there either (their
-    requests come from the bus, not in lockstep), in both processes:
-    nothing runs one process's part alone."""
+    """The runner and the serving mesh from a config raise a ValueError
+    over a mesh that spans processes, naming why the JAX package cannot
+    run them there either (their requests come from the bus, not in
+    lockstep), in both processes: nothing runs one process's part alone."""
     for r in run[0]:
         msg = r["refusals"][name]
         assert msg is not None, f"{name} ran over a mesh that spans processes"
